@@ -1,0 +1,738 @@
+"""Lowering scheduled TIN statements to runnable PyTorch (paper §IV).
+
+The 1-D half of the JAX package's lowering engine for SpMV and SpMM
+(Fig. 9a, adapted):
+
+1. **Plan**: the initial level partition of the distributed index variable
+   (universe partitions for coordinate-value loops, non-zero partitions for
+   coordinate-position loops), then the derived partitions of every
+   accessed tensor through image / preimage, and replication of tensors
+   the distributed variable does not index.
+2. **Materialize**: pack per-color sub-tensors into stacked, padded
+   arrays on the host (numpy, as in the reference), then move them to the
+   device once, where they stay cached with the shard.
+3. **Emit**: select the leaf for (expression signature × strategy), batched
+   over the piece axis. On the card the leaves are the Hopper kernels of
+   :mod:`repro_torch.kernels`; on the CPU their plain versions. The
+   overlapping output rows of the nnz strategy reduce in piece order.
+
+Host-side products (partitions, shards, ``CommStats``, ``cell_id``, cache
+counters) equal the reference's exactly. Other expressions, blocked formats,
+grids, the autoscheduler and the elastic path are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP item; nothing converts a
+format or falls back to a generic path.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .cache import LRUCache, avals_key
+from . import formats as fmt
+from .device import resolve_device
+from .partition import (CONVERT_CACHE_STATS, SHARD_CACHE_STATS,
+                        ShardedTensor, TensorPartition, clear_convert_cache,
+                        clear_shard_cache, fingerprint_memo,
+                        materialize_coo_nnz, materialize_csr_rows,
+                        materialize_dense_rows, materialize_replicated,
+                        partition_by_bounds, partition_tensor_nonzeros,
+                        partition_tensor_rows, replicate_tensor,
+                        tensor_fingerprint, weights_fingerprint)
+from .schedule import DistStrategy, Schedule
+from .tdn import Distribution, Machine
+from .tensor import Tensor
+from .tin import Assignment, IndexVar
+from ..runtime import telemetry
+from ..kernels import ref as K
+from ..kernels import spmm as spmm_kernels
+from ..kernels import spmv as spmv_kernels
+
+
+@dataclasses.dataclass
+class AxisComm:
+    """Per-machine-axis communication ledger (grid schedules; empty for the
+    1-D schedules ported so far). Each payload byte reaches or leaves
+    ``size - 1`` peers."""
+
+    size: int = 1
+    broadcast_bytes: int = 0
+    reduce_bytes: int = 0
+
+    def network_bytes(self) -> int:
+        return (self.broadcast_bytes + self.reduce_bytes) * \
+            max(self.size - 1, 0)
+
+    def as_dict(self) -> Dict[str, int]:
+        return {"size": self.size, "broadcast_bytes": self.broadcast_bytes,
+                "reduce_bytes": self.reduce_bytes,
+                "network_bytes": self.network_bytes()}
+
+
+@dataclasses.dataclass
+class CommStats:
+    """Communication model of the lowered kernel.
+
+    ``replicate_bytes``: payload all-gathered to every color before the
+    distributed loop (the paper's ``communicate`` at the loop).
+    ``reduce_bytes``: overlapping-output payload reduced after the loop
+    (non-zero strategies).
+    ``redistribute_bytes``: data-vs-computation distribution mismatch cost
+    (paper §II-D, final paragraph).
+    ``axes``: per-machine-axis breakdown for grid schedules."""
+
+    pieces: int = 1
+    replicate_bytes: int = 0
+    reduce_bytes: int = 0
+    redistribute_bytes: int = 0
+    axes: Dict[str, AxisComm] = dataclasses.field(default_factory=dict)
+
+    def total_network_bytes(self) -> int:
+        # all-gather of b bytes to P nodes moves b*(P-1); reductions likewise
+        p = max(self.pieces - 1, 0)
+        return (self.replicate_bytes + self.reduce_bytes) * p + \
+            self.redistribute_bytes + \
+            sum(a.network_bytes() for a in self.axes.values())
+
+    def as_dict(self) -> Dict[str, int]:
+        out = {
+            "pieces": self.pieces,
+            "replicate_bytes": self.replicate_bytes,
+            "reduce_bytes": self.reduce_bytes,
+            "redistribute_bytes": self.redistribute_bytes,
+            "total_network_bytes": self.total_network_bytes(),
+        }
+        if self.axes:
+            out["axes"] = {n: a.as_dict() for n, a in self.axes.items()}
+        return out
+
+
+# ---------------------------------------------------------------------------
+# Re-plan fast path: plan memoization + runner reuse. Together with
+# partition.SHARD_CACHE (whose shards also keep their device copies) these
+# make re-lowering over unchanged inputs near-free.
+# ---------------------------------------------------------------------------
+
+# (signature, strategy, pieces, weights, operand fingerprints) ->
+# {name: TensorPartition}
+_PLAN_CACHE = LRUCache(capacity=64)
+PLAN_CACHE_STATS = _PLAN_CACHE.stats
+
+# (emitter name, static constants, shard shapes/dtypes, device) -> the
+# compute fn. Data flows through the fn's arguments, never its closure, so
+# one cached fn serves every lower with the same key.
+_RUNNER_CACHE = LRUCache(capacity=128)
+RUNNER_CACHE_STATS = _RUNNER_CACHE.stats
+
+
+def clear_lowering_caches() -> None:
+    """Drop the plan, runner, shard and conversion caches (the cold path)."""
+    _PLAN_CACHE.clear()
+    _RUNNER_CACHE.clear()
+    clear_shard_cache()
+    clear_convert_cache()
+
+
+@dataclasses.dataclass
+class CacheStats:
+    """Per-lower cache effectiveness, snapshotted onto LoweredKernel.cache:
+    how much of this lower's plan / shard-packing / runner-building work
+    was reused from previous lowers. ``tuned_*`` count the autoscheduler's
+    cache, which is not ported yet, and stay 0."""
+
+    plan_hits: int = 0
+    plan_misses: int = 0
+    shard_hits: int = 0
+    shard_misses: int = 0
+    runner_hits: int = 0
+    runner_misses: int = 0
+    convert_hits: int = 0
+    convert_misses: int = 0
+    tuned_hits: int = 0
+    tuned_misses: int = 0
+
+    @property
+    def warm(self) -> bool:
+        """True when the lower re-assembled nothing (full fast path)."""
+        return (self.plan_misses == 0 and self.shard_misses == 0
+                and self.runner_misses == 0 and self.convert_misses == 0
+                and self.tuned_misses == 0)
+
+    def as_dict(self) -> Dict[str, int]:
+        return dataclasses.asdict(self)
+
+
+def _cache_snapshot() -> Tuple[int, ...]:
+    return (PLAN_CACHE_STATS["hits"], PLAN_CACHE_STATS["misses"],
+            SHARD_CACHE_STATS["hits"], SHARD_CACHE_STATS["misses"],
+            RUNNER_CACHE_STATS["hits"], RUNNER_CACHE_STATS["misses"],
+            CONVERT_CACHE_STATS["hits"], CONVERT_CACHE_STATS["misses"])
+
+
+def _cache_delta(snap: Tuple[int, ...]) -> CacheStats:
+    d = [b - a for a, b in zip(snap, _cache_snapshot())]
+    return CacheStats(plan_hits=d[0], plan_misses=d[1], shard_hits=d[2],
+                      shard_misses=d[3], runner_hits=d[4], runner_misses=d[5],
+                      convert_hits=d[6], convert_misses=d[7])
+
+
+@dataclasses.dataclass
+class LoweredKernel:
+    """A distributed sparse kernel, ready to run on ``device``, with its
+    plan artifacts. ``runner(*args)`` computes the result; ``args`` are the
+    leaf's inputs, already on the device. ``fallbacks`` is always empty:
+    the port converts no format (an operand it cannot iterate directly
+    raises at lower time)."""
+
+    stmt: Assignment
+    strategy: DistStrategy
+    machine: Machine
+    plans: Dict[str, TensorPartition]
+    shards: Dict[str, ShardedTensor]
+    runner: Callable[..., torch.Tensor]
+    args: Tuple
+    comm: CommStats
+    leaf_name: str
+    device: torch.device
+    fallbacks: List[str] = dataclasses.field(default_factory=list)
+    cache: CacheStats = dataclasses.field(default_factory=CacheStats)
+
+    def run(self) -> torch.Tensor:
+        """The dense result, a tensor on the kernel's device."""
+        return self.runner(*self.args)
+
+    def cell_id(self) -> str:
+        """Conformance-matrix cell ID: ``<expr>/<format>/<strategy>/<mesh>``
+        (e.g. ``spmm/dcsr/nnz/4x1``)."""
+        name = self._dist_sparse_name()
+        key = "dense"
+        if name is not None:
+            key = fmt.format_key(self.plans[name].tensor.format)
+        return (f"{expression_key(self.stmt.signature())}/{key}/"
+                f"{self.strategy.space_label}/{self.strategy.mesh_label}")
+
+    def imbalance(self) -> float:
+        name = self._dist_sparse_name()
+        return self.plans[name].imbalance() if name in self.plans else 0.0
+
+    def _dist_sparse_name(self) -> Optional[str]:
+        for acc in self.stmt.rhs.accesses():
+            if acc.tensor.format.is_sparse:
+                return acc.tensor.name
+        return None
+
+    def explain(self) -> str:
+        """Human-readable plan provenance: what was chosen and what it
+        costs."""
+        comm, cs = self.comm, self.cache
+        return "\n".join([
+            f"kernel {self.cell_id()}  leaf={self.leaf_name}  "
+            f"device={self.device}",
+            f"  schedule: space={self.strategy.space} "
+            f"mesh={self.strategy.mesh_label} pieces={self.strategy.pieces}",
+            "  hand-picked schedule (no candidate search ran)",
+            f"  comm: replicate={comm.replicate_bytes} "
+            f"reduce={comm.reduce_bytes} "
+            f"redistribute={comm.redistribute_bytes} "
+            f"(net={comm.total_network_bytes()})",
+            f"  cache: plan {cs.plan_hits}h/{cs.plan_misses}m, "
+            f"shard {cs.shard_hits}h/{cs.shard_misses}m, "
+            f"runner {cs.runner_hits}h/{cs.runner_misses}m"
+            + (" [warm]" if cs.warm else "")])
+
+
+# ---------------------------------------------------------------------------
+# Helpers
+# ---------------------------------------------------------------------------
+
+def _scatter_rows(global_shape, blocks: torch.Tensor, row_start: np.ndarray,
+                  row_count: np.ndarray) -> torch.Tensor:
+    """Assemble per-color padded row blocks into the global output (the
+    inverse of the row partition). Disjoint rows: add == set. Overlapping
+    rows (nnz strategy): the pieces are added in piece order, so the
+    reduction repeats bit for bit."""
+    n = global_shape[0]
+    out = torch.zeros(global_shape, dtype=blocks.dtype, device=blocks.device)
+    for p, (s, c) in enumerate(zip(row_start.tolist(), row_count.tolist())):
+        c = min(c, n - s, blocks.shape[1])
+        if c > 0:
+            out[s:s + c] += blocks[p, :c]
+    return out
+
+
+def _nbytes(t: Tensor) -> int:
+    if t.format.is_all_dense:
+        return int(np.prod(t.shape)) * t.vals.dtype.itemsize
+    n = t.nnz * (t.vals.dtype.itemsize + 4)  # vals + one crd per level approx
+    for ld in t.levels:
+        if ld.pos is not None:
+            n += ld.pos.nbytes
+    return n
+
+
+def _on_device(sh: ShardedTensor, name: str, device: torch.device,
+               ) -> torch.Tensor:
+    """``sh.arrays[name]`` on ``device``, copied once and cached with the
+    shard (the cache entry is shared by every copy SHARD_CACHE hands out)."""
+    key = (name, str(device))
+    t = sh.device_arrays.get(key)
+    if t is None:
+        t = torch.from_numpy(np.ascontiguousarray(sh.arrays[name])).to(device)
+        sh.device_arrays[key] = t
+    return t
+
+
+# ---------------------------------------------------------------------------
+# Format dispatch: which kernel family handles a signature and whether it
+# iterates a sparse operand's format directly.
+# ---------------------------------------------------------------------------
+
+_SIG_KERNEL = {
+    "d1(i)=s2(i,j)*d1(j)": ("spmv", "spmv"),
+    "d2(i,j)=s2(i,k)*d2(k,j)": ("spmm", "spmm"),
+}
+
+
+def _kernel_supports(module: str):
+    # resolved when called: the kernel modules import core, so importing
+    # them at module scope here would be circular
+    import importlib
+    return importlib.import_module(f"..kernels.{module}",
+                                   package=__package__).supports
+
+
+def expression_key(sig: str) -> str:
+    """Short expression name for cell IDs (``spmm`` in ``spmm/dcsr/nnz/4x1``);
+    falls back to the raw signature."""
+    entry = _SIG_KERNEL.get(sig)
+    return entry[0] if entry else sig
+
+
+def _check_operands(stmt: Assignment, space: str) -> None:
+    """The port's format dispatch. The reference converts an operand its
+    kernel family cannot iterate (``_normalize_operands``); no such
+    conversion is ported, so the operand raises instead."""
+    sig = stmt.signature()
+    entry = _SIG_KERNEL.get(sig)
+    if entry is None:
+        raise NotImplementedError(
+            f"expression {sig}: only SpMV and SpMM are ported (ROADMAP "
+            "Queue 1 item 5.2 ports SDDMM, SpAdd3, SpTTV and SpMTTKRP)")
+    name, module = entry
+    supports = _kernel_supports(module)
+    for acc in stmt.rhs.accesses():
+        t = acc.tensor
+        if t.format.is_sparse and not supports(t.format, space):
+            raise NotImplementedError(
+                f"{name}/{space} over {t.name} stored as "
+                f"{fmt.format_key(t.format)}: blocked leaves are ROADMAP "
+                "Queue 1 item 5.3; other formats need a conversion that is "
+                "not ported")
+
+
+# ---------------------------------------------------------------------------
+# The lowering entry point
+# ---------------------------------------------------------------------------
+
+def lower(
+    stmt: Assignment,
+    machine: Machine,
+    schedule: Optional[Schedule] = None,
+    distributions: Optional[Dict[str, Distribution]] = None,
+    weights: Optional[np.ndarray] = None,
+    *,
+    device=None,
+) -> LoweredKernel:
+    """Compile a scheduled TIN statement into a distributed kernel that runs
+    on ``device``: the card when None (raising when there is none), the
+    CPU only when asked (``device="cpu"``).
+
+    ``schedule`` is a hand-built :class:`Schedule` or None (the default 1-D
+    row schedule). ``distributions`` declares the data distribution per
+    tensor; where it disagrees with the schedule, ``comm.redistribute_bytes``
+    charges the reshuffle (paper §II-D). ``weights`` (pieces,) skews the
+    non-zero splits toward faster shards."""
+    device = resolve_device(device)
+    with fingerprint_memo(), telemetry.span(
+            "lower", sig=stmt.signature()) as sp:
+        k = _lower_impl(stmt, machine, schedule, distributions, weights,
+                        device)
+        sp.set(cell=k.cell_id(), leaf=k.leaf_name,
+               pieces=k.strategy.pieces, warm=k.cache.warm)
+        _record_lower_metrics(k)
+        return k
+
+
+def _record_lower_metrics(k: LoweredKernel) -> None:
+    """Fold one lower's cache delta and communication ledger into the
+    process metrics registry (+ a trace instant with the cache delta)."""
+    cs = k.cache
+    for field, v in (("plan", cs.plan_hits), ("shard", cs.shard_hits),
+                     ("runner", cs.runner_hits), ("convert", cs.convert_hits)):
+        if v:
+            telemetry.METRICS.counter(f"lower.cache.{field}.hits", v)
+    for field, v in (("plan", cs.plan_misses), ("shard", cs.shard_misses),
+                     ("runner", cs.runner_misses),
+                     ("convert", cs.convert_misses)):
+        if v:
+            telemetry.METRICS.counter(f"lower.cache.{field}.misses", v)
+    telemetry.METRICS.counter("lower.count")
+    if cs.warm:
+        telemetry.METRICS.counter("lower.warm_count")
+    comm = k.comm
+    telemetry.METRICS.counter("comm.replicate_bytes", comm.replicate_bytes)
+    telemetry.METRICS.counter("comm.reduce_bytes", comm.reduce_bytes)
+    telemetry.METRICS.counter("comm.network_bytes",
+                              comm.total_network_bytes())
+    telemetry.instant("lower.cache", **cs.as_dict())
+
+
+def _lower_impl(stmt, machine, schedule, distributions, weights, device):
+    snap = _cache_snapshot()
+    if isinstance(schedule, str):
+        raise NotImplementedError(
+            f"schedule={schedule!r}: the autoscheduler is ROADMAP Queue 1 "
+            "item 9")
+    if schedule is None:
+        schedule = default_row_schedule(stmt, machine)
+    strat = schedule.strategy()
+    if strat.is_grid:
+        raise NotImplementedError(
+            f"grid schedule {strat.mesh_label}: grids are ROADMAP Queue 1 "
+            "item 7")
+    pieces = strat.pieces
+    sig = stmt.signature()
+    _check_operands(stmt, strat.space)
+
+    out_t: Tensor = stmt.lhs.tensor
+    shards: Dict[str, ShardedTensor] = {}
+    comm = CommStats(pieces=pieces)
+
+    # ---- Steps 1 & 2 of Fig. 9a: initial + derived partitions, memoized --
+    with telemetry.span("lower.plan", sig=sig, space=strat.space,
+                        pieces=pieces):
+        plan_key = _plan_cache_key(stmt, strat, weights)
+        plans = _PLAN_CACHE.get(plan_key)
+        telemetry.instant("lower.plan.cache", hit=plans is not None,
+                          memoizable=True)
+        if plans is not None:
+            # Rebind the memoized plans to the CURRENT statement's tensors:
+            # the key proves their content, not the identity of the objects
+            # the plans were computed from.
+            current: Dict[str, Tensor] = {}
+            for acc in stmt.accesses():
+                current.setdefault(acc.tensor.name, acc.tensor)
+            plans = {name: dataclasses.replace(p, tensor=current[name])
+                     for name, p in plans.items()}
+        else:
+            plans = _compute_plans(stmt, strat, out_t, weights)
+            _PLAN_CACHE.put(plan_key, {
+                name: dataclasses.replace(p, tensor=None)
+                for name, p in plans.items()})
+
+    # ---- materialize ------------------------------------------------------
+    with telemetry.span("lower.materialize", sig=sig, pieces=pieces):
+        for name, plan in plans.items():
+            t = plan.tensor
+            if plan.replicated:
+                shards[name] = materialize_replicated(t, pieces)
+                comm.replicate_bytes += _nbytes(t)
+            elif strat.space == "nnz" and t.format.is_sparse:
+                shards[name] = materialize_coo_nnz(t, plan)
+            elif t.format.is_all_dense:
+                shards[name] = materialize_dense_rows(
+                    t, plan.root_coord_bounds)
+            else:
+                shards[name] = materialize_csr_rows(t, plan)
+
+        # data-vs-computation distribution mismatch cost
+        for name, d in (distributions or {}).items():
+            want = plans.get(name)
+            if want is None or want.replicated:
+                continue
+            if not _plans_equal(want, d.plan(want.tensor)):
+                comm.redistribute_bytes += _nbytes(want.tensor)
+
+        if strat.space == "nnz":
+            ov = plans[next(iter(plans))]  # position tensor plan
+            if ov.tensor.format.dim_of_level(0) != 0:
+                # storage root doesn't track output rows (CSC): every color
+                # reduces a FULL-extent output partial (_nnz_row_windows)
+                comm.reduce_bytes += _nbytes(out_t)
+            else:
+                # overlapping output rows reduced across colors
+                rb = ov.root_coord_bounds
+                comm.reduce_bytes += int(
+                    (rb[:, 1] - rb[:, 0]).sum()
+                    - (rb[:, 1].max() - rb[:, 0].min())) * 4
+
+    # ---- emit: pick leaf + build runner ------------------------------------
+    with telemetry.span("lower.emit", sig=sig, space=strat.space) as esp:
+        leaf_name, runner, args = _EMITTERS[(sig, strat.space)](
+            stmt, shards, device)
+        esp.set(leaf=leaf_name)
+    return LoweredKernel(
+        stmt=stmt, strategy=strat, machine=machine, plans=plans,
+        shards=shards, runner=runner, args=args, comm=comm,
+        leaf_name=leaf_name,
+        device=device, cache=_cache_delta(snap))
+
+
+def _plan_cache_key(stmt: Assignment, strat: DistStrategy,
+                    weights: Optional[np.ndarray]) -> Tuple:
+    """Memoization key for the partitioning step: signature + strategy +
+    per-operand content fingerprints + straggler weights."""
+    ops = tuple((acc.tensor.name, tensor_fingerprint(acc.tensor),
+                 tuple(v.name for v in acc.idx)) for acc in stmt.accesses())
+    return (stmt.signature(), strat.space,
+            tuple(v.name for v in strat.vars),
+            tuple(d.size for d in strat.machine_dims),
+            tuple(strat.replicate), weights_fingerprint(weights), ops)
+
+
+def _compute_plans(stmt: Assignment, strat: DistStrategy, out_t: Tensor,
+                   weights: Optional[np.ndarray],
+                   ) -> Dict[str, TensorPartition]:
+    """Fig. 9a steps 1 & 2: initial + derived coordinate-tree partitions."""
+    plans: Dict[str, TensorPartition] = {}
+    pieces = strat.pieces
+    dist_var = strat.var
+    if strat.space == "universe":
+        # coordinate-value loop -> createInitialUniversePartitions
+        bounds = partition_by_bounds(stmt.var_extent(dist_var), pieces)
+        for acc in stmt.accesses():
+            t = acc.tensor
+            if t.name in plans:
+                continue
+            if dist_var in acc.idx:
+                lvl_dim = acc.idx.index(dist_var)
+                if t.format.level_of_dim(lvl_dim) == 0 or (
+                        lvl_dim == 0 and t.format.is_sparse):
+                    # distributed dim at the storage root: the image chain;
+                    # column-major roots (CSC): the transpose walk realizes
+                    # the same row windows (partition routes it)
+                    plans[t.name] = partition_tensor_rows(t, bounds)
+                    continue
+            # not indexed by the distributed var at the root -> communicate
+            # fetches the whole tensor per color (replication)
+            plans[t.name] = replicate_tensor(t, pieces)
+        return plans
+    # coordinate-position loop -> createInitialNonZeroPartition of the
+    # position-space (sparse) tensor, then partition the remaining
+    # coordinate trees from its derived root partition.
+    pos_tensor = next((acc.tensor for acc in stmt.rhs.accesses()
+                       if acc.tensor.format.is_sparse), None)
+    if pos_tensor is None:
+        raise ValueError("nnz schedule requires a sparse rhs tensor")
+    p = partition_tensor_nonzeros(pos_tensor, pieces, weights)
+    plans[pos_tensor.name] = p
+    for acc in stmt.accesses():
+        t = acc.tensor
+        if t.name in plans:
+            continue
+        if (t is out_t and not t.format.is_sparse and stmt.lhs.idx
+                and stmt.lhs.idx[0] == pos_tensor_root_var(stmt, pos_tensor)):
+            plans[t.name] = partition_tensor_rows(t, p.root_coord_bounds)
+        else:
+            plans[t.name] = replicate_tensor(t, pieces)
+    return plans
+
+
+def pos_tensor_root_var(stmt: Assignment, pos_tensor: Tensor) -> IndexVar:
+    """The index variable iterated at the tensor's STORAGE root level (for
+    CSC that is the column variable — non-zero partitions then own column
+    windows, and output-row locality is gone)."""
+    for acc in stmt.rhs.accesses():
+        if acc.tensor is pos_tensor:
+            return acc.idx[pos_tensor.format.dim_of_level(0)]
+    raise KeyError(pos_tensor.name)
+
+
+def _plans_equal(a: TensorPartition, b: TensorPartition) -> bool:
+    if a.replicated != b.replicated:
+        return False
+    for x, y in ((a.vals_bounds, b.vals_bounds),
+                 (a.root_coord_bounds, b.root_coord_bounds)):
+        if (x is None) != (y is None):
+            return False
+        if x is not None and not np.array_equal(x, y):
+            return False
+    return True
+
+
+def default_row_schedule(stmt: Assignment, machine: Machine) -> Schedule:
+    """The paper's Fig. 1 schedule generalized: divide the first result
+    variable over the machine's first dimension, distribute, communicate."""
+    i = stmt.result_vars[0]
+    io, ii = IndexVar(f"{i.name}o"), IndexVar(f"{i.name}i")
+    s = Schedule(stmt, machine)
+    s.divide(i, io, ii, machine.dims[0]).distribute(io)
+    s.communicate(stmt.tensors(), io)
+    return s
+
+
+def default_nnz_schedule(stmt: Assignment, machine: Machine) -> Schedule:
+    """Fuse all sparse loops and split non-zeros evenly (paper §II-D)."""
+    spa = stmt.sparse_accesses()[0]
+    s = Schedule(stmt, machine)
+    vs = list(spa.idx)
+    f = vs[0]
+    for v in vs[1:]:
+        nf = IndexVar(f"{f.name}{v.name}")
+        s.fuse(f, v, nf)
+        f = nf
+    fo, fi = IndexVar(f"{f.name}o"), IndexVar(f"{f.name}i")
+    s.pos_split(f, fo, fi, machine.dims[0]).distribute(fo)
+    s.communicate(stmt.tensors(), fo)
+    return s
+
+
+# ---------------------------------------------------------------------------
+# Leaf emission: one emitter per expression × strategy. Every emitter
+# returns ``(leaf_name, runner, args)``; the shards' device copies in
+# ``args`` are made here, once, and the runner only launches the leaves and
+# assembles the output.
+# ---------------------------------------------------------------------------
+
+def _runner(name: str, static: Tuple, arrays: Tuple, build, device):
+    """Runner-cache front-end used by every emitter. ``build()`` returns
+    the compute fn; all per-lower DATA must flow through its arguments
+    (``arrays`` is the argument prototype for the shapes/dtypes key
+    component) and every Python constant it closes over must be listed in
+    ``static``."""
+    key = (name, tuple(static), avals_key(arrays), str(device))
+
+    def _build():
+        with telemetry.span("lower.jit", leaf=name):
+            return build()
+
+    return _RUNNER_CACHE.get_or_build(key, _build)
+
+
+def _nnz_row_windows(B: ShardedTensor, n: int):
+    """Row-window parameters for a coordinate-column shard set. When the
+    storage root tracks output rows, leaves compute into the shard's root
+    window; otherwise (CSC) every shard computes a full-extent partial and
+    the scatter reduces the overlap."""
+    a = B.arrays
+    if B.meta.get("root_dim", 0) == 0 and B.meta["max_rows"] > 0:
+        return a["row_start"], a["row_count"], int(B.meta["max_rows"])
+    pieces = B.pieces
+    return (np.zeros((pieces,), dtype=np.int32),
+            np.full((pieces,), n, dtype=np.int32), int(n))
+
+
+def _nnz_leaf_inputs(B: ShardedTensor, row_start: np.ndarray, max_rows: int,
+                     device: torch.device):
+    """(rows_local, cols, vals) of a coordinate-column shard set on
+    ``device``, the nnz leaves' inputs, prepared once and cached with the
+    shard. Rows are rebased to each piece's window and clipped into it, as
+    the reference's emitter does; padding slots get the dropped id
+    ``max_rows``, so each piece stays row-sorted. A piece whose rows are not
+    sorted (column-major roots: CSC) is stable-sorted by row, the order the
+    nnz kernel requires."""
+    key = ("nnz_leaf_inputs", max_rows, str(device))
+    hit = B.device_arrays.get(key)
+    if hit is not None:
+        return hit
+    a = B.arrays
+    rows = np.clip(a["dim0"].astype(np.int64) - row_start[:, None], 0,
+                   max(max_rows - 1, 0))
+    pad = np.arange(rows.shape[1])[None, :] >= a["nnz_count"][:, None]
+    rows[pad] = max_rows
+    cols, vals = a["dim1"], a["vals"]
+    if rows.size and (np.diff(rows, axis=1) < 0).any():
+        order = np.argsort(rows, axis=1, kind="stable")
+        rows = np.take_along_axis(rows, order, axis=1)
+        cols = np.take_along_axis(cols, order, axis=1)
+        vals = np.take_along_axis(vals, order, axis=1)
+    out = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device)
+                for x in (rows.astype(np.int32), cols, vals))
+    B.device_arrays[key] = out
+    return out
+
+
+# -- SpMV -------------------------------------------------------------------
+
+def _emit_spmv_rows(stmt, shards, device):
+    B = shards[stmt.rhs.accesses()[0].tensor.name]
+    c = shards[stmt.rhs.accesses()[1].tensor.name]
+    n = stmt.lhs.tensor.shape[0]
+    a = B.arrays
+
+    def fn(pos, crd, vals, cvec, row_start, row_count):
+        blocks = spmv_kernels.spmv_csr_rows(pos, crd, vals, cvec)  # (P, R)
+        return _scatter_rows((n,), blocks, row_start, row_count)
+
+    args = (_on_device(B, "pos1", device), _on_device(B, "crd1", device),
+            _on_device(B, "vals", device), _on_device(c, "vals", device),
+            a["row_start"], a["row_count"])
+    f = _runner("spmv_rows", (n,), args, lambda: fn, device)
+    return "spmv_rows", f, args
+
+
+def _emit_spmv_nnz(stmt, shards, device):
+    B = shards[stmt.rhs.accesses()[0].tensor.name]
+    c = shards[stmt.rhs.accesses()[1].tensor.name]
+    n = stmt.lhs.tensor.shape[0]
+    row_start, row_count, max_rows = _nnz_row_windows(B, n)
+
+    def fn(rows, cols, vals, cvec, row_start, row_count):
+        blocks = spmv_kernels.spmv_coo_nnz(rows, cols, vals, cvec, max_rows)
+        return _scatter_rows((n,), blocks, row_start, row_count)
+
+    args = (*_nnz_leaf_inputs(B, row_start, max_rows, device),
+            _on_device(c, "vals", device), row_start, row_count)
+    f = _runner("spmv_nnz", (n, max_rows), args, lambda: fn, device)
+    return "spmv_nnz", f, args
+
+
+# -- SpMM -------------------------------------------------------------------
+
+def _emit_spmm_rows(stmt, shards, device):
+    Bacc, Cacc = stmt.rhs.accesses()
+    B, C = shards[Bacc.tensor.name], shards[Cacc.tensor.name]
+    out_shape = stmt.lhs.tensor.shape
+    a = B.arrays
+
+    def fn(pos, crd, vals, Cmat, row_start, row_count):
+        blocks = spmm_kernels.spmm_csr_rows(pos, crd, vals, Cmat)  # (P, R, J)
+        return _scatter_rows(out_shape, blocks, row_start, row_count)
+
+    args = (_on_device(B, "pos1", device), _on_device(B, "crd1", device),
+            _on_device(B, "vals", device), _on_device(C, "vals", device),
+            a["row_start"], a["row_count"])
+    f = _runner("spmm_rows", out_shape, args, lambda: fn, device)
+    return "spmm_rows", f, args
+
+
+def _emit_spmm_nnz(stmt, shards, device):
+    Bacc, Cacc = stmt.rhs.accesses()
+    B, C = shards[Bacc.tensor.name], shards[Cacc.tensor.name]
+    out_shape = stmt.lhs.tensor.shape
+    row_start, row_count, max_rows = _nnz_row_windows(B, out_shape[0])
+
+    def fn(rows, cols, vals, Cmat, row_start, row_count):
+        # No TPU kernel in the reference: the plain leaf, piece by piece.
+        blocks = torch.stack([
+            K.leaf_spmm_nnz(rows[p], cols[p], vals[p], Cmat, max_rows)
+            for p in range(rows.shape[0])])
+        return _scatter_rows(out_shape, blocks, row_start, row_count)
+
+    args = (*_nnz_leaf_inputs(B, row_start, max_rows, device),
+            _on_device(C, "vals", device), row_start, row_count)
+    f = _runner("spmm_nnz", out_shape + (max_rows,), args, lambda: fn,
+                device)
+    return "spmm_nnz", f, args
+
+
+# One emitter per expression × strategy ported so far; the format variation
+# lives in the shards the emitters read, not in this table.
+_EMITTERS = {
+    ("d1(i)=s2(i,j)*d1(j)", "universe"): _emit_spmv_rows,
+    ("d1(i)=s2(i,j)*d1(j)", "nnz"): _emit_spmv_nnz,
+    ("d2(i,j)=s2(i,k)*d2(k,j)", "universe"): _emit_spmm_rows,
+    ("d2(i,j)=s2(i,k)*d2(k,j)", "nnz"): _emit_spmm_nnz,
+}

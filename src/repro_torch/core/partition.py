@@ -1,0 +1,877 @@
+"""Dependent partitioning for sparse coordinate trees (paper §III-A, §IV).
+
+The 1-D unblocked half of the reference's partitioner, ported as it is
+(host-side numpy): per-color ``(lo, hi)`` interval bounds for every level of
+every tensor's coordinate tree, computed at plan time, then *materialized*
+into statically-shaped, padded per-shard arrays that the lowered leaves
+consume batched over pieces.
+
+The level functions mirror paper Table I exactly:
+
+- ``partition_by_bounds``        — Dense init (universe or nnz split)
+- ``partition_by_value_ranges``  — Compressed universe init (bucket crd)
+- ``image(pos, P_pos)``          — Compressed ``partitionFromParent``
+- ``preimage(pos, P_crd)``       — Compressed ``partitionFromChild``
+
+Blocked (BCSR/BCSC), grid, add-stream and elastic partitions are not ported
+yet (ROADMAP Queue 1); asking for one raises ``NotImplementedError``.
+"""
+
+import contextlib
+import dataclasses
+import zlib
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from . import formats as fmt
+from ..runtime import telemetry
+from .cache import LRUCache
+from .tensor import Tensor, INT
+
+Bounds = np.ndarray  # (P, 2) int64, [lo, hi) per color
+
+
+# ---------------------------------------------------------------------------
+# Initial level partitions (paper: init/create/finalize *Partition entries)
+# ---------------------------------------------------------------------------
+
+def partition_by_bounds(n: int, pieces: int) -> Bounds:
+    """Equal split of ``[0, n)`` into ``pieces`` colors (universe partition).
+
+    Matches the paper's generated code: ``iLo = io * (dim / pieces)`` with
+    ceil-div chunks so all elements are covered.
+    """
+    chunk = -(-n // pieces) if pieces else n
+    lo = np.minimum(np.arange(pieces, dtype=np.int64) * chunk, n)
+    hi = np.minimum(lo + chunk, n)
+    return np.stack([lo, hi], axis=1)
+
+
+def partition_nonzeros(nnz: int, pieces: int,
+                       weights: Optional[np.ndarray] = None) -> Bounds:
+    """Split of the position space ``[0, nnz)`` — the tilde operator.
+
+    ``weights`` (pieces,) generalizes the equal split to heterogeneous
+    shard speeds: shard p receives ~weights[p]/Σw of the non-zeros. This is
+    the straggler-mitigation path (runtime/fault.StragglerMitigator emits
+    the weights; re-lowering with them is the re-plan)."""
+    if weights is None:
+        return partition_by_bounds(nnz, pieces)
+    w = np.asarray(weights, dtype=np.float64)
+    assert w.shape == (pieces,) and (w > 0).all()
+    ends = np.floor(np.cumsum(w / w.sum()) * nnz).astype(np.int64)
+    ends[-1] = nnz
+    starts = np.concatenate([[0], ends[:-1]])
+    return np.stack([starts, ends], axis=1)
+
+
+def partition_by_value_ranges(crd: np.ndarray, value_bounds: Bounds) -> Bounds:
+    """Universe partition of a Compressed level: bucket sorted ``crd`` values
+    into coordinate ranges (paper Table I, Compressed/universe).
+
+    Requires globally sorted ``crd`` (true for root compressed levels such as
+    a sparse vector or the fused level of COO).
+    """
+    lo = np.searchsorted(crd, value_bounds[:, 0], side="left")
+    hi = np.searchsorted(crd, value_bounds[:, 1], side="left")
+    return np.stack([lo, hi], axis=1).astype(np.int64)
+
+
+# ---------------------------------------------------------------------------
+# Dependent partitioning (paper §III-A; Table I derived partitions)
+# ---------------------------------------------------------------------------
+
+def image(pos: np.ndarray, parent_bounds: Bounds) -> Bounds:
+    """``image(S, P_S, D)``: color crd positions pointed to by parent entries.
+
+    For an interval partition of parent entries ``[lo, hi)``, the pointed-to
+    crd positions are exactly ``[pos[lo], pos[hi])`` because ``pos`` is
+    monotone — the contiguity that makes static materialization possible.
+    """
+    pos = np.asarray(pos, dtype=np.int64)
+    return np.stack(
+        [pos[parent_bounds[:, 0]], pos[parent_bounds[:, 1]]], axis=1
+    )
+
+
+def preimage(pos: np.ndarray, child_bounds: Bounds) -> Bounds:
+    """``preimage(S, P_D, D)``: color parent entries whose pos-range
+    intersects each child (position-space) interval ``[plo, phi)``.
+
+    Returns possibly *overlapping* intervals — a parent entry straddling a
+    boundary belongs to both colors (paper Fig. 6b). Empty child intervals
+    produce empty parent intervals.
+    """
+    pos = np.asarray(pos, dtype=np.int64)
+    plo, phi = child_bounds[:, 0], child_bounds[:, 1]
+    # first parent whose end > plo ; first parent whose start >= phi
+    lo = np.searchsorted(pos[1:], plo, side="right")
+    hi = np.searchsorted(pos[:-1], phi, side="left")
+    hi = np.maximum(hi, lo)  # empty intervals stay empty
+    empty = plo >= phi
+    lo = np.where(empty, 0, lo)
+    hi = np.where(empty, 0, hi)
+    return np.stack([lo, hi], axis=1)
+
+
+# ---------------------------------------------------------------------------
+# Full coordinate-tree partitions (paper §IV-A intuition + Fig. 9a)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class LevelPartition:
+    """Interval bounds for one level.
+
+    ``coord_bounds``: bounds in the level's *coordinate* space (only
+    meaningful for Dense levels / the root); ``pos_bounds``: bounds in the
+    level's *position* space (crd/vals indices) for compressed levels.
+    """
+
+    coord_bounds: Optional[Bounds] = None
+    pos_bounds: Optional[Bounds] = None
+    replicated: bool = False
+
+
+@dataclasses.dataclass
+class TensorPartition:
+    """A full coordinate-tree partition of one tensor (or replication)."""
+
+    tensor: Tensor
+    pieces: int
+    levels: List[LevelPartition]
+    replicated: bool = False
+    # For nnz-partitions: bounds of the values/position space at the leaf.
+    vals_bounds: Optional[Bounds] = None
+    # Bounds over the *root coordinate space* (output-row ownership etc.).
+    root_coord_bounds: Optional[Bounds] = None
+    overlapping_root: bool = False  # preimage-derived roots may overlap
+    # Grid shape of a multi-axis tile partition; always None in this 1-D
+    # port, kept so partition_fingerprint keys match the reference's.
+    grid: Optional[Tuple[int, ...]] = None
+    # Transpose-walked universe partitions (column-major roots — CSC):
+    # the row walk's permutation, walk position → storage position.
+    # ``vals_bounds`` then index the WALK space; materializers permute the
+    # value region through this and carry ``val_idx`` scatter maps so
+    # pattern-preserving outputs land back in storage order. None for
+    # ordered (storage-order) walks.
+    walk_perm: Optional[np.ndarray] = None
+
+    def max_counts(self) -> Dict[str, int]:
+        out = {}
+        if self.vals_bounds is not None:
+            out["vals"] = int((self.vals_bounds[:, 1] - self.vals_bounds[:, 0]).max())
+        if self.root_coord_bounds is not None:
+            out["rows"] = int(
+                (self.root_coord_bounds[:, 1] - self.root_coord_bounds[:, 0]).max()
+            )
+        return out
+
+    def imbalance(self) -> float:
+        """max/mean − 1 of per-color vals counts — the paper's load-balance
+        story (§II-D): universe partitions of skewed tensors → large value;
+        non-zero partitions → ~0."""
+        if self.vals_bounds is None:
+            return 0.0
+        counts = (self.vals_bounds[:, 1] - self.vals_bounds[:, 0]).astype(np.float64)
+        if counts.mean() == 0:
+            return 0.0
+        return float(counts.max() / counts.mean() - 1.0)
+
+
+def _dense_prefix(tensor: Tensor) -> int:
+    return sum(1 for lf in tensor.format.levels if not lf.compressed)
+
+
+def _refuse_blocked(tensor: Tensor) -> None:
+    if tensor.format.is_blocked:
+        raise NotImplementedError(
+            f"{tensor.name}: blocked format {tensor.format} is not ported "
+            "yet (ROADMAP Queue 1 item 5.3, blocked partitions)")
+
+
+def partition_tensor_rows(tensor: Tensor, row_bounds: Bounds) -> TensorPartition:
+    """Universe partition of the ROOT level by coordinate intervals, derived
+    downward through the whole tree (paper: ``partitionFromParent`` chain).
+
+    Works for any supported format. Rows = coordinates of storage level 0.
+    A Dense root keys the chain directly (CSR/CSF); a Compressed root
+    (DCSR/DCSF/COO) is bucketed with ``partition_by_value_ranges`` over its
+    sorted ``crd`` first — paper Table I's Compressed/universe entry — and
+    the image chain continues from the resulting position interval.
+    Column-major roots (CSC) —
+    where dimension 0 is NOT stored at the root — bucket the level tree's
+    TRANSPOSE walk instead (core/levels.py): per-color contiguous
+    intervals of the row-sorted enumeration, carried with the permutation
+    back to storage positions.
+    """
+    _refuse_blocked(tensor)
+    if tensor.format.dim_of_level(0) != 0:
+        return _partition_tensor_rows_walk(tensor, row_bounds)
+    pieces = row_bounds.shape[0]
+    levels: List[LevelPartition] = []
+    order = tensor.order
+    n_dense = _dense_prefix(tensor)
+
+    if n_dense == 0:
+        # Compressed (or COO fused) root: bucket stored row coords.
+        root = tensor.levels[0]
+        pos_bounds = partition_by_value_ranges(root.crd, row_bounds)
+        levels.append(LevelPartition(coord_bounds=row_bounds.copy(),
+                                     pos_bounds=pos_bounds.copy()))
+        start_lvl = 1
+    else:
+        # Dense prefix: coordinate bounds multiply down (row-major position
+        # math).
+        levels.append(LevelPartition(coord_bounds=row_bounds.copy()))
+        pos_bounds = row_bounds.astype(np.int64)
+        for l in range(1, n_dense):
+            size = tensor.levels[l].size
+            pos_bounds = pos_bounds * size
+            levels.append(
+                LevelPartition(coord_bounds=None, pos_bounds=pos_bounds.copy()))
+        start_lvl = n_dense
+    # Compressed suffix: image through each pos array.
+    for l in range(start_lvl, order):
+        ld = tensor.levels[l]
+        if ld.kind.singleton:
+            levels.append(LevelPartition(pos_bounds=pos_bounds.copy()))
+            continue
+        pos_bounds = image(ld.pos, pos_bounds)
+        levels.append(LevelPartition(pos_bounds=pos_bounds.copy()))
+    if tensor.format.is_all_dense:
+        # leaf position space = linearized dense positions
+        for l in range(n_dense, order):  # pragma: no cover (n_dense == order)
+            pass
+        vb = row_bounds.astype(np.int64)
+        for l in range(1, order):
+            vb = vb * tensor.levels[l].size
+        vals_bounds = vb
+    else:
+        vals_bounds = pos_bounds
+    return TensorPartition(
+        tensor=tensor,
+        pieces=pieces,
+        levels=levels,
+        vals_bounds=vals_bounds,
+        root_coord_bounds=row_bounds.copy(),
+        overlapping_root=False,
+    )
+
+
+def _partition_tensor_rows_walk(tensor: Tensor, row_bounds: Bounds,
+                                ) -> TensorPartition:
+    """Universe row partition of a COLUMN-MAJOR root (CSC) via the level
+    tree's transpose walk: the stored entries are enumerated in
+    dimension-lexicographic order (an argsort), so each row window maps to
+    a contiguous interval of the WALK — bucketed with searchsorted exactly
+    like a compressed root's sorted ``crd``. The walk permutation rides on
+    the partition; materialization permutes values through it and keeps a
+    ``val_idx`` map for pattern-preserving outputs."""
+    pieces = row_bounds.shape[0]
+    w = tensor.level_tree().row_walk()
+    rows = w.coords[:, 0] if w.n else np.zeros((0,), np.int64)
+    lo = np.searchsorted(rows, row_bounds[:, 0], side="left")
+    hi = np.searchsorted(rows, row_bounds[:, 1], side="left")
+    wb = np.stack([lo, hi], axis=1).astype(np.int64)
+    levels = [LevelPartition(coord_bounds=row_bounds.astype(np.int64).copy(),
+                             pos_bounds=wb.copy()),
+              LevelPartition(pos_bounds=wb.copy())]
+    return TensorPartition(
+        tensor=tensor, pieces=pieces, levels=levels,
+        vals_bounds=wb, root_coord_bounds=row_bounds.astype(np.int64).copy(),
+        overlapping_root=False, walk_perm=w.perm,
+    )
+
+
+def partition_tensor_nonzeros(tensor: Tensor, pieces: int,
+                              weights: Optional[np.ndarray] = None,
+                              fused_levels: Optional[int] = None,
+                              init_bounds: Optional[Bounds] = None,
+                              ) -> TensorPartition:
+    """Non-zero partition of the (fully or partially) fused coordinate tree.
+
+    Default: split the leaf position space (vals) evenly, then derive
+    upward with preimage (paper: coordinate fusion `xy→f` + tilde split,
+    Fig. 5c / Fig. 8b). ``weights`` gives a heterogeneous split (straggler
+    re-plan). ``fused_levels`` < order realizes PARTIAL fusion (paper
+    Fig. 5's "non-zero tubes": T_xyz with xy→f splits the level-2 position
+    space evenly, then derives the leaf via image and the root via
+    preimage). ``init_bounds`` overrides the
+    equal/weighted split of the split-level position space with
+    caller-supplied windows — the elastic resize path feeds merged
+    survivor windows here so unaffected colors keep identical bounds."""
+    if tensor.format.is_all_dense:
+        raise ValueError("non-zero partition of a dense tensor — use rows")
+    _refuse_blocked(tensor)
+    order = tensor.order
+    n_dense = _dense_prefix(tensor)
+    split_level = order - 1 if fused_levels is None else fused_levels - 1
+    if not tensor.levels[split_level].kind.compressed:
+        raise ValueError("partial fusion must end at a compressed level")
+    n_at = (tensor.levels[split_level].nnz
+            if tensor.levels[split_level].crd is not None else tensor.nnz)
+    init_bounds = (partition_nonzeros(n_at, pieces, weights)
+                   if init_bounds is None
+                   else np.asarray(init_bounds, dtype=np.int64))
+    levels: List[LevelPartition] = [LevelPartition() for _ in range(order)]
+    # derive DOWNWARD from the split level to the leaf (image chain)
+    down = init_bounds.astype(np.int64)
+    levels[split_level] = LevelPartition(pos_bounds=down.copy())
+    for l in range(split_level + 1, order):
+        ld = tensor.levels[l]
+        if ld.kind.singleton:
+            levels[l] = LevelPartition(pos_bounds=down.copy())
+            continue
+        down = image(ld.pos, down)
+        levels[l] = LevelPartition(pos_bounds=down.copy())
+    vals_bounds = down
+    # walk upward through compressed levels (preimage chain)
+    pos_bounds = init_bounds.astype(np.int64)
+    for l in range(split_level, n_dense - 1, -1):
+        ld = tensor.levels[l]
+        if levels[l].pos_bounds is None:
+            levels[l] = LevelPartition(pos_bounds=pos_bounds.copy())
+        if ld.kind.singleton:
+            continue  # position space shared with parent
+        pos_bounds = preimage(ld.pos, pos_bounds)
+    # dense prefix: divide position bounds back into coordinates
+    root_bounds = pos_bounds
+    for l in range(n_dense - 1, 0, -1):
+        size = tensor.levels[l].size
+        lo = root_bounds[:, 0] // size
+        hi = -(-root_bounds[:, 1] // size)
+        root_bounds = np.stack([lo, hi], axis=1)
+        levels[l] = LevelPartition(pos_bounds=root_bounds.copy())
+    if n_dense:
+        levels[0] = LevelPartition(coord_bounds=root_bounds.copy())
+    else:
+        # root is compressed; coordinates owned = crd[slice] range
+        levels[0].pos_bounds = (
+            levels[0].pos_bounds if levels[0].pos_bounds is not None else pos_bounds
+        )
+        crd0 = tensor.levels[0].crd
+        pb = levels[0].pos_bounds
+        if crd0 is None or crd0.size == 0:   # empty tensor: no coords owned
+            root_bounds = np.zeros_like(pb)
+        else:
+            lo = np.where(pb[:, 0] < pb[:, 1],
+                          crd0[np.minimum(pb[:, 0], len(crd0) - 1)], 0)
+            hi = np.where(pb[:, 0] < pb[:, 1],
+                          crd0[np.maximum(pb[:, 1] - 1, 0)] + 1, 0)
+            root_bounds = np.stack([lo, hi], axis=1).astype(np.int64)
+    return TensorPartition(
+        tensor=tensor,
+        pieces=pieces,
+        levels=levels,
+        vals_bounds=vals_bounds,
+        root_coord_bounds=root_bounds.astype(np.int64),
+        overlapping_root=True,
+    )
+
+
+def replicate_tensor(tensor: Tensor, pieces: int) -> TensorPartition:
+    """Every color sees the whole tensor (TDN replication, paper Fig. 1
+    ``ReplDense``)."""
+    order = tensor.order
+    return TensorPartition(
+        tensor=tensor,
+        pieces=pieces,
+        levels=[LevelPartition(replicated=True) for _ in range(order)],
+        replicated=True,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Materialization: partitions -> stacked, padded, statically-shaped shards
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ShardedTensor:
+    """Statically-shaped stacked shards, ready for the batched leaves.
+
+    ``kind`` selects the leaf-kernel calling convention:
+      - ``dense_rows``: dense tensor split by leading-dim intervals.
+      - ``csr_rows``  : CSR/CSF-style shard per color (local pos rebased).
+      - ``coo_nnz``   : equal-nnz COO shard (rows/cols/vals + row offsets).
+      - ``replicated``: single copy broadcast to every color.
+    Arrays all have leading dim = pieces (except replicated).
+    """
+
+    kind: str
+    pieces: int
+    arrays: Dict[str, np.ndarray]
+    meta: Dict[str, int]
+    partition: TensorPartition
+    # Device copies of ``arrays``, keyed (array name, device), filled by
+    # core.lower at lower time. The dict is shared by every copy
+    # ``_cached_shards`` hands out, so a warm re-lower that hits
+    # SHARD_CACHE also finds the arrays already on the device.
+    device_arrays: Dict[Tuple[str, str], object] = dataclasses.field(
+        default_factory=dict, repr=False)
+
+    def padding_waste(self) -> float:
+        """Fraction of materialized value slots that are padding."""
+        if self.kind in ("replicated",):
+            return 0.0
+        vb = self.partition.vals_bounds
+        if vb is None or "vals" not in self.arrays:
+            return 0.0
+        real = float((vb[:, 1] - vb[:, 0]).sum())
+        v = self.arrays["vals"]
+        alloc = float(np.prod(v.shape))
+        return 0.0 if alloc == 0 else 1.0 - real / alloc
+
+
+def _pad_to(arr: np.ndarray, n: int, fill=0) -> np.ndarray:
+    pad = n - arr.shape[0]
+    if pad <= 0:
+        return arr[:n]
+    return np.concatenate([arr, np.full((pad,) + arr.shape[1:], fill, dtype=arr.dtype)])
+
+
+# ---------------------------------------------------------------------------
+# Shard-materialization cache: every materializer below consults one bounded
+# LRU keyed by (materializer kind, tensor content fingerprint, partition
+# interval fingerprint). A re-plan over unchanged operands (same schedule,
+# or new straggler weights that happen to reproduce the same bounds) returns
+# the packed arrays without touching numpy; any content change — including
+# in-place mutation of vals/pos/crd — changes the CRC and re-packs.
+# ---------------------------------------------------------------------------
+
+SHARD_CACHE = LRUCache(capacity=64)
+SHARD_CACHE_STATS = SHARD_CACHE.stats   # {"hits", "misses", "evictions"}
+
+
+def set_shard_cache_capacity(capacity: int) -> None:
+    """Re-bound the shard cache (entry cap, LRU eviction)."""
+    SHARD_CACHE.set_capacity(capacity)
+
+
+def clear_shard_cache() -> None:
+    SHARD_CACHE.clear()
+
+
+# Per-lower fingerprint memo: core.lower activates it for the duration of
+# one lower() call, so the O(nnz) CRC over a tensor's storage is computed
+# once even though the plan key and one or more materializers all need it.
+# Keyed by object identity — valid only within a single lower, where
+# in-place mutation mid-lower is already undefined; outside a memo scope
+# every call recomputes (that recompute IS the invalidation mechanism).
+_FP_MEMO: Optional[Dict[int, Tuple]] = None
+
+
+def tensor_fingerprint(t: Tensor) -> Tuple:
+    if _FP_MEMO is None:
+        return t.fingerprint()
+    fp = _FP_MEMO.get(id(t))
+    if fp is None:
+        fp = _FP_MEMO[id(t)] = t.fingerprint()
+    return fp
+
+
+@contextlib.contextmanager
+def fingerprint_memo():
+    global _FP_MEMO
+    prev = _FP_MEMO
+    _FP_MEMO = {}
+    try:
+        yield
+    finally:
+        _FP_MEMO = prev
+
+
+def _crc_arrays(h: int, *arrays: Optional[np.ndarray]) -> int:
+    for a in arrays:
+        if a is None:
+            h = zlib.crc32(b"-", h)
+        else:
+            h = zlib.crc32(
+                np.ascontiguousarray(np.asarray(a, dtype=np.int64)), h)
+    return h
+
+
+def partition_fingerprint(part: TensorPartition) -> Tuple:
+    """Hashable summary of a partition's interval structure; together with
+    ``Tensor.fingerprint()`` it keys a shard materialization — weighted
+    (straggler) re-plans change the bounds and therefore the key. Grid
+    partitions fold in their (P, Q) shape so a 2×4 and a 4×2 tiling of the
+    same windows key distinct shard sets."""
+    h = 0
+    for lp in part.levels:
+        h = zlib.crc32(b"R" if lp.replicated else b"L", h)
+        h = _crc_arrays(h, lp.coord_bounds, lp.pos_bounds)
+    h = _crc_arrays(h, part.vals_bounds, part.root_coord_bounds)
+    return (part.pieces, part.replicated, part.overlapping_root, part.grid, h)
+
+
+def _cached_shards(key: Tuple, build: Callable[[], ShardedTensor],
+                   partition: Optional[TensorPartition] = None,
+                   ) -> ShardedTensor:
+    """Cache front-end shared by the materializers: on a hit the packed
+    arrays are reused but the ``partition`` field is refreshed to the
+    caller's plan object (the bounds are equal by key construction; the
+    tensor reference inside may be an older content-identical object)."""
+    def _traced_build() -> ShardedTensor:
+        with telemetry.span("partition.materialize", kind=str(key[0]),
+                            fingerprint=str(key[1])[:64]) as sp:
+            sh = build()
+            sp.set(bytes=int(sum(np.asarray(a).nbytes
+                                 for a in sh.arrays.values())),
+                   pieces=sh.partition.pieces if sh.partition else None)
+            return sh
+
+    sh = SHARD_CACHE.get_or_build(key, _traced_build)
+    if partition is not None:
+        return dataclasses.replace(sh, partition=partition)
+    return sh
+
+
+def materialize_dense_rows(tensor: Tensor, bounds: Bounds) -> ShardedTensor:
+    tp = TensorPartition(tensor, bounds.shape[0],
+                         [LevelPartition(coord_bounds=bounds)],
+                         root_coord_bounds=bounds, vals_bounds=None)
+    key = ("dense_rows", tensor_fingerprint(tensor), _crc_arrays(0, bounds))
+    return _cached_shards(
+        key, lambda: _materialize_dense_rows_impl(tensor, bounds, tp),
+        partition=tp)
+
+
+def _materialize_dense_rows_impl(tensor: Tensor, bounds: Bounds,
+                                 tp: TensorPartition) -> ShardedTensor:
+    dense = tensor.to_dense()
+    pieces = bounds.shape[0]
+    counts = bounds[:, 1] - bounds[:, 0]
+    max_rows = int(counts.max())
+    shards = np.zeros((pieces, max_rows) + dense.shape[1:], dtype=dense.dtype)
+    for p in range(pieces):
+        lo, hi = int(bounds[p, 0]), int(bounds[p, 1])
+        shards[p, : hi - lo] = dense[lo:hi]
+    return ShardedTensor(
+        kind="dense_rows",
+        pieces=pieces,
+        arrays={
+            "vals": shards,
+            "row_start": bounds[:, 0].astype(INT),
+            "row_count": counts.astype(INT),
+        },
+        meta={"max_rows": max_rows, "n_rows": dense.shape[0]},
+        partition=tp,
+    )
+
+
+def materialize_csr_rows(tensor: Tensor, part: TensorPartition) -> ShardedTensor:
+    if part.walk_perm is not None:
+        key = ("csr_rows_walk", tensor_fingerprint(tensor),
+               partition_fingerprint(part))
+        return _cached_shards(
+            key, lambda: _materialize_csr_rows_walk_impl(tensor, part),
+            partition=part)
+    key = ("csr_rows", tensor_fingerprint(tensor),
+           partition_fingerprint(part))
+    return _cached_shards(
+        key, lambda: _materialize_csr_rows_impl(tensor, part), partition=part)
+
+
+def _materialize_csr_rows_walk_impl(tensor: Tensor, part: TensorPartition,
+                                    ) -> ShardedTensor:
+    """CSR-convention shard per color from a TRANSPOSE-WALKED row partition
+    (column-major roots — CSC). Each color owns a contiguous interval of
+    the row-sorted walk; the shard-local ``pos1`` is densified over the row
+    window exactly like a compressed root's, ``crd1`` holds the column
+    coordinates, ``vals`` is the value region PERMUTED into walk order and
+    ``val_idx`` maps each slot back to its storage position (the scatter
+    map pattern-preserving outputs use). Leaves written against the CSR
+    calling convention consume these shards unchanged — the walk differs,
+    the kernel contract does not."""
+    pieces = part.pieces
+    rb = part.root_coord_bounds
+    row_counts = rb[:, 1] - rb[:, 0]
+    max_rows = int(row_counts.max()) if pieces else 0
+    perm = part.walk_perm
+    coords = tensor.coords().astype(np.int64)      # storage order
+    wrows = coords[perm, 0] if perm.size else np.zeros((0,), np.int64)
+    wcols = coords[perm, 1] if perm.size else np.zeros((0,), np.int64)
+    vb = part.vals_bounds                          # walk-space intervals
+    counts = vb[:, 1] - vb[:, 0]
+    max_nnz = int(counts.max()) if pieces else 0
+    pos_shards = np.zeros((pieces, max_rows + 1), dtype=INT)
+    crd_shards = np.zeros((pieces, max_nnz), dtype=INT)
+    val_idx = np.zeros((pieces, max_nnz), dtype=INT)
+    vals_shards = np.zeros((pieces, max_nnz), dtype=tensor.vals.dtype)
+    for p in range(pieces):
+        lo, hi = int(vb[p, 0]), int(vb[p, 1])
+        rlo = int(rb[p, 0])
+        wrows_win = max(int(rb[p, 1]) - rlo, 0)
+        cnts = np.zeros(max_rows, dtype=np.int64)
+        if hi > lo:
+            np.add.at(cnts, wrows[lo:hi] - rlo, 1)
+        pos = np.zeros(max_rows + 1, dtype=np.int64)
+        np.cumsum(cnts, out=pos[1:])
+        pos[wrows_win + 1:] = pos[wrows_win]       # padded rows stay empty
+        pos_shards[p] = pos.astype(INT)
+        crd_shards[p, : hi - lo] = wcols[lo:hi]
+        val_idx[p, : hi - lo] = perm[lo:hi]
+        vals_shards[p, : hi - lo] = tensor.vals[perm[lo:hi]]
+    arrays = {
+        "pos1": pos_shards,
+        "crd1": crd_shards,
+        "vals": vals_shards,
+        "val_idx": val_idx,
+        "nnz_count": counts.astype(INT),
+        "row_start": rb[:, 0].astype(INT),
+        "row_count": row_counts.astype(INT),
+    }
+    return ShardedTensor(
+        kind="csr_rows", pieces=pieces, arrays=arrays,
+        meta={"max_rows": max_rows, "max_nnz": max_nnz,
+              "n_rows": tensor.shape[0], "permuted": 1},
+        partition=part,
+    )
+
+
+def _materialize_csr_rows_impl(tensor: Tensor, part: TensorPartition,
+                               ) -> ShardedTensor:
+    """CSR / CSF-convention shard per color from a row-interval partition.
+
+    Local ``pos`` arrays are rebased to the shard's crd window and padded so
+    out-of-range rows are empty. Multi-level (CSF) shards keep one pos/crd
+    pair per compressed level.
+
+    Compressed-root formats (DCSR, DCSF, 2-D COO) are *densified to the row
+    window*: the shard-local ``pos1`` is expanded to one entry per window
+    row (absent rows get empty ranges), so every leaf kernel written against
+    the CSR/CSF calling convention consumes these shards unchanged. This is
+    the level-iterator view of the format abstraction — the iteration
+    capability differs, the kernel contract does not.
+    """
+    pieces = part.pieces
+    rb = part.root_coord_bounds
+    row_counts = rb[:, 1] - rb[:, 0]
+    max_rows = int(row_counts.max())
+    n_dense = _dense_prefix(tensor)
+    order = tensor.order
+
+    arrays: Dict[str, np.ndarray] = {
+        "row_start": rb[:, 0].astype(INT),
+        "row_count": row_counts.astype(INT),
+    }
+    # inner dense sizes multiply row interval into position interval
+    inner_dense = 1
+    for l in range(1, n_dense):
+        inner_dense *= tensor.levels[l].size
+
+    start_lvl = n_dense
+    if n_dense == 0:
+        # ---- densify the compressed root over each shard's row window ----
+        root = tensor.levels[0]
+        p0b = part.levels[0].pos_bounds
+        child = tensor.levels[1] if order > 1 else None
+        if child is None:
+            raise NotImplementedError(
+                "row materialization of a 1-D compressed vector")
+        c1b = part.levels[1].pos_bounds
+        max_c1 = int((c1b[:, 1] - c1b[:, 0]).max())
+        pos_shards = np.zeros((pieces, max_rows + 1), dtype=INT)
+        crd_shards = np.zeros((pieces, max_c1), dtype=INT)
+        for p in range(pieces):
+            rlo = int(rb[p, 0])
+            plo, phi = int(p0b[p, 0]), int(p0b[p, 1])
+            wrows = max(int(rb[p, 1]) - rlo, 0)
+            counts = np.zeros(max_rows, dtype=np.int64)
+            stored_rows = root.crd[plo:phi].astype(np.int64) - rlo
+            if child.kind.singleton:
+                # COO: one root coord per position — histogram the window
+                if stored_rows.size:
+                    np.add.at(counts, stored_rows, 1)
+            else:
+                # DCSR/DCSF: scatter each stored row's child-range length
+                per_row = (child.pos[plo + 1: phi + 1].astype(np.int64)
+                           - child.pos[plo: phi])
+                if stored_rows.size:
+                    np.add.at(counts, stored_rows, per_row)
+            pos = np.zeros(max_rows + 1, dtype=np.int64)
+            np.cumsum(counts, out=pos[1:])
+            pos[wrows + 1:] = pos[wrows]     # padded rows stay empty
+            pos_shards[p] = pos.astype(INT)
+            clo, chi = int(c1b[p, 0]), int(c1b[p, 1])
+            crd_shards[p, : chi - clo] = child.crd[clo:chi]
+        arrays["pos1"] = pos_shards
+        arrays["crd1"] = crd_shards
+        start_lvl = 2
+
+    # per compressed level: slice pos (rebased), crd
+    for l in range(start_lvl, order):
+        ld = tensor.levels[l]
+        lp = part.levels[l]
+        if ld.kind.singleton:
+            continue  # handled with the vals/pos space of parent
+        parent_bounds = (
+            rb.astype(np.int64) * inner_dense if l == n_dense
+            else part.levels[l - 1].pos_bounds
+        )
+        pb = lp.pos_bounds
+        max_parent = int((parent_bounds[:, 1] - parent_bounds[:, 0]).max())
+        max_nnz_l = int((pb[:, 1] - pb[:, 0]).max())
+        pos_shards = np.zeros((pieces, max_parent + 1), dtype=INT)
+        crd_shards = np.zeros((pieces, max_nnz_l), dtype=INT)
+        for p in range(pieces):
+            plo, phi = int(parent_bounds[p, 0]), int(parent_bounds[p, 1])
+            clo, chi = int(pb[p, 0]), int(pb[p, 1])
+            local_pos = ld.pos[plo: phi + 1].astype(np.int64) - clo
+            local_pos = _pad_to(local_pos.astype(INT), max_parent + 1,
+                                fill=int(local_pos[-1]) if local_pos.size else 0)
+            pos_shards[p] = local_pos
+            crd_shards[p, : chi - clo] = ld.crd[clo:chi]
+        arrays[f"pos{l}"] = pos_shards
+        arrays[f"crd{l}"] = crd_shards
+        # singleton children share this position space; emit their crd too
+        for ls in range(l + 1, order):
+            if not tensor.levels[ls].kind.singleton:
+                break
+            s_crd = np.zeros((pieces, max_nnz_l), dtype=INT)
+            for p in range(pieces):
+                clo, chi = int(pb[p, 0]), int(pb[p, 1])
+                s_crd[p, : chi - clo] = tensor.levels[ls].crd[clo:chi]
+            arrays[f"crd{ls}"] = s_crd
+
+    vb = part.vals_bounds
+    max_nnz = int((vb[:, 1] - vb[:, 0]).max())
+    vals_shards = np.zeros((pieces, max_nnz), dtype=tensor.vals.dtype)
+    nnz_counts = (vb[:, 1] - vb[:, 0]).astype(INT)
+    for p in range(pieces):
+        lo, hi = int(vb[p, 0]), int(vb[p, 1])
+        vals_shards[p, : hi - lo] = tensor.vals[lo:hi]
+    arrays["vals"] = vals_shards
+    arrays["nnz_count"] = nnz_counts
+    return ShardedTensor(
+        kind="csr_rows",
+        pieces=pieces,
+        arrays=arrays,
+        meta={"max_rows": max_rows, "max_nnz": max_nnz,
+              "n_rows": tensor.shape[tensor.format.dim_of_level(0)]},
+        partition=part,
+    )
+
+
+def materialize_coo_nnz(tensor: Tensor, part: TensorPartition) -> ShardedTensor:
+    key = ("coo_nnz", tensor_fingerprint(tensor),
+           partition_fingerprint(part))
+    return _cached_shards(
+        key, lambda: _materialize_coo_nnz_impl(tensor, part), partition=part)
+
+
+def _materialize_coo_nnz_impl(tensor: Tensor, part: TensorPartition,
+                              ) -> ShardedTensor:
+    """Equal-nnz COO shards from a non-zero (fused) partition.
+
+    Emits per-color coordinate columns (dimension order) + vals, padded to
+    the uniform chunk size, plus the preimage-derived root row interval so
+    leaves can compute into a local output slice that is later reduced
+    (paper §II-D: "perfect load balance at the cost of communication to
+    reduce into the output").
+    """
+    pieces = part.pieces
+    coords = tensor.coords()  # (nnz, order), dimension order, storage-sorted
+    vb = part.vals_bounds
+    counts = vb[:, 1] - vb[:, 0]
+    max_nnz = int(counts.max())
+    arrays: Dict[str, np.ndarray] = {}
+    for d in range(tensor.order):
+        col = np.zeros((pieces, max_nnz), dtype=INT)
+        for p in range(pieces):
+            lo, hi = int(vb[p, 0]), int(vb[p, 1])
+            col[p, : hi - lo] = coords[lo:hi, d]
+        arrays[f"dim{d}"] = col
+    vals = np.zeros((pieces, max_nnz), dtype=tensor.vals.dtype)
+    for p in range(pieces):
+        lo, hi = int(vb[p, 0]), int(vb[p, 1])
+        vals[p, : hi - lo] = tensor.vals[lo:hi]
+    arrays["vals"] = vals
+    arrays["nnz_count"] = counts.astype(INT)
+    rb = part.root_coord_bounds
+    arrays["row_start"] = rb[:, 0].astype(INT)
+    arrays["row_count"] = (rb[:, 1] - rb[:, 0]).astype(INT)
+    return ShardedTensor(
+        kind="coo_nnz",
+        pieces=pieces,
+        arrays=arrays,
+        meta={"max_nnz": max_nnz,
+              "max_rows": int((rb[:, 1] - rb[:, 0]).max()),
+              "n_rows": tensor.shape[tensor.format.dim_of_level(0)],
+              # Dimension tracked by the storage root: leaves may compute
+              # into a local root-window output slice only when this is the
+              # output-row dimension (0); otherwise (CSC) emitters reduce
+              # over the full output extent.
+              "root_dim": tensor.format.dim_of_level(0)},
+        partition=part,
+    )
+
+
+
+# ---------------------------------------------------------------------------
+# Converted-tensor cache: `Tensor.to_format` results keyed by (content
+# fingerprint, target format key) in a bounded LRU alongside SHARD_CACHE.
+# Fallback conformance cells (csc/coo3 → CSR/CSF) pay the O(nnz) conversion
+# walk once; warm re-lowers reuse the converted tensor outright (the
+# converted tensor's own fingerprint then keys the shard/plan caches as
+# usual). Hits/misses surface per-lower in CacheStats.
+# ---------------------------------------------------------------------------
+
+CONVERT_CACHE = LRUCache(capacity=32)
+CONVERT_CACHE_STATS = CONVERT_CACHE.stats
+
+
+def set_convert_cache_capacity(capacity: int) -> None:
+    CONVERT_CACHE.set_capacity(capacity)
+
+
+def clear_convert_cache() -> None:
+    CONVERT_CACHE.clear()
+
+
+def convert_tensor_cached(tensor: Tensor, target: "fmt.Format") -> Tensor:
+    """``tensor.to_format(target)`` through the bounded conversion cache."""
+    key = ("convert", tensor_fingerprint(tensor), fmt.format_key(target),
+           getattr(target, "block_shape", None))
+    hit = CONVERT_CACHE.get(key)
+    if hit is not None:
+        return hit
+    out = tensor.to_format(target)
+    CONVERT_CACHE.put(key, out)
+    return out
+
+
+def weights_fingerprint(weights: Optional[np.ndarray]) -> Optional[int]:
+    """CRC key component for a straggler-weight vector (None = equal)."""
+    if weights is None:
+        return None
+    return zlib.crc32(np.ascontiguousarray(
+        np.asarray(weights, dtype=np.float64)))
+
+
+def materialize_replicated(tensor: Tensor, pieces: int) -> ShardedTensor:
+    key = ("replicated", tensor_fingerprint(tensor), int(pieces))
+    return _cached_shards(
+        key, lambda: _materialize_replicated_impl(tensor, pieces),
+        partition=replicate_tensor(tensor, pieces))
+
+
+def _materialize_replicated_impl(tensor: Tensor, pieces: int) -> ShardedTensor:
+    if tensor.format.is_all_dense:
+        arrays = {"vals": tensor.to_dense()}
+    else:
+        arrays = {"vals": tensor.vals}
+        for l, ld in enumerate(tensor.levels):
+            if ld.pos is not None:
+                arrays[f"pos{l}"] = ld.pos
+            if ld.crd is not None:
+                arrays[f"crd{l}"] = ld.crd
+    return ShardedTensor(
+        kind="replicated",
+        pieces=pieces,
+        arrays=arrays,
+        meta={},
+        partition=replicate_tensor(tensor, pieces),
+    )
+

@@ -1,0 +1,188 @@
+"""The port's lowering against the JAX package's, cell by cell.
+
+Cells: {spmv, spmm} × {csr, csc, dcsr, coo} × {rows, nnz} × pieces {2, 4},
+plus the all-zero operand cells. The statement is built from the same
+numpy arrays in both packages (the statement code of tests/conformance.py,
+copied here: importing that module would register its census a second
+time).
+``cell_id``, ``leaf_name``, ``fallbacks``, the ``CommStats`` ledger and the
+cache counters of a cold and a warm lower must be equal; ``run()`` must be
+allclose to the reference's and to the port's interpreter at 1e-3."""
+import sys
+import zlib
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro.core as rc
+from repro.core import formats as RF
+from repro.core.interp import interpret as r_interpret
+from repro.core.lower import lower as r_lower
+
+import repro_torch.core as tc
+from repro_torch.core import formats as TF
+from repro_torch.core.interp import interpret as t_interpret
+from repro_torch.core.lower import lower as t_lower
+from repro_torch.kernels import _build
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
+
+FORMATS = [
+    ("csr", lambda F: F.CSR()),
+    ("csc", lambda F: F.CSC()),
+    ("dcsr", lambda F: F.DCSR()),
+    ("coo", lambda F: F.COO(2)),
+]
+
+
+def _sparse_2d(rng, n, m, density=0.25):
+    d = ((rng.random((n, m)) < density) *
+         rng.standard_normal((n, m))).astype(np.float32)
+    d[rng.integers(0, n)] = 0                                   # empty row
+    d[rng.integers(0, n)] = rng.standard_normal(m).astype(np.float32)  # skew
+    return d
+
+
+def _arrays(expr, rng, empty):
+    n, m = 19, 13
+    dB = np.zeros((n, m), np.float32) if empty else _sparse_2d(rng, n, m)
+    if expr == "spmv":
+        return dB, rng.standard_normal(m).astype(np.float32)
+    return dB, rng.standard_normal((m, 7)).astype(np.float32)
+
+
+def _stmt(pkg, F, expr, fm, dB, dense):
+    n = dB.shape[0]
+    B = pkg.Tensor.from_dense("B", dB, fm(F))
+    if expr == "spmv":
+        return pkg.parse_tin("a(i) = B(i,j) * c(j)",
+                             a=pkg.Tensor.zeros_dense("a", (n,)), B=B,
+                             c=pkg.Tensor.from_dense("c", dense))
+    return pkg.parse_tin("A(i,j) = B(i,k) * C(k,j)",
+                         A=pkg.Tensor.zeros_dense("A", (n, 7)), B=B,
+                         C=pkg.Tensor.from_dense("C", dense))
+
+
+def _lower_twice(pkg, lower, stmt, strategy, pieces, **kw):
+    machine = pkg.Machine(("x", pieces))
+    sched = (pkg.lower.default_row_schedule if strategy == "rows"
+             else pkg.lower.default_nnz_schedule)(stmt, machine)
+    pkg.clear_lowering_caches()
+    cold = lower(stmt, machine, schedule=sched, **kw)
+    warm = lower(stmt, machine, schedule=sched, **kw)
+    return cold, warm
+
+
+def _check_cell(expr, fmt_name, fm, strategy, pieces, empty=False):
+    cell_tag = f"{expr}/{fmt_name}/{strategy}/{pieces}/{empty}"
+    rng = np.random.default_rng(zlib.crc32(cell_tag.encode()))
+    dB, dense = _arrays(expr, rng, empty)
+    r_stmt = _stmt(rc, RF, expr, fm, dB, dense)
+    t_stmt = _stmt(tc, TF, expr, fm, dB, dense)
+    r_cold, r_warm = _lower_twice(rc, r_lower, r_stmt, strategy, pieces)
+    t_cold, t_warm = _lower_twice(tc, t_lower, t_stmt, strategy, pieces,
+                                  device="cpu")
+    assert t_cold.cell_id() == r_cold.cell_id()
+    assert t_cold.leaf_name == r_cold.leaf_name
+    assert t_cold.fallbacks == r_cold.fallbacks == []
+    assert t_cold.comm.as_dict() == r_cold.comm.as_dict()
+    assert t_cold.cache.as_dict() == r_cold.cache.as_dict()
+    assert t_warm.cache.as_dict() == r_warm.cache.as_dict()
+    assert t_warm.cache.warm
+    assert t_cold.imbalance() == r_cold.imbalance()
+    assert t_cold.explain().startswith(f"kernel {r_cold.cell_id()}")
+    got = t_warm.run()
+    assert isinstance(got, torch.Tensor) and got.device.type == "cpu"
+    got = got.numpy()
+    np.testing.assert_allclose(got, np.asarray(r_warm.run()), atol=1e-3)
+    np.testing.assert_allclose(got, t_interpret(t_stmt, device="cpu"),
+                               atol=1e-3)
+    np.testing.assert_allclose(got, r_interpret(r_stmt), atol=1e-3)
+
+
+@pytest.mark.parametrize("pieces", [2, 4])
+@pytest.mark.parametrize("strategy", ["rows", "nnz"])
+@pytest.mark.parametrize("fmt_name,fm", FORMATS, ids=[f[0] for f in FORMATS])
+@pytest.mark.parametrize("expr", ["spmv", "spmm"])
+def test_cell(expr, fmt_name, fm, strategy, pieces):
+    _check_cell(expr, fmt_name, fm, strategy, pieces)
+
+
+@pytest.mark.parametrize("strategy", ["rows", "nnz"])
+@pytest.mark.parametrize("fmt_name,fm", FORMATS, ids=[f[0] for f in FORMATS])
+def test_empty_operand_cell(fmt_name, fm, strategy):
+    _check_cell("spmv", fmt_name, fm, strategy, 4, empty=True)
+
+
+def test_weighted_nnz_split_matches_reference():
+    rng = np.random.default_rng(3)
+    dB, c = _arrays("spmv", rng, False)
+    w = np.array([1.0, 3.0, 2.0])
+    out = []
+    for pkg, F, lower, kw in ((rc, RF, r_lower, {}),
+                              (tc, TF, t_lower, {"device": "cpu"})):
+        stmt = _stmt(pkg, F, "spmv", lambda F: F.CSR(), dB, c)
+        machine = pkg.Machine(("x", 3))
+        k = lower(stmt, machine,
+                  schedule=pkg.lower.default_nnz_schedule(stmt, machine),
+                  weights=w, **kw)
+        out.append((k.comm.as_dict(),
+                    k.plans["B"].vals_bounds.tolist(),
+                    np.asarray(k.run())))
+    assert out[0][:2] == out[1][:2]
+    np.testing.assert_allclose(out[1][2], out[0][2], atol=1e-3)
+
+
+@pytest.mark.parametrize("case", ["bcsr", "grid", "sddmm", "auto"])
+def test_unported_paths_raise(case):
+    rng = np.random.default_rng(0)
+    dB, c = _arrays("spmv", rng, False)
+    fm = (lambda F: F.BCSR((2, 2))) if case == "bcsr" else \
+        (lambda F: F.CSR())
+    stmt = _stmt(tc, TF, "spmv", fm, dB, c)
+    machine = tc.Machine(("x", 2))
+    kw = {}
+    if case == "grid":
+        machine = tc.Machine(("x", 2), ("y", 2))
+        s = tc.Schedule(stmt, machine)
+        i, k = stmt.sparse_accesses()[0].idx
+        io, ii, ko, ki = tc.index_vars("io ii ko ki")
+        s.divide(i, io, ii, machine.dims[0]).divide(k, ko, ki,
+                                                      machine.dims[1])
+        s.distribute(io, ko)
+        kw["schedule"] = s
+    elif case == "sddmm":
+        n, m = dB.shape
+        stmt = tc.parse_tin(
+            "A(i,j) = B(i,j) * C(i,k) * D(k,j)",
+            A=tc.Tensor.from_dense("A", (dB != 0) * 1.0, TF.CSR()),
+            B=tc.Tensor.from_dense("B", dB, TF.CSR()),
+            C=tc.Tensor.from_dense("C", np.ones((n, 2), np.float32)),
+            D=tc.Tensor.from_dense("D", np.ones((2, m), np.float32)))
+    elif case == "auto":
+        kw["schedule"] = "auto"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t_lower(stmt, machine, device="cpu", **kw)
+
+
+def test_chip_smoke_slice_on_cpu():
+    """The chip script's main path at a tiny size, on the CPU: the four
+    cells lower cold and warm, run, and agree with the host computation."""
+    before = dict(_build.LAUNCHES)
+    B, c, C, cells = chip_smoke.run_slice(n=256, avg_nnz=4, pieces=4, J=5,
+                                          seed=0, device="cpu", reps=1)
+    assert sorted(cells) == ["spmm/nnz", "spmm/rows", "spmv/nnz",
+                             "spmv/rows"]
+    for name, rec in cells.items():
+        assert rec["kernel"].cell_id() == \
+            f"{name.split('/')[0]}/csr/{name.split('/')[1]}/4x1"
+        assert rec["max_abs_err"] < 1e-3
+    assert _build.LAUNCHES == before
+    rng = np.random.default_rng(0)
+    for label, name, args, abs_args in chip_smoke.kernel_cases(
+            rng, torch.device("cpu")):
+        assert chip_smoke.compare_kernel(label, name, args, abs_args) == 0.0
+
