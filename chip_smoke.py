@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's main path on one NVIDIA H100 and check it.
 
-    python3 chip_smoke.py            # full size: 2^21 x 2^21, 25.1 M entries
+    python3 chip_smoke.py            # full size (below)
+    python3 chip_smoke.py --log2-n 14 --log2-i 13 --log2-jk 9 --reps 4
+                                     # a quick rehearsal
 
 Phases, one line each (a failing phase raises and the script exits non-zero):
 
@@ -10,22 +12,35 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
              with each kernel's registers, shared memory and spills.
 3. kernels — each Hopper kernel against its plain PyTorch version on the
              card: first at edge-case shapes (empty rows, an empty piece, a
-             row longer than 128 entries, J in {1, 16, 130}), later at the
-             main path's shapes. Per-row tolerance
-             |y_kernel - y_plain| <= 1e-4 * (|B|.|c|)_row + 1e-6: f32 sums of
-             up to a million terms, taken in a different order.
-4. main    — ``powerlaw_matrix`` (n = m = 2^21, 16 entries per row on
-             average, alpha 1.6, seed 0) in CSR on ``Machine(("x", 4))``:
-             lower and run SpMV and SpMM (J = 32) under the rows and nnz
-             strategies, check each result against ``np.bincount`` over the
-             CSR arrays on the host (same per-row tolerance), and report the
-             cold and warm lower times, the median ``run()`` time and the
-             peak device memory. Kernel launch counts are reset just before
-             and read just after; each kernel must have launched.
-5. the ``{"kernels": [...]}`` line: per kernel its launches on the main
-   path, its time (CUDA events, median of 20), its bound at these shapes,
-   its plain version's time and one PyTorch library call's time on the same
-   inputs (a yardstick only; the port never calls it).
+             row longer than 128 entries, a slice longer than one 256-entry
+             segment, J in {1, 16, 130}, K and L in {1, 7, 32, 33}), later
+             at the main path's shapes. Per-entry tolerance
+             |got - plain| <= 1e-4 * scale + 1e-6, with ``scale`` the same
+             computation on absolute values: f32 sums of up to a million
+             terms, taken in a different order.
+4. main    — two paths, each driven through the public entry points with
+             the kernel launch counts reset just before and read just
+             after; each of the path's kernels must have launched.
+   a. ``powerlaw_matrix`` (n = m = 2^21, 16 entries per row on average,
+      alpha 1.6, seed 0) in CSR on ``Machine(("x", 4))``: SpMV and SpMM
+      (J = 32) under the rows and nnz strategies.
+   b. SDDMM over the same matrix (K = 32), and SpTTV and SpMTTKRP (L = 32)
+      over ``powerlaw_tensor3`` (2^20 x 2^16 x 2^16, 16 entries per slice
+      on average, alpha 1.8, seed 0) in CSF, under rows and nnz.
+   Every cell is lowered cold and warm and run; its result is checked per
+   entry against a float64 host computation on the numpy arrays (same
+   tolerance form), and the line reports the cold and warm lower times,
+   the median ``run()`` time and the peak device memory. SDDMM and
+   SpMTTKRP must give the same bits on two ``run()``s. The counts are
+   read before any other launch: each cell's kernel must have launched
+   exactly once per ``run()`` and no other kernel at all.
+5. timing, after every count is read: the median time of each cell's
+   kernel on the cell's own inputs (CUDA events, median of 20), and the
+   ``{"kernels": [...]}`` line: per kernel its launches on the main path,
+   its time, its bound at these shapes, its plain version's time and one
+   PyTorch library call's time on the same inputs (a yardstick only; the
+   port never calls it), and a line for the SpMV rows kernel's second use,
+   SpTTV over the (i, j) fibres.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a card, or
 without the package beside this file, the script exits non-zero and prints
@@ -48,6 +63,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 RTOL_ROW, ATOL = 1e-4, 1e-6
 AVG_NNZ, PIECES, SPMM_J, SEED = 16, 4, 32, 0    # the main path's cells
+AVG_SLICE, RANK = 16, 32       # powerlaw_tensor3's slices; SDDMM K, MTTKRP L
 
 KERNELS = {
     "spmv_csr_rows": ("src/repro_torch/kernels/csrc/spmv.cu",
@@ -56,7 +72,18 @@ KERNELS = {
                      "src/repro/kernels/spmv.py:126"),
     "spmm_csr_rows": ("src/repro_torch/kernels/csrc/spmm.cu",
                       "src/repro/kernels/spmm.py:54"),
+    "sddmm_coo": ("src/repro_torch/kernels/csrc/sddmm.cu",
+                  "src/repro/kernels/sddmm.py:45"),
+    "spmttkrp_coo": ("src/repro_torch/kernels/csrc/spmttkrp.cu",
+                     "src/repro/kernels/spmttkrp.py:70"),
 }
+MATRIX_CELLS = (("spmv", "rows"), ("spmv", "nnz"), ("spmm", "rows"),
+                ("spmm", "nnz"))
+SLICE_CELLS = (("sddmm", "rows"), ("sddmm", "nnz"), ("spttv", "rows"),
+               ("spttv", "nnz"), ("spmttkrp", "rows"), ("spmttkrp", "nnz"))
+# the kernels each path must launch
+PATH_KERNELS = {"matrix": ("spmv_csr_rows", "spmv_coo_nnz", "spmm_csr_rows"),
+                "slice": ("sddmm_coo", "spmttkrp_coo", "spmv_csr_rows")}
 
 
 def phase(tag: str, /, **fields) -> None:
@@ -69,8 +96,9 @@ def phase(tag: str, /, **fields) -> None:
 # ---------------------------------------------------------------------------
 
 def check_rows(name: str, got, want, scale) -> float:
-    """Per-row check |got - want| <= RTOL_ROW * scale + ATOL, where
-    ``scale`` is (|B|.|c|) for the same rows; returns the max abs error."""
+    """Per-entry check |got - want| <= RTOL_ROW * scale + ATOL, where
+    ``scale`` is the same computation on absolute values; returns the max
+    abs error."""
     import torch
     got, want, scale = (torch.as_tensor(x).double().cpu()
                         for x in (got, want, scale))
@@ -113,18 +141,23 @@ def time_events(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def time_host(fn, device, reps: int, warmup: int = 1) -> float:
-    """Median milliseconds of ``reps`` calls on the host clock, each ending
-    in a device synchronize."""
+def time_host(fn, device, reps: int, warmup: int = 1,
+              budget_s: float = 20.0) -> float:
+    """Median milliseconds of up to ``reps`` calls on the host clock, each
+    ending in a device synchronize; stops after ``budget_s`` seconds once 3
+    calls are timed (a run() with host assembly takes seconds)."""
     for _ in range(warmup):
         fn()
     _sync(device)
     times = []
+    t_end = time.perf_counter() + budget_s
     for _ in range(reps):
         t0 = time.perf_counter()
         fn()
         _sync(device)
         times.append((time.perf_counter() - t0) * 1e3)
+        if len(times) >= 3 and time.perf_counter() > t_end:
+            break
     return statistics.median(times)
 
 
@@ -132,12 +165,19 @@ def time_host(fn, device, reps: int, warmup: int = 1) -> float:
 # Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def _abs_args(args):
+    import torch
+    return [a.abs() if torch.is_tensor(a) and a.is_floating_point() else a
+            for a in args]
+
+
 def kernel_cases(rng, device):
     """Edge-case batched inputs per kernel: (label, kernel name, args,
-    args with |vals| and |c| for the tolerance). Pieces of one batch share
+    args with absolute values for the tolerance). Pieces of one batch share
     R and the padded entry count N; one piece of every batch is empty,
     every matrix has an empty row, the (4, 300) one a row longer than 128
-    entries."""
+    entries; the SpMTTKRP streams have an empty row and rows longer than
+    one and than two 256-entry segments."""
     import numpy as np
     import torch
 
@@ -166,6 +206,9 @@ def kernel_cases(rng, device):
     def dev(*xs):
         return [torch.as_tensor(x).to(device).contiguous() for x in xs]
 
+    def normal(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
     shapes = [(8, 8), (37, 53), (64, 128), (130, 65), (1, 7), (256, 17),
               (4, 300)]
     for n, m in shapes:
@@ -174,7 +217,7 @@ def kernel_cases(rng, device):
                                  np.zeros(0, np.float32)), csr(n, m, 0.05)]
         N = max(1, max(x[1].shape[0] for x in mats))
         pos, crd, vals = stack(mats, n, N)
-        c = rng.standard_normal(m).astype(np.float32)
+        c = normal(m)
         pos_t, crd_t, vals_t, c_t = dev(pos, crd, vals, c)
         yield (f"spmv_csr_rows {n}x{m}", "spmv_csr_rows",
                (pos_t, crd_t, vals_t, c_t),
@@ -189,18 +232,52 @@ def kernel_cases(rng, device):
                (rows_t, crd_t, vals_t, c_t, n),
                (rows_t, crd_t, vals_t.abs(), c_t.abs(), n))
         for J in (1, 16, 130):
-            C_t, = dev(rng.standard_normal((m, J)).astype(np.float32))
+            C_t, = dev(normal(m, J))
             yield (f"spmm_csr_rows {n}x{m} J={J}", "spmm_csr_rows",
                    (pos_t, crd_t, vals_t, C_t),
                    (pos_t, crd_t, vals_t.abs(), C_t.abs()))
+        # SDDMM over the same pieces: C shared (nnz) or per piece (rows)
+        srows_t, = dev(np.minimum(rows, n - 1))
+        for K, shared in ((1, True), (7, False), (32, True), (33, False)):
+            C_t, Dt_t = dev(normal(n, K) if shared else normal(3, n, K),
+                            normal(m, K))
+            args = (srows_t, crd_t, vals_t, C_t, Dt_t)
+            yield (f"sddmm_coo {n}x{m} K={K} "
+                   f"{'shared' if shared else 'per-piece'}", "sddmm_coo",
+                   args, _abs_args(args))
+
+    # SpMTTKRP streams: three pieces, the middle one empty; row lengths
+    # with an empty row, rows across one and two segment edges, a run that
+    # starts on a segment edge, and a piece that is one row
+    R, J, K = 40, 50, 30
+    counts = rng.integers(0, 20, R)
+    counts[[3, 7, 8, 20]] = [0, 700, 256, 300]
+    lens = [counts, np.zeros(R, np.int64),
+            np.bincount([R - 1] * 900, minlength=R)]
+    N = int(max(x.sum() for x in lens)) + 5                  # a padding tail
+    rows = np.full((3, N), R, np.int32)
+    for p, cnt in enumerate(lens):
+        rows[p, :cnt.sum()] = np.repeat(np.arange(R), cnt)
+    jj = rng.integers(0, J, (3, N)).astype(np.int32)
+    kk = rng.integers(0, K, (3, N)).astype(np.int32)
+    vals = np.where(rows < R, normal(3, N), 0).astype(np.float32)
+    rows_t, jj_t, kk_t, vals_t = dev(rows, jj, kk, vals)
+    for L in (1, 7, 32, 33):
+        C_t, D_t = dev(normal(J, L), normal(K, L))
+        args = (rows_t, jj_t, kk_t, vals_t, C_t, D_t, R)
+        yield (f"spmttkrp_coo R={R} N={N} L={L}", "spmttkrp_coo", args,
+               _abs_args(args))
 
 
 def kernel_fns():
-    from repro_torch.kernels import spmm, spmv
+    from repro_torch.kernels import sddmm, spmm, spmttkrp, spmv
     return {
         "spmv_csr_rows": (spmv.spmv_csr_rows, spmv.spmv_csr_rows_plain),
         "spmv_coo_nnz": (spmv.spmv_coo_nnz, spmv.spmv_coo_nnz_plain),
         "spmm_csr_rows": (spmm.spmm_csr_rows, spmm.spmm_csr_rows_plain),
+        "sddmm_coo": (sddmm.sddmm_coo, sddmm.sddmm_coo_plain),
+        "spmttkrp_coo": (spmttkrp.spmttkrp_coo,
+                         spmttkrp.spmttkrp_coo_plain),
     }
 
 
@@ -217,48 +294,84 @@ def compare_kernel(label, name, args, abs_args) -> float:
 # Phase 4: the main path
 # ---------------------------------------------------------------------------
 
-def make_inputs(n: int, avg_nnz: int, J: int, seed: int):
-    """The sparse operand (reference generator, CSR) and the dense
-    operands c (m,) and C (m, J), all from ``seed``."""
+def make_inputs(n: int, avg_nnz: int, J: int, seed: int,
+                dims3=None, rank: int = RANK):
+    """The operands, all from ``seed``: the sparse matrix B (reference
+    generator, CSR) with c (m,), C (m, J) and SDDMM's Cs (n, K), Ds (K, m);
+    when ``dims3`` is given, the 3-tensor B3 (CSF) with c3 (K3,),
+    C3 (J3, L) and D3 (K3, L)."""
     import numpy as np
-    from repro_torch.data.spdata import powerlaw_matrix
-    B = powerlaw_matrix("B", n, n, avg_nnz, alpha=1.6, seed=seed)
+    from repro_torch.data.spdata import powerlaw_matrix, powerlaw_tensor3
+    data = {"B": powerlaw_matrix("B", n, n, avg_nnz, alpha=1.6, seed=seed)}
     rng = np.random.default_rng(seed + 1)
-    c = rng.standard_normal(n).astype(np.float32)
-    C = rng.standard_normal((n, J)).astype(np.float32)
-    return B, c, C
+    data["c"] = rng.standard_normal(n).astype(np.float32)
+    data["C"] = rng.standard_normal((n, J)).astype(np.float32)
+    data["Cs"] = rng.standard_normal((n, rank)).astype(np.float32)
+    data["Ds"] = rng.standard_normal((rank, n)).astype(np.float32)
+    if dims3 is not None:
+        data["B3"] = powerlaw_tensor3("B", dims3, avg_nnz_per_slice=AVG_SLICE,
+                                      alpha=1.8, seed=seed)
+        rng = np.random.default_rng(seed + 1)
+        data["c3"] = rng.standard_normal(dims3[2]).astype(np.float32)
+        data["C3"] = rng.standard_normal((dims3[1], rank)).astype(np.float32)
+        data["D3"] = rng.standard_normal((dims3[2], rank)).astype(np.float32)
+    return data
 
 
-def statements(B, c, C):
+def statements(data):
+    import numpy as np
     import repro_torch.core as tc
+    B = data["B"]
     n, m = B.shape
-    J = C.shape[1]
-    spmv = tc.parse_tin("a(i) = B(i,j) * c(j)",
-                        a=tc.Tensor.zeros_dense("a", (n,)), B=B,
-                        c=tc.Tensor.from_dense("c", c))
-    spmm = tc.parse_tin("A(i,j) = B(i,k) * C(k,j)",
-                        A=tc.Tensor.zeros_dense("A", (n, J)), B=B,
-                        C=tc.Tensor.from_dense("C", C))
-    return {"spmv": spmv, "spmm": spmm}
+    J = data["C"].shape[1]
+    dense = tc.Tensor.from_dense
+    out = {
+        "spmv": tc.parse_tin("a(i) = B(i,j) * c(j)",
+                             a=tc.Tensor.zeros_dense("a", (n,)), B=B,
+                             c=dense("c", data["c"])),
+        "spmm": tc.parse_tin("A(i,j) = B(i,k) * C(k,j)",
+                             A=tc.Tensor.zeros_dense("A", (n, J)), B=B,
+                             C=dense("C", data["C"])),
+        # the output is declared CSR with B's pattern (tests/conformance.py)
+        "sddmm": tc.parse_tin(
+            "A(i,j) = B(i,j) * C(i,k) * D(k,j)",
+            A=tc.Tensor("A", B.shape, B.format, B.levels,
+                        np.ones_like(B.vals)),
+            B=B, C=dense("C", data["Cs"]), D=dense("D", data["Ds"])),
+    }
+    if "B3" in data:
+        B3 = data["B3"]
+        out["spttv"] = tc.parse_tin(
+            "A(i,j) = B(i,j,k) * c(k)",
+            A=tc.Tensor.from_coo("A", B3.shape[:2], np.zeros((0, 2)),
+                                 np.zeros(0, np.float32), tc.CSR()),
+            B=B3, c=dense("c", data["c3"]))
+        out["spmttkrp"] = tc.parse_tin(
+            "A(i,l) = B(i,j,k) * C(j,l) * D(k,l)",
+            A=tc.Tensor.zeros_dense("A", (B3.shape[0],
+                                          data["C3"].shape[1])),
+            B=B3, C=dense("C", data["C3"]), D=dense("D", data["D3"]))
+    return out
 
 
-def drive_main_path(B, c, C, pieces: int, device, reps: int):
-    """Lower (cold, then warm) and run the four cells of the slice through
-    the public entry points. Returns {cell: record}."""
+def drive(stmts, cells, pieces: int, device, reps: int):
+    """Lower (cold, then warm) and run each cell through the public entry
+    points. Returns {cell: record}."""
+    import numpy as np
     import torch
     import repro_torch.core as tc
     from repro_torch.core import lower as L
 
     machine = tc.Machine(("x", pieces))
-    stmts = statements(B, c, C)
-    cells = {}
-    for expr, strat in (("spmv", "rows"), ("spmv", "nnz"),
-                        ("spmm", "rows"), ("spmm", "nnz")):
+    out = {}
+    for expr, strat in cells:
         stmt = stmts[expr]
         sched = (L.default_row_schedule if strat == "rows"
                  else L.default_nnz_schedule)(stmt, machine)
+        base = 0
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device)
         L.clear_lowering_caches()
         t0 = time.perf_counter()
         k = L.lower(stmt, machine, schedule=sched, device=device)
@@ -269,119 +382,265 @@ def drive_main_path(B, c, C, pieces: int, device, reps: int):
         if not k.cache.warm:
             raise AssertionError(f"{k.cell_id()}: warm re-lower missed a "
                                  f"cache: {k.cache.as_dict()}")
-        run_ms = time_host(k.run, device, reps)
-        out = k.run()
+        calls = []
+
+        def run(k=k, calls=calls):
+            calls.append(1)
+            return k.run()
+
+        run_ms = time_host(run, device, reps)
+        res, again = run(), run()
         _sync(device)
-        cells[f"{expr}/{strat}"] = {
+        out[f"{expr}/{strat}"] = {
             "kernel": k, "cold_s": cold_s, "warm_s": warm_s,
-            "run_ms": run_ms, "out": out,
-            "max_mem": (torch.cuda.max_memory_allocated(device)
+            "run_ms": run_ms, "runs": len(calls), "out": res,
+            "bitwise": (np.array_equal(res.vals, again.vals)
+                        if expr in ("sddmm", "spttv")
+                        else torch.equal(res, again)),
+            # this cell's own peak, above what earlier cells still hold
+            "max_mem": (torch.cuda.max_memory_allocated(device) - base
                         if device.type == "cuda" else 0)}
-    return cells
+    return out
 
 
-def reference_products(B, c, C):
-    """y = B.c and Y = B.C on the host with np.bincount over the CSR arrays
-    (float64), plus the per-row scales |B|.|c| and |B|.|C|."""
+def reference_products(data, exprs):
+    """float64 host results of ``exprs`` and their scales (the same
+    computation on absolute values): SpMV and SpMM with np.bincount over the
+    CSR arrays, SDDMM per stored entry in chunks, SpTTV per (i, j) fibre and
+    SpMTTKRP per row of the 3-tensor."""
     import numpy as np
+    out = {}
+
+    def per_column(seg, w, gather, n_out, n_cols):
+        """np.bincount of w·gather(l) per column l: (n_out, n_cols) and its
+        scale."""
+        Y = np.empty((n_out, n_cols))
+        S = np.empty_like(Y)
+        for l in range(n_cols):
+            t = w * gather(l)
+            Y[:, l] = np.bincount(seg, t, minlength=n_out)
+            S[:, l] = np.bincount(seg, np.abs(t), minlength=n_out)
+        return Y, S
+
+    B = data["B"]
     n = B.shape[0]
     pos, crd = B.levels[1].pos, B.levels[1].crd
     rows = np.repeat(np.arange(n), np.diff(pos))
     v = B.vals.astype(np.float64)
-    out = {"spmv": (np.bincount(rows, v * c[crd], minlength=n),
-                    np.bincount(rows, np.abs(v) * np.abs(c[crd]),
-                                minlength=n))}
-    J = C.shape[1]
-    Y = np.empty((n, J))
-    S = np.empty((n, J))
-    for j in range(J):
-        g = C[crd, j].astype(np.float64)
-        Y[:, j] = np.bincount(rows, v * g, minlength=n)
-        S[:, j] = np.bincount(rows, np.abs(v) * np.abs(g), minlength=n)
-    out["spmm"] = (Y, S)
+    if "spmv" in exprs:
+        out["spmv"] = per_column(rows, v, lambda _: data["c"][crd], n, 1)
+        out["spmv"] = tuple(x[:, 0] for x in out["spmv"])
+    if "spmm" in exprs:
+        C = data["C"]
+        out["spmm"] = per_column(rows, v, lambda l: C[:, l][crd], n,
+                                 C.shape[1])
+    if "sddmm" in exprs:
+        Cs = data["Cs"].astype(np.float64)
+        Ds = data["Ds"].T.astype(np.float64)
+        want, scale = np.empty(B.nnz), np.empty(B.nnz)
+        for lo in range(0, B.nnz, 1 << 20):
+            hi = min(lo + (1 << 20), B.nnz)
+            prod = Cs[rows[lo:hi]] * Ds[crd[lo:hi]]
+            want[lo:hi] = v[lo:hi] * prod.sum(1)
+            scale[lo:hi] = np.abs(v[lo:hi]) * np.abs(prod).sum(1)
+        out["sddmm"] = (want, scale)
+    if "spttv" in exprs or "spmttkrp" in exprs:
+        B3 = data["B3"]
+        p1, c1 = B3.levels[1].pos, B3.levels[1].crd
+        p2, c2 = B3.levels[2].pos, B3.levels[2].crd
+        ij = np.repeat(np.arange(c1.shape[0]), np.diff(p2))
+        v3 = B3.vals.astype(np.float64)
+        c3 = data["c3"]
+        out["spttv"] = tuple(x[:, 0] for x in per_column(
+            ij, v3, lambda _: c3[c2], c1.shape[0], 1))
+        i = np.repeat(np.arange(B3.shape[0]), np.diff(p1))[ij]
+        j = c1[ij]
+        C3, D3 = data["C3"], data["D3"]
+        out["spmttkrp"] = per_column(
+            i, v3, lambda l: C3[:, l][j].astype(np.float64) * D3[:, l][c2],
+            B3.shape[0], C3.shape[1])
     return out
 
 
-def run_slice(n: int, avg_nnz: int, pieces: int, J: int, seed: int, device,
-              reps: int = 10):
-    """Phase 4: make the inputs, drive the main path and check every cell
-    against the host computation. Returns (B, c, C, cells)."""
+def check_cell(name: str, rec, data, want) -> float:
+    """Hold one cell's result against the host computation. A sparse
+    output must keep B's (i, j) pattern: SDDMM's values are compared in B's
+    storage order, SpTTV's per (i, j) fibre of the 3-tensor."""
+    import numpy as np
+    expr = name.split("/")[0]
+    got = rec["out"]
+    if expr in ("sddmm", "spttv"):
+        src = data["B"] if expr == "sddmm" else data["B3"]
+        if expr == "sddmm" and got.levels is not src.levels:
+            raise AssertionError(f"{name}: the output lost B's pattern")
+        if expr == "spttv":
+            fibres = np.stack([np.repeat(np.arange(src.shape[0]),
+                                         np.diff(src.levels[1].pos)),
+                               src.levels[1].crd], 1)
+            if not np.array_equal(got.coords(), fibres):
+                raise AssertionError(f"{name}: the output's pattern is not "
+                                     "B's (i, j) fibres")
+        got = got.vals
+    if expr in ("sddmm", "spmttkrp") and not rec["bitwise"]:
+        raise AssertionError(f"{name}: two run()s gave different bits")
+    return check_rows(name, got, *want[expr])
+
+
+def leaf_call(k):
+    """(kernel name, args) of the Hopper kernel a lowered cell launches, on
+    the cell's own inputs; None for a leaf with no kernel (the SpMM nnz
+    leaf, the flat SpTTV products)."""
+    name = k.leaf_name
+    max_rows = int(k.shards["B"].meta["max_rows"])
+    if name in ("spmv_rows", "spttv_rows"):
+        return "spmv_csr_rows", k.args[:4]
+    if name == "spmv_nnz":
+        return "spmv_coo_nnz", (*k.args[:4], max_rows)
+    if name == "spmm_rows":
+        return "spmm_csr_rows", k.args[:4]
+    if name.startswith("sddmm"):
+        return "sddmm_coo", k.args[:5]
+    if name.startswith("spmttkrp"):
+        return "spmttkrp_coo", (*k.args[:6], max_rows)
+    return None
+
+
+def run_slice(data, cells, pieces: int, device, reps: int = 10):
+    """Phase 4 for one path: drive its cells and check every result
+    against the host computation. Returns ({cell: record}, launches), the
+    launches of each kernel during the drive alone, read straight after
+    it: on the card each cell's kernel must have launched once per
+    ``run()`` and no other kernel at all, on the CPU none."""
     from repro_torch.core.device import resolve_device
+    from repro_torch.kernels import _build
     device = resolve_device(device)
-    B, c, C = make_inputs(n, avg_nnz, J, seed)
-    cells = drive_main_path(B, c, C, pieces, device, reps)
-    want = reference_products(B, c, C)
-    for name, rec in cells.items():
-        expr = name.split("/")[0]
-        rec["max_abs_err"] = check_rows(name, rec["out"], *want[expr])
-    return B, c, C, cells
+    before = dict(_build.LAUNCHES)
+    recs = drive(statements(data), cells, pieces, device, reps)
+    launches = {k: n - before[k] for k, n in _build.LAUNCHES.items()}
+    expected = dict.fromkeys(launches, 0)
+    for rec in recs.values():
+        call = leaf_call(rec["kernel"])
+        if call is not None and device.type == "cuda":
+            expected[call[0]] += rec["runs"]
+    if launches != expected:
+        raise AssertionError(f"launches during the drive {launches} are not "
+                             f"one per run() of each cell's kernel: "
+                             f"{expected}")
+    want = reference_products(data, {expr for expr, _ in cells})
+    for name, rec in recs.items():
+        rec["max_abs_err"] = check_cell(name, rec, data, want)
+    return recs, launches
 
 
 # ---------------------------------------------------------------------------
 # Phase 5: the kernels line
 # ---------------------------------------------------------------------------
 
-def kernel_records(B, C, cells, launches, reps: int):
-    """Time each kernel, its plain version and a library yardstick at the
-    main path's shapes, and compute its bound from this run's inputs."""
-    import torch
-    k_rows, k_nnz = cells["spmv/rows"]["kernel"], cells["spmv/nnz"]["kernel"]
-    k_mm = cells["spmm/rows"]["kernel"]
-    dev = k_rows.device
-    pos, crd, vals, c = k_rows.args[:4]
-    rows, cols, nvals, c2 = k_nnz.args[:4]
-    max_rows = int(k_nnz.shards["B"].meta["max_rows"])
-    mpos, mcrd, mvals, Cd = k_mm.args[:4]
-    nnz = int(B.nnz)
-    n, m = B.shape
-    J = C.shape[1]
-    P, R = pos.shape[0], pos.shape[1] - 1
+def _moved(name: str, args, nnz: int, n_out: int):
+    """(bytes, f32 operations) of one kernel call: each input read once and
+    each output written once (real entries and outputs), and the operations
+    the data needs."""
+    if name in ("spmv_csr_rows", "spmm_csr_rows"):
+        pos, _, _, x = args
+        P, R = pos.shape[0], pos.shape[1] - 1
+        w = x.shape[1] if x.dim() == 2 else 1
+        return (nnz * 8 + P * (R + 1) * 4 + x.numel() * 4 + P * R * w * 4,
+                2 * nnz * w)
+    if name == "spmv_coo_nnz":
+        c, max_rows = args[3], args[4]
+        return nnz * 12 + c.numel() * 4 + args[0].shape[0] * max_rows * 4, \
+            2 * nnz
+    if name == "sddmm_coo":
+        C, Dt = args[3], args[4]
+        K = Dt.shape[1]
+        return nnz * 16 + C.numel() * 4 + Dt.numel() * 4, nnz * (2 * K + 1)
+    C, D = args[4], args[5]                       # spmttkrp_coo
+    L = C.shape[1]
+    return nnz * 16 + (C.numel() + D.numel()) * 4 + n_out * L * 4, \
+        3 * nnz * L
 
-    csr = torch.sparse_csr_tensor(
-        torch.as_tensor(B.levels[1].pos).to(dev),
-        torch.as_tensor(B.levels[1].crd).to(dev),
-        torch.as_tensor(B.vals).to(dev), size=(n, m))
-    inputs = {
-        "spmv_csr_rows": (pos, crd, vals, c),
-        "spmv_coo_nnz": (rows, cols, nvals, c2, max_rows),
-        "spmm_csr_rows": (mpos, mcrd, mvals, Cd),
+
+def kernel_record(name, args, launches, nnz, n_out, library, reps):
+    """Time one kernel, its plain version and a library yardstick
+    (``library`` = (what it calls, fn or None)) at the main path's shapes,
+    and compute its bound from this run's inputs."""
+    kernel, plain = kernel_fns()[name]
+    nbytes, flops = _moved(name, args, nnz, n_out)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    source, replaces = KERNELS[name]
+    err = compare_kernel(f"{name} main-path shapes", name, args,
+                         _abs_args(args))
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches,
+        "max_abs_err": err,
+        "ms": time_events(lambda: kernel(*args), reps),
+        "plain_ms": time_events(lambda: plain(*args), max(reps // 4, 3)),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": (time_events(library[1], reps)
+                       if library[1] is not None else None),
+        "library_call": library[0],
     }
+
+
+def kernel_records(data, cells, launches, reps: int):
+    """The five kernels at the main path's shapes, each on the inputs of
+    the cell it serves: spmv/rows, spmv/nnz, spmm/rows, sddmm/nnz,
+    spmttkrp/rows. Plus the SpMV rows kernel on SpTTV's (i, j) fibres
+    (spttv/rows), returned apart, and {cell: ms} of every cell's kernel on
+    its own inputs (those cells' times, and the other cells timed here)."""
+    import torch
+    B, B3 = data["B"], data["B3"]
+    dev = cells["spmv/rows"]["kernel"].device
+    n, m = B.shape
+
+    def csr(pos, crd, vals, shape):
+        return torch.sparse_csr_tensor(
+            torch.as_tensor(pos).to(dev), torch.as_tensor(crd).to(dev),
+            torch.as_tensor(vals).to(dev), size=shape)
+
+    Bcsr = csr(B.levels[1].pos, B.levels[1].crd, B.vals, (n, m))
+    n_ij = B3.levels[1].crd.shape[0]
+    B3ij = csr(B3.levels[2].pos, B3.levels[2].crd, B3.vals,
+               (n_ij, B3.shape[2]))
+    call = {c: leaf_call(cells[c]["kernel"]) for c in
+            ("spmv/rows", "spmv/nnz", "spmm/rows", "sddmm/nnz",
+             "spmttkrp/rows", "spttv/rows")}
+    sd = call["sddmm/nnz"][1]
+    D_lib = sd[4].t().contiguous()
+    ttv = call["spttv/rows"][1]
+    on_b = "torch.sparse_csr_tensor(B) @ x, the whole matrix"
     library = {
-        "spmv_csr_rows": lambda: csr @ c,
-        "spmv_coo_nnz": lambda: csr @ c2,
-        "spmm_csr_rows": lambda: csr @ Cd,
+        "spmv/rows": (on_b, lambda: Bcsr @ call["spmv/rows"][1][3]),
+        "spmv/nnz": (on_b, lambda: Bcsr @ call["spmv/nnz"][1][3]),
+        "spmm/rows": (on_b, lambda: Bcsr @ call["spmm/rows"][1][3]),
+        "sddmm/nnz": (
+            "torch.sparse.sampled_addmm(B, C, D, beta=0).values() * B's "
+            "values", lambda: torch.sparse.sampled_addmm(
+                Bcsr, sd[3], D_lib, beta=0.0).values() * Bcsr.values()),
+        "spmttkrp/rows": ("none: no single PyTorch call computes MTTKRP",
+                          None),
+        "spttv/rows": ("torch.sparse_csr_tensor(pos2, crd2, vals) @ c",
+                       lambda: B3ij @ ttv[3]),
     }
-    # bytes each input read once and each output written once (real entries
-    # only), and the f32 operations the data needs
-    moved = {
-        "spmv_csr_rows": (nnz * 8 + P * (R + 1) * 4 + m * 4 + P * R * 4,
-                          2 * nnz),
-        "spmv_coo_nnz": (nnz * 12 + m * 4 + P * max_rows * 4, 2 * nnz),
-        "spmm_csr_rows": (nnz * 8 + P * (R + 1) * 4 + m * J * 4
-                          + P * R * J * 4, 2 * nnz * J),
-    }
-    records = []
-    for name, (kernel, plain) in kernel_fns().items():
-        args = inputs[name]
-        nbytes, flops = moved[name]
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / F32_FLOPS * 1e3
-        source, replaces = KERNELS[name]
-        err = compare_kernel(f"{name} main-path shapes", name, args,
-                             [a.abs() if torch.is_tensor(a)
-                              and a.is_floating_point() else a
-                              for a in args])
-        records.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": err,
-            "ms": time_events(lambda: kernel(*args), reps),
-            "plain_ms": time_events(lambda: plain(*args), max(reps // 4, 3)),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": time_events(library[name], reps),
-        })
-    return records
+    records, cell_ms = [], {}
+    for cell in ("spmv/rows", "spmv/nnz", "spmm/rows", "sddmm/nnz",
+                 "spmttkrp/rows", "spttv/rows"):
+        name, args = call[cell]
+        three = cell.startswith(("spmttkrp", "spttv"))
+        records.append(kernel_record(
+            name, args, launches[name], B3.nnz if three else B.nnz,
+            B3.shape[0] if three else n, library[cell], reps))
+        cell_ms[cell] = records[-1]["ms"]
+    fns = kernel_fns()
+    for cell, rec in cells.items():
+        other = leaf_call(rec["kernel"])
+        if cell not in cell_ms and other is not None:
+            cell_ms[cell] = time_events(
+                lambda: fns[other[0]][0](*other[1]), reps)
+    return records[:-1], records[-1], cell_ms
 
 
 # ---------------------------------------------------------------------------
@@ -391,6 +650,11 @@ def main(argv=None) -> int:
     ap.add_argument("--log2-n", type=int, default=21,
                     help="matrix side as a power of two (default 21; a "
                     "smaller side is a quick rehearsal)")
+    ap.add_argument("--log2-i", type=int, default=20,
+                    help="the 3-tensor's first dimension (default 20)")
+    ap.add_argument("--log2-jk", type=int, default=16,
+                    help="the 3-tensor's second and third dimensions "
+                    "(default 16)")
     ap.add_argument("--reps", type=int, default=20,
                     help="timed kernel launches (run() takes half)")
     args = ap.parse_args(argv)
@@ -437,34 +701,55 @@ def main(argv=None) -> int:
         worst[name] = max(worst.get(name, 0.0), err)
     phase("kernels-edge", **{k: f"{v:.3g}" for k, v in worst.items()})
 
-    # 4. the main path, with the launch counts of exactly this run
-    _build.reset_launches()
-    B, c, C, cells = run_slice(1 << args.log2_n, AVG_NNZ, PIECES, SPMM_J,
-                               SEED, device, max(args.reps // 2, 1))
-    launches = dict(_build.LAUNCHES)
+    # 4. the main path: each path with the launch counts of exactly its run
+    t0 = time.perf_counter()
+    dims3 = (1 << args.log2_i, 1 << args.log2_jk, 1 << args.log2_jk)
+    data = make_inputs(1 << args.log2_n, AVG_NNZ, SPMM_J, SEED, dims3)
+    B, B3 = data["B"], data["B3"]
     phase("data", n=B.shape[0], nnz=B.nnz,
-          longest_row=int(np.diff(B.levels[1].pos).max()))
-    for rec in cells.values():
-        k = rec["kernel"]
-        phase("main", cell=k.cell_id(), leaf=k.leaf_name,
-              cold_lower_s=f"{rec['cold_s']:.3f}",
-              warm_lower_s=f"{rec['warm_s']:.4f}",
-              run_ms=f"{rec['run_ms']:.3f}",
-              max_abs_err=f"{rec['max_abs_err']:.3g}",
-              max_mem_gb=f"{rec['max_mem'] / 2**30:.2f}")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
-    phase("launches", **launches)
+          longest_row=int(np.diff(B.levels[1].pos).max()),
+          tensor=("x".join(map(str, B3.shape))), tensor_nnz=B3.nnz,
+          fibres=B3.levels[1].crd.shape[0],
+          longest_slice=int(np.diff(B3.levels[2].pos[B3.levels[1].pos])
+                            .max()),
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    cells, launches = {}, dict.fromkeys(_build.LAUNCHES, 0)
+    for path, path_cells in (("matrix", MATRIX_CELLS),
+                             ("slice", SLICE_CELLS)):
+        _build.reset_launches()
+        recs, path_launches = run_slice(data, path_cells, PIECES, device,
+                                        max(args.reps // 2, 1))
+        for rec in recs.values():
+            k = rec["kernel"]
+            phase("main", cell=k.cell_id(), leaf=k.leaf_name,
+                  cold_lower_s=f"{rec['cold_s']:.3f}",
+                  warm_lower_s=f"{rec['warm_s']:.4f}",
+                  run_ms=f"{rec['run_ms']:.3f}", runs=rec["runs"],
+                  max_abs_err=f"{rec['max_abs_err']:.3g}",
+                  bitwise_repeat=rec["bitwise"],
+                  max_mem_gb=f"{rec['max_mem'] / 2**30:.2f}")
+        missing = [k for k in PATH_KERNELS[path] if path_launches[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the {path} "
+                                 f"path: {missing}")
+        phase("launches", path=path, **path_launches)
+        for k, v in path_launches.items():
+            launches[k] += v
+        cells.update(recs)
 
-    # 3b + 5. kernels at the main path's shapes, timed
-    records = kernel_records(B, C, cells, launches, args.reps)
-    for r in records:
+    # 3b + 5. kernels at the main path's shapes, timed once every count
+    # is read
+    records, ttv, cell_ms = kernel_records(data, cells, launches, args.reps)
+    for cell, rec in cells.items():
+        phase("cell-kernel", cell=rec["kernel"].cell_id(),
+              kernel_ms=(f"{cell_ms[cell]:.4f}" if cell in cell_ms
+                         else "-"))
+    for r in records + [dict(ttv, name="spmv_csr_rows(spttv)")]:
         phase("kernel", name=r["name"], max_abs_err=f"{r['max_abs_err']:.3g}",
               ms=f"{r['ms']:.4f}", bound_ms=f"{r['bound_ms']:.4f}",
               plain_ms=f"{r['plain_ms']:.3f}",
-              library_ms=f"{r['library_ms']:.4f}")
+              library_ms=("null" if r["library_ms"] is None
+                          else f"{r['library_ms']:.4f}"))
     print(smi)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """Lowering scheduled TIN statements to runnable PyTorch (paper §IV).
 
-The 1-D half of the JAX package's lowering engine for SpMV and SpMM
-(Fig. 9a, adapted):
+The 1-D half of the JAX package's lowering engine for SpMV, SpMM, SDDMM,
+SpTTV and SpMTTKRP (Fig. 9a, adapted):
 
 1. **Plan**: the initial level partition of the distributed index variable
    (universe partitions for coordinate-value loops, non-zero partitions for
@@ -10,22 +10,25 @@ The 1-D half of the JAX package's lowering engine for SpMV and SpMM
    the distributed variable does not index.
 2. **Materialize**: pack per-color sub-tensors into stacked, padded
    arrays on the host (numpy, as in the reference), then move them to the
-   device once, where they stay cached with the shard.
+   device once, where they stay cached with the shard. Sparse outputs
+   (SDDMM, SpTTV) are not materialized: they are assembled from the leaf
+   results.
 3. **Emit**: select the leaf for (expression signature × strategy), batched
    over the piece axis. On the card the leaves are the Hopper kernels of
    :mod:`repro_torch.kernels`; on the CPU their plain versions. The
-   overlapping output rows of the nnz strategy reduce in piece order.
+   overlapping output rows of the nnz strategy reduce in piece order;
+   pattern-preserving outputs scatter their values home by position.
 
 Host-side products (partitions, shards, ``CommStats``, ``cell_id``, cache
-counters) equal the reference's exactly. Other expressions, blocked formats,
-grids, the autoscheduler and the elastic path are not ported yet and raise
+counters) equal the reference's exactly. SpAdd3, blocked formats, grids, the
+autoscheduler and the elastic path are not ported yet and raise
 ``NotImplementedError`` naming their ROADMAP item; nothing converts a
 format or falls back to a generic path.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -33,6 +36,7 @@ import torch
 from .cache import LRUCache, avals_key
 from . import formats as fmt
 from .device import resolve_device
+from .levels import tree_of
 from .partition import (CONVERT_CACHE_STATS, SHARD_CACHE_STATS,
                         ShardedTensor, TensorPartition, clear_convert_cache,
                         clear_shard_cache, fingerprint_memo,
@@ -47,7 +51,9 @@ from .tensor import Tensor
 from .tin import Assignment, IndexVar
 from ..runtime import telemetry
 from ..kernels import ref as K
+from ..kernels import sddmm as sddmm_kernels
 from ..kernels import spmm as spmm_kernels
+from ..kernels import spmttkrp as spmttkrp_kernels
 from ..kernels import spmv as spmv_kernels
 
 
@@ -182,7 +188,8 @@ def _cache_delta(snap: Tuple[int, ...]) -> CacheStats:
 class LoweredKernel:
     """A distributed sparse kernel, ready to run on ``device``, with its
     plan artifacts. ``runner(*args)`` computes the result; ``args`` are the
-    leaf's inputs, already on the device. ``fallbacks`` is always empty:
+    leaf's inputs, already on the device (with the host-side window
+    bounds the assembly reads). ``fallbacks`` is always empty:
     the port converts no format (an operand it cannot iterate directly
     raises at lower time)."""
 
@@ -191,7 +198,7 @@ class LoweredKernel:
     machine: Machine
     plans: Dict[str, TensorPartition]
     shards: Dict[str, ShardedTensor]
-    runner: Callable[..., torch.Tensor]
+    runner: Callable[..., Union[torch.Tensor, Tensor]]
     args: Tuple
     comm: CommStats
     leaf_name: str
@@ -199,8 +206,12 @@ class LoweredKernel:
     fallbacks: List[str] = dataclasses.field(default_factory=list)
     cache: CacheStats = dataclasses.field(default_factory=CacheStats)
 
-    def run(self) -> torch.Tensor:
-        """The dense result, a tensor on the kernel's device."""
+    def run(self) -> Union[torch.Tensor, Tensor]:
+        """The result. A dense output (SpMV, SpMM, SpMTTKRP) is a tensor on
+        the kernel's device. A sparse output (SDDMM, SpTTV) is a
+        :class:`Tensor`, as in the reference: the sparse operand's (i, j)
+        pattern with the values brought back from the device; the flat
+        SpTTV paths assemble it on the host with ``Tensor.from_coo``."""
         return self.runner(*self.args)
 
     def cell_id(self) -> str:
@@ -262,6 +273,46 @@ def _scatter_rows(global_shape, blocks: torch.Tensor, row_start: np.ndarray,
     return out
 
 
+def _scatter_vals(total: int, blocks: torch.Tensor, start: np.ndarray,
+                  count: np.ndarray) -> torch.Tensor:
+    """Assemble per-color value blocks (P, N) into the global value region:
+    the first ``count[p]`` slots of piece p land at ``start[p]`` onward.
+    The windows are disjoint, so an indexed assignment gives the
+    reference's scatter-add result, the same bits on every run."""
+    out = torch.zeros((total,), dtype=blocks.dtype, device=blocks.device)
+    for p, (s, c) in enumerate(zip(start.tolist(), count.tolist())):
+        c = min(c, total - s, blocks.shape[1])
+        if c > 0:
+            out[s:s + c] = blocks[p, :c]
+    return out
+
+
+def _scatter_by_val_idx(total: int, blocks: torch.Tensor,
+                        val_idx: torch.Tensor,
+                        count: np.ndarray) -> torch.Tensor:
+    """Permuted value-region assembly: slot e < ``count[p]`` of piece p goes
+    home to storage position ``val_idx[p, e]`` (the map a transpose walk
+    records); padding slots are dropped. The positions are disjoint, so
+    this is an indexed assignment too."""
+    out = torch.zeros((total,), dtype=blocks.dtype, device=blocks.device)
+    for p, c in enumerate(count.tolist()):
+        c = min(c, blocks.shape[1])
+        if c > 0:
+            out[val_idx[p, :c].long()] = blocks[p, :c]
+    return out
+
+
+def _pattern_output(name: str, shape, format: "fmt.Format", levels,
+                    f: Callable[..., torch.Tensor]
+                    ) -> Callable[..., Tensor]:
+    """A runner returning a pattern-preserving output: ``levels`` with the
+    values ``f`` computes, brought back from the device."""
+    def run(*args):
+        vals = f(*args).cpu().numpy()
+        return Tensor(name, shape, format, levels, vals, vals.dtype)
+    return run
+
+
 def _nbytes(t: Tensor) -> int:
     if t.format.is_all_dense:
         return int(np.prod(t.shape)) * t.vals.dtype.itemsize
@@ -276,12 +327,28 @@ def _on_device(sh: ShardedTensor, name: str, device: torch.device,
                ) -> torch.Tensor:
     """``sh.arrays[name]`` on ``device``, copied once and cached with the
     shard (the cache entry is shared by every copy SHARD_CACHE hands out)."""
-    key = (name, str(device))
-    t = sh.device_arrays.get(key)
-    if t is None:
-        t = torch.from_numpy(np.ascontiguousarray(sh.arrays[name])).to(device)
-        sh.device_arrays[key] = t
-    return t
+    return _device_cached(sh, (name,), device, lambda: sh.arrays[name])
+
+
+def _device_cached(sh: ShardedTensor, key: Tuple, device: torch.device,
+                   build: Callable[[], object]):
+    """What ``build()`` derives from the shard (an array or a tuple of
+    arrays, numpy or CPU tensors), moved to ``device`` once and cached with
+    the shard under ``key``."""
+    key = key + (str(device),)
+    hit = sh.device_arrays.get(key)
+    if hit is not None:
+        return hit
+
+    def move(x):
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(np.ascontiguousarray(x))
+        return x.contiguous().to(device)
+
+    built = build()
+    out = tuple(map(move, built)) if isinstance(built, tuple) else move(built)
+    sh.device_arrays[key] = out
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -292,6 +359,9 @@ def _on_device(sh: ShardedTensor, name: str, device: torch.device,
 _SIG_KERNEL = {
     "d1(i)=s2(i,j)*d1(j)": ("spmv", "spmv"),
     "d2(i,j)=s2(i,k)*d2(k,j)": ("spmm", "spmm"),
+    "s2(i,j)=s2(i,j)*d2(i,k)*d2(k,j)": ("sddmm", "sddmm"),
+    "s2(i,j)=s3(i,j,k)*d1(k)": ("spttv", "spmttkrp"),
+    "d2(i,l)=s3(i,j,k)*d2(j,l)*d2(k,l)": ("spmttkrp", "spmttkrp"),
 }
 
 
@@ -318,8 +388,8 @@ def _check_operands(stmt: Assignment, space: str) -> None:
     entry = _SIG_KERNEL.get(sig)
     if entry is None:
         raise NotImplementedError(
-            f"expression {sig}: only SpMV and SpMM are ported (ROADMAP "
-            "Queue 1 item 5.2 ports SDDMM, SpAdd3, SpTTV and SpMTTKRP)")
+            f"expression {sig}: only SpMV, SpMM, SDDMM, SpTTV and SpMTTKRP "
+            "are ported (ROADMAP Queue 1 item 5.2 ports SpAdd3)")
     name, module = entry
     supports = _kernel_supports(module)
     for acc in stmt.rhs.accesses():
@@ -436,10 +506,18 @@ def _lower_impl(stmt, machine, schedule, distributions, weights, device):
     with telemetry.span("lower.materialize", sig=sig, pieces=pieces):
         for name, plan in plans.items():
             t = plan.tensor
+            if name == out_t.name and _output_is_assembled(sig):
+                continue  # assembled from the leaf results, not materialized
             if plan.replicated:
                 shards[name] = materialize_replicated(t, pieces)
                 comm.replicate_bytes += _nbytes(t)
             elif strat.space == "nnz" and t.format.is_sparse:
+                shards[name] = materialize_coo_nnz(t, plan)
+            elif (t.format.is_sparse and t.order >= 3
+                    and t.format.levels[1].singleton):
+                # trailing-singleton trees (COO3) have no grouped middle
+                # level: the universe row plan materializes the flat walk
+                # (coordinate columns bucketed by row window)
                 shards[name] = materialize_coo_nnz(t, plan)
             elif t.format.is_all_dense:
                 shards[name] = materialize_dense_rows(
@@ -471,7 +549,7 @@ def _lower_impl(stmt, machine, schedule, distributions, weights, device):
     # ---- emit: pick leaf + build runner ------------------------------------
     with telemetry.span("lower.emit", sig=sig, space=strat.space) as esp:
         leaf_name, runner, args = _EMITTERS[(sig, strat.space)](
-            stmt, shards, device)
+            stmt, plans, shards, device)
         esp.set(leaf=leaf_name)
     return LoweredKernel(
         stmt=stmt, strategy=strat, machine=machine, plans=plans,
@@ -550,6 +628,11 @@ def pos_tensor_root_var(stmt: Assignment, pos_tensor: Tensor) -> IndexVar:
     raise KeyError(pos_tensor.name)
 
 
+def _output_is_assembled(sig: str) -> bool:
+    # sparse outputs (sddmm, spttv) are assembled from leaf results
+    return sig.startswith("s")
+
+
 def _plans_equal(a: TensorPartition, b: TensorPartition) -> bool:
     if a.replicated != b.replicated:
         return False
@@ -625,38 +708,34 @@ def _nnz_row_windows(B: ShardedTensor, n: int):
 
 
 def _nnz_leaf_inputs(B: ShardedTensor, row_start: np.ndarray, max_rows: int,
-                     device: torch.device):
-    """(rows_local, cols, vals) of a coordinate-column shard set on
-    ``device``, the nnz leaves' inputs, prepared once and cached with the
+                     device: torch.device, cols: Tuple[str, ...] = ("dim1",)):
+    """(rows_local, *cols, vals) of a coordinate-column shard set on
+    ``device``, the flat leaves' inputs, prepared once and cached with the
     shard. Rows are rebased to each piece's window and clipped into it, as
     the reference's emitter does; padding slots get the dropped id
     ``max_rows``, so each piece stays row-sorted. A piece whose rows are not
     sorted (column-major roots: CSC) is stable-sorted by row, the order the
-    nnz kernel requires."""
-    key = ("nnz_leaf_inputs", max_rows, str(device))
-    hit = B.device_arrays.get(key)
-    if hit is not None:
-        return hit
-    a = B.arrays
-    rows = np.clip(a["dim0"].astype(np.int64) - row_start[:, None], 0,
-                   max(max_rows - 1, 0))
-    pad = np.arange(rows.shape[1])[None, :] >= a["nnz_count"][:, None]
-    rows[pad] = max_rows
-    cols, vals = a["dim1"], a["vals"]
-    if rows.size and (np.diff(rows, axis=1) < 0).any():
-        order = np.argsort(rows, axis=1, kind="stable")
-        rows = np.take_along_axis(rows, order, axis=1)
-        cols = np.take_along_axis(cols, order, axis=1)
-        vals = np.take_along_axis(vals, order, axis=1)
-    out = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device)
-                for x in (rows.astype(np.int32), cols, vals))
-    B.device_arrays[key] = out
-    return out
+    row-run kernels require."""
+    def build():
+        a = B.arrays
+        rows = np.clip(a["dim0"].astype(np.int64) - row_start[:, None], 0,
+                       max(max_rows - 1, 0))
+        pad = np.arange(rows.shape[1])[None, :] >= a["nnz_count"][:, None]
+        rows[pad] = max_rows
+        rest = [a[c] for c in cols] + [a["vals"]]
+        if rows.size and (np.diff(rows, axis=1) < 0).any():
+            order = np.argsort(rows, axis=1, kind="stable")
+            rows = np.take_along_axis(rows, order, axis=1)
+            rest = [np.take_along_axis(x, order, axis=1) for x in rest]
+        return (rows.astype(np.int32), *rest)
+
+    return _device_cached(B, ("nnz_leaf_inputs", max_rows) + cols, device,
+                          build)
 
 
 # -- SpMV -------------------------------------------------------------------
 
-def _emit_spmv_rows(stmt, shards, device):
+def _emit_spmv_rows(stmt, plans, shards, device):
     B = shards[stmt.rhs.accesses()[0].tensor.name]
     c = shards[stmt.rhs.accesses()[1].tensor.name]
     n = stmt.lhs.tensor.shape[0]
@@ -673,7 +752,7 @@ def _emit_spmv_rows(stmt, shards, device):
     return "spmv_rows", f, args
 
 
-def _emit_spmv_nnz(stmt, shards, device):
+def _emit_spmv_nnz(stmt, plans, shards, device):
     B = shards[stmt.rhs.accesses()[0].tensor.name]
     c = shards[stmt.rhs.accesses()[1].tensor.name]
     n = stmt.lhs.tensor.shape[0]
@@ -691,7 +770,7 @@ def _emit_spmv_nnz(stmt, shards, device):
 
 # -- SpMM -------------------------------------------------------------------
 
-def _emit_spmm_rows(stmt, shards, device):
+def _emit_spmm_rows(stmt, plans, shards, device):
     Bacc, Cacc = stmt.rhs.accesses()
     B, C = shards[Bacc.tensor.name], shards[Cacc.tensor.name]
     out_shape = stmt.lhs.tensor.shape
@@ -708,7 +787,7 @@ def _emit_spmm_rows(stmt, shards, device):
     return "spmm_rows", f, args
 
 
-def _emit_spmm_nnz(stmt, shards, device):
+def _emit_spmm_nnz(stmt, plans, shards, device):
     Bacc, Cacc = stmt.rhs.accesses()
     B, C = shards[Bacc.tensor.name], shards[Cacc.tensor.name]
     out_shape = stmt.lhs.tensor.shape
@@ -728,6 +807,200 @@ def _emit_spmm_nnz(stmt, shards, device):
     return "spmm_nnz", f, args
 
 
+# -- SDDMM ------------------------------------------------------------------
+
+def _transposed(D: ShardedTensor, device: torch.device) -> torch.Tensor:
+    """A replicated dense (K, m) operand as Dt (m, K), made once and cached
+    with its shard: both SDDMM gathers then read contiguous K-rows."""
+    return _device_cached(D, ("Dt",), device,
+                          lambda: np.ascontiguousarray(D.arrays["vals"].T))
+
+
+def _three_operands(stmt, shards):
+    """(B's tensor, B, C, D shards) of ``A = B * C * D`` (SDDMM, MTTKRP)."""
+    Bacc, Cacc, Dacc = stmt.rhs.accesses()
+    return (Bacc.tensor, shards[Bacc.tensor.name], shards[Cacc.tensor.name],
+            shards[Dacc.tensor.name])
+
+
+def _emit_sddmm_rows(stmt, plans, shards, device):
+    """Row-based SDDMM: B and C's matching row block local per color, D
+    replicated; output vals stay aligned with B's stored positions. Ordered
+    walks scatter back by value-space intervals; transpose-walked shards
+    (CSC) scatter home through their ``val_idx`` permutation."""
+    Bt, B, C, D = _three_operands(stmt, shards)
+    a = B.arrays
+    total = Bt.nnz
+    n_pos = a["crd1"].shape[1]
+    # the leaf's per-position rows, expanded from pos1 once
+    rows = _device_cached(B, ("sddmm_rows",), device, lambda: torch.stack([
+        K.rows_from_pos(torch.from_numpy(a["pos1"][p]), n_pos)
+        for p in range(B.pieces)]).int())
+    head = (rows, _on_device(B, "crd1", device), _on_device(B, "vals", device),
+            _on_device(C, "vals", device), _transposed(D, device))
+    if "val_idx" in a:
+        def fn(rows, cols, vals, Cl, Dt, val_idx, count):
+            out = sddmm_kernels.sddmm_coo(rows, cols, vals, Cl, Dt)
+            return _scatter_by_val_idx(total, out, val_idx, count)
+
+        args = head + (_on_device(B, "val_idx", device), a["nnz_count"])
+    else:
+        vb = plans[Bt.name].vals_bounds
+
+        def fn(rows, cols, vals, Cl, Dt, start, count):
+            out = sddmm_kernels.sddmm_coo(rows, cols, vals, Cl, Dt)
+            return _scatter_vals(total, out, start, count)
+
+        args = head + (vb[:, 0].astype(np.int32),
+                       (vb[:, 1] - vb[:, 0]).astype(np.int32))
+    f = _runner("sddmm_rows", (total,), args, lambda: fn, device)
+    return "sddmm_rows", _pattern_output(
+        stmt.lhs.tensor.name, Bt.shape, Bt.format, Bt.levels, f), args
+
+
+def _emit_sddmm_nnz(stmt, plans, shards, device):
+    Bt, B, C, D = _three_operands(stmt, shards)
+    a = B.arrays
+    total = Bt.nnz
+
+    def fn(rows, cols, vals, Cm, Dt, count, start):
+        out = sddmm_kernels.sddmm_coo(rows, cols, vals, Cm, Dt)
+        return _scatter_vals(total, out, start, count)
+
+    args = (_on_device(B, "dim0", device), _on_device(B, "dim1", device),
+            _on_device(B, "vals", device), _on_device(C, "vals", device),
+            _transposed(D, device), a["nnz_count"],
+            plans[Bt.name].vals_bounds[:, 0].astype(np.int32))
+    f = _runner("sddmm_nnz", (total,), args, lambda: fn, device)
+    return "sddmm_nnz", _pattern_output(
+        stmt.lhs.tensor.name, Bt.shape, Bt.format, Bt.levels, f), args
+
+
+# -- SpTTV ------------------------------------------------------------------
+
+def _spttv_flat_runner(stmt, shards, device, name):
+    """Flat-walk SpTTV: per-position products, then the (i, j) assembly on
+    the host (the result pattern is the walk's ij columns; duplicates merge
+    in ``from_coo``). Serves the nnz strategy and the universe strategy over
+    trailing-singleton trees (COO3), whose shard sets are the same
+    coordinate columns. No TPU kernel exists for the products (the
+    reference computes them in jnp); they stay plain PyTorch."""
+    Bacc, cacc = stmt.rhs.accesses()
+    Bt, B = Bacc.tensor, shards[Bacc.tensor.name]
+    a = B.arrays
+    args = (_on_device(B, "dim2", device), _on_device(B, "vals", device),
+            _on_device(shards[cacc.tensor.name], "vals", device))
+    f = _runner(name, (), args, lambda: K.leaf_spttv_flat, device)
+    mask = np.arange(a["vals"].shape[1])[None, :] < a["nnz_count"][:, None]
+    coords = np.stack([a["dim0"][mask], a["dim1"][mask]], 1)
+    # the assembled output format follows the input's (i, j) levels
+    out_fmt = fmt.Format(Bt.format.levels[:2])
+    flat_mask = torch.from_numpy(mask.ravel())
+
+    def run(dk, vals, cvec):
+        prod = f(dk, vals, cvec).cpu().reshape(-1)[flat_mask].numpy()
+        return Tensor.from_coo(stmt.lhs.tensor.name, Bt.shape[:2], coords,
+                               prod, out_fmt, dedupe=True)
+
+    return run, args
+
+
+def _emit_spttv_rows(stmt, plans, shards, device):
+    Bacc, cacc = stmt.rhs.accesses()
+    Bt = Bacc.tensor
+    if tree_of(Bt).trailing_singletons:
+        # no grouped middle level: the universe plan materialized the flat
+        # walk bucketed by row window; consume it with the flat leaf
+        return ("spttv_flat_rows",
+                *_spttv_flat_runner(stmt, shards, device, "spttv_flat_rows"))
+    B = shards[Bt.name]
+    # output pattern = B's (i, j) level; vals live at level-1 positions
+    ij = plans[Bt.name].levels[1].pos_bounds
+    total_ij = Bt.levels[1].nnz
+
+    def fn(pos2, crd2, vals, cvec, ij_start, ij_count):
+        # the SpMV rows kernel over the (i, j) fibres
+        out = spmv_kernels.spmv_csr_rows(pos2, crd2, vals, cvec)
+        return _scatter_vals(total_ij, out, ij_start, ij_count)
+
+    args = (_on_device(B, "pos2", device), _on_device(B, "crd2", device),
+            _on_device(B, "vals", device),
+            _on_device(shards[cacc.tensor.name], "vals", device),
+            ij[:, 0].astype(np.int32), (ij[:, 1] - ij[:, 0]).astype(np.int32))
+    f = _runner("spttv_rows", (total_ij,), args, lambda: fn, device)
+    # an (i, j) matrix with B's ij pattern, in the format the input's first
+    # two levels spell: CSF yields CSR, DCSF yields DCSR
+    levels = [dataclasses.replace(Bt.levels[0]),
+              dataclasses.replace(Bt.levels[1])]
+    return "spttv_rows", _pattern_output(
+        stmt.lhs.tensor.name, Bt.shape[:2], fmt.Format(Bt.format.levels[:2]),
+        levels, f), args
+
+
+def _emit_spttv_nnz(stmt, plans, shards, device):
+    return ("spttv_nnz",
+            *_spttv_flat_runner(stmt, shards, device, "spttv_nnz"))
+
+
+# -- SpMTTKRP ---------------------------------------------------------------
+
+def _spmttkrp_leaf(out_shape, max_rows: int):
+    def fn(rows, j, k, vals, Cm, Dm, row_start, row_count):
+        blocks = spmttkrp_kernels.spmttkrp_coo(rows, j, k, vals, Cm, Dm,
+                                               max_rows)
+        return _scatter_rows(out_shape, blocks, row_start, row_count)
+    return fn
+
+
+def _spmttkrp_flat_runner(stmt, shards, device, name):
+    """Flat-walk MTTKRP: per-position (i, j, k) contributions summed into the
+    shard's row window. Serves the nnz strategy (overlapping windows,
+    reduced by the scatter) and the universe strategy over
+    trailing-singleton trees (COO3: disjoint windows, same leaf)."""
+    _, B, C, D = _three_operands(stmt, shards)
+    out_shape = stmt.lhs.tensor.shape
+    row_start, row_count, max_rows = _nnz_row_windows(B, out_shape[0])
+    args = (*_nnz_leaf_inputs(B, row_start, max_rows, device,
+                              cols=("dim1", "dim2")),
+            _on_device(C, "vals", device), _on_device(D, "vals", device),
+            row_start, row_count)
+    f = _runner(name, out_shape + (max_rows,), args,
+                lambda: _spmttkrp_leaf(out_shape, max_rows), device)
+    return f, args
+
+
+def _emit_spmttkrp_rows(stmt, plans, shards, device):
+    Bt, B, C, D = _three_operands(stmt, shards)
+    if tree_of(Bt).trailing_singletons:
+        return ("spmttkrp_flat_rows", *_spmttkrp_flat_runner(
+            stmt, shards, device, "spmttkrp_flat_rows"))
+    out_shape = stmt.lhs.tensor.shape
+    a = B.arrays
+    max_rows = a["pos1"].shape[1] - 1
+    n_pos = a["crd2"].shape[1]
+
+    def flatten():
+        # the CSF shard as the kernel's (row, j) stream, once per shard
+        rj = [spmttkrp_kernels.flatten_csf(
+            *(torch.from_numpy(a[x][p]) for x in ("pos1", "crd1", "pos2")),
+            n_pos) for p in range(B.pieces)]
+        return (torch.stack([r for r, _ in rj]),
+                torch.stack([j for _, j in rj]))
+
+    args = (*_device_cached(B, ("csf_stream",), device, flatten),
+            _on_device(B, "crd2", device), _on_device(B, "vals", device),
+            _on_device(C, "vals", device), _on_device(D, "vals", device),
+            a["row_start"], a["row_count"])
+    f = _runner("spmttkrp_rows", out_shape + (max_rows,), args,
+                lambda: _spmttkrp_leaf(out_shape, max_rows), device)
+    return "spmttkrp_rows", f, args
+
+
+def _emit_spmttkrp_nnz(stmt, plans, shards, device):
+    return ("spmttkrp_nnz",
+            *_spmttkrp_flat_runner(stmt, shards, device, "spmttkrp_nnz"))
+
+
 # One emitter per expression × strategy ported so far; the format variation
 # lives in the shards the emitters read, not in this table.
 _EMITTERS = {
@@ -735,4 +1008,10 @@ _EMITTERS = {
     ("d1(i)=s2(i,j)*d1(j)", "nnz"): _emit_spmv_nnz,
     ("d2(i,j)=s2(i,k)*d2(k,j)", "universe"): _emit_spmm_rows,
     ("d2(i,j)=s2(i,k)*d2(k,j)", "nnz"): _emit_spmm_nnz,
+    ("s2(i,j)=s2(i,j)*d2(i,k)*d2(k,j)", "universe"): _emit_sddmm_rows,
+    ("s2(i,j)=s2(i,j)*d2(i,k)*d2(k,j)", "nnz"): _emit_sddmm_nnz,
+    ("s2(i,j)=s3(i,j,k)*d1(k)", "universe"): _emit_spttv_rows,
+    ("s2(i,j)=s3(i,j,k)*d1(k)", "nnz"): _emit_spttv_nnz,
+    ("d2(i,l)=s3(i,j,k)*d2(j,l)*d2(k,l)", "universe"): _emit_spmttkrp_rows,
+    ("d2(i,l)=s3(i,j,k)*d2(j,l)*d2(k,l)", "nnz"): _emit_spmttkrp_nnz,
 }

@@ -4,7 +4,8 @@ The reference's generators (``repro/data/spdata.py``), deterministic in
 ``seed``: the same seed gives the same matrix in both packages, entry for
 entry. Stand-ins for the paper's datasets (Table II), matched on the
 structural property that drives its results: skewed row degrees
-(power-law, like web graphs such as arabic-2005) and uniform random.
+(power-law, like web graphs such as arabic-2005), skewed slice sizes
+(FROSTT-like 3-tensors such as nell-2) and uniform random.
 """
 from __future__ import annotations
 
@@ -40,3 +41,22 @@ def powerlaw_matrix(name: str, n: int, m: int, avg_nnz_per_row: int = 16,
     vals = rng.standard_normal(rows.shape[0]).astype(np.float32)
     return Tensor.from_coo(name, (n, m),
                            np.stack([rows, cols], 1), vals, F.CSR())
+
+
+def powerlaw_tensor3(name: str, dims: Tuple[int, int, int],
+                     avg_nnz_per_slice: int = 64, alpha: float = 1.8,
+                     seed: int = 0) -> Tensor:
+    """FROSTT-like 3-tensor in CSF with Zipf-distributed slice sizes (capped
+    at ``dims[1] * dims[2]``; duplicates merge)."""
+    rng = np.random.default_rng(seed)
+    n = dims[0]
+    raw = rng.zipf(alpha, size=n).astype(np.float64)
+    deg = np.minimum(np.maximum(
+        (raw / raw.mean() * avg_nnz_per_slice).astype(np.int64), 1),
+        dims[1] * dims[2])
+    i = np.repeat(np.arange(n, dtype=np.int64), deg)
+    j = rng.integers(0, dims[1], size=i.shape[0])
+    k = rng.integers(0, dims[2], size=i.shape[0])
+    vals = rng.standard_normal(i.shape[0]).astype(np.float32)
+    return Tensor.from_coo(name, dims, np.stack([i, j, k], 1), vals,
+                           F.CSF(3))

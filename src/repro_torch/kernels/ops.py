@@ -17,7 +17,9 @@ import torch
 
 from ..core.device import resolve_device
 from . import ref
+from .sddmm import sddmm_coo
 from .spmm import spmm_csr_rows
+from .spmttkrp import flatten_csf, spmttkrp_coo
 from .spmv import spmv_coo_nnz, spmv_csr_rows
 
 
@@ -57,3 +59,41 @@ def spmm(pos, crd, vals, C, impl: str = "torch", device=None):
     if impl == "torch":
         return ref.leaf_spmm_rows(pos, crd, vals, C)
     return spmm_csr_rows(pos[None], crd[None], vals[None], C)[0]
+
+
+def sddmm(rows, cols, vals, C, D, impl: str = "torch", device=None):
+    """out_vals (nnz,) = vals ⊙ (C @ D) sampled at (rows, cols)."""
+    _check_impl(impl)
+    rows, cols, vals, C, D = _on(resolve_device(device), rows, cols, vals,
+                                 C, D)
+    if impl == "torch":
+        return ref.leaf_sddmm_nnz(rows, cols, vals, C, D)
+    return sddmm_coo(rows[None], cols[None], vals[None], C,
+                     D.t().contiguous())[0]
+
+
+def spttv(pos1, crd1, pos2, crd2, vals, c, impl: str = "torch",
+          device=None):
+    """out_vals aligned with a CSF tensor's (i, j) positions: A(i,j) =
+    B(i,j,k)·c(k). The kernel is the SpMV rows kernel over the level-1
+    positions."""
+    _check_impl(impl)
+    pos1, crd1, pos2, crd2, vals, c = _on(resolve_device(device), pos1, crd1,
+                                          pos2, crd2, vals, c)
+    if impl == "torch":
+        return ref.leaf_spttv_rows(pos1, crd1, pos2, crd2, vals, c)
+    return spmv_csr_rows(pos2[None], crd2[None], vals[None], c)[0]
+
+
+def spmttkrp(pos1, crd1, pos2, crd2, vals, C, D, impl: str = "torch",
+             device=None):
+    """A (n, L) = B(i,j,k)·C(j,l)·D(k,l) from a CSF tensor's arrays; the
+    kernel takes the flattened (row, j, k, val) stream."""
+    _check_impl(impl)
+    pos1, crd1, pos2, crd2, vals, C, D = _on(
+        resolve_device(device), pos1, crd1, pos2, crd2, vals, C, D)
+    if impl == "torch":
+        return ref.leaf_spmttkrp_rows(pos1, crd1, pos2, crd2, vals, C, D)
+    rows, j = flatten_csf(pos1, crd1, pos2, crd2.shape[0])
+    return spmttkrp_coo(rows[None], j[None], crd2[None], vals[None], C, D,
+                        pos1.shape[0] - 1)[0]

@@ -1,4 +1,5 @@
-"""Plain PyTorch oracles for the SpMV and SpMM leaf kernels.
+"""Plain PyTorch oracles for the SpMV, SpMM, SDDMM, SpTTV and SpMTTKRP
+leaf kernels.
 
 Two families, as in the JAX package:
 
@@ -27,6 +28,21 @@ def dense_spmv(B: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 def dense_spmm(B: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     return torch.einsum("ik,kj->ij", B, C)
+
+
+def dense_sddmm(Bpat: torch.Tensor, C: torch.Tensor,
+                D: torch.Tensor) -> torch.Tensor:
+    """A(i,j) = B(i,j) * C(i,k) * D(k,j): the dense product sampled at B."""
+    return Bpat * torch.einsum("ik,kj->ij", C, D)
+
+
+def dense_spttv(B: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("ijk,k->ij", B, c)
+
+
+def dense_spmttkrp(B: torch.Tensor, C: torch.Tensor,
+                   D: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("ijk,jl,kl->il", B, C, D)
 
 
 def rows_from_pos(pos: torch.Tensor, n_positions: int) -> torch.Tensor:
@@ -78,3 +94,50 @@ def leaf_spmm_rows(pos, crd, vals, C):
 def leaf_spmm_nnz(rows_local, cols, vals, C, max_rows: int):
     return _segment_sum(vals[:, None] * _gather(C, cols), rows_local,
                         max_rows)
+
+
+def leaf_sddmm_nnz(rows, cols, vals, C, D):
+    """out_vals (N,) = vals * <C[rows, :], D[:, cols]>, the fused SDDMM leaf
+    over coordinate columns."""
+    Cg = _gather(C, rows)                            # (N, K)
+    Dg = _gather(D.t(), cols)                        # (N, K)
+    return vals * (Cg * Dg).sum(dim=1)
+
+
+def leaf_sddmm_rows(pos, crd, vals, C_local, D):
+    """Row-window SDDMM leaf: a CSR row shard, C's matching row block local,
+    D replicated. Output vals stay aligned with the shard's positions."""
+    rows = rows_from_pos(pos, crd.shape[0])
+    return leaf_sddmm_nnz(rows, crd, vals, C_local, D)
+
+
+def leaf_spttv_rows(pos1, crd1, pos2, crd2, vals, c):
+    """A(i,j) = B(i,j,k)·c(k) over a CSF row shard: vals aligned with the
+    shard's level-1 (i, j) positions."""
+    ij_of_nnz = rows_from_pos(pos2, crd2.shape[0])
+    return _segment_sum(vals * _gather(c, crd2), ij_of_nnz, crd1.shape[0])
+
+
+def leaf_spttv_flat(k, vals, c):
+    """The flat walk's per-position SpTTV products vals·c[k]; the (i, j)
+    assembly happens on the host. No TPU kernel: the reference computes
+    them in jnp inside its emitter."""
+    return vals * _gather(c, k)
+
+
+def leaf_spttv_nnz(ij_local, k, vals, c, max_ij: int):
+    return _segment_sum(vals * _gather(c, k), ij_local, max_ij)
+
+
+def leaf_spmttkrp_rows(pos1, crd1, pos2, crd2, vals, C, D):
+    """A(i,l) = B(i,j,k)·C(j,l)·D(k,l) over a CSF row shard -> (R, L)."""
+    ij_of_nnz = rows_from_pos(pos2, crd2.shape[0])   # level-1 position per nnz
+    i_of_ij = rows_from_pos(pos1, crd1.shape[0])     # row per level-1 position
+    j = _gather(crd1, ij_of_nnz)
+    i = _gather(i_of_ij, ij_of_nnz)
+    return leaf_spmttkrp_nnz(i, j, crd2, vals, C, D, pos1.shape[0] - 1)
+
+
+def leaf_spmttkrp_nnz(i_local, j, k, vals, C, D, max_rows: int):
+    contrib = vals[:, None] * _gather(C, j) * _gather(D, k)
+    return _segment_sum(contrib, i_local, max_rows)

@@ -189,6 +189,19 @@ def test_generators_match_reference(seed):
     assert t.fingerprint() == r.fingerprint()
 
 
+@pytest.mark.parametrize("seed", [0, 3])
+def test_powerlaw_tensor3_matches_reference(seed):
+    """Entry for entry: the same CSF levels and values from the same seed."""
+    r = r_spdata.powerlaw_tensor3("B", (300, 40, 50), avg_nnz_per_slice=6,
+                                  seed=seed)
+    t = t_spdata.powerlaw_tensor3("B", (300, 40, 50), avg_nnz_per_slice=6,
+                                  seed=seed)
+    assert t.fingerprint() == r.fingerprint()
+    np.testing.assert_array_equal(t.coords(), r.coords())
+    np.testing.assert_array_equal(t.vals, r.vals)
+    assert t.nnz == r.nnz > 300
+
+
 @pytest.mark.parametrize("name,ctor,order", FORMATS[:4], ids=IDS[:4])
 def test_interp_matches_reference(name, ctor, order):
     rng = np.random.default_rng(7)

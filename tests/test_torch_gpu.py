@@ -51,11 +51,35 @@ def test_kernels_repeat_bit_for_bit(card):
 
 @pytest.mark.gpu
 def test_lower_runs_the_kernels(card):
-    """The slice's four cells on the card go through the three kernels and
-    agree with the host computation."""
+    """The ten cells of the two main paths on the card go through the five
+    kernels and agree with the host computation; SDDMM and SpMTTKRP repeat
+    bit for bit. The launches are counted over the drive alone: run_slice
+    raises unless each cell's kernel launched once per run()."""
+    data = chip_smoke.make_inputs(4096, 8, 33, seed=1, dims3=(2048, 64, 64),
+                                  rank=33)
+    for path, cells in (("matrix", chip_smoke.MATRIX_CELLS),
+                        ("slice", chip_smoke.SLICE_CELLS)):
+        cells, launches = chip_smoke.run_slice(data, cells, pieces=4,
+                                               device=None, reps=1)
+        assert all(launches[k] > 0 for k in chip_smoke.PATH_KERNELS[path])
+        for name, rec in cells.items():
+            if name.split("/")[0] in ("spmv", "spmm", "spmttkrp"):
+                assert rec["out"].device.type == "cuda"
+            if name.split("/")[0] in ("sddmm", "spmttkrp"):
+                assert rec["bitwise"]
+
+
+@pytest.mark.gpu
+def test_new_kernels_match_plain_versions(card):
+    """The edge cases of sddmm_coo (K in {1, 7, 32, 33}, C shared and per
+    piece) and spmttkrp_coo (L in {1, 7, 32, 33}; an empty row and piece,
+    rows across segment edges) launch and agree with the plain versions."""
+    cases = [c for c in chip_smoke.kernel_cases(np.random.default_rng(7),
+                                                card)
+             if c[1] in ("sddmm_coo", "spmttkrp_coo")]
     before = dict(_build.LAUNCHES)
-    _, _, _, cells = chip_smoke.run_slice(n=4096, avg_nnz=8, pieces=4, J=33,
-                                          seed=1, device=None, reps=1)
-    for rec in cells.values():
-        assert rec["out"].device.type == "cuda"
-    assert all(_build.LAUNCHES[k] > before[k] for k in before)
+    for label, name, args, abs_args in cases:
+        chip_smoke.compare_kernel(label, name, args, abs_args)
+    assert (_build.LAUNCHES["sddmm_coo"] - before["sddmm_coo"]
+            + _build.LAUNCHES["spmttkrp_coo"] - before["spmttkrp_coo"]
+            == len(cases) > 0)

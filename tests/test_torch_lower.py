@@ -1,13 +1,15 @@
 """The port's lowering against the JAX package's, cell by cell.
 
-Cells: {spmv, spmm} × {csr, csc, dcsr, coo} × {rows, nnz} × pieces {2, 4},
-plus the all-zero operand cells. The statement is built from the same
-numpy arrays in both packages (the statement code of tests/conformance.py,
-copied here: importing that module would register its census a second
-time).
+Cells: {spmv, spmm, sddmm} × {csr, csc, dcsr, coo} and {spttv, spmttkrp} ×
+{csf, dcsf, coo3}, each × {rows, nnz} × pieces {2, 4}, plus the all-zero
+operand cells. The statement is built from the same numpy arrays in both
+packages (the statement code of tests/conformance.py and, for SpTTV, of
+tests/test_lower.py::test_spttv, copied here: importing conformance would
+register its census a second time).
 ``cell_id``, ``leaf_name``, ``fallbacks``, the ``CommStats`` ledger and the
-cache counters of a cold and a warm lower must be equal; ``run()`` must be
-allclose to the reference's and to the port's interpreter at 1e-3."""
+cache counters of a cold and a warm lower must be equal; ``run()`` (densified
+for the sparse outputs of SDDMM and SpTTV) must be allclose to the
+reference's and to both interpreters at 1e-3."""
 import sys
 import zlib
 from pathlib import Path
@@ -36,6 +38,13 @@ FORMATS = [
     ("dcsr", lambda F: F.DCSR()),
     ("coo", lambda F: F.COO(2)),
 ]
+FORMATS_3D = [
+    ("csf", lambda F: F.CSF(3)),
+    ("dcsf", lambda F: F.DCSF(3)),
+    ("coo3", lambda F: F.COO(3)),
+]
+CELLS = ([(e, *f) for e in ("spmv", "spmm", "sddmm") for f in FORMATS]
+         + [(e, *f) for e in ("spttv", "spmttkrp") for f in FORMATS_3D])
 
 
 def _sparse_2d(rng, n, m, density=0.25):
@@ -46,24 +55,58 @@ def _sparse_2d(rng, n, m, density=0.25):
     return d
 
 
+def _normal(rng, shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
 def _arrays(expr, rng, empty):
-    n, m = 19, 13
+    """The cell's operands as numpy arrays: B first, then the dense ones."""
+    if expr == "spttv":
+        dims = (20, 15, 11)
+        dB3 = ((rng.random(dims) < 0.1) *
+               rng.standard_normal(dims)).astype(np.float32)
+        return dB3, _normal(rng, dims[2])
+    if expr == "spmttkrp":
+        dims, L = (16, 9, 7), 4
+        dB3 = ((rng.random(dims) < 0.12) *
+               rng.standard_normal(dims)).astype(np.float32)
+        dB3[rng.integers(0, dims[0])] = 0                       # empty slice
+        return dB3, _normal(rng, (dims[1], L)), _normal(rng, (dims[2], L))
+    n, m, K = 19, 13, 5
     dB = np.zeros((n, m), np.float32) if empty else _sparse_2d(rng, n, m)
     if expr == "spmv":
-        return dB, rng.standard_normal(m).astype(np.float32)
-    return dB, rng.standard_normal((m, 7)).astype(np.float32)
+        return dB, _normal(rng, m)
+    if expr == "spmm":
+        return dB, _normal(rng, (m, 7))
+    return dB, _normal(rng, (n, K)), _normal(rng, (K, m))
 
 
-def _stmt(pkg, F, expr, fm, dB, dense):
+def _stmt(pkg, F, expr, fm, dB, *dense):
     n = dB.shape[0]
     B = pkg.Tensor.from_dense("B", dB, fm(F))
+    ops = {name: pkg.Tensor.from_dense(name, x)
+           for name, x in zip("CD", dense)}
     if expr == "spmv":
         return pkg.parse_tin("a(i) = B(i,j) * c(j)",
                              a=pkg.Tensor.zeros_dense("a", (n,)), B=B,
-                             c=pkg.Tensor.from_dense("c", dense))
-    return pkg.parse_tin("A(i,j) = B(i,k) * C(k,j)",
-                         A=pkg.Tensor.zeros_dense("A", (n, 7)), B=B,
-                         C=pkg.Tensor.from_dense("C", dense))
+                             c=pkg.Tensor.from_dense("c", dense[0]))
+    if expr == "spmm":
+        return pkg.parse_tin("A(i,j) = B(i,k) * C(k,j)",
+                             A=pkg.Tensor.zeros_dense("A", (n, 7)), B=B,
+                             **ops)
+    if expr == "sddmm":
+        return pkg.parse_tin("A(i,j) = B(i,j) * C(i,k) * D(k,j)",
+                             A=pkg.Tensor.from_dense("A", (dB != 0) * 1.0,
+                                                     F.CSR()), B=B, **ops)
+    if expr == "spttv":
+        return pkg.parse_tin(
+            "A(i,j) = B(i,j,k) * c(k)",
+            A=pkg.Tensor.from_dense(
+                "A", np.einsum("ijk,k->ij", dB, dense[0]) * 0, F.CSR()),
+            B=B, c=pkg.Tensor.from_dense("c", dense[0]))
+    return pkg.parse_tin("A(i,l) = B(i,j,k) * C(j,l) * D(k,l)",
+                         A=pkg.Tensor.zeros_dense("A", (n, dense[0].shape[1])),
+                         B=B, **ops)
 
 
 def _lower_twice(pkg, lower, stmt, strategy, pieces, **kw):
@@ -79,9 +122,9 @@ def _lower_twice(pkg, lower, stmt, strategy, pieces, **kw):
 def _check_cell(expr, fmt_name, fm, strategy, pieces, empty=False):
     cell_tag = f"{expr}/{fmt_name}/{strategy}/{pieces}/{empty}"
     rng = np.random.default_rng(zlib.crc32(cell_tag.encode()))
-    dB, dense = _arrays(expr, rng, empty)
-    r_stmt = _stmt(rc, RF, expr, fm, dB, dense)
-    t_stmt = _stmt(tc, TF, expr, fm, dB, dense)
+    arrays = _arrays(expr, rng, empty)
+    r_stmt = _stmt(rc, RF, expr, fm, *arrays)
+    t_stmt = _stmt(tc, TF, expr, fm, *arrays)
     r_cold, r_warm = _lower_twice(rc, r_lower, r_stmt, strategy, pieces)
     t_cold, t_warm = _lower_twice(tc, t_lower, t_stmt, strategy, pieces,
                                   device="cpu")
@@ -94,10 +137,16 @@ def _check_cell(expr, fmt_name, fm, strategy, pieces, empty=False):
     assert t_warm.cache.warm
     assert t_cold.imbalance() == r_cold.imbalance()
     assert t_cold.explain().startswith(f"kernel {r_cold.cell_id()}")
-    got = t_warm.run()
-    assert isinstance(got, torch.Tensor) and got.device.type == "cpu"
-    got = got.numpy()
-    np.testing.assert_allclose(got, np.asarray(r_warm.run()), atol=1e-3)
+    got, want = t_warm.run(), r_warm.run()
+    if expr in ("sddmm", "spttv"):
+        # a sparse output: the port's Tensor, in the reference's format
+        assert isinstance(got, tc.Tensor)
+        assert TF.format_key(got.format) == RF.format_key(want.format)
+        got, want = got.to_dense(), want.to_dense()
+    else:
+        assert isinstance(got, torch.Tensor) and got.device.type == "cpu"
+        got = got.numpy()
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-3)
     np.testing.assert_allclose(got, t_interpret(t_stmt, device="cpu"),
                                atol=1e-3)
     np.testing.assert_allclose(got, r_interpret(r_stmt), atol=1e-3)
@@ -105,8 +154,8 @@ def _check_cell(expr, fmt_name, fm, strategy, pieces, empty=False):
 
 @pytest.mark.parametrize("pieces", [2, 4])
 @pytest.mark.parametrize("strategy", ["rows", "nnz"])
-@pytest.mark.parametrize("fmt_name,fm", FORMATS, ids=[f[0] for f in FORMATS])
-@pytest.mark.parametrize("expr", ["spmv", "spmm"])
+@pytest.mark.parametrize("expr,fmt_name,fm", CELLS,
+                         ids=[f"{c[0]}-{c[1]}" for c in CELLS])
 def test_cell(expr, fmt_name, fm, strategy, pieces):
     _check_cell(expr, fmt_name, fm, strategy, pieces)
 
@@ -136,7 +185,7 @@ def test_weighted_nnz_split_matches_reference():
     np.testing.assert_allclose(out[1][2], out[0][2], atol=1e-3)
 
 
-@pytest.mark.parametrize("case", ["bcsr", "grid", "sddmm", "auto"])
+@pytest.mark.parametrize("case", ["bcsr", "grid", "spadd3", "auto"])
 def test_unported_paths_raise(case):
     rng = np.random.default_rng(0)
     dB, c = _arrays("spmv", rng, False)
@@ -154,14 +203,12 @@ def test_unported_paths_raise(case):
                                                       machine.dims[1])
         s.distribute(io, ko)
         kw["schedule"] = s
-    elif case == "sddmm":
-        n, m = dB.shape
+    elif case == "spadd3":
         stmt = tc.parse_tin(
-            "A(i,j) = B(i,j) * C(i,k) * D(k,j)",
-            A=tc.Tensor.from_dense("A", (dB != 0) * 1.0, TF.CSR()),
-            B=tc.Tensor.from_dense("B", dB, TF.CSR()),
-            C=tc.Tensor.from_dense("C", np.ones((n, 2), np.float32)),
-            D=tc.Tensor.from_dense("D", np.ones((2, m), np.float32)))
+            "A(i,j) = B(i,j) + C(i,j) + D(i,j)",
+            A=tc.Tensor.from_dense("A", np.zeros_like(dB), TF.CSR()),
+            **{name: tc.Tensor.from_dense(name, dB, TF.CSR())
+               for name in "BCD"})
     elif case == "auto":
         kw["schedule"] = "auto"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -169,20 +216,34 @@ def test_unported_paths_raise(case):
 
 
 def test_chip_smoke_slice_on_cpu():
-    """The chip script's main path at a tiny size, on the CPU: the four
-    cells lower cold and warm, run, and agree with the host computation."""
+    """The chip script's two main paths at a tiny size, on the CPU: the ten
+    cells lower cold and warm, run, agree with the host computation and
+    repeat bit for bit; no kernel launches; every edge case of the kernels
+    gives an error of 0.0 against its plain version (on the CPU the wrapper
+    is the plain version)."""
     before = dict(_build.LAUNCHES)
-    B, c, C, cells = chip_smoke.run_slice(n=256, avg_nnz=4, pieces=4, J=5,
-                                          seed=0, device="cpu", reps=1)
-    assert sorted(cells) == ["spmm/nnz", "spmm/rows", "spmv/nnz",
-                             "spmv/rows"]
+    data = chip_smoke.make_inputs(256, 4, 5, seed=0, dims3=(64, 16, 16),
+                                  rank=3)
+    cells = {}
+    for path in (chip_smoke.MATRIX_CELLS, chip_smoke.SLICE_CELLS):
+        recs, launches = chip_smoke.run_slice(data, path, pieces=4,
+                                              device="cpu", reps=1)
+        assert set(launches.values()) == {0}
+        cells.update(recs)
+    assert sorted(cells) == sorted(
+        f"{e}/{s}" for e, s in chip_smoke.MATRIX_CELLS
+        + chip_smoke.SLICE_CELLS)
     for name, rec in cells.items():
-        assert rec["kernel"].cell_id() == \
-            f"{name.split('/')[0]}/csr/{name.split('/')[1]}/4x1"
+        expr, strat = name.split("/")
+        key = "csf" if expr in ("spttv", "spmttkrp") else "csr"
+        assert rec["kernel"].cell_id() == f"{expr}/{key}/{strat}/4x1"
         assert rec["max_abs_err"] < 1e-3
+        assert rec["bitwise"] and rec["runs"] >= 3
     assert _build.LAUNCHES == before
     rng = np.random.default_rng(0)
+    seen = set()
     for label, name, args, abs_args in chip_smoke.kernel_cases(
             rng, torch.device("cpu")):
         assert chip_smoke.compare_kernel(label, name, args, abs_args) == 0.0
-
+        seen.add(name)
+    assert seen == set(chip_smoke.KERNELS)
