@@ -2,8 +2,8 @@
 """Run the PyTorch/CUDA port's main path on one NVIDIA H100 and check it.
 
     python3 chip_smoke.py            # full size (below)
-    python3 chip_smoke.py --log2-n 14 --log2-i 13 --log2-jk 9 --reps 4
-                                     # a quick rehearsal
+    python3 chip_smoke.py --log2-n 14 --log2-i 13 --log2-jk 9 \
+        --log2-dense 10 --reps 4     # a quick rehearsal
 
 Phases, one line each (a failing phase raises and the script exits non-zero):
 
@@ -13,12 +13,17 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
 3. kernels — each Hopper kernel against its plain PyTorch version on the
              card: first at edge-case shapes (empty rows, an empty piece, a
              row longer than 128 entries, a slice longer than one 256-entry
-             segment, J in {1, 16, 130}, K and L in {1, 7, 32, 33}), later
-             at the main path's shapes. Per-entry tolerance
+             segment, J in {1, 16, 130}, K and L in {1, 7, 32, 33}; for
+             SpAdd3 an empty operand, a row longer than one merge task,
+             coordinates in all three operands and sums that cancel to 0,
+             shard padding that must not be read, block shapes (2, 2) and
+             (4, 4) with a ragged last block column), later at the main
+             path's shapes. Per-entry tolerance
              |got - plain| <= 1e-4 * scale + 1e-6, with ``scale`` the same
              computation on absolute values: f32 sums of up to a million
-             terms, taken in a different order.
-4. main    — two paths, each driven through the public entry points with
+             terms, taken in a different order. A compressed result must
+             have the plain version's pattern exactly.
+4. main    — three paths, each driven through the public entry points with
              the kernel launch counts reset just before and read just
              after; each of the path's kernels must have launched.
    a. ``powerlaw_matrix`` (n = m = 2^21, 16 entries per row on average,
@@ -27,20 +32,29 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
    b. SDDMM over the same matrix (K = 32), and SpTTV and SpMTTKRP (L = 32)
       over ``powerlaw_tensor3`` (2^20 x 2^16 x 2^16, 16 entries per slice
       on average, alpha 1.8, seed 0) in CSF, under rows and nnz.
+   c. SpAdd3 ``A = B + C + D`` under rows and nnz: over the same matrix B
+      with C and D its pattern shifted by 1 and 2 columns (values from
+      seeds 1 and 2), and over BCSR((4, 4)) operands of the same side whose
+      block pattern is ``powerlaw_matrix`` (side / 4, 4 blocks per
+      block-row) and its shifts by 1 and 2 block columns; plus the dense
+      sums of ``ops.spadd3_dense`` and ``ops.spadd3_bcsr_dense`` over such
+      operands of side 2^15 (the dense output of side 2^21 would be 16 TiB).
    Every cell is lowered cold and warm and run; its result is checked per
    entry against a float64 host computation on the numpy arrays (same
-   tolerance form), and the line reports the cold and warm lower times,
-   the median ``run()`` time and the peak device memory. SDDMM and
-   SpMTTKRP must give the same bits on two ``run()``s. The counts are
-   read before any other launch: each cell's kernel must have launched
-   exactly once per ``run()`` and no other kernel at all.
+   tolerance form; a SpAdd3 union must have the host union's stored
+   coordinates exactly), and the line reports the cold and warm lower
+   times, the median ``run()`` time and the peak device memory. SDDMM,
+   SpMTTKRP and SpAdd3 must give the same bits on two ``run()``s. The
+   counts are read before any other launch: each cell's kernel must have
+   launched exactly once per ``run()`` and no other kernel at all.
 5. timing, after every count is read: the median time of each cell's
    kernel on the cell's own inputs (CUDA events, median of 20), and the
    ``{"kernels": [...]}`` line: per kernel its launches on the main path,
    its time, its bound at these shapes, its plain version's time and one
    PyTorch library call's time on the same inputs (a yardstick only; the
-   port never calls it), and a line for the SpMV rows kernel's second use,
-   SpTTV over the (i, j) fibres.
+   port never calls it, and for the blocked SpAdd3 kernels none exists),
+   and a line for the SpMV rows kernel's second use, SpTTV over the (i, j)
+   fibres.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a card, or
 without the package beside this file, the script exits non-zero and prints
@@ -64,6 +78,7 @@ F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 RTOL_ROW, ATOL = 1e-4, 1e-6
 AVG_NNZ, PIECES, SPMM_J, SEED = 16, 4, 32, 0    # the main path's cells
 AVG_SLICE, RANK = 16, 32       # powerlaw_tensor3's slices; SDDMM K, MTTKRP L
+ADD_BLOCK, AVG_BLOCKS = (4, 4), 4   # the blocked SpAdd3 operands
 
 KERNELS = {
     "spmv_csr_rows": ("src/repro_torch/kernels/csrc/spmv.cu",
@@ -76,14 +91,34 @@ KERNELS = {
                   "src/repro/kernels/sddmm.py:45"),
     "spmttkrp_coo": ("src/repro_torch/kernels/csrc/spmttkrp.cu",
                      "src/repro/kernels/spmttkrp.py:70"),
+    # the union kernels compute the TPU kernels' sums in compressed form
+    "spadd3_dense_rows": ("src/repro_torch/kernels/csrc/spadd3.cu",
+                          "src/repro/kernels/spadd3.py:57"),
+    "bcsr_spadd3_dense_rows": ("src/repro_torch/kernels/csrc/spadd3.cu",
+                               "src/repro/kernels/bcsr.py:214"),
+    "spadd3_union_rows": ("src/repro_torch/kernels/csrc/spadd3.cu",
+                          "src/repro/kernels/spadd3.py:57"),
+    "spadd3_union_nnz": ("src/repro_torch/kernels/csrc/spadd3.cu",
+                         "src/repro/kernels/spadd3.py:57"),
+    "bcsr_spadd3_union_rows": ("src/repro_torch/kernels/csrc/spadd3.cu",
+                               "src/repro/kernels/bcsr.py:214"),
+    "bcsr_spadd3_union_nnz": ("src/repro_torch/kernels/csrc/spadd3.cu",
+                              "src/repro/kernels/bcsr.py:214"),
 }
 MATRIX_CELLS = (("spmv", "rows"), ("spmv", "nnz"), ("spmm", "rows"),
                 ("spmm", "nnz"))
 SLICE_CELLS = (("sddmm", "rows"), ("sddmm", "nnz"), ("spttv", "rows"),
                ("spttv", "nnz"), ("spmttkrp", "rows"), ("spmttkrp", "nnz"))
+# lowered cells, then the dense sums driven through kernels.ops ("ops")
+ADD_CELLS = (("spadd3", "rows"), ("spadd3", "nnz"), ("spadd3_bcsr", "rows"),
+             ("spadd3_bcsr", "nnz"), ("spadd3_dense", "ops"),
+             ("spadd3_bcsr_dense", "ops"))
 # the kernels each path must launch
 PATH_KERNELS = {"matrix": ("spmv_csr_rows", "spmv_coo_nnz", "spmm_csr_rows"),
-                "slice": ("sddmm_coo", "spmttkrp_coo", "spmv_csr_rows")}
+                "slice": ("sddmm_coo", "spmttkrp_coo", "spmv_csr_rows"),
+                "add": ("spadd3_union_rows", "spadd3_union_nnz",
+                        "bcsr_spadd3_union_rows", "bcsr_spadd3_union_nnz",
+                        "spadd3_dense_rows", "bcsr_spadd3_dense_rows")}
 
 
 def phase(tag: str, /, **fields) -> None:
@@ -98,24 +133,31 @@ def phase(tag: str, /, **fields) -> None:
 def check_rows(name: str, got, want, scale) -> float:
     """Per-entry check |got - want| <= RTOL_ROW * scale + ATOL, where
     ``scale`` is the same computation on absolute values; returns the max
-    abs error."""
+    abs error. Computed in float64 on ``got``'s device, in chunks (a dense
+    SpAdd3 result holds 2^30 entries)."""
     import torch
-    got, want, scale = (torch.as_tensor(x).double().cpu()
+    dev = got.device if torch.is_tensor(got) else torch.device("cpu")
+    got, want, scale = (torch.as_tensor(x).to(dev)
                         for x in (got, want, scale))
-    if got.shape != want.shape:
+    if got.shape != want.shape or got.shape != scale.shape:
         raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
                              f"{tuple(want.shape)}")
-    if not torch.isfinite(got).all():
-        raise AssertionError(f"{name}: non-finite values")
-    err = (got - want).abs()
-    bad = err > RTOL_ROW * scale + ATOL
-    if bad.any():
-        i = int(bad.flatten().nonzero()[0])
-        raise AssertionError(
-            f"{name}: {int(bad.sum())} entries off; first at flat index {i}: "
-            f"got {got.flatten()[i]} want {want.flatten()[i]} "
-            f"scale {scale.flatten()[i]}")
-    return float(err.max()) if err.numel() else 0.0
+    got, want, scale = (x.reshape(-1) for x in (got, want, scale))
+    worst, step = 0.0, 1 << 26
+    for lo in range(0, got.numel(), step):
+        g, w, sc = (x[lo:lo + step].double() for x in (got, want, scale))
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{name}: non-finite values")
+        err = (g - w).abs()
+        bad = err > RTOL_ROW * sc + ATOL
+        if bad.any():
+            i = int(bad.nonzero()[0])
+            raise AssertionError(
+                f"{name}: {int(bad.sum())} entries off; first at flat index "
+                f"{lo + i}: got {g[i]} want {w[i]} scale {sc[i]}")
+        if err.numel():
+            worst = max(worst, float(err.max()))
+    return worst
 
 
 def _sync(device) -> None:
@@ -267,10 +309,107 @@ def kernel_cases(rng, device):
         args = (rows_t, jj_t, kk_t, vals_t, C_t, D_t, R)
         yield (f"spmttkrp_coo R={R} N={N} L={L}", "spmttkrp_coo", args,
                _abs_args(args))
+    yield from spadd3_cases(rng, device)
+
+
+def _addends(rng, n, m, tile=()):
+    """Three operands' (rows, cols, vals) of an n x m (block) grid with the
+    edge cases of SpAdd3: row 1 empty in all three, row 3 longer than two
+    256-entry merge tasks, coordinates in all three operands, one in B and
+    C whose sum cancels to 0, and operand D empty in rows >= n // 2."""
+    import numpy as np
+    out = []
+    for t in range(3):
+        d = rng.random((n, m)) < 0.25
+        if n > 3:
+            d[1] = False
+            d[3] = rng.random(m) < 0.9                 # a long row
+        d[0, :5] = True                                # in all three
+        if t == 2:
+            d[n // 2:] = False
+        r, c = np.nonzero(d)
+        out.append((r, c, rng.standard_normal((r.shape[0],) + tile)
+                    .astype(np.float32)))
+    (r0, c0, v0), (r1, c1, v1) = out[:2]
+    k0 = np.flatnonzero((r0 == 2) & (c0 == 7))
+    k1 = np.flatnonzero((r1 == 2) & (c1 == 7))
+    if k0.size and k1.size:
+        v1[k1] = -v0[k0]                               # cancels to 0
+    return out
+
+
+def _csr_of(n, rows, cols, vals):
+    import numpy as np
+    pos = np.zeros(n + 1, np.int32)
+    np.cumsum(np.bincount(rows, minlength=n), out=pos[1:])
+    return pos, cols.astype(np.int32), vals
+
+
+def spadd3_cases(rng, device):
+    """SpAdd3 edge cases: the dense kernels on CSR / BCSR operands with a
+    ragged last block row and column; the rows union over three pieces
+    (the middle one empty, operand D empty in a whole piece, shard padding
+    filled with values that would show if read, a row longer than one merge
+    task); the nnz runs over an add stream with duplicates inside and
+    across chunks and an empty chunk."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import spadd3
+
+    def dev(*xs):
+        return [torch.as_tensor(x).to(device).contiguous() for x in xs]
+
+    for (n, m), block in (((37, 600), None), ((1, 7), None),
+                          ((130, 45), (2, 2)), ((37, 53), (4, 4))):
+        br, bc = block or (1, 1)
+        tri = [_csr_of(-(-n // br), *x) for x in
+               _addends(rng, -(-n // br), -(-m // bc), tuple(block or ()))]
+        args = tuple(dev(*(x for t in tri for x in t))) + (n, m)
+        name = "bcsr_spadd3_dense_rows" if block else "spadd3_dense_rows"
+        yield (f"{name} {n}x{m} block={block}", name, args, _abs_args(args))
+    P, R, garbage = 3, 40, 1e30
+    for block in (None, (2, 2), (4, 4)):
+        tile = tuple(block or ())
+        pieces = [_addends(rng, R, 300, tile), None, _addends(rng, R, 300,
+                                                               tile)]
+        pieces[2][2] = tuple(x[:0] for x in pieces[2][2])   # D empty
+        flat = []
+        for t in range(3):
+            N = max(x[t][0].shape[0] for x in pieces if x) + 7
+            pos = np.zeros((P, R + 1), np.int32)
+            crd = np.full((P, N), 1 << 30, np.int32)      # never read
+            vals = np.full((P, N) + tile, garbage, np.float32)
+            for p, x in enumerate(pieces):
+                if x is not None:
+                    pp, cc, vv = _csr_of(R, *x[t])
+                    pos[p], crd[p, :cc.shape[0]] = pp, cc
+                    vals[p, :cc.shape[0]] = vv
+            flat += dev(pos, crd, vals)
+        name = "bcsr_spadd3_union_rows" if block else "spadd3_union_rows"
+        yield (f"{name} P={P} R={R} block={block}", name, tuple(flat),
+               _abs_args(flat))
+        # nnz: a 4-chunk add stream, chunk 2 empty, padding garbage
+        rr, cc, vv = (np.concatenate(x) for x in zip(*pieces[0]))
+        C = -(-rr.shape[0] // 3) + 5
+        dims = np.zeros((2, 4, C), np.int32)
+        svals = np.full((4, C) + tile, garbage, np.float32)
+        counts = np.zeros(4, np.int32)
+        for p, (lo, hi) in zip((0, 1, 3), ((0, C - 5), (C - 5, 2 * C - 10),
+                                           (2 * C - 10, rr.shape[0]))):
+            counts[p] = hi - lo
+            dims[0, p, :hi - lo], dims[1, p, :hi - lo] = rr[lo:hi], cc[lo:hi]
+            svals[p, :hi - lo] = vv[lo:hi]
+        d0, d1, cnt, sv = dev(dims[0], dims[1], counts, svals)
+        perm, seg_ptr, run_ptr, _, _ = spadd3.plan_runs(d0, d1, cnt,
+                                                        (R, 300))
+        args = (sv, perm, seg_ptr, run_ptr)
+        name = "bcsr_spadd3_union_nnz" if block else "spadd3_union_nnz"
+        yield (f"{name} chunks=4 block={block}", name, args,
+               _abs_args(args))
 
 
 def kernel_fns():
-    from repro_torch.kernels import sddmm, spmm, spmttkrp, spmv
+    from repro_torch.kernels import sddmm, spadd3, spmm, spmttkrp, spmv
     return {
         "spmv_csr_rows": (spmv.spmv_csr_rows, spmv.spmv_csr_rows_plain),
         "spmv_coo_nnz": (spmv.spmv_coo_nnz, spmv.spmv_coo_nnz_plain),
@@ -278,14 +417,36 @@ def kernel_fns():
         "sddmm_coo": (sddmm.sddmm_coo, sddmm.sddmm_coo_plain),
         "spmttkrp_coo": (spmttkrp.spmttkrp_coo,
                          spmttkrp.spmttkrp_coo_plain),
+        "spadd3_dense_rows": (spadd3.spadd3_dense_rows,
+                              spadd3.spadd3_dense_rows_plain),
+        "bcsr_spadd3_dense_rows": (spadd3.bcsr_spadd3_dense_rows,
+                                   spadd3.bcsr_spadd3_dense_rows_plain),
+        "spadd3_union_rows": (spadd3.spadd3_union_rows,
+                              spadd3.spadd3_union_rows_plain),
+        "bcsr_spadd3_union_rows": (spadd3.bcsr_spadd3_union_rows,
+                                   spadd3.bcsr_spadd3_union_rows_plain),
+        "spadd3_union_nnz": (spadd3.spadd3_union_nnz,
+                             spadd3.union_runs_plain),
+        "bcsr_spadd3_union_nnz": (spadd3.bcsr_spadd3_union_nnz,
+                                  spadd3.union_runs_plain),
     }
 
 
 def compare_kernel(label, name, args, abs_args) -> float:
+    """A kernel's result against its plain version's on the same inputs.
+    A compressed result (pos, crd, vals) must have the plain version's
+    pattern exactly; the values are held to the per-entry tolerance."""
+    import torch
     kernel, plain = kernel_fns()[name]
     got = kernel(*args)
     want = plain(*args)
     scale = plain(*abs_args)
+    if isinstance(got, tuple):
+        for g, w in zip(got[:-1], want[:-1]):
+            if not torch.equal(g.long(), w.long()):
+                raise AssertionError(f"{label}: the pattern differs from "
+                                     "the plain version's")
+        got, want, scale = got[-1], want[-1], scale[-1]
     _sync(got.device)
     return check_rows(label, got, want, scale)
 
@@ -316,6 +477,49 @@ def make_inputs(n: int, avg_nnz: int, J: int, seed: int,
         data["C3"] = rng.standard_normal((dims3[1], rank)).astype(np.float32)
         data["D3"] = rng.standard_normal((dims3[2], rank)).astype(np.float32)
     return data
+
+
+def _shifted(T, name: str, shift: int, seed: int):
+    """T's pattern (blocks for a blocked T) with every column moved right by
+    ``shift`` (mod the width) and fresh standard-normal values or tiles
+    from ``seed``."""
+    import numpy as np
+    import repro_torch.core as tc
+    rng = np.random.default_rng(seed)
+    if T.format.is_blocked:
+        bc = T.block_coords().astype(np.int64)
+        bc[:, 1] = (bc[:, 1] + shift) % T.levels[1].size
+        tiles = rng.standard_normal(T.vals.shape).astype(np.float32)
+        return tc.Tensor.from_blocks(name, T.shape, T.format, bc, tiles,
+                                     dedupe=False)
+    coords = T.coords().astype(np.int64)
+    coords[:, 1] = (coords[:, 1] + shift) % T.shape[1]
+    vals = rng.standard_normal(T.nnz).astype(np.float32)
+    return tc.Tensor.from_coo(name, T.shape, coords, vals, T.format,
+                              dedupe=False)
+
+
+def add_operands(n: int, seed: int, B=None):
+    """SpAdd3's addends, all from ``seed``: the scalar ones (B, B shifted by
+    one and by two columns, CSR; ``B`` is the matrix path's when given) and
+    the blocked ones (BCSR((4, 4)) over n x n: the block pattern of
+    ``powerlaw_matrix`` (n / 4, 4 blocks per block-row), normal tiles, and
+    its shifts by one and two block columns)."""
+    import numpy as np
+    import repro_torch.core as tc
+    from repro_torch.data.spdata import powerlaw_matrix
+    if B is None:
+        B = powerlaw_matrix("B", n, n, AVG_NNZ, alpha=1.6, seed=seed)
+    g = n // ADD_BLOCK[0]
+    grid = powerlaw_matrix("Bg", g, g, AVG_BLOCKS, alpha=1.6, seed=seed)
+    Bb = tc.Tensor.from_blocks(
+        "B", (n, n), tc.BCSR(ADD_BLOCK), grid.coords(),
+        np.random.default_rng(seed + 1).standard_normal(
+            (grid.nnz,) + ADD_BLOCK).astype(np.float32), dedupe=False)
+    return {"scalar": (B, _shifted(B, "C", 1, seed + 1),
+                       _shifted(B, "D", 2, seed + 2)),
+            "blocked": (Bb, _shifted(Bb, "C", 1, seed + 2),
+                        _shifted(Bb, "D", 2, seed + 3))}
 
 
 def statements(data):
@@ -351,13 +555,75 @@ def statements(data):
             A=tc.Tensor.zeros_dense("A", (B3.shape[0],
                                           data["C3"].shape[1])),
             B=B3, C=dense("C", data["C3"]), D=dense("D", data["D3"]))
+    for kind, expr in (("scalar", "spadd3"), ("blocked", "spadd3_bcsr")):
+        if kind in data.get("add", {}):
+            ops_ = dict(zip("BCD", data["add"][kind]))
+            out[expr] = tc.parse_tin(
+                "A(i,j) = B(i,j) + C(i,j) + D(i,j)",
+                A=tc.Tensor.from_coo("A", ops_["B"].shape, np.zeros((0, 2)),
+                                     np.zeros(0, np.float32), tc.CSR()),
+                **ops_)
     return out
 
 
-def drive(stmts, cells, pieces: int, device, reps: int):
-    """Lower (cold, then warm) and run each cell through the public entry
-    points. Returns {cell: record}."""
+def _same_bits(a, b) -> bool:
     import numpy as np
+    import torch
+    if torch.is_tensor(a):
+        return torch.equal(a, b)
+    return np.array_equal(a.vals, b.vals) and all(
+        (x.pos is None or np.array_equal(x.pos, y.pos))
+        and (x.crd is None or np.array_equal(x.crd, y.crd))
+        for x, y in zip(a.levels, b.levels))
+
+
+def dense_call(data, expr: str, device):
+    """(wrapper name, ops entry point, its arguments) of a dense SpAdd3
+    cell: the three operands' storage, on the device."""
+    import torch
+    from repro_torch.kernels import ops
+    ts = data["dense"]["blocked" if "bcsr" in expr else "scalar"]
+    n, m = ts[0].shape
+    trips = tuple(tuple(torch.as_tensor(x).to(device) for x in
+                        (t.levels[1].pos, t.levels[1].crd, t.vals))
+                  for t in ts)
+    if "bcsr" in expr:
+        return "bcsr_spadd3_dense_rows", ops.spadd3_bcsr_dense, trips + (n, m)
+    return "spadd3_dense_rows", ops.spadd3_dense, trips + (n, m)
+
+
+def drive_dense(data, expr: str, device, reps: int):
+    """A dense SpAdd3 cell through ``kernels.ops`` (no lowering: the
+    reference reaches its TPU kernels only there)."""
+    import torch
+    name, entry, args = dense_call(data, expr, device)
+    calls = []
+
+    def run():
+        calls.append(1)
+        return entry(*args, impl="cuda" if device.type == "cuda"
+                     else "torch", device=device)
+
+    base = 0
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+    run_ms = time_host(run, device, reps)
+    res = run()
+    bitwise = torch.equal(res, run())
+    _sync(device)
+    return {"kernel": None, "cold_s": 0.0, "warm_s": 0.0, "run_ms": run_ms,
+            "runs": len(calls), "out": res, "bitwise": bitwise,
+            "call": (name, tuple(x for t in args[:3] for x in t)
+                     + args[3:]),
+            "max_mem": (torch.cuda.max_memory_allocated(device) - base
+                        if device.type == "cuda" else 0)}
+
+
+def drive(stmts, cells, pieces: int, device, reps: int, data=None):
+    """Lower (cold, then warm) and run each cell through the public entry
+    points (the dense SpAdd3 cells through ``kernels.ops``). Returns
+    {cell: record}."""
     import torch
     import repro_torch.core as tc
     from repro_torch.core import lower as L
@@ -365,6 +631,9 @@ def drive(stmts, cells, pieces: int, device, reps: int):
     machine = tc.Machine(("x", pieces))
     out = {}
     for expr, strat in cells:
+        if strat == "ops":
+            out[f"{expr}/{strat}"] = drive_dense(data, expr, device, reps)
+            continue
         stmt = stmts[expr]
         sched = (L.default_row_schedule if strat == "rows"
                  else L.default_nnz_schedule)(stmt, machine)
@@ -394,9 +663,7 @@ def drive(stmts, cells, pieces: int, device, reps: int):
         out[f"{expr}/{strat}"] = {
             "kernel": k, "cold_s": cold_s, "warm_s": warm_s,
             "run_ms": run_ms, "runs": len(calls), "out": res,
-            "bitwise": (np.array_equal(res.vals, again.vals)
-                        if expr in ("sddmm", "spttv")
-                        else torch.equal(res, again)),
+            "bitwise": _same_bits(res, again), "call": leaf_call(k),
             # this cell's own peak, above what earlier cells still hold
             "max_mem": (torch.cuda.max_memory_allocated(device) - base
                         if device.type == "cuda" else 0)}
@@ -459,7 +726,73 @@ def reference_products(data, exprs):
         out["spmttkrp"] = per_column(
             i, v3, lambda l: C3[:, l][j].astype(np.float64) * D3[:, l][c2],
             B3.shape[0], C3.shape[1])
+    for expr, (where, kind) in ADD_SOURCES.items():
+        if expr in exprs:
+            out[expr] = host_union(data[where][kind])
     return out
+
+
+# the SpAdd3 cells' operands: (data key, kind)
+ADD_SOURCES = {"spadd3": ("add", "scalar"), "spadd3_bcsr": ("add", "blocked"),
+               "spadd3_dense": ("dense", "scalar"),
+               "spadd3_bcsr_dense": ("dense", "blocked")}
+
+
+def host_union(ts):
+    """The float64 union B + C + D of three row-major (B)CSR operands on the
+    host: its compressed levels (pos over the root, crd), its values and
+    their scale (the sum of absolute values), per stored entry or tile."""
+    import numpy as np
+    n_root, width = ts[0].levels[0].size, ts[0].levels[1].size
+    tile = ts[0].vals.shape[1:]
+    keys, vals = [], []
+    for t in ts:
+        pos = t.levels[1].pos
+        keys.append(np.repeat(np.arange(n_root, dtype=np.int64),
+                              np.diff(pos)) * width + t.levels[1].crd)
+        vals.append(t.vals.reshape(t.vals.shape[0], -1))
+    key = np.concatenate(keys)
+    order = np.argsort(key, kind="stable")      # three sorted runs
+    key = key[order]
+    v = np.concatenate(vals)[order].astype(np.float64)
+    start = np.flatnonzero(np.r_[True, key[1:] != key[:-1]])
+    ukey = key[start]
+    pos = np.zeros(n_root + 1, np.int64)
+    np.cumsum(np.bincount(ukey // width, minlength=n_root), out=pos[1:])
+    shape = (-1,) + tuple(tile)
+    return {"pos": pos, "crd": ukey % width,
+            "vals": np.add.reduceat(v, start, axis=0).reshape(shape),
+            "scale": np.add.reduceat(np.abs(v), start, axis=0).reshape(shape),
+            "block": tile or (1, 1)}
+
+
+def check_union(name: str, got, want) -> float:
+    """A SpAdd3 result: a union Tensor must store exactly the host union's
+    coordinates; a dense sum must hold the union's values at its cells and
+    zero everywhere else."""
+    import numpy as np
+    import torch
+    if not torch.is_tensor(got):
+        for key in ("pos", "crd"):
+            if not np.array_equal(getattr(got.levels[1], key), want[key]):
+                raise AssertionError(f"{name}: stored {key} differs from "
+                                     "the host union's")
+        return check_rows(name, got.vals, want["vals"], want["scale"])
+    br, bc = want["block"]
+    n, m = got.shape
+    brow = np.repeat(np.arange(want["pos"].shape[0] - 1), np.diff(
+        want["pos"]))
+    r = (brow[:, None] * br + np.arange(br)[None, :])[:, :, None]
+    c = (want["crd"][:, None] * bc + np.arange(bc)[None, :])[:, None, :]
+    r, c = np.broadcast_arrays(r, c)
+    keep = ((r < n) & (c < m)).reshape(-1)
+    rows, cols = (torch.from_numpy(x.reshape(-1)[keep]).to(got.device)
+                  for x in (r, c))
+    at = got[rows, cols]
+    if int(torch.count_nonzero(got)) != int(torch.count_nonzero(at)):
+        raise AssertionError(f"{name}: non-zero values outside the union")
+    return check_rows(name, at, want["vals"].reshape(-1)[keep],
+                      want["scale"].reshape(-1)[keep])
 
 
 def check_cell(name: str, rec, data, want) -> float:
@@ -469,6 +802,10 @@ def check_cell(name: str, rec, data, want) -> float:
     import numpy as np
     expr = name.split("/")[0]
     got = rec["out"]
+    if expr.startswith("spadd3"):
+        if not rec["bitwise"]:
+            raise AssertionError(f"{name}: two runs gave different bits")
+        return check_union(name, got, want[expr])
     if expr in ("sddmm", "spttv"):
         src = data["B"] if expr == "sddmm" else data["B3"]
         if expr == "sddmm" and got.levels is not src.levels:
@@ -491,6 +828,10 @@ def leaf_call(k):
     the cell's own inputs; None for a leaf with no kernel (the SpMM nnz
     leaf, the flat SpTTV products)."""
     name = k.leaf_name
+    if name in ("spadd3_rows", "bcsr_spadd3_rows"):
+        return name.replace("_rows", "_union_rows"), k.args[:9]
+    if name in ("spadd3_nnz", "bcsr_spadd3_nnz"):
+        return name.replace("_nnz", "_union_nnz"), k.args[:4]
     max_rows = int(k.shards["B"].meta["max_rows"])
     if name in ("spmv_rows", "spttv_rows"):
         return "spmv_csr_rows", k.args[:4]
@@ -515,13 +856,12 @@ def run_slice(data, cells, pieces: int, device, reps: int = 10):
     from repro_torch.kernels import _build
     device = resolve_device(device)
     before = dict(_build.LAUNCHES)
-    recs = drive(statements(data), cells, pieces, device, reps)
+    recs = drive(statements(data), cells, pieces, device, reps, data)
     launches = {k: n - before[k] for k, n in _build.LAUNCHES.items()}
     expected = dict.fromkeys(launches, 0)
     for rec in recs.values():
-        call = leaf_call(rec["kernel"])
-        if call is not None and device.type == "cuda":
-            expected[call[0]] += rec["runs"]
+        if rec["call"] is not None and device.type == "cuda":
+            expected[rec["call"][0]] += rec["runs"]
     if launches != expected:
         raise AssertionError(f"launches during the drive {launches} are not "
                              f"one per run() of each cell's kernel: "
@@ -539,7 +879,23 @@ def run_slice(data, cells, pieces: int, device, reps: int = 10):
 def _moved(name: str, args, nnz: int, n_out: int):
     """(bytes, f32 operations) of one kernel call: each input read once and
     each output written once (real entries and outputs), and the operations
-    the data needs."""
+    the data needs. For SpAdd3, ``nnz`` counts the three operands' stored
+    entries (or blocks) and ``n_out`` the union's (dense: its cells)."""
+    if "spadd3" in name and "union_nnz" not in name:
+        tile = args[2][(0,) * (1 if "dense" in name else 2)].numel()
+        pos_bytes = sum(args[i].numel() * 4 for i in (0, 3, 6))
+        if "dense" in name:                       # + the dense output
+            return (nnz * (4 + 4 * tile) + pos_bytes + n_out * 4,
+                    nnz * tile)
+        P, R = args[0].shape[0], args[0].shape[1] - 1
+        return (nnz * (4 + 4 * tile) + pos_bytes
+                + n_out * (4 + 4 * tile) + (P * R + 1) * 8,
+                (nnz - n_out) * tile)
+    if "union_nnz" in name:
+        vals, perm, seg_ptr, run_ptr = args
+        tile = vals[0, 0].numel()
+        return (nnz * (4 + 4 * tile) + (seg_ptr.numel() + run_ptr.numel()) * 4
+                + n_out * 4 * tile, (nnz - n_out) * tile)
     if name in ("spmv_csr_rows", "spmm_csr_rows"):
         pos, _, _, x = args
         P, R = pos.shape[0], pos.shape[1] - 1
@@ -636,11 +992,81 @@ def kernel_records(data, cells, launches, reps: int):
         cell_ms[cell] = records[-1]["ms"]
     fns = kernel_fns()
     for cell, rec in cells.items():
-        other = leaf_call(rec["kernel"])
+        other = rec["call"]
         if cell not in cell_ms and other is not None:
             cell_ms[cell] = time_events(
                 lambda: fns[other[0]][0](*other[1]), reps)
     return records[:-1], records[-1], cell_ms
+
+
+def device_breakdown(fn, reps: int = 3):
+    """Device milliseconds per call of each CUDA kernel that ``fn``
+    launches, from ``torch.profiler`` over ``reps`` calls (a wrapper with a
+    count and a fill phase launches two)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0))
+        name = evt.key.replace("(anonymous namespace)::", "")
+        name = name.replace("void ", "").split("(")[0].split(",")[0]
+        if us > 0:
+            out[name[-48:]] = out.get(name[-48:], 0.0) + us / 1e3 / reps
+    return out
+
+
+def add_kernel_records(data, cells, launches, reps: int):
+    """The six SpAdd3 kernels, each on the inputs of the cell it serves (the
+    add path's four lowered cells and two dense ops cells), and {cell: ms}
+    of those cells' kernels."""
+    import torch
+    dev = cells["spadd3/rows"]["kernel"].device
+
+    def csr_sum(ts):
+        mats = [torch.sparse_csr_tensor(
+            *(torch.as_tensor(x).to(dev) for x in
+              (t.levels[1].pos, t.levels[1].crd, t.vals)), size=t.shape)
+            for t in ts]
+        return lambda: mats[0] + mats[1] + mats[2]
+
+    union = csr_sum(data["add"]["scalar"])
+    dense = csr_sum(data["dense"]["scalar"])
+    on_add = "torch.sparse_csr_tensor addition B + C + D (cuSPARSE)"
+    no_bsr = "none: no single PyTorch call adds BSR matrices"
+    library = {
+        "spadd3_dense/ops": (on_add + ", .to_dense()",
+                             lambda: dense().to_dense()),
+        "spadd3/rows": (on_add, union), "spadd3/nnz": (on_add, union),
+        "spadd3_bcsr_dense/ops": (no_bsr, None),
+        "spadd3_bcsr/rows": (no_bsr, None), "spadd3_bcsr/nnz": (no_bsr, None),
+    }
+    records, cell_ms = [], {}
+    for cell in ("spadd3_dense/ops", "spadd3_bcsr_dense/ops", "spadd3/rows",
+                 "spadd3/nnz", "spadd3_bcsr/rows", "spadd3_bcsr/nnz"):
+        rec = cells[cell]
+        name, args = rec["call"]
+        expr = cell.split("/")[0]
+        where, kind = ADD_SOURCES[expr]
+        nnz = sum(t.vals.shape[0] for t in data[where][kind])
+        out = rec["out"]
+        n_out = (out.numel() if torch.is_tensor(out)
+                 else out.levels[1].crd.shape[0])
+        records.append(kernel_record(name, args, launches[name], nnz, n_out,
+                                     library[cell], reps))
+        cell_ms[cell] = records[-1]["ms"]
+        if "union_rows" in name:
+            fn = kernel_fns()[name][0]
+            phase("profile", name=name, **{
+                k.replace(" ", "_"): f"{v:.4f}" for k, v in
+                device_breakdown(lambda: fn(*args)).items()})
+    return records, cell_ms
 
 
 # ---------------------------------------------------------------------------
@@ -655,6 +1081,9 @@ def main(argv=None) -> int:
     ap.add_argument("--log2-jk", type=int, default=16,
                     help="the 3-tensor's second and third dimensions "
                     "(default 16)")
+    ap.add_argument("--log2-dense", type=int, default=15,
+                    help="side of the dense SpAdd3 sums (default 15: a "
+                    "4 GiB output)")
     ap.add_argument("--reps", type=int, default=20,
                     help="timed kernel launches (run() takes half)")
     args = ap.parse_args(argv)
@@ -713,15 +1142,28 @@ def main(argv=None) -> int:
           longest_slice=int(np.diff(B3.levels[2].pos[B3.levels[1].pos])
                             .max()),
           seconds=f"{time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    data["add"] = add_operands(B.shape[0], SEED, B)
+    data["dense"] = add_operands(1 << args.log2_dense, SEED)
+    phase("data-add", stream=sum(t.nnz for t in data["add"]["scalar"]),
+          blocks=sum(t.vals.shape[0] for t in data["add"]["blocked"]),
+          dense_side=1 << args.log2_dense,
+          dense_stream=sum(t.nnz for t in data["dense"]["scalar"]),
+          dense_blocks=sum(t.vals.shape[0] for t in data["dense"]["blocked"]),
+          seconds=f"{time.perf_counter() - t0:.1f}")
     cells, launches = {}, dict.fromkeys(_build.LAUNCHES, 0)
     for path, path_cells in (("matrix", MATRIX_CELLS),
-                             ("slice", SLICE_CELLS)):
+                             ("slice", SLICE_CELLS), ("add", ADD_CELLS)):
         _build.reset_launches()
         recs, path_launches = run_slice(data, path_cells, PIECES, device,
                                         max(args.reps // 2, 1))
-        for rec in recs.values():
+        for cell, rec in recs.items():
             k = rec["kernel"]
-            phase("main", cell=k.cell_id(), leaf=k.leaf_name,
+            out = rec["out"]
+            phase("main", cell=k.cell_id() if k else cell,
+                  leaf=k.leaf_name if k else rec["call"][0],
+                  stored=("-" if torch.is_tensor(out)
+                          else out.vals.shape[0]),
                   cold_lower_s=f"{rec['cold_s']:.3f}",
                   warm_lower_s=f"{rec['warm_s']:.4f}",
                   run_ms=f"{rec['run_ms']:.3f}", runs=rec["runs"],
@@ -739,9 +1181,16 @@ def main(argv=None) -> int:
 
     # 3b + 5. kernels at the main path's shapes, timed once every count
     # is read
-    records, ttv, cell_ms = kernel_records(data, cells, launches, args.reps)
+    records, ttv, cell_ms = kernel_records(
+        data, {c: r for c, r in cells.items() if not c.startswith("spadd3")},
+        launches, args.reps)
+    add_records, add_ms = add_kernel_records(data, cells, launches,
+                                             args.reps)
+    records += add_records
+    cell_ms.update(add_ms)
     for cell, rec in cells.items():
-        phase("cell-kernel", cell=rec["kernel"].cell_id(),
+        phase("cell-kernel", cell=(rec["kernel"].cell_id()
+                                   if rec["kernel"] else cell),
               kernel_ms=(f"{cell_ms[cell]:.4f}" if cell in cell_ms
                          else "-"))
     for r in records + [dict(ttv, name="spmv_csr_rows(spttv)")]:

@@ -1,4 +1,4 @@
-"""SpDISTAL core, the 1-D SpMV/SpMM slice of the JAX package's ``repro.core``.
+"""SpDISTAL core, the 1-D half of the JAX package's ``repro.core``.
 
 Four independent sub-languages (paper §II):
   - computation:  :mod:`.tin`       (tensor index notation)
@@ -12,9 +12,9 @@ plus the compilation machinery:
   - :mod:`.interp`    — the dense interpretation oracle
 """
 from . import formats, levels
-from .formats import (COO, CSC, CSF, CSR, DCSF, DCSR, DDC, Compressed, Dense,
-                      DenseMat, DenseND, DenseVec, Format, Singleton,
-                      SparseVec, capabilities, format_key)
+from .formats import (BCSC, BCSR, COO, CSC, CSF, CSR, DCSF, DCSR, DDC,
+                      Compressed, Dense, DenseMat, DenseND, DenseVec, Format,
+                      Singleton, SparseVec, capabilities, format_key)
 from .interp import interpret
 from .levels import LevelTree, Walk, tree_of
 # The lowering entry point is re-exported as ``lower_stmt`` so that the
@@ -34,7 +34,8 @@ from .tensor import Tensor, TensorVar
 from .tin import Access, Assignment, IndexVar, index_vars, parse_tin
 
 __all__ = [
-    "formats", "levels", "LevelTree", "Walk", "tree_of", "COO", "CSC",
+    "formats", "levels", "LevelTree", "Walk", "tree_of", "BCSC", "BCSR",
+    "COO", "CSC",
     "CSF", "CSR", "DCSF", "DCSR", "DDC", "Compressed", "Dense", "DenseMat",
     "DenseND", "DenseVec", "Format", "Singleton", "SparseVec",
     "capabilities", "format_key", "interpret", "AxisComm", "CacheStats",

@@ -247,17 +247,24 @@ def format_key(f: Format) -> str:
     return base
 
 
-def format_from_key(key: str) -> Format:
-    """Inverse of :func:`format_key` for the unblocked table formats (and
-    ``csc``) — how storage handed over as plain arrays names its format."""
+def format_from_key(key: str,
+                    block_shape: Optional[Tuple[int, int]] = None) -> Format:
+    """Inverse of :func:`format_key` for the unblocked table formats, ``csc``
+    and the blocked ``bcsr`` / ``bcsc`` — how storage handed over as plain
+    arrays names its format. A key does not spell a block shape, so the
+    blocked keys take it as ``block_shape``."""
+    if key in ("bcsr", "bcsc"):
+        if block_shape is None:
+            raise ValueError(f"format key {key!r} needs a block_shape")
+        return (BCSR if key == "bcsr" else BCSC)(tuple(block_shape))
     if key == "csc":
         return CSC()
     for names, k in _KEY_TABLE.items():
         if k == key:
             return Format(tuple(level_format(n) for n in names))
     raise NotImplementedError(
-        f"format key {key!r}: only unblocked table formats can be rebuilt "
-        "from a key (blocked formats are ROADMAP Queue 1 item 5.3)")
+        f"format key {key!r}: only the table formats, csc, bcsr and bcsc "
+        "can be rebuilt from a key")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,7 +1,7 @@
 """Lowering scheduled TIN statements to runnable PyTorch (paper §IV).
 
-The 1-D half of the JAX package's lowering engine for SpMV, SpMM, SDDMM,
-SpTTV and SpMTTKRP (Fig. 9a, adapted):
+The 1-D half of the JAX package's lowering engine for SpMV, SpMM, SpAdd3,
+SDDMM, SpTTV and SpMTTKRP (Fig. 9a, adapted):
 
 1. **Plan**: the initial level partition of the distributed index variable
    (universe partitions for coordinate-value loops, non-zero partitions for
@@ -11,8 +11,9 @@ SpTTV and SpMTTKRP (Fig. 9a, adapted):
 2. **Materialize**: pack per-color sub-tensors into stacked, padded
    arrays on the host (numpy, as in the reference), then move them to the
    device once, where they stay cached with the shard. Sparse outputs
-   (SDDMM, SpTTV) are not materialized: they are assembled from the leaf
-   results.
+   (SpAdd3, SDDMM, SpTTV) are not materialized: they are assembled from the
+   leaf results. The SpAdd3 nnz strategy packs its own shards, equal chunks
+   of the addends' concatenated entry stream.
 3. **Emit**: select the leaf for (expression signature × strategy), batched
    over the piece axis. On the card the leaves are the Hopper kernels of
    :mod:`repro_torch.kernels`; on the CPU their plain versions. The
@@ -20,7 +21,8 @@ SpTTV and SpMTTKRP (Fig. 9a, adapted):
    pattern-preserving outputs scatter their values home by position.
 
 Host-side products (partitions, shards, ``CommStats``, ``cell_id``, cache
-counters) equal the reference's exactly. SpAdd3, blocked formats, grids, the
+counters) equal the reference's exactly. Blocked (BCSR, BCSC) operands lower
+for SpAdd3; blocked SpMV, SpMM and SDDMM, format conversion, grids, the
 autoscheduler and the elastic path are not ported yet and raise
 ``NotImplementedError`` naming their ROADMAP item; nothing converts a
 format or falls back to a generic path.
@@ -38,8 +40,10 @@ from . import formats as fmt
 from .device import resolve_device
 from .levels import tree_of
 from .partition import (CONVERT_CACHE_STATS, SHARD_CACHE_STATS,
-                        ShardedTensor, TensorPartition, clear_convert_cache,
+                        ShardedTensor, TensorPartition,
+                        block_aligned_row_bounds, clear_convert_cache,
                         clear_shard_cache, fingerprint_memo,
+                        materialize_add_stream, materialize_bcsr_rows,
                         materialize_coo_nnz, materialize_csr_rows,
                         materialize_dense_rows, materialize_replicated,
                         partition_by_bounds, partition_tensor_nonzeros,
@@ -47,11 +51,12 @@ from .partition import (CONVERT_CACHE_STATS, SHARD_CACHE_STATS,
                         tensor_fingerprint, weights_fingerprint)
 from .schedule import DistStrategy, Schedule
 from .tdn import Distribution, Machine
-from .tensor import Tensor
+from .tensor import INT, LevelData, Tensor
 from .tin import Assignment, IndexVar
 from ..runtime import telemetry
 from ..kernels import ref as K
 from ..kernels import sddmm as sddmm_kernels
+from ..kernels import spadd3 as spadd3_kernels
 from ..kernels import spmm as spmm_kernels
 from ..kernels import spmttkrp as spmttkrp_kernels
 from ..kernels import spmv as spmv_kernels
@@ -208,10 +213,12 @@ class LoweredKernel:
 
     def run(self) -> Union[torch.Tensor, Tensor]:
         """The result. A dense output (SpMV, SpMM, SpMTTKRP) is a tensor on
-        the kernel's device. A sparse output (SDDMM, SpTTV) is a
-        :class:`Tensor`, as in the reference: the sparse operand's (i, j)
-        pattern with the values brought back from the device; the flat
-        SpTTV paths assemble it on the host with ``Tensor.from_coo``."""
+        the kernel's device. A sparse output (SpAdd3, SDDMM, SpTTV) is a
+        :class:`Tensor`, as in the reference: SDDMM and SpTTV keep the
+        sparse operand's (i, j) pattern with the values brought back from
+        the device (the flat SpTTV paths assemble it on the host with
+        ``Tensor.from_coo``); SpAdd3's union is built on the device and its
+        levels and values are copied back once."""
         return self.runner(*self.args)
 
     def cell_id(self) -> str:
@@ -316,6 +323,16 @@ def _pattern_output(name: str, shape, format: "fmt.Format", levels,
 def _nbytes(t: Tensor) -> int:
     if t.format.is_all_dense:
         return int(np.prod(t.shape)) * t.vals.dtype.itemsize
+    if t.format.is_blocked:
+        # block-granular payload: one (br, bc) tile + one block coord per
+        # stored block position, plus the block-grid pos arrays
+        tile = int(np.prod(t.format.block_shape)) * t.vals.dtype.itemsize
+        n_blocks = int(t.vals.shape[0]) if t.vals.ndim else 0
+        n = n_blocks * (tile + 4)
+        for ld in t.levels:
+            if ld.pos is not None:
+                n += ld.pos.nbytes
+        return n
     n = t.nnz * (t.vals.dtype.itemsize + 4)  # vals + one crd per level approx
     for ld in t.levels:
         if ld.pos is not None:
@@ -330,25 +347,30 @@ def _on_device(sh: ShardedTensor, name: str, device: torch.device,
     return _device_cached(sh, (name,), device, lambda: sh.arrays[name])
 
 
+def _shard_cached(sh: ShardedTensor, key: Tuple, build: Callable[[], object]):
+    """``build()``, made once and cached with the shard under ``key``."""
+    hit = sh.device_arrays.get(key)
+    if hit is None:
+        hit = sh.device_arrays[key] = build()
+    return hit
+
+
 def _device_cached(sh: ShardedTensor, key: Tuple, device: torch.device,
                    build: Callable[[], object]):
     """What ``build()`` derives from the shard (an array or a tuple of
     arrays, numpy or CPU tensors), moved to ``device`` once and cached with
     the shard under ``key``."""
-    key = key + (str(device),)
-    hit = sh.device_arrays.get(key)
-    if hit is not None:
-        return hit
-
     def move(x):
         if isinstance(x, np.ndarray):
             x = torch.from_numpy(np.ascontiguousarray(x))
         return x.contiguous().to(device)
 
-    built = build()
-    out = tuple(map(move, built)) if isinstance(built, tuple) else move(built)
-    sh.device_arrays[key] = out
-    return out
+    def moved():
+        built = build()
+        return (tuple(map(move, built)) if isinstance(built, tuple)
+                else move(built))
+
+    return _shard_cached(sh, key + (str(device),), moved)
 
 
 # ---------------------------------------------------------------------------
@@ -359,6 +381,7 @@ def _device_cached(sh: ShardedTensor, key: Tuple, device: torch.device,
 _SIG_KERNEL = {
     "d1(i)=s2(i,j)*d1(j)": ("spmv", "spmv"),
     "d2(i,j)=s2(i,k)*d2(k,j)": ("spmm", "spmm"),
+    "s2(i,j)=s2(i,j)+s2(i,j)+s2(i,j)": ("spadd3", "spadd3"),
     "s2(i,j)=s2(i,j)*d2(i,k)*d2(k,j)": ("sddmm", "sddmm"),
     "s2(i,j)=s3(i,j,k)*d1(k)": ("spttv", "spmttkrp"),
     "d2(i,l)=s3(i,j,k)*d2(j,l)*d2(k,l)": ("spmttkrp", "spmttkrp"),
@@ -382,24 +405,36 @@ def expression_key(sig: str) -> str:
 
 def _check_operands(stmt: Assignment, space: str) -> None:
     """The port's format dispatch. The reference converts an operand its
-    kernel family cannot iterate (``_normalize_operands``); no such
-    conversion is ported, so the operand raises instead."""
+    kernel family cannot iterate, and the blocked addends of an add whose
+    operands' formats or block shapes differ (``_normalize_operands``); no
+    such conversion is ported, so the operand raises instead."""
     sig = stmt.signature()
     entry = _SIG_KERNEL.get(sig)
     if entry is None:
         raise NotImplementedError(
-            f"expression {sig}: only SpMV, SpMM, SDDMM, SpTTV and SpMTTKRP "
-            "are ported (ROADMAP Queue 1 item 5.2 ports SpAdd3)")
+            f"expression {sig}: only SpMV, SpMM, SpAdd3, SDDMM, SpTTV and "
+            "SpMTTKRP lower (other statements need the reference's generic "
+            "path, which is not ported)")
     name, module = entry
     supports = _kernel_supports(module)
+    sparse = {acc.tensor.name: acc.tensor.format
+              for acc in stmt.rhs.accesses() if acc.tensor.format.is_sparse}
+    if (len(sparse) > 1 and any(f.is_blocked for f in sparse.values())
+            and len(set(sparse.values())) > 1):
+        raise NotImplementedError(
+            f"{name}/{space} over blocked addends of differing formats or "
+            "block shapes (" + ", ".join(
+                f"{n}: {fmt.format_key(f)} {f.block_shape}"
+                for n, f in sparse.items()) + "): the reference converts "
+            "them, and format conversion is ROADMAP Queue 1 item 5.4")
     for acc in stmt.rhs.accesses():
         t = acc.tensor
         if t.format.is_sparse and not supports(t.format, space):
             raise NotImplementedError(
                 f"{name}/{space} over {t.name} stored as "
-                f"{fmt.format_key(t.format)}: blocked leaves are ROADMAP "
-                "Queue 1 item 5.3; other formats need a conversion that is "
-                "not ported")
+                f"{fmt.format_key(t.format)}: the blocked SpMV, SpMM and "
+                "SDDMM leaves are ROADMAP Queue 1 item 5.3; other formats "
+                "need a conversion (item 5.4)")
 
 
 # ---------------------------------------------------------------------------
@@ -503,9 +538,32 @@ def _lower_impl(stmt, machine, schedule, distributions, weights, device):
                 for name, p in plans.items()})
 
     # ---- materialize ------------------------------------------------------
+    self_materializing = (sig, strat.space) in _SELF_MATERIALIZING
     with telemetry.span("lower.materialize", sig=sig, pieces=pieces):
+        if self_materializing:
+            # spadd3/nnz: equal (or weighted) chunks of the addends'
+            # concatenated entry stream, packed by the materialization
+            # layer. Comm = every chunk's union ships to the root for the
+            # cross-chunk merge: coords + vals per entry, a whole (br, bc)
+            # tile per entry for blocked operands.
+            add_tensors, seen = [], set()
+            for acc in stmt.rhs.accesses():
+                t = acc.tensor
+                if t.format.is_sparse and t.name not in seen:
+                    seen.add(t.name)
+                    add_tensors.append(t)
+            shards["_addstream"] = materialize_add_stream(add_tensors,
+                                                          pieces, weights)
+            n_entries = shards["_addstream"].meta["n_entries"]
+            if add_tensors and add_tensors[0].format.is_blocked:
+                tile = int(np.prod(add_tensors[0].format.block_shape))
+                comm.reduce_bytes += n_entries * (8 + tile * 4)
+            else:
+                comm.reduce_bytes += n_entries * 12
         for name, plan in plans.items():
             t = plan.tensor
+            if self_materializing:
+                continue  # the add stream above is the whole shard set
             if name == out_t.name and _output_is_assembled(sig):
                 continue  # assembled from the leaf results, not materialized
             if plan.replicated:
@@ -522,6 +580,8 @@ def _lower_impl(stmt, machine, schedule, distributions, weights, device):
             elif t.format.is_all_dense:
                 shards[name] = materialize_dense_rows(
                     t, plan.root_coord_bounds)
+            elif t.format.is_blocked:
+                shards[name] = materialize_bcsr_rows(t, plan)
             else:
                 shards[name] = materialize_csr_rows(t, plan)
 
@@ -533,7 +593,7 @@ def _lower_impl(stmt, machine, schedule, distributions, weights, device):
             if not _plans_equal(want, d.plan(want.tensor)):
                 comm.redistribute_bytes += _nbytes(want.tensor)
 
-        if strat.space == "nnz":
+        if strat.space == "nnz" and not self_materializing:
             ov = plans[next(iter(plans))]  # position tensor plan
             if ov.tensor.format.dim_of_level(0) != 0:
                 # storage root doesn't track output rows (CSC): every color
@@ -579,7 +639,18 @@ def _compute_plans(stmt: Assignment, strat: DistStrategy, out_t: Tensor,
     dist_var = strat.var
     if strat.space == "universe":
         # coordinate-value loop -> createInitialUniversePartitions
-        bounds = partition_by_bounds(stmt.var_extent(dist_var), pieces)
+        n = stmt.var_extent(dist_var)
+        bounds = partition_by_bounds(n, pieces)
+        # A blocked operand distributed on its row dimension snaps the split
+        # to block-row boundaries, so every co-partitioned tensor (the other
+        # addends, the output) shares the same per-color row windows.
+        for acc in stmt.rhs.accesses():
+            t = acc.tensor
+            if (t.format.is_sparse and t.format.is_blocked
+                    and dist_var in acc.idx and acc.idx.index(dist_var) == 0):
+                bounds = block_aligned_row_bounds(
+                    n, pieces, t.format.block_shape[0])
+                break
         for acc in stmt.accesses():
             t = acc.tensor
             if t.name in plans:
@@ -596,6 +667,17 @@ def _compute_plans(stmt: Assignment, strat: DistStrategy, out_t: Tensor,
             # not indexed by the distributed var at the root -> communicate
             # fetches the whole tensor per color (replication)
             plans[t.name] = replicate_tensor(t, pieces)
+        return plans
+    if (stmt.signature(), strat.space) in _SELF_MATERIALIZING:
+        # spadd3/nnz: each addend's equal nnz split (imbalance ~0 by
+        # construction); the chunk shards come from the add stream at
+        # materialize time.
+        for acc in stmt.rhs.accesses():
+            t = acc.tensor
+            if t.name not in plans:
+                plans[t.name] = (partition_tensor_nonzeros(t, pieces)
+                                 if t.format.is_sparse
+                                 else replicate_tensor(t, pieces))
         return plans
     # coordinate-position loop -> createInitialNonZeroPartition of the
     # position-space (sparse) tensor, then partition the remaining
@@ -629,8 +711,15 @@ def pos_tensor_root_var(stmt: Assignment, pos_tensor: Tensor) -> IndexVar:
 
 
 def _output_is_assembled(sig: str) -> bool:
-    # sparse outputs (sddmm, spttv) are assembled from leaf results
+    # sparse outputs (sddmm, spttv, spadd3) are assembled from leaf results
     return sig.startswith("s")
+
+
+# (sig, space) pairs whose lower packs its own shard set (the add stream)
+# instead of materializing each tensor's plan
+_SELF_MATERIALIZING = {
+    ("s2(i,j)=s2(i,j)+s2(i,j)+s2(i,j)", "nnz"),
+}
 
 
 def _plans_equal(a: TensorPartition, b: TensorPartition) -> bool:
@@ -805,6 +894,169 @@ def _emit_spmm_nnz(stmt, plans, shards, device):
     f = _runner("spmm_nnz", out_shape + (max_rows,), args, lambda: fn,
                 device)
     return "spmm_nnz", f, args
+
+
+# -- SpAdd3 -----------------------------------------------------------------
+
+def _compressed_tensor(name: str, shape, format: "fmt.Format", pos, crd,
+                       vals) -> Tensor:
+    """A (Dense, Compressed) result (CSR, BCSR, BCSC) from its storage
+    regions, already in storage order; the levels of a blocked format
+    index the block grid, as ``Tensor.from_blocks`` builds them."""
+    bs = format.block_shape or (1, 1)
+    size = [-(-shape[format.dim_of_level(l)] // bs[format.dim_of_level(l)])
+            for l in (0, 1)]
+    levels = [LevelData(format.levels[0], size[0]),
+              LevelData(format.levels[1], size[1],
+                        pos=np.asarray(pos, dtype=INT),
+                        crd=np.asarray(crd, dtype=INT))]
+    return Tensor(name, shape, format, levels, vals, vals.dtype)
+
+
+def _sorted_row_shard(S: ShardedTensor, device: torch.device):
+    """(pos1, crd1, vals) of one addend's row shard on ``device`` with the
+    columns non-decreasing within every row, the order the union kernels
+    merge. Shards come in storage order (CSR, DCSR, COO, BCSR) or in the
+    row-sorted transpose walk (CSC, BCSC), which already is that order; a
+    shard built from storage that is not sorted is sorted here, once."""
+    def build():
+        a = S.arrays
+        pos, crd, vals = a["pos1"], a["crd1"], a["vals"]
+        fixed = None
+        for p in range(S.pieces):
+            n = int(pos[p, -1])
+            rows = np.repeat(np.arange(pos.shape[1] - 1), np.diff(pos[p]))
+            c = crd[p, :n]
+            if ((c[1:] < c[:-1]) & (rows[1:] == rows[:-1])).any():
+                if fixed is None:
+                    fixed = crd.copy(), vals.copy()
+                order = np.lexsort((c, rows))
+                fixed[0][p, :n] = c[order]
+                fixed[1][p, :n] = vals[p, :n][order]
+        return (pos, *(fixed or (crd, vals)))
+
+    return _device_cached(S, ("spadd3_sorted",), device, build)
+
+
+def _window_gather(start: np.ndarray, count: np.ndarray, R: int,
+                   n_root: int) -> np.ndarray:
+    """Indices that turn the union kernel's CSR over the P·R padded piece
+    rows into the global CSR over ``n_root`` rows: row ``start[p] + r`` is
+    piece row ``p·R + r``. The universe windows are disjoint, ordered and
+    cover [0, n_root), and padded piece rows are empty."""
+    ends = start.astype(np.int64) + count
+    if (n_root and (start[0] != 0 or ends[-1] != n_root
+                    or (start[1:] != ends[:-1]).any())):
+        raise AssertionError(f"row windows {start}, {count} do not tile "
+                             f"[0, {n_root})")
+    return np.concatenate(
+        [p * R + np.arange(int(c), dtype=np.int64)
+         for p, c in enumerate(count)] + [[len(count) * R]])
+
+
+def _to_storage_order(format: "fmt.Format", pos, crd, vals, n_minor: int):
+    """A row-major union (pos over rows, column crd) in the storage order of
+    ``format``: itself for a row-major root; for a column-major root
+    (BCSC) a stable sort by column on the device."""
+    if format.dim_of_level(0) == 0:
+        return pos, crd, vals
+    rows = torch.repeat_interleave(
+        torch.arange(pos.shape[0] - 1, device=crd.device),
+        (pos[1:] - pos[:-1]).long())
+    order = torch.sort(crd, stable=True).indices
+    cpos = torch.zeros(n_minor + 1, dtype=torch.int64, device=crd.device)
+    torch.cumsum(torch.bincount(crd.long(), minlength=n_minor), 0,
+                 out=cpos[1:])
+    return cpos, rows[order], vals[order]
+
+
+def _emit_spadd3_rows(stmt, plans, shards, device):
+    """Fused three-way add over shared row windows: the union of the three
+    row shards on the device, one launch per run, written as the output's
+    CSR (scalar addends) or blocked CSR (duplicate blocks sum their tiles;
+    the output takes the addends' blocked format). Transpose-walked shards
+    (CSC, BCSC) feed the same kernel: the walk already delivered row-window
+    locality."""
+    accs = stmt.rhs.accesses()
+    Bs = [shards[acc.tensor.name] for acc in accs]
+    Bt = accs[0].tensor
+    out_name = stmt.lhs.tensor.name
+    shape = tuple(stmt.lhs.tensor.shape)
+    a, meta = Bs[0].arrays, Bs[0].meta
+    if tree_of(Bt).blocked:
+        br, bc = int(meta["br"]), int(meta["bc"])
+        name, static = "bcsr_spadd3_rows", shape + (br, bc)
+        kernel = spadd3_kernels.bcsr_spadd3_union_rows
+        start, count = a["brow_start"], a["brow_count"]
+        n_root, n_minor = int(meta["grid_rows"]), int(meta["grid_cols"])
+        out_fmt = Bt.format
+    else:
+        name, static = "spadd3_rows", shape
+        kernel = spadd3_kernels.spadd3_union_rows
+        start, count = a["row_start"], a["row_count"]
+        n_root, n_minor = shape
+        out_fmt = fmt.CSR()
+    R = a["pos1"].shape[1] - 1
+    flat = tuple(x for S in Bs for x in _sorted_row_shard(S, device))
+
+    def fn(*args):
+        row_pos, crd, vals = kernel(*args[:9])
+        return row_pos[args[9]], crd, vals
+
+    f = _runner(name, static, flat, lambda: fn, device)
+    args = flat + (_device_cached(
+        Bs[0], ("spadd3_window_gather",), device,
+        lambda: _window_gather(start, count, R, n_root)),)
+
+    def run(*args):
+        levels = _to_storage_order(out_fmt, *f(*args), n_minor)
+        return _compressed_tensor(out_name, shape, out_fmt,
+                                  *(x.cpu().numpy() for x in levels))
+
+    return name, run, args
+
+
+def _emit_spadd3_nnz(stmt, plans, shards, device):
+    """Non-zero SpAdd: the coordinate-position loop of an addition iterates
+    the concatenated stored-entry stream of all addends, split evenly
+    (paper §II-D applied to additions). Each chunk's union and the merge
+    across chunks depend only on the stream's coordinates, so their order
+    is planned once at lower time (``spadd3.plan_runs``, cached with the
+    add-stream shard together with the output's levels); a run launches one
+    kernel that sums the runs of equal coordinates, per chunk in stream
+    order and then across chunks, and copies the values back."""
+    Bt = stmt.rhs.accesses()[0].tensor
+    out_name = stmt.lhs.tensor.name
+    shape = tuple(stmt.lhs.tensor.shape)
+    S = shards["_addstream"]
+    a = S.arrays
+    if tree_of(Bt).blocked:
+        grid = (int(S.meta["grid_rows"]), int(S.meta["grid_cols"]))
+        name = "bcsr_spadd3_nnz"
+        static = (grid[0], int(S.meta["br"]), int(S.meta["bc"]))
+        kernel = spadd3_kernels.bcsr_spadd3_union_nnz
+        out_fmt = Bt.format
+    else:
+        grid, name, static = shape, "spadd3_nnz", shape[:1]
+        kernel = spadd3_kernels.spadd3_union_nnz
+        out_fmt = fmt.CSR()
+    f = _runner(name, static, (a["dim0"], a["dim1"], a["vals"],
+                               a["nnz_count"]), lambda: kernel, device)
+
+    def plan():
+        runs = spadd3_kernels.plan_runs(
+            _on_device(S, "dim0", device), _on_device(S, "dim1", device),
+            torch.from_numpy(a["nnz_count"]), grid, out_fmt.dim_of_level(0))
+        return runs[:3], tuple(x.cpu().numpy() for x in runs[3:])
+
+    runs, (pos, crd) = _shard_cached(S, ("spadd3_runs", str(device)), plan)
+    args = (_on_device(S, "vals", device), *runs)
+
+    def run(*args):
+        return _compressed_tensor(out_name, shape, out_fmt, pos, crd,
+                                  f(*args).cpu().numpy())
+
+    return name, run, args
 
 
 # -- SDDMM ------------------------------------------------------------------
@@ -1008,6 +1260,8 @@ _EMITTERS = {
     ("d1(i)=s2(i,j)*d1(j)", "nnz"): _emit_spmv_nnz,
     ("d2(i,j)=s2(i,k)*d2(k,j)", "universe"): _emit_spmm_rows,
     ("d2(i,j)=s2(i,k)*d2(k,j)", "nnz"): _emit_spmm_nnz,
+    ("s2(i,j)=s2(i,j)+s2(i,j)+s2(i,j)", "universe"): _emit_spadd3_rows,
+    ("s2(i,j)=s2(i,j)+s2(i,j)+s2(i,j)", "nnz"): _emit_spadd3_nnz,
     ("s2(i,j)=s2(i,j)*d2(i,k)*d2(k,j)", "universe"): _emit_sddmm_rows,
     ("s2(i,j)=s2(i,j)*d2(i,k)*d2(k,j)", "nnz"): _emit_sddmm_nnz,
     ("s2(i,j)=s3(i,j,k)*d1(k)", "universe"): _emit_spttv_rows,

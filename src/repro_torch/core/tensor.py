@@ -294,20 +294,26 @@ class Tensor:
         one ``(pos, crd)`` pair per storage level (None where the level
         has no such region) plus ``vals``. The arrays are taken as they
         are, so a tensor assembled elsewhere from the same regions has the
-        same ``fingerprint()`` and lowers to the same shards."""
-        format = fmt.format_from_key(format_key)
+        same ``fingerprint()`` and lowers to the same shards. Blocked
+        formats (``bcsr``, ``bcsc``) take their block shape from ``vals``
+        (n_blocks, br, bc); their levels index the block grid."""
+        vals = np.asarray(vals)
+        blocked = format_key in ("bcsr", "bcsc")
+        format = fmt.format_from_key(
+            format_key, tuple(vals.shape[1:]) if blocked else None)
         shape = tuple(int(s) for s in shape)
         if len(levels) != format.order or len(shape) != format.order:
             raise ValueError(
                 f"{format_key}: need {format.order} levels and dims, got "
                 f"{len(levels)} levels for shape {shape}")
+        bs = format.block_shape or (1,) * format.order
         lds = []
         for l, (pos, crd) in enumerate(levels):
+            d = format.dim_of_level(l)
             lds.append(LevelData(
-                format.levels[l], shape[format.dim_of_level(l)],
+                format.levels[l], -(-shape[d] // bs[d]),
                 pos=None if pos is None else np.asarray(pos, dtype=INT),
                 crd=None if crd is None else np.asarray(crd, dtype=INT)))
-        vals = np.asarray(vals)
         return Tensor(name, shape, format, lds, vals, vals.dtype)
 
     @staticmethod

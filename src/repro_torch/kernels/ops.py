@@ -18,6 +18,8 @@ import torch
 from ..core.device import resolve_device
 from . import ref
 from .sddmm import sddmm_coo
+from .spadd3 import (bcsr_spadd3_dense_rows, bcsr_spadd3_dense_rows_plain,
+                     spadd3_dense_rows, spadd3_dense_rows_plain)
 from .spmm import spmm_csr_rows
 from .spmttkrp import flatten_csf, spmttkrp_coo
 from .spmv import spmv_coo_nnz, spmv_csr_rows
@@ -70,6 +72,47 @@ def sddmm(rows, cols, vals, C, D, impl: str = "torch", device=None):
         return ref.leaf_sddmm_nnz(rows, cols, vals, C, D)
     return sddmm_coo(rows[None], cols[None], vals[None], C,
                      D.t().contiguous())[0]
+
+
+def _check_distinct(pos, crd, what: str) -> None:
+    """The dense kernels' contract: within each row (block-row) of one
+    operand the columns (block columns) strictly increase, so every cell
+    is written by one thread. Canonical CSR / BCSR storage satisfies it."""
+    rows = torch.repeat_interleave(
+        torch.arange(pos.shape[0] - 1, device=pos.device),
+        (pos[1:] - pos[:-1]).long())
+    n = rows.shape[0]
+    if bool(((crd[1:n] <= crd[:n - 1]) & (rows[1:] == rows[:-1])).any()):
+        raise ValueError(f"{what}: columns must strictly increase within "
+                         "each row")
+
+
+def _spadd3_dense(triples, n_rows, n_cols, impl, device, plain, kernel):
+    _check_impl(impl)
+    dev = resolve_device(device)
+    flat = [x for t in triples for x in _on(dev, *t)]
+    if impl == "torch":
+        return plain(*flat, n_rows, n_cols)
+    for i in range(3):
+        _check_distinct(flat[3 * i], flat[3 * i + 1], f"operand {i + 1}")
+    return kernel(*flat, n_rows, n_cols)
+
+
+def spadd3_dense(csr1, csr2, csr3, n_rows: int, n_cols: int,
+                 impl: str = "torch", device=None):
+    """Dense (n_rows, n_cols) = B + C + D from three CSR triples (pos, crd,
+    vals)."""
+    return _spadd3_dense((csr1, csr2, csr3), n_rows, n_cols, impl, device,
+                         spadd3_dense_rows_plain, spadd3_dense_rows)
+
+
+def spadd3_bcsr_dense(bcsr1, bcsr2, bcsr3, n_rows: int, n_cols: int,
+                      impl: str = "torch", device=None):
+    """Dense (n_rows, n_cols) = B + C + D from three blocked (pos, crd,
+    tiles) triples sharing one block shape; the padding of ragged boundary
+    blocks is sliced off."""
+    return _spadd3_dense((bcsr1, bcsr2, bcsr3), n_rows, n_cols, impl, device,
+                         bcsr_spadd3_dense_rows_plain, bcsr_spadd3_dense_rows)
 
 
 def spttv(pos1, crd1, pos2, crd2, vals, c, impl: str = "torch",

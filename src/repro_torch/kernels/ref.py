@@ -1,5 +1,5 @@
-"""Plain PyTorch oracles for the SpMV, SpMM, SDDMM, SpTTV and SpMTTKRP
-leaf kernels.
+"""Plain PyTorch oracles for the SpMV, SpMM, SpAdd3, SDDMM, SpTTV and
+SpMTTKRP leaf kernels.
 
 Two families, as in the JAX package:
 
@@ -28,6 +28,11 @@ def dense_spmv(B: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 def dense_spmm(B: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     return torch.einsum("ik,kj->ij", B, C)
+
+
+def dense_spadd3(B: torch.Tensor, C: torch.Tensor,
+                 D: torch.Tensor) -> torch.Tensor:
+    return B + C + D
 
 
 def dense_sddmm(Bpat: torch.Tensor, C: torch.Tensor,
@@ -94,6 +99,120 @@ def leaf_spmm_rows(pos, crd, vals, C):
 def leaf_spmm_nnz(rows_local, cols, vals, C, max_rows: int):
     return _segment_sum(vals[:, None] * _gather(C, cols), rows_local,
                         max_rows)
+
+
+def _lexsort(cols: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``jnp.lexsort((cols, rows))``: the stable order by row, then column."""
+    order = torch.sort(cols, stable=True).indices
+    return order[torch.sort(rows[order], stable=True).indices]
+
+
+def _tile_union(rows, cols, vals, valid):
+    """The two-phase union of the SpAdd leaves over a (row, col) keyed stream
+    of scalars (``vals`` (n,)) or of (br, bc) tiles: lexsort, sum the entries
+    of each run of equal coordinates in stream order, compact. ``rows`` must
+    already carry the past-every-valid sentinel on invalid slots. Returns
+    (rows, cols, vals, count), padded to n with zeros past ``count``."""
+    n = rows.shape[0]
+    rows, cols = rows.int(), cols.int()
+    if n == 0:                   # empty operands: a statically-empty stream
+        return rows, cols, vals, torch.zeros((), dtype=torch.int32)
+    order = _lexsort(cols, rows)
+    r_s, c_s, v_s, valid_s = rows[order], cols[order], vals[order], \
+        valid[order]
+    newseg = torch.ones(n, dtype=torch.bool, device=rows.device)
+    newseg[1:] = (r_s[1:] != r_s[:-1]) | (c_s[1:] != c_s[:-1])
+    seg = torch.cumsum(newseg, 0) - 1
+    sums = torch.zeros_like(v_s).index_add_(0, seg, v_s)
+    first = torch.nonzero(newseg).squeeze(1)
+    count = int((newseg & valid_s).sum())
+    out_r = torch.zeros_like(rows)
+    out_c = torch.zeros_like(cols)
+    out_v = torch.zeros_like(vals)
+    out_r[:count] = r_s[first[:count]]
+    out_c[:count] = c_s[first[:count]]
+    out_v[:count] = sums[:count]
+    return out_r, out_c, out_v, torch.tensor(count, dtype=torch.int32)
+
+
+def _valid_slots(pos, n_slots: int) -> torch.Tensor:
+    """Slots of a padded shard that hold stored entries: the first
+    ``pos[-1] - pos[0]`` (padding has vals == 0 and is masked out)."""
+    return torch.arange(n_slots, device=pos.device) < (pos[-1] - pos[0])
+
+
+def _union_rows(pos1, crd1, v1, pos2, crd2, v2, pos3, crd3, v3):
+    R = pos1.shape[0] - 1
+    rows = torch.cat([rows_from_pos(p, c.shape[0])
+                      for p, c in ((pos1, crd1), (pos2, crd2), (pos3, crd3))])
+    valid = torch.cat([_valid_slots(p, c.shape[0])
+                       for p, c in ((pos1, crd1), (pos2, crd2), (pos3, crd3))])
+    rows = torch.where(valid, rows, torch.full_like(rows, R))
+    return _tile_union(rows, torch.cat([crd1, crd2, crd3]),
+                       torch.cat([v1, v2, v3]), valid)
+
+
+def leaf_spadd3_rows(pos1, crd1, v1, pos2, crd2, v2, pos3, crd3, v3,
+                     n_cols: int):
+    """Fused three-way sparse add over a row shard: the union of the three
+    operands' (row, col) streams, duplicates summed in operand order.
+    Returns a padded union COO (rows, cols, vals, count) of static size
+    N1+N2+N3, int32 throughout (no fused key), as the reference leaf."""
+    del n_cols
+    return _union_rows(pos1, crd1, v1, pos2, crd2, v2, pos3, crd3, v3)
+
+
+def leaf_spadd_union_chunk(rows, cols, vals, count, n_rows: int):
+    """Per-chunk union leaf of the nnz SpAdd strategy: the chunk is a slice
+    of the concatenated entry stream of all addends; duplicates that
+    straddle chunks merge in the cross-chunk assembly."""
+    valid = torch.arange(rows.shape[0], device=rows.device) < count
+    rows = torch.where(valid, rows, torch.full_like(rows, n_rows))
+    return _tile_union(rows, cols, vals, valid)
+
+
+def leaf_spadd3_dense_rows(pos1, crd1, v1, pos2, crd2, v2, pos3, crd3, v3,
+                           n_cols: int):
+    """Dense-row-accumulate variant (the TPU kernel's contract): all three
+    operands added into dense local rows (R, n_cols)."""
+    R = pos1.shape[0] - 1
+    out = torch.zeros((R, n_cols), dtype=v1.dtype, device=v1.device)
+    for pos, crd, v in ((pos1, crd1, v1), (pos2, crd2, v2), (pos3, crd3, v3)):
+        rows = rows_from_pos(pos, crd.shape[0]).long()
+        cols = crd.long().clamp(0, max(n_cols - 1, 0))
+        if R and n_cols:
+            out.index_put_((rows, cols), v, accumulate=True)
+    return out
+
+
+def leaf_bcsr_spadd3_rows(pos1, crd1, t1, pos2, crd2, t2, pos3, crd3, t3):
+    """Fused three-way blocked add over a block-row shard: the union of the
+    three block coordinate streams, duplicate blocks merged by summing
+    their (br, bc) tiles. Returns (brows_local, bcols, tiles, count)."""
+    return _union_rows(pos1, crd1, t1, pos2, crd2, t2, pos3, crd3, t3)
+
+
+def leaf_bcsr_spadd_union_chunk(brows, bcols, tiles, count, n_brows: int):
+    """Per-chunk union leaf of the blocked nnz SpAdd strategy: the chunk
+    slices the concatenated block stream of all addends."""
+    return leaf_spadd_union_chunk(brows, bcols, tiles, count, n_brows)
+
+
+def leaf_bcsr_spadd3_dense(pos1, crd1, t1, pos2, crd2, t2, pos3, crd3, t3,
+                           grid_cols: int):
+    """Dense-accumulate variant of the blocked add (the TPU kernel's
+    contract): all three tile streams added into a dense block grid,
+    returned row-major as (R*br, grid_cols*bc)."""
+    R = pos1.shape[0] - 1
+    br, bc = t1.shape[1], t1.shape[2]
+    out = torch.zeros((R, grid_cols, br, bc), dtype=t1.dtype,
+                      device=t1.device)
+    for pos, crd, t in ((pos1, crd1, t1), (pos2, crd2, t2), (pos3, crd3, t3)):
+        brow = rows_from_pos(pos, crd.shape[0]).long()
+        bcol = crd.long().clamp(0, max(grid_cols - 1, 0))
+        if R and grid_cols:
+            out.index_put_((brow, bcol), t, accumulate=True)
+    return out.permute(0, 2, 1, 3).reshape(R * br, grid_cols * bc)
 
 
 def leaf_sddmm_nnz(rows, cols, vals, C, D):

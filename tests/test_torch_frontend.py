@@ -155,6 +155,86 @@ def test_partitions_and_shards(name, ctor, order, pieces):
         _fields(RP.partition_tensor_nonzeros(r, pieces, w))
 
 
+BLOCKED = [
+    ("bcsr22", lambda F: F.BCSR((2, 2))),
+    ("bcsr34", lambda F: F.BCSR((3, 4))),
+    ("bcsc22", lambda F: F.BCSC((2, 2))),
+    ("bcsc41", lambda F: F.BCSC((4, 1))),
+]
+
+
+@pytest.mark.parametrize("name,ctor", BLOCKED, ids=[b[0] for b in BLOCKED])
+def test_blocked_storage_round_trip(name, ctor):
+    """BCSR and BCSC (block shapes that do not divide 19 x 13) rebuilt from
+    their storage arrays: the same fingerprint, storage and dense image."""
+    d = _dense(name, 2)
+    r, t = (pkg.Tensor.from_dense("B", d, ctor(F))
+            for pkg, F in ((rc, RF), (tc, TF)))
+    assert t.fingerprint() == r.fingerprint()
+    assert _storage(t) == _storage(r)
+    levels = [(ld.pos, ld.crd) for ld in r.levels]
+    back = tc.Tensor.from_storage("B", r.shape, RF.format_key(r.format),
+                                  levels, r.vals)
+    assert back.format == ctor(TF)
+    assert back.fingerprint() == r.fingerprint()
+    assert [ld.size for ld in back.levels] == [ld.size for ld in r.levels]
+    np.testing.assert_array_equal(back.to_dense(), d)
+    with pytest.raises(ValueError, match="block_shape"):
+        TF.format_from_key(RF.format_key(r.format))
+
+
+@pytest.mark.parametrize("pieces", [2, 4])
+@pytest.mark.parametrize("name,ctor", BLOCKED, ids=[b[0] for b in BLOCKED])
+def test_blocked_partitions_and_shards(name, ctor, pieces):
+    """Block-aligned row bounds, the block-row partitions (BCSC through the
+    blocked transpose walk), their materialized shards and the stored-block
+    nnz partitions equal the reference's."""
+    d = _dense(name, 2)
+    r, t = (pkg.Tensor.from_dense("B", d, ctor(F))
+            for pkg, F in ((rc, RF), (tc, TF)))
+    br = r.format.block_shape[0]
+    for n in (r.shape[0], 1, 40):
+        np.testing.assert_array_equal(
+            TP.block_aligned_row_bounds(n, pieces, br),
+            RP.block_aligned_row_bounds(n, pieces, br))
+    for bounds in (RP.block_aligned_row_bounds(r.shape[0], pieces, br),
+                   RP.partition_by_bounds(r.shape[0], pieces)):
+        rp, tp = RP.partition_tensor_rows(r, bounds), \
+            TP.partition_tensor_rows(t, bounds)
+        assert _fields(tp) == _fields(rp)
+        assert _shards(TP.materialize_bcsr_rows(t, tp)) == \
+            _shards(RP.materialize_bcsr_rows(r, rp))
+    w = np.arange(1, pieces + 1, dtype=np.float64)
+    for weights in (None, w):
+        assert _fields(TP.partition_tensor_nonzeros(t, pieces, weights)) == \
+            _fields(RP.partition_tensor_nonzeros(r, pieces, weights))
+
+
+@pytest.mark.parametrize("ctor", [lambda F: F.CSR(), lambda F: F.CSC(),
+                                  lambda F: F.COO(2),
+                                  lambda F: F.BCSR((2, 2)),
+                                  lambda F: F.BCSC((3, 2))],
+                         ids=["csr", "csc", "coo", "bcsr", "bcsc"])
+def test_add_stream_matches_reference(ctor):
+    """The SpAdd nnz strategy's shards: the concatenated entry (or block)
+    stream cut into equal or weighted chunks; arrays, meta and the
+    ADD_STREAM_STATS hit/miss counts equal the reference's."""
+    ds = [_dense(k, 2) for k in ("b", "c", "d")]
+    out = []
+    for pkg, F, P in ((rc, RF, RP), (tc, TF, TP)):
+        ts = [pkg.Tensor.from_dense(k, d, ctor(F))
+              for k, d in zip("BCD", ds)]
+        P.clear_shard_cache()
+        before = dict(P.ADD_STREAM_STATS)
+        shards = [_shards(P.materialize_add_stream(ts, pieces, w))
+                  for pieces, w in ((3, None), (3, None),
+                                    (4, np.array([1.0, 2.0, 0.5, 3.0])))]
+        stats = {k: P.ADD_STREAM_STATS[k] - before[k] for k in before}
+        out.append((shards, stats))
+    assert out[1] == out[0]
+    assert out[0][1] == {"hits": 1, "misses": 2}
+
+
 def test_convert_cache_and_counters():
     r, t, _ = _pair("csc", FORMATS[1][1], 2)
     TP.clear_convert_cache()

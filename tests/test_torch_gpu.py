@@ -41,12 +41,15 @@ def test_kernels_match_plain_versions(card):
 @pytest.mark.gpu
 def test_kernels_repeat_bit_for_bit(card):
     """No float atomics: two launches on the same inputs give the same
-    bits."""
+    bits (every part of a compressed result too)."""
     fns = chip_smoke.kernel_fns()
     for _, name, args, _ in chip_smoke.kernel_cases(
             np.random.default_rng(4), card):
         kernel = fns[name][0]
-        assert torch.equal(kernel(*args), kernel(*args)), name
+        a, b = kernel(*args), kernel(*args)
+        if not isinstance(a, tuple):
+            a, b = (a,), (b,)
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), name
 
 
 @pytest.mark.gpu
@@ -83,3 +86,33 @@ def test_new_kernels_match_plain_versions(card):
     assert (_build.LAUNCHES["sddmm_coo"] - before["sddmm_coo"]
             + _build.LAUNCHES["spmttkrp_coo"] - before["spmttkrp_coo"]
             == len(cases) > 0)
+
+
+@pytest.mark.gpu
+def test_spadd3_kernels_match_plain_versions(card):
+    """The SpAdd3 edge cases (an empty operand and piece, a row longer than
+    one merge task, coordinates in all three operands, a sum that cancels,
+    padding that must not be read, block shapes (2, 2) and (4, 4) with
+    ragged edges) launch once each and agree with the plain versions; a
+    compressed result has the plain version's pattern exactly."""
+    cases = [c for c in chip_smoke.kernel_cases(np.random.default_rng(9),
+                                                card) if "spadd3" in c[1]]
+    assert {c[1] for c in cases} == set(chip_smoke.PATH_KERNELS["add"])
+    before = sum(_build.LAUNCHES.values())
+    for label, name, args, abs_args in cases:
+        chip_smoke.compare_kernel(label, name, args, abs_args)
+    assert sum(_build.LAUNCHES.values()) - before == len(cases)
+
+
+@pytest.mark.gpu
+def test_lower_runs_the_spadd3_kernels(card):
+    """The add path on the card at a small size: each of its six cells
+    launches its kernel once per run(), stores exactly the host union's
+    coordinates and repeats bit for bit (run_slice raises otherwise)."""
+    data = chip_smoke.make_inputs(4096, 8, 3, seed=2)
+    data["add"] = chip_smoke.add_operands(4096, 2, data["B"])
+    data["dense"] = chip_smoke.add_operands(1024, 3)
+    recs, launches = chip_smoke.run_slice(data, chip_smoke.ADD_CELLS,
+                                          pieces=4, device=None, reps=1)
+    assert all(launches[k] > 0 for k in chip_smoke.PATH_KERNELS["add"])
+    assert all(rec["bitwise"] for rec in recs.values())

@@ -1,15 +1,16 @@
 """The port's lowering against the JAX package's, cell by cell.
 
-Cells: {spmv, spmm, sddmm} × {csr, csc, dcsr, coo} and {spttv, spmttkrp} ×
-{csf, dcsf, coo3}, each × {rows, nnz} × pieces {2, 4}, plus the all-zero
-operand cells. The statement is built from the same numpy arrays in both
+Cells: {spmv, spmm, sddmm} × {csr, csc, dcsr, coo}, spadd3 × {csr, csc,
+dcsr, coo, bcsr, bcsc} and {spttv, spmttkrp} × {csf, dcsf, coo3}, each ×
+{rows, nnz} × pieces {2, 4}, plus the all-zero operand cells. The statement is built from the same numpy arrays in both
 packages (the statement code of tests/conformance.py and, for SpTTV, of
 tests/test_lower.py::test_spttv, copied here: importing conformance would
 register its census a second time).
 ``cell_id``, ``leaf_name``, ``fallbacks``, the ``CommStats`` ledger and the
-cache counters of a cold and a warm lower must be equal; ``run()`` (densified
-for the sparse outputs of SDDMM and SpTTV) must be allclose to the
-reference's and to both interpreters at 1e-3."""
+cache counters of a cold and a warm lower must be equal (for SpAdd3 also the
+``ADD_STREAM_STATS`` counts and the output's format and stored coordinates);
+``run()`` (densified for the sparse outputs of SpAdd3, SDDMM and SpTTV) must
+be allclose to the reference's and to both interpreters at 1e-3."""
 import sys
 import zlib
 from pathlib import Path
@@ -20,11 +21,14 @@ import torch
 
 import repro.core as rc
 from repro.core import formats as RF
+from repro.core import partition as RP
+from repro.core.tensor import LevelData as RLevelData
 from repro.core.interp import interpret as r_interpret
 from repro.core.lower import lower as r_lower
 
 import repro_torch.core as tc
 from repro_torch.core import formats as TF
+from repro_torch.core import partition as TP
 from repro_torch.core.interp import interpret as t_interpret
 from repro_torch.core.lower import lower as t_lower
 from repro_torch.kernels import _build
@@ -43,8 +47,17 @@ FORMATS_3D = [
     ("dcsf", lambda F: F.DCSF(3)),
     ("coo3", lambda F: F.COO(3)),
 ]
+FORMATS_ADD = FORMATS + [
+    ("bcsr", lambda F: F.BCSR((2, 2))),
+    ("bcsc", lambda F: F.BCSC((2, 2))),
+]
 CELLS = ([(e, *f) for e in ("spmv", "spmm", "sddmm") for f in FORMATS]
+         + [("spadd3", *f) for f in FORMATS_ADD]
          + [(e, *f) for e in ("spttv", "spmttkrp") for f in FORMATS_3D])
+# The reference's scalar rows union leaf raises on all-zero operands
+# (ROADMAP Queue 3): there the port is held to the interpreters alone.
+REFERENCE_RAISES = {("spadd3", f, "rows", True)
+                    for f in ("csr", "csc", "dcsr", "coo")}
 
 
 def _sparse_2d(rng, n, m, density=0.25):
@@ -74,6 +87,10 @@ def _arrays(expr, rng, empty):
         return dB3, _normal(rng, (dims[1], L)), _normal(rng, (dims[2], L))
     n, m, K = 19, 13, 5
     dB = np.zeros((n, m), np.float32) if empty else _sparse_2d(rng, n, m)
+    if expr == "spadd3":
+        return (dB,) + tuple(np.zeros((n, m), np.float32) if empty
+                             else _sparse_2d(rng, n, m, d)
+                             for d in (0.15, 0.1))
     if expr == "spmv":
         return dB, _normal(rng, m)
     if expr == "spmm":
@@ -94,6 +111,12 @@ def _stmt(pkg, F, expr, fm, dB, *dense):
         return pkg.parse_tin("A(i,j) = B(i,k) * C(k,j)",
                              A=pkg.Tensor.zeros_dense("A", (n, 7)), B=B,
                              **ops)
+    if expr == "spadd3":
+        return pkg.parse_tin(
+            "A(i,j) = B(i,j) + C(i,j) + D(i,j)",
+            A=pkg.Tensor.from_dense("A", np.zeros_like(dB), F.CSR()), B=B,
+            **{name: pkg.Tensor.from_dense(name, x, fm(F))
+               for name, x in zip("CD", dense)})
     if expr == "sddmm":
         return pkg.parse_tin("A(i,j) = B(i,j) * C(i,k) * D(k,j)",
                              A=pkg.Tensor.from_dense("A", (dB != 0) * 1.0,
@@ -109,14 +132,18 @@ def _stmt(pkg, F, expr, fm, dB, *dense):
                          B=B, **ops)
 
 
-def _lower_twice(pkg, lower, stmt, strategy, pieces, **kw):
+def _lower_twice(pkg, lower, stmt, strategy, pieces, stats, **kw):
+    """Cold and warm lowers, and the ADD_STREAM_STATS counts of each."""
     machine = pkg.Machine(("x", pieces))
     sched = (pkg.lower.default_row_schedule if strategy == "rows"
              else pkg.lower.default_nnz_schedule)(stmt, machine)
     pkg.clear_lowering_caches()
-    cold = lower(stmt, machine, schedule=sched, **kw)
-    warm = lower(stmt, machine, schedule=sched, **kw)
-    return cold, warm
+    counts = []
+    for _ in range(2):
+        before = dict(stats)
+        counts.append((lower(stmt, machine, schedule=sched, **kw),
+                       {k: stats[k] - before[k] for k in stats}))
+    return counts
 
 
 def _check_cell(expr, fmt_name, fm, strategy, pieces, empty=False):
@@ -125,9 +152,12 @@ def _check_cell(expr, fmt_name, fm, strategy, pieces, empty=False):
     arrays = _arrays(expr, rng, empty)
     r_stmt = _stmt(rc, RF, expr, fm, *arrays)
     t_stmt = _stmt(tc, TF, expr, fm, *arrays)
-    r_cold, r_warm = _lower_twice(rc, r_lower, r_stmt, strategy, pieces)
-    t_cold, t_warm = _lower_twice(tc, t_lower, t_stmt, strategy, pieces,
-                                  device="cpu")
+    (r_cold, r_add0), (r_warm, r_add1) = _lower_twice(
+        rc, r_lower, r_stmt, strategy, pieces, RP.ADD_STREAM_STATS)
+    (t_cold, t_add0), (t_warm, t_add1) = _lower_twice(
+        tc, t_lower, t_stmt, strategy, pieces, TP.ADD_STREAM_STATS,
+        device="cpu")
+    assert (t_add0, t_add1) == (r_add0, r_add1)
     assert t_cold.cell_id() == r_cold.cell_id()
     assert t_cold.leaf_name == r_cold.leaf_name
     assert t_cold.fallbacks == r_cold.fallbacks == []
@@ -137,12 +167,33 @@ def _check_cell(expr, fmt_name, fm, strategy, pieces, empty=False):
     assert t_warm.cache.warm
     assert t_cold.imbalance() == r_cold.imbalance()
     assert t_cold.explain().startswith(f"kernel {r_cold.cell_id()}")
-    got, want = t_warm.run(), r_warm.run()
-    if expr in ("sddmm", "spttv"):
+    got = t_warm.run()
+    if (expr, fmt_name, strategy, empty) in REFERENCE_RAISES:
+        with pytest.raises(ValueError):
+            r_warm.run()
+        want = r_interpret(r_stmt)
+    else:
+        want = r_warm.run()
+    if expr == "spadd3" and not isinstance(want, np.ndarray):
+        # the union's stored coordinates, in the reference's storage order
+        assert got.format == TF.format_from_key(
+            RF.format_key(want.format), want.format.block_shape)
+        for gl, wl in zip(got.levels, want.levels):
+            assert gl.size == wl.size
+            for x, y in ((gl.pos, wl.pos), (gl.crd, wl.crd)):
+                assert (x is None) == (y is None)
+                if x is not None:
+                    assert x.dtype == y.dtype
+                    np.testing.assert_array_equal(x, y)
+        assert got.vals.shape == want.vals.shape
+        np.testing.assert_allclose(got.vals, want.vals, atol=1e-3)
+    if expr in ("sddmm", "spttv", "spadd3"):
         # a sparse output: the port's Tensor, in the reference's format
         assert isinstance(got, tc.Tensor)
-        assert TF.format_key(got.format) == RF.format_key(want.format)
-        got, want = got.to_dense(), want.to_dense()
+        if not isinstance(want, np.ndarray):
+            assert TF.format_key(got.format) == RF.format_key(want.format)
+            want = want.to_dense()
+        got = got.to_dense()
     else:
         assert isinstance(got, torch.Tensor) and got.device.type == "cpu"
         got = got.numpy()
@@ -166,6 +217,54 @@ def test_empty_operand_cell(fmt_name, fm, strategy):
     _check_cell("spmv", fmt_name, fm, strategy, 4, empty=True)
 
 
+@pytest.mark.parametrize("strategy", ["rows", "nnz"])
+@pytest.mark.parametrize("fmt_name,fm", FORMATS_ADD,
+                         ids=[f[0] for f in FORMATS_ADD])
+def test_spadd3_empty_operand_cell(fmt_name, fm, strategy):
+    """All three addends empty: an empty union, built without a launch."""
+    _check_cell("spadd3", fmt_name, fm, strategy, 4, empty=True)
+
+
+@pytest.mark.parametrize("strategy", ["rows", "nnz"])
+def test_spadd3_unsorted_storage(strategy):
+    """CSR storage whose columns are not sorted within a row (handed over
+    as plain arrays): the rows shards are sorted once at lower time for the
+    union kernel's merge, and the union still equals the reference's."""
+    rng = np.random.default_rng(12)
+    ds = _arrays("spadd3", rng, False)
+    n, m = ds[0].shape
+    r_ops, t_ops = {}, {}
+    for name, d in zip("BCD", ds):
+        t = rc.Tensor.from_dense(name, d, RF.CSR())
+        pos, crd, vals = t.levels[1].pos, t.levels[1].crd.copy(), \
+            t.vals.copy()
+        for r in range(n):               # reverse every row's entries
+            lo, hi = pos[r], pos[r + 1]
+            crd[lo:hi], vals[lo:hi] = crd[lo:hi][::-1], vals[lo:hi][::-1]
+        r_ops[name] = rc.Tensor(name, (n, m), RF.CSR(), [
+            t.levels[0], RLevelData(t.levels[1].kind, m, pos, crd)], vals,
+            vals.dtype)
+        t_ops[name] = tc.Tensor.from_storage(name, (n, m), "csr",
+                                             [(None, None), (pos, crd)], vals)
+    stmts = [pkg.parse_tin(
+        "A(i,j) = B(i,j) + C(i,j) + D(i,j)",
+        A=pkg.Tensor.from_dense("A", np.zeros((n, m), np.float32), F.CSR()),
+        **ops_) for pkg, F, ops_ in ((rc, RF, r_ops), (tc, TF, t_ops))]
+    outs = []
+    for pkg, lower, stmt, kw in ((rc, r_lower, stmts[0], {}),
+                                 (tc, t_lower, stmts[1], {"device": "cpu"})):
+        machine = pkg.Machine(("x", 3))
+        sched = (pkg.lower.default_row_schedule if strategy == "rows"
+                 else pkg.lower.default_nnz_schedule)(stmt, machine)
+        outs.append(lower(stmt, machine, schedule=sched, **kw).run())
+    want, got = outs
+    np.testing.assert_array_equal(got.levels[1].pos, want.levels[1].pos)
+    np.testing.assert_array_equal(got.levels[1].crd, want.levels[1].crd)
+    np.testing.assert_allclose(got.vals, want.vals, atol=1e-6)
+    assert (np.diff(got.levels[1].crd)[np.diff(np.repeat(
+        np.arange(n), np.diff(got.levels[1].pos))) == 0] > 0).all()
+
+
 def test_weighted_nnz_split_matches_reference():
     rng = np.random.default_rng(3)
     dB, c = _arrays("spmv", rng, False)
@@ -187,6 +286,9 @@ def test_weighted_nnz_split_matches_reference():
 
 @pytest.mark.parametrize("case", ["bcsr", "grid", "spadd3", "auto"])
 def test_unported_paths_raise(case):
+    """Blocked SpMV, grids, blocked addends whose block shapes differ (the
+    reference converts them) and the autoscheduler raise, naming their
+    ROADMAP item."""
     rng = np.random.default_rng(0)
     dB, c = _arrays("spmv", rng, False)
     fm = (lambda F: F.BCSR((2, 2))) if case == "bcsr" else \
@@ -207,8 +309,8 @@ def test_unported_paths_raise(case):
         stmt = tc.parse_tin(
             "A(i,j) = B(i,j) + C(i,j) + D(i,j)",
             A=tc.Tensor.from_dense("A", np.zeros_like(dB), TF.CSR()),
-            **{name: tc.Tensor.from_dense(name, dB, TF.CSR())
-               for name in "BCD"})
+            **{name: tc.Tensor.from_dense(name, dB, TF.BCSR(block))
+               for name, block in zip("BCD", ((2, 2), (4, 4), (2, 2)))})
     elif case == "auto":
         kw["schedule"] = "auto"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -247,3 +349,30 @@ def test_chip_smoke_slice_on_cpu():
         assert chip_smoke.compare_kernel(label, name, args, abs_args) == 0.0
         seen.add(name)
     assert seen == set(chip_smoke.KERNELS)
+
+
+def test_chip_smoke_add_path_on_cpu():
+    """The chip script's SpAdd3 path at a tiny size, on the CPU: the four
+    lowered cells (CSR and BCSR((4, 4)), rows and nnz) and the two dense
+    ops cells run, store exactly the host union's coordinates, agree with
+    its values and repeat bit for bit; no kernel launches."""
+    before = dict(_build.LAUNCHES)
+    data = chip_smoke.make_inputs(256, 4, 5, seed=0)
+    data["add"] = chip_smoke.add_operands(256, 0, data["B"])
+    data["dense"] = chip_smoke.add_operands(64, 1)
+    recs, launches = chip_smoke.run_slice(data, chip_smoke.ADD_CELLS,
+                                          pieces=4, device="cpu", reps=1)
+    assert set(launches.values()) == {0}
+    assert sorted(recs) == sorted(f"{e}/{s}" for e, s in chip_smoke.ADD_CELLS)
+    for name, rec in recs.items():
+        expr, strat = name.split("/")
+        if strat == "ops":
+            assert rec["out"].shape == data["dense"]["scalar"][0].shape
+        else:
+            key = "bcsr" if "bcsr" in expr else "csr"
+            assert rec["kernel"].cell_id() == f"spadd3/{key}/{strat}/4x1"
+            assert chip_smoke.leaf_call(rec["kernel"]) == rec["call"]
+        assert rec["call"][0] in chip_smoke.PATH_KERNELS["add"]
+        assert rec["max_abs_err"] < 1e-5
+        assert rec["bitwise"] and rec["runs"] >= 3
+    assert _build.LAUNCHES == before
