@@ -17,13 +17,18 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
              SpAdd3 an empty operand, a row longer than one merge task,
              coordinates in all three operands and sums that cancel to 0,
              shard padding that must not be read, block shapes (2, 2) and
-             (4, 4) with a ragged last block column), later at the main
-             path's shapes. Per-entry tolerance
+             (4, 4) with a ragged last block column; for the blocked SpMV,
+             SpMM and SDDMM an empty piece and block-row, a block-row
+             longer than several 128-block segments, runs that start and
+             end on segment edges, padding that must not be read, blocks
+             (2, 2), (4, 4) and (4, 8) with a ragged last block-row and
+             block-column, J in {1, 16, 33}, K in {1, 7, 32, 33}), later
+             at the main path's shapes. Per-entry tolerance
              |got - plain| <= 1e-4 * scale + 1e-6, with ``scale`` the same
              computation on absolute values: f32 sums of up to a million
              terms, taken in a different order. A compressed result must
              have the plain version's pattern exactly.
-4. main    — three paths, each driven through the public entry points with
+4. main    — four paths, each driven through the public entry points with
              the kernel launch counts reset just before and read just
              after; each of the path's kernels must have launched.
    a. ``powerlaw_matrix`` (n = m = 2^21, 16 entries per row on average,
@@ -39,12 +44,17 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
       block-row) and its shifts by 1 and 2 block columns; plus the dense
       sums of ``ops.spadd3_dense`` and ``ops.spadd3_bcsr_dense`` over such
       operands of side 2^15 (the dense output of side 2^21 would be 16 TiB).
+   d. The blocked SpMV, SpMM (J = 32) and SDDMM (K = 32) under rows and
+      nnz over the add path's BCSR((4, 4)) operand B (1,977,760 stored
+      blocks at the default side; its longest block-row 331,322) and the
+      matrix path's dense operands.
    Every cell is lowered cold and warm and run; its result is checked per
    entry against a float64 host computation on the numpy arrays (same
    tolerance form; a SpAdd3 union must have the host union's stored
    coordinates exactly), and the line reports the cold and warm lower
    times, the median ``run()`` time and the peak device memory. SDDMM,
-   SpMTTKRP and SpAdd3 must give the same bits on two ``run()``s. The
+   SpMTTKRP, SpAdd3 and the blocked cells must give the same bits on two
+   ``run()``s. The
    counts are read before any other launch: each cell's kernel must have
    launched exactly once per ``run()`` and no other kernel at all.
 5. timing, after every count is read: the median time of each cell's
@@ -54,7 +64,8 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
    PyTorch library call's time on the same inputs (a yardstick only; the
    port never calls it, and for the blocked SpAdd3 kernels none exists),
    and a line for the SpMV rows kernel's second use, SpTTV over the (i, j)
-   fibres.
+   fibres. The blocked kernels' yardsticks are ``torch.sparse`` BSR
+   products and ``sampled_addmm`` over the scalarised block pattern.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a card, or
 without the package beside this file, the script exits non-zero and prints
@@ -104,6 +115,12 @@ KERNELS = {
                                "src/repro/kernels/bcsr.py:214"),
     "bcsr_spadd3_union_nnz": ("src/repro_torch/kernels/csrc/spadd3.cu",
                               "src/repro/kernels/bcsr.py:214"),
+    "bcsr_spmv": ("src/repro_torch/kernels/csrc/bcsr.cu",
+                  "src/repro/kernels/bcsr.py:68"),
+    "bcsr_spmm": ("src/repro_torch/kernels/csrc/bcsr.cu",
+                  "src/repro/kernels/bcsr.py:118"),
+    "bcsr_sddmm": ("src/repro_torch/kernels/csrc/bcsr.cu",
+                   "src/repro/kernels/bcsr.py:160"),
 }
 MATRIX_CELLS = (("spmv", "rows"), ("spmv", "nnz"), ("spmm", "rows"),
                 ("spmm", "nnz"))
@@ -113,12 +130,16 @@ SLICE_CELLS = (("sddmm", "rows"), ("sddmm", "nnz"), ("spttv", "rows"),
 ADD_CELLS = (("spadd3", "rows"), ("spadd3", "nnz"), ("spadd3_bcsr", "rows"),
              ("spadd3_bcsr", "nnz"), ("spadd3_dense", "ops"),
              ("spadd3_bcsr_dense", "ops"))
+BLOCKED_CELLS = (("spmv_bcsr", "rows"), ("spmv_bcsr", "nnz"),
+                 ("spmm_bcsr", "rows"), ("spmm_bcsr", "nnz"),
+                 ("sddmm_bcsr", "rows"), ("sddmm_bcsr", "nnz"))
 # the kernels each path must launch
 PATH_KERNELS = {"matrix": ("spmv_csr_rows", "spmv_coo_nnz", "spmm_csr_rows"),
                 "slice": ("sddmm_coo", "spmttkrp_coo", "spmv_csr_rows"),
                 "add": ("spadd3_union_rows", "spadd3_union_nnz",
                         "bcsr_spadd3_union_rows", "bcsr_spadd3_union_nnz",
-                        "spadd3_dense_rows", "bcsr_spadd3_dense_rows")}
+                        "spadd3_dense_rows", "bcsr_spadd3_dense_rows"),
+                "blocked": ("bcsr_spmv", "bcsr_spmm", "bcsr_sddmm")}
 
 
 def phase(tag: str, /, **fields) -> None:
@@ -310,6 +331,7 @@ def kernel_cases(rng, device):
         yield (f"spmttkrp_coo R={R} N={N} L={L}", "spmttkrp_coo", args,
                _abs_args(args))
     yield from spadd3_cases(rng, device)
+    yield from bcsr_cases(rng, device)
 
 
 def _addends(rng, n, m, tile=()):
@@ -408,8 +430,72 @@ def spadd3_cases(rng, device):
                _abs_args(args))
 
 
+def bcsr_cases(rng, device):
+    """Blocked SpMV, SpMM and SDDMM edge cases over three pieces per block
+    shape: piece 0 holds an empty block-row, a run that ends on the last
+    block of segment 0, one that starts on the first block of segment 1
+    and spans four segments, one cut by a segment edge and one that ends
+    on a 32-block chunk edge inside a segment; piece 1 is empty; piece 2
+    has a run ending on the first chunk edge and a block-row longer than
+    two segments. Padding slots
+    carry the dropped id R, huge block-columns and 1e30 tiles, which
+    must not reach a sum. The dense operands are packed from matrices whose
+    side is not a multiple of the block (a ragged last block-row and
+    block-column)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.layout import (pack_mat_inner_blocks,
+                                            pack_mat_row_blocks,
+                                            pack_vec_blocks)
+
+    def dev(*xs):
+        return [torch.as_tensor(x).to(device).contiguous() for x in xs]
+
+    def normal(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    P, R, grid_cols = 3, 12, 9
+    lens = [np.array([3, 0, 125, 400, 128, 7, 0, 2, 7, 30, 0, 5]),
+            np.zeros(R, np.int64),
+            np.array([0, 32, 300, 0, 0, 0, 0, 0, 0, 0, 2, 0])]
+    N = int(max(x.sum() for x in lens)) + 9                  # a padding tail
+    brow = np.full((P, N), R, np.int32)
+    bcol = np.full((P, N), 1 << 30, np.int32)
+    for p, cnt in enumerate(lens):
+        brow[p, :cnt.sum()] = np.repeat(np.arange(R), cnt)
+        bcol[p, :cnt.sum()] = rng.integers(0, grid_cols, cnt.sum())
+    for br, bc in ((2, 2), (4, 4), (4, 8)):
+        tiles = np.where((brow < R)[:, :, None, None], normal(P, N, br, bc),
+                         np.float32(1e30)).astype(np.float32)
+        n, m = R * br - 1, grid_cols * bc - 3                  # ragged
+        brow_t, bcol_t, tiles_t = dev(brow, bcol, tiles)
+        c_t, = dev(pack_vec_blocks(normal(m), grid_cols, bc))
+        label = f"P={P} N={N} block=({br}, {bc})"
+        yield (f"bcsr_spmv {label}", "bcsr_spmv",
+               (brow_t, bcol_t, tiles_t, c_t, R),
+               (brow_t, bcol_t, tiles_t.abs(), c_t.abs(), R))
+        for J in (1, 16, 33):
+            C_t, = dev(pack_mat_row_blocks(normal(m, J), grid_cols, bc))
+            yield (f"bcsr_spmm {label} J={J}", "bcsr_spmm",
+                   (brow_t, bcol_t, tiles_t, C_t, R),
+                   (brow_t, bcol_t, tiles_t.abs(), C_t.abs(), R))
+        # SDDMM reads every slot: zero tiles on the padding, as the shards
+        for K, shared in ((1, True), (7, False), (32, True), (33, False)):
+            Cm = pack_mat_row_blocks(normal(n, K), R, br).reshape(R * br, K)
+            if not shared:
+                Cm = np.stack([pack_mat_row_blocks(normal(n, K), R, br)
+                               .reshape(R * br, K) for _ in range(P)])
+            Dt = pack_mat_inner_blocks(normal(K, m), grid_cols, bc) \
+                .transpose(0, 2, 1).reshape(grid_cols * bc, K)
+            args = tuple(dev(brow, bcol, np.where(tiles < 1e29, tiles, 0),
+                             Cm, Dt))
+            yield (f"bcsr_sddmm {label} K={K} "
+                   f"{'shared' if shared else 'per-piece'}", "bcsr_sddmm",
+                   args, _abs_args(args))
+
+
 def kernel_fns():
-    from repro_torch.kernels import sddmm, spadd3, spmm, spmttkrp, spmv
+    from repro_torch.kernels import bcsr, sddmm, spadd3, spmm, spmttkrp, spmv
     return {
         "spmv_csr_rows": (spmv.spmv_csr_rows, spmv.spmv_csr_rows_plain),
         "spmv_coo_nnz": (spmv.spmv_coo_nnz, spmv.spmv_coo_nnz_plain),
@@ -429,6 +515,9 @@ def kernel_fns():
                              spadd3.union_runs_plain),
         "bcsr_spadd3_union_nnz": (spadd3.bcsr_spadd3_union_nnz,
                                   spadd3.union_runs_plain),
+        "bcsr_spmv": (bcsr.bcsr_spmv, bcsr.bcsr_spmv_plain),
+        "bcsr_spmm": (bcsr.bcsr_spmm, bcsr.bcsr_spmm_plain),
+        "bcsr_sddmm": (bcsr.bcsr_sddmm, bcsr.bcsr_sddmm_plain),
     }
 
 
@@ -555,6 +644,20 @@ def statements(data):
             A=tc.Tensor.zeros_dense("A", (B3.shape[0],
                                           data["C3"].shape[1])),
             B=B3, C=dense("C", data["C3"]), D=dense("D", data["D3"]))
+    if "blocked" in data.get("add", {}):
+        # the blocked path: the add path's BCSR B and the dense operands
+        Bb = data["add"]["blocked"][0]
+        out["spmv_bcsr"] = tc.parse_tin(
+            "a(i) = B(i,j) * c(j)", a=tc.Tensor.zeros_dense("a", (n,)), B=Bb,
+            c=dense("c", data["c"]))
+        out["spmm_bcsr"] = tc.parse_tin(
+            "A(i,j) = B(i,k) * C(k,j)", A=tc.Tensor.zeros_dense("A", (n, J)),
+            B=Bb, C=dense("C", data["C"]))
+        # the output keeps B's blocks (its values are not read)
+        out["sddmm_bcsr"] = tc.parse_tin(
+            "A(i,j) = B(i,j) * C(i,k) * D(k,j)",
+            A=tc.Tensor("A", Bb.shape, Bb.format, Bb.levels, Bb.vals),
+            B=Bb, C=dense("C", data["Cs"]), D=dense("D", data["Ds"]))
     for kind, expr in (("scalar", "spadd3"), ("blocked", "spadd3_bcsr")):
         if kind in data.get("add", {}):
             ops_ = dict(zip("BCD", data["add"][kind]))
@@ -726,10 +829,65 @@ def reference_products(data, exprs):
         out["spmttkrp"] = per_column(
             i, v3, lambda l: C3[:, l][j].astype(np.float64) * D3[:, l][c2],
             B3.shape[0], C3.shape[1])
+    if {"spmv_bcsr", "spmm_bcsr", "sddmm_bcsr"} & set(exprs):
+        Bb = data["add"]["blocked"][0]
+        if "spmv_bcsr" in exprs:
+            y, sc = blocked_products(Bb, data["c"][:, None])
+            out["spmv_bcsr"] = (y[:, 0], sc[:, 0])
+        if "spmm_bcsr" in exprs:
+            out["spmm_bcsr"] = blocked_products(Bb, data["C"])
+        if "sddmm_bcsr" in exprs:
+            out["sddmm_bcsr"] = blocked_sampled(Bb, data["Cs"], data["Ds"])
     for expr, (where, kind) in ADD_SOURCES.items():
         if expr in exprs:
             out[expr] = host_union(data[where][kind])
     return out
+
+
+def blocked_products(T, X, step: int = 1 << 17):
+    """float64 host T @ X (n, J) and its scale for a BCSR T, in chunks of
+    stored blocks: each chunk's (br, bc) @ (bc, J) products summed per
+    block-row (the blocks are stored block-row by block-row)."""
+    import numpy as np
+    br, bc = T.format.block_shape
+    n, m = T.shape
+    brow, bcol = T.block_coords().astype(np.int64).T
+    Xb = np.zeros((-(-m // bc) * bc, X.shape[1]))
+    Xb[:m] = X
+    Xb = Xb.reshape(-1, bc, X.shape[1])
+    Y = np.zeros((-(-n // br), br, X.shape[1]))
+    S = np.zeros_like(Y)
+    for lo in range(0, brow.shape[0], step):
+        b, t = brow[lo:lo + step], T.vals[lo:lo + step].astype(np.float64)
+        xg = Xb[bcol[lo:lo + step]]
+        start = np.flatnonzero(np.r_[True, b[1:] != b[:-1]])
+        Y[b[start]] += np.add.reduceat(t @ xg, start, axis=0)
+        S[b[start]] += np.add.reduceat(np.abs(t) @ np.abs(xg), start, axis=0)
+    return (Y.reshape(-1, X.shape[1])[:n], S.reshape(-1, X.shape[1])[:n])
+
+
+def blocked_sampled(T, Cs, Ds, step: int = 1 << 17):
+    """float64 host SDDMM over a BCSR T: each stored tile times the (br, bc)
+    block of Cs @ Ds it samples, and the scale, in T's storage order."""
+    import numpy as np
+    br, bc = T.format.block_shape
+    n, m = T.shape
+    K = Cs.shape[1]
+    brow, bcol = T.block_coords().astype(np.int64).T
+    Cb = np.zeros((-(-n // br) * br, K))
+    Cb[:n] = Cs
+    Db = np.zeros((-(-m // bc) * bc, K))
+    Db[:m] = Ds.T
+    Cb, Db = Cb.reshape(-1, br, K), Db.reshape(-1, bc, K)
+    want = np.empty(T.vals.shape)
+    scale = np.empty(T.vals.shape)
+    for lo in range(0, brow.shape[0], step):
+        t = T.vals[lo:lo + step].astype(np.float64)
+        cg, dg = Cb[brow[lo:lo + step]], Db[bcol[lo:lo + step]]
+        want[lo:lo + step] = t * (cg @ dg.transpose(0, 2, 1))
+        scale[lo:lo + step] = np.abs(t) * (np.abs(cg)
+                                           @ np.abs(dg).transpose(0, 2, 1))
+    return want, scale
 
 
 # the SpAdd3 cells' operands: (data key, kind)
@@ -806,9 +964,12 @@ def check_cell(name: str, rec, data, want) -> float:
         if not rec["bitwise"]:
             raise AssertionError(f"{name}: two runs gave different bits")
         return check_union(name, got, want[expr])
-    if expr in ("sddmm", "spttv"):
-        src = data["B"] if expr == "sddmm" else data["B3"]
-        if expr == "sddmm" and got.levels is not src.levels:
+    if expr.endswith("_bcsr") and not rec["bitwise"]:
+        raise AssertionError(f"{name}: two run()s gave different bits")
+    if expr in ("sddmm", "spttv", "sddmm_bcsr"):
+        src = (data["B"] if expr == "sddmm" else data["B3"]
+               if expr == "spttv" else data["add"]["blocked"][0])
+        if expr != "spttv" and got.levels is not src.levels:
             raise AssertionError(f"{name}: the output lost B's pattern")
         if expr == "spttv":
             fibres = np.stack([np.repeat(np.arange(src.shape[0]),
@@ -828,6 +989,11 @@ def leaf_call(k):
     the cell's own inputs; None for a leaf with no kernel (the SpMM nnz
     leaf, the flat SpTTV products)."""
     name = k.leaf_name
+    if name.startswith(("bcsr_spmv", "bcsr_spmm")):
+        # (brow, bcol, tiles, packed dense operand, max_brows)
+        return name[:9], (*k.args[:4], int(k.args[4]))
+    if name.startswith("bcsr_sddmm"):
+        return "bcsr_sddmm", k.args[:5]
     if name in ("spadd3_rows", "bcsr_spadd3_rows"):
         return name.replace("_rows", "_union_rows"), k.args[:9]
     if name in ("spadd3_nnz", "bcsr_spadd3_nnz"):
@@ -896,6 +1062,19 @@ def _moved(name: str, args, nnz: int, n_out: int):
         tile = vals[0, 0].numel()
         return (nnz * (4 + 4 * tile) + (seg_ptr.numel() + run_ptr.numel()) * 4
                 + n_out * 4 * tile, (nnz - n_out) * tile)
+    if name in ("bcsr_spmv", "bcsr_spmm"):
+        # nnz: stored blocks; the output is the kernel's block-row windows
+        brow, _, tiles, x, max_brows = args
+        tile = tiles[0, 0].numel()
+        w = x.shape[2] if x.dim() == 3 else 1
+        return (nnz * (8 + 4 * tile) + x.numel() * 4
+                + brow.shape[0] * max_brows * tiles.shape[2] * w * 4,
+                2 * nnz * tile * w)
+    if name == "bcsr_sddmm":
+        C, Dt = args[3], args[4]
+        tile = args[2][0, 0].numel()
+        return (nnz * (8 + 8 * tile) + C.numel() * 4 + Dt.numel() * 4,
+                nnz * tile * (2 * Dt.shape[1] + 1))
     if name in ("spmv_csr_rows", "spmm_csr_rows"):
         pos, _, _, x = args
         P, R = pos.shape[0], pos.shape[1] - 1
@@ -997,6 +1176,69 @@ def kernel_records(data, cells, launches, reps: int):
             cell_ms[cell] = time_events(
                 lambda: fns[other[0]][0](*other[1]), reps)
     return records[:-1], records[-1], cell_ms
+
+
+def blocked_kernel_records(data, cells, launches, reps: int):
+    """The three blocked kernels, each on the inputs of one cell it serves
+    (spmv_bcsr/rows, spmm_bcsr/rows, sddmm_bcsr/nnz), and {cell: ms} of
+    all six blocked cells' kernels. Yardsticks: ``torch.sparse`` BSR @ c
+    and @ C, and ``sampled_addmm`` over the scalarised block pattern."""
+    import torch
+    Bb = data["add"]["blocked"][0]
+    dev = cells["spmv_bcsr/rows"]["kernel"].device
+    br, bc = Bb.format.block_shape
+    pos, crd, tiles = (torch.as_tensor(x).to(dev) for x in
+                       (Bb.levels[1].pos, Bb.levels[1].crd, Bb.vals))
+    bsr = torch.sparse_bsr_tensor(pos, crd, tiles, size=Bb.shape)
+    # B as a scalar CSR: row b·br + r holds, block by block in block-column
+    # order, the bc entries of row r of each stored block of block-row b
+    nb, L = crd.numel(), (pos[1:] - pos[:-1]).long()
+    brow = torch.repeat_interleave(torch.arange(L.numel(), device=dev), L)
+    start = pos[:-1].long()[brow]
+    r = torch.arange(br, device=dev)[None, :, None]
+    cc = torch.arange(bc, device=dev)[None, None, :]
+    at = (start * br * bc + (torch.arange(nb, device=dev) - start) * bc
+          )[:, None, None] + r * (L[brow] * bc)[:, None, None] + cc
+    at = at.reshape(-1)
+    svals = torch.empty(nb * br * bc, device=dev)
+    svals[at] = tiles.reshape(-1)
+    scols = torch.empty(nb * br * bc, dtype=torch.int64, device=dev)
+    scols[at] = (crd.long()[:, None, None] * bc + cc).expand(
+        nb, br, bc).reshape(-1)
+    crow = torch.zeros(L.numel() * br + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(L.repeat_interleave(br) * bc, 0, out=crow[1:])
+    scalar = torch.sparse_csr_tensor(crow, scols, svals, size=Bb.shape)
+    del brow, start, at
+    call = {c: leaf_call(cells[c]["kernel"]) for c in
+            ("spmv_bcsr/rows", "spmm_bcsr/rows", "sddmm_bcsr/nnz")}
+    c = torch.as_tensor(data["c"]).to(dev)
+    C = torch.as_tensor(data["C"]).to(dev)
+    Cs = torch.as_tensor(data["Cs"]).to(dev)
+    Ds = torch.as_tensor(data["Ds"]).to(dev)
+    library = {
+        "spmv_bcsr/rows": ("torch.sparse_bsr_tensor(B) @ c, the whole "
+                           "matrix", lambda: bsr @ c),
+        "spmm_bcsr/rows": ("torch.sparse_bsr_tensor(B) @ C",
+                           lambda: bsr @ C),
+        "sddmm_bcsr/nnz": (
+            "torch.sparse.sampled_addmm(B as scalar CSR, C, D, beta=0)"
+            ".values() * B's values",
+            lambda: torch.sparse.sampled_addmm(
+                scalar, Cs, Ds, beta=0.0).values() * scalar.values()),
+    }
+    records, cell_ms = [], {}
+    for cell, (name, args) in call.items():
+        records.append(kernel_record(name, args, launches[name],
+                                     Bb.vals.shape[0], Bb.shape[0],
+                                     library[cell], reps))
+        cell_ms[cell] = records[-1]["ms"]
+    fns = kernel_fns()
+    for cell, rec in cells.items():
+        if cell not in cell_ms:
+            other = rec["call"]
+            cell_ms[cell] = time_events(
+                lambda: fns[other[0]][0](*other[1]), reps)
+    return records, cell_ms
 
 
 def device_breakdown(fn, reps: int = 3):
@@ -1150,10 +1392,12 @@ def main(argv=None) -> int:
           dense_side=1 << args.log2_dense,
           dense_stream=sum(t.nnz for t in data["dense"]["scalar"]),
           dense_blocks=sum(t.vals.shape[0] for t in data["dense"]["blocked"]),
+          longest_block_row=int(np.diff(
+              data["add"]["blocked"][0].levels[1].pos).max()),
           seconds=f"{time.perf_counter() - t0:.1f}")
     cells, launches = {}, dict.fromkeys(_build.LAUNCHES, 0)
-    for path, path_cells in (("matrix", MATRIX_CELLS),
-                             ("slice", SLICE_CELLS), ("add", ADD_CELLS)):
+    for path, path_cells in (("matrix", MATRIX_CELLS), ("slice", SLICE_CELLS),
+                             ("add", ADD_CELLS), ("blocked", BLOCKED_CELLS)):
         _build.reset_launches()
         recs, path_launches = run_slice(data, path_cells, PIECES, device,
                                         max(args.reps // 2, 1))
@@ -1182,12 +1426,17 @@ def main(argv=None) -> int:
     # 3b + 5. kernels at the main path's shapes, timed once every count
     # is read
     records, ttv, cell_ms = kernel_records(
-        data, {c: r for c, r in cells.items() if not c.startswith("spadd3")},
+        data, {c: r for c, r in cells.items()
+               if not c.startswith("spadd3") and "_bcsr/" not in c},
         launches, args.reps)
     add_records, add_ms = add_kernel_records(data, cells, launches,
                                              args.reps)
-    records += add_records
+    blocked_records, blocked_ms = blocked_kernel_records(
+        data, {c: r for c, r in cells.items() if "_bcsr/" in c
+               and not c.startswith("spadd3")}, launches, args.reps)
+    records += add_records + blocked_records
     cell_ms.update(add_ms)
+    cell_ms.update(blocked_ms)
     for cell, rec in cells.items():
         phase("cell-kernel", cell=(rec["kernel"].cell_id()
                                    if rec["kernel"] else cell),

@@ -22,8 +22,9 @@ SDDMM, SpTTV and SpMTTKRP (Fig. 9a, adapted):
 
 Host-side products (partitions, shards, ``CommStats``, ``cell_id``, cache
 counters) equal the reference's exactly. Blocked (BCSR, BCSC) operands lower
-for SpAdd3; blocked SpMV, SpMM and SDDMM, format conversion, grids, the
-autoscheduler and the elastic path are not ported yet and raise
+for SpMV, SpMM, SDDMM and SpAdd3. Format conversion (an operand no leaf
+iterates directly, such as a blocked grid with a compressed root), grids,
+the autoscheduler and the elastic path are not ported yet and raise
 ``NotImplementedError`` naming their ROADMAP item; nothing converts a
 format or falls back to a generic path.
 """
@@ -43,9 +44,10 @@ from .partition import (CONVERT_CACHE_STATS, SHARD_CACHE_STATS,
                         ShardedTensor, TensorPartition,
                         block_aligned_row_bounds, clear_convert_cache,
                         clear_shard_cache, fingerprint_memo,
-                        materialize_add_stream, materialize_bcsr_rows,
-                        materialize_coo_nnz, materialize_csr_rows,
-                        materialize_dense_rows, materialize_replicated,
+                        materialize_add_stream, materialize_bcsr_nnz,
+                        materialize_bcsr_rows, materialize_coo_nnz,
+                        materialize_csr_rows, materialize_dense_rows,
+                        materialize_replicated,
                         partition_by_bounds, partition_tensor_nonzeros,
                         partition_tensor_rows, replicate_tensor,
                         tensor_fingerprint, weights_fingerprint)
@@ -54,12 +56,15 @@ from .tdn import Distribution, Machine
 from .tensor import INT, LevelData, Tensor
 from .tin import Assignment, IndexVar
 from ..runtime import telemetry
+from ..kernels import bcsr as bcsr_kernels
 from ..kernels import ref as K
 from ..kernels import sddmm as sddmm_kernels
 from ..kernels import spadd3 as spadd3_kernels
 from ..kernels import spmm as spmm_kernels
 from ..kernels import spmttkrp as spmttkrp_kernels
 from ..kernels import spmv as spmv_kernels
+from ..kernels.layout import (pack_mat_inner_blocks, pack_mat_row_blocks,
+                              pack_rowwindow_blocks, pack_vec_blocks)
 
 
 @dataclasses.dataclass
@@ -282,11 +287,13 @@ def _scatter_rows(global_shape, blocks: torch.Tensor, row_start: np.ndarray,
 
 def _scatter_vals(total: int, blocks: torch.Tensor, start: np.ndarray,
                   count: np.ndarray) -> torch.Tensor:
-    """Assemble per-color value blocks (P, N) into the global value region:
-    the first ``count[p]`` slots of piece p land at ``start[p]`` onward.
-    The windows are disjoint, so an indexed assignment gives the
-    reference's scatter-add result, the same bits on every run."""
-    out = torch.zeros((total,), dtype=blocks.dtype, device=blocks.device)
+    """Assemble per-color value blocks (P, N), or (P, N, br, bc) tiles of a
+    blocked operand, into the global value region: the first ``count[p]``
+    slots of piece p land at ``start[p]`` onward. The windows are disjoint,
+    so an indexed assignment gives the reference's scatter-add result, the
+    same bits on every run."""
+    out = torch.zeros((total,) + tuple(blocks.shape[2:]), dtype=blocks.dtype,
+                      device=blocks.device)
     for p, (s, c) in enumerate(zip(start.tolist(), count.tolist())):
         c = min(c, total - s, blocks.shape[1])
         if c > 0:
@@ -297,11 +304,13 @@ def _scatter_vals(total: int, blocks: torch.Tensor, start: np.ndarray,
 def _scatter_by_val_idx(total: int, blocks: torch.Tensor,
                         val_idx: torch.Tensor,
                         count: np.ndarray) -> torch.Tensor:
-    """Permuted value-region assembly: slot e < ``count[p]`` of piece p goes
-    home to storage position ``val_idx[p, e]`` (the map a transpose walk
-    records); padding slots are dropped. The positions are disjoint, so
-    this is an indexed assignment too."""
-    out = torch.zeros((total,), dtype=blocks.dtype, device=blocks.device)
+    """Permuted value-region assembly: slot e < ``count[p]`` of piece p (a
+    value or a (br, bc) tile) goes home to storage position
+    ``val_idx[p, e]`` (the map a transpose walk records); padding slots are
+    dropped. The positions are disjoint, so this is an indexed assignment
+    too."""
+    out = torch.zeros((total,) + tuple(blocks.shape[2:]), dtype=blocks.dtype,
+                      device=blocks.device)
     for p, c in enumerate(count.tolist()):
         c = min(c, blocks.shape[1])
         if c > 0:
@@ -432,9 +441,9 @@ def _check_operands(stmt: Assignment, space: str) -> None:
         if t.format.is_sparse and not supports(t.format, space):
             raise NotImplementedError(
                 f"{name}/{space} over {t.name} stored as "
-                f"{fmt.format_key(t.format)}: the blocked SpMV, SpMM and "
-                "SDDMM leaves are ROADMAP Queue 1 item 5.3; other formats "
-                "need a conversion (item 5.4)")
+                f"{fmt.format_key(t.format)}: the reference converts it to "
+                "a format its leaves iterate, and format conversion is "
+                "ROADMAP Queue 1 item 5.4")
 
 
 # ---------------------------------------------------------------------------
@@ -570,7 +579,9 @@ def _lower_impl(stmt, machine, schedule, distributions, weights, device):
                 shards[name] = materialize_replicated(t, pieces)
                 comm.replicate_bytes += _nbytes(t)
             elif strat.space == "nnz" and t.format.is_sparse:
-                shards[name] = materialize_coo_nnz(t, plan)
+                shards[name] = (materialize_bcsr_nnz(t, plan)
+                                if t.format.is_blocked
+                                else materialize_coo_nnz(t, plan))
             elif (t.format.is_sparse and t.order >= 3
                     and t.format.levels[1].singleton):
                 # trailing-singleton trees (COO3) have no grouped middle
@@ -596,9 +607,18 @@ def _lower_impl(stmt, machine, schedule, distributions, weights, device):
         if strat.space == "nnz" and not self_materializing:
             ov = plans[next(iter(plans))]  # position tensor plan
             if ov.tensor.format.dim_of_level(0) != 0:
-                # storage root doesn't track output rows (CSC): every color
-                # reduces a FULL-extent output partial (_nnz_row_windows)
+                # storage root doesn't track output rows (CSC, BCSC): every
+                # color reduces a FULL-extent output partial
+                # (_nnz_row_windows, _bcsr_nnz_windows)
                 comm.reduce_bytes += _nbytes(out_t)
+            elif ov.tensor.format.is_blocked:
+                # overlapping BLOCK-rows reduce across colors; the payload
+                # per overlapped block-row is its br-row output stripe
+                bb = ov.levels[0].coord_bounds
+                comm.reduce_bytes += int(
+                    (bb[:, 1] - bb[:, 0]).sum()
+                    - (bb[:, 1].max() - bb[:, 0].min())
+                ) * ov.tensor.format.block_shape[0] * 4
             else:
                 # overlapping output rows reduced across colors
                 rb = ov.root_coord_bounds
@@ -796,39 +816,125 @@ def _nnz_row_windows(B: ShardedTensor, n: int):
             np.full((pieces,), n, dtype=np.int32), int(n))
 
 
+def _bcsr_nnz_windows(B: ShardedTensor):
+    """Block-row window parameters (brow_start, row_start, row_count,
+    max_brows) of a blocked nnz shard set. Column-major roots (BCSC: the
+    root tracks block-columns) and empty shard sets fall back to full-grid
+    windows, so leaves reduce over the whole block grid."""
+    a = B.arrays
+    max_brows = int(B.meta["max_brows"])
+    if B.meta.get("root_dim", 0) == 0 and max_brows > 0:
+        return a["brow_start"], a["row_start"], a["row_count"], max_brows
+    pieces = B.pieces
+    return (np.zeros((pieces,), dtype=np.int32),
+            np.zeros((pieces,), dtype=np.int32),
+            np.full((pieces,), int(B.meta["n_rows"]), dtype=np.int32),
+            max(int(B.meta["grid_rows"]), 1))
+
+
 def _nnz_leaf_inputs(B: ShardedTensor, row_start: np.ndarray, max_rows: int,
-                     device: torch.device, cols: Tuple[str, ...] = ("dim1",)):
+                     device: torch.device, cols: Tuple[str, ...] = ("dim1",),
+                     rows: str = "dim0"):
     """(rows_local, *cols, vals) of a coordinate-column shard set on
     ``device``, the flat leaves' inputs, prepared once and cached with the
-    shard. Rows are rebased to each piece's window and clipped into it, as
-    the reference's emitter does; padding slots get the dropped id
+    shard. Rows (block-rows ``bdim0`` of a blocked shard, whose ``vals`` are
+    tiles) are rebased to each piece's window and clipped into it, as the
+    reference's emitter does; padding slots get the dropped id
     ``max_rows``, so each piece stays row-sorted. A piece whose rows are not
-    sorted (column-major roots: CSC) is stable-sorted by row, the order the
-    row-run kernels require."""
+    sorted (column-major roots: CSC, BCSC) is stable-sorted by row, the
+    order the row-run kernels require."""
     def build():
         a = B.arrays
-        rows = np.clip(a["dim0"].astype(np.int64) - row_start[:, None], 0,
-                       max(max_rows - 1, 0))
-        pad = np.arange(rows.shape[1])[None, :] >= a["nnz_count"][:, None]
-        rows[pad] = max_rows
+        ids = np.clip(a[rows].astype(np.int64) - row_start[:, None], 0,
+                      max(max_rows - 1, 0))
+        pad = np.arange(ids.shape[1])[None, :] >= a["nnz_count"][:, None]
+        ids[pad] = max_rows
         rest = [a[c] for c in cols] + [a["vals"]]
-        if rows.size and (np.diff(rows, axis=1) < 0).any():
-            order = np.argsort(rows, axis=1, kind="stable")
-            rows = np.take_along_axis(rows, order, axis=1)
-            rest = [np.take_along_axis(x, order, axis=1) for x in rest]
-        return (rows.astype(np.int32), *rest)
+        if ids.size and (np.diff(ids, axis=1) < 0).any():
+            order = np.argsort(ids, axis=1, kind="stable")
+            ids = np.take_along_axis(ids, order, axis=1)
+            rest = [np.take_along_axis(
+                x, order.reshape(order.shape + (1,) * (x.ndim - 2)), axis=1)
+                for x in rest]
+        return (ids.astype(np.int32), *rest)
 
-    return _device_cached(B, ("nnz_leaf_inputs", max_rows) + cols, device,
-                          build)
+    return _device_cached(B, ("nnz_leaf_inputs", max_rows, rows) + cols,
+                          device, build)
+
+
+def _bcsr_row_ids(B: ShardedTensor, device: torch.device) -> torch.Tensor:
+    """Per-slot block-row ids (P, N) of a blocked row shard set, expanded
+    from ``pos1`` once and cached with the shard; padding slots get the
+    dropped id max_brows, so each piece stays sorted."""
+    def build():
+        pos = B.arrays["pos1"].astype(np.int64)
+        R = pos.shape[1] - 1
+        ids = np.full(B.arrays["crd1"].shape, R, dtype=np.int32)
+        for p in range(B.pieces):
+            ids[p, :pos[p, -1]] = np.repeat(np.arange(R, dtype=np.int32),
+                                            np.diff(pos[p]))
+        return ids
+
+    return _device_cached(B, ("bcsr_row_ids",), device, build)
+
+
+def _packed(S: ShardedTensor, pack: Callable, grid: int, b: int,
+            device: torch.device, shape: Optional[Tuple[int, ...]] = None):
+    """A dense co-operand shard's values packed into the blocks of a blocked
+    operand's grid (``kernels.layout``), reshaped to ``shape`` when given,
+    made once and cached with the shard."""
+    def build():
+        x = pack(S.arrays["vals"], grid, b)
+        return x if shape is None else x.reshape(shape)
+
+    return _device_cached(S, (pack.__name__, grid, b, shape), device, build)
+
+
+def _bcsr_product(name: str, kernel: Callable, pack: Callable, out_shape,
+                  B: ShardedTensor, dense: ShardedTensor, nnz: bool,
+                  device: torch.device):
+    """The blocked SpMV / SpMM leaf, (runner, args): the kernel over the
+    shard set's stored-block stream into per-piece block-row windows, then
+    ``_scatter_rows`` into the output (overlapping windows under nnz reduce
+    in piece order). Rows expands ``pos1`` into block-row ids; nnz rebases
+    and clips the block-rows (``_bcsr_nnz_windows``)."""
+    a = B.arrays
+    if nnz:
+        brow_start, row_start, row_count, max_brows = _bcsr_nnz_windows(B)
+        stream = _nnz_leaf_inputs(B, brow_start, max_brows, device,
+                                  cols=("bdim1",), rows="bdim0")
+        static = tuple(out_shape) + (max_brows,)
+    else:
+        row_start, row_count = a["row_start"], a["row_count"]
+        max_brows = a["pos1"].shape[1] - 1
+        stream = (_bcsr_row_ids(B, device), _on_device(B, "crd1", device),
+                  _on_device(B, "vals", device))
+        static = tuple(out_shape)
+
+    def fn(brow, bcol, tiles, packed, max_brows, row_start, row_count):
+        blocks = kernel(brow, bcol, tiles, packed, int(max_brows))
+        return _scatter_rows(out_shape, blocks, row_start, row_count)
+
+    # max_brows travels as an argument: the reference's static key does
+    # not hold it under rows
+    args = (*stream, _packed(dense, pack, int(B.meta["grid_cols"]),
+                             int(B.meta["bc"]), device),
+            np.asarray(max_brows), row_start, row_count)
+    return _runner(name, static, args, lambda: fn, device), args
 
 
 # -- SpMV -------------------------------------------------------------------
 
 def _emit_spmv_rows(stmt, plans, shards, device):
-    B = shards[stmt.rhs.accesses()[0].tensor.name]
+    Bt = stmt.rhs.accesses()[0].tensor
+    B = shards[Bt.name]
     c = shards[stmt.rhs.accesses()[1].tensor.name]
     n = stmt.lhs.tensor.shape[0]
     a = B.arrays
+    if tree_of(Bt).blocked:
+        return ("bcsr_spmv_rows", *_bcsr_product(
+            "bcsr_spmv_rows", bcsr_kernels.bcsr_spmv, pack_vec_blocks, (n,),
+            B, c, False, device))
 
     def fn(pos, crd, vals, cvec, row_start, row_count):
         blocks = spmv_kernels.spmv_csr_rows(pos, crd, vals, cvec)  # (P, R)
@@ -842,9 +948,14 @@ def _emit_spmv_rows(stmt, plans, shards, device):
 
 
 def _emit_spmv_nnz(stmt, plans, shards, device):
-    B = shards[stmt.rhs.accesses()[0].tensor.name]
+    Bt = stmt.rhs.accesses()[0].tensor
+    B = shards[Bt.name]
     c = shards[stmt.rhs.accesses()[1].tensor.name]
     n = stmt.lhs.tensor.shape[0]
+    if tree_of(Bt).blocked:
+        return ("bcsr_spmv_nnz", *_bcsr_product(
+            "bcsr_spmv_nnz", bcsr_kernels.bcsr_spmv, pack_vec_blocks, (n,),
+            B, c, True, device))
     row_start, row_count, max_rows = _nnz_row_windows(B, n)
 
     def fn(rows, cols, vals, cvec, row_start, row_count):
@@ -864,6 +975,10 @@ def _emit_spmm_rows(stmt, plans, shards, device):
     B, C = shards[Bacc.tensor.name], shards[Cacc.tensor.name]
     out_shape = stmt.lhs.tensor.shape
     a = B.arrays
+    if tree_of(Bacc.tensor).blocked:
+        return ("bcsr_spmm_rows", *_bcsr_product(
+            "bcsr_spmm_rows", bcsr_kernels.bcsr_spmm, pack_mat_row_blocks,
+            out_shape, B, C, False, device))
 
     def fn(pos, crd, vals, Cmat, row_start, row_count):
         blocks = spmm_kernels.spmm_csr_rows(pos, crd, vals, Cmat)  # (P, R, J)
@@ -880,6 +995,10 @@ def _emit_spmm_nnz(stmt, plans, shards, device):
     Bacc, Cacc = stmt.rhs.accesses()
     B, C = shards[Bacc.tensor.name], shards[Cacc.tensor.name]
     out_shape = stmt.lhs.tensor.shape
+    if tree_of(Bacc.tensor).blocked:
+        return ("bcsr_spmm_nnz", *_bcsr_product(
+            "bcsr_spmm_nnz", bcsr_kernels.bcsr_spmm, pack_mat_row_blocks,
+            out_shape, B, C, True, device))
     row_start, row_count, max_rows = _nnz_row_windows(B, out_shape[0])
 
     def fn(rows, cols, vals, Cmat, row_start, row_count):
@@ -1075,12 +1194,63 @@ def _three_operands(stmt, shards):
             shards[Dacc.tensor.name])
 
 
+def _bcsr_dt(B: ShardedTensor, D: ShardedTensor, device: torch.device):
+    """A replicated dense (K, m) operand in the column blocks of B's grid,
+    transposed to (grid_cols·bc, K) and cached with its shard: the blocked
+    SDDMM kernel reads contiguous K-rows of C and of D."""
+    grid_cols, bc = int(B.meta["grid_cols"]), int(B.meta["bc"])
+    K = D.arrays["vals"].shape[0]
+    return _device_cached(D, ("Dt_blocks", grid_cols, bc), device, lambda: (
+        pack_mat_inner_blocks(D.arrays["vals"], grid_cols, bc)
+        .transpose(0, 2, 1).reshape(grid_cols * bc, K)))
+
+
+def _emit_bcsr_sddmm_rows(stmt, plans, shards, device):
+    """Blocked row-based SDDMM: per piece, the stored tiles against C's row
+    window padded to whole block-rows and D in column blocks; the new tiles
+    go home by value-space intervals, or through ``val_idx`` for
+    transpose-walked (BCSC) shards."""
+    Bt, B, C, D = _three_operands(stmt, shards)
+    a, meta = B.arrays, B.meta
+    br, bc = int(meta["br"]), int(meta["bc"])
+    max_brows = int(meta["max_brows"])
+    total = int(Bt.levels[1].nnz or 0)
+    Cv = C.arrays["vals"]
+    head = (_bcsr_row_ids(B, device), _on_device(B, "crd1", device),
+            _on_device(B, "vals", device),
+            _packed(C, pack_rowwindow_blocks, max_brows, br, device,
+                    (Cv.shape[0], max_brows * br, Cv.shape[2])),
+            _bcsr_dt(B, D, device))
+    if "val_idx" in a:
+        def fn(brow, bcol, tiles, Cl, Dt, val_idx, count):
+            out = bcsr_kernels.bcsr_sddmm(brow, bcol, tiles, Cl, Dt)
+            return _scatter_by_val_idx(total, out, val_idx, count)
+
+        args = head + (_on_device(B, "val_idx", device), a["nnz_count"])
+        static = (total, br, bc)
+    else:
+        vb = plans[Bt.name].vals_bounds
+
+        def fn(brow, bcol, tiles, Cl, Dt, start, count):
+            out = bcsr_kernels.bcsr_sddmm(brow, bcol, tiles, Cl, Dt)
+            return _scatter_vals(total, out, start, count)
+
+        args = head + (vb[:, 0].astype(np.int32),
+                       (vb[:, 1] - vb[:, 0]).astype(np.int32))
+        static = (total,)
+    f = _runner("bcsr_sddmm_rows", static, args, lambda: fn, device)
+    return "bcsr_sddmm_rows", _pattern_output(
+        stmt.lhs.tensor.name, Bt.shape, Bt.format, Bt.levels, f), args
+
+
 def _emit_sddmm_rows(stmt, plans, shards, device):
     """Row-based SDDMM: B and C's matching row block local per color, D
     replicated; output vals stay aligned with B's stored positions. Ordered
     walks scatter back by value-space intervals; transpose-walked shards
     (CSC) scatter home through their ``val_idx`` permutation."""
     Bt, B, C, D = _three_operands(stmt, shards)
+    if tree_of(Bt).blocked:
+        return _emit_bcsr_sddmm_rows(stmt, plans, shards, device)
     a = B.arrays
     total = Bt.nnz
     n_pos = a["crd1"].shape[1]
@@ -1113,18 +1283,33 @@ def _emit_sddmm_rows(stmt, plans, shards, device):
 def _emit_sddmm_nnz(stmt, plans, shards, device):
     Bt, B, C, D = _three_operands(stmt, shards)
     a = B.arrays
-    total = Bt.nnz
+    if tree_of(Bt).blocked:
+        # global block coordinates against C in the full block grid
+        br, grid_rows = int(B.meta["br"]), int(B.meta["grid_rows"])
+        total = int(Bt.levels[1].nnz or 0)
+        kernel = bcsr_kernels.bcsr_sddmm
+        name = "bcsr_sddmm_nnz"
+        head = (_on_device(B, "bdim0", device), _on_device(B, "bdim1", device),
+                _on_device(B, "vals", device),
+                _packed(C, pack_mat_row_blocks, grid_rows, br, device,
+                        (grid_rows * br, C.arrays["vals"].shape[1])),
+                _bcsr_dt(B, D, device))
+    else:
+        total = Bt.nnz
+        kernel = sddmm_kernels.sddmm_coo
+        name = "sddmm_nnz"
+        head = (_on_device(B, "dim0", device), _on_device(B, "dim1", device),
+                _on_device(B, "vals", device), _on_device(C, "vals", device),
+                _transposed(D, device))
 
     def fn(rows, cols, vals, Cm, Dt, count, start):
-        out = sddmm_kernels.sddmm_coo(rows, cols, vals, Cm, Dt)
+        out = kernel(rows, cols, vals, Cm, Dt)
         return _scatter_vals(total, out, start, count)
 
-    args = (_on_device(B, "dim0", device), _on_device(B, "dim1", device),
-            _on_device(B, "vals", device), _on_device(C, "vals", device),
-            _transposed(D, device), a["nnz_count"],
-            plans[Bt.name].vals_bounds[:, 0].astype(np.int32))
-    f = _runner("sddmm_nnz", (total,), args, lambda: fn, device)
-    return "sddmm_nnz", _pattern_output(
+    args = head + (a["nnz_count"],
+                   plans[Bt.name].vals_bounds[:, 0].astype(np.int32))
+    f = _runner(name, (total,), args, lambda: fn, device)
+    return name, _pattern_output(
         stmt.lhs.tensor.name, Bt.shape, Bt.format, Bt.levels, f), args
 
 

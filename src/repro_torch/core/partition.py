@@ -515,6 +515,7 @@ class ShardedTensor:
       - ``csr_rows``  : CSR/CSF-style shard per color (local pos rebased).
       - ``coo_nnz``   : equal-nnz COO shard (rows/cols/vals + row offsets).
       - ``bcsr_rows`` : blocked CSR shard per color ((br, bc) value tiles).
+      - ``bcsr_nnz``  : equal-stored-block shard (block coordinates + tiles).
       - ``add_stream`` / ``add_stream_blocked``: equal chunks of the SpAdd
         addends' concatenated entry (or block) stream.
       - ``replicated``: single copy broadcast to every color.
@@ -1062,6 +1063,59 @@ def _materialize_bcsr_rows_impl(tensor: Tensor, part: TensorPartition,
     meta = dict(_blocked_meta(tensor), max_rows=max_brows * br,
                 max_brows=max_brows, max_bnnz=max_bnnz)
     return ShardedTensor(kind="bcsr_rows", pieces=pieces, arrays=arrays,
+                         meta=meta, partition=part)
+
+
+def materialize_bcsr_nnz(tensor: Tensor, part: TensorPartition,
+                         ) -> ShardedTensor:
+    key = ("bcsr_nnz", tensor_fingerprint(tensor),
+           partition_fingerprint(part))
+    return _cached_shards(
+        key, lambda: _materialize_bcsr_nnz_impl(tensor, part), partition=part)
+
+
+def _materialize_bcsr_nnz_impl(tensor: Tensor, part: TensorPartition,
+                               ) -> ShardedTensor:
+    """Equal-stored-block shards from a block non-zero partition: per-color
+    global (block-row, block-col) columns + (br, bc) value tiles, plus the
+    preimage-derived block-row ownership window (overlapping — boundary
+    block-rows reduce across colors, the paper's §II-D trade made at block
+    granularity)."""
+    pieces = part.pieces
+    br, bc = tensor.format.block_shape
+    vb = part.vals_bounds
+    bcoords = tensor.block_coords().astype(np.int64)     # (nb, 2) dim order
+    counts = vb[:, 1] - vb[:, 0]
+    max_bnnz = int(counts.max()) if pieces else 0
+    bdim0 = np.zeros((pieces, max_bnnz), dtype=INT)
+    bdim1 = np.zeros((pieces, max_bnnz), dtype=INT)
+    vals_shards = np.zeros((pieces, max_bnnz, br, bc), dtype=tensor.vals.dtype)
+    for p in range(pieces):
+        lo, hi = int(vb[p, 0]), int(vb[p, 1])
+        bdim0[p, : hi - lo] = bcoords[lo:hi, 0]
+        bdim1[p, : hi - lo] = bcoords[lo:hi, 1]
+        vals_shards[p, : hi - lo] = tensor.vals[lo:hi]
+    rb = part.root_coord_bounds
+    bb = part.levels[0].coord_bounds
+    arrays = {
+        "bdim0": bdim0,
+        "bdim1": bdim1,
+        "vals": vals_shards,
+        "nnz_count": counts.astype(INT),
+        "row_start": rb[:, 0].astype(INT),
+        "row_count": (rb[:, 1] - rb[:, 0]).astype(INT),
+        "brow_start": bb[:, 0].astype(INT),
+        "brow_count": (bb[:, 1] - bb[:, 0]).astype(INT),
+    }
+    meta = dict(_blocked_meta(tensor),
+                max_rows=int((rb[:, 1] - rb[:, 0]).max()) if pieces else 0,
+                max_brows=int((bb[:, 1] - bb[:, 0]).max()) if pieces else 0,
+                max_bnnz=max_bnnz,
+                # dimension tracked by the storage root: leaves may compute
+                # into a block-row window only when this is 0 (BCSR);
+                # otherwise (BCSC) they reduce over the full block grid.
+                root_dim=tensor.format.dim_of_level(0))
+    return ShardedTensor(kind="bcsr_nnz", pieces=pieces, arrays=arrays,
                          meta=meta, partition=part)
 
 

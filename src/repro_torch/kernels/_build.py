@@ -28,7 +28,8 @@ import torch
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = {"spmv": "spmv.cu", "spmm": "spmm.cu", "sddmm": "sddmm.cu",
-           "spmttkrp": "spmttkrp.cu", "spadd3": "spadd3.cu"}
+           "spmttkrp": "spmttkrp.cu", "spadd3": "spadd3.cu",
+           "bcsr": "bcsr.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,7 +38,8 @@ LAUNCHES: Dict[str, int] = {
     "sddmm_coo": 0, "spmttkrp_coo": 0,
     "spadd3_dense_rows": 0, "bcsr_spadd3_dense_rows": 0,
     "spadd3_union_rows": 0, "bcsr_spadd3_union_rows": 0,
-    "spadd3_union_nnz": 0, "bcsr_spadd3_union_nnz": 0}
+    "spadd3_union_nnz": 0, "bcsr_spadd3_union_nnz": 0,
+    "bcsr_spmv": 0, "bcsr_spmm": 0, "bcsr_sddmm": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

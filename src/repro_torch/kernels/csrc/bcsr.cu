@@ -1,0 +1,413 @@
+// Blocked (BCSR, BCSC) leaves for Hopper (sm_90a): SpMV, SpMM and SDDMM
+// over the lowered path's stacked per-piece streams of stored blocks,
+// batched over pieces. Each stored block e of piece p has a block-row id
+// brow[p, e], a block-column bcol[p, e] and a dense (br, bc) f32 tile. One
+// kernel of each serves both distribution strategies: under rows the
+// block-row ids are expanded from the shard's pos array at lower time,
+// under nnz they are the shard's block-rows rebased to its window and
+// clipped, as the reference's emitter does (padding slots carry the
+// dropped id max_brows).
+//
+// bcsr_spmv replaces the TPU kernel src/repro/kernels/bcsr.py:68 bcsr_spmv,
+// bcsr_spmm src/repro/kernels/bcsr.py:118 bcsr_spmm and bcsr_sddmm
+// src/repro/kernels/bcsr.py:160 bcsr_sddmm.
+//
+// What bounds them on this card: bytes. A stored block moves its tile
+// (br.bc.4 B) and two ids; SpMV reads bc entries of c and writes br of y,
+// SpMM reads a (bc, J) block of C and writes a (br, J) block of Y, SDDMM
+// reads br rows of C and bc rows of D (K each) and writes a tile. At
+// (4, 4) blocks, J = K = 32, the flops (2.br.bc.J per block for SpMM,
+// 2.br.bc.K for SDDMM) are an order of magnitude below the byte time in
+// f32, so the CUDA cores suffice and the tensor cores (TF32 would break the
+// f32 tolerance) are left for later.
+//
+// What the design does about it: the TPU kernels regroup the blocks into
+// bcsr_ell_pack groups and reduce block-rows with one-hot matmuls, because
+// the TPU has no scatter (layout.py:1-22). Here the stream is read as it
+// is. A power-law block pattern puts a third of a million blocks in one
+// block-row, so the reductions are cut into fixed 128-block segments, not
+// block-rows, and folded deterministically as in spmttkrp.cu:
+//  - Phase 1 (per segment): a run of equal block-rows that lies inside the
+//    segment, touching neither edge, belongs to no other segment and is
+//    written to the output directly. The run at the segment's start goes
+//    to head[seg], the run at its end (when it is another block-row) to
+//    tail[seg].
+//    bcsr_spmm: a thread block of (32, br) threads per (segment, 32-wide
+//    tile of j), threads on (r, j). The segment's ids and tiles are staged
+//    in shared memory 32 blocks at a time (coalesced); each thread sums its
+//    (r, j) output over the run in block order, reading one C row per
+//    block-column offset (a 128-byte line across the warp at J = 32).
+//    bcsr_spmv (J = 1): a warp per (segment, r), lanes on stored blocks.
+//    Each lane forms its block's row-r product, a segmented shuffle scan
+//    over equal block-rows sums the runs of 32 blocks, and the open run is
+//    carried from one 32-block chunk to the next (and written when the
+//    next chunk starts another block-row).
+//  - Phase 2 (bcsr_fold, shared): a thread per (segment, output of a
+//    block-row). A block-row cut by segment edges is owned by the segment
+//    where it starts: that thread adds its edge partial and then the head
+//    partials of the following segments that continue the block-row (found
+//    by binary search over the segments' first ids), in segment order.
+//  bcsr_sddmm: outputs never overlap, so there is no reduction across
+//    blocks. A thread block of 256 threads takes G = 256 / (br.bc) stored
+//    blocks, a thread per output (block, r, c); the blocks' br rows of C
+//    and bc rows of D (D transposed once at lower time, so both are
+//    contiguous in k) are staged in shared memory 16 k at a time.
+// Every output is written once, with no float atomics, so results repeat
+// bit for bit. Offsets into the outputs are int64.
+//
+// Contract of bcsr_spmv / bcsr_spmm: block-row ids are non-decreasing
+// within a piece; ids below 0 or at/after R = max_brows are dropped, and
+// the output is zeroed by the caller. Block-columns (and bcsr_sddmm's
+// block-rows) are clamped into the grid; padding slots hold zero tiles.
+//
+// Each entry point returns cudaGetLastError() after its launches.
+
+#include <cuda_runtime.h>
+#include <limits.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarp = 32;
+constexpr int kThreads = 256;
+constexpr int kSeg = 128;       // stored blocks per segment
+constexpr int kChunk = 32;      // stored blocks staged at a time (SpMM)
+constexpr int kMaxTile = 256;   // br * bc limit of the staged tiles
+constexpr int kK = 16;          // k values staged at a time (SDDMM)
+
+__device__ __forceinline__ int64_t clamp_index(int64_t i, int64_t n) {
+    return i < 0 ? 0 : (i >= n ? n - 1 : i);
+}
+
+// one piece's block-row ids, cut into kSeg-long segments
+struct Stream {
+    const int* brow;
+    int64_t N;
+    int64_t nseg;
+    __device__ int64_t lo(int64_t s) const { return s * kSeg; }
+    __device__ int64_t hi(int64_t s) const {
+        const int64_t h = (s + 1) * kSeg;
+        return h < N ? h : N;
+    }
+    __device__ int first(int64_t s) const { return __ldg(brow + s * kSeg); }
+    __device__ int last(int64_t s) const { return __ldg(brow + hi(s) - 1); }
+};
+
+// grid (nseg * n_jt, P), block (32, br)
+__global__ void bcsr_spmm_phase1(const int* __restrict__ brow,
+                                 const int* __restrict__ bcol,
+                                 const float* __restrict__ tiles,
+                                 const float* __restrict__ C,
+                                 float* __restrict__ head,
+                                 float* __restrict__ tail,
+                                 float* __restrict__ Y,
+                                 int64_t N, int br, int bc, int grid_cols,
+                                 int J, int R, int n_jt, int64_t nseg) {
+    __shared__ int s_row[kChunk];
+    __shared__ int s_col[kChunk];
+    __shared__ float s_tile[kChunk * kMaxTile];
+    const int64_t p = blockIdx.y;
+    const int64_t seg = blockIdx.x / n_jt;
+    const int j = int(blockIdx.x % n_jt) * kWarp + threadIdx.x;
+    const int r = threadIdx.y;
+    const bool live = j < J;
+    const int tid = threadIdx.y * kWarp + threadIdx.x;
+    const int nthr = kWarp * br;
+    const int tile = br * bc;
+    const Stream st{brow + p * N, N, nseg};
+    const int64_t lo = st.lo(seg), hi = st.hi(seg);
+    const int first = st.first(seg);
+    if (first >= R || st.last(seg) < 0) return;   // block-uniform: dropped
+    const int* pc = bcol + p * N;
+    const float* pt = tiles + p * N * tile;
+    const int64_t W = int64_t(br) * J;
+    float* Yp = Y + p * int64_t(R) * W;
+    const int64_t w = int64_t(r) * J + j;
+    const int64_t edge = (p * nseg + seg) * W + w;
+    int cur = first;
+    float acc = 0.f;
+    for (int64_t base = lo; base < hi; base += kChunk) {
+        const int cnt = hi - base < kChunk ? int(hi - base) : kChunk;
+        __syncthreads();                 // the previous chunk is consumed
+        for (int i = tid; i < cnt; i += nthr) {
+            s_row[i] = st.brow[base + i];
+            s_col[i] = int(clamp_index(pc[base + i], grid_cols));
+        }
+        for (int i = tid; i < cnt * tile; i += nthr)
+            s_tile[i] = pt[base * tile + i];
+        __syncthreads();
+        for (int t = 0; t < cnt; ++t) {
+            const int row = s_row[t];
+            if (row != cur) {            // block-uniform: a run ends
+                if (cur == first) {
+                    if (live) head[edge] = acc;
+                } else if (live && cur >= 0 && cur < R) {
+                    Yp[int64_t(cur) * W + w] = acc;
+                }
+                acc = 0.f;
+                cur = row;
+            }
+            if (live && row >= 0 && row < R) {
+                const float* tr = s_tile + t * tile + r * bc;
+                const float* cr = C + int64_t(s_col[t]) * bc * J + j;
+                for (int c = 0; c < bc; ++c)
+                    acc += tr[c] * __ldg(cr + int64_t(c) * J);
+            }
+        }
+    }
+    if (live) (cur == first ? head : tail)[edge] = acc;
+}
+
+// Inclusive scan over the lanes of equal key; keys are non-decreasing
+// across the lanes, so an equal key d lanes back means the whole stretch
+// between is one run.
+__device__ __forceinline__ float segmented_scan(float v, int key, int lane) {
+#pragma unroll
+    for (int d = 1; d < kWarp; d <<= 1) {
+        const float u = __shfl_up_sync(0xffffffffu, v, d);
+        const int k = __shfl_up_sync(0xffffffffu, key, d);
+        if (lane >= d && k == key) v += u;
+    }
+    return v;
+}
+
+// grid (ceil(nseg * br * 32 / 256), P), 256 threads: a warp per (seg, r)
+__global__ void bcsr_spmv_phase1(const int* __restrict__ brow,
+                                 const int* __restrict__ bcol,
+                                 const float* __restrict__ tiles,
+                                 const float* __restrict__ cvec,
+                                 float* __restrict__ head,
+                                 float* __restrict__ tail,
+                                 float* __restrict__ y,
+                                 int64_t N, int br, int bc, int grid_cols,
+                                 int R, int64_t nseg) {
+    const int64_t p = blockIdx.y;
+    const int lane = threadIdx.x % kWarp;
+    const int64_t wid = int64_t(blockIdx.x) * (kThreads / kWarp)
+                        + threadIdx.x / kWarp;
+    if (wid >= nseg * br) return;                // warp-uniform
+    const int64_t seg = wid / br;
+    const int r = int(wid % br);
+    const Stream st{brow + p * N, N, nseg};
+    const int64_t lo = st.lo(seg), hi = st.hi(seg);
+    const int first = st.first(seg);
+    if (first >= R || st.last(seg) < 0) return;   // warp-uniform: dropped
+    const int tile = br * bc;
+    const int* pc = bcol + p * N;
+    const float* pt = tiles + p * N * tile;
+    float* yp = y + p * int64_t(R) * br;
+    const int64_t edge = (p * nseg + seg) * br + r;
+    int cur = first;
+    float carry = 0.f;
+    for (int64_t base = lo; base < hi; base += kWarp) {
+        const int cnt = hi - base < kWarp ? int(hi - base) : kWarp;
+        const int64_t e = base + lane;
+        int key = INT_MAX;                       // past every id
+        float v = 0.f;
+        if (lane < cnt) {
+            key = st.brow[e];
+            if (key >= 0 && key < R) {
+                const float* tr = pt + e * tile + r * bc;
+                const float* cv = cvec + clamp_index(pc[e], grid_cols) * bc;
+                for (int c = 0; c < bc; ++c) v += tr[c] * __ldg(cv + c);
+            }
+        }
+        if (__shfl_sync(0xffffffffu, key, 0) != cur) {
+            // the carried run ended with the previous chunk
+            if (lane == 0) {
+                if (cur == first) head[edge] = carry;
+                else if (cur >= 0 && cur < R)
+                    yp[int64_t(cur) * br + r] = carry;
+            }
+            carry = 0.f;
+        }
+        v = segmented_scan(v, key, lane);
+        const int next = __shfl_down_sync(0xffffffffu, key, 1);
+        const float total = v + (key == cur ? carry : 0.f);
+        if (lane < cnt - 1 && next != key) {     // a run ends in the chunk
+            if (key == first) head[edge] = total;
+            else if (key >= 0 && key < R) yp[int64_t(key) * br + r] = total;
+        }
+        carry = __shfl_sync(0xffffffffu, total, cnt - 1);   // runs on
+        cur = __shfl_sync(0xffffffffu, key, cnt - 1);
+    }
+    if (lane == 0) (cur == first ? head : tail)[edge] = carry;
+}
+
+// The head partials of segments t0, t0+1, ... whose first id is r, added
+// in segment order.
+__device__ float chain_sum(const Stream& st, const float* __restrict__ head,
+                           int64_t piece_edge0, int64_t W, int64_t w,
+                           int64_t t0, int r) {
+    if (t0 >= st.nseg || st.first(t0) != r) return 0.f;
+    // first segment at or after t0 whose first id is past r
+    int64_t a = t0 + 1, b = st.nseg;
+    while (a < b) {
+        const int64_t mid = (a + b) >> 1;
+        if (st.first(mid) <= r) a = mid + 1;
+        else b = mid;
+    }
+    float acc = 0.f;
+#pragma unroll 8
+    for (int64_t t = t0; t < a; ++t)
+        acc += __ldg(head + (piece_edge0 + t) * W + w);
+    return acc;
+}
+
+// grid (ceil(nseg * W / 256), P), 256 threads: a thread per (seg, w), W
+// outputs per block-row (br for SpMV, br * J for SpMM)
+__global__ void bcsr_fold(const int* __restrict__ brow,
+                          const float* __restrict__ head,
+                          const float* __restrict__ tail,
+                          float* __restrict__ out,
+                          int64_t N, int64_t W, int R, int64_t nseg) {
+    const int64_t p = blockIdx.y;
+    const int64_t idx = int64_t(blockIdx.x) * kThreads + threadIdx.x;
+    if (idx >= nseg * W) return;
+    const int64_t seg = idx / W, w = idx % W;
+    const Stream st{brow + p * N, N, nseg};
+    const int64_t e0 = p * nseg;                 // this piece's first edge
+    float* op = out + p * int64_t(R) * W;
+    const int hr = st.first(seg), tr = st.last(seg);
+    const bool multi = hr != tr;
+    // the tail's block-row starts here
+    if (multi && tr >= 0 && tr < R) {
+        float acc = tail[(e0 + seg) * W + w];
+        acc += chain_sum(st, head, e0, W, w, seg + 1, tr);
+        op[int64_t(tr) * W + w] = acc;
+    }
+    // the head's block-row starts here
+    if (hr >= 0 && hr < R && (seg == 0 || st.last(seg - 1) != hr)) {
+        float acc = head[(e0 + seg) * W + w];
+        if (!multi) acc += chain_sum(st, head, e0, W, w, seg + 1, hr);
+        op[int64_t(hr) * W + w] = acc;
+    }
+}
+
+// grid (ceil(N / G), P), 256 threads; G = 256 / (br * bc) stored blocks
+// per thread block, a thread per output (block, r, c)
+__global__ void bcsr_sddmm_kernel(const int* __restrict__ brow,
+                                  const int* __restrict__ bcol,
+                                  const float* __restrict__ tiles,
+                                  const float* __restrict__ C,
+                                  const float* __restrict__ Dt,
+                                  float* __restrict__ out,
+                                  int64_t N, int br, int bc, int n_c,
+                                  int64_t c_stride, int m, int K, int G) {
+    extern __shared__ float smem[];
+    float* sC = smem;                            // (G * br, kK + 1)
+    float* sD = sC + G * br * (kK + 1);          // (G * bc, kK + 1)
+    int* sRow = reinterpret_cast<int*>(sD + G * bc * (kK + 1));
+    int* sCol = sRow + G;
+    const int64_t p = blockIdx.y;
+    const int64_t e0 = int64_t(blockIdx.x) * G;
+    const int t = threadIdx.x;
+    const int tile = br * bc;
+    const int g = t / tile, rc = t % tile, r = rc / bc, c = rc % bc;
+    const bool live = g < G && e0 + g < N;
+    if (t < G) {                                 // ids clamped per block
+        const int64_t e = e0 + t;
+        sRow[t] = e < N ? int(clamp_index(brow[p * N + e], n_c / br)) : 0;
+        sCol[t] = e < N ? int(clamp_index(bcol[p * N + e], m / bc)) : 0;
+    }
+    __syncthreads();
+    const float* Cp = C + p * c_stride;
+    const int c_rows = G * br, n_rows = G * (br + bc);
+    float acc = 0.f;
+    for (int k0 = 0; k0 < K; k0 += kK) {
+        for (int i = t; i < n_rows * kK; i += kThreads) {
+            const int row = i / kK, kk = i % kK, k = k0 + kk;
+            float v = 0.f;
+            if (row < c_rows) {
+                const int64_t cr = int64_t(sRow[row / br]) * br + row % br;
+                if (k < K) v = __ldg(Cp + cr * K + k);
+                sC[row * (kK + 1) + kk] = v;
+            } else {
+                const int dr_ = row - c_rows;
+                const int64_t dr = int64_t(sCol[dr_ / bc]) * bc + dr_ % bc;
+                if (k < K) v = __ldg(Dt + dr * K + k);
+                sD[dr_ * (kK + 1) + kk] = v;
+            }
+        }
+        __syncthreads();
+        if (live) {
+            const float* a = sC + (g * br + r) * (kK + 1);
+            const float* b = sD + (g * bc + c) * (kK + 1);
+#pragma unroll
+            for (int kk = 0; kk < kK; ++kk) acc += a[kk] * b[kk];
+        }
+        __syncthreads();
+    }
+    if (live) {
+        const int64_t o = (p * N + e0 + g) * tile + rc;
+        out[o] = tiles[o] * acc;
+    }
+}
+
+int fold(const int* brow, const float* head, const float* tail, float* out,
+         int P, int64_t N, int64_t W, int R, int64_t nseg, cudaStream_t s) {
+    dim3 grid(unsigned((nseg * W + kThreads - 1) / kThreads), unsigned(P));
+    bcsr_fold<<<grid, kThreads, 0, s>>>(brow, head, tail, out, N, W, R, nseg);
+    return int(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// brow, bcol: (P, N); tiles: (P, N, br, bc); c: (grid_cols * bc,);
+// head, tail: (P, nseg, br) scratch with nseg = ceil(N / 128);
+// y: (P, R * br), zeroed.
+int bcsr_spmv(const int* brow, const int* bcol, const float* tiles,
+              const float* c, float* head, float* tail, float* y, int P,
+              int64_t N, int br, int bc, int grid_cols, int R, void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int64_t nseg = (N + kSeg - 1) / kSeg;
+    const int64_t warps = nseg * br;
+    dim3 grid(unsigned((warps * kWarp + kThreads - 1) / kThreads),
+              unsigned(P));
+    bcsr_spmv_phase1<<<grid, kThreads, 0, s>>>(
+        brow, bcol, tiles, c, head, tail, y, N, br, bc, grid_cols, R, nseg);
+    int err = int(cudaGetLastError());
+    if (err != 0) return err;
+    return fold(brow, head, tail, y, P, N, br, R, nseg, s);
+}
+
+// brow, bcol: (P, N); tiles: (P, N, br, bc) with br <= 32 and
+// br * bc <= 256; C: (grid_cols * bc, J); head, tail: (P, nseg, br, J)
+// scratch; Y: (P, R * br, J), zeroed.
+int bcsr_spmm(const int* brow, const int* bcol, const float* tiles,
+              const float* C, float* head, float* tail, float* Y, int P,
+              int64_t N, int br, int bc, int grid_cols, int J, int R,
+              void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int n_jt = (J + kWarp - 1) / kWarp;
+    const int64_t nseg = (N + kSeg - 1) / kSeg;
+    dim3 grid(unsigned(nseg * n_jt), unsigned(P));
+    bcsr_spmm_phase1<<<grid, dim3(kWarp, br), 0, s>>>(
+        brow, bcol, tiles, C, head, tail, Y, N, br, bc, grid_cols, J, R,
+        n_jt, nseg);
+    int err = int(cudaGetLastError());
+    if (err != 0) return err;
+    return fold(brow, head, tail, Y, P, N, int64_t(br) * J, R, nseg, s);
+}
+
+// brow, bcol: (P, N); tiles, out: (P, N, br, bc) with br * bc <= 256;
+// C: (n_c, K) shared (c_stride 0) or (P, n_c, K) (c_stride n_c * K), row
+// blocks of br rows (n_c a multiple of br); Dt: (m, K), D transposed, in
+// column blocks of bc rows (m a multiple of bc).
+int bcsr_sddmm(const int* brow, const int* bcol, const float* tiles,
+               const float* C, const float* Dt, float* out, int P,
+               int64_t N, int br, int bc, int n_c, int64_t c_stride, int m,
+               int K, void* stream) {
+    const int G = kThreads / (br * bc);
+    const size_t smem = size_t(G) * (br + bc) * (kK + 1) * sizeof(float)
+                        + 2 * size_t(G) * sizeof(int);
+    dim3 grid(unsigned((N + G - 1) / G), unsigned(P));
+    bcsr_sddmm_kernel<<<grid, kThreads, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+        brow, bcol, tiles, C, Dt, out, N, br, bc, n_c, c_stride, m, K, G);
+    return int(cudaGetLastError());
+}
+
+}  // extern "C"

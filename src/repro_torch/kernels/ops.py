@@ -3,9 +3,10 @@
 Every op takes ``impl``, mirroring the JAX package's ``"xla"|"pallas"``:
 
 - ``"torch"``: the plain PyTorch leaves of :mod:`.ref`.
-- ``"cuda"``: the Hopper kernels, fed the CSR / COO arrays as they are
-  (the TPU kernels' ELL and padded-COO packs are not needed). On CPU
-  tensors the kernel wrappers run their plain versions.
+- ``"cuda"``: the Hopper kernels, fed the CSR / COO / BCSR arrays as they
+  are (the TPU kernels' ELL, padded-COO and ``bcsr_ell_pack`` packs and
+  their tiling arguments are not needed). On CPU tensors the kernel
+  wrappers run their plain versions.
 
 Inputs are numpy arrays or tensors; they are moved to ``device`` (the card
 when None, see :func:`repro_torch.core.device.resolve_device`). Results
@@ -17,6 +18,7 @@ import torch
 
 from ..core.device import resolve_device
 from . import ref
+from .bcsr import bcsr_sddmm, bcsr_spmm, bcsr_spmv
 from .sddmm import sddmm_coo
 from .spadd3 import (bcsr_spadd3_dense_rows, bcsr_spadd3_dense_rows_plain,
                      spadd3_dense_rows, spadd3_dense_rows_plain)
@@ -72,6 +74,60 @@ def sddmm(rows, cols, vals, C, D, impl: str = "torch", device=None):
         return ref.leaf_sddmm_nnz(rows, cols, vals, C, D)
     return sddmm_coo(rows[None], cols[None], vals[None], C,
                      D.t().contiguous())[0]
+
+
+def _pad_rows(x, n: int):
+    """``x`` (m, ...) zero-padded along its first axis to n rows: a dense
+    co-operand in whole blocks of a blocked operand's grid."""
+    out = x.new_zeros((n,) + tuple(x.shape[1:]))
+    out[:x.shape[0]] = x
+    return out
+
+
+def spmv_bcsr(pos, crd, tiles, c, impl: str = "torch", device=None):
+    """y (grid_rows·br,) = BCSR(pos, crd, tiles) @ c; slice to n_rows."""
+    _check_impl(impl)
+    pos, crd, tiles, c = _on(resolve_device(device), pos, crd, tiles, c)
+    bc = tiles.shape[2]
+    grid_cols = -(-c.shape[0] // bc)
+    c_blk = _pad_rows(c, grid_cols * bc).reshape(grid_cols, bc)
+    if impl == "torch":
+        return ref.leaf_bcsr_spmv_rows(pos, crd, tiles, c_blk)
+    return bcsr_spmv(ref.rows_from_pos(pos, crd.shape[0]).int()[None],
+                     crd.int()[None], tiles[None], c_blk,
+                     pos.shape[0] - 1)[0]
+
+
+def spmm_bcsr(pos, crd, tiles, C, impl: str = "torch", device=None):
+    """Y (grid_rows·br, J) = BCSR(pos, crd, tiles) @ C (K, J); slice to
+    n_rows."""
+    _check_impl(impl)
+    pos, crd, tiles, C = _on(resolve_device(device), pos, crd, tiles, C)
+    bc = tiles.shape[2]
+    grid_cols = -(-C.shape[0] // bc)
+    C_blk = _pad_rows(C, grid_cols * bc).reshape(grid_cols, bc, C.shape[1])
+    if impl == "torch":
+        return ref.leaf_bcsr_spmm_rows(pos, crd, tiles, C_blk)
+    return bcsr_spmm(ref.rows_from_pos(pos, crd.shape[0]).int()[None],
+                     crd.int()[None], tiles[None], C_blk,
+                     pos.shape[0] - 1)[0]
+
+
+def sddmm_bcsr(brow, bcol, tiles, C, D, impl: str = "torch", device=None):
+    """out tiles (nb, br, bc) = tiles ⊙ the (br, bc) blocks of C (n, K) @
+    D (K, m) at the stored blocks' global coordinates (brow, bcol)."""
+    _check_impl(impl)
+    brow, bcol, tiles, C, D = _on(resolve_device(device), brow, bcol, tiles,
+                                  C, D)
+    br, bc = tiles.shape[1], tiles.shape[2]
+    K = C.shape[1]
+    C = _pad_rows(C, -(-C.shape[0] // br) * br)
+    Dt = _pad_rows(D.t(), -(-D.shape[1] // bc) * bc)
+    if impl == "torch":
+        return ref.leaf_bcsr_sddmm(brow, bcol, tiles, C.reshape(-1, br, K),
+                                   Dt.reshape(-1, bc, K).transpose(1, 2))
+    return bcsr_sddmm(brow.int()[None], bcol.int()[None], tiles[None], C,
+                      Dt)[0]
 
 
 def _check_distinct(pos, crd, what: str) -> None:

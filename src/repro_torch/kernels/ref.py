@@ -1,5 +1,5 @@
 """Plain PyTorch oracles for the SpMV, SpMM, SpAdd3, SDDMM, SpTTV and
-SpMTTKRP leaf kernels.
+SpMTTKRP leaf kernels, scalar and blocked.
 
 Two families, as in the JAX package:
 
@@ -7,8 +7,9 @@ Two families, as in the JAX package:
 2. **Shard leaves** (``leaf_*``): one piece's shard in, one piece's local
    output out, on the padded shard layouts of :mod:`repro_torch.core.partition`
    (``pos``/``crd`` pairs for row walks, coordinate columns for position
-   splits). These are the plain versions the Hopper kernels are held
-   against, and the CPU path of the lowered kernels.
+   splits, ``(br, bc)`` tile stacks for blocked walks). These are the
+   plain versions the Hopper kernels are held against, and the CPU path
+   of the lowered kernels.
 
 Index handling differs from the JAX leaves on purpose: ``jnp.take`` never
 raises on an out-of-range index and ``segment_sum`` drops out-of-range
@@ -99,6 +100,53 @@ def leaf_spmm_rows(pos, crd, vals, C):
 def leaf_spmm_nnz(rows_local, cols, vals, C, max_rows: int):
     return _segment_sum(vals[:, None] * _gather(C, cols), rows_local,
                         max_rows)
+
+
+# Blocked (BCSR) leaves: every stored position carries a dense (br, bc)
+# value tile, so the inner op per position is a dense tile product. Dense
+# co-operands arrive packed into matching blocks (``kernels.layout``);
+# boundary blocks keep their zero padding, which multiplies away.
+
+def leaf_bcsr_spmv_rows(pos, crd, bvals, c_blk):
+    """y_local (R*br,) from a blocked row shard: per stored block a
+    (br, bc) @ (bc,) tile matvec, segment-summed over block-rows. ``c_blk``
+    is the dense vector in column blocks, (grid_cols, bc)."""
+    brow = rows_from_pos(pos, crd.shape[0])
+    prod = torch.einsum("nrc,nc->nr", bvals, _gather(c_blk, crd))
+    return _segment_sum(prod, brow, pos.shape[0] - 1).reshape(-1)
+
+
+def leaf_bcsr_spmv_nnz(brow_local, bcol, bvals, c_blk, max_brows: int):
+    """Equal-stored-block shard: block-rows already rebased to the shard's
+    block-row window; padding blocks have zero tiles."""
+    prod = torch.einsum("nrc,nc->nr", bvals, _gather(c_blk, bcol))
+    return _segment_sum(prod, brow_local, max_brows).reshape(-1)
+
+
+def leaf_bcsr_spmm_rows(pos, crd, bvals, C_blk):
+    """Y_local (R*br, J): per stored block a dense (br, bc) @ (bc, J)
+    product. ``C_blk`` is the dense operand in row blocks, (grid_cols, bc,
+    J)."""
+    brow = rows_from_pos(pos, crd.shape[0])
+    prod = torch.einsum("nrc,ncj->nrj", bvals, _gather(C_blk, crd))
+    return _segment_sum(prod, brow, pos.shape[0] - 1).reshape(
+        -1, C_blk.shape[-1])
+
+
+def leaf_bcsr_spmm_nnz(brow_local, bcol, bvals, C_blk, max_brows: int):
+    prod = torch.einsum("nrc,ncj->nrj", bvals, _gather(C_blk, bcol))
+    return _segment_sum(prod, brow_local, max_brows).reshape(
+        -1, C_blk.shape[-1])
+
+
+def leaf_bcsr_sddmm(brow, bcol, bvals, C_blk, D_blk):
+    """out tiles (NB, br, bc) = bvals ⊙ (C row-block @ D col-block), the
+    pattern-preserving sampled product at block granularity. ``C_blk``
+    (n_brow_blocks, br, K) row blocks (shard-local under rows, the full
+    grid under nnz); ``D_blk`` (grid_cols, K, bc) column blocks."""
+    sampled = torch.einsum("nrk,nkc->nrc", _gather(C_blk, brow),
+                           _gather(D_blk, bcol))
+    return bvals * sampled
 
 
 def _lexsort(cols: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:

@@ -29,10 +29,11 @@ _SIGNATURES = {
 
 def supports(format: "fmt.Format", space: str) -> bool:
     """Format-dispatch query of core.lower. SDDMM is pattern-preserving and
-    its leaf works per stored position, so any unblocked 2-D format the
-    reference iterates directly works (CSC through the transpose walk under
-    rows, in storage order under nnz). Blocked leaves are not ported yet."""
-    return not format.is_blocked and fmt.supports_2d_default(format, space)
+    its leaf works per stored position (per stored block for BCSR and BCSC,
+    :mod:`.bcsr`), so any 2-D format the reference iterates directly works
+    (CSC and BCSC through the transpose walk under rows, in storage order
+    under nnz)."""
+    return fmt.supports_2d_default(format, space)
 
 
 def sddmm_coo_plain(rows, cols, vals, C, Dt):

@@ -29,7 +29,7 @@ _SIGNATURES = {
 def supports(format: "fmt.Format", space: str) -> bool:
     """Same capability contract as the SpMV family (the sparse operand is
     iterated the same way; only the dense operand changes)."""
-    return not format.is_blocked and fmt.supports_2d_default(format, space)
+    return fmt.supports_2d_default(format, space)
 
 
 def spmm_csr_rows_plain(pos, crd, vals, C):

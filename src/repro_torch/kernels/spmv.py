@@ -34,10 +34,10 @@ _SIGNATURES = {
 
 
 def supports(format: "fmt.Format", space: str) -> bool:
-    """Format-dispatch query of core.lower: the unblocked 2-D formats the
-    reference's SpMV family iterates directly. Blocked leaves are not
-    ported yet."""
-    return not format.is_blocked and fmt.supports_2d_default(format, space)
+    """Format-dispatch query of core.lower: the 2-D formats the reference's
+    SpMV family iterates directly. Blocked operands (BCSR, BCSC) go to the
+    blocked leaves of :mod:`.bcsr`."""
+    return fmt.supports_2d_default(format, space)
 
 
 def spmv_csr_rows_plain(pos, crd, vals, c):

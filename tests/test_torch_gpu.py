@@ -116,3 +116,38 @@ def test_lower_runs_the_spadd3_kernels(card):
                                           pieces=4, device=None, reps=1)
     assert all(launches[k] > 0 for k in chip_smoke.PATH_KERNELS["add"])
     assert all(rec["bitwise"] for rec in recs.values())
+
+
+@pytest.mark.gpu
+def test_bcsr_kernels_match_plain_versions(card):
+    """The blocked edge cases (an empty piece and block-row, a block-row
+    across several segments, runs on segment edges, padding that must not
+    be read, blocks (2, 2), (4, 4) and (4, 8), J in {1, 16, 33}, K in
+    {1, 7, 32, 33}) launch and agree with the plain versions, and two
+    launches give the same bits."""
+    fns = chip_smoke.kernel_fns()
+    cases = [c for c in chip_smoke.kernel_cases(np.random.default_rng(11),
+                                                card)
+             if c[1] in chip_smoke.PATH_KERNELS["blocked"]]
+    assert {c[1] for c in cases} == set(chip_smoke.PATH_KERNELS["blocked"])
+    before = sum(_build.LAUNCHES.values())
+    for label, name, args, abs_args in cases:
+        chip_smoke.compare_kernel(label, name, args, abs_args)
+        assert torch.equal(fns[name][0](*args), fns[name][0](*args)), label
+    assert sum(_build.LAUNCHES.values()) - before == 3 * len(cases)
+
+
+@pytest.mark.gpu
+def test_lower_runs_the_blocked_kernels(card):
+    """The blocked path on the card at a small size: SpMV, SpMM and SDDMM
+    over BCSR((4, 4)), rows and nnz, each launch their kernel once per
+    run(), agree with the host computation and repeat bit for bit
+    (run_slice raises otherwise)."""
+    data = chip_smoke.make_inputs(4096, 8, 33, seed=3, rank=33)
+    data["add"] = chip_smoke.add_operands(4096, 3, data["B"])
+    recs, launches = chip_smoke.run_slice(data, chip_smoke.BLOCKED_CELLS,
+                                          pieces=4, device=None, reps=1)
+    assert all(launches[k] > 0 for k in chip_smoke.PATH_KERNELS["blocked"])
+    assert all(rec["bitwise"] for rec in recs.values())
+    assert all(rec["out"].device.type == "cuda" for name, rec in recs.items()
+               if not name.startswith("sddmm"))

@@ -35,7 +35,8 @@ def test_importing_the_port_loads_no_jax():
         "import sys\n"
         "import repro_torch.kernels.spmm, repro_torch.kernels.spmv\n"
         "import repro_torch.kernels.sddmm, repro_torch.kernels.spmttkrp\n"
-        "import repro_torch.kernels.spadd3\n"
+        "import repro_torch.kernels.spadd3, repro_torch.kernels.bcsr\n"
+        "import repro_torch.kernels.layout\n"
         "import repro_torch.core.lower, repro_torch.kernels.ops\n"
         "import repro_torch.data.spdata\n"
         "import repro_torch.runtime.telemetry, chip_smoke\n"

@@ -1,8 +1,10 @@
 """The port's lowering against the JAX package's, cell by cell.
 
-Cells: {spmv, spmm, sddmm} × {csr, csc, dcsr, coo}, spadd3 × {csr, csc,
-dcsr, coo, bcsr, bcsc} and {spttv, spmttkrp} × {csf, dcsf, coo3}, each ×
-{rows, nnz} × pieces {2, 4}, plus the all-zero operand cells. The statement is built from the same numpy arrays in both
+Cells: {spmv, spmm, sddmm, spadd3} × {csr, csc, dcsr, coo, bcsr, bcsc} and
+{spttv, spmttkrp} × {csf, dcsf, coo3}, each × {rows, nnz} × pieces {2, 4},
+plus the all-zero operand cells and the blocked cells of SpMV, SpMM and
+SDDMM with non-square (4, 8) blocks. The statement is built from the same
+numpy arrays in both
 packages (the statement code of tests/conformance.py and, for SpTTV, of
 tests/test_lower.py::test_spttv, copied here: importing conformance would
 register its census a second time).
@@ -47,11 +49,12 @@ FORMATS_3D = [
     ("dcsf", lambda F: F.DCSF(3)),
     ("coo3", lambda F: F.COO(3)),
 ]
-FORMATS_ADD = FORMATS + [
+FORMATS_BLOCKED = [
     ("bcsr", lambda F: F.BCSR((2, 2))),
     ("bcsc", lambda F: F.BCSC((2, 2))),
 ]
-CELLS = ([(e, *f) for e in ("spmv", "spmm", "sddmm") for f in FORMATS]
+FORMATS_ADD = FORMATS + FORMATS_BLOCKED
+CELLS = ([(e, *f) for e in ("spmv", "spmm", "sddmm") for f in FORMATS_ADD]
          + [("spadd3", *f) for f in FORMATS_ADD]
          + [(e, *f) for e in ("spttv", "spmttkrp") for f in FORMATS_3D])
 # The reference's scalar rows union leaf raises on all-zero operands
@@ -218,6 +221,26 @@ def test_empty_operand_cell(fmt_name, fm, strategy):
 
 
 @pytest.mark.parametrize("strategy", ["rows", "nnz"])
+@pytest.mark.parametrize("fmt_name,fm", FORMATS_BLOCKED,
+                         ids=[f[0] for f in FORMATS_BLOCKED])
+@pytest.mark.parametrize("expr", ["spmv", "spmm", "sddmm"])
+def test_blocked_empty_operand_cell(expr, fmt_name, fm, strategy):
+    """An all-zero blocked operand: no stored block, nothing launched."""
+    _check_cell(expr, fmt_name, fm, strategy, 4, empty=True)
+
+
+@pytest.mark.parametrize("strategy", ["rows", "nnz"])
+@pytest.mark.parametrize("fmt_name,fm", [
+    ("bcsr", lambda F: F.BCSR((4, 8))), ("bcsc", lambda F: F.BCSC((4, 8)))],
+    ids=["bcsr", "bcsc"])
+@pytest.mark.parametrize("expr", ["spmv", "spmm", "sddmm"])
+def test_blocked_nonsquare_cell(expr, fmt_name, fm, strategy):
+    """(4, 8) blocks over a 19 x 13 operand: br != bc, and a ragged last
+    block-row and block-column."""
+    _check_cell(expr, fmt_name, fm, strategy, 3)
+
+
+@pytest.mark.parametrize("strategy", ["rows", "nnz"])
 @pytest.mark.parametrize("fmt_name,fm", FORMATS_ADD,
                          ids=[f[0] for f in FORMATS_ADD])
 def test_spadd3_empty_operand_cell(fmt_name, fm, strategy):
@@ -286,13 +309,15 @@ def test_weighted_nnz_split_matches_reference():
 
 @pytest.mark.parametrize("case", ["bcsr", "grid", "spadd3", "auto"])
 def test_unported_paths_raise(case):
-    """Blocked SpMV, grids, blocked addends whose block shapes differ (the
-    reference converts them) and the autoscheduler raise, naming their
-    ROADMAP item."""
+    """A blocked grid whose root is compressed (``b[dcsr]``, the ``bcsr``
+    case: the reference converts it, ``formats.supports_2d_default``),
+    grids, blocked addends whose block shapes differ (the reference
+    converts them) and the autoscheduler raise, naming their ROADMAP
+    item."""
     rng = np.random.default_rng(0)
     dB, c = _arrays("spmv", rng, False)
-    fm = (lambda F: F.BCSR((2, 2))) if case == "bcsr" else \
-        (lambda F: F.CSR())
+    fm = (lambda F: F.Format(F.DCSR().levels, block_shape=(2, 2))) \
+        if case == "bcsr" else (lambda F: F.CSR())
     stmt = _stmt(tc, TF, "spmv", fm, dB, c)
     machine = tc.Machine(("x", 2))
     kw = {}
@@ -374,5 +399,30 @@ def test_chip_smoke_add_path_on_cpu():
             assert chip_smoke.leaf_call(rec["kernel"]) == rec["call"]
         assert rec["call"][0] in chip_smoke.PATH_KERNELS["add"]
         assert rec["max_abs_err"] < 1e-5
+        assert rec["bitwise"] and rec["runs"] >= 3
+    assert _build.LAUNCHES == before
+
+
+def test_chip_smoke_blocked_path_on_cpu():
+    """The chip script's blocked path at a tiny size, on the CPU: SpMV, SpMM
+    and SDDMM over the BCSR((4, 4)) operand under rows and nnz lower, run,
+    agree with the float64 host computation (SDDMM keeps B's blocks) and
+    repeat bit for bit; no kernel launches."""
+    before = dict(_build.LAUNCHES)
+    data = chip_smoke.make_inputs(256, 4, 5, seed=0, rank=3)
+    data["add"] = chip_smoke.add_operands(256, 0, data["B"])
+    recs, launches = chip_smoke.run_slice(data, chip_smoke.BLOCKED_CELLS,
+                                          pieces=4, device="cpu", reps=1)
+    assert set(launches.values()) == {0}
+    assert sorted(recs) == sorted(f"{e}/{s}"
+                                  for e, s in chip_smoke.BLOCKED_CELLS)
+    for name, rec in recs.items():
+        expr, strat = name.split("/")
+        base = expr.split("_")[0]
+        assert rec["kernel"].cell_id() == f"{base}/bcsr/{strat}/4x1"
+        assert rec["kernel"].leaf_name == f"bcsr_{base}_{strat}"
+        assert rec["call"] == chip_smoke.leaf_call(rec["kernel"])
+        assert rec["call"][0] in chip_smoke.PATH_KERNELS["blocked"]
+        assert rec["max_abs_err"] < 1e-4
         assert rec["bitwise"] and rec["runs"] >= 3
     assert _build.LAUNCHES == before
