@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            # full size (below)
     python3 chip_smoke.py --log2-n 14 --log2-i 13 --log2-jk 9 \
-        --log2-dense 10 --reps 4     # a quick rehearsal
+        --log2-dense 10 --reps 4 --attn-layers 2 --attn-seq 512
+                                     # a quick rehearsal
 
 Phases, one line each (a failing phase raises and the script exits non-zero):
 
@@ -22,13 +23,20 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
              longer than several 128-block segments, runs that start and
              end on segment edges, padding that must not be read, blocks
              (2, 2), (4, 4) and (4, 8) with a ragged last block-row and
-             block-column, J in {1, 16, 33}, K in {1, 7, 32, 33}), later
+             block-column, J in {1, 16, 33}, K in {1, 7, 32, 33}; for
+             the SpMM nnz kernel the SpMV nnz and SpMTTKRP streams, runs
+             across one and two 256-entry segments, J in {1, 7, 16, 32,
+             33, 130}; for flash_attention every case of
+             tests/test_flash_kernel.py with hd 128 added: G in {1, 2, 3,
+             4, 8}, ragged S = 100, 200 and 300, f32 and bf16), later
              at the main path's shapes. Per-entry tolerance
              |got - plain| <= 1e-4 * scale + 1e-6, with ``scale`` the same
              computation on absolute values: f32 sums of up to a million
              terms, taken in a different order. A compressed result must
-             have the plain version's pattern exactly.
-4. main    — four paths, each driven through the public entry points with
+             have the plain version's pattern exactly. flash_attention is
+             held at atol = rtol = 2e-5 in f32 and 3e-2 in bf16 (the
+             reference test's), and its position 0 must equal v[0].
+4. main    — five paths, each driven through the public entry points with
              the kernel launch counts reset just before and read just
              after; each of the path's kernels must have launched.
    a. ``powerlaw_matrix`` (n = m = 2^21, 16 entries per row on average,
@@ -48,15 +56,26 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
       nnz over the add path's BCSR((4, 4)) operand B (1,977,760 stored
       blocks at the default side; its longest block-row 331,322) and the
       matrix path's dense operands.
-   Every cell is lowered cold and warm and run; its result is checked per
-   entry against a float64 host computation on the numpy arrays (same
-   tolerance form; a SpAdd3 union must have the host union's stored
-   coordinates exactly), and the line reports the cold and warm lower
-   times, the median ``run()`` time and the peak device memory. SDDMM,
-   SpMTTKRP, SpAdd3 and the blocked cells must give the same bits on two
-   ``run()``s. The
-   counts are read before any other launch: each cell's kernel must have
-   launched exactly once per ``run()`` and no other kernel at all.
+   e. The attention path, on a card freed of the sparse paths' data:
+      llama3-8b at full width (d 4096, 32 heads, 8 KV heads, head_dim 128,
+      d_ff 14336, vocab 128256), all 32 layers, bf16 weights from a seeded
+      generator on the card (about 16 GB), ``LM.apply(variant="flash",
+      last_only=True)`` over a prefill of 2 prompts of 4096 tokens (numpy
+      seed 0): the host-clock median of the prefill, tokens/s and the peak
+      memory. flash_attention must launch exactly once per layer and apply,
+      and nothing else; two prefills must give the same bits. Checks: (a)
+      the same weights under ``variant="dense"``, relative Frobenius error
+      of the logits <= 5e-2; (b) f32 at full width and 2 layers, flash
+      against dense on every position at atol = rtol = 1e-3.
+   Every sparse cell is lowered cold and warm and run; its result is
+   checked per entry against a float64 host computation on the numpy
+   arrays (same tolerance form; a SpAdd3 union must have the host union's
+   stored coordinates exactly), and the line reports the cold and warm
+   lower times, the median ``run()`` time and the peak device memory. SpMM
+   nnz, SDDMM, SpMTTKRP, SpAdd3 and the blocked cells must give the same
+   bits on two ``run()``s. The counts are read before any other launch:
+   each cell's kernel must have launched exactly once per ``run()`` and no
+   other kernel at all.
 5. timing, after every count is read: the median time of each cell's
    kernel on the cell's own inputs (CUDA events, median of 20), and the
    ``{"kernels": [...]}`` line: per kernel its launches on the main path,
@@ -66,6 +85,11 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
    and a line for the SpMV rows kernel's second use, SpTTV over the (i, j)
    fibres. The blocked kernels' yardsticks are ``torch.sparse`` BSR
    products and ``sampled_addmm`` over the scalarised block pattern.
+   flash_attention is timed at the model's layer shapes (q (2, 4096, 32,
+   128), k and v (2, 4096, 8, 128)) in bf16 (the line's record) and f32
+   (a line of its own), beside ``scaled_dot_product_attention(
+   is_causal=True, enable_gqa=True)``; its bound is the causal flops over
+   989 TFLOP/s bf16 (67 f32) against q, k, v and o moved once.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a card, or
 without the package beside this file, the script exits non-zero and prints
@@ -74,6 +98,7 @@ no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -86,6 +111,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
+BF16_FLOPS = 989e12            # H100 SXM bf16 tensor cores, dense
 RTOL_ROW, ATOL = 1e-4, 1e-6
 AVG_NNZ, PIECES, SPMM_J, SEED = 16, 4, 32, 0    # the main path's cells
 AVG_SLICE, RANK = 16, 32       # powerlaw_tensor3's slices; SDDMM K, MTTKRP L
@@ -98,6 +124,8 @@ KERNELS = {
                      "src/repro/kernels/spmv.py:126"),
     "spmm_csr_rows": ("src/repro_torch/kernels/csrc/spmm.cu",
                       "src/repro/kernels/spmm.py:54"),
+    "spmm_coo_nnz": ("src/repro_torch/kernels/csrc/spmm.cu",
+                     "none; src/repro/kernels/ref.py:106 leaf_spmm_nnz"),
     "sddmm_coo": ("src/repro_torch/kernels/csrc/sddmm.cu",
                   "src/repro/kernels/sddmm.py:45"),
     "spmttkrp_coo": ("src/repro_torch/kernels/csrc/spmttkrp.cu",
@@ -121,6 +149,8 @@ KERNELS = {
                   "src/repro/kernels/bcsr.py:118"),
     "bcsr_sddmm": ("src/repro_torch/kernels/csrc/bcsr.cu",
                    "src/repro/kernels/bcsr.py:160"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:82"),
 }
 MATRIX_CELLS = (("spmv", "rows"), ("spmv", "nnz"), ("spmm", "rows"),
                 ("spmm", "nnz"))
@@ -134,12 +164,14 @@ BLOCKED_CELLS = (("spmv_bcsr", "rows"), ("spmv_bcsr", "nnz"),
                  ("spmm_bcsr", "rows"), ("spmm_bcsr", "nnz"),
                  ("sddmm_bcsr", "rows"), ("sddmm_bcsr", "nnz"))
 # the kernels each path must launch
-PATH_KERNELS = {"matrix": ("spmv_csr_rows", "spmv_coo_nnz", "spmm_csr_rows"),
+PATH_KERNELS = {"matrix": ("spmv_csr_rows", "spmv_coo_nnz", "spmm_csr_rows",
+                           "spmm_coo_nnz"),
                 "slice": ("sddmm_coo", "spmttkrp_coo", "spmv_csr_rows"),
                 "add": ("spadd3_union_rows", "spadd3_union_nnz",
                         "bcsr_spadd3_union_rows", "bcsr_spadd3_union_nnz",
                         "spadd3_dense_rows", "bcsr_spadd3_dense_rows"),
-                "blocked": ("bcsr_spmv", "bcsr_spmm", "bcsr_sddmm")}
+                "blocked": ("bcsr_spmv", "bcsr_spmm", "bcsr_sddmm"),
+                "attention": ("flash_attention",)}
 
 
 def phase(tag: str, /, **fields) -> None:
@@ -299,6 +331,9 @@ def kernel_cases(rng, device):
             yield (f"spmm_csr_rows {n}x{m} J={J}", "spmm_csr_rows",
                    (pos_t, crd_t, vals_t, C_t),
                    (pos_t, crd_t, vals_t.abs(), C_t.abs()))
+            yield (f"spmm_coo_nnz {n}x{m} J={J}", "spmm_coo_nnz",
+                   (rows_t, crd_t, vals_t, C_t, n),
+                   (rows_t, crd_t, vals_t.abs(), C_t.abs(), n))
         # SDDMM over the same pieces: C shared (nnz) or per piece (rows)
         srows_t, = dev(np.minimum(rows, n - 1))
         for K, shared in ((1, True), (7, False), (32, True), (33, False)):
@@ -330,8 +365,14 @@ def kernel_cases(rng, device):
         args = (rows_t, jj_t, kk_t, vals_t, C_t, D_t, R)
         yield (f"spmttkrp_coo R={R} N={N} L={L}", "spmttkrp_coo", args,
                _abs_args(args))
+        # the same streams through the SpMM nnz kernel: runs across one and
+        # two 256-entry segments and starting on a segment edge
+        args = (rows_t, jj_t, vals_t, C_t, R)
+        yield (f"spmm_coo_nnz R={R} N={N} J={L}", "spmm_coo_nnz", args,
+               _abs_args(args))
     yield from spadd3_cases(rng, device)
     yield from bcsr_cases(rng, device)
+    yield from flash_cases(rng, device)
 
 
 def _addends(rng, n, m, tile=()):
@@ -494,12 +535,62 @@ def bcsr_cases(rng, device):
                    args, _abs_args(args))
 
 
+# tests/test_flash_kernel.py's cases (B, S, H, Hkv, hd) and dtypes, with
+# hd 128 added: G in {1, 2, 3, 4, 8}, ragged S = 200 and 100
+FLASH_CASES = ((2, 256, 4, 2, 32, "float32"), (1, 200, 8, 8, 16, "float32"),
+               (2, 384, 6, 2, 64, "float32"), (1, 128, 16, 2, 32, "float32"),
+               (2, 256, 4, 2, 64, "bfloat16"), (1, 100, 2, 1, 16, "float32"),
+               (2, 200, 8, 2, 128, "float32"), (2, 200, 8, 2, 128, "bfloat16"),
+               (1, 300, 32, 8, 128, "float32"),
+               (1, 300, 32, 8, 128, "bfloat16"))
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # atol = rtol
+
+
+def flash_cases(rng, device):
+    """flash_attention's edge cases: standard-normal q, k, v (made in
+    float32 and cast) per FLASH_CASES."""
+    import numpy as np
+    import torch
+    for B, S, H, Hkv, hd, dt in FLASH_CASES:
+        q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device=device, dtype=getattr(torch, dt))
+            for shape in ((B, S, H, hd), (B, S, Hkv, hd), (B, S, Hkv, hd)))
+        yield (f"flash_attention B={B} S={S} H={H} Hkv={Hkv} hd={hd} {dt}",
+               "flash_attention", (q, k, v), None)
+
+
+def compare_flash(label, got, want, q, v) -> float:
+    """flash_attention's result against its plain version's, entry by entry
+    at FLASH_TOL (atol = rtol) of q's dtype, and its first position against
+    v there (row 0 attends only to itself); returns the max abs error."""
+    import torch
+    tol = FLASH_TOL[str(q.dtype).split(".")[-1]]
+    if got.shape != want.shape or got.dtype != q.dtype:
+        raise AssertionError(f"{label}: {tuple(got.shape)} {got.dtype}, "
+                             f"want {tuple(want.shape)} {q.dtype}")
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{label}: non-finite values")
+    err = (g - w).abs()
+    bad = err > tol + tol * w.abs()
+    if bad.any():
+        raise AssertionError(f"{label}: {int(bad.sum())} entries off by up "
+                             f"to {float(err.max())} (tolerance {tol})")
+    G = q.shape[2] // v.shape[2]
+    first = v[:, 0].float().repeat_interleave(G, dim=1)
+    if not torch.allclose(g[:, 0], first, atol=1e-5, rtol=1e-5):
+        raise AssertionError(f"{label}: position 0 is not v[0]")
+    return float(err.max()) if err.numel() else 0.0
+
+
 def kernel_fns():
-    from repro_torch.kernels import bcsr, sddmm, spadd3, spmm, spmttkrp, spmv
+    from repro_torch.kernels import (bcsr, flash_attention, sddmm, spadd3,
+                                     spmm, spmttkrp, spmv)
     return {
         "spmv_csr_rows": (spmv.spmv_csr_rows, spmv.spmv_csr_rows_plain),
         "spmv_coo_nnz": (spmv.spmv_coo_nnz, spmv.spmv_coo_nnz_plain),
         "spmm_csr_rows": (spmm.spmm_csr_rows, spmm.spmm_csr_rows_plain),
+        "spmm_coo_nnz": (spmm.spmm_coo_nnz, spmm.spmm_coo_nnz_plain),
         "sddmm_coo": (sddmm.sddmm_coo, sddmm.sddmm_coo_plain),
         "spmttkrp_coo": (spmttkrp.spmttkrp_coo,
                          spmttkrp.spmttkrp_coo_plain),
@@ -518,17 +609,23 @@ def kernel_fns():
         "bcsr_spmv": (bcsr.bcsr_spmv, bcsr.bcsr_spmv_plain),
         "bcsr_spmm": (bcsr.bcsr_spmm, bcsr.bcsr_spmm_plain),
         "bcsr_sddmm": (bcsr.bcsr_sddmm, bcsr.bcsr_sddmm_plain),
+        "flash_attention": (flash_attention.flash_attention,
+                            flash_attention.flash_attention_plain),
     }
 
 
 def compare_kernel(label, name, args, abs_args) -> float:
     """A kernel's result against its plain version's on the same inputs.
     A compressed result (pos, crd, vals) must have the plain version's
-    pattern exactly; the values are held to the per-entry tolerance."""
+    pattern exactly; the values are held to the per-entry tolerance
+    (flash_attention's to its own, :func:`compare_flash`)."""
     import torch
     kernel, plain = kernel_fns()[name]
     got = kernel(*args)
     want = plain(*args)
+    if name == "flash_attention":
+        _sync(got.device)
+        return compare_flash(label, got, want, args[0], args[2])
     scale = plain(*abs_args)
     if isinstance(got, tuple):
         for g, w in zip(got[:-1], want[:-1]):
@@ -979,15 +1076,16 @@ def check_cell(name: str, rec, data, want) -> float:
                 raise AssertionError(f"{name}: the output's pattern is not "
                                      "B's (i, j) fibres")
         got = got.vals
-    if expr in ("sddmm", "spmttkrp") and not rec["bitwise"]:
+    if (expr in ("sddmm", "spmttkrp") or name == "spmm/nnz") \
+            and not rec["bitwise"]:
         raise AssertionError(f"{name}: two run()s gave different bits")
     return check_rows(name, got, *want[expr])
 
 
 def leaf_call(k):
     """(kernel name, args) of the Hopper kernel a lowered cell launches, on
-    the cell's own inputs; None for a leaf with no kernel (the SpMM nnz
-    leaf, the flat SpTTV products)."""
+    the cell's own inputs; None for a leaf with no kernel (the flat SpTTV
+    products)."""
     name = k.leaf_name
     if name.startswith(("bcsr_spmv", "bcsr_spmm")):
         # (brow, bcol, tiles, packed dense operand, max_brows)
@@ -1005,6 +1103,8 @@ def leaf_call(k):
         return "spmv_coo_nnz", (*k.args[:4], max_rows)
     if name == "spmm_rows":
         return "spmm_csr_rows", k.args[:4]
+    if name == "spmm_nnz":
+        return "spmm_coo_nnz", (*k.args[:4], max_rows)
     if name.startswith("sddmm"):
         return "sddmm_coo", k.args[:5]
     if name.startswith("spmttkrp"):
@@ -1085,6 +1185,11 @@ def _moved(name: str, args, nnz: int, n_out: int):
         c, max_rows = args[3], args[4]
         return nnz * 12 + c.numel() * 4 + args[0].shape[0] * max_rows * 4, \
             2 * nnz
+    if name == "spmm_coo_nnz":
+        C, max_rows = args[3], args[4]
+        J = C.shape[1]
+        return (nnz * 12 + C.numel() * 4
+                + args[0].shape[0] * max_rows * J * 4, 2 * nnz * J)
     if name == "sddmm_coo":
         C, Dt = args[3], args[4]
         K = Dt.shape[1]
@@ -1121,8 +1226,8 @@ def kernel_record(name, args, launches, nnz, n_out, library, reps):
 
 
 def kernel_records(data, cells, launches, reps: int):
-    """The five kernels at the main path's shapes, each on the inputs of
-    the cell it serves: spmv/rows, spmv/nnz, spmm/rows, sddmm/nnz,
+    """The six kernels at the main path's shapes, each on the inputs of
+    the cell it serves: spmv/rows, spmv/nnz, spmm/rows, spmm/nnz, sddmm/nnz,
     spmttkrp/rows. Plus the SpMV rows kernel on SpTTV's (i, j) fibres
     (spttv/rows), returned apart, and {cell: ms} of every cell's kernel on
     its own inputs (those cells' times, and the other cells timed here)."""
@@ -1140,9 +1245,9 @@ def kernel_records(data, cells, launches, reps: int):
     n_ij = B3.levels[1].crd.shape[0]
     B3ij = csr(B3.levels[2].pos, B3.levels[2].crd, B3.vals,
                (n_ij, B3.shape[2]))
-    call = {c: leaf_call(cells[c]["kernel"]) for c in
-            ("spmv/rows", "spmv/nnz", "spmm/rows", "sddmm/nnz",
-             "spmttkrp/rows", "spttv/rows")}
+    order = ("spmv/rows", "spmv/nnz", "spmm/rows", "spmm/nnz", "sddmm/nnz",
+             "spmttkrp/rows", "spttv/rows")
+    call = {c: leaf_call(cells[c]["kernel"]) for c in order}
     sd = call["sddmm/nnz"][1]
     D_lib = sd[4].t().contiguous()
     ttv = call["spttv/rows"][1]
@@ -1151,6 +1256,7 @@ def kernel_records(data, cells, launches, reps: int):
         "spmv/rows": (on_b, lambda: Bcsr @ call["spmv/rows"][1][3]),
         "spmv/nnz": (on_b, lambda: Bcsr @ call["spmv/nnz"][1][3]),
         "spmm/rows": (on_b, lambda: Bcsr @ call["spmm/rows"][1][3]),
+        "spmm/nnz": (on_b, lambda: Bcsr @ call["spmm/nnz"][1][3]),
         "sddmm/nnz": (
             "torch.sparse.sampled_addmm(B, C, D, beta=0).values() * B's "
             "values", lambda: torch.sparse.sampled_addmm(
@@ -1161,8 +1267,7 @@ def kernel_records(data, cells, launches, reps: int):
                        lambda: B3ij @ ttv[3]),
     }
     records, cell_ms = [], {}
-    for cell in ("spmv/rows", "spmv/nnz", "spmm/rows", "sddmm/nnz",
-                 "spmttkrp/rows", "spttv/rows"):
+    for cell in order:
         name, args = call[cell]
         three = cell.startswith(("spmttkrp", "spttv"))
         records.append(kernel_record(
@@ -1312,65 +1417,189 @@ def add_kernel_records(data, cells, launches, reps: int):
 
 
 # ---------------------------------------------------------------------------
+# Phase 4e and 5: the attention path (the LM forward) and its kernel
+# ---------------------------------------------------------------------------
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--log2-n", type=int, default=21,
-                    help="matrix side as a power of two (default 21; a "
-                    "smaller side is a quick rehearsal)")
-    ap.add_argument("--log2-i", type=int, default=20,
-                    help="the 3-tensor's first dimension (default 20)")
-    ap.add_argument("--log2-jk", type=int, default=16,
-                    help="the 3-tensor's second and third dimensions "
-                    "(default 16)")
-    ap.add_argument("--log2-dense", type=int, default=15,
-                    help="side of the dense SpAdd3 sums (default 15: a "
-                    "4 GiB output)")
-    ap.add_argument("--reps", type=int, default=20,
-                    help="timed kernel launches (run() takes half)")
-    args = ap.parse_args(argv)
+ARCH = "llama3-8b"
+PREFILL_BATCH, PREFILL_SEQ = 2, 4096
+LOGITS_RTOL = 5e-2     # (a): bf16 flash vs dense logits, relative Frobenius
+F32_TOL = 1e-3         # (b): f32 flash vs dense logits, atol = rtol
+CHECK_LAYERS = 2       # (b)'s depth, at full width
 
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        print("chip_smoke: the repro_torch package is not beside this "
-              "script", file=sys.stderr)
-        return 2
+
+def lm_config(**over):
+    """llama3-8b with its weights in bf16, as the serving path builds it
+    (``param_dtype="bfloat16"``; activations bf16, the config's default),
+    with ``over`` replaced."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(ARCH), param_dtype="bfloat16",
+                               **over)
+
+
+def prefill_tokens(cfg, batch: int, seq: int, device):
+    """(batch, seq) token ids from numpy seed 0."""
     import numpy as np
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
+    ids = np.random.default_rng(SEED).integers(0, cfg.vocab_size,
+                                               (batch, seq))
+    return torch.from_numpy(ids).to(device)
+
+
+def run_attention(cfg, batch: int, seq: int, device, reps: int):
+    """Phase 4 for the attention path: ``LM(cfg).apply(variant="flash",
+    last_only=True)`` over a prefill of ``batch`` prompts of ``seq`` tokens,
+    with weights from a seeded generator on the device. The flash applies
+    (warm-up, timed, and two more whose bits must agree) run with the
+    launch counts read straight after them: on the card flash_attention
+    must have launched once per layer and apply, and no other kernel at
+    all. Then the checks: (a) the same weights under ``variant="dense"``,
+    relative Frobenius error of the logits <= LOGITS_RTOL; (b) an f32 model
+    of CHECK_LAYERS layers at the same width, flash against dense on all
+    positions at F32_TOL. Returns the record and the launches."""
+    import dataclasses
+    import torch
+    from repro_torch.core.device import resolve_device
     from repro_torch.kernels import _build
-
-    # 1. device
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    device = torch.device("cuda", 0)
-    kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True).stdout.strip()
-    phase("device", name=repr(kind), count=count, torch=torch.__version__,
-          cuda=torch.version.cuda)
-
-    # 2. build
+    from repro_torch.models import LM
+    device = resolve_device(device)
+    lm = LM(cfg)
     t0 = time.perf_counter()
-    logs = _build.build(force=True)
-    phase("build", seconds=f"{time.perf_counter() - t0:.1f}",
-          sources=",".join(sorted(logs)))
-    for src, log in sorted(logs.items()):
-        for line in log.splitlines():
-            if ("Compiling entry" in line or "Used" in line
-                    or "spill" in line):
-                print(f"  {src}: {line.strip()}")
+    params = lm.init_params(torch.Generator(device).manual_seed(SEED),
+                            device)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    tokens = prefill_tokens(cfg, batch, seq, device)
+    calls = []
 
-    # 3a. kernels against plain at edge-case shapes
-    rng = np.random.default_rng(SEED)
-    worst = {}
-    for label, name, kargs, abs_args in kernel_cases(rng, device):
-        err = compare_kernel(label, name, kargs, abs_args)
-        worst[name] = max(worst.get(name, 0.0), err)
-    phase("kernels-edge", **{k: f"{v:.3g}" for k, v in worst.items()})
+    def prefill(variant="flash"):
+        calls.append(variant)
+        return lm.apply(params, tokens, variant=variant, last_only=True)[0]
+
+    param_bytes = sum(t.numel() * t.element_size() for t in
+                      _tensors(params))
+    with torch.inference_mode():
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        before = dict(_build.LAUNCHES)
+        run_ms = time_host(prefill, device, reps)
+        out, again = prefill(), prefill()
+        _sync(device)
+        launches = {k: n - before[k] for k, n in _build.LAUNCHES.items()}
+        runs = len(calls)
+        max_mem = (torch.cuda.max_memory_allocated(device)
+                   if device.type == "cuda" else 0)
+        expected = dict.fromkeys(launches, 0)
+        if device.type == "cuda":
+            expected["flash_attention"] = cfg.n_layers * runs
+        if launches != expected:
+            raise AssertionError(f"launches during the prefill {launches} are "
+                                 f"not one flash_attention per layer and "
+                                 f"apply: {expected}")
+        # device ms per kernel of one prefill, after the counts are read
+        profile = (device_breakdown(prefill, reps=1)
+                   if device.type == "cuda" else {})
+        dense = prefill("dense")
+    if out.shape != (batch, 1, lm.vp) or not torch.isfinite(out).all():
+        raise AssertionError(f"prefill logits: shape {tuple(out.shape)}, "
+                             f"want {(batch, 1, lm.vp)}, all finite")
+    bitwise = torch.equal(out, again)
+    if not bitwise:
+        raise AssertionError("two prefills gave different bits")
+    rel = float((out.float() - dense.float()).norm()
+                / dense.float().norm())
+    if not rel <= LOGITS_RTOL:
+        raise AssertionError(f"flash vs dense logits: relative Frobenius "
+                             f"error {rel} > {LOGITS_RTOL}")
+    del params, out, again, dense
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32",
+                                n_layers=CHECK_LAYERS)
+    lm32 = LM(cfg32)
+    p32 = lm32.init_params(torch.Generator(device).manual_seed(SEED + 1),
+                           device)
+    with torch.inference_mode():
+        flash = lm32.apply(p32, tokens, variant="flash")[0]
+        dense = lm32.apply(p32, tokens, variant="dense")[0]
+    err = (flash - dense).abs()
+    bad = int((err > F32_TOL + F32_TOL * dense.abs()).sum())
+    if bad:
+        raise AssertionError(f"f32 flash vs dense logits: {bad} entries off "
+                             f"by up to {float(err.max())} (tolerance "
+                             f"{F32_TOL})")
+    rec = {"init_s": init_s, "run_ms": run_ms, "runs": runs,
+           "tokens_per_s": batch * seq / (run_ms / 1e3),
+           "param_bytes": param_bytes, "max_mem": max_mem,
+           "bitwise": bitwise, "rel_frobenius": rel,
+           "f32_max_abs_err": float(err.max()), "layers": cfg.n_layers,
+           "profile": profile}
+    del p32, flash, dense, err
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return rec, launches
+
+
+def _tensors(tree):
+    """The tensors of a nested dict / list of parameters."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _tensors(v)
+    else:
+        yield tree
+
+
+def flash_record(cfg, batch: int, seq: int, device, dtype: str,
+                 launches: int, reps: int):
+    """flash_attention at the model's layer shapes (q (batch, seq, H, hd);
+    k, v (batch, seq, Hkv, hd); standard normal from a seeded generator) in
+    ``dtype``: checked against the plain version, timed beside it and
+    beside ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
+    (a yardstick the port never calls), with its bound: the causal flops
+    2·2·B·H·hd·S²/2 over the dtype's peak against q, k, v and o moved once
+    over the memory rate."""
+    import torch
+    import torch.nn.functional as F
+    kernel, plain = kernel_fns()["flash_attention"]
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device).manual_seed(SEED)
+    q, k, v = (torch.randn(shape, generator=gen, device=device).to(
+        getattr(torch, dtype)) for shape in
+        ((batch, seq, H, hd), (batch, seq, Hkv, hd), (batch, seq, Hkv, hd)))
+    err = compare_flash(f"flash_attention {dtype} main-path shapes",
+                        kernel(q, k, v), plain(q, k, v), q, v)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    flops = 2 * 2 * batch * H * hd * seq * seq / 2
+    nbytes = q.element_size() * 2 * batch * seq * hd * (H + Hkv)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / (BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS) * 1e3
+    source, replaces = KERNELS["flash_attention"]
+    return {
+        "name": "flash_attention", "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches, "max_abs_err": err,
+        "ms": time_events(lambda: kernel(q, k, v), reps),
+        "plain_ms": time_events(lambda: plain(q, k, v), max(reps // 4, 3)),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": time_events(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), reps),
+        "library_call": "torch.nn.functional.scaled_dot_product_attention("
+                        "is_causal=True, enable_gqa=True)",
+        "dtype": dtype,
+    }
+
+
+def sparse_paths(args, device):
+    """Phases 4a-d and 5 for the four sparse paths: drive each with the
+    launch counts of exactly its run, check the cells, then time the
+    kernels at the main path's shapes. Returns the kernel records and the
+    SpTTV rows record; the paths' data goes with the call."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build
 
     # 4. the main path: each path with the launch counts of exactly its run
     t0 = time.perf_counter()
@@ -1442,12 +1671,122 @@ def main(argv=None) -> int:
                                    if rec["kernel"] else cell),
               kernel_ms=(f"{cell_ms[cell]:.4f}" if cell in cell_ms
                          else "-"))
-    for r in records + [dict(ttv, name="spmv_csr_rows(spttv)")]:
+    return records, ttv
+
+
+# ---------------------------------------------------------------------------
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--log2-n", type=int, default=21,
+                    help="matrix side as a power of two (default 21; a "
+                    "smaller side is a quick rehearsal)")
+    ap.add_argument("--log2-i", type=int, default=20,
+                    help="the 3-tensor's first dimension (default 20)")
+    ap.add_argument("--log2-jk", type=int, default=16,
+                    help="the 3-tensor's second and third dimensions "
+                    "(default 16)")
+    ap.add_argument("--log2-dense", type=int, default=15,
+                    help="side of the dense SpAdd3 sums (default 15: a "
+                    "4 GiB output)")
+    ap.add_argument("--reps", type=int, default=20,
+                    help="timed kernel launches (run() takes half)")
+    ap.add_argument("--attn-layers", type=int, default=0,
+                    help="layers of the attention path's llama3-8b (default "
+                    "0: all 32; fewer is a quick rehearsal)")
+    ap.add_argument("--attn-seq", type=int, default=PREFILL_SEQ,
+                    help=f"prefill length (default {PREFILL_SEQ})")
+    args = ap.parse_args(argv)
+
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: the repro_torch package is not beside this "
+              "script", file=sys.stderr)
+        return 2
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    t_start = time.perf_counter()
+    from repro_torch.kernels import _build
+
+    # 1. device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip()
+    phase("device", name=repr(kind), count=count, torch=torch.__version__,
+          cuda=torch.version.cuda)
+
+    # 2. build
+    t0 = time.perf_counter()
+    logs = _build.build(force=True)
+    phase("build", seconds=f"{time.perf_counter() - t0:.1f}",
+          sources=",".join(sorted(logs)))
+    for src, log in sorted(logs.items()):
+        for line in log.splitlines():
+            if ("Compiling entry" in line or "Used" in line
+                    or "spill" in line):
+                print(f"  {src}: {line.strip()}")
+
+    # 3a. kernels against plain at edge-case shapes
+    rng = np.random.default_rng(SEED)
+    worst = {}
+    for label, name, kargs, abs_args in kernel_cases(rng, device):
+        err = compare_kernel(label, name, kargs, abs_args)
+        worst[name] = max(worst.get(name, 0.0), err)
+    phase("kernels-edge", **{k: f"{v:.3g}" for k, v in worst.items()})
+
+    # 4a-d + 5. the sparse paths, their kernels timed after every count
+    records, ttv = sparse_paths(args, device)
+
+    # 4e. the attention path, on a card freed of the sparse paths' data
+    from repro_torch.core import lower as L
+    L.clear_lowering_caches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    over = {"n_layers": args.attn_layers} if args.attn_layers else {}
+    cfg = lm_config(**over)
+    _build.reset_launches()
+    attn, attn_launches = run_attention(cfg, PREFILL_BATCH, args.attn_seq,
+                                        device, 5)
+    missing = [k for k in PATH_KERNELS["attention"]
+               if attn_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the attention "
+                             f"path: {missing}")
+    phase("main", cell=f"{ARCH} prefill", layers=attn["layers"],
+          d_model=cfg.d_model, heads=f"{cfg.n_heads}/{cfg.n_kv_heads}",
+          batch=PREFILL_BATCH, seq=args.attn_seq,
+          run_ms=f"{attn['run_ms']:.3f}", runs=attn["runs"],
+          tokens_per_s=f"{attn['tokens_per_s']:.1f}",
+          init_s=f"{attn['init_s']:.2f}",
+          weights_gb=f"{attn['param_bytes'] / 2**30:.2f}",
+          max_mem_gb=f"{attn['max_mem'] / 2**30:.2f}",
+          bitwise_repeat=attn["bitwise"],
+          rel_frobenius_vs_dense=f"{attn['rel_frobenius']:.4g}",
+          f32_max_abs_err=f"{attn['f32_max_abs_err']:.3g}")
+    phase("launches", path="attention", **attn_launches)
+    top = sorted(attn["profile"].items(), key=lambda kv: -kv[1])[:8]
+    phase("profile", name="prefill",
+          total_ms=f"{sum(attn['profile'].values()):.2f}",
+          **{k.replace(" ", "_"): f"{v:.2f}" for k, v in top})
+    flash = [flash_record(cfg, PREFILL_BATCH, args.attn_seq, device, dt,
+                          attn_launches["flash_attention"], args.reps)
+             for dt in ("bfloat16", "float32")]
+    records.append(flash[0])
+    for r in records + [dict(ttv, name="spmv_csr_rows(spttv)"),
+                        dict(flash[1], name="flash_attention(f32)")]:
         phase("kernel", name=r["name"], max_abs_err=f"{r['max_abs_err']:.3g}",
               ms=f"{r['ms']:.4f}", bound_ms=f"{r['bound_ms']:.4f}",
               plain_ms=f"{r['plain_ms']:.3f}",
               library_ms=("null" if r["library_ms"] is None
                           else f"{r['library_ms']:.4f}"))
+    phase("total", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(smi)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

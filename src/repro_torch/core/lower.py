@@ -1002,10 +1002,7 @@ def _emit_spmm_nnz(stmt, plans, shards, device):
     row_start, row_count, max_rows = _nnz_row_windows(B, out_shape[0])
 
     def fn(rows, cols, vals, Cmat, row_start, row_count):
-        # No TPU kernel in the reference: the plain leaf, piece by piece.
-        blocks = torch.stack([
-            K.leaf_spmm_nnz(rows[p], cols[p], vals[p], Cmat, max_rows)
-            for p in range(rows.shape[0])])
+        blocks = spmm_kernels.spmm_coo_nnz(rows, cols, vals, Cmat, max_rows)
         return _scatter_rows(out_shape, blocks, row_start, row_count)
 
     args = (*_nnz_leaf_inputs(B, row_start, max_rows, device),

@@ -1,4 +1,4 @@
-"""SpDISTAL leaf kernels for Hopper.
+"""SpDISTAL leaf kernels (and the LM stack's attention kernel) for Hopper.
 
 Per kernel family: ``<name>.py`` (the wrapper around a CUDA kernel under
 ``csrc/``, with its plain PyTorch version and launch counter), ``ops.py``

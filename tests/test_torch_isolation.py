@@ -37,6 +37,10 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.kernels.sddmm, repro_torch.kernels.spmttkrp\n"
         "import repro_torch.kernels.spadd3, repro_torch.kernels.bcsr\n"
         "import repro_torch.kernels.layout\n"
+        "import repro_torch.kernels.flash_attention\n"
+        "import repro_torch.configs, repro_torch.configs.llama3_8b\n"
+        "import repro_torch.models, repro_torch.models.attention\n"
+        "import repro_torch.models.convert\n"
         "import repro_torch.core.lower, repro_torch.kernels.ops\n"
         "import repro_torch.data.spdata\n"
         "import repro_torch.runtime.telemetry, chip_smoke\n"
