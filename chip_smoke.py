@@ -26,7 +26,12 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
              block-column, J in {1, 16, 33}, K in {1, 7, 32, 33}; for
              the SpMM nnz kernel the SpMV nnz and SpMTTKRP streams, runs
              across one and two 256-entry segments, J in {1, 7, 16, 32,
-             33, 130}; for flash_attention every case of
+             33, 130}; for the rows kernels' merge-path split (chunks of
+             256 items) a row of 60,000 entries among short rows, rows of
+             exactly 256 and 257 entries, rows ending on the last item of
+             a chunk and on the first of the next, 300 empty rows in a
+             row, an empty piece and pieces whose pos[R] lies below the
+             padded N, J in {1, 32, 130}; for flash_attention every case of
              tests/test_flash_kernel.py with hd 128 added: G in {1, 2, 3,
              4, 8}, ragged S = 100, 200 and 300, f32 and bf16), later
              at the main path's shapes. Per-entry tolerance
@@ -71,11 +76,10 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
    checked per entry against a float64 host computation on the numpy
    arrays (same tolerance form; a SpAdd3 union must have the host union's
    stored coordinates exactly), and the line reports the cold and warm
-   lower times, the median ``run()`` time and the peak device memory. SpMM
-   nnz, SDDMM, SpMTTKRP, SpAdd3 and the blocked cells must give the same
-   bits on two ``run()``s. The counts are read before any other launch:
-   each cell's kernel must have launched exactly once per ``run()`` and no
-   other kernel at all.
+   lower times, the median ``run()`` time and the peak device memory. Every
+   cell must give the same bits on two ``run()``s. The counts are read
+   before any other launch: each cell's kernel must have launched exactly
+   once per ``run()`` and no other kernel at all.
 5. timing, after every count is read: the median time of each cell's
    kernel on the cell's own inputs (CUDA events, median of 20), and the
    ``{"kernels": [...]}`` line: per kernel its launches on the main path,
@@ -83,8 +87,11 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
    PyTorch library call's time on the same inputs (a yardstick only; the
    port never calls it, and for the blocked SpAdd3 kernels none exists),
    and a line for the SpMV rows kernel's second use, SpTTV over the (i, j)
-   fibres. The blocked kernels' yardsticks are ``torch.sparse`` BSR
-   products and ``sampled_addmm`` over the scalarised block pattern.
+   fibres. A ``profile`` line per rows cell (spmv/rows, spmm/rows,
+   spttv/rows) gives the device time of each phase of its merge-path
+   kernel (``torch.profiler``). The blocked kernels' yardsticks are
+   ``torch.sparse`` BSR products and ``sampled_addmm`` over the
+   scalarised block pattern.
    flash_attention is timed at the model's layer shapes (q (2, 4096, 32,
    128), k and v (2, 4096, 8, 128)) in bf16 (the line's record) and f32
    (a line of its own), beside ``scaled_dot_product_attention(
@@ -344,6 +351,19 @@ def kernel_cases(rng, device):
                    f"{'shared' if shared else 'per-piece'}", "sddmm_coo",
                    args, _abs_args(args))
 
+    # the rows kernels' merge-path split: chunks of 256 items (row ends and
+    # entries)
+    pos, crd, vals, m = merge_split_pieces(rng)
+    pos_t, crd_t, vals_t, c_t = dev(pos, crd, vals, normal(m))
+    yield ("spmv_csr_rows merge-path edges", "spmv_csr_rows",
+           (pos_t, crd_t, vals_t, c_t),
+           (pos_t, crd_t, vals_t.abs(), c_t.abs()))
+    for J in (1, 32, 130):
+        C_t, = dev(normal(m, J))
+        yield (f"spmm_csr_rows merge-path edges J={J}", "spmm_csr_rows",
+               (pos_t, crd_t, vals_t, C_t),
+               (pos_t, crd_t, vals_t.abs(), C_t.abs()))
+
     # SpMTTKRP streams: three pieces, the middle one empty; row lengths
     # with an empty row, rows across one and two segment edges, a run that
     # starts on a segment edge, and a piece that is one row
@@ -373,6 +393,34 @@ def kernel_cases(rng, device):
     yield from spadd3_cases(rng, device)
     yield from bcsr_cases(rng, device)
     yield from flash_cases(rng, device)
+
+
+def merge_split_pieces(rng, R: int = 700, m: int = 90, pad: int = 37):
+    """Four CSR row pieces (pos (4, R+1), crd and vals (4, N), m columns)
+    at the edges of the rows kernels' merge-path split into chunks of 256
+    items: piece 0 has a row of 60,000 entries (235 chunks, two of
+    spmm_csr_rows' 64-chunk group sums among them) and rows of
+    exactly 256 and 257 among rows of 0-3; piece 1 is empty; in piece 2
+    rows 0 and 1 end on the last item of chunks 0 and 1, then 300 empty
+    rows follow; in piece 3 row 0's end is the first item of chunk 1. Every
+    piece's pos[R] lies below the padded N; the padding holds value 0 (the
+    shards' contract) and out-of-range columns."""
+    import numpy as np
+    lens = [rng.integers(0, 4, R), np.zeros(R, np.int64),
+            rng.integers(0, 3, R), rng.integers(0, 3, R)]
+    lens[0][[10, 20, 21]] = [60000, 256, 257]
+    lens[2][:302] = [255, 255] + [0] * 300
+    lens[3][:2] = [256, 0]
+    N = max(int(x.sum()) for x in lens) + pad
+    pos = np.zeros((4, R + 1), np.int32)
+    crd = np.full((4, N), m + 5, np.int32)
+    vals = np.zeros((4, N), np.float32)
+    for p, x in enumerate(lens):
+        np.cumsum(x, out=pos[p, 1:])
+        nnz = int(pos[p, -1])
+        crd[p, :nnz] = rng.integers(0, m, nnz)
+        vals[p, :nnz] = rng.standard_normal(nnz)
+    return pos, crd, vals, m
 
 
 def _addends(rng, n, m, tile=()):
@@ -1051,18 +1099,17 @@ def check_union(name: str, got, want) -> float:
 
 
 def check_cell(name: str, rec, data, want) -> float:
-    """Hold one cell's result against the host computation. A sparse
-    output must keep B's (i, j) pattern: SDDMM's values are compared in B's
-    storage order, SpTTV's per (i, j) fibre of the 3-tensor."""
+    """Hold one cell's result against the host computation. Every cell
+    must give the same bits on two run()s. A sparse output must keep B's
+    (i, j) pattern: SDDMM's values are compared in B's storage order,
+    SpTTV's per (i, j) fibre of the 3-tensor."""
     import numpy as np
     expr = name.split("/")[0]
     got = rec["out"]
-    if expr.startswith("spadd3"):
-        if not rec["bitwise"]:
-            raise AssertionError(f"{name}: two runs gave different bits")
-        return check_union(name, got, want[expr])
-    if expr.endswith("_bcsr") and not rec["bitwise"]:
+    if not rec["bitwise"]:
         raise AssertionError(f"{name}: two run()s gave different bits")
+    if expr.startswith("spadd3"):
+        return check_union(name, got, want[expr])
     if expr in ("sddmm", "spttv", "sddmm_bcsr"):
         src = (data["B"] if expr == "sddmm" else data["B3"]
                if expr == "spttv" else data["add"]["blocked"][0])
@@ -1076,9 +1123,6 @@ def check_cell(name: str, rec, data, want) -> float:
                 raise AssertionError(f"{name}: the output's pattern is not "
                                      "B's (i, j) fibres")
         got = got.vals
-    if (expr in ("sddmm", "spmttkrp") or name == "spmm/nnz") \
-            and not rec["bitwise"]:
-        raise AssertionError(f"{name}: two run()s gave different bits")
     return check_rows(name, got, *want[expr])
 
 
@@ -1267,6 +1311,7 @@ def kernel_records(data, cells, launches, reps: int):
                        lambda: B3ij @ ttv[3]),
     }
     records, cell_ms = [], {}
+    fns = kernel_fns()
     for cell in order:
         name, args = call[cell]
         three = cell.startswith(("spmttkrp", "spttv"))
@@ -1274,7 +1319,10 @@ def kernel_records(data, cells, launches, reps: int):
             name, args, launches[name], B3.nnz if three else B.nnz,
             B3.shape[0] if three else n, library[cell], reps))
         cell_ms[cell] = records[-1]["ms"]
-    fns = kernel_fns()
+        if name in ("spmv_csr_rows", "spmm_csr_rows"):
+            phase("profile", name=name, cell=cell, **{
+                k.replace(" ", "_"): f"{v:.4f}" for k, v in
+                device_breakdown(lambda: fns[name][0](*args)).items()})
     for cell, rec in cells.items():
         other = rec["call"]
         if cell not in cell_ms and other is not None:

@@ -67,9 +67,13 @@ def lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """True when the library is missing or older than its source or any
+    shared header under ``csrc/``."""
     out = lib_path(name)
-    return (not out.exists()
-            or out.stat().st_mtime < (CSRC / SOURCES[name]).stat().st_mtime)
+    if not out.exists():
+        return True
+    inputs = [CSRC / SOURCES[name], *CSRC.glob("*.cuh")]
+    return out.stat().st_mtime < max(p.stat().st_mtime for p in inputs)
 
 
 def build(names: Optional[Iterable[str]] = None,

@@ -17,15 +17,26 @@
 //
 // What the design does about it: the TPU kernel re-blocks CSR into row-block
 // ELL and reduces with a one-hot matmul because the TPU has no scatter and
-// wants (8, 128) tiles (layout.py:1-22). Here one warp owns one
-// (piece, row, 32-column tile of J): lanes own the columns, so every gather
-// of a row of C (kept (K, J) row-major) is one coalesced 128-byte read, and
-// the row's (crd, val) pairs are loaded 32 at a time with one coalesced load
-// and handed to the lanes by shuffles. Each lane sums its column over the
-// row's entries in storage order, so results repeat bit for bit; the last
-// tile masks columns >= J. A row's work is not split across warps, so the
-// longest row of a power-law matrix bounds the time; the nnz strategy is
-// the fix for that.
+// wants (8, 128) tiles (layout.py:1-22). Here spmm_csr_rows splits each
+// piece by merge path (merge_rows.cuh): a warp per (piece, chunk of 256
+// items, 32-column tile of J), so a row of any length spreads over many
+// warps and a warp covers many short rows. Lanes own the columns, so every
+// gather of a row of C (kept (K, J) row-major) is one coalesced 128-byte
+// read. Per batch of 32 items, the chunk's (crd, val) pairs are loaded with
+// one coalesced load (lane t holds item t, if it is an entry) and handed
+// out by shuffles; the 32 gathers of C's rows are issued before the sums,
+// so they are in flight together; then each lane adds its column over the
+// batch's entries in storage order and, at each row-end item, writes the
+// row (0 for an empty row). A row that crosses chunks leaves its partials
+// in tail / head; phase 2a sums the heads of each group of 64 chunks in
+// order, and phase 2 (a warp per 32 rows) adds, for each column, the first
+// chunk's tail, the heads before the first group inside the row, those
+// groups' sums and the heads after them, in that order: a row of 5,200
+// chunks folds 81 group sums, not 5,200 heads. The last tile masks columns
+// >= J. (The first version gave one warp to each (row, column tile):
+// 336.4 ms at 2^21 rows, 25.1 M entries and J = 32 on an NVIDIA H100 80GB
+// HBM3 at 700 W, set by the longest row, 1,326,299 entries walked by one
+// warp; this one 1.43 ms on the same card and inputs.)
 //
 // spmm_coo_nnz (row-sorted COO shards, rows rebased to the piece's window)
 // is bound by bytes the same way: 12 B per stored entry, one gathered row
@@ -48,6 +59,10 @@
 // Every output element is written once, with no float atomics, so results
 // repeat bit for bit.
 //
+// Contract of spmm_csr_rows: pos is non-decreasing within a piece (CSR);
+// whatever it holds, no entry outside [pos[0], pos[R]) is read. Columns are
+// clamped into [0, K).
+//
 // Contract of spmm_coo_nnz (spmv_coo_nnz's): row ids are non-decreasing
 // within a piece; ids below 0 or at/after max_rows are dropped. Columns
 // are clamped into [0, K).
@@ -58,54 +73,177 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "merge_rows.cuh"
+
 namespace {
 
 constexpr int kWarp = 32;
 constexpr int kThreads = 256;  // 8 warps per block
 constexpr int kSeg = 256;      // entries per spmm_coo_nnz segment
 
-__global__ void spmm_csr_rows_kernel(const int* __restrict__ pos,
-                                     const int* __restrict__ crd,
-                                     const float* __restrict__ vals,
-                                     const float* __restrict__ C,
-                                     float* __restrict__ Y,
-                                     int P, int R, int64_t N, int K, int J,
-                                     int n_tiles) {
-    const int64_t warp = (int64_t(blockIdx.x) * blockDim.x + threadIdx.x) / kWarp;
+using merge_rows::RowEnds;
+using merge_rows::kItems;
+
+// Rows phase 1: a warp per (piece, chunk, column tile); grid
+// (ceil(n_chunks * n_tiles * 32 / 256), P).
+__global__ void spmm_rows_phase1_kernel(const int* __restrict__ pos,
+                                        const int* __restrict__ crd,
+                                        const float* __restrict__ vals,
+                                        const float* __restrict__ C,
+                                        float* __restrict__ Y,
+                                        float* __restrict__ head,
+                                        float* __restrict__ tail,
+                                        int R, int64_t N, int K, int J,
+                                        int n_tiles, int64_t n_chunks) {
+    const int64_t p = blockIdx.y;
+    const int64_t warp = (int64_t(blockIdx.x) * blockDim.x + threadIdx.x)
+                         / kWarp;
     const int lane = threadIdx.x % kWarp;
-    if (warp >= int64_t(P) * R * n_tiles) return;
-    const int tile = int(warp % n_tiles);
-    const int64_t pr = warp / n_tiles;            // p * R + r
-    const int64_t p = pr / R;
-    const int64_t r = pr % R;
-    const int j = tile * kWarp + lane;
+    if (warp >= n_chunks * n_tiles) return;           // warp-uniform
+    const int64_t chunk = warp / n_tiles;
+    const int j = int(warp % n_tiles) * kWarp + lane;
     const bool live = j < J;
-
-    const int* prow = pos + p * (int64_t(R) + 1);
-    int64_t lo = prow[r], hi = prow[r + 1];
-    lo = lo < 0 ? 0 : (lo > N ? N : lo);
-    hi = hi < lo ? lo : (hi > N ? N : hi);
-    const int* pc = crd + p * N;
-    const float* pv = vals + p * N;
-
-    float acc = 0.f;
-    for (int64_t base = lo; base < hi; base += kWarp) {
-        const int64_t e = base + lane;
+    const RowEnds re(pos + p * (int64_t(R) + 1), R, N);
+    const int64_t d0 = chunk * kItems;
+    const int64_t d_end = d0 + kItems < re.items() ? d0 + kItems : re.items();
+    if (d0 >= d_end) return;
+    const int* pc = crd + p * N + re.e0;
+    const float* pv = vals + p * N + re.e0;
+    float* Yp = Y + p * int64_t(R) * J + j;
+    const int64_t edge = (p * n_chunks + chunk) * J + j;
+    // (rows ended, entries taken) before the chunk; is its first row open?
+    const int64_t i0 = merge_rows::merge_search(re, d0, lane);
+    const bool open = i0 < R && d0 - i0 > re.end(i0 - 1);
+    const unsigned lower = (1u << lane) - 1;
+    int64_t ib = i0, jb = d0 - i0;
+    float acc = 0.f;                   // this lane's column of row ib so far
+    for (int64_t D0 = d0; D0 < d_end; D0 += kWarp) {
+        const unsigned mask = merge_rows::end_mask(re, ib, D0, lane);
+        const int n_valid = d_end - D0 < kWarp ? int(d_end - D0) : kWarp;
+        // lane t holds item t's (column, value) when it is an entry
         int k_l = 0;
         float v_l = 0.f;
-        if (e < hi) {
-            const int k = pc[e];
-            k_l = k < 0 ? 0 : (k >= K ? K - 1 : k);
-            v_l = pv[e];
+        if (lane < n_valid && !((mask >> lane) & 1u)) {
+            const int64_t e = jb + lane - __popc(mask & lower);
+            if (e < re.nnz) {
+                const int k = pc[e];
+                k_l = k < 0 ? 0 : (k >= K ? K - 1 : k);
+                v_l = pv[e];
+            }
         }
-        const int cnt = hi - base < kWarp ? int(hi - base) : kWarp;
-        for (int t = 0; t < cnt; ++t) {
+        float cv[kWarp];
+#pragma unroll
+        for (int t = 0; t < kWarp; ++t) {
             const int k = __shfl_sync(0xffffffffu, k_l, t);
+            const bool entry = t < n_valid && !((mask >> t) & 1u);
+            cv[t] = entry && live ? __ldg(C + int64_t(k) * J + j) : 0.f;
+        }
+        int64_t row = ib;
+#pragma unroll
+        for (int t = 0; t < kWarp; ++t) {
             const float v = __shfl_sync(0xffffffffu, v_l, t);
-            if (live) acc += v * __ldg(C + int64_t(k) * J + j);
+            if (t >= n_valid) break;                  // warp-uniform
+            if ((mask >> t) & 1u) {                   // row `row` ends here
+                if (live) {
+                    if (row == i0 && open) head[edge] = acc;
+                    else Yp[row * J] = acc;
+                }
+                acc = 0.f;
+                ++row;
+            } else {
+                acc += v * cv[t];
+            }
+        }
+        const int ends = __popc(mask);
+        ib += ends;
+        jb += n_valid - ends;
+    }
+    if (live && ib < R) {
+        if (ib == i0 && open) head[edge] = acc;             // a middle chunk
+        else if (jb > re.end(ib - 1)) tail[edge] = acc;     // row starts here
+    }
+}
+
+// Adds x[s * J] for s in [from, to] to acc, in order, kFold loads in
+// flight.
+constexpr int kFold = 32;
+
+__device__ __forceinline__ float fold_in_order(const float* __restrict__ x,
+                                               int64_t J, int64_t from,
+                                               int64_t to, float acc) {
+    int64_t s = from;
+    for (; s + kFold - 1 <= to; s += kFold) {
+        float h[kFold];
+#pragma unroll
+        for (int u = 0; u < kFold; ++u) h[u] = __ldg(x + (s + u) * J);
+#pragma unroll
+        for (int u = 0; u < kFold; ++u) acc += h[u];
+    }
+    for (; s <= to; ++s) acc += __ldg(x + s * J);
+    return acc;
+}
+
+// Rows phase 2a: a warp per (piece, group of kGroup chunks, column tile);
+// group[g] = head[64 g] + ... + head[64 g + 63], in order. Phase 2 reads it
+// only for groups inside one row's span, where phase 1 wrote every head, so
+// a row's fold takes one load per group instead of 64.
+constexpr int kGroup = 64;
+
+__global__ void spmm_rows_group_kernel(const float* __restrict__ head,
+                                       float* __restrict__ group, int J,
+                                       int n_tiles, int64_t n_chunks,
+                                       int64_t n_groups) {
+    const int64_t p = blockIdx.y;
+    const int64_t warp = (int64_t(blockIdx.x) * blockDim.x + threadIdx.x)
+                         / kWarp;
+    const int j = int(warp % n_tiles) * kWarp + threadIdx.x % kWarp;
+    if (warp >= n_groups * n_tiles || j >= J) return;
+    const int64_t g = warp / n_tiles;
+    group[(p * n_groups + g) * J + j] = fold_in_order(
+        head + (p * n_chunks + g * kGroup) * J + j, J, 0, kGroup - 1, 0.f);
+}
+
+// Rows phase 2: a warp per 32 rows of a piece, for the rows that cross
+// chunks: per column, tail[first chunk], then in chunk order the heads up
+// to the first whole group, the whole groups' sums and the heads after
+// them; grid (ceil(groups * 32 / 256), P).
+__global__ void spmm_rows_phase2_kernel(const int* __restrict__ pos,
+                                        const float* __restrict__ head,
+                                        const float* __restrict__ tail,
+                                        const float* __restrict__ group,
+                                        float* __restrict__ Y,
+                                        int R, int64_t N, int J,
+                                        int64_t n_chunks, int64_t n_groups) {
+    const int64_t p = blockIdx.y;
+    const int64_t r0 = (int64_t(blockIdx.x) * blockDim.x + threadIdx.x)
+                       / kWarp * kWarp;
+    const int lane = threadIdx.x % kWarp;
+    if (r0 >= R) return;                              // warp-uniform
+    const RowEnds re(pos + p * (int64_t(R) + 1), R, N);
+    int64_t s0 = 0, s1 = 0;
+    if (r0 + lane < R) merge_rows::row_chunks(re, r0 + lane, &s0, &s1);
+    const float* hp = head + p * n_chunks * J;
+    const float* tp = tail + p * n_chunks * J;
+    const float* gp = group + p * n_groups * J;
+    for (unsigned cross = __ballot_sync(0xffffffffu, s1 != s0); cross;
+         cross &= cross - 1) {
+        const int k = __ffs(cross) - 1;
+        const int64_t a = __shfl_sync(0xffffffffu, s0, k);
+        const int64_t b = __shfl_sync(0xffffffffu, s1, k);
+        // the whole groups inside chunks (a, b]: [g_lo, g_hi)
+        const int64_t g_lo = (a + kGroup) / kGroup, g_hi = (b + 1) / kGroup;
+        float* out = Y + (p * R + r0 + k) * J;
+        for (int j = lane; j < J; j += kWarp) {
+            float acc = __ldg(tp + a * J + j);
+            int64_t s = a + 1;
+            if (g_lo < g_hi) {
+                acc = fold_in_order(hp + j, J, s, g_lo * kGroup - 1, acc);
+                acc = fold_in_order(gp + j, J, g_lo, g_hi - 1, acc);
+                s = g_hi * kGroup;
+            }
+            out[j] = fold_in_order(hp + j, J, s, b, acc);
         }
     }
-    if (live) Y[pr * J + j] = acc;
 }
 
 // Phase 1: a warp per (piece, segment, column tile); grid
@@ -241,15 +379,38 @@ __global__ void spmm_coo_phase2_kernel(const int* __restrict__ rows,
 
 extern "C" {
 
+// head, tail: (P, n_chunks, J) and group: (P, n_chunks / 64, J) f32
+// scratch, n_chunks = ceil((R + N) / 256); Y: (P, R, J), every element
+// written.
 int spmm_csr_rows(const int* pos, const int* crd, const float* vals,
-                  const float* C, float* Y, int P, int R, int64_t N, int K,
-                  int J, void* stream) {
+                  const float* C, float* head, float* tail, float* group,
+                  float* Y, int P, int R, int64_t N, int K, int J,
+                  void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int n_tiles = (J + kWarp - 1) / kWarp;
-    const int64_t warps = int64_t(P) * R * n_tiles;
-    const unsigned blocks = unsigned((warps * kWarp + kThreads - 1) / kThreads);
-    spmm_csr_rows_kernel<<<blocks, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        pos, crd, vals, C, Y, P, R, N, K, J, n_tiles);
+    const int64_t n_chunks = (int64_t(R) + N + kItems - 1) / kItems;
+    const int64_t n_groups = n_chunks / kGroup;
+    const int64_t warps1 = n_chunks * n_tiles;
+    dim3 grid1(unsigned((warps1 * kWarp + kThreads - 1) / kThreads),
+               unsigned(P));
+    spmm_rows_phase1_kernel<<<grid1, kThreads, 0, s>>>(
+        pos, crd, vals, C, Y, head, tail, R, N, K, J, n_tiles, n_chunks);
+    int err = int(cudaGetLastError());
+    if (err != 0) return err;
+    if (n_groups > 0) {
+        const int64_t warps = n_groups * n_tiles;
+        dim3 grid(unsigned((warps * kWarp + kThreads - 1) / kThreads),
+                  unsigned(P));
+        spmm_rows_group_kernel<<<grid, kThreads, 0, s>>>(
+            head, group, J, n_tiles, n_chunks, n_groups);
+        err = int(cudaGetLastError());
+        if (err != 0) return err;
+    }
+    const int64_t groups = (int64_t(R) + kWarp - 1) / kWarp;
+    dim3 grid2(unsigned((groups * kWarp + kThreads - 1) / kThreads),
+               unsigned(P));
+    spmm_rows_phase2_kernel<<<grid2, kThreads, 0, s>>>(
+        pos, head, tail, group, Y, R, N, J, n_chunks, n_groups);
     return int(cudaGetLastError());
 }
 

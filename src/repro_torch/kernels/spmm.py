@@ -3,8 +3,9 @@
 Two Hopper kernels (``csrc/spmm.cu``), each with its plain PyTorch version
 beside it, batched over pieces:
 
-- :func:`spmm_csr_rows`, the rows leaf over CSR row shards. Replaces the
-  TPU kernel ``repro/kernels/spmm.py::spmm_ell``.
+- :func:`spmm_csr_rows`, the rows leaf over CSR row shards, split by merge
+  path over 32-column tiles (:func:`spmv.spmv_csr_rows`' scheme). Replaces
+  the TPU kernel ``repro/kernels/spmm.py::spmm_ell``.
 - :func:`spmm_coo_nnz`, the nnz leaf over row-sorted COO shards, a
   deterministic segmented reduction (``spmv_coo_nnz``'s scheme over
   32-column tiles). The reference has no TPU kernel here: it runs
@@ -20,17 +21,18 @@ import ctypes
 import torch
 
 from ..core import formats as fmt
-from . import ref
+from . import ref, spmv
 from ._build import check_launch, library, on_cpu
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
-    # pos, crd, vals, C, Y, P, R, N, K, J, stream
-    "spmm_csr_rows": (_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _P),
+    # pos, crd, vals, C, head, tail, group, Y, P, R, N, K, J, stream
+    "spmm_csr_rows": (_P,) * 8 + (_I, _I, _L, _I, _I, _P),
     # rows, cols, vals, C, head, tail, Y, P, N, K, J, max_rows, stream
     "spmm_coo_nnz": (_P,) * 7 + (_I, _L, _I, _I, _I, _P),
 }
 SEGMENT = 256       # entries per segment, kSeg in csrc/spmm.cu
+GROUP = 64          # merge chunks per group sum, kGroup in csrc/spmm.cu
 
 
 def supports(format: "fmt.Format", space: str) -> bool:
@@ -62,11 +64,17 @@ def spmm_csr_rows(pos: torch.Tensor, crd: torch.Tensor, vals: torch.Tensor,
     Y = torch.empty((P, R, J), dtype=torch.float32, device=pos.device)
     if P * R * J == 0 or K == 0:   # nothing to launch: no stored entry exists
         return Y.zero_()
+    n_chunks = spmv.merge_chunks(R, N)
+    head = torch.empty((P, n_chunks, J), dtype=torch.float32,
+                       device=pos.device)
+    tail = torch.empty_like(head)
+    group = torch.empty((P, n_chunks // GROUP, J), dtype=torch.float32,
+                        device=pos.device)
     with torch.cuda.device(pos.device):
         err = library("spmm", _SIGNATURES).spmm_csr_rows(
             pos.data_ptr(), crd.data_ptr(), vals.data_ptr(), C.data_ptr(),
-            Y.data_ptr(), P, R, N, K, J,
-            torch.cuda.current_stream().cuda_stream)
+            head.data_ptr(), tail.data_ptr(), group.data_ptr(), Y.data_ptr(),
+            P, R, N, K, J, torch.cuda.current_stream().cuda_stream)
     check_launch("spmm_csr_rows", err)
     return Y
 

@@ -3,8 +3,10 @@
 Two Hopper kernels (``csrc/spmv.cu``), each with its plain PyTorch version
 beside it:
 
-- :func:`spmv_csr_rows`, the rows (universe) leaf over CSR row shards.
-  Replaces the TPU kernel ``repro/kernels/spmv.py::spmv_ell``.
+- :func:`spmv_csr_rows`, the rows (universe) leaf over CSR row shards,
+  split by merge path (row ends and entries cut into equal chunks, so no
+  row sets the time) and folded in a fixed order. Replaces the TPU kernel
+  ``repro/kernels/spmv.py::spmv_ell``.
 - :func:`spmv_coo_nnz`, the nnz (position-space) leaf over row-sorted COO
   shards, a deterministic two-phase segmented reduction. Replaces
   ``repro/kernels/spmv.py::spmv_coo_phase1`` and the ``segment_sum`` merge
@@ -26,11 +28,18 @@ from ._build import check_launch, library, on_cpu
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
-    # pos, crd, vals, c, y, P, R, N, m, stream
-    "spmv_csr_rows": (_P, _P, _P, _P, _P, _I, _I, _L, _I, _P),
+    # pos, crd, vals, c, head, tail, y, P, R, N, m, stream
+    "spmv_csr_rows": (_P,) * 7 + (_I, _I, _L, _I, _P),
     # rows, cols, vals, c, partial, y, P, N, m, max_rows, stream
     "spmv_coo_nnz": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P),
 }
+ITEMS = 256         # merge items per chunk, kItems in csrc/merge_rows.cuh
+
+
+def merge_chunks(R: int, N: int) -> int:
+    """Chunks of the rows kernels' merge-path split of a piece with R rows
+    and at most N entries: the size of their head / tail scratch."""
+    return -(-(R + N) // ITEMS)
 
 
 def supports(format: "fmt.Format", space: str) -> bool:
@@ -62,10 +71,13 @@ def spmv_csr_rows(pos: torch.Tensor, crd: torch.Tensor, vals: torch.Tensor,
     y = torch.empty((P, R), dtype=torch.float32, device=pos.device)
     if P * R == 0 or m == 0:       # nothing to launch: no stored entry exists
         return y.zero_()
+    head = torch.empty((P, merge_chunks(R, N)), dtype=torch.float32,
+                       device=pos.device)
+    tail = torch.empty_like(head)
     with torch.cuda.device(pos.device):
         err = library("spmv", _SIGNATURES).spmv_csr_rows(
             pos.data_ptr(), crd.data_ptr(), vals.data_ptr(), c.data_ptr(),
-            y.data_ptr(), P, R, N, m,
+            head.data_ptr(), tail.data_ptr(), y.data_ptr(), P, R, N, m,
             torch.cuda.current_stream().cuda_stream)
     check_launch("spmv_csr_rows", err)
     return y

@@ -27,7 +27,9 @@ def card():
 @pytest.mark.gpu
 def test_kernels_match_plain_versions(card):
     """Every edge case of chip_smoke (empty rows, an empty piece, a row
-    longer than 128 entries, J in {1, 16, 130}) launches its kernel once and
+    longer than 128 entries, J in {1, 16, 130}; for the rows kernels a row
+    of 60,000 entries, rows of 256 and 257, rows ending on chunk edges, 300
+    empty rows in a row, J in {1, 32, 130}) launches its kernel once and
     agrees with the plain version within the per-row tolerance."""
     before = dict(_build.LAUNCHES)
     cases = 0
@@ -55,10 +57,9 @@ def test_kernels_repeat_bit_for_bit(card):
 @pytest.mark.gpu
 def test_lower_runs_the_kernels(card):
     """The ten cells of the two main paths on the card go through the six
-    kernels and agree with the host computation; SpMM nnz, SDDMM and
-    SpMTTKRP repeat bit for bit. The launches are counted over the drive
-    alone: run_slice raises unless each cell's kernel launched once per
-    run()."""
+    kernels, agree with the host computation and repeat bit for bit. The
+    launches are counted over the drive alone: run_slice raises unless each
+    cell's kernel launched once per run()."""
     data = chip_smoke.make_inputs(4096, 8, 33, seed=1, dims3=(2048, 64, 64),
                                   rank=33)
     for path, cells in (("matrix", chip_smoke.MATRIX_CELLS),
@@ -69,9 +70,7 @@ def test_lower_runs_the_kernels(card):
         for name, rec in cells.items():
             if name.split("/")[0] in ("spmv", "spmm", "spmttkrp"):
                 assert rec["out"].device.type == "cuda"
-            if name.split("/")[0] in ("sddmm", "spmttkrp") \
-                    or name == "spmm/nnz":
-                assert rec["bitwise"]
+            assert rec["bitwise"], name
 
 
 @pytest.mark.gpu
@@ -189,6 +188,28 @@ def test_lower_spmm_nnz_repeats_bit_for_bit(card):
     assert torch.equal(a, b)
     want, scale = chip_smoke.reference_products(data, {"spmm"})["spmm"]
     chip_smoke.check_rows("spmm/nnz", a, want, scale)
+
+
+@pytest.mark.gpu
+def test_lower_spmm_rows_long_row_repeats_bit_for_bit(card):
+    """A rows SpMM cell lowered on the card over a power-law matrix whose
+    longest row holds more than 10^5 entries (the merge-path split spreads
+    it over hundreds of chunks, folded in a fixed order): spmm_csr_rows
+    launches once per run(), two run()s give the same bits, and the result
+    agrees with the host computation."""
+    import repro_torch.core as tc
+    from repro_torch.core.lower import default_row_schedule, lower
+    data = chip_smoke.make_inputs(1 << 18, 8, 33, seed=5)
+    assert np.diff(data["B"].levels[1].pos).max() > 10**5
+    stmt = chip_smoke.statements(data)["spmm"]
+    machine = tc.Machine(("x", 4))
+    k = lower(stmt, machine, schedule=default_row_schedule(stmt, machine))
+    before = _build.LAUNCHES["spmm_csr_rows"]
+    a, b = k.run(), k.run()
+    assert _build.LAUNCHES["spmm_csr_rows"] - before == 2
+    assert torch.equal(a, b)
+    want, scale = chip_smoke.reference_products(data, {"spmm"})["spmm"]
+    chip_smoke.check_rows("spmm/rows", a, want, scale)
 
 
 @pytest.mark.gpu

@@ -84,6 +84,65 @@ def test_spmm_vs_pallas(shape, j):
     np.testing.assert_allclose(want, d @ C, atol=1e-3, rtol=1e-3)
 
 
+def _skewed_rows(rng, m: int, pad: int = 11):
+    """Two pieces over one padded N: a skewed CSR (a row of 1,300 entries,
+    six 256-item chunks of the rows kernels' merge-path split; rows of
+    exactly 256 and 257; a run of 300 empty rows; rows of 0-2 entries), and
+    an empty piece. The padding tail holds value 0, as the shards' does."""
+    lens = rng.integers(0, 3, 420)
+    lens[40:340] = 0
+    lens[[5, 360, 361]] = [1300, 256, 257]
+    nnz = int(lens.sum())
+    pos = np.zeros((2, lens.shape[0] + 1), np.int32)
+    np.cumsum(lens, out=pos[0, 1:])
+    crd = np.zeros((2, nnz + pad), np.int32)
+    vals = np.zeros((2, nnz + pad), np.float32)
+    crd[0, :nnz] = rng.integers(0, m, nnz)
+    vals[0, :nnz] = rng.standard_normal(nnz)
+    return pos, crd, vals
+
+
+@pytest.mark.parametrize("j", [0, 1, 33])
+def test_rows_leaves_on_long_rows_vs_pallas(j):
+    """The rows wrappers on CPU tensors (the kernels' plain versions, their
+    oracle on the card) over a skewed piece against the Pallas kernels in
+    interpret mode (j = 0: SpMV; else SpMM with J = j), at 1e-5; the empty
+    piece gives zeros."""
+    rng = np.random.default_rng(17 + j)
+    m = 90
+    pos, crd, vals = _skewed_rows(rng, m)
+    nnz = int(pos[0, -1])
+    x = rng.standard_normal((m, j) if j else m).astype(np.float32)
+    op = rops.spmm if j else rops.spmv
+    want = np.asarray(op(pos[0], crd[0, :nnz], vals[0, :nnz], x,
+                         impl="pallas"))
+    leaf = spmm.spmm_csr_rows if j else spmv.spmv_csr_rows
+    before = dict(_build.LAUNCHES)
+    got = _np(leaf(*(torch.from_numpy(a) for a in (pos, crd, vals, x))))
+    assert _build.LAUNCHES == before          # no kernel ran on the CPU
+    np.testing.assert_allclose(got[0], want, atol=1e-5, rtol=1e-5)
+    assert not got[1].any()
+
+
+@pytest.mark.parametrize("pad", [0, 11, 300])
+def test_merge_chunks_cover_the_merged_list(pad):
+    """The rows kernels' scratch size: the merged list of a piece (each
+    row's entries, then its end item) built directly in numpy fills
+    exactly ceil(len / 256) chunks when N = nnz, and the padding tail of a
+    shard (N > nnz) only adds chunks, never removes one."""
+    rng = np.random.default_rng(pad)
+    pos, _, _ = _skewed_rows(rng, 90, pad)
+    lens = np.diff(pos[0])
+    R, nnz = lens.shape[0], int(pos[0, -1])
+    merged = np.concatenate([np.r_[np.zeros(n, bool), True] for n in lens])
+    assert merged.size == R + nnz and merged.sum() == R
+    used = np.unique(np.arange(merged.size) // spmv.ITEMS).size
+    if pad == 0:
+        assert spmv.merge_chunks(R, nnz) == used
+    assert spmv.merge_chunks(R, nnz + pad) >= used
+    assert spmv.merge_chunks(0, 0) == 0
+
+
 def _leaf_inputs(rng, R=9, N=40, m=11, J=5):
     """One padded shard: pos with trailing empty rows and a padding tail,
     nnz rows with ids outside [0, R) that segment_sum drops."""
