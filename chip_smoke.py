@@ -10,7 +10,10 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
 
 1. device  — the card's name, count, and ``nvidia-smi`` name and power limit.
 2. build   — ``nvcc`` for ``sm_90a`` over every CUDA source (in parallel),
-             with each kernel's registers, shared memory and spills.
+             with each kernel's registers, shared memory and spills; then
+             the HMMA (tensor-core) instructions of each flash kernel in
+             the built library's SASS (``cuobjdump -sass``): every bf16
+             instance must have some.
 3. kernels — each Hopper kernel against its plain PyTorch version on the
              card: first at edge-case shapes (empty rows, an empty piece, a
              row longer than 128 entries, a slice longer than one 256-entry
@@ -31,9 +34,16 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
              exactly 256 and 257 entries, rows ending on the last item of
              a chunk and on the first of the next, 300 empty rows in a
              row, an empty piece and pieces whose pos[R] lies below the
-             padded N, J in {1, 32, 130}; for flash_attention every case of
+             padded N, J in {1, 32, 130}; for the SpMV nnz kernel's
+             1024-entry blocks runs ending on a block's last entry, of 1024
+             and 1025 entries and over six blocks, 1,190 empty rows,
+             padding with the dropped id, an empty piece and a piece of
+             one row;
+             for flash_attention every case of
              tests/test_flash_kernel.py with hd 128 added: G in {1, 2, 3,
-             4, 8}, ragged S = 100, 200 and 300, f32 and bf16), later
+             4, 8}, ragged S = 100, 200 and 300, f32 and bf16, and the
+             bf16 kernel's tile edges S in {1, 15, 17, 65} at hd in
+             {16, 32, 64} and G in {1, 3, 8}), later
              at the main path's shapes. Per-entry tolerance
              |got - plain| <= 1e-4 * scale + 1e-6, with ``scale`` the same
              computation on absolute values: f32 sums of up to a million
@@ -88,8 +98,8 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
    port never calls it, and for the blocked SpAdd3 kernels none exists),
    and a line for the SpMV rows kernel's second use, SpTTV over the (i, j)
    fibres. A ``profile`` line per rows cell (spmv/rows, spmm/rows,
-   spttv/rows) gives the device time of each phase of its merge-path
-   kernel (``torch.profiler``). The blocked kernels' yardsticks are
+   spttv/rows) and for spmv/nnz gives the device time of each phase of
+   its kernel (``torch.profiler``). The blocked kernels' yardsticks are
    ``torch.sparse`` BSR products and ``sampled_addmm`` over the
    scalarised block pattern.
    flash_attention is timed at the model's layer shapes (q (2, 4096, 32,
@@ -363,6 +373,12 @@ def kernel_cases(rng, device):
         yield (f"spmm_csr_rows merge-path edges J={J}", "spmm_csr_rows",
                (pos_t, crd_t, vals_t, C_t),
                (pos_t, crd_t, vals_t.abs(), C_t.abs()))
+    # the nnz kernel's 1024-entry blocks
+    rows, cols, vals, m, R = nnz_split_pieces(rng)
+    rows_t, cols_t, vals_t, c_t = dev(rows, cols, vals, normal(m))
+    yield ("spmv_coo_nnz block edges", "spmv_coo_nnz",
+           (rows_t, cols_t, vals_t, c_t, R),
+           (rows_t, cols_t, vals_t.abs(), c_t.abs(), R))
 
     # SpMTTKRP streams: three pieces, the middle one empty; row lengths
     # with an empty row, rows across one and two segment edges, a run that
@@ -421,6 +437,36 @@ def merge_split_pieces(rng, R: int = 700, m: int = 90, pad: int = 37):
         crd[p, :nnz] = rng.integers(0, m, nnz)
         vals[p, :nnz] = rng.standard_normal(nnz)
     return pos, crd, vals, m
+
+
+def nnz_split_pieces(rng, R: int = 2400, m: int = 90, pad: int = 37):
+    """Four row-sorted COO pieces (rows, cols, vals (4, N), m columns,
+    max_rows R) at the edges of spmv_coo_nnz's 1024-entry blocks (4 entries
+    a thread, 128 a warp): in piece 0 row 0 ends on block 0's last entry,
+    rows 1 and 2 hold exactly 1024 and 1025 entries, row 5 spans 6,000
+    entries (six blocks) and rows 10-1199 are empty (more than 1024 ids in
+    a row); piece 1 is empty; in piece 2 row 1 is one entry on block 0's
+    last, row 2 crosses into block 2 by one entry, row 3 ends on block 2's
+    last entry; piece 3 is one row over all N entries. Pieces 0-2 end in
+    padding with the dropped id R, value 0 and out-of-range columns."""
+    import numpy as np
+    lens = [rng.integers(0, 4, R), np.zeros(R, np.int64),
+            rng.integers(0, 3, R)]
+    lens[0][:6] = [1024, 1024, 1025, 0, 0, 6000]
+    lens[0][10:1200] = 0
+    lens[2][:4] = [1023, 1, 1025, 1023]
+    N = max(int(x.sum()) for x in lens) + pad
+    rows = np.full((4, N), R, np.int32)
+    cols = np.full((4, N), m + 5, np.int32)
+    vals = np.zeros((4, N), np.float32)
+    for p, x in enumerate(lens):
+        rows[p, :x.sum()] = np.repeat(np.arange(R), x)
+    rows[3] = 7
+    for p in range(4):
+        nnz = int((rows[p] < R).sum())
+        cols[p, :nnz] = rng.integers(0, m, nnz)
+        vals[p, :nnz] = rng.standard_normal(nnz)
+    return rows, cols, vals, m, R
 
 
 def _addends(rng, n, m, tile=()):
@@ -584,13 +630,17 @@ def bcsr_cases(rng, device):
 
 
 # tests/test_flash_kernel.py's cases (B, S, H, Hkv, hd) and dtypes, with
-# hd 128 added: G in {1, 2, 3, 4, 8}, ragged S = 200 and 100
+# hd 128 added: G in {1, 2, 3, 4, 8}, ragged S = 200 and 100; then the bf16
+# kernel's tile edges: S shorter than a warp's 16 rows, one past them and
+# one past a 64-key stage, at G in {1, 3, 8} (3 leaves stacked rows unused)
 FLASH_CASES = ((2, 256, 4, 2, 32, "float32"), (1, 200, 8, 8, 16, "float32"),
                (2, 384, 6, 2, 64, "float32"), (1, 128, 16, 2, 32, "float32"),
                (2, 256, 4, 2, 64, "bfloat16"), (1, 100, 2, 1, 16, "float32"),
                (2, 200, 8, 2, 128, "float32"), (2, 200, 8, 2, 128, "bfloat16"),
                (1, 300, 32, 8, 128, "float32"),
-               (1, 300, 32, 8, 128, "bfloat16"))
+               (1, 300, 32, 8, 128, "bfloat16")) + tuple(
+    (1, S, 2 * G, 2, hd, "bfloat16") for S in (1, 15, 17, 65)
+    for hd in (16, 32, 64) for G in (1, 3, 8))
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # atol = rtol
 
 
@@ -629,6 +679,29 @@ def compare_flash(label, got, want, q, v) -> float:
     if not torch.allclose(g[:, 0], first, atol=1e-5, rtol=1e-5):
         raise AssertionError(f"{label}: position 0 is not v[0]")
     return float(err.max()) if err.numel() else 0.0
+
+
+def hmma_counts(lib):
+    """{kernel: tensor-core (HMMA) instructions} in the SASS of a built
+    library (``cuobjdump -sass``); the flash kernels are named
+    ``mma_hd<d>`` / ``f32_hd<d>``."""
+    import re
+    from repro_torch.kernels._build import nvcc_path
+    tool = Path(nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            name = fn.group(1)
+            kind = re.search(r"flash_(mma|f32)_kernelILi(\d+)E", name)
+            if kind:
+                name = f"{kind.group(1)}_hd{kind.group(2)}"
+            counts[name] = 0
+        elif name and re.search(r"/\*[0-9a-f]+\*/\s+HMMA", line):
+            counts[name] += 1
+    return counts
 
 
 def kernel_fns():
@@ -1319,7 +1392,7 @@ def kernel_records(data, cells, launches, reps: int):
             name, args, launches[name], B3.nnz if three else B.nnz,
             B3.shape[0] if three else n, library[cell], reps))
         cell_ms[cell] = records[-1]["ms"]
-        if name in ("spmv_csr_rows", "spmm_csr_rows"):
+        if name in ("spmv_csr_rows", "spmm_csr_rows", "spmv_coo_nnz"):
             phase("profile", name=name, cell=cell, **{
                 k.replace(" ", "_"): f"{v:.4f}" for k, v in
                 device_breakdown(lambda: fns[name][0](*args)).items()})
@@ -1780,6 +1853,11 @@ def main(argv=None) -> int:
             if ("Compiling entry" in line or "Used" in line
                     or "spill" in line):
                 print(f"  {src}: {line.strip()}")
+    hmma = hmma_counts(_build.lib_path("flash_attention"))
+    phase("sass", library="flash_attention", instruction="HMMA", **hmma)
+    if not all(n > 0 for f, n in hmma.items() if f.startswith("mma")):
+        raise AssertionError(f"the bf16 flash kernel does not run on the "
+                             f"tensor cores: HMMA counts {hmma}")
 
     # 3a. kernels against plain at edge-case shapes
     rng = np.random.default_rng(SEED)

@@ -16,19 +16,74 @@
 // 2.2.B.H.hd.S^2/2 flops against (q + k + v + o) bytes read or written
 // once; at the llama3-8b layer shape (B 2, S 4096, H 32, Hkv 8, hd 128)
 // that is 275 GFLOP against 168 MB (bf16), about 1,600 flops per byte.
-// This first kernel runs on the CUDA cores in f32 (67 TFLOP/s), the only
-// way to meet the f32 tolerance of 2e-5; mma/wgmma for bf16 is later work.
+// Two kernels, one per dtype:
+//  - bf16: flash_mma_kernel, on the tensor cores (989 TFLOP/s).
+//  - f32: flash_f32_kernel, on the CUDA cores (67 TFLOP/s), the only way
+//    to meet the reference's f32 tolerance of 2e-5 (TF32 would not).
 //
-// What the design does about it:
-//  - A thread block owns one output tile: the BQ query positions of one q
-//    tile for all G query heads that read one KV head (G.BQ rows). Each
-//    K/V tile (64 keys) is staged once in shared memory, as float, and
-//    reused by those G.BQ rows, so K/V are never repeated per query head
-//    (the TPU kernel stacks the G groups row-wise for the same reason).
+// What both do about it:
+//  - A thread block owns one output tile: the query positions of one q
+//    tile for all G query heads that read one KV head, stacked row-wise
+//    (row rho is head g = rho % G at position q0 + rho / G; the G heads of
+//    a position are adjacent in memory). Each K/V tile (64 keys) is staged
+//    once in shared memory and used by all of the block's rows, so K/V
+//    are never repeated per query head (the TPU kernel stacks the G groups
+//    row-wise for the same reason).
 //  - The KV loop of a q tile ends at its diagonal: keys past the tile's
 //    last position are never loaded. (The TPU kernel runs the fully
 //    masked blocks, about twice the flops.) The ragged S edge is masked
 //    in the kernel; nothing is padded or copied.
+//  - Tiles are launched heaviest (last) first, so the diagonal's
+//    imbalance does not leave a tail.
+// Every output is written once by the block that owns it, with no atomics
+// and reductions in a fixed order, so results repeat bit for bit.
+//
+// flash_mma_kernel, in detail (FlashAttention-2's scheme on mma.sync):
+//  - 4 warps, 64 stacked rows a block, two blocks an SM; each warp owns 16
+//    rows and keeps their f32 output accumulator and m, l in registers.
+//    The block's q rows sit in shared memory (they arrive with the first
+//    K/V tile) and each k-step reloads its A fragment by ldmatrix: held in
+//    registers they cost 32 more a thread and spilled at hd 128.
+//  - S = Q.K^T and O += P.V run as mma.sync m16n8k16 bf16 x bf16 -> f32.
+//    K fragments come by ldmatrix, V's by ldmatrix.trans (V is stored
+//    key-major, the PV product wants it dim-major).
+//  - P never leaves registers: the S accumulator fragment of keys
+//    16kk .. 16kk + 15 (two n-tiles of 8) is, pair by pair, the A fragment
+//    of PV's k-step kk once rounded to bf16.
+//  - A row's max and sum reduce over the 4 lanes that hold it (shuffles at
+//    offsets 1 and 2, in that order); l is kept per lane and reduced once
+//    at the end.
+//  - K and V tiles arrive by cp.async into two stages of shared memory, so
+//    tile t + 1 loads during tile t's products; keys past S are zero-filled
+//    (src-size 0). Rows of 16-byte chunks are XOR-swizzled so that the 8
+//    row addresses of each ldmatrix hit 8 distinct bank groups.
+//  - Scores are scaled once by hd^-0.5 . log2(e) and exponentiated by
+//    ex2.approx. The finite -1e30 of the TPU kernel marks masked scores,
+//    and only tiles that reach past a warp's first position are masked; a
+//    warp skips the tiles wholly past its last position.
+//  - Rows past S, and stacked rows past G . BQ, are computed with q = 0
+//    and never stored.
+// (Probed at the llama3-8b layer shape and not kept, being slower: 8-warp
+// blocks, q in registers, exp2f, three stages, 32-key tiles, two 16-row
+// tiles a warp, the scale fused into the exponent.)
+//
+// The entry point returns cudaGetLastError() after its launch (or the
+// error of cudaFuncSetAttribute, which dynamic shared memory above 48 KB
+// needs: at hd 128 the f32 kernel's K/V tile pair is 64 KB, the bf16
+// kernel's two stages and q tile 80 KB).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBK = 64;          // keys per staged K/V tile
+constexpr float kNegInf = -1e30f;
+
+// ---------------------------------------------------------------------------
+// f32: the CUDA cores
+// ---------------------------------------------------------------------------
 //  - hd is split over TPR = max(1, hd / 32) adjacent lanes; a lane holds
 //    its 4-float chunks j.TPR + sub of q and of the accumulator in
 //    registers (interleaved, so the TPR lanes of a row read 16 B each of
@@ -37,48 +92,14 @@
 //    shuffles in a fixed order.
 //  - Keys are taken 16 at a time: one max, one rescale of l and the
 //    accumulator per 16 keys.
-//  - Tiles are launched heaviest (last) first, so the diagonal's
-//    imbalance does not leave a tail.
-// Every output is written once by the block that owns it, with no atomics,
-// so results repeat bit for bit.
-//
-// The entry point returns cudaGetLastError() after its launch (or the
-// error of cudaFuncSetAttribute, which dynamic shared memory above 48 KB
-// needs: at hd 128 a K/V tile pair is 64 KB).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-namespace {
-
-constexpr int kThreads = 256;
-constexpr int kBK = 64;          // keys per staged K/V tile
+constexpr int kF32Threads = 256;
 constexpr int kCH = 16;          // keys per softmax step
-constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) {
-    return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_float<__nv_bfloat16>(float x) {
-    return __float2bfloat16(x);
-}
-// p as the PV product sees it: rounded to the inputs' dtype
-__device__ __forceinline__ float round_p(float p, float) { return p; }
-__device__ __forceinline__ float round_p(float p, __nv_bfloat16) {
-    return __bfloat162float(__float2bfloat16(p));
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+template <int HD>
+__global__ void __launch_bounds__(kF32Threads, 2)
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  int S, int H, int Hkv, int G, int GB, int BQ, int n_qt,
                  int n_bh, float scale) {
     constexpr int TPR = HD <= 32 ? 1 : HD / 32;   // lanes per row
@@ -110,7 +131,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                              + 4 * (j * TPR + sub);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-            qr[4 * j + e] = live ? to_float(q[base + e]) : 0.f;
+            qr[4 * j + e] = live ? q[base + e] : 0.f;
             acc[4 * j + e] = 0.f;
         }
     }
@@ -118,21 +139,21 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     const int kv_end = min(S, q0 + BQ);           // keys past it are masked
     const int64_t kv_stride = int64_t(Hkv) * HD;
-    const T* kb = k + (int64_t(b) * S * Hkv + kvh) * HD;
-    const T* vb = v + (int64_t(b) * S * Hkv + kvh) * HD;
+    const float* kb = k + (int64_t(b) * S * Hkv + kvh) * HD;
+    const float* vb = v + (int64_t(b) * S * Hkv + kvh) * HD;
     float* sKf = reinterpret_cast<float*>(sK);
     float* sVf = reinterpret_cast<float*>(sV);
 
     for (int k0 = 0; k0 < kv_end; k0 += kBK) {
         const int nk = min(kBK, kv_end - k0);
         __syncthreads();                          // the last tile is used
-        for (int i = t; i < kBK * HD; i += kThreads) {
+        for (int i = t; i < kBK * HD; i += kF32Threads) {
             const int key = i / HD, d = i % HD;
             float kx = 0.f, vx = 0.f;             // zero past the tile's end
             if (key < nk) {
                 const int64_t off = int64_t(k0 + key) * kv_stride + d;
-                kx = to_float(kb[off]);
-                vx = to_float(vb[off]);
+                kx = kb[off];
+                vx = vb[off];
             }
             sKf[i] = kx;
             sVf[i] = vx;
@@ -170,15 +191,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const bool ok = c0 + c < nk && kv <= qpos && kv < S;
                 const float p = ok ? expf(s[c] - m_new) : 0.f;
                 l += p;
-                const float pb = round_p(p, T());
                 const float4* vr = sV + (c0 + c) * (HD / 4);
 #pragma unroll
                 for (int j = 0; j < NV; ++j) {
                     const float4 vv = vr[j * TPR + sub];
-                    acc[4 * j] += pb * vv.x;
-                    acc[4 * j + 1] += pb * vv.y;
-                    acc[4 * j + 2] += pb * vv.z;
-                    acc[4 * j + 3] += pb * vv.w;
+                    acc[4 * j] += p * vv.x;
+                    acc[4 * j + 1] += p * vv.y;
+                    acc[4 * j + 2] += p * vv.z;
+                    acc[4 * j + 3] += p * vv.w;
                 }
             }
             m = m_new;
@@ -191,45 +211,350 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int64_t base = ((int64_t(b) * S + qpos) * H + h) * HD
                              + 4 * (j * TPR + sub);
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-            o[base + e] = from_float<T>(acc[4 * j + e] * inv);
+        for (int e = 0; e < 4; ++e) o[base + e] = acc[4 * j + e] * inv;
     }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int H, int Hkv, float scale, cudaStream_t stream) {
-    constexpr int TPR = HD <= 32 ? 1 : HD / 32;
-    const int G = H / Hkv;
-    const int rows = kThreads / TPR;
-    const int GB = G < rows ? G : rows;           // query heads per block
-    const int BQ = rows / GB;                     // positions per block
+// ---------------------------------------------------------------------------
+// bf16: the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;   // stacked query rows per block
+constexpr int kStages = 2;
+
+// Index of 16-byte chunk c of key row r in a tile of CPR chunks a row: the
+// chunk is XOR-swizzled so that 8 consecutive rows at one chunk (what one
+// ldmatrix matrix reads) fall in 8 distinct 16-byte bank groups.
+template <int CPR>
+__device__ __forceinline__ int swz(int r, int c) {
+    if constexpr (CPR >= 8) return r * CPR + (c ^ (r & 7));
+    else return r * CPR + (c ^ ((r / (8 / CPR)) % CPR));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0,
+                                        uint32_t& r1, uint32_t& r2,
+                                        uint32_t& r3) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 "
+                 "{%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t& r0,
+                                              uint32_t& r1, uint32_t& r2,
+                                              uint32_t& r3) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+                 "{%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(addr));
+}
+
+// d += a . b for one 16x8x16 tile: a the A fragment (rows gq and gq + 8,
+// k 2tq, 2tq + 1 and + 8), b0 / b1 the B fragment (k 2tq.. and 2tq + 8..,
+// column gq), d the C fragment (rows gq, gq + 8; columns 2tq, 2tq + 1).
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats as bf16x2, lo in the low half (the lower k / column index)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// 2^x by the MUFU unit (ex2.approx, subnormal results flushed to 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                 const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v,
+                 __nv_bfloat16* __restrict__ o, int S, int H, int Hkv,
+                 int G, int GB, int BQ, int n_qt, int n_bh,
+                 float scale_log2) {
+    constexpr int CPR = HD / 8;          // 16-byte chunks per row
+    constexpr int KC = HD / 16;          // k-steps of the QK product
+    constexpr int NT = kBK / 8;          // score n-tiles of 8 keys
+    constexpr int DT = HD / 8;           // output n-tiles of 8 dims
+    constexpr int TILE = kBK * CPR;      // chunks per K (or V) tile
+    static_assert(4 * NT <= 32, "one bit of `dead` per score of a lane");
+    extern __shared__ uint4 smem[];      // [stage][K, V][TILE], then Q
+
+    const int bid = blockIdx.x;
+    const int qt = n_qt - 1 - bid / n_bh;         // heaviest tiles first
+    const int bh = bid % n_bh;
     const int n_gr = (G + GB - 1) / GB;
-    const int n_qt = (S + BQ - 1) / BQ;
-    const int n_bh = B * Hkv * n_gr;
+    const int gr = bh % n_gr;
+    const int kvh = (bh / n_gr) % Hkv;
+    const int b = bh / (n_gr * Hkv);
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+    const int gq = lane >> 2, tq = lane & 3;
+    const int q0 = qt * BQ;
+    const int kv_end = min(S, q0 + BQ);           // keys past it are masked
+    const int n_tiles = (kv_end + kBK - 1) / kBK;
+
+    // this lane's rows 16 warp + gq (r = 0) and + 8 (r = 1)
+    int pos[2];
+    bool live[2];
+    int64_t word[2];                              // its o row, in bf16 pairs
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int rho = 16 * warp + gq + 8 * r;
+        const int qi = rho / GB, g = gr * GB + rho % GB;
+        pos[r] = q0 + qi;
+        live[r] = qi < BQ && g < G && pos[r] < S;
+        word[r] = live[r]
+            ? ((int64_t(b) * S + pos[r]) * H + kvh * G + g) * (HD / 2) : 0;
+    }
+    // the positions the warp's rows span; a warp wholly past the tile's
+    // rows or past S computes nothing
+    const int p_lo = q0 + 16 * warp / GB;
+    const int p_hi = q0 + min(16 * warp + 15, GB * BQ - 1) / GB;
+    const bool warp_live = 16 * warp < GB * BQ && p_lo < S;
+
+    const uint32_t s_base =
+        static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+    const uint32_t sQ = s_base + kStages * 2 * TILE * 16;
+    // the block's q rows, zero-filled where no row is live, arrive with
+    // the first K/V tile
+    for (int i = tid; i < kRows * CPR; i += kThreads) {
+        const int rho = i / CPR, c = i % CPR;
+        const int qi = rho / GB, g = gr * GB + rho % GB;
+        const bool in = qi < BQ && g < G && q0 + qi < S;
+        const int64_t off =
+            in ? ((int64_t(b) * S + q0 + qi) * H + kvh * G + g) * HD + 8 * c
+               : 0;
+        cp_async16(sQ + swz<CPR>(rho, c) * 16, q + off, in ? 16 : 0);
+    }
+    float acc[DT][4];
+#pragma unroll
+    for (int d = 0; d < DT; ++d)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) acc[d][x] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+    const int64_t kv_stride = int64_t(Hkv) * HD;
+    const __nv_bfloat16* kb = k + (int64_t(b) * S * Hkv + kvh) * HD;
+    const __nv_bfloat16* vb = v + (int64_t(b) * S * Hkv + kvh) * HD;
+
+    auto load = [&](int tile, int stage) {
+        const int k0 = tile * kBK;
+        const uint32_t sk = s_base + stage * 2 * TILE * 16;
+        for (int i = tid; i < TILE; i += kThreads) {
+            const int key = i / CPR, c = i % CPR;
+            const bool in = k0 + key < S;
+            const int64_t off = in ? (k0 + key) * kv_stride + 8 * c : 0;
+            const uint32_t dst = sk + swz<CPR>(key, c) * 16;
+            cp_async16(dst, kb + off, in ? 16 : 0);
+            cp_async16(dst + TILE * 16, vb + off, in ? 16 : 0);
+        }
+    };
+
+    load(0, 0);
+    cp_async_commit();
+    for (int it = 0; it < n_tiles; ++it) {
+        if (it + 1 < n_tiles) load(it + 1, (it + 1) % kStages);
+        cp_async_commit();
+        cp_async_wait<1>();                       // tile it has landed
+        __syncthreads();
+        const int k0 = it * kBK;
+        if (warp_live && k0 <= p_hi) {
+            const uint32_t sK = s_base + (it % kStages) * 2 * TILE * 16;
+            const uint32_t sV = sK + TILE * 16;
+            float s[NT][4];
+#pragma unroll
+            for (int j = 0; j < NT; ++j)
+#pragma unroll
+                for (int x = 0; x < 4; ++x) s[j][x] = 0.f;
+            // S = Q K^T. The A fragment of k-step kc: lanes 0-15 address
+            // rows 16 warp + 0..15 at dims 16 kc + 0..7, lanes 16-31 at
+            // + 8..15. B: lanes 0-7 / 8-15 address keys 16 np + 0..7 at
+            // dims 16 kc + 0..7 / + 8..15 (n-tile 2 np), lanes 16-31 keys
+            // 16 np + 8..15 (n-tile 2 np + 1).
+#pragma unroll
+            for (int kc = 0; kc < KC; ++kc) {
+                uint32_t qa[4];
+                ldsm_x4(sQ + swz<CPR>(16 * warp + (lane & 15),
+                                      2 * kc + (lane >> 4)) * 16,
+                        qa[0], qa[1], qa[2], qa[3]);
+#pragma unroll
+                for (int np = 0; np < NT / 2; ++np) {
+                    const int key = 16 * np + (lane & 7) + ((lane >> 4) << 3);
+                    const int c = 2 * kc + ((lane >> 3) & 1);
+                    uint32_t b0, b1, b2, b3;
+                    ldsm_x4(sK + swz<CPR>(key, c) * 16, b0, b1, b2, b3);
+                    mma_bf16(s[2 * np], qa, b0, b1);
+                    mma_bf16(s[2 * np + 1], qa, b2, b3);
+                }
+            }
+            // scale, mask (only a tile that reaches past the warp's first
+            // position), and the rows' new max over the quad
+            const bool masked = k0 + kBK - 1 > p_lo;
+            uint32_t dead = 0;                    // bit 4 j + x: masked
+            float mx[2] = {m[0], m[1]};
+#pragma unroll
+            for (int j = 0; j < NT; ++j) {
+#pragma unroll
+                for (int x = 0; x < 4; ++x) {
+                    float y = s[j][x] * scale_log2;
+                    if (masked) {
+                        const int key = k0 + 8 * j + 2 * tq + (x & 1);
+                        if (key > pos[x >> 1] || key >= S) {
+                            y = kNegInf;
+                            dead |= 1u << (4 * j + x);
+                        }
+                    }
+                    s[j][x] = y;
+                    mx[x >> 1] = fmaxf(mx[x >> 1], y);
+                }
+            }
+            float corr[2];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+                mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+                corr[r] = fast_exp2(m[r] - mx[r]);
+                m[r] = mx[r];
+                l[r] *= corr[r];
+            }
+#pragma unroll
+            for (int d = 0; d < DT; ++d) {
+                acc[d][0] *= corr[0];
+                acc[d][1] *= corr[0];
+                acc[d][2] *= corr[1];
+                acc[d][3] *= corr[1];
+            }
+            // p in f32 for l, in bf16 (the A fragment) for PV
+#pragma unroll
+            for (int j = 0; j < NT; ++j) {
+#pragma unroll
+                for (int x = 0; x < 4; ++x) {
+                    const float p = (dead >> (4 * j + x)) & 1u
+                        ? 0.f : fast_exp2(s[j][x] - m[x >> 1]);
+                    l[x >> 1] += p;
+                    s[j][x] = p;
+                }
+            }
+            // O += P V: k-step kk is keys 16 kk .. + 15 = score n-tiles
+            // 2 kk and 2 kk + 1; lanes 0-7 / 8-15 address keys 16 kk +
+            // 0..7 / 8..15 at dims 16 dp + 0..7 (n-tile 2 dp), lanes
+            // 16-31 at dims 16 dp + 8..15 (n-tile 2 dp + 1)
+#pragma unroll
+            for (int kk = 0; kk < NT / 2; ++kk) {
+                const uint32_t a[4] = {
+                    pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                    pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                    pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                    pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+                for (int dp = 0; dp < DT / 2; ++dp) {
+                    const int key = 16 * kk + (lane & 7)
+                                    + (((lane >> 3) & 1) << 3);
+                    const int c = 2 * dp + (lane >> 4);
+                    uint32_t b0, b1, b2, b3;
+                    ldsm_x4_trans(sV + swz<CPR>(key, c) * 16, b0, b1, b2,
+                                  b3);
+                    mma_bf16(acc[2 * dp], a, b0, b1);
+                    mma_bf16(acc[2 * dp + 1], a, b2, b3);
+                }
+            }
+        }
+        __syncthreads();                          // stage it is free again
+    }
+
+    uint32_t* o32 = reinterpret_cast<uint32_t*>(o);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        if (!live[r]) continue;
+        const float den = fmaxf(l[r], 1e-30f);
+#pragma unroll
+        for (int d = 0; d < DT; ++d)
+            o32[word[r] + 4 * d + tq] = pack_bf16(acc[d][2 * r] / den,
+                                                  acc[d][2 * r + 1] / den);
+    }
+}
+
+// ---------------------------------------------------------------------------
+
+// Stacked rows of one KV head: GB of its G query heads by BQ positions,
+// in n_gr groups of heads.
+struct Tiling {
+    int G, GB, BQ, n_gr, n_qt, n_bh;
+    Tiling(int B, int S, int H, int Hkv, int rows)
+        : G(H / Hkv), GB(G < rows ? G : rows), BQ(rows / GB),
+          n_gr((G + GB - 1) / GB), n_qt((S + BQ - 1) / BQ),
+          n_bh(B * Hkv * n_gr) {}
+    unsigned blocks() const { return unsigned(int64_t(n_qt) * n_bh); }
+};
+
+template <int HD>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+               int S, int H, int Hkv, float scale, cudaStream_t stream) {
+    constexpr int TPR = HD <= 32 ? 1 : HD / 32;
+    const Tiling t(B, S, H, Hkv, kF32Threads / TPR);
     const size_t smem = 2 * size_t(kBK) * HD * sizeof(float);
-    auto kernel = flash_fwd_kernel<T, HD>;
+    auto kernel = flash_f32_kernel<HD>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (err != cudaSuccess) return int(err);
-    const int64_t blocks = int64_t(n_qt) * n_bh;
-    kernel<<<unsigned(blocks), kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), S, H, Hkv, G, GB, BQ,
-        n_qt, n_bh, scale);
+    kernel<<<t.blocks(), kF32Threads, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), S, H, Hkv,
+        t.G, t.GB, t.BQ, t.n_qt, t.n_bh, scale);
     return int(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int S, int H, int Hkv, int hd, float scale, cudaStream_t s) {
-    switch (hd) {
-        case 16: return launch<T, 16>(q, k, v, o, B, S, H, Hkv, scale, s);
-        case 32: return launch<T, 32>(q, k, v, o, B, S, H, Hkv, scale, s);
-        case 64: return launch<T, 64>(q, k, v, o, B, S, H, Hkv, scale, s);
-        case 128: return launch<T, 128>(q, k, v, o, B, S, H, Hkv, scale, s);
-        default: return int(cudaErrorInvalidValue);
-    }
+template <int HD>
+int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
+               int S, int H, int Hkv, float scale, cudaStream_t stream) {
+    const Tiling t(B, S, H, Hkv, kRows);
+    const size_t smem = (size_t(kStages) * 2 * kBK + kRows) * HD * 2;
+    auto kernel = flash_mma_kernel<HD>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return int(err);
+    kernel<<<t.blocks(), kThreads, smem, stream>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v),
+        static_cast<__nv_bfloat16*>(o), S, H, Hkv, t.G, t.GB, t.BQ, t.n_qt,
+        t.n_bh, scale * 1.4426950408889634f);
+    return int(cudaGetLastError());
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int S, int H, int Hkv, int is_bf16, float scale, cudaStream_t s) {
+    return is_bf16 ? launch_mma<HD>(q, k, v, o, B, S, H, Hkv, scale, s)
+                   : launch_f32<HD>(q, k, v, o, B, S, H, Hkv, scale, s);
 }
 
 }  // namespace
@@ -243,10 +568,14 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
                         void* o, int B, int S, int H, int Hkv, int hd,
                         int is_bf16, float scale, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (is_bf16)
-        return dispatch<__nv_bfloat16>(q, k, v, o, B, S, H, Hkv, hd, scale,
-                                       s);
-    return dispatch<float>(q, k, v, o, B, S, H, Hkv, hd, scale, s);
+    switch (hd) {
+        case 16: return launch<16>(q, k, v, o, B, S, H, Hkv, is_bf16, scale, s);
+        case 32: return launch<32>(q, k, v, o, B, S, H, Hkv, is_bf16, scale, s);
+        case 64: return launch<64>(q, k, v, o, B, S, H, Hkv, is_bf16, scale, s);
+        case 128:
+            return launch<128>(q, k, v, o, B, S, H, Hkv, is_bf16, scale, s);
+        default: return int(cudaErrorInvalidValue);
+    }
 }
 
 }  // extern "C"

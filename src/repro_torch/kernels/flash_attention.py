@@ -1,7 +1,8 @@
 """Causal GQA flash attention, the LM stack's attention leaf.
 
-One Hopper kernel (``csrc/flash_attention.cu``) with its plain PyTorch
-version beside it. :func:`flash_attention` replaces the TPU kernel
+One Hopper source (``csrc/flash_attention.cu``: a tensor-core kernel for
+bf16, a CUDA-core kernel for f32) with its plain PyTorch version beside it.
+:func:`flash_attention` replaces the TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention``; the source note says
 what bounds it on the card and what its design does about that. The
 wrapper runs the plain version only when its inputs lie on the CPU; on a
@@ -47,9 +48,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     hd in {16, 32, 64, 128}).
 
     ``block_q`` and ``block_k`` are the TPU kernel's tile sizes. They are
-    checked and accepted so its callers run unchanged, but the Hopper kernel
-    tiles as it likes (G query heads by 256 / (G·max(1, hd / 32)) positions
-    a block, 64 keys a stage) and the result does not depend on them."""
+    checked and accepted so its callers run unchanged, but the Hopper
+    kernels tile as they like and the result does not depend on them. A
+    block stacks the G query heads of one KV head row-wise over a run of
+    positions and stages 64 keys at a time: bf16 runs on the tensor cores
+    (``mma.sync``), 64 rows a block (64 / G positions), 16 rows a warp;
+    f32 on the CUDA cores, 256 / max(1, hd / 32) rows a block."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
             or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3] \
             or k.shape[2] == 0 or q.shape[2] % k.shape[2]:

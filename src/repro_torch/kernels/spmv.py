@@ -8,7 +8,9 @@ beside it:
   row sets the time) and folded in a fixed order. Replaces the TPU kernel
   ``repro/kernels/spmv.py::spmv_ell``.
 - :func:`spmv_coo_nnz`, the nnz (position-space) leaf over row-sorted COO
-  shards, a deterministic two-phase segmented reduction. Replaces
+  shards, a deterministic two-phase segmented reduction: fixed blocks of
+  entries write the row runs inside them, and only the runs that cross a
+  block edge are folded in a second phase. Replaces
   ``repro/kernels/spmv.py::spmv_coo_phase1`` and the ``segment_sum`` merge
   of ``repro/kernels/ops.py::spmv_nnz``.
 
@@ -30,10 +32,11 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
     # pos, crd, vals, c, head, tail, y, P, R, N, m, stream
     "spmv_csr_rows": (_P,) * 7 + (_I, _I, _L, _I, _P),
-    # rows, cols, vals, c, partial, y, P, N, m, max_rows, stream
-    "spmv_coo_nnz": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P),
+    # rows, cols, vals, c, head, tail, y, P, N, m, max_rows, stream
+    "spmv_coo_nnz": (_P,) * 7 + (_I, _L, _I, _I, _P),
 }
 ITEMS = 256         # merge items per chunk, kItems in csrc/merge_rows.cuh
+NNZ_BLOCK = 1024    # entries per nnz phase-1 block, kNnzBlock in csrc/spmv.cu
 
 
 def merge_chunks(R: int, N: int) -> int:
@@ -108,11 +111,13 @@ def spmv_coo_nnz(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
     y = torch.empty((P, max_rows), dtype=torch.float32, device=rows.device)
     if P * max_rows == 0 or N == 0 or m == 0:
         return y.zero_()
-    partial = torch.empty((P, N), dtype=torch.float32, device=rows.device)
+    head = torch.empty((P, -(-N // NNZ_BLOCK)), dtype=torch.float32,
+                       device=rows.device)
+    tail = torch.empty_like(head)
     with torch.cuda.device(rows.device):
         err = library("spmv", _SIGNATURES).spmv_coo_nnz(
             rows.data_ptr(), cols.data_ptr(), vals.data_ptr(), c.data_ptr(),
-            partial.data_ptr(), y.data_ptr(),
+            head.data_ptr(), tail.data_ptr(), y.data_ptr(),
             P, N, m, int(max_rows),
             torch.cuda.current_stream().cuda_stream)
     check_launch("spmv_coo_nnz", err)

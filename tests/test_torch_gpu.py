@@ -258,3 +258,47 @@ def test_lm_flash_matches_dense_on_card(card):
     rec, launches = chip_smoke.run_attention(
         chip_smoke.lm_config(n_layers=2), 1, 512, card, 3)
     assert launches["flash_attention"] == 2 * rec["runs"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["flash_attention", "spmv_coo_nnz"])
+def test_redesigned_kernels_repeat_bit_for_bit(card, name):
+    """The two kernels redesigned last, at their tiles' edges:
+    flash_attention's bf16 tensor-core kernel at every bf16 case of
+    chip_smoke.FLASH_CASES (S in {1, 15, 17, 65}, hd in {16, 32, 64}, G in
+    {1, 3, 8} among them), spmv_coo_nnz over the block-edge pieces (runs
+    on a block's last entry, of 1024 and 1025, over six blocks, 1,190
+    empty rows, padding, an empty piece, a piece of one row). Each agrees with
+    its plain version and two launches give the same bits."""
+    kernel = chip_smoke.kernel_fns()[name][0]
+    cases = [c for c in chip_smoke.kernel_cases(np.random.default_rng(17),
+                                                card)
+             if c[1] == name and (name == "spmv_coo_nnz"
+                                  or c[2][0].dtype == torch.bfloat16)]
+    before = _build.LAUNCHES[name]
+    for label, _, args, abs_args in cases:
+        chip_smoke.compare_kernel(label, name, args, abs_args)
+        assert torch.equal(kernel(*args), kernel(*args)), label
+    assert _build.LAUNCHES[name] - before == 3 * len(cases) > 0
+
+
+@pytest.mark.gpu
+def test_lower_spmv_nnz_long_row_repeats_bit_for_bit(card):
+    """An nnz SpMV cell lowered on the card over a power-law matrix whose
+    longest row holds more than 10^5 entries (over 100 1024-entry blocks,
+    folded in a fixed order by phase 2): spmv_coo_nnz launches once per
+    run(), two run()s give the same bits, and the result agrees with the
+    host computation."""
+    import repro_torch.core as tc
+    from repro_torch.core.lower import default_nnz_schedule, lower
+    data = chip_smoke.make_inputs(1 << 18, 8, 1, seed=5)
+    assert np.diff(data["B"].levels[1].pos).max() > 10**5
+    stmt = chip_smoke.statements(data)["spmv"]
+    machine = tc.Machine(("x", 4))
+    k = lower(stmt, machine, schedule=default_nnz_schedule(stmt, machine))
+    before = _build.LAUNCHES["spmv_coo_nnz"]
+    a, b = k.run(), k.run()
+    assert _build.LAUNCHES["spmv_coo_nnz"] - before == 2
+    assert torch.equal(a, b)
+    want, scale = chip_smoke.reference_products(data, {"spmv"})["spmv"]
+    chip_smoke.check_rows("spmv/nnz", a, want, scale)
