@@ -38,7 +38,14 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
              1024-entry blocks runs ending on a block's last entry, of 1024
              and 1025 entries and over six blocks, 1,190 empty rows,
              padding with the dropped id, an empty piece and a piece of
-             one row;
+             one row; for the SpMM nnz kernel the same pieces and rows
+             over 64, 65, 128 and 129 segments of 256 (its group fold's
+             edges), J in {1, 7, 32, 33}; for the SpAdd3 rows unions
+             rows of nine merge tasks with repeated columns at the split
+             values, a column of 901 entries (longer than a task and a
+             128-entry window), three identical lists, one list alone
+             over two windows, empty rows and pieces, tiles (), (1, 3),
+             (3, 2), (2, 2) and (4, 4);
              for flash_attention every case of
              tests/test_flash_kernel.py with hd 128 added: G in {1, 2, 3,
              4, 8}, ragged S = 100, 200 and 300, f32 and bf16, and the
@@ -98,8 +105,10 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
    port never calls it, and for the blocked SpAdd3 kernels none exists),
    and a line for the SpMV rows kernel's second use, SpTTV over the (i, j)
    fibres. A ``profile`` line per rows cell (spmv/rows, spmm/rows,
-   spttv/rows) and for spmv/nnz gives the device time of each phase of
-   its kernel (``torch.profiler``). The blocked kernels' yardsticks are
+   spttv/rows), for spmv/nnz and spmm/nnz (the memset, phase 1, the group
+   pass and phase 2), and for the two SpAdd3 rows unions (bounds and count,
+   fill, and the wrapper's torch ops) gives the device time of each phase
+   of its kernel (``torch.profiler``). The blocked kernels' yardsticks are
    ``torch.sparse`` BSR products and ``sampled_addmm`` over the
    scalarised block pattern.
    flash_attention is timed at the model's layer shapes (q (2, 4096, 32,
@@ -131,6 +140,7 @@ F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 BF16_FLOPS = 989e12            # H100 SXM bf16 tensor cores, dense
 RTOL_ROW, ATOL = 1e-4, 1e-6
 AVG_NNZ, PIECES, SPMM_J, SEED = 16, 4, 32, 0    # the main path's cells
+LOG2_N, LOG2_I, LOG2_JK, REPS = 21, 20, 16, 20  # its sizes, timed launches
 AVG_SLICE, RANK = 16, 32       # powerlaw_tensor3's slices; SDDMM K, MTTKRP L
 ADD_BLOCK, AVG_BLOCKS = (4, 4), 4   # the blocked SpAdd3 operands
 
@@ -180,6 +190,8 @@ ADD_CELLS = (("spadd3", "rows"), ("spadd3", "nnz"), ("spadd3_bcsr", "rows"),
 BLOCKED_CELLS = (("spmv_bcsr", "rows"), ("spmv_bcsr", "nnz"),
                  ("spmm_bcsr", "rows"), ("spmm_bcsr", "nnz"),
                  ("sddmm_bcsr", "rows"), ("sddmm_bcsr", "nnz"))
+PATH_CELLS = {"matrix": MATRIX_CELLS, "slice": SLICE_CELLS,
+              "add": ADD_CELLS, "blocked": BLOCKED_CELLS}
 # the kernels each path must launch
 PATH_KERNELS = {"matrix": ("spmv_csr_rows", "spmv_coo_nnz", "spmm_csr_rows",
                            "spmm_coo_nnz"),
@@ -379,6 +391,17 @@ def kernel_cases(rng, device):
     yield ("spmv_coo_nnz block edges", "spmv_coo_nnz",
            (rows_t, cols_t, vals_t, c_t, R),
            (rows_t, cols_t, vals_t.abs(), c_t.abs(), R))
+    # the SpMM nnz kernel over the same pieces and over rows whose fold
+    # crosses its 64-segment group edges
+    grows, gcols, gvals, _, gR = nnz_group_pieces(rng, m=m)
+    pieces = {"block edges": (rows_t, cols_t, vals_t, R),
+              "group edges": (*dev(grows, gcols, gvals), gR)}
+    for J in (1, 7, 32, 33):
+        for tag, (r_t, k_t, v_t, max_rows) in pieces.items():
+            C_t, = dev(normal(m, J))
+            args = (r_t, k_t, v_t, C_t, max_rows)
+            yield (f"spmm_coo_nnz {tag} J={J}", "spmm_coo_nnz", args,
+                   _abs_args(args))
 
     # SpMTTKRP streams: three pieces, the middle one empty; row lengths
     # with an empty row, rows across one and two segment edges, a run that
@@ -469,6 +492,35 @@ def nnz_split_pieces(rng, R: int = 2400, m: int = 90, pad: int = 37):
     return rows, cols, vals, m, R
 
 
+def nnz_group_pieces(rng, R: int = 300, m: int = 90, pad: int = 37):
+    """Four row-sorted COO pieces (rows, cols, vals (4, N), m columns,
+    max_rows R) at the edges of spmm_coo_nnz's fold through sums of 64
+    segments of 256 entries: in piece p row 1 starts at entry (100, 256,
+    16,133, 0)[p] and spans exactly (64, 65, 129, 128)[p] segments (piece
+    2's row 0 spans 64 segments itself, and its row 1 folds the whole
+    groups 1 and 2 with no head before or after them); short rows follow,
+    then padding with the dropped id R, value 0 and out-of-range
+    columns."""
+    import numpy as np
+    seg = 256
+    pieces = []
+    for start, span in ((100, 64), (256, 65), (63 * seg + 5, 129),
+                        (0, 128)):
+        end = (start // seg + span - 1) * seg + 17
+        lens = np.concatenate([[start, end - start],
+                               rng.integers(0, 4, R - 2)])
+        pieces.append(np.repeat(np.arange(R, dtype=np.int32), lens))
+    N = max(x.shape[0] for x in pieces) + pad
+    rows = np.full((4, N), R, np.int32)
+    cols = np.full((4, N), m + 5, np.int32)
+    vals = np.zeros((4, N), np.float32)
+    for p, x in enumerate(pieces):
+        rows[p, :x.shape[0]] = x
+        cols[p, :x.shape[0]] = rng.integers(0, m, x.shape[0])
+        vals[p, :x.shape[0]] = rng.standard_normal(x.shape[0])
+    return rows, cols, vals, m, R
+
+
 def _addends(rng, n, m, tile=()):
     """Three operands' (rows, cols, vals) of an n x m (block) grid with the
     edge cases of SpAdd3: row 1 empty in all three, row 3 longer than two
@@ -500,6 +552,55 @@ def _csr_of(n, rows, cols, vals):
     pos = np.zeros(n + 1, np.int32)
     np.cumsum(np.bincount(rows, minlength=n), out=pos[1:])
     return pos, cols.astype(np.int32), vals
+
+
+def union_task_pieces(rng, tile=(), R: int = 40, m: int = 1000):
+    """Three stacked row shards (pos (3, R + 1), crd (3, N_t), vals
+    (3, N_t, *tile) per operand B, C, D) at the edges of the rows union's
+    merge tasks (256 entries) and its 128-entry windows. Piece 0: row 0
+    empty in all three; row 1 three identical column lists; row 2 about
+    700 columns a list drawn with repeats from 300 (nine tasks, equal
+    columns at the split values); row 3 column 7 held 700 times by B, 200
+    by C and once by D (longer than a window; the row's three splits all
+    fall after it, so two of its four tasks are empty); row 4 600
+    columns in D alone (single-list tasks of two windows); then short rows
+    with repeats. Piece 1 is empty; piece 2 has short rows and D empty.
+    Each shard ends in padding that must not be read (column 2^30, value
+    1e30)."""
+    import numpy as np
+
+    def short():
+        return np.sort(rng.integers(0, m, rng.integers(0, 6)))
+
+    rows = [[[] for _ in range(R)] for _ in range(3)]     # [piece][row][t]
+    same = np.sort(rng.choice(m, 50, replace=False))
+    rows[0][0] = [np.zeros(0, np.int64)] * 3
+    rows[0][1] = [same] * 3
+    rows[0][2] = [np.sort(rng.integers(0, 300, 700 + 3 * t))
+                  for t in range(3)]
+    rows[0][3] = [np.sort(np.concatenate([np.full(k, 7), short()]))
+                  for k in (700, 200, 1)]
+    rows[0][4] = [np.zeros(0, np.int64)] * 2 + [np.sort(
+        rng.choice(m, 600, replace=False))]
+    for r in range(5, R):
+        rows[0][r] = [short() for _ in range(3)]
+    rows[1] = [[np.zeros(0, np.int64)] * 3 for _ in range(R)]
+    rows[2] = [[short(), short(), np.zeros(0, np.int64)] for _ in range(R)]
+    out = []
+    for t in range(3):
+        lens = np.array([[rows[p][r][t].size for r in range(R)]
+                         for p in range(3)])
+        N = int(lens.sum(1).max()) + 7
+        pos = np.zeros((3, R + 1), np.int32)
+        np.cumsum(lens, axis=1, out=pos[:, 1:])
+        crd = np.full((3, N), 1 << 30, np.int32)
+        vals = np.full((3, N) + tile, 1e30, np.float32)
+        for p in range(3):
+            k = int(pos[p, -1])
+            crd[p, :k] = np.concatenate([rows[p][r][t] for r in range(R)])
+            vals[p, :k] = rng.standard_normal((k,) + tile)
+        out += [pos, crd, vals]
+    return out
 
 
 def spadd3_cases(rng, device):
@@ -545,6 +646,12 @@ def spadd3_cases(rng, device):
         name = "bcsr_spadd3_union_rows" if block else "spadd3_union_rows"
         yield (f"{name} P={P} R={R} block={block}", name, tuple(flat),
                _abs_args(flat))
+        tiles = ((), (1, 3), (3, 2)) if block is None else (block,)
+        for tl in tiles:
+            flat = dev(*union_task_pieces(rng, tl))
+            name = "bcsr_spadd3_union_rows" if tl else "spadd3_union_rows"
+            yield (f"{name} task edges tile={tl}", name, tuple(flat),
+                   _abs_args(flat))
         # nnz: a 4-chunk add stream, chunk 2 empty, padding garbage
         rr, cc, vv = (np.concatenate(x) for x in zip(*pieces[0]))
         C = -(-rr.shape[0] // 3) + 5
@@ -1392,7 +1499,8 @@ def kernel_records(data, cells, launches, reps: int):
             name, args, launches[name], B3.nnz if three else B.nnz,
             B3.shape[0] if three else n, library[cell], reps))
         cell_ms[cell] = records[-1]["ms"]
-        if name in ("spmv_csr_rows", "spmm_csr_rows", "spmv_coo_nnz"):
+        if name in ("spmv_csr_rows", "spmm_csr_rows", "spmv_coo_nnz",
+                    "spmm_coo_nnz"):
             phase("profile", name=name, cell=cell, **{
                 k.replace(" ", "_"): f"{v:.4f}" for k, v in
                 device_breakdown(lambda: fns[name][0](*args)).items()})
@@ -1746,8 +1854,7 @@ def sparse_paths(args, device):
               data["add"]["blocked"][0].levels[1].pos).max()),
           seconds=f"{time.perf_counter() - t0:.1f}")
     cells, launches = {}, dict.fromkeys(_build.LAUNCHES, 0)
-    for path, path_cells in (("matrix", MATRIX_CELLS), ("slice", SLICE_CELLS),
-                             ("add", ADD_CELLS), ("blocked", BLOCKED_CELLS)):
+    for path, path_cells in PATH_CELLS.items():
         _build.reset_launches()
         recs, path_launches = run_slice(data, path_cells, PIECES, device,
                                         max(args.reps // 2, 1))
@@ -1799,18 +1906,18 @@ def sparse_paths(args, device):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--log2-n", type=int, default=21,
-                    help="matrix side as a power of two (default 21; a "
-                    "smaller side is a quick rehearsal)")
-    ap.add_argument("--log2-i", type=int, default=20,
-                    help="the 3-tensor's first dimension (default 20)")
-    ap.add_argument("--log2-jk", type=int, default=16,
+    ap.add_argument("--log2-n", type=int, default=LOG2_N,
+                    help=f"matrix side as a power of two (default {LOG2_N}; "
+                    "a smaller side is a quick rehearsal)")
+    ap.add_argument("--log2-i", type=int, default=LOG2_I,
+                    help=f"the 3-tensor's first dimension (default {LOG2_I})")
+    ap.add_argument("--log2-jk", type=int, default=LOG2_JK,
                     help="the 3-tensor's second and third dimensions "
-                    "(default 16)")
+                    f"(default {LOG2_JK})")
     ap.add_argument("--log2-dense", type=int, default=15,
                     help="side of the dense SpAdd3 sums (default 15: a "
                     "4 GiB output)")
-    ap.add_argument("--reps", type=int, default=20,
+    ap.add_argument("--reps", type=int, default=REPS,
                     help="timed kernel launches (run() takes half)")
     ap.add_argument("--attn-layers", type=int, default=0,
                     help="layers of the attention path's llama3-8b (default "

@@ -20,16 +20,27 @@
 //    leaves (src/repro/kernels/ref.py:130-203, 277-339) return:
 //    - spadd3_union_rows: the union of the three operands' sorted column
 //      lists in every (piece, row) of the rows strategy's stacked CSR (or
-//      BCSR) shards, written as one CSR over the P * R rows. Two launches,
-//      count then fill, with an exclusive scan between them (done by the
-//      caller). The work is cut into merge tasks of about `task` input
-//      entries, not rows: a row of ~4 M entries would otherwise be one
-//      thread's serial merge. A row's tasks split its column range at
-//      values found by binary search (the smallest column c such that at
-//      least j * task of the row's entries lie below c), so equal columns
-//      of the three lists never straddle two tasks and each task merges
-//      independently. A task sums a union entry as (B + C) + D, tiles
-//      element by element.
+//      BCSR) shards, written as one CSR over the P * R rows. Count, then
+//      fill, with an exclusive scan between them (done by the caller). The
+//      work is cut into merge tasks of about `task` input entries, not
+//      rows, so a row of ~4 M entries spreads over many tasks: task j > 0
+//      of a row starts at 1 + the (j * task)-th smallest column of the
+//      row, so equal columns of the three lists never straddle two tasks.
+//      A bounds pass (a thread per task) finds each task's row and where it
+//      starts in each list, once, by a discarding k-th search. A warp then
+//      merges a unit of consecutive tasks, up to 32 (most rows hold a few
+//      entries, and a warp each would idle), by the key (task, column):
+//      windows of each list staged in shared memory with coalesced loads,
+//      two merge paths (B with C, then D) for the merged order, a ballot to
+//      number the union entries, and in the fill lanes on (union entry,
+//      tile cell) summing each entry in merged order, so loads and stores
+//      are contiguous. A union entry sums as 0 + B's entries + C's + D's,
+//      each in storage order, tiles element by element. (The first version
+//      gave each task a thread that searched its bounds in both passes and
+//      merged serially, its loads uncoalesced and a tile summed in device
+//      memory: 3.05 + 14.63 ms scalar and 0.79 + 9.38 ms for (4, 4) tiles
+//      over the 75.4 M- and 5.9 M-entry add streams at 2^21 rows, on an
+//      NVIDIA H100 80GB HBM3 at 700 W.)
 //    - spadd3_union_runs: the nnz strategy's cross-chunk union. Its order
 //      depends only on the add stream's coordinates, so the caller sorts
 //      them once at lower time into a two-level CSR: run_ptr (one run per
@@ -101,11 +112,10 @@ __global__ void spadd3_dense_kernel(Three ops, float* __restrict__ out,
 // One (piece, row)'s three column lists: [lo[t], hi[t]) of crd[t].
 struct Row {
     const int* crd[3];
-    const float* vals[3];
     int64_t lo[3], hi[3];
 };
 
-__device__ Row load_row(const Three& ops, int R, int tile, int64_t g) {
+__device__ Row load_row(const Three& ops, int R, int64_t g) {
     const int64_t p = g / R, r = g % R;
     Row w;
     for (int t = 0; t < 3; ++t) {
@@ -113,104 +123,462 @@ __device__ Row load_row(const Three& ops, int R, int tile, int64_t g) {
         w.lo[t] = __ldg(pp + r);
         w.hi[t] = __ldg(pp + r + 1);
         w.crd[t] = ops.crd[t] + p * ops.N[t];
-        w.vals[t] = ops.vals[t] + p * ops.N[t] * tile;
     }
     return w;
 }
 
-__device__ int64_t count_below(const Row& w, int64_t v) {
-    int64_t n = 0;
-    for (int t = 0; t < 3; ++t)
-        n += lower_bound(w.crd[t], w.lo[t], w.hi[t], v) - w.lo[t];
-    return n;
+// The k-th smallest column (1-based) of the entries of lists t in
+// [st[t], hi[t]), 1 <= k <= their count, by discarding: with s = max(1,
+// k / 3), the list whose s-th remaining column (or last, if shorter) is
+// least (the earliest list on a tie) gives up that many columns, all of
+// them among the k - 1 smallest, and k shrinks by as many: about
+// log_1.5(k) rounds of three independent loads. st[t] ends where every
+// column before it is at most the result.
+__device__ int64_t kth_column(const Row& w, const int64_t* hi, int64_t k,
+                              int64_t* st) {
+    while (true) {
+        const int64_t s = k / 3 > 1 ? k / 3 : 1;
+        int64_t best = INT64_MAX, take = 0;
+        int m = 0;
+#pragma unroll
+        for (int t = 0; t < 3; ++t) {
+            const int64_t len = hi[t] - st[t];
+            if (len > 0) {
+                const int64_t a = k == 1 ? 1 : (s < len ? s : len);
+                const int64_t v = __ldg(w.crd[t] + st[t] + a - 1);
+                if (v < best) {
+                    best = v;
+                    m = t;
+                    take = a;
+                }
+            }
+        }
+        if (k == 1) return best;
+#pragma unroll
+        for (int t = 0; t < 3; ++t)
+            if (t == m) st[t] += take;
+        k -= take;
+    }
 }
 
-// The smallest column c with count_below(c) >= target, for
-// 0 < target < the row's length.
-__device__ int64_t split_value(const Row& w, int64_t target) {
-    int64_t lo = INT64_MAX, hi = INT64_MIN;
-    for (int t = 0; t < 3; ++t) {
-        if (w.hi[t] > w.lo[t]) {
-            const int64_t a = __ldg(w.crd[t] + w.lo[t]);
-            const int64_t b = __ldg(w.crd[t] + w.hi[t] - 1) + 1;
-            lo = a < lo ? a : lo;
-            hi = b > hi ? b : hi;
+// v = 1 + the k-th smallest column of lists t in [b[t], hi[t]) (all
+// columns before b[t] lie below it), and b[t] becomes each list's lower
+// bound of v; the three searches run side by side.
+__device__ int64_t split_in(const Row& w, const int64_t* hi, int64_t k,
+                            int64_t* b) {
+    const int64_t v = kth_column(w, hi, k, b) + 1;
+    int64_t e[3] = {hi[0], hi[1], hi[2]};
+    while (b[0] < e[0] || b[1] < e[1] || b[2] < e[2]) {
+#pragma unroll
+        for (int t = 0; t < 3; ++t) {
+            if (b[t] < e[t]) {
+                const int64_t m = (b[t] + e[t]) >> 1;
+                if (int64_t(__ldg(w.crd[t] + m)) < v) b[t] = m + 1;
+                else e[t] = m;
+            }
         }
     }
-    // count_below(lo) == 0 < target <= count_below(hi)
-    while (hi - lo > 1) {
-        const int64_t mid = lo + (hi - lo) / 2;
-        if (count_below(w, mid) >= target) hi = mid;
-        else lo = mid;
-    }
-    return hi;
+    return v;
 }
 
-// Task t merges its slice of row g: counts the union entries (kFill false)
-// or writes them at out_crd[at], out_vals[at * tile] (kFill true).
-template <bool kFill>
-__global__ void union_rows_kernel(Three ops, int R, int tile, int64_t task,
-                                  const int64_t* __restrict__ task_off,
-                                  int64_t n_flat, int64_t T,
-                                  int* __restrict__ cnt,
-                                  const int64_t* __restrict__ out_off,
-                                  int* __restrict__ out_crd,
-                                  float* __restrict__ out_vals) {
+// A thread per merge task t: its row g (the last g with task_off[g] <= t),
+// where it starts and ends in each list (tbeg / tend, 3 per task) and its
+// unit, (unit_at[g] + j * task) / task for task j of the row; ufirst[u]
+// becomes the first task of unit u. Task j > 0 of a row starts at v_j =
+// 1 + the (j * task)-th smallest column of the row, so equal columns never
+// straddle two tasks. The lanes of a warp that split one row search
+// together: the first and the last of them search the row's whole lists,
+// the others only between those two results (v_j is non-decreasing in j),
+// in a few cached lines.
+__global__ void union_bounds_kernel(Three ops, int R, int64_t task,
+                                    const int64_t* __restrict__ task_off,
+                                    const int64_t* __restrict__ unit_at,
+                                    int64_t n_flat, int64_t T,
+                                    int* __restrict__ trow,
+                                    int* __restrict__ tbeg,
+                                    int* __restrict__ tend,
+                                    int* __restrict__ tunit,
+                                    int* __restrict__ ufirst) {
     const int64_t t = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+    const int lane = threadIdx.x % 32;
+    if (t - lane >= T) return;                        // warp-uniform
+    // the row of task x: the last g with task_off[g] <= x
+    auto row_of = [&](int64_t x) {
+        int64_t lo = 0, hi = n_flat + 1;
+        while (lo < hi) {
+            const int64_t mid = (lo + hi) >> 1;
+            if (__ldg(task_off + mid) <= x) lo = mid + 1;
+            else hi = mid;
+        }
+        return lo - 1;
+    };
+    auto unit_of = [&](int64_t x, int64_t row) {
+        return (__ldg(unit_at + row) + (x - __ldg(task_off + row)) * task)
+               / task;
+    };
+    int64_t g = -1, j = 0, u = -1;
+    bool last = false;
+    Row w{};
+    if (t < T) {
+        g = row_of(t);
+        j = t - __ldg(task_off + g);
+        last = t + 1 == __ldg(task_off + g + 1);
+        u = unit_of(t, g);
+        w = load_row(ops, R, g);
+    }
+    // task t - 1's unit: the lane before's, or found again by lane 0
+    int64_t u_prev = __shfl_up_sync(0xffffffffu, u, 1);
+    if (lane == 0 && t > 0 && t < T) u_prev = unit_of(t - 1, row_of(t - 1));
+    // the lanes splitting one row, and its first and last of them
+    const unsigned group = __match_any_sync(
+        0xffffffffu, j > 0 ? g : -1 - int64_t(lane));
+    const int lane_a = __ffs(group) - 1, lane_b = 31 - __clz(group);
+    int64_t b[3] = {w.lo[0], w.lo[1], w.lo[2]};
+    if (j > 0 && (lane == lane_a || lane == lane_b))
+        split_in(w, w.hi, j * task, b);
+    int64_t b_lo[3], b_hi[3];
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+        b_lo[s] = __shfl_sync(0xffffffffu, b[s], lane_a);
+        b_hi[s] = __shfl_sync(0xffffffffu, b[s], lane_b);
+    }
+    if (j > 0 && lane != lane_a && lane != lane_b) {
+        // v_j is v_a when at least j * task entries lie below it, else 1 +
+        // the k-th smallest column of [b_lo, b_hi) for the k entries more
+        // it needs (b_lo, b_hi: the lower bounds of lanes a's and b's v)
+#pragma unroll
+        for (int s = 0; s < 3; ++s) b[s] = b_lo[s];
+        const int64_t n = b[0] - w.lo[0] + b[1] - w.lo[1] + b[2] - w.lo[2];
+        if (n < j * task) split_in(w, b_hi, j * task - n, b);
+    }
     if (t >= T) return;
-    // the row: the last g with task_off[g] <= t
-    int64_t lo = 0, hi = n_flat + 1;
+    trow[t] = int(g);
+    for (int s = 0; s < 3; ++s) {
+        tbeg[3 * t + s] = int(b[s]);
+        if (j > 0) tend[3 * (t - 1) + s] = int(b[s]);
+        if (last) tend[3 * t + s] = int(w.hi[s]);
+    }
+    tunit[t] = int(u);
+    if (t == 0 || u_prev != u) ufirst[u] = int(t);
+}
+
+// First i in [0, n) with a[i] >= x, a sorted, in shared memory.
+__device__ __forceinline__ int lower_key(const int64_t* a, int n, int64_t x) {
+    int lo = 0, hi = n;
     while (lo < hi) {
-        const int64_t mid = (lo + hi) >> 1;
-        if (__ldg(task_off + mid) <= t) lo = mid + 1;
+        const int mid = (lo + hi) >> 1;
+        if (a[mid] < x) lo = mid + 1;
         else hi = mid;
     }
-    const int64_t g = lo - 1;
-    const int64_t j = t - __ldg(task_off + g);
-    const int64_t n_tasks = __ldg(task_off + g + 1) - __ldg(task_off + g);
-    const Row w = load_row(ops, R, tile, g);
-    int64_t b[3], e[3];
-    const int64_t v_lo = j > 0 ? split_value(w, j * task) : 0;
-    const int64_t v_hi = j + 1 < n_tasks ? split_value(w, (j + 1) * task) : 0;
-    for (int s = 0; s < 3; ++s) {
-        b[s] = j > 0 ? lower_bound(w.crd[s], w.lo[s], w.hi[s], v_lo)
-                     : w.lo[s];
-        e[s] = j + 1 < n_tasks ? lower_bound(w.crd[s], w.lo[s], w.hi[s], v_hi)
-                               : w.hi[s];
+    return lo;
+}
+
+constexpr int kWin = 128;        // entries of each list staged per window
+constexpr int kTaskWarps = kThreads / 32;
+constexpr int64_t kColBias = int64_t(1) << 31;
+
+constexpr int kBatch = 4;        // fill items a lane has in flight
+
+// Where the values of staged entry `code` (list << 8 | index, as in the
+// merged order) begin, vb[t] being list t's first staged value.
+__device__ __forceinline__ const float* entry_val(const float* const* vb,
+                                                  int code, int tile) {
+    const int t = (code >> 8) & 3;
+    const float* v = t == 0 ? vb[0] : (t == 1 ? vb[1] : vb[2]);
+    return v + (code & 0xff) * tile;
+}
+
+// An entry's merge key: (task within the unit, column).
+__device__ __forceinline__ int64_t merge_key(int k, int col) {
+    return (int64_t(k) << 32) + (int64_t(col) + kColBias);
+}
+
+__device__ __forceinline__ int key_col(int64_t key) {
+    return int((key & 0xffffffffll) - kColBias);
+}
+
+// The task (lane index) of position q of a list whose tasks' first
+// positions lane k holds in tb, among tasks [ta, tz): the last k with
+// tb[k] <= q. Warp-uniform call.
+__device__ __forceinline__ int task_of(int tb, int ta, int tz, int64_t q) {
+    int k = ta;
+#pragma unroll
+    for (int step = 16; step > 0; step >>= 1) {
+        const int n = k + step;
+        const int v = __shfl_sync(0xffffffffu, tb, n & 31);
+        if (n < tz && v <= q) k = n;
     }
-    const int64_t at = kFill ? out_off[t] : 0;
-    int64_t n = 0;
-    while (true) {
-        int64_t m = INT64_MAX;
-        for (int s = 0; s < 3; ++s)
-            if (b[s] < e[s]) {
-                const int64_t c = __ldg(w.crd[s] + b[s]);
-                m = c < m ? c : m;
-            }
-        if (m == INT64_MAX) break;
-        if (kFill && tile == 1) {
-            out_crd[at + n] = int(m);
-            float acc = 0.f;
-            for (int s = 0; s < 3; ++s)      // B, then C, then D
-                for (; b[s] < e[s] && __ldg(w.crd[s] + b[s]) == m; ++b[s])
-                    acc += __ldg(w.vals[s] + b[s]);
-            out_vals[at + n] = acc;
-        } else if (kFill) {
-            out_crd[at + n] = int(m);
-            float* dst = out_vals + (at + n) * tile;
-            for (int k = 0; k < tile; ++k) dst[k] = 0.f;
-            for (int s = 0; s < 3; ++s)      // B, then C, then D
-                for (; b[s] < e[s] && __ldg(w.crd[s] + b[s]) == m; ++b[s]) {
-                    const float* src = w.vals[s] + b[s] * tile;
-                    for (int k = 0; k < tile; ++k) dst[k] += __ldg(src + k);
-                }
-        } else {
-            for (int s = 0; s < 3; ++s)
-                while (b[s] < e[s] && __ldg(w.crd[s] + b[s]) == m) ++b[s];
+    return k;
+}
+
+// Merges sorted runs A (na entries) and B (nb) into out, A's entry first
+// on equal keys, out[d] = the code of the d-th: lane l writes the outputs
+// from d = l * n / 32 on, after finding how many of the first d come from
+// A (a binary search along the diagonal), then one entry a step.
+template <class KA, class KB, class CA, class CB>
+__device__ __forceinline__ void merge_path(int lane, int na, int nb,
+                                           uint16_t* out, KA ka, KB kb,
+                                           CA ca, CB cb) {
+    const int n = na + nb;
+    const int d0 = lane * n / 32, d1 = (lane + 1) * n / 32;
+    int lo = d0 > nb ? d0 - nb : 0, hi = d0 < na ? d0 : na;
+    while (lo < hi) {
+        const int i = (lo + hi) >> 1;
+        if (ka(i) <= kb(d0 - 1 - i)) lo = i + 1;
+        else hi = i;
+    }
+    int ia = lo, ib = d0 - lo;
+    for (int d = d0; d < d1; ++d) {
+        const bool from_a = ib >= nb || (ia < na && ka(ia) <= kb(ib));
+        out[d] = uint16_t(from_a ? ca(ia++) : cb(ib++));
+    }
+}
+
+// A warp per unit of consecutive merge tasks (at most 32: the caller's
+// unit_at spaces tasks at least task / 32 apart), so a row of a few
+// entries does not cost a warp of its own; each task belongs to one unit.
+// Counts each task's union entries into cnt (kFill false) or writes them
+// from out_crd[at], out_vals[at * tile] on (kFill true), at = out_off of
+// the unit's first task. The tasks of one piece are contiguous in each
+// list; their entries are merged in windows by the key (task, column): up
+// to kWin entries of each list are staged in shared memory with coalesced
+// loads, and the window takes the entries below L, the least key not
+// staged of a list that did not fit (all of them if every list fit), so a
+// union entry's entries are never split between windows. Two merge paths,
+// B with C and then that with D, each lane merging its own stretch, give
+// the merged order with equal keys in B, C, D order, each list in storage
+// order; a union entry starts where the key changes, and a ballot numbers
+// them. The fill sums each union entry's entries in merged order from 0, a
+// lane per (union entry, tile cell), so consecutive lanes read and write
+// consecutive floats. A column with more than kWin entries of one list in
+// one task (only duplicates make one) is summed by lanes on tile cells,
+// entry by entry.
+// (At most 64 registers, so four blocks fit an SM: fewer warps made both
+// passes slower on the card.)
+template <bool kFill>
+__global__ void __launch_bounds__(kThreads, 4)
+union_rows_kernel(Three ops, int R, int tile, const int* __restrict__ trow,
+                  const int* __restrict__ tbeg, const int* __restrict__ tend,
+                  const int* __restrict__ tunit,
+                  const int* __restrict__ ufirst, int64_t n_units,
+                  int64_t T, int* __restrict__ cnt,
+                  const int64_t* __restrict__ out_off,
+                  int* __restrict__ out_crd, float* __restrict__ out_vals) {
+    __shared__ int64_t keys_s[kTaskWarps][3 * kWin];
+    // B and C merged, then all three: (list << 8) | index per entry
+    __shared__ uint16_t bc_s[kTaskWarps][2 * kWin];
+    __shared__ uint16_t order_s[kTaskWarps][3 * kWin];
+    __shared__ uint16_t ustart_s[kFill ? kTaskWarps : 1][3 * kWin + 1];
+    __shared__ int count_s[kFill ? 1 : kTaskWarps][32];
+    const int wid = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int64_t unit = int64_t(blockIdx.x) * kTaskWarps + wid;
+    if (unit >= n_units) return;                      // warp-uniform
+    const int t0 = __ldg(ufirst + unit);
+    if (t0 < 0) return;                               // no task starts here
+    const unsigned lower = (1u << lane) - 1;
+    const int64_t tl = int64_t(t0) + lane;
+    const int nk = __popc(__ballot_sync(
+        0xffffffffu, tl < T && __ldg(tunit + tl) == int(unit)));
+    // lane k < nk: task t0 + k's row and bounds
+    int g = -1, tb[3] = {0, 0, 0}, te[3] = {0, 0, 0};
+    if (lane < nk) {
+        g = __ldg(trow + tl);
+#pragma unroll
+        for (int s = 0; s < 3; ++s) {
+            tb[s] = __ldg(tbeg + 3 * tl + s);
+            te[s] = __ldg(tend + 3 * tl + s);
         }
-        ++n;
     }
-    if (!kFill) cnt[t] = int(n);
+    int64_t* keys = keys_s[wid];
+    uint16_t* bc = bc_s[wid];
+    uint16_t* order = order_s[wid];
+    uint16_t* ustart = ustart_s[kFill ? wid : 0];
+    int* count = count_s[kFill ? 0 : wid];
+    if (!kFill) count[lane] = 0;
+    const int64_t at = kFill ? __ldg(out_off + t0) : 0;
+    int n_out = 0;
+    for (int ta = 0; ta < nk;) {
+        // the span [ta, tz): the unit's tasks of one piece
+        const int p = __shfl_sync(0xffffffffu, g, ta) / R;
+        const unsigned other = __ballot_sync(
+            0xffffffffu, lane > ta && lane < nk && g / R != p);
+        const int tz = other ? __ffs(other) - 1 : nk;
+        int cur[3], end[3];
+#pragma unroll
+        for (int s = 0; s < 3; ++s) {
+            cur[s] = __shfl_sync(0xffffffffu, tb[s], ta);
+            end[s] = __shfl_sync(0xffffffffu, te[s], tz - 1);
+        }
+        // list s of piece p
+        auto crd = [&](int s) { return ops.crd[s] + int64_t(p) * ops.N[s]; };
+        auto val = [&](int s) {
+            return ops.vals[s] + int64_t(p) * ops.N[s] * tile;
+        };
+        while (true) {
+            int take[3], n[3];
+#pragma unroll
+            for (int s = 0; s < 3; ++s)
+                take[s] = end[s] - cur[s] < kWin ? end[s] - cur[s] : kWin;
+            if (take[0] + take[1] + take[2] == 0) break;
+            // stage the window's keys: each list's columns loaded at once
+            int64_t L = INT64_MAX;
+#pragma unroll
+            for (int s = 0; s < 3; ++s) {
+                int col[kWin / 32];
+#pragma unroll
+                for (int m = 0; m < kWin / 32; ++m) {
+                    const int i = m * 32 + lane;
+                    col[m] = i < take[s] ? __ldg(crd(s) + cur[s] + i) : 0;
+                }
+                if (end[s] - cur[s] > kWin) {
+                    const int q = cur[s] + kWin;
+                    const int64_t key = merge_key(task_of(tb[s], ta, tz, q),
+                                                  __ldg(crd(s) + q));
+                    L = key < L ? key : L;
+                }
+#pragma unroll
+                for (int m = 0; m < kWin / 32; ++m) {
+                    if (m * 32 >= take[s]) break;         // warp-uniform
+                    const int i = m * 32 + lane;
+                    const int k = tz - ta == 1
+                        ? ta : task_of(tb[s], ta, tz, cur[s] + i);
+                    if (i < take[s]) keys[s * kWin + i] = merge_key(k, col[m]);
+                }
+            }
+            __syncwarp();
+#pragma unroll
+            for (int s = 0; s < 3; ++s)
+                n[s] = L == INT64_MAX ? take[s]
+                                      : lower_key(keys + s * kWin, take[s],
+                                                  L);
+            const int nt = n[0] + n[1] + n[2];
+            if (nt == 0) {
+                // key L (task k, column c) holds more than kWin entries of
+                // one list: it is the next union entry; its entries end at
+                // each list's upper bound of c inside task k
+                const int k = int(L >> 32), c = key_col(L);
+                int e2[3];
+#pragma unroll
+                for (int s = 0; s < 3; ++s) {
+                    const int k_end = __shfl_sync(0xffffffffu, te[s], k);
+                    e2[s] = int(lower_bound(crd(s), cur[s],
+                                            k_end > cur[s] ? k_end : cur[s],
+                                            int64_t(c) + 1));
+                }
+                if (kFill) {
+                    if (lane == 0) out_crd[at + n_out] = c;
+                    for (int kk = lane; kk < tile; kk += 32) {
+                        float acc = 0.f;
+#pragma unroll
+                        for (int s = 0; s < 3; ++s)  // B, then C, then D
+                            for (int e = cur[s]; e < e2[s]; ++e)
+                                acc += __ldg(val(s) + int64_t(e) * tile + kk);
+                        out_vals[(at + n_out) * tile + kk] = acc;
+                    }
+                } else if (lane == 0) {
+                    count[k] += 1;
+                }
+                ++n_out;
+#pragma unroll
+                for (int s = 0; s < 3; ++s) cur[s] = e2[s];
+                __syncwarp();
+                continue;
+            }
+            // the merged order: B with C, then that with D (merge paths,
+            // earlier list first on equal keys)
+            auto key = [&](int code) {
+                return keys[(code >> 8) * kWin + (code & 0xff)];
+            };
+            merge_path(lane, n[0], n[1], bc,
+                       [&](int i) { return keys[i]; },
+                       [&](int i) { return keys[kWin + i]; },
+                       [&](int i) { return i; },
+                       [&](int i) { return (1 << 8) | i; });
+            __syncwarp();
+            merge_path(lane, n[0] + n[1], n[2], order,
+                       [&](int i) { return key(bc[i]); },
+                       [&](int i) { return keys[2 * kWin + i]; },
+                       [&](int i) { return int(bc[i]); },
+                       [&](int i) { return (2 << 8) | i; });
+            __syncwarp();
+            // union entry u starts at merged position ustart[u]: where the
+            // key differs from the one before
+            int U = 0;
+            for (int r0 = 0; r0 < nt; r0 += 32) {
+                const int r = r0 + lane;
+                int64_t x = 0;
+                bool first = false;
+                if (r < nt) {
+                    x = key(order[r]);
+                    first = r == 0 || key(order[r - 1]) != x;
+                }
+                const unsigned b = __ballot_sync(0xffffffffu, first);
+                if (kFill && first)
+                    ustart[U + __popc(b & lower)] = uint16_t(r);
+                else if (!kFill && first)
+                    atomicAdd(count + int(x >> 32), 1);
+                U += __popc(b);
+            }
+            if (kFill) {
+                if (lane == 0) ustart[U] = uint16_t(nt);
+                __syncwarp();
+                const float* vb[3];
+#pragma unroll
+                for (int s = 0; s < 3; ++s)
+                    vb[s] = val(s) + int64_t(cur[s]) * tile;
+                for (int u = lane; u < U; u += 32) {
+                    const int code = order[ustart[u]];
+                    out_crd[at + n_out + u] = key_col(
+                        keys[((code >> 8) & 3) * kWin + (code & 0xff)]);
+                }
+                // kBatch items a lane, the first three entries of each
+                // loaded before any is added
+                float* dst = out_vals + (at + n_out) * tile;
+                const int items = U * tile;
+                for (int it0 = 0; it0 < items; it0 += 32 * kBatch) {
+                    float a[kBatch][3];
+                    int rb[kBatch], re[kBatch], kc[kBatch];
+#pragma unroll
+                    for (int m = 0; m < kBatch; ++m) {
+                        const int it = it0 + m * 32 + lane;
+                        rb[m] = re[m] = kc[m] = 0;
+                        if (it < items) {
+                            const int u = it / tile;
+                            kc[m] = it - u * tile;
+                            rb[m] = ustart[u];
+                            re[m] = ustart[u + 1];
+                        }
+#pragma unroll
+                        for (int e = 0; e < 3; ++e)
+                            a[m][e] = rb[m] + e < re[m]
+                                ? __ldg(entry_val(vb, order[rb[m] + e], tile)
+                                        + kc[m]) : 0.f;
+                    }
+#pragma unroll
+                    for (int m = 0; m < kBatch; ++m) {
+                        const int it = it0 + m * 32 + lane;
+                        if (it >= items) continue;
+                        float acc = 0.f + a[m][0];
+                        if (rb[m] + 1 < re[m]) acc += a[m][1];
+                        if (rb[m] + 2 < re[m]) acc += a[m][2];
+                        for (int r = rb[m] + 3; r < re[m]; ++r)
+                            acc += __ldg(entry_val(vb, order[r], tile)
+                                         + kc[m]);
+                        dst[it] = acc;
+                    }
+                }
+            }
+            n_out += U;
+#pragma unroll
+            for (int s = 0; s < 3; ++s) cur[s] += n[s];
+            __syncwarp();
+        }
+        ta = tz;
+    }
+    if (!kFill) {
+        __syncwarp();
+        if (lane < nk) cnt[t0 + lane] = count[lane];
+    }
 }
 
 // One thread per (run u, tile cell k).
@@ -266,27 +634,43 @@ int spadd3_dense(const int* pos1, const int* crd1, const float* v1,
     return int(cudaGetLastError());
 }
 
-// fill == 0: cnt (T,) gets each task's union count; fill == 1: out_crd and
-// out_vals get the union, task t's entries from out_off[t] on.
+// task_off (P * R + 1): each row's first task; unit_at (P * R + 1): the
+// nominal position of each row's first task, tasks of one row task apart
+// and of different rows at least task / 32 apart; n_units = ceil(the last
+// nominal position / task); ufirst (n_units) filled with -1. fill ==
+// 0: trow (T,), tbeg and tend (T, 3), tunit (T,) and ufirst get each
+// task's row, bounds and unit and each unit's first task, then cnt (T,)
+// each task's union count; fill == 1: out_crd and out_vals get the union,
+// task t's entries from out_off[t] on.
 int spadd3_union_rows(const int* pos1, const int* crd1, const float* v1,
                       int64_t N1, const int* pos2, const int* crd2,
                       const float* v2, int64_t N2, const int* pos3,
                       const int* crd3, const float* v3, int64_t N3, int P,
                       int R, int tile, int64_t task, const int64_t* task_off,
-                      int64_t T, int* cnt, const int64_t* out_off,
-                      int* out_crd, float* out_vals, int fill, void* stream) {
+                      const int64_t* unit_at, int64_t T, int64_t n_units,
+                      int* trow, int* tbeg, int* tend, int* tunit,
+                      int* ufirst, int* cnt, const int64_t* out_off,
+                      int* out_crd, float* out_vals, int fill,
+                      void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const Three ops = three(pos1, crd1, v1, N1, pos2, crd2, v2, N2,
                             pos3, crd3, v3, N3);
-    const int64_t n_flat = int64_t(P) * R;
-    if (fill)
-        union_rows_kernel<true><<<blocks_for(T), kThreads, 0, s>>>(
-            ops, R, tile, task, task_off, n_flat, T, cnt, out_off, out_crd,
-            out_vals);
-    else
-        union_rows_kernel<false><<<blocks_for(T), kThreads, 0, s>>>(
-            ops, R, tile, task, task_off, n_flat, T, cnt, out_off, out_crd,
-            out_vals);
+    const unsigned blocks = unsigned((n_units + kTaskWarps - 1)
+                                     / kTaskWarps);
+    if (fill) {
+        union_rows_kernel<true><<<blocks, kThreads, 0, s>>>(
+            ops, R, tile, trow, tbeg, tend, tunit, ufirst, n_units, T, cnt,
+            out_off, out_crd, out_vals);
+        return int(cudaGetLastError());
+    }
+    union_bounds_kernel<<<blocks_for(T), kThreads, 0, s>>>(
+        ops, R, task, task_off, unit_at, int64_t(P) * R, T, trow,
+        tbeg, tend, tunit, ufirst);
+    const int err = int(cudaGetLastError());
+    if (err != 0) return err;
+    union_rows_kernel<false><<<blocks, kThreads, 0, s>>>(
+        ops, R, tile, trow, tbeg, tend, tunit, ufirst, n_units, T, cnt,
+        out_off, out_crd, out_vals);
     return int(cudaGetLastError());
 }
 

@@ -41,21 +41,38 @@
 // spmm_coo_nnz (row-sorted COO shards, rows rebased to the piece's window)
 // is bound by bytes the same way: 12 B per stored entry, one gathered row
 // of C per entry and Y written once. Its design is spmv_coo_nnz's scheme
-// (spmv.cu) with lanes on 32-column tiles of J, so no entry's work is
-// repeated and a row of any length is spread over many warps:
+// (spmv.cu) with lanes on 32-column tiles of J and the rows kernel's group
+// fold, so no entry's work is repeated, a row of any length is spread over
+// many warps and no warp folds a long row's segments one by one:
+//  - Y is cleared once (cudaMemsetAsync), so a row with no entry needs no
+//    writer.
 //  - Phase 1: a warp per (piece, 256-entry segment, column tile). The
 //    segment's (row, col, val) triples are read 32 at a time with one
 //    coalesced load and handed to the lanes by shuffles; the 32 gathers
 //    of C rows are issued before the sums, so they are in flight together.
+//    Which entries end a run comes from one ballot per batch (each lane
+//    compares its id with the next), so the sums branch on a warp-uniform
+//    mask, as the rows kernel's do, and dropped ids cost no gather.
 //    A run of equal row ids that lies in this segment alone is summed in
-//    storage order and written to Y. A run that crosses the segment's
-//    start goes to head[seg], one that crosses its end (and not its start)
-//    to tail[seg].
-//  - Phase 2: a warp per 32 rows of a piece. Lane k finds row k's position
-//    range by binary search over the sorted ids. Row by row, the lanes
-//    (on columns) write 0 for an empty row and, for a row that crosses
-//    segments, tail[first segment] plus head[each later segment] in
-//    segment order. Rows that phase 1 wrote are left alone.
+//    storage order and written to Y, its only writer. A run that crosses
+//    the segment's start goes to head[seg], one that crosses its end (and
+//    not its start) to tail[seg].
+//  - Group pass: group[g] = head[64 g] + ... + head[64 g + 63], in order
+//    (spmm_rows_group_kernel, shared with the rows kernel).
+//  - Phase 2, driven by segment edges: a thread per edge s (the first entry
+//    of segment s). The rows that cross an edge (rows[256 s - 1] ==
+//    rows[256 s]) are taken at their first crossing edge, which finds the
+//    row's last segment by a search over the segments' first ids (nseg
+//    entries, not N); the warp then folds, lanes on columns,
+//    tail[first] + the heads before the first whole group + the groups'
+//    sums + the heads after, in that order (fold_segments, the rows
+//    kernel's phase-2 fold): a row over 5,181 segments folds at most 81
+//    group sums and 126 heads.
+// (The first version gave phase 2 a warp per 32 rows of every piece, each
+// lane running two binary searches over the piece's whole stream, wrote
+// the empty rows there, and folded a row's segments one head at a time:
+// 3.54 ms at 2^21 rows, 25.1 M entries and J = 32 on an NVIDIA H100 80GB
+// HBM3 at 700 W.)
 // Every output element is written once, with no float atomics, so results
 // repeat bit for bit.
 //
@@ -70,7 +87,6 @@
 // Each entry point returns cudaGetLastError() after its launches.
 
 #include <cuda_runtime.h>
-#include <limits.h>
 #include <stdint.h>
 
 #include "merge_rows.cuh"
@@ -203,6 +219,26 @@ __global__ void spmm_rows_group_kernel(const float* __restrict__ head,
         head + (p * n_chunks + g * kGroup) * J + j, J, 0, kGroup - 1, 0.f);
 }
 
+// tail[a] + head[a + 1] + ... + head[b] of one column (x[s * J] is
+// segment or chunk s's partial, group[g] the sum of heads 64 g .. 64 g + 63),
+// in a fixed order: the heads before the first group inside (a, b], those
+// groups' sums, the heads after them.
+__device__ __forceinline__ float fold_segments(const float* __restrict__ hp,
+                                               const float* __restrict__ tp,
+                                               const float* __restrict__ gp,
+                                               int64_t J, int64_t a,
+                                               int64_t b) {
+    const int64_t g_lo = (a + kGroup) / kGroup, g_hi = (b + 1) / kGroup;
+    float acc = __ldg(tp + a * J);
+    int64_t s = a + 1;
+    if (g_lo < g_hi) {
+        acc = fold_in_order(hp, J, s, g_lo * kGroup - 1, acc);
+        acc = fold_in_order(gp, J, g_lo, g_hi - 1, acc);
+        s = g_hi * kGroup;
+    }
+    return fold_in_order(hp, J, s, b, acc);
+}
+
 // Rows phase 2: a warp per 32 rows of a piece, for the rows that cross
 // chunks: per column, tail[first chunk], then in chunk order the heads up
 // to the first whole group, the whole groups' sums and the heads after
@@ -230,19 +266,9 @@ __global__ void spmm_rows_phase2_kernel(const int* __restrict__ pos,
         const int k = __ffs(cross) - 1;
         const int64_t a = __shfl_sync(0xffffffffu, s0, k);
         const int64_t b = __shfl_sync(0xffffffffu, s1, k);
-        // the whole groups inside chunks (a, b]: [g_lo, g_hi)
-        const int64_t g_lo = (a + kGroup) / kGroup, g_hi = (b + 1) / kGroup;
         float* out = Y + (p * R + r0 + k) * J;
-        for (int j = lane; j < J; j += kWarp) {
-            float acc = __ldg(tp + a * J + j);
-            int64_t s = a + 1;
-            if (g_lo < g_hi) {
-                acc = fold_in_order(hp + j, J, s, g_lo * kGroup - 1, acc);
-                acc = fold_in_order(gp + j, J, g_lo, g_hi - 1, acc);
-                s = g_hi * kGroup;
-            }
-            out[j] = fold_in_order(hp + j, J, s, b, acc);
-        }
+        for (int j = lane; j < J; j += kWarp)
+            out[j] = fold_segments(hp + j, tp + j, gp + j, J, a, b);
     }
 }
 
@@ -274,104 +300,108 @@ __global__ void spmm_coo_phase1_kernel(const int* __restrict__ rows,
     const bool open_hi = hi < N && __ldg(pr + hi) == __ldg(pr + hi - 1);
     const int64_t edge = (p * nseg + seg) * J + j;
     float* Yp = Y + p * int64_t(max_rows) * J;
-    int cur = __ldg(pr + lo);
-    int64_t run_lo = lo;
+    bool first = true;                 // still in the segment's first run?
     float acc = 0.f;
     for (int64_t base = lo; base < hi; base += kWarp) {
         const int cnt = hi - base < kWarp ? int(hi - base) : kWarp;
-        int r_l = INT_MAX, c_l = 0;
+        // lane t holds entry t's (row, column, value); a dropped id's
+        // entry has column -1 (no gather) and value 0
+        int r_l = -1, c_l = -1;
         float v_l = 0.f;
         if (lane < cnt) {
             r_l = pr[base + lane];
-            const int c = pc[base + lane];
-            c_l = c < 0 ? 0 : (c >= K ? K - 1 : c);
-            v_l = pv[base + lane];
+            if (r_l >= 0 && r_l < max_rows) {
+                const int c = pc[base + lane];
+                c_l = c < 0 ? 0 : (c >= K ? K - 1 : c);
+                v_l = pv[base + lane];
+            }
         }
+        // bit t: entry t ends its run inside the segment (the segment's
+        // last entry never does: its run is handled after the loop)
+        int next = __shfl_down_sync(0xffffffffu, r_l, 1);
+        if (lane == kWarp - 1 && base + kWarp < hi)
+            next = __ldg(pr + base + kWarp);
+        const bool ends = base + lane + 1 < hi && lane < cnt && next != r_l;
+        const unsigned mask = __ballot_sync(0xffffffffu, ends);
         float cv[kWarp];
 #pragma unroll
         for (int t = 0; t < kWarp; ++t) {
             const int c = __shfl_sync(0xffffffffu, c_l, t);
-            cv[t] = (t < cnt && live) ? __ldg(C + int64_t(c) * J + j) : 0.f;
+            cv[t] = c >= 0 && live ? __ldg(C + int64_t(c) * J + j) : 0.f;
         }
 #pragma unroll
         for (int t = 0; t < kWarp; ++t) {
-            const int row = __shfl_sync(0xffffffffu, r_l, t);
             const float v = __shfl_sync(0xffffffffu, v_l, t);
             if (t >= cnt) break;                      // warp-uniform
-            if (row != cur) {                         // a run ends here
-                if (run_lo == lo && open_lo) {
-                    if (live) head[edge] = acc;
-                } else if (live && cur >= 0 && cur < max_rows) {
-                    Yp[int64_t(cur) * J + j] = acc;
+            acc += v * cv[t];
+            if ((mask >> t) & 1u) {                   // a run ends here
+                const int row = __shfl_sync(0xffffffffu, r_l, t);
+                if (live) {
+                    if (first && open_lo) head[edge] = acc;
+                    else if (row >= 0 && row < max_rows)
+                        Yp[int64_t(row) * J + j] = acc;
                 }
                 acc = 0.f;
-                cur = row;
-                run_lo = base + t;
+                first = false;
             }
-            if (row >= 0 && row < max_rows) acc += v * cv[t];
         }
     }
     // the segment's last run
-    if (run_lo == lo && open_lo) {
+    const int last = __ldg(pr + hi - 1);
+    if (first && open_lo) {
         if (live) head[edge] = acc;
     } else if (open_hi) {
         if (live) tail[edge] = acc;
-    } else if (live && cur >= 0 && cur < max_rows) {
-        Yp[int64_t(cur) * J + j] = acc;
+    } else if (live && last >= 0 && last < max_rows) {
+        Yp[int64_t(last) * J + j] = acc;
     }
 }
 
-// First position in a[0, n) whose id is >= key (a sorted).
-__device__ __forceinline__ int64_t lower_bound(const int* __restrict__ a,
-                                               int64_t n, int key) {
-    int64_t lo = 0, hi = n;
-    while (lo < hi) {
-        const int64_t mid = (lo + hi) >> 1;
-        if (__ldg(a + mid) < key) lo = mid + 1;
-        else hi = mid;
-    }
-    return lo;
-}
-
-// Phase 2: a warp per 32 consecutive rows of a piece; grid
-// (ceil(P * groups * 32 / 256)).
+// Phase 2: a thread per segment edge s >= 1 of a piece; grid
+// (ceil(nseg / 256), P). The lane at a row's first crossing edge finds the
+// row's last segment b1 (the last segment whose first id is the row), and
+// the warp writes Y[row] = fold_segments(first = s - 1, b1).
 __global__ void spmm_coo_phase2_kernel(const int* __restrict__ rows,
                                        const float* __restrict__ head,
                                        const float* __restrict__ tail,
-                                       float* __restrict__ Y,
-                                       int P, int64_t N, int J, int max_rows,
-                                       int64_t nseg) {
-    const int64_t warp = (int64_t(blockIdx.x) * blockDim.x + threadIdx.x) / kWarp;
+                                       const float* __restrict__ group,
+                                       float* __restrict__ Y, int64_t N,
+                                       int J, int max_rows, int64_t nseg,
+                                       int64_t n_groups) {
+    const int64_t p = blockIdx.y;
+    const int64_t e = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
     const int lane = threadIdx.x % kWarp;
-    const int64_t groups = (int64_t(max_rows) + kWarp - 1) / kWarp;
-    if (warp >= int64_t(P) * groups) return;          // warp-uniform
-    const int64_t p = warp / groups;
-    const int64_t r0 = (warp % groups) * kWarp;
+    if (e - lane >= nseg) return;                     // warp-uniform
     const int* pr = rows + p * N;
-    int64_t lo_l = 0, hi_l = 0;
-    if (r0 + lane < max_rows) {
-        lo_l = lower_bound(pr, N, int(r0 + lane));
-        hi_l = lower_bound(pr, N, int(r0 + lane) + 1);
+    int row = -1;
+    int64_t b1 = 0;
+    if (e >= 1 && e < nseg) {
+        const int r = __ldg(pr + e * kSeg);
+        const bool starts = __ldg(pr + e * kSeg - 1) == r
+            && (e == 1 || __ldg(pr + (e - 1) * kSeg - 1) != r);
+        if (starts && r >= 0 && r < max_rows) {
+            // the last segment k >= e with rows[k * 256] == r
+            int64_t lo = e, hi = nseg;
+            while (hi - lo > 1) {
+                const int64_t mid = (lo + hi) >> 1;
+                if (__ldg(pr + mid * kSeg) == r) lo = mid;
+                else hi = mid;
+            }
+            row = r;
+            b1 = lo;
+        }
     }
-    float* Yp = Y + p * int64_t(max_rows) * J;
-    const int64_t e0 = p * nseg;                      // this piece's edges
-    const int last = max_rows - r0 < kWarp ? int(max_rows - r0) : kWarp;
-    for (int k = 0; k < last; ++k) {
-        const int64_t lo = __shfl_sync(0xffffffffu, lo_l, k);
-        const int64_t hi = __shfl_sync(0xffffffffu, hi_l, k);
-        float* out = Yp + (r0 + k) * J;
-        if (hi == lo) {                               // an empty row
-            for (int j = lane; j < J; j += kWarp) out[j] = 0.f;
-            continue;
-        }
-        const int64_t s0 = lo / kSeg, s1 = (hi - 1) / kSeg;
-        if (s0 == s1) continue;                       // phase 1 wrote it
-        for (int j = lane; j < J; j += kWarp) {
-            float acc = __ldg(tail + (e0 + s0) * J + j);
-            for (int64_t s = s0 + 1; s <= s1; ++s)
-                acc += __ldg(head + (e0 + s) * J + j);
-            out[j] = acc;
-        }
+    const float* hp = head + p * nseg * J;
+    const float* tp = tail + p * nseg * J;
+    const float* gp = group + p * n_groups * J;
+    for (unsigned todo = __ballot_sync(0xffffffffu, row >= 0); todo;
+         todo &= todo - 1) {
+        const int k = __ffs(todo) - 1;
+        const int64_t a = e - lane + k - 1;
+        const int64_t b = __shfl_sync(0xffffffffu, b1, k);
+        float* out = Y + (p * max_rows + __shfl_sync(0xffffffffu, row, k)) * J;
+        for (int j = lane; j < J; j += kWarp)
+            out[j] = fold_segments(hp + j, tp + j, gp + j, J, a, b);
     }
 }
 
@@ -414,27 +444,39 @@ int spmm_csr_rows(const int* pos, const int* crd, const float* vals,
     return int(cudaGetLastError());
 }
 
-// rows, cols, vals: (P, N); C: (K, J); head, tail: (P, nseg, J) scratch
-// with nseg = ceil(N / 256); Y: (P, max_rows, J), every element written.
+// rows, cols, vals: (P, N); C: (K, J); head, tail: (P, nseg, J) and group:
+// (P, nseg / 64, J) f32 scratch with nseg = ceil(N / 256); Y:
+// (P, max_rows, J), cleared here, so every element is written.
 int spmm_coo_nnz(const int* rows, const int* cols, const float* vals,
-                 const float* C, float* head, float* tail, float* Y, int P,
-                 int64_t N, int K, int J, int max_rows, void* stream) {
+                 const float* C, float* head, float* tail, float* group,
+                 float* Y, int P, int64_t N, int K, int J, int max_rows,
+                 void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    int err = int(cudaMemsetAsync(
+        Y, 0, size_t(P) * size_t(max_rows) * size_t(J) * sizeof(float), s));
+    if (err != 0) return err;
     const int n_tiles = (J + kWarp - 1) / kWarp;
     const int64_t nseg = (N + kSeg - 1) / kSeg;
+    const int64_t n_groups = nseg / kGroup;
     const int64_t warps1 = nseg * n_tiles;
     dim3 grid1(unsigned((warps1 * kWarp + kThreads - 1) / kThreads),
                unsigned(P));
     spmm_coo_phase1_kernel<<<grid1, kThreads, 0, s>>>(
         rows, cols, vals, C, head, tail, Y, N, K, J, max_rows, n_tiles, nseg);
-    int err = int(cudaGetLastError());
-    if (err != 0) return err;
-    const int64_t groups = (int64_t(max_rows) + kWarp - 1) / kWarp;
-    const int64_t warps2 = int64_t(P) * groups;
-    const unsigned blocks2 = unsigned((warps2 * kWarp + kThreads - 1)
-                                      / kThreads);
-    spmm_coo_phase2_kernel<<<blocks2, kThreads, 0, s>>>(
-        rows, head, tail, Y, P, N, J, max_rows, nseg);
+    err = int(cudaGetLastError());
+    if (err != 0 || nseg < 2) return err;
+    if (n_groups > 0) {
+        const int64_t warps = n_groups * n_tiles;
+        dim3 grid(unsigned((warps * kWarp + kThreads - 1) / kThreads),
+                  unsigned(P));
+        spmm_rows_group_kernel<<<grid, kThreads, 0, s>>>(
+            head, group, J, n_tiles, nseg, n_groups);
+        err = int(cudaGetLastError());
+        if (err != 0) return err;
+    }
+    dim3 grid2(unsigned((nseg + kThreads - 1) / kThreads), unsigned(P));
+    spmm_coo_phase2_kernel<<<grid2, kThreads, 0, s>>>(
+        rows, head, tail, group, Y, N, J, max_rows, nseg, n_groups);
     return int(cudaGetLastError());
 }
 

@@ -12,7 +12,8 @@ CPU, and on a CUDA tensor it launches the kernel or raises:
   ``repro/kernels/bcsr.py::bcsr_spadd3``.
 - :func:`spadd3_union_rows` / :func:`bcsr_spadd3_union_rows`: the rows
   strategy's leaf, the union of the three operands' row shards written as
-  one CSR on the card (count, scan, fill).
+  one CSR on the card (task bounds and count, scan, fill; a warp merges
+  a unit of up to 32 consecutive tasks of about ``TASK`` entries).
 - :func:`spadd3_union_nnz` / :func:`bcsr_spadd3_union_nnz`: the nnz
   strategy's leaf, the runs of equal coordinates of the concatenated add
   stream summed per chunk, then across chunks. :func:`plan_runs` sorts the
@@ -39,14 +40,16 @@ _SIGNATURES = {
     # pos1, crd1, v1, pos2, crd2, v2, pos3, crd3, v3, out, n_brows, n_rows,
     # n_cols, br, bc, stream
     "spadd3_dense": (_P,) * 10 + (_I, _L, _L, _I, _I, _P),
-    # (pos, crd, vals, N) x 3, P, R, tile, task, task_off, T, cnt, out_off,
-    # out_crd, out_vals, fill, stream
-    "spadd3_union_rows": (_P, _P, _P, _L) * 3 + (_I, _I, _I, _L, _P, _L, _P,
-                                                  _P, _P, _P, _I, _P),
+    # (pos, crd, vals, N) x 3, P, R, tile, task, task_off, unit_at, T,
+    # n_units, trow, tbeg, tend, tunit, ufirst, cnt, out_off, out_crd,
+    # out_vals, fill, stream
+    "spadd3_union_rows": (_P, _P, _P, _L) * 3 + (_I, _I, _I, _L, _P, _P, _L,
+                                                  _L) + (_P,) * 9 + (_I, _P),
     # vals, perm, seg_ptr, run_ptr, out, U, tile, stream
     "spadd3_union_runs": (_P,) * 5 + (_L, _I, _P),
 }
 TASK = 256     # input entries per merge task of the rows union kernel
+MIN_WEIGHT = TASK // 32   # a row's least weight in the split into units
 
 
 def supports(format: "fmt.Format", space: str) -> bool:
@@ -181,36 +184,53 @@ def _union_rows(name, pos1, crd1, v1, pos2, crd2, v2, pos3, crd3, v3, plain
     tile = int(torch.Size(tile_shape).numel())
     dev = v1.device
     lens = sum((p[:, 1:] - p[:, :-1]).long() for p in (pos1, pos2, pos3))
+    n_tasks = ((lens + TASK - 1) // TASK).flatten()
+    # a warp merges the tasks of one unit, TASK nominal entries: a row's
+    # tasks lie TASK apart and rows at least MIN_WEIGHT apart, so no unit
+    # holds more than 32 tasks
+    weight = torch.where(n_tasks > 0, torch.maximum(
+        lens.flatten(), (n_tasks - 1) * TASK + MIN_WEIGHT), 0)
     task_off = torch.zeros(P * R + 1, dtype=torch.int64, device=dev)
+    unit_at = torch.zeros(P * R + 1, dtype=torch.int64, device=dev)
     if P * R:
-        torch.cumsum(((lens + TASK - 1) // TASK).flatten(), 0,
-                     out=task_off[1:])
-    T = int(task_off[-1])
+        torch.cumsum(n_tasks, 0, out=task_off[1:])
+        torch.cumsum(weight, 0, out=unit_at[1:])
+    T, span = torch.stack([task_off[-1], unit_at[-1]]).tolist()
     if T == 0:                         # nothing to launch: no stored entry
         return (task_off, torch.zeros(0, dtype=torch.int32, device=dev),
                 torch.zeros((0,) + tile_shape, dtype=torch.float32,
                             device=dev))
+    n_units = -(-span // TASK)
+    if P * R >= 2**31 or T >= 2**31 or n_units >= 2**31:
+        raise ValueError(f"{name}: {P}x{R} rows and {T} merge tasks "
+                         "overflow the kernel's int32 indices")
+    trow = torch.empty(T, dtype=torch.int32, device=dev)
+    tunit = torch.empty_like(trow)
+    tbeg = torch.empty((T, 3), dtype=torch.int32, device=dev)
+    tend = torch.empty_like(tbeg)
+    ufirst = torch.full((n_units,), -1, dtype=torch.int32, device=dev)
     cnt = torch.empty(T, dtype=torch.int32, device=dev)
     out_off = torch.zeros(T + 1, dtype=torch.int64, device=dev)
     lib = library("spadd3", _SIGNATURES)
     head = [x for trip in ((pos1, crd1, v1), (pos2, crd2, v2),
                            (pos3, crd3, v3))
             for x in (*(t.data_ptr() for t in trip), trip[1].shape[1])]
+    head += [P, R, tile, TASK, task_off.data_ptr(), unit_at.data_ptr(), T,
+             n_units] + [x.data_ptr() for x in (trow, tbeg, tend, tunit,
+                                                ufirst)]
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lib.spadd3_union_rows(*head, P, R, tile, TASK,
-                                    task_off.data_ptr(), T, cnt.data_ptr(),
-                                    None, None, None, 0, stream)
+        err = lib.spadd3_union_rows(*head, cnt.data_ptr(), None, None, None,
+                                    0, stream)
         if err == 0:
             torch.cumsum(cnt, 0, out=out_off[1:])
             U = int(out_off[-1])
             crd = torch.empty(U, dtype=torch.int32, device=dev)
             vals = torch.empty((U,) + tile_shape, dtype=torch.float32,
                                device=dev)
-            err = lib.spadd3_union_rows(*head, P, R, tile, TASK,
-                                        task_off.data_ptr(), T, None,
-                                        out_off.data_ptr(), crd.data_ptr(),
-                                        vals.data_ptr(), 1, stream)
+            err = lib.spadd3_union_rows(*head, None, out_off.data_ptr(),
+                                        crd.data_ptr(), vals.data_ptr(), 1,
+                                        stream)
     check_launch(name, err)
     return out_off[task_off], crd, vals
 

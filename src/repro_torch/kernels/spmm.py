@@ -8,7 +8,8 @@ beside it, batched over pieces:
   the TPU kernel ``repro/kernels/spmm.py::spmm_ell``.
 - :func:`spmm_coo_nnz`, the nnz leaf over row-sorted COO shards, a
   deterministic segmented reduction (``spmv_coo_nnz``'s scheme over
-  32-column tiles). The reference has no TPU kernel here: it runs
+  32-column tiles, with the rows kernel's fold through sums of 64-segment
+  groups). The reference has no TPU kernel here: it runs
   ``repro/kernels/ref.py::leaf_spmm_nnz``, a ``segment_sum``.
 
 A wrapper runs the plain version only when its inputs lie on the CPU; on a
@@ -28,11 +29,11 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
     # pos, crd, vals, C, head, tail, group, Y, P, R, N, K, J, stream
     "spmm_csr_rows": (_P,) * 8 + (_I, _I, _L, _I, _I, _P),
-    # rows, cols, vals, C, head, tail, Y, P, N, K, J, max_rows, stream
-    "spmm_coo_nnz": (_P,) * 7 + (_I, _L, _I, _I, _I, _P),
+    # rows, cols, vals, C, head, tail, group, Y, P, N, K, J, max_rows, stream
+    "spmm_coo_nnz": (_P,) * 8 + (_I, _L, _I, _I, _I, _P),
 }
 SEGMENT = 256       # entries per segment, kSeg in csrc/spmm.cu
-GROUP = 64          # merge chunks per group sum, kGroup in csrc/spmm.cu
+GROUP = 64          # chunks or segments per group sum, kGroup in csrc/spmm.cu
 
 
 def supports(format: "fmt.Format", space: str) -> bool:
@@ -108,10 +109,13 @@ def spmm_coo_nnz(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
     nseg = -(-N // SEGMENT)
     head = torch.empty((P, nseg, J), dtype=torch.float32, device=rows.device)
     tail = torch.empty_like(head)
+    group = torch.empty((P, nseg // GROUP, J), dtype=torch.float32,
+                        device=rows.device)
     with torch.cuda.device(rows.device):
         err = library("spmm", _SIGNATURES).spmm_coo_nnz(
             rows.data_ptr(), cols.data_ptr(), vals.data_ptr(), C.data_ptr(),
-            head.data_ptr(), tail.data_ptr(), Y.data_ptr(), P, N, K, J,
-            int(max_rows), torch.cuda.current_stream().cuda_stream)
+            head.data_ptr(), tail.data_ptr(), group.data_ptr(), Y.data_ptr(),
+            P, N, K, J, int(max_rows),
+            torch.cuda.current_stream().cuda_stream)
     check_launch("spmm_coo_nnz", err)
     return Y

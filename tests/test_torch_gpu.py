@@ -94,8 +94,12 @@ def test_spadd3_kernels_match_plain_versions(card):
     """The SpAdd3 edge cases (an empty operand and piece, a row longer than
     one merge task, coordinates in all three operands, a sum that cancels,
     padding that must not be read, block shapes (2, 2) and (4, 4) with
-    ragged edges) launch once each and agree with the plain versions; a
-    compressed result has the plain version's pattern exactly."""
+    ragged edges; for the rows unions chip_smoke.union_task_pieces: a row
+    of nine tasks with repeated columns at the split values, a column
+    longer than a window with empty tasks after it, three identical
+    lists, one list alone over two windows, tiles (), (1, 3), (3, 2),
+    (2, 2) and (4, 4)) launch once each and agree with the plain versions;
+    a compressed result has the plain version's pattern exactly."""
     cases = [c for c in chip_smoke.kernel_cases(np.random.default_rng(9),
                                                 card) if "spadd3" in c[1]]
     assert {c[1] for c in cases} == set(chip_smoke.PATH_KERNELS["add"])
@@ -157,9 +161,11 @@ def test_lower_runs_the_blocked_kernels(card):
 @pytest.mark.gpu
 def test_spmm_coo_nnz_matches_plain_version(card):
     """spmm_coo_nnz's edge cases (an empty piece and row, runs across one
-    and two 256-entry segments, padding ids, J in {1, 7, 16, 32, 33, 130})
-    launch once each, agree with the plain version and repeat bit for
-    bit."""
+    and two 256-entry segments, padding ids, J in {1, 7, 16, 32, 33, 130};
+    chip_smoke.nnz_split_pieces and nnz_group_pieces: runs of 1024 and
+    1025, 1,190 empty rows, rows over 64, 65, 128 and 129 segments, J in
+    {1, 7, 32, 33}) launch once each, agree with the plain version and
+    repeat bit for bit."""
     kernel = chip_smoke.kernel_fns()["spmm_coo_nnz"][0]
     cases = [c for c in chip_smoke.kernel_cases(np.random.default_rng(13),
                                                 card)
@@ -302,3 +308,47 @@ def test_lower_spmv_nnz_long_row_repeats_bit_for_bit(card):
     assert torch.equal(a, b)
     want, scale = chip_smoke.reference_products(data, {"spmv"})["spmv"]
     chip_smoke.check_rows("spmv/nnz", a, want, scale)
+
+
+@pytest.mark.gpu
+def test_lower_spmm_nnz_long_row_repeats_bit_for_bit(card):
+    """An nnz SpMM cell lowered on the card over a power-law matrix whose
+    longest row holds more than 10^5 entries (over 64 segments of 256, so
+    phase 2 folds it through the 64-segment group sums): spmm_coo_nnz
+    launches once per run(), two run()s give the same bits, and the result
+    agrees with the host computation."""
+    import repro_torch.core as tc
+    from repro_torch.core.lower import default_nnz_schedule, lower
+    data = chip_smoke.make_inputs(1 << 18, 8, 33, seed=5)
+    assert np.diff(data["B"].levels[1].pos).max() > 10**5
+    stmt = chip_smoke.statements(data)["spmm"]
+    machine = tc.Machine(("x", 4))
+    k = lower(stmt, machine, schedule=default_nnz_schedule(stmt, machine))
+    before = _build.LAUNCHES["spmm_coo_nnz"]
+    a, b = k.run(), k.run()
+    assert _build.LAUNCHES["spmm_coo_nnz"] - before == 2
+    assert torch.equal(a, b)
+    want, scale = chip_smoke.reference_products(data, {"spmm"})["spmm"]
+    chip_smoke.check_rows("spmm/nnz", a, want, scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("expr", ["spadd3", "spadd3_bcsr"])
+def test_lower_spadd3_rows_many_tasks_repeats_bit_for_bit(card, expr):
+    """A rows SpAdd3 cell lowered on the card, scalar and BCSR((4, 4)),
+    over operands whose longest row spans hundreds of 256-entry merge tasks
+    (each merged by a warp): its union kernel launches once per run(), two
+    run()s give the same bits, and the union holds exactly the host
+    union's coordinates (run_slice raises otherwise)."""
+    data = chip_smoke.make_inputs(1 << 18, 8, 3, seed=6)
+    data["add"] = chip_smoke.add_operands(1 << 18, 6, data["B"])
+    kind = "blocked" if expr == "spadd3_bcsr" else "scalar"
+    longest = max(int(np.diff(t.levels[1].pos).max())
+                  for t in data["add"][kind])
+    assert 3 * longest > 100 * 256
+    recs, launches = chip_smoke.run_slice(data, ((expr, "rows"),), pieces=4,
+                                          device=None, reps=1)
+    name = "bcsr_spadd3_union_rows" if kind == "blocked" \
+        else "spadd3_union_rows"
+    assert launches[name] == recs[f"{expr}/rows"]["runs"] > 0
+    assert recs[f"{expr}/rows"]["bitwise"]
