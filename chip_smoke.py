@@ -17,16 +17,21 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
 3. kernels — each Hopper kernel against its plain PyTorch version on the
              card: first at edge-case shapes (empty rows, an empty piece, a
              row longer than 128 entries, a slice longer than one 256-entry
-             segment, J in {1, 16, 130}, K and L in {1, 7, 32, 33}; for
+             segment, J in {1, 16, 130}, K in {1, 4, 7, 8, 16, 32, 33,
+             64, 128, 256} (every lane-group size of sddmm_coo) with C
+             views 4 bytes off an aligned base at K in {1, 4, 7, 32, 33,
+             64} (its scalar kernel), L in {1, 7, 32, 33}; for
              SpAdd3 an empty operand, a row longer than one merge task,
              coordinates in all three operands and sums that cancel to 0,
              shard padding that must not be read, block shapes (2, 2) and
              (4, 4) with a ragged last block column; for the blocked SpMV,
              SpMM and SDDMM an empty piece and block-row, a block-row
              longer than several 128-block segments, runs that start and
-             end on segment edges, padding that must not be read, blocks
-             (2, 2), (4, 4) and (4, 8) with a ragged last block-row and
-             block-column, J in {1, 16, 33}, K in {1, 7, 32, 33}; for
+             end on segment edges, ids below 0 and padding that must not
+             be read, blocks (1, 1), (2, 2), (3, 5), (4, 4), (4, 8),
+             (8, 4) and (32, 8) with a ragged last block-row and
+             block-column, J in {1, 16, 33}, K in {1, 7, 32, 33}, and
+             (4, 4) tiles 4 bytes off an aligned base; for
              the SpMM nnz kernel the SpMV nnz and SpMTTKRP streams, runs
              across one and two 256-entry segments, J in {1, 7, 16, 32,
              33, 130}; for the rows kernels' merge-path split (chunks of
@@ -106,9 +111,11 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
    and a line for the SpMV rows kernel's second use, SpTTV over the (i, j)
    fibres. A ``profile`` line per rows cell (spmv/rows, spmm/rows,
    spttv/rows), for spmv/nnz and spmm/nnz (the memset, phase 1, the group
-   pass and phase 2), and for the two SpAdd3 rows unions (bounds and count,
-   fill, and the wrapper's torch ops) gives the device time of each phase
-   of its kernel (``torch.profiler``). The blocked kernels' yardsticks are
+   pass and phase 2), for sddmm/nnz (its one kernel), for spmm_bcsr/rows
+   (the wrapper's zeroing of Y, phase 1 and the fold), and for the two
+   SpAdd3 rows unions (bounds and count, fill, and the wrapper's torch
+   ops) gives the device time of each phase of its kernel
+   (``torch.profiler``). The blocked kernels' yardsticks are
    ``torch.sparse`` BSR products and ``sampled_addmm`` over the
    scalarised block pattern.
    flash_attention is timed at the model's layer shapes (q (2, 4096, 32,
@@ -295,6 +302,14 @@ def _abs_args(args):
             for a in args]
 
 
+def _unaligned(t):
+    """A contiguous copy of ``t`` that starts 4 bytes past an aligned
+    base (a view off a 16-byte boundary)."""
+    import torch
+    return torch.empty(t.numel() + 1, device=t.device)[1:].view(t.shape) \
+        .copy_(t)
+
+
 def kernel_cases(rng, device):
     """Edge-case batched inputs per kernel: (label, kernel name, args,
     args with absolute values for the tolerance). Pieces of one batch share
@@ -363,15 +378,23 @@ def kernel_cases(rng, device):
             yield (f"spmm_coo_nnz {n}x{m} J={J}", "spmm_coo_nnz",
                    (rows_t, crd_t, vals_t, C_t, n),
                    (rows_t, crd_t, vals_t.abs(), C_t.abs(), n))
-        # SDDMM over the same pieces: C shared (nnz) or per piece (rows)
+        # SDDMM over the same pieces: C shared (nnz) or per piece (rows);
+        # every lane-group size (K = 4 .. 256), K % 4 != 0, and C views 4
+        # bytes past an aligned base (the scalar kernel)
         srows_t, = dev(np.minimum(rows, n - 1))
-        for K, shared in ((1, True), (7, False), (32, True), (33, False)):
+        for K, shared in ((1, True), (4, False), (7, False), (8, True),
+                          (16, False), (32, True), (33, False), (64, True),
+                          (128, False), (256, True)):
             C_t, Dt_t = dev(normal(n, K) if shared else normal(3, n, K),
                             normal(m, K))
+            kind = "shared" if shared else "per-piece"
             args = (srows_t, crd_t, vals_t, C_t, Dt_t)
-            yield (f"sddmm_coo {n}x{m} K={K} "
-                   f"{'shared' if shared else 'per-piece'}", "sddmm_coo",
-                   args, _abs_args(args))
+            yield (f"sddmm_coo {n}x{m} K={K} {kind}", "sddmm_coo", args,
+                   _abs_args(args))
+            if K in (1, 4, 7, 32, 33, 64):
+                args = (srows_t, crd_t, vals_t, _unaligned(C_t), Dt_t)
+                yield (f"sddmm_coo {n}x{m} K={K} {kind} C at a 4-byte offset",
+                       "sddmm_coo", args, _abs_args(args))
 
     # the rows kernels' merge-path split: chunks of 256 items (row ends and
     # entries)
@@ -673,15 +696,17 @@ def spadd3_cases(rng, device):
 
 
 def bcsr_cases(rng, device):
-    """Blocked SpMV, SpMM and SDDMM edge cases over three pieces per block
-    shape: piece 0 holds an empty block-row, a run that ends on the last
-    block of segment 0, one that starts on the first block of segment 1
-    and spans four segments, one cut by a segment edge and one that ends
-    on a 32-block chunk edge inside a segment; piece 1 is empty; piece 2
-    has a run ending on the first chunk edge and a block-row longer than
-    two segments. Padding slots
-    carry the dropped id R, huge block-columns and 1e30 tiles, which
-    must not reach a sum. The dense operands are packed from matrices whose
+    """Blocked SpMV, SpMM and SDDMM edge cases over four pieces per block
+    shape ((1, 1), (2, 2), (3, 5), (4, 4), (4, 8), (8, 4), (32, 8)): piece
+    0 holds an empty block-row, a run that ends on the last block of
+    segment 0, one that starts on the first block of segment 1 and spans
+    four segments, one cut by a segment edge and one that ends on a
+    32-block chunk edge inside a segment; piece 1 is empty; piece 2 has a
+    run ending on the first chunk edge and a block-row longer than two
+    segments; piece 3 starts with 130 dropped ids below 0 (across a
+    segment edge), then short runs. Padding slots carry the dropped id R,
+    huge block-columns and 1e30 tiles (as do the ids below 0), which must
+    not reach a sum. The dense operands are packed from matrices whose
     side is not a multiple of the block (a ragged last block-row and
     block-column)."""
     import numpy as np
@@ -696,18 +721,22 @@ def bcsr_cases(rng, device):
     def normal(*shape):
         return rng.standard_normal(shape).astype(np.float32)
 
-    P, R, grid_cols = 3, 12, 9
+    P, R, grid_cols = 4, 12, 9
     lens = [np.array([3, 0, 125, 400, 128, 7, 0, 2, 7, 30, 0, 5]),
             np.zeros(R, np.int64),
-            np.array([0, 32, 300, 0, 0, 0, 0, 0, 0, 0, 2, 0])]
-    N = int(max(x.sum() for x in lens)) + 9                  # a padding tail
+            np.array([0, 32, 300, 0, 0, 0, 0, 0, 0, 0, 2, 0]),
+            np.array([1, 2, 3, 0, 5, 1, 1, 0, 0, 9, 33, 4])]
+    lead = [0, 0, 0, 130]                        # dropped ids below 0
+    N = int(max(x.sum() + a for x, a in zip(lens, lead))) + 9   # padding
     brow = np.full((P, N), R, np.int32)
     bcol = np.full((P, N), 1 << 30, np.int32)
-    for p, cnt in enumerate(lens):
-        brow[p, :cnt.sum()] = np.repeat(np.arange(R), cnt)
-        bcol[p, :cnt.sum()] = rng.integers(0, grid_cols, cnt.sum())
-    for br, bc in ((2, 2), (4, 4), (4, 8)):
-        tiles = np.where((brow < R)[:, :, None, None], normal(P, N, br, bc),
+    for p, (cnt, a) in enumerate(zip(lens, lead)):
+        brow[p, :a] = -1 - (np.arange(a) < 100)
+        brow[p, a:a + cnt.sum()] = np.repeat(np.arange(R), cnt)
+        bcol[p, a:a + cnt.sum()] = rng.integers(0, grid_cols, cnt.sum())
+    kept = (brow >= 0) & (brow < R)
+    for br, bc in ((1, 1), (2, 2), (3, 5), (4, 4), (4, 8), (8, 4), (32, 8)):
+        tiles = np.where(kept[:, :, None, None], normal(P, N, br, bc),
                          np.float32(1e30)).astype(np.float32)
         n, m = R * br - 1, grid_cols * bc - 3                  # ragged
         brow_t, bcol_t, tiles_t = dev(brow, bcol, tiles)
@@ -721,6 +750,11 @@ def bcsr_cases(rng, device):
             yield (f"bcsr_spmm {label} J={J}", "bcsr_spmm",
                    (brow_t, bcol_t, tiles_t, C_t, R),
                    (brow_t, bcol_t, tiles_t.abs(), C_t.abs(), R))
+        if (br, bc) == (4, 4):        # tiles 4 bytes off an aligned base
+            t_off = _unaligned(tiles_t)
+            yield (f"bcsr_spmm {label} J=33 tiles at a 4-byte offset",
+                   "bcsr_spmm", (brow_t, bcol_t, t_off, C_t, R),
+                   (brow_t, bcol_t, t_off.abs(), C_t.abs(), R))
         # SDDMM reads every slot: zero tiles on the padding, as the shards
         for K, shared in ((1, True), (7, False), (32, True), (33, False)):
             Cm = pack_mat_row_blocks(normal(n, K), R, br).reshape(R * br, K)
@@ -1500,7 +1534,7 @@ def kernel_records(data, cells, launches, reps: int):
             B3.shape[0] if three else n, library[cell], reps))
         cell_ms[cell] = records[-1]["ms"]
         if name in ("spmv_csr_rows", "spmm_csr_rows", "spmv_coo_nnz",
-                    "spmm_coo_nnz"):
+                    "spmm_coo_nnz", "sddmm_coo"):
             phase("profile", name=name, cell=cell, **{
                 k.replace(" ", "_"): f"{v:.4f}" for k, v in
                 device_breakdown(lambda: fns[name][0](*args)).items()})
@@ -1561,12 +1595,16 @@ def blocked_kernel_records(data, cells, launches, reps: int):
                 scalar, Cs, Ds, beta=0.0).values() * scalar.values()),
     }
     records, cell_ms = [], {}
+    fns = kernel_fns()
     for cell, (name, args) in call.items():
         records.append(kernel_record(name, args, launches[name],
                                      Bb.vals.shape[0], Bb.shape[0],
                                      library[cell], reps))
         cell_ms[cell] = records[-1]["ms"]
-    fns = kernel_fns()
+        if name == "bcsr_spmm":          # Y's zeroing, phase 1, the fold
+            phase("profile", name=name, cell=cell, **{
+                k.replace(" ", "_"): f"{v:.4f}" for k, v in
+                device_breakdown(lambda: fns[name][0](*args)).items()})
     for cell, rec in cells.items():
         if cell not in cell_ms:
             other = rec["call"]

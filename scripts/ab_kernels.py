@@ -12,13 +12,13 @@ paths launches (``chip_smoke.PATH_KERNELS``). The operands are made as
 ``chip_smoke.py`` makes them, at its main-path sizes; the cells of the
 paths that launch the named kernels are lowered with this tree's package,
 in ``chip_smoke.PATH_CELLS``' order, and each named kernel is taken with the
-arguments of the first cell that launches it (``chip_smoke.leaf_call``).
+arguments of every cell that launches it (``chip_smoke.leaf_call``).
 Its wrapper in this tree and in the parent (that checkout's ``repro_torch``
 imported as ``repro_torch_parent``, its kernels built into its own
-``build/``) is called on those arguments. Per kernel: whether the two give
-the same bits (and the largest difference), the CUDA-event median of
-``chip_smoke.REPS`` launches in the order parent, this, this, parent, the
-peak device memory of one call above what was held before it, and the
+``build/``) is called on those arguments. Per kernel and cell: whether the
+two give the same bits (and the largest difference), the CUDA-event median
+of ``chip_smoke.REPS`` launches in the order parent, this, this, parent,
+the peak device memory of one call above what was held before it, and the
 device time of each phase (``torch.profiler``). A JSON summary goes to
 ``--out``.
 """
@@ -84,8 +84,9 @@ def peak_mb(fn) -> float:
     return (torch.cuda.max_memory_allocated() - base) / 2**20
 
 
-def compare(name, kargs, fns):
-    """The record of kernel ``name`` on ``kargs``, {version: wrapper}."""
+def compare(name, cell, kargs, fns):
+    """The record of kernel ``name`` on ``kargs`` (cell ``cell``'s),
+    {version: wrapper}."""
     import torch
     outs = {tag: fn(*kargs) for tag, fn in fns.items()}
     torch.cuda.synchronize()
@@ -105,14 +106,15 @@ def compare(name, kargs, fns):
     rec["phases"] = {tag: cs.device_breakdown(lambda: fn(*kargs))
                      for tag, fn in fns.items()}
     for tag in fns:
-        print(f"[ab] kernel={name} version={tag} ms="
+        print(f"[ab] kernel={name} cell={cell} version={tag} ms="
               + ",".join(f"{t:.4f}" for t in rec["ms"][tag])
               + f" peak_mb={rec['peak_mb'][tag]:.2f} "
               + " ".join(f"{p.replace(' ', '_')}={v:.4f}"
                          for p, v in rec["phases"][tag].items()),
               flush=True)
     if "bitwise_equal" in rec:
-        print(f"[ab] kernel={name} bitwise_equal={rec['bitwise_equal']} "
+        print(f"[ab] kernel={name} cell={cell} "
+              f"bitwise_equal={rec['bitwise_equal']} "
               f"max_abs_diff={rec['max_abs_diff']}", flush=True)
     return rec
 
@@ -173,18 +175,16 @@ def main(argv=None) -> int:
     machine = tc.Machine(("x", cs.PIECES))
     summary = {"device": smi, "kernels": {}}
     for expr, strat in (c for p in paths for c in cs.PATH_CELLS[p]):
-        if strat not in ("rows", "nnz") or \
-                all(n in summary["kernels"] for n in wanted):
+        if strat not in ("rows", "nnz"):
             continue
         sched = (L.default_row_schedule if strat == "rows"
                  else L.default_nnz_schedule)(stmts[expr], machine)
         k = L.lower(stmts[expr], machine, schedule=sched, device=device)
         call = cs.leaf_call(k)
-        if call is not None and call[0] in wanted \
-                and call[0] not in summary["kernels"]:
-            print(f"[ab] kernel={call[0]} cell={k.cell_id()}", flush=True)
-            summary["kernels"][call[0]] = compare(call[0], call[1],
-                                                  fns[call[0]])
+        if call is not None and call[0] in wanted:
+            cell = k.cell_id()
+            summary["kernels"].setdefault(call[0], {})[cell] = compare(
+                call[0], cell, call[1], fns[call[0]])
         del k, call
         L.clear_lowering_caches()
         torch.cuda.empty_cache()

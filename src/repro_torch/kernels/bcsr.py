@@ -40,7 +40,7 @@ _SIGNATURES = {
     "bcsr_sddmm": (_P,) * 6 + (_I, _L, _I, _I, _I, _L, _I, _I, _P),
 }
 SEGMENT = 128       # stored blocks per segment, kSeg in csrc/bcsr.cu
-MAX_TILE = 256      # br * bc the kernels stage (kMaxTile)
+MAX_TILE = 256      # br * bc: bcsr_sddmm's thread per output of a block
 
 
 def _stream(name, brow, bcol, tiles, **dense):
@@ -106,7 +106,10 @@ def bcsr_spmm(brow: torch.Tensor, bcol: torch.Tensor, tiles: torch.Tensor,
     """Y (P, max_brows·br, J): block-row b of piece p is
     Σ_e tiles[p, e] @ C_blk[bcol[p, e]] over its stored blocks e.
     ``C_blk`` is the dense operand in row blocks, (grid_cols, bc, J). The
-    contract on ``brow`` is :func:`bcsr_spmv`'s."""
+    contract on ``brow`` is :func:`bcsr_spmv`'s. The kernel's result does
+    not depend on its instance (templated on the block, or generic for
+    other blocks and for tiles off a 16-byte boundary): the same adds in
+    the same order."""
     if C_blk.dim() != 3 or C_blk.shape[1] != tiles.shape[-1]:
         raise ValueError(f"bcsr_spmm: C_blk {tuple(C_blk.shape)} is not "
                          f"(grid_cols, {tiles.shape[-1]}, J)")

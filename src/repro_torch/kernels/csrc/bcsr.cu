@@ -32,11 +32,18 @@
 //    written to the output directly. The run at the segment's start goes
 //    to head[seg], the run at its end (when it is another block-row) to
 //    tail[seg].
-//    bcsr_spmm: a thread block of (32, br) threads per (segment, 32-wide
-//    tile of j), threads on (r, j). The segment's ids and tiles are staged
-//    in shared memory 32 blocks at a time (coalesced); each thread sums its
-//    (r, j) output over the run in block order, reading one C row per
-//    block-column offset (a 128-byte line across the warp at J = 32).
+//    bcsr_spmm: a warp per (segment, 32-wide tile of j), lanes on j, each
+//    lane holding the br sums of its column, so every gathered line of C
+//    (one 128-byte line across the warp per block-column offset c at
+//    J = 32) serves all br rows of the tile. No shared memory and no
+//    barrier: the ids come in with one coalesced load per 32 blocks and
+//    are broadcast by shuffle; the tile is read by warp-uniform loads
+//    (16-byte ones where the tile allows). The block the main path runs,
+//    (4, 4), is a template argument: its tile and C lines are loaded
+//    before the block's run-end test and FMAs. Any other block (up to
+//    br = 32) takes a generic instance with bc at run time and warps over
+//    groups of 8 rows. Each (r, j) sum adds one fma per c, c in order
+//    within a block, blocks in stream order, from 0 at each run.
 //    bcsr_spmv (J = 1): a warp per (segment, r), lanes on stored blocks.
 //    Each lane forms its block's row-r product, a segmented shuffle scan
 //    over equal block-rows sums the runs of 32 blocks, and the open run is
@@ -71,8 +78,6 @@ namespace {
 constexpr int kWarp = 32;
 constexpr int kThreads = 256;
 constexpr int kSeg = 128;       // stored blocks per segment
-constexpr int kChunk = 32;      // stored blocks staged at a time (SpMM)
-constexpr int kMaxTile = 256;   // br * bc limit of the staged tiles
 constexpr int kK = 16;          // k values staged at a time (SDDMM)
 
 __device__ __forceinline__ int64_t clamp_index(int64_t i, int64_t n) {
@@ -93,69 +98,127 @@ struct Stream {
     __device__ int last(int64_t s) const { return __ldg(brow + hi(s) - 1); }
 };
 
-// grid (nseg * n_jt, P), block (32, br)
-__global__ void bcsr_spmm_phase1(const int* __restrict__ brow,
-                                 const int* __restrict__ bcol,
-                                 const float* __restrict__ tiles,
-                                 const float* __restrict__ C,
-                                 float* __restrict__ head,
-                                 float* __restrict__ tail,
-                                 float* __restrict__ Y,
-                                 int64_t N, int br, int bc, int grid_cols,
-                                 int J, int R, int n_jt, int64_t nseg) {
-    __shared__ int s_row[kChunk];
-    __shared__ int s_col[kChunk];
-    __shared__ float s_tile[kChunk * kMaxTile];
+// dst[k] = src[k] for k < T (a tile, or rows of one), read by warp-uniform
+// loads, or 0 where !use; 16-byte loads when T % 4 == 0 (src then 16-byte
+// aligned: checked at the entry)
+template <int T>
+__device__ __forceinline__ void load_tile(float (&dst)[T],
+                                          const float* __restrict__ src,
+                                          bool use) {
+    if constexpr (T % 4 == 0) {
+        const float4* s4 = reinterpret_cast<const float4*>(src);
+#pragma unroll
+        for (int i = 0; i < T / 4; ++i) {
+            const float4 v = use ? __ldg(s4 + i) : make_float4(0, 0, 0, 0);
+            dst[4 * i] = v.x;
+            dst[4 * i + 1] = v.y;
+            dst[4 * i + 2] = v.z;
+            dst[4 * i + 3] = v.w;
+        }
+    } else {
+#pragma unroll
+        for (int i = 0; i < T; ++i) dst[i] = use ? __ldg(src + i) : 0.f;
+    }
+}
+
+// grid (ceil(nseg * n_jt * n_rg / 8), P), 256 threads: a warp per
+// (segment, 32-wide tile of j, group of BR rows), lanes on j. BC > 0: the
+// block is (BR, BC) exactly (n_rg = 1). BC == 0: bc at run time, rows
+// r0 .. r0 + nr - 1. Gathering the next block before this one's FMAs does
+// not pay: at (4, 4) two blocks in flight took 94 registers (16 warps an
+// SM) and phase 1 0.78 ms, one block 62 registers (32 warps) and 0.56 ms
+// (H100 SXM).
+template <int BR, int BC>
+__global__ void __launch_bounds__(kThreads)
+bcsr_spmm_phase1(const int* __restrict__ brow, const int* __restrict__ bcol,
+                 const float* __restrict__ tiles, const float* __restrict__ C,
+                 float* __restrict__ head, float* __restrict__ tail,
+                 float* __restrict__ Y, int64_t N, int br, int bc,
+                 int grid_cols, int J, int R, int n_jt, int n_rg,
+                 int64_t nseg) {
+    const int lane = threadIdx.x % kWarp;
+    const int64_t wid = int64_t(blockIdx.x) * (kThreads / kWarp)
+                        + threadIdx.x / kWarp;
+    const int per_seg = n_jt * n_rg;
+    if (wid >= nseg * per_seg) return;           // warp-uniform
     const int64_t p = blockIdx.y;
-    const int64_t seg = blockIdx.x / n_jt;
-    const int j = int(blockIdx.x % n_jt) * kWarp + threadIdx.x;
-    const int r = threadIdx.y;
+    const int64_t seg = wid / per_seg;
+    const int jt = int(wid % per_seg) / n_rg;
+    const int r0 = int(wid % per_seg) % n_rg * BR;
+    const int nbc = BC > 0 ? BC : bc;
+    const int nr = BC > 0 ? BR : min(BR, br - r0);
+    const int j = jt * kWarp + lane;
     const bool live = j < J;
-    const int tid = threadIdx.y * kWarp + threadIdx.x;
-    const int nthr = kWarp * br;
-    const int tile = br * bc;
     const Stream st{brow + p * N, N, nseg};
     const int64_t lo = st.lo(seg), hi = st.hi(seg);
     const int first = st.first(seg);
-    if (first >= R || st.last(seg) < 0) return;   // block-uniform: dropped
+    if (first >= R || st.last(seg) < 0) return;   // warp-uniform: dropped
+    const int tile = br * nbc;
     const int* pc = bcol + p * N;
-    const float* pt = tiles + p * N * tile;
+    const float* pt = tiles + p * N * tile + r0 * nbc;   // row r0 of a tile
+    const float* Cj = C + j;
     const int64_t W = int64_t(br) * J;
-    float* Yp = Y + p * int64_t(R) * W;
-    const int64_t w = int64_t(r) * J + j;
-    const int64_t edge = (p * nseg + seg) * W + w;
+    const int64_t w0 = int64_t(r0) * J + j;
+    float* Yp = Y + p * int64_t(R) * W + w0;
+    const int64_t edge = (p * nseg + seg) * W + w0;
+    float acc[BR];
+#pragma unroll
+    for (int r = 0; r < BR; ++r) acc[r] = 0.f;
     int cur = first;
-    float acc = 0.f;
-    for (int64_t base = lo; base < hi; base += kChunk) {
-        const int cnt = hi - base < kChunk ? int(hi - base) : kChunk;
-        __syncthreads();                 // the previous chunk is consumed
-        for (int i = tid; i < cnt; i += nthr) {
-            s_row[i] = st.brow[base + i];
-            s_col[i] = int(clamp_index(pc[base + i], grid_cols));
+    auto put = [&](float* dst) {                 // the run's sums, rows r0..
+        if (!live) return;
+#pragma unroll
+        for (int r = 0; r < BR; ++r)
+            if (r < nr) dst[int64_t(r) * J] = acc[r];
+    };
+    auto next_run = [&](int row) {               // warp-uniform: a run ends
+        if (cur == first) put(head + edge);
+        else if (cur >= 0 && cur < R) put(Yp + int64_t(cur) * W);
+#pragma unroll
+        for (int r = 0; r < BR; ++r) acc[r] = 0.f;
+        cur = row;
+    };
+    for (int64_t base = lo; base < hi; base += kWarp) {
+        const int cnt = hi - base < kWarp ? int(hi - base) : kWarp;
+        int row_l = 0, col_l = 0;
+        if (lane < cnt) {
+            row_l = st.brow[base + lane];
+            col_l = int(clamp_index(pc[base + lane], grid_cols));
         }
-        for (int i = tid; i < cnt * tile; i += nthr)
-            s_tile[i] = pt[base * tile + i];
-        __syncthreads();
+        const float* ct = pt + base * tile;      // this chunk's tiles
         for (int t = 0; t < cnt; ++t) {
-            const int row = s_row[t];
-            if (row != cur) {            // block-uniform: a run ends
-                if (cur == first) {
-                    if (live) head[edge] = acc;
-                } else if (live && cur >= 0 && cur < R) {
-                    Yp[int64_t(cur) * W + w] = acc;
+            const int row = __shfl_sync(0xffffffffu, row_l, t);
+            const int col = __shfl_sync(0xffffffffu, col_l, t);
+            const bool use = row >= 0 && row < R;      // else dropped
+            const float* cr = Cj + int64_t(col) * nbc * J;
+            if constexpr (BC > 0) {
+                float tv[BR * BC], cv[BC];               // loaded first
+                load_tile(tv, ct + t * tile, use);
+#pragma unroll
+                for (int c = 0; c < BC; ++c)
+                    cv[c] = use && live ? __ldg(cr + int64_t(c) * J) : 0.f;
+                if (row != cur) next_run(row);
+                if (!use) continue;
+#pragma unroll
+                for (int c = 0; c < BC; ++c)
+#pragma unroll
+                    for (int r = 0; r < BR; ++r)
+                        acc[r] = fmaf(tv[r * BC + c], cv[c], acc[r]);
+            } else {
+                if (row != cur) next_run(row);
+                if (!use) continue;
+                const float* tr = ct + t * tile;
+                for (int c = 0; c < nbc; ++c) {
+                    const float x = live ? __ldg(cr + int64_t(c) * J) : 0.f;
+#pragma unroll
+                    for (int r = 0; r < BR; ++r)
+                        if (r < nr)
+                            acc[r] = fmaf(__ldg(tr + r * nbc + c), x, acc[r]);
                 }
-                acc = 0.f;
-                cur = row;
-            }
-            if (live && row >= 0 && row < R) {
-                const float* tr = s_tile + t * tile + r * bc;
-                const float* cr = C + int64_t(s_col[t]) * bc * J + j;
-                for (int c = 0; c < bc; ++c)
-                    acc += tr[c] * __ldg(cr + int64_t(c) * J);
             }
         }
     }
-    if (live) (cur == first ? head : tail)[edge] = acc;
+    put((cur == first ? head : tail) + edge);
 }
 
 // Inclusive scan over the lanes of equal key; keys are non-decreasing
@@ -344,6 +407,24 @@ __global__ void bcsr_sddmm_kernel(const int* __restrict__ brow,
     }
 }
 
+// Phase 1 of bcsr_spmm by the (BR, BC) instance; -1 (nothing launched)
+// when the block is not (BR, BC) or its tiles need 16-byte loads that
+// ``vec`` (an aligned tile base) does not allow.
+template <int BR, int BC>
+int spmm_phase1(int br, int bc, bool vec, const int* brow, const int* bcol,
+                const float* tiles, const float* C, float* head, float* tail,
+                float* Y, int P, int64_t N, int grid_cols, int J, int R,
+                int n_jt, int64_t nseg, cudaStream_t s) {
+    if (br != BR || bc != BC || (!vec && (BR * BC) % 4 == 0)) return -1;
+    const int64_t warps = nseg * n_jt;
+    dim3 grid(unsigned((warps * kWarp + kThreads - 1) / kThreads),
+              unsigned(P));
+    bcsr_spmm_phase1<BR, BC><<<grid, kThreads, 0, s>>>(
+        brow, bcol, tiles, C, head, tail, Y, N, br, bc, grid_cols, J, R,
+        n_jt, 1, nseg);
+    return int(cudaGetLastError());
+}
+
 int fold(const int* brow, const float* head, const float* tail, float* out,
          int P, int64_t N, int64_t W, int R, int64_t nseg, cudaStream_t s) {
     dim3 grid(unsigned((nseg * W + kThreads - 1) / kThreads), unsigned(P));
@@ -383,11 +464,21 @@ int bcsr_spmm(const int* brow, const int* bcol, const float* tiles,
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int n_jt = (J + kWarp - 1) / kWarp;
     const int64_t nseg = (N + kSeg - 1) / kSeg;
-    dim3 grid(unsigned(nseg * n_jt), unsigned(P));
-    bcsr_spmm_phase1<<<grid, dim3(kWarp, br), 0, s>>>(
-        brow, bcol, tiles, C, head, tail, Y, N, br, bc, grid_cols, J, R,
-        n_jt, nseg);
-    int err = int(cudaGetLastError());
+    // 16-byte tile loads need an aligned base (a view may start anywhere)
+    const bool vec = reinterpret_cast<uintptr_t>(tiles) % 16 == 0;
+    int err = spmm_phase1<4, 4>(br, bc, vec, brow, bcol, tiles, C, head, tail,
+                                Y, P, N, grid_cols, J, R, n_jt, nseg, s);
+    if (err < 0) {                               // any other block: generic
+        constexpr int kRows = 8;
+        const int n_rg = (br + kRows - 1) / kRows;
+        const int64_t warps = nseg * n_jt * n_rg;
+        dim3 grid(unsigned((warps * kWarp + kThreads - 1) / kThreads),
+                  unsigned(P));
+        bcsr_spmm_phase1<kRows, 0><<<grid, kThreads, 0, s>>>(
+            brow, bcol, tiles, C, head, tail, Y, N, br, bc, grid_cols, J, R,
+            n_jt, n_rg, nseg);
+        err = int(cudaGetLastError());
+    }
     if (err != 0) return err;
     return fold(brow, head, tail, Y, P, N, int64_t(br) * J, R, nseg, s);
 }

@@ -48,7 +48,9 @@ def sddmm_coo(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
     """out (P, N): out[p, e] = vals[p, e]·Σ_k C[rows[p, e], k]·Dt[cols[p, e], k].
     ``C`` is (n, K), shared by every piece, or (P, n, K), one row block per
     piece; ``Dt`` is D transposed, (m, K). Indices are clamped into range
-    (padded positions carry vals == 0)."""
+    (padded positions carry vals == 0). The kernel gathers 16 bytes a lane
+    when K % 4 == 0 and C and Dt start on 16-byte boundaries, and takes
+    its scalar path otherwise (a view may start anywhere)."""
     if rows.dim() != 2 or cols.shape != rows.shape \
             or vals.shape != rows.shape or C.dim() not in (2, 3) \
             or (C.dim() == 3 and C.shape[0] != rows.shape[0]) \

@@ -75,8 +75,9 @@ def test_lower_runs_the_kernels(card):
 
 @pytest.mark.gpu
 def test_new_kernels_match_plain_versions(card):
-    """The edge cases of sddmm_coo (K in {1, 7, 32, 33}, C shared and per
-    piece) and spmttkrp_coo (L in {1, 7, 32, 33}; an empty row and piece,
+    """The edge cases of sddmm_coo (K in {1, 4, 7, 8, 16, 32, 33, 64, 128,
+    256}, C shared and per piece, C views 4 bytes off an aligned base) and
+    spmttkrp_coo (L in {1, 7, 32, 33}; an empty row and piece,
     rows across segment edges) launch and agree with the plain versions."""
     cases = [c for c in chip_smoke.kernel_cases(np.random.default_rng(7),
                                                 card)
@@ -126,10 +127,11 @@ def test_lower_runs_the_spadd3_kernels(card):
 @pytest.mark.gpu
 def test_bcsr_kernels_match_plain_versions(card):
     """The blocked edge cases (an empty piece and block-row, a block-row
-    across several segments, runs on segment edges, padding that must not
-    be read, blocks (2, 2), (4, 4) and (4, 8), J in {1, 16, 33}, K in
-    {1, 7, 32, 33}) launch and agree with the plain versions, and two
-    launches give the same bits."""
+    across several segments, runs on segment edges, ids below 0 and
+    padding that must not be read, blocks (1, 1), (2, 2), (3, 5), (4, 4),
+    (4, 8), (8, 4) and (32, 8), J in {1, 16, 33}, K in {1, 7, 32, 33})
+    launch and agree with the plain versions, and two launches give the
+    same bits."""
     fns = chip_smoke.kernel_fns()
     cases = [c for c in chip_smoke.kernel_cases(np.random.default_rng(11),
                                                 card)
@@ -352,3 +354,54 @@ def test_lower_spadd3_rows_many_tasks_repeats_bit_for_bit(card, expr):
         else "spadd3_union_rows"
     assert launches[name] == recs[f"{expr}/rows"]["runs"] > 0
     assert recs[f"{expr}/rows"]["bitwise"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["sddmm_coo", "bcsr_spmm"])
+def test_gather_redesigns_repeat_bit_for_bit(card, name):
+    """The two kernels redesigned to keep more gathers in flight, at their
+    edges: sddmm_coo at every lane-group size (K in {4, 8, 16, 32, 64, 128,
+    256}), at K % 4 != 0 and with C views 4 bytes off an aligned base (its
+    scalar kernel) at K in {1, 4, 7, 32, 33, 64}; bcsr_spmm at blocks
+    (4, 4) (its templated instance), (1, 1), (2, 2), (3, 5), (4, 8),
+    (8, 4), (32, 8) and (4, 4) tiles 4 bytes off an aligned base (the
+    generic one), over runs on segment edges, ids below 0 and padding.
+    Each agrees with its plain version and two launches give the same
+    bits."""
+    kernel = chip_smoke.kernel_fns()[name][0]
+    cases = [c for c in chip_smoke.kernel_cases(np.random.default_rng(19),
+                                                card) if c[1] == name]
+    labels = " ".join(c[0] for c in cases)
+    if name == "sddmm_coo":
+        assert "K=256" in labels and "K=64 shared C at a 4-byte" in labels
+    else:
+        assert "tiles at a 4-byte offset" in labels
+        assert all(f"block=({b})" in labels
+                   for b in ("1, 1", "3, 5", "8, 4", "32, 8"))
+    before = _build.LAUNCHES[name]
+    for label, _, args, abs_args in cases:
+        chip_smoke.compare_kernel(label, name, args, abs_args)
+        assert torch.equal(kernel(*args), kernel(*args)), label
+    assert _build.LAUNCHES[name] - before == 3 * len(cases) > 0
+
+
+@pytest.mark.gpu
+def test_gather_redesigns_take_their_paths(card):
+    """The kernel each wrapper launches, by name (torch.profiler): an
+    aligned C at K = 32 runs sddmm_coo's group kernel with G = 8 and a C
+    view 4 bytes off its scalar kernel; aligned (4, 4) tiles run
+    bcsr_spmm's (4, 4) instance and tiles 4 bytes off its generic one."""
+    fns = chip_smoke.kernel_fns()
+    cases = [c for c in chip_smoke.kernel_cases(np.random.default_rng(23),
+                                                card)
+             if c[1] in ("sddmm_coo", "bcsr_spmm")]
+    want = {("sddmm_coo", "K=32 shared", False): "sddmm_group_kernel<8",
+            ("sddmm_coo", "K=32 shared", True): "sddmm_coo_kernel",
+            ("bcsr_spmm", "block=(4, 4) J=33", False): "bcsr_spmm_phase1<4",
+            ("bcsr_spmm", "block=(4, 4) J=33", True): "bcsr_spmm_phase1<8"}
+    for (name, tag, off), kernel in want.items():
+        label, _, args, _ = next(
+            c for c in cases if c[1] == name and tag in c[0]
+            and ("4-byte offset" in c[0]) == off)
+        launched = chip_smoke.device_breakdown(lambda: fns[name][0](*args))
+        assert kernel in launched, (label, sorted(launched))
