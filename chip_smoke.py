@@ -8,7 +8,11 @@
 
 Phases, one line each (a failing phase raises and the script exits non-zero):
 
-1. device  — the card's name, count, and ``nvidia-smi`` name and power limit.
+1. device  — the card's name, count, and ``nvidia-smi`` name and power limit;
+             a ``clocks`` line (SM clock, its maximum, power draw,
+             temperature) here and after each path and timing phase; the
+             read rates of ``torch.sum`` from L2 and from device memory
+             (``memory``).
 2. build   — ``nvcc`` for ``sm_90a`` over every CUDA source (in parallel),
              with each kernel's registers, shared memory and spills; then
              the HMMA (tensor-core) instructions of each flash kernel in
@@ -29,9 +33,10 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
              longer than several 128-block segments, runs that start and
              end on segment edges, ids below 0 and padding that must not
              be read, blocks (1, 1), (2, 2), (3, 5), (4, 4), (4, 8),
-             (8, 4) and (32, 8) with a ragged last block-row and
-             block-column, J in {1, 16, 33}, K in {1, 7, 32, 33}, and
-             (4, 4) tiles 4 bytes off an aligned base; for
+             (8, 4), (32, 8), (33, 1) and (64, 8) with a ragged last
+             block-row and block-column, J in {1, 16, 33}, K in {1, 7,
+             32, 33}, and (4, 4) tiles and SDDMM's C 4 bytes off an
+             aligned base; for
              the SpMM nnz kernel the SpMV nnz and SpMTTKRP streams, runs
              across one and two 256-entry segments, J in {1, 7, 16, 32,
              33, 130}; for the rows kernels' merge-path split (chunks of
@@ -45,7 +50,8 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
              padding with the dropped id, an empty piece and a piece of
              one row; for the SpMM nnz kernel the same pieces and rows
              over 64, 65, 128 and 129 segments of 256 (its group fold's
-             edges), J in {1, 7, 32, 33}; for the SpAdd3 rows unions
+             edges), J in {1, 7, 32, 33}, and the SpMTTKRP kernel over
+             those rows at L in {1, 32, 33}; for the SpAdd3 rows unions
              rows of nine merge tasks with repeated columns at the split
              values, a column of 901 entries (longer than a task and a
              128-entry window), three identical lists, one list alone
@@ -55,7 +61,8 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
              tests/test_flash_kernel.py with hd 128 added: G in {1, 2, 3,
              4, 8}, ragged S = 100, 200 and 300, f32 and bf16, and the
              bf16 kernel's tile edges S in {1, 15, 17, 65} at hd in
-             {16, 32, 64} and G in {1, 3, 8}), later
+             {16, 32, 64} and G in {1, 3, 8}, and hd 24, 112 (zero-padded
+             to 32 and 128) and 256 in f32 and bf16), later
              at the main path's shapes. Per-entry tolerance
              |got - plain| <= 1e-4 * scale + 1e-6, with ``scale`` the same
              computation on absolute values: f32 sums of up to a million
@@ -111,8 +118,10 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
    and a line for the SpMV rows kernel's second use, SpTTV over the (i, j)
    fibres. A ``profile`` line per rows cell (spmv/rows, spmm/rows,
    spttv/rows), for spmv/nnz and spmm/nnz (the memset, phase 1, the group
-   pass and phase 2), for sddmm/nnz (its one kernel), for spmm_bcsr/rows
-   (the wrapper's zeroing of Y, phase 1 and the fold), and for the two
+   pass and phase 2), for sddmm/nnz (its one kernel), for spmttkrp/rows
+   (the wrapper's zeroing of A, phase 1, the group pass and the edge
+   fold), for spmm_bcsr/rows (the wrapper's zeroing of Y, phase 1 and the
+   fold), for sddmm_bcsr/nnz (its one kernel), and for the two
    SpAdd3 rows unions (bounds and count, fill, and the wrapper's torch
    ops) gives the device time of each phase of its kernel
    (``torch.profiler``). The blocked kernels' yardsticks are
@@ -120,7 +129,8 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
    scalarised block pattern.
    flash_attention is timed at the model's layer shapes (q (2, 4096, 32,
    128), k and v (2, 4096, 8, 128)) in bf16 (the line's record) and f32
-   (a line of its own), beside ``scaled_dot_product_attention(
+   (a line of its own), and at head_dim 256 in both (lines of their own),
+   beside ``scaled_dot_product_attention(
    is_causal=True, enable_gqa=True)``; its bound is the causal flops over
    989 TFLOP/s bf16 (67 f32) against q, k, v and o moved once.
 
@@ -215,6 +225,18 @@ def phase(tag: str, /, **fields) -> None:
           flush=True)
 
 
+def clocks(at: str) -> None:
+    """A ``clocks`` line: the card's SM clock and its maximum (MHz), power
+    draw (W) and temperature (C) as ``nvidia-smi`` reads them now."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader,nounits"], check=True,
+        capture_output=True, text=True).stdout.splitlines()[0]
+    sm, sm_max, watts, temp = (x.strip() for x in out.split(","))
+    phase("clocks", at=at, sm_mhz=sm, sm_max_mhz=sm_max, power_w=watts,
+          temp_c=temp)
+
+
 # ---------------------------------------------------------------------------
 # Tolerance and timing
 # ---------------------------------------------------------------------------
@@ -270,6 +292,39 @@ def time_events(fn, reps: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def memory_rates(device) -> None:
+    """A ``memory`` line: the rate (GB/s) at which ``torch.sum`` reads a
+    float32 tensor of 16 MB, which stays in the 50 MB L2, and one of 256 MB,
+    which does not, each read 64 times in one call (the sum over dim 1 of
+    the tensor expanded, with stride 0, to 64 rows: 1 GB and 16 GB of loads
+    behind one launch), and one 2 GB tensor read once. Per call, the median
+    of 5 CUDA-event windows of 3 calls after a warm-up. The gather floors
+    in PERF.md reckon with these rates."""
+    import torch
+
+    def rate(nbytes: int, rows: int) -> float:
+        x = torch.ones(nbytes // 4, device=device)
+        fn = (lambda: x.expand(rows, x.numel()).sum(1)) if rows > 1 \
+            else x.sum
+        for _ in range(2):
+            fn()
+        windows = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(3):
+                fn()
+            end.record()
+            end.synchronize()
+            windows.append(start.elapsed_time(end) / 3)
+        return nbytes * rows / statistics.median(windows) / 1e6
+
+    phase("memory", gb_s_16mb_x64=f"{rate(16 << 20, 64):.1f}",
+          gb_s_256mb_x64=f"{rate(256 << 20, 64):.1f}",
+          gb_s_2gb=f"{rate(2 << 30, 1):.1f}")
 
 
 def time_host(fn, device, reps: int, warmup: int = 1,
@@ -425,6 +480,14 @@ def kernel_cases(rng, device):
             args = (r_t, k_t, v_t, C_t, max_rows)
             yield (f"spmm_coo_nnz {tag} J={J}", "spmm_coo_nnz", args,
                    _abs_args(args))
+    # the SpMTTKRP kernel over the group-edge pieces (the same fold)
+    r_t, j_t, v_t, max_rows = pieces["group edges"]
+    k_t, = dev(rng.integers(0, 37, r_t.shape).astype(np.int32))
+    for L in (1, 32, 33):
+        C_t, D_t = dev(normal(m, L), normal(37, L))
+        args = (r_t, j_t, k_t, v_t, C_t, D_t, max_rows)
+        yield (f"spmttkrp_coo group edges L={L}", "spmttkrp_coo", args,
+               _abs_args(args))
 
     # SpMTTKRP streams: three pieces, the middle one empty; row lengths
     # with an empty row, rows across one and two segment edges, a run that
@@ -697,7 +760,8 @@ def spadd3_cases(rng, device):
 
 def bcsr_cases(rng, device):
     """Blocked SpMV, SpMM and SDDMM edge cases over four pieces per block
-    shape ((1, 1), (2, 2), (3, 5), (4, 4), (4, 8), (8, 4), (32, 8)): piece
+    shape ((1, 1), (2, 2), (3, 5), (4, 4), (4, 8), (8, 4), (32, 8), and
+    (33, 1) and (64, 8), more than 32 rows or 256 entries): piece
     0 holds an empty block-row, a run that ends on the last block of
     segment 0, one that starts on the first block of segment 1 and spans
     four segments, one cut by a segment edge and one that ends on a
@@ -708,7 +772,8 @@ def bcsr_cases(rng, device):
     huge block-columns and 1e30 tiles (as do the ids below 0), which must
     not reach a sum. The dense operands are packed from matrices whose
     side is not a multiple of the block (a ragged last block-row and
-    block-column)."""
+    block-column). SDDMM also takes a C view 4 bytes off an aligned base
+    at (4, 4) and K = 32 (its 4-byte loads)."""
     import numpy as np
     import torch
     from repro_torch.kernels.layout import (pack_mat_inner_blocks,
@@ -735,7 +800,8 @@ def bcsr_cases(rng, device):
         brow[p, a:a + cnt.sum()] = np.repeat(np.arange(R), cnt)
         bcol[p, a:a + cnt.sum()] = rng.integers(0, grid_cols, cnt.sum())
     kept = (brow >= 0) & (brow < R)
-    for br, bc in ((1, 1), (2, 2), (3, 5), (4, 4), (4, 8), (8, 4), (32, 8)):
+    for br, bc in ((1, 1), (2, 2), (3, 5), (4, 4), (4, 8), (8, 4), (32, 8),
+                   (33, 1), (64, 8)):
         tiles = np.where(kept[:, :, None, None], normal(P, N, br, bc),
                          np.float32(1e30)).astype(np.float32)
         n, m = R * br - 1, grid_cols * bc - 3                  # ragged
@@ -765,15 +831,21 @@ def bcsr_cases(rng, device):
                 .transpose(0, 2, 1).reshape(grid_cols * bc, K)
             args = tuple(dev(brow, bcol, np.where(tiles < 1e29, tiles, 0),
                              Cm, Dt))
-            yield (f"bcsr_sddmm {label} K={K} "
-                   f"{'shared' if shared else 'per-piece'}", "bcsr_sddmm",
-                   args, _abs_args(args))
+            kind = "shared" if shared else "per-piece"
+            yield (f"bcsr_sddmm {label} K={K} {kind}", "bcsr_sddmm", args,
+                   _abs_args(args))
+            if K == 32 and (br, bc) == (4, 4):   # its 4-byte-load path
+                args = (*args[:3], _unaligned(args[3]), args[4])
+                yield (f"bcsr_sddmm {label} K={K} {kind} C at a 4-byte "
+                       "offset", "bcsr_sddmm", args, _abs_args(args))
 
 
 # tests/test_flash_kernel.py's cases (B, S, H, Hkv, hd) and dtypes, with
 # hd 128 added: G in {1, 2, 3, 4, 8}, ragged S = 200 and 100; then the bf16
 # kernel's tile edges: S shorter than a warp's 16 rows, one past them and
-# one past a 64-key stage, at G in {1, 3, 8} (3 leaves stacked rows unused)
+# one past a 64-key stage, at G in {1, 3, 8} (3 leaves stacked rows unused);
+# then widths outside the instances (24, zamba2-7b's 112: zero-padded to 32
+# and 128) and the widest instance, 256, in both dtypes
 FLASH_CASES = ((2, 256, 4, 2, 32, "float32"), (1, 200, 8, 8, 16, "float32"),
                (2, 384, 6, 2, 64, "float32"), (1, 128, 16, 2, 32, "float32"),
                (2, 256, 4, 2, 64, "bfloat16"), (1, 100, 2, 1, 16, "float32"),
@@ -781,7 +853,9 @@ FLASH_CASES = ((2, 256, 4, 2, 32, "float32"), (1, 200, 8, 8, 16, "float32"),
                (1, 300, 32, 8, 128, "float32"),
                (1, 300, 32, 8, 128, "bfloat16")) + tuple(
     (1, S, 2 * G, 2, hd, "bfloat16") for S in (1, 15, 17, 65)
-    for hd in (16, 32, 64) for G in (1, 3, 8))
+    for hd in (16, 32, 64) for G in (1, 3, 8)) + tuple(
+    (1, 200, 8, 2, hd, dt) for hd in (24, 112, 256)
+    for dt in ("float32", "bfloat16"))
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # atol = rtol
 
 
@@ -1534,7 +1608,7 @@ def kernel_records(data, cells, launches, reps: int):
             B3.shape[0] if three else n, library[cell], reps))
         cell_ms[cell] = records[-1]["ms"]
         if name in ("spmv_csr_rows", "spmm_csr_rows", "spmv_coo_nnz",
-                    "spmm_coo_nnz", "sddmm_coo"):
+                    "spmm_coo_nnz", "sddmm_coo", "spmttkrp_coo"):
             phase("profile", name=name, cell=cell, **{
                 k.replace(" ", "_"): f"{v:.4f}" for k, v in
                 device_breakdown(lambda: fns[name][0](*args)).items()})
@@ -1601,7 +1675,7 @@ def blocked_kernel_records(data, cells, launches, reps: int):
                                      Bb.vals.shape[0], Bb.shape[0],
                                      library[cell], reps))
         cell_ms[cell] = records[-1]["ms"]
-        if name == "bcsr_spmm":          # Y's zeroing, phase 1, the fold
+        if name in ("bcsr_spmm", "bcsr_sddmm"):   # each phase's kernel
             phase("profile", name=name, cell=cell, **{
                 k.replace(" ", "_"): f"{v:.4f}" for k, v in
                 device_breakdown(lambda: fns[name][0](*args)).items()})
@@ -1820,10 +1894,10 @@ def _tensors(tree):
 
 
 def flash_record(cfg, batch: int, seq: int, device, dtype: str,
-                 launches: int, reps: int):
+                 launches: int, reps: int, head_dim=None):
     """flash_attention at the model's layer shapes (q (batch, seq, H, hd);
-    k, v (batch, seq, Hkv, hd); standard normal from a seeded generator) in
-    ``dtype``: checked against the plain version, timed beside it and
+    k, v (batch, seq, Hkv, hd); hd the model's unless ``head_dim`` is
+    given; standard normal from a seeded generator) in ``dtype``: checked against the plain version, timed beside it and
     beside ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
     (a yardstick the port never calls), with its bound: the causal flops
     2·2·B·H·hd·S²/2 over the dtype's peak against q, k, v and o moved once
@@ -1831,12 +1905,13 @@ def flash_record(cfg, batch: int, seq: int, device, dtype: str,
     import torch
     import torch.nn.functional as F
     kernel, plain = kernel_fns()["flash_attention"]
-    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    hd = head_dim or cfg.resolved_head_dim
     gen = torch.Generator(device).manual_seed(SEED)
     q, k, v = (torch.randn(shape, generator=gen, device=device).to(
         getattr(torch, dtype)) for shape in
         ((batch, seq, H, hd), (batch, seq, Hkv, hd), (batch, seq, Hkv, hd)))
-    err = compare_flash(f"flash_attention {dtype} main-path shapes",
+    err = compare_flash(f"flash_attention {dtype} hd {hd} layer shapes",
                         kernel(q, k, v), plain(q, k, v), q, v)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     flops = 2 * 2 * batch * H * hd * seq * seq / 2
@@ -1914,6 +1989,7 @@ def sparse_paths(args, device):
             raise AssertionError(f"kernels never launched on the {path} "
                                  f"path: {missing}")
         phase("launches", path=path, **path_launches)
+        clocks(f"after the {path} path")
         for k, v in path_launches.items():
             launches[k] += v
         cells.update(recs)
@@ -1930,6 +2006,7 @@ def sparse_paths(args, device):
         data, {c: r for c, r in cells.items() if "_bcsr/" in c
                and not c.startswith("spadd3")}, launches, args.reps)
     records += add_records + blocked_records
+    clocks("after the sparse kernels' timing")
     cell_ms.update(add_ms)
     cell_ms.update(blocked_ms)
     for cell, rec in cells.items():
@@ -1987,6 +2064,8 @@ def main(argv=None) -> int:
         text=True).stdout.strip()
     phase("device", name=repr(kind), count=count, torch=torch.__version__,
           cuda=torch.version.cuda)
+    clocks("start")
+    memory_rates(device)
 
     # 2. build
     t0 = time.perf_counter()
@@ -2042,6 +2121,7 @@ def main(argv=None) -> int:
           rel_frobenius_vs_dense=f"{attn['rel_frobenius']:.4g}",
           f32_max_abs_err=f"{attn['f32_max_abs_err']:.3g}")
     phase("launches", path="attention", **attn_launches)
+    clocks("after the attention path")
     top = sorted(attn["profile"].items(), key=lambda kv: -kv[1])[:8]
     phase("profile", name="prefill",
           total_ms=f"{sum(attn['profile'].values()):.2f}",
@@ -2050,8 +2130,15 @@ def main(argv=None) -> int:
                           attn_launches["flash_attention"], args.reps)
              for dt in ("bfloat16", "float32")]
     records.append(flash[0])
+    # the widest instance, hd 256, at the layer's heads and length
+    wide = [flash_record(cfg, PREFILL_BATCH, args.attn_seq, device, dt, 0,
+                         args.reps, head_dim=256)
+            for dt in ("bfloat16", "float32")]
+    clocks("after the flash timing")
     for r in records + [dict(ttv, name="spmv_csr_rows(spttv)"),
-                        dict(flash[1], name="flash_attention(f32)")]:
+                        dict(flash[1], name="flash_attention(f32)"),
+                        dict(wide[0], name="flash_attention(hd256)"),
+                        dict(wide[1], name="flash_attention(hd256 f32)")]:
         phase("kernel", name=r["name"], max_abs_err=f"{r['max_abs_err']:.3g}",
               ms=f"{r['ms']:.4f}", bound_ms=f"{r['bound_ms']:.4f}",
               plain_ms=f"{r['plain_ms']:.3f}",

@@ -40,21 +40,16 @@ _SIGNATURES = {
     "bcsr_sddmm": (_P,) * 6 + (_I, _L, _I, _I, _I, _L, _I, _I, _P),
 }
 SEGMENT = 128       # stored blocks per segment, kSeg in csrc/bcsr.cu
-MAX_TILE = 256      # br * bc: bcsr_sddmm's thread per output of a block
 
 
 def _stream(name, brow, bcol, tiles, **dense):
     """Check a (brow, bcol, tiles) stream and its dense operands; True when
-    all lie on the CPU."""
+    all lie on the CPU. Every kernel takes any block shape."""
     if brow.dim() != 2 or bcol.shape != brow.shape or tiles.dim() != 4 \
             or tiles.shape[:2] != brow.shape:
         raise ValueError(f"{name}: bad shapes brow {tuple(brow.shape)} "
                          f"bcol {tuple(bcol.shape)} tiles "
                          f"{tuple(tiles.shape)}")
-    br, bc = tiles.shape[2], tiles.shape[3]
-    if br * bc > MAX_TILE or br > 32:
-        raise ValueError(f"{name}: block {br}x{bc} is larger than the "
-                         f"kernels take (br <= 32, br * bc <= {MAX_TILE})")
     return on_cpu(name, {"brow": brow, "bcol": bcol},
                   {"tiles": tiles, **dense})
 

@@ -40,9 +40,9 @@
 //    are broadcast by shuffle; the tile is read by warp-uniform loads
 //    (16-byte ones where the tile allows). The block the main path runs,
 //    (4, 4), is a template argument: its tile and C lines are loaded
-//    before the block's run-end test and FMAs. Any other block (up to
-//    br = 32) takes a generic instance with bc at run time and warps over
-//    groups of 8 rows. Each (r, j) sum adds one fma per c, c in order
+//    before the block's run-end test and FMAs. Any other block takes a
+//    generic instance with bc at run time and warps over groups of 8 rows.
+//    Each (r, j) sum adds one fma per c, c in order
 //    within a block, blocks in stream order, from 0 at each run.
 //    bcsr_spmv (J = 1): a warp per (segment, r), lanes on stored blocks.
 //    Each lane forms its block's row-r product, a segmented shuffle scan
@@ -55,10 +55,12 @@
 //    partials of the following segments that continue the block-row (found
 //    by binary search over the segments' first ids), in segment order.
 //  bcsr_sddmm: outputs never overlap, so there is no reduction across
-//    blocks. A thread block of 256 threads takes G = 256 / (br.bc) stored
-//    blocks, a thread per output (block, r, c); the blocks' br rows of C
-//    and bc rows of D (D transposed once at lower time, so both are
-//    contiguous in k) are staged in shared memory 16 k at a time.
+//    blocks. A warp takes 64 consecutive stored blocks, lanes on (column,
+//    k-quad), with 16-byte gathers of Dt, several blocks' in flight before
+//    any FMA, and the C rows of the current block-row held in registers
+//    while the warp's blocks stay in it (D is transposed once at lower
+//    time, so both are contiguous in k); a xor tree sums each column's
+//    lanes, and each tile is stored once (details at the kernel).
 // Every output is written once, with no float atomics, so results repeat
 // bit for bit. Offsets into the outputs are int64.
 //
@@ -78,7 +80,6 @@ namespace {
 constexpr int kWarp = 32;
 constexpr int kThreads = 256;
 constexpr int kSeg = 128;       // stored blocks per segment
-constexpr int kK = 16;          // k values staged at a time (SDDMM)
 
 __device__ __forceinline__ int64_t clamp_index(int64_t i, int64_t n) {
     return i < 0 ? 0 : (i >= n ? n - 1 : i);
@@ -347,64 +348,192 @@ __global__ void bcsr_fold(const int* __restrict__ brow,
     }
 }
 
-// grid (ceil(N / G), P), 256 threads; G = 256 / (br * bc) stored blocks
-// per thread block, a thread per output (block, r, c)
-__global__ void bcsr_sddmm_kernel(const int* __restrict__ brow,
-                                  const int* __restrict__ bcol,
-                                  const float* __restrict__ tiles,
-                                  const float* __restrict__ C,
-                                  const float* __restrict__ Dt,
-                                  float* __restrict__ out,
-                                  int64_t N, int br, int bc, int n_c,
-                                  int64_t c_stride, int m, int K, int G) {
-    extern __shared__ float smem[];
-    float* sC = smem;                            // (G * br, kK + 1)
-    float* sD = sC + G * br * (kK + 1);          // (G * bc, kK + 1)
-    int* sRow = reinterpret_cast<int*>(sD + G * bc * (kK + 1));
-    int* sCol = sRow + G;
-    const int64_t p = blockIdx.y;
-    const int64_t e0 = int64_t(blockIdx.x) * G;
-    const int t = threadIdx.x;
-    const int tile = br * bc;
-    const int g = t / tile, rc = t % tile, r = rc / bc, c = rc % bc;
-    const bool live = g < G && e0 + g < N;
-    if (t < G) {                                 // ids clamped per block
-        const int64_t e = e0 + t;
-        sRow[t] = e < N ? int(clamp_index(brow[p * N + e], n_c / br)) : 0;
-        sCol[t] = e < N ? int(clamp_index(bcol[p * N + e], m / bc)) : 0;
+// bcsr_sddmm: a warp per (run of kSdBlocks consecutive stored blocks of a
+// piece, row group of kSdRows rows, tile of S columns), lanes on (column
+// slot, k-quad): G lanes a column (G = K / 4 up to a power of two, at most
+// 32), S = 32 / G columns. A (4, 4) block at K = 32 is one row group and one
+// column tile (G = 8, S = 4), so its whole tile is one warp step; larger
+// blocks take more warps, each walking the same run of blocks. The warp
+// takes its blocks kSdU at a time: per k tile of 4G floats, the kSdU blocks'
+// Dt quads (16-byte loads, one per lane and block; VEC) and their tile
+// values are all loaded before any FMA; each lane holds the C quads of its
+// k-quad for the kSdRows rows of the current (block-row, k tile) in
+// registers and reloads them only when that key changes, so consecutive
+// blocks of one block-row gather C once (the result does not depend on the
+// ids' order; only the reuse does). Lane (slot, q) sums its quad's four
+// products into one partial per row (fma, in k order); a tree of log2(G)
+// xor shuffles sums the G lanes of a column; lane q of a column then
+// writes rows q, q + G, ... of the group, out = tile * sum, so a (4, 4)
+// block's 16 outputs go out as one 64-byte store. !VEC (K % 4 != 0, or C
+// or Dt off a 16-byte boundary) reads the quads as four 4-byte loads.
+// Outputs never overlap and nothing is atomic: the bits repeat from launch
+// to launch. (On an NVIDIA H100 80GB HBM3 at 700 W, sddmm_bcsr nnz cell: a
+// first version gave one warp every (row group, column tile) step of its
+// blocks, decoded per step: 155-187 registers, 8 warps an SM, 1.42 ms;
+// this one 124-128 registers, 0.82 ms. Of kSdU = 2, 4 and 8 blocks in
+// flight, 4 was fastest; capped at 80 registers it spilled and gained
+// nothing.)
+constexpr int kSdRows = 4;        // rows of C a lane holds
+constexpr int kSdU = 4;           // blocks gathered before their FMAs
+constexpr int kSdBlocks = 64;     // stored blocks a warp takes
+
+template <bool VEC>
+__device__ __forceinline__ float4 load_quad(const float* __restrict__ row,
+                                            int k, int K, bool use) {
+    if (!use) return make_float4(0.f, 0.f, 0.f, 0.f);
+    if constexpr (VEC) {
+        return __ldg(reinterpret_cast<const float4*>(row + k));
+    } else {
+        return make_float4(__ldg(row + k),
+                           k + 1 < K ? __ldg(row + k + 1) : 0.f,
+                           k + 2 < K ? __ldg(row + k + 2) : 0.f,
+                           k + 3 < K ? __ldg(row + k + 3) : 0.f);
     }
-    __syncthreads();
-    const float* Cp = C + p * c_stride;
-    const int c_rows = G * br, n_rows = G * (br + bc);
-    float acc = 0.f;
-    for (int k0 = 0; k0 < K; k0 += kK) {
-        for (int i = t; i < n_rows * kK; i += kThreads) {
-            const int row = i / kK, kk = i % kK, k = k0 + kk;
-            float v = 0.f;
-            if (row < c_rows) {
-                const int64_t cr = int64_t(sRow[row / br]) * br + row % br;
-                if (k < K) v = __ldg(Cp + cr * K + k);
-                sC[row * (kK + 1) + kk] = v;
-            } else {
-                const int dr_ = row - c_rows;
-                const int64_t dr = int64_t(sCol[dr_ / bc]) * bc + dr_ % bc;
-                if (k < K) v = __ldg(Dt + dr * K + k);
-                sD[dr_ * (kK + 1) + kk] = v;
+}
+
+__device__ __forceinline__ float dot_quad(float4 a, float4 b, float acc) {
+    acc = fmaf(a.x, b.x, acc);
+    acc = fmaf(a.y, b.y, acc);
+    acc = fmaf(a.z, b.z, acc);
+    return fmaf(a.w, b.w, acc);
+}
+
+// grid (ceil(ceil(N / kSdBlocks) * n_rg * n_ct / 8), P), 256 threads
+template <bool VEC, int G>
+__global__ void __launch_bounds__(kThreads)
+bcsr_sddmm_kernel(const int* __restrict__ brow, const int* __restrict__ bcol,
+                  const float* __restrict__ tiles,
+                  const float* __restrict__ C, const float* __restrict__ Dt,
+                  float* __restrict__ out, int64_t N, int br, int bc,
+                  int n_c, int64_t c_stride, int m, int K, int n_rg,
+                  int n_ct) {
+    constexpr int S = kWarp / G;                  // columns a step
+    constexpr int W = (kSdRows + G - 1) / G;      // rows a lane writes
+    const int lane = threadIdx.x % kWarp;
+    const int q = lane % G;
+    const int64_t p = blockIdx.y;
+    const int64_t wid = int64_t(blockIdx.x) * (kThreads / kWarp)
+                        + threadIdx.x / kWarp;
+    const int per = n_rg * n_ct;                  // warps a run of blocks
+    const int64_t b0 = wid / per * kSdBlocks;
+    if (b0 >= N) return;                          // warp-uniform
+    const int r0 = int(wid % per) / n_ct * kSdRows;   // first row
+    const int c = int(wid % per) % n_ct * S + lane / G;   // this column
+    const bool col_in = c < bc;
+    const int nr = br - r0 < kSdRows ? br - r0 : kSdRows;
+    const int n_kt = (K + 4 * G - 1) / (4 * G);
+    const int64_t b1 = b0 + kSdBlocks < N ? b0 + kSdBlocks : N;
+    const int tile = br * bc;
+    const int grid_r = n_c / br, grid_c = m / bc;
+    const int* pr = brow + p * N;
+    const int* pc = bcol + p * N;
+    // row r0 + q of this column, in the piece's first tile / output
+    const float* pt = tiles + p * N * tile + (r0 + q) * bc + c;
+    float* po = out + p * N * tile + (r0 + q) * bc + c;
+    const float* Cp = C + p * c_stride + int64_t(r0) * K;
+    float4 creg[kSdRows];                         // C quads of key `ctag`
+    int64_t ctag = -1;
+    for (int64_t base = b0; base < b1; base += kWarp) {
+        const int cnt = b1 - base < kWarp ? int(b1 - base) : kWarp;
+        int row_l = 0, col_l = 0;
+        if (lane < cnt) {
+            row_l = int(clamp_index(pr[base + lane], grid_r));
+            col_l = int(clamp_index(pc[base + lane], grid_c));
+        }
+        for (int t0 = 0; t0 < cnt; t0 += kSdU) {
+            // block t0 + u: its block-row, this lane's Dt row and tile
+            // values (rows q, q + G, ... of the group)
+            int row[kSdU], drow[kSdU];
+            float tv[kSdU][W];
+#pragma unroll
+            for (int u = 0; u < kSdU; ++u) {
+                const int t = t0 + u < cnt ? t0 + u : cnt - 1;
+                const bool in = t0 + u < cnt && col_in;
+                row[u] = __shfl_sync(0xffffffffu, row_l, t);
+                drow[u] = __shfl_sync(0xffffffffu, col_l, t) * bc
+                          + (col_in ? c : 0);
+                const int64_t e = (base + t) * tile;
+#pragma unroll
+                for (int w = 0; w < W; ++w)
+                    tv[u][w] = in && q + w * G < nr
+                        ? __ldg(pt + e + w * G * bc) : 0.f;
+            }
+            float part[kSdU][kSdRows];
+#pragma unroll
+            for (int u = 0; u < kSdU; ++u)
+#pragma unroll
+                for (int r = 0; r < kSdRows; ++r) part[u][r] = 0.f;
+            for (int kt = 0; kt < n_kt; ++kt) {
+                const int k = kt * 4 * G + 4 * q;
+                float4 d[kSdU];                   // every gather first
+#pragma unroll
+                for (int u = 0; u < kSdU; ++u)
+                    d[u] = load_quad<VEC>(Dt + int64_t(drow[u]) * K, k, K,
+                                          t0 + u < cnt && col_in && k < K);
+#pragma unroll
+                for (int u = 0; u < kSdU; ++u) {
+                    if (t0 + u >= cnt) break;     // warp-uniform
+                    const int64_t key = int64_t(row[u]) * n_kt + kt;
+                    if (key != ctag) {            // warp-uniform
+                        ctag = key;
+                        const float* cr = Cp + int64_t(row[u]) * br * K;
+#pragma unroll
+                        for (int r = 0; r < kSdRows; ++r)
+                            creg[r] = load_quad<VEC>(cr + int64_t(r) * K, k,
+                                                     K, r < nr && k < K);
+                    }
+#pragma unroll
+                    for (int r = 0; r < kSdRows; ++r)
+                        part[u][r] = dot_quad(creg[r], d[u], part[u][r]);
+                }
+            }
+#pragma unroll
+            for (int u = 0; u < kSdU; ++u) {
+                if (t0 + u >= cnt) break;         // warp-uniform
+#pragma unroll
+                for (int r = 0; r < kSdRows; ++r)
+#pragma unroll
+                    for (int off = G / 2; off > 0; off >>= 1)
+                        part[u][r] += __shfl_xor_sync(0xffffffffu,
+                                                      part[u][r], off);
+                if (!col_in) continue;
+                const int64_t e = (base + t0 + u) * tile;
+#pragma unroll
+                for (int w = 0; w < W; ++w) {
+                    const int rr = q + w * G;
+                    if (rr < nr) {
+                        // part[u][rr] without a local-memory index
+                        float sum = 0.f;
+#pragma unroll
+                        for (int x = 0; x < kSdRows; ++x)
+                            if (x == rr) sum = part[u][x];
+                        po[e + w * G * bc] = tv[u][w] * sum;
+                    }
+                }
             }
         }
-        __syncthreads();
-        if (live) {
-            const float* a = sC + (g * br + r) * (kK + 1);
-            const float* b = sD + (g * bc + c) * (kK + 1);
-#pragma unroll
-            for (int kk = 0; kk < kK; ++kk) acc += a[kk] * b[kk];
-        }
-        __syncthreads();
     }
-    if (live) {
-        const int64_t o = (p * N + e0 + g) * tile + rc;
-        out[o] = tiles[o] * acc;
-    }
+}
+
+template <int G>
+int launch_sddmm(bool vec, const int* brow, const int* bcol,
+                 const float* tiles, const float* C, const float* Dt,
+                 float* out, int P, int64_t N, int br, int bc, int n_c,
+                 int64_t c_stride, int m, int K, cudaStream_t s) {
+    constexpr int S = kWarp / G;
+    const int n_rg = (br + kSdRows - 1) / kSdRows, n_ct = (bc + S - 1) / S;
+    const int64_t warps = (N + kSdBlocks - 1) / kSdBlocks * n_rg * n_ct;
+    dim3 grid(unsigned((warps * kWarp + kThreads - 1) / kThreads),
+              unsigned(P));
+    if (vec)
+        bcsr_sddmm_kernel<true, G><<<grid, kThreads, 0, s>>>(
+            brow, bcol, tiles, C, Dt, out, N, br, bc, n_c, c_stride, m, K,
+            n_rg, n_ct);
+    else
+        bcsr_sddmm_kernel<false, G><<<grid, kThreads, 0, s>>>(
+            brow, bcol, tiles, C, Dt, out, N, br, bc, n_c, c_stride, m, K,
+            n_rg, n_ct);
+    return int(cudaGetLastError());
 }
 
 // Phase 1 of bcsr_spmm by the (BR, BC) instance; -1 (nothing launched)
@@ -454,9 +583,9 @@ int bcsr_spmv(const int* brow, const int* bcol, const float* tiles,
     return fold(brow, head, tail, y, P, N, br, R, nseg, s);
 }
 
-// brow, bcol: (P, N); tiles: (P, N, br, bc) with br <= 32 and
-// br * bc <= 256; C: (grid_cols * bc, J); head, tail: (P, nseg, br, J)
-// scratch; Y: (P, R * br, J), zeroed.
+// brow, bcol: (P, N); tiles: (P, N, br, bc), any block; C:
+// (grid_cols * bc, J); head, tail: (P, nseg, br, J) scratch; Y:
+// (P, R * br, J), zeroed.
 int bcsr_spmm(const int* brow, const int* bcol, const float* tiles,
               const float* C, float* head, float* tail, float* Y, int P,
               int64_t N, int br, int bc, int grid_cols, int J, int R,
@@ -483,22 +612,32 @@ int bcsr_spmm(const int* brow, const int* bcol, const float* tiles,
     return fold(brow, head, tail, Y, P, N, int64_t(br) * J, R, nseg, s);
 }
 
-// brow, bcol: (P, N); tiles, out: (P, N, br, bc) with br * bc <= 256;
-// C: (n_c, K) shared (c_stride 0) or (P, n_c, K) (c_stride n_c * K), row
-// blocks of br rows (n_c a multiple of br); Dt: (m, K), D transposed, in
-// column blocks of bc rows (m a multiple of bc).
+// brow, bcol: (P, N); tiles, out: (P, N, br, bc), any block; C: (n_c, K)
+// shared (c_stride 0) or (P, n_c, K) (c_stride n_c * K), row blocks of br
+// rows (n_c a multiple of br); Dt: (m, K), D transposed, in column blocks
+// of bc rows (m a multiple of bc).
 int bcsr_sddmm(const int* brow, const int* bcol, const float* tiles,
                const float* C, const float* Dt, float* out, int P,
                int64_t N, int br, int bc, int n_c, int64_t c_stride, int m,
                int K, void* stream) {
-    const int G = kThreads / (br * bc);
-    const size_t smem = size_t(G) * (br + bc) * (kK + 1) * sizeof(float)
-                        + 2 * size_t(G) * sizeof(int);
-    dim3 grid(unsigned((N + G - 1) / G), unsigned(P));
-    bcsr_sddmm_kernel<<<grid, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-        brow, bcol, tiles, C, Dt, out, N, br, bc, n_c, c_stride, m, K, G);
-    return int(cudaGetLastError());
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    // 16-byte quads need K % 4 == 0 and aligned bases (a view may start
+    // anywhere); each piece's C then starts aligned too
+    const bool vec = K % 4 == 0
+                     && reinterpret_cast<uintptr_t>(C) % 16 == 0
+                     && reinterpret_cast<uintptr_t>(Dt) % 16 == 0;
+    int g = 1;                                   // K / 4 up to a power of 2
+    while (g < kWarp && 4 * g < K) g <<= 1;
+    switch (g) {
+#define BCSR_SDDMM(G_)                                                        \
+    case G_:                                                                  \
+        return launch_sddmm<G_>(vec, brow, bcol, tiles, C, Dt, out, P, N, br, \
+                                bc, n_c, c_stride, m, K, s);
+    BCSR_SDDMM(1) BCSR_SDDMM(2) BCSR_SDDMM(4) BCSR_SDDMM(8) BCSR_SDDMM(16)
+    BCSR_SDDMM(32)
+#undef BCSR_SDDMM
+    }
+    return int(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

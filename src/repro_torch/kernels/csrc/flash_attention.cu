@@ -70,7 +70,8 @@
 // The entry point returns cudaGetLastError() after its launch (or the
 // error of cudaFuncSetAttribute, which dynamic shared memory above 48 KB
 // needs: at hd 128 the f32 kernel's K/V tile pair is 64 KB, the bf16
-// kernel's two stages and q tile 80 KB).
+// kernel's two stages and q tile 80 KB; at hd 256, 128 KB and 160 KB, of
+// the 227 KB a block may take).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -563,7 +564,8 @@ extern "C" {
 
 // q, o: (B, S, H, hd); k, v: (B, S, Hkv, hd); all contiguous, of one dtype
 // (bf16 when is_bf16, else float32); H a multiple of Hkv; hd in
-// {16, 32, 64, 128}.
+// {16, 32, 64, 128, 256} (the wrapper zero-pads any other hd <= 256 to the
+// next of these and passes the true width's scale).
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         void* o, int B, int S, int H, int Hkv, int hd,
                         int is_bf16, float scale, void* stream) {
@@ -574,6 +576,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
         case 64: return launch<64>(q, k, v, o, B, S, H, Hkv, is_bf16, scale, s);
         case 128:
             return launch<128>(q, k, v, o, B, S, H, Hkv, is_bf16, scale, s);
+        case 256:
+            return launch<256>(q, k, v, o, B, S, H, Hkv, is_bf16, scale, s);
         default: return int(cudaErrorInvalidValue);
     }
 }

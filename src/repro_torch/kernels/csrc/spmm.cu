@@ -58,8 +58,10 @@
 //    the segment's start goes to head[seg], one that crosses its end (and
 //    not its start) to tail[seg].
 //  - Group pass: group[g] = head[64 g] + ... + head[64 g + 63], in order
-//    (spmm_rows_group_kernel, shared with the rows kernel).
-//  - Phase 2, driven by segment edges: a thread per edge s (the first entry
+//    (segment_fold.cuh's group_sums, shared with the rows kernel and
+//    spmttkrp_coo).
+//  - Phase 2 (segment_fold.cuh's edge_fold, shared with spmttkrp_coo),
+//    driven by segment edges: a thread per edge s (the first entry
 //    of segment s). The rows that cross an edge (rows[256 s - 1] ==
 //    rows[256 s]) are taken at their first crossing edge, which finds the
 //    row's last segment by a search over the segments' first ids (nseg
@@ -90,6 +92,7 @@
 #include <stdint.h>
 
 #include "merge_rows.cuh"
+#include "segment_fold.cuh"
 
 namespace {
 
@@ -99,6 +102,8 @@ constexpr int kSeg = 256;      // entries per spmm_coo_nnz segment
 
 using merge_rows::RowEnds;
 using merge_rows::kItems;
+using segment_fold::fold_segments;
+using segment_fold::kGroup;
 
 // Rows phase 1: a warp per (piece, chunk, column tile); grid
 // (ceil(n_chunks * n_tiles * 32 / 256), P).
@@ -178,65 +183,6 @@ __global__ void spmm_rows_phase1_kernel(const int* __restrict__ pos,
         if (ib == i0 && open) head[edge] = acc;             // a middle chunk
         else if (jb > re.end(ib - 1)) tail[edge] = acc;     // row starts here
     }
-}
-
-// Adds x[s * J] for s in [from, to] to acc, in order, kFold loads in
-// flight.
-constexpr int kFold = 32;
-
-__device__ __forceinline__ float fold_in_order(const float* __restrict__ x,
-                                               int64_t J, int64_t from,
-                                               int64_t to, float acc) {
-    int64_t s = from;
-    for (; s + kFold - 1 <= to; s += kFold) {
-        float h[kFold];
-#pragma unroll
-        for (int u = 0; u < kFold; ++u) h[u] = __ldg(x + (s + u) * J);
-#pragma unroll
-        for (int u = 0; u < kFold; ++u) acc += h[u];
-    }
-    for (; s <= to; ++s) acc += __ldg(x + s * J);
-    return acc;
-}
-
-// Rows phase 2a: a warp per (piece, group of kGroup chunks, column tile);
-// group[g] = head[64 g] + ... + head[64 g + 63], in order. Phase 2 reads it
-// only for groups inside one row's span, where phase 1 wrote every head, so
-// a row's fold takes one load per group instead of 64.
-constexpr int kGroup = 64;
-
-__global__ void spmm_rows_group_kernel(const float* __restrict__ head,
-                                       float* __restrict__ group, int J,
-                                       int n_tiles, int64_t n_chunks,
-                                       int64_t n_groups) {
-    const int64_t p = blockIdx.y;
-    const int64_t warp = (int64_t(blockIdx.x) * blockDim.x + threadIdx.x)
-                         / kWarp;
-    const int j = int(warp % n_tiles) * kWarp + threadIdx.x % kWarp;
-    if (warp >= n_groups * n_tiles || j >= J) return;
-    const int64_t g = warp / n_tiles;
-    group[(p * n_groups + g) * J + j] = fold_in_order(
-        head + (p * n_chunks + g * kGroup) * J + j, J, 0, kGroup - 1, 0.f);
-}
-
-// tail[a] + head[a + 1] + ... + head[b] of one column (x[s * J] is
-// segment or chunk s's partial, group[g] the sum of heads 64 g .. 64 g + 63),
-// in a fixed order: the heads before the first group inside (a, b], those
-// groups' sums, the heads after them.
-__device__ __forceinline__ float fold_segments(const float* __restrict__ hp,
-                                               const float* __restrict__ tp,
-                                               const float* __restrict__ gp,
-                                               int64_t J, int64_t a,
-                                               int64_t b) {
-    const int64_t g_lo = (a + kGroup) / kGroup, g_hi = (b + 1) / kGroup;
-    float acc = __ldg(tp + a * J);
-    int64_t s = a + 1;
-    if (g_lo < g_hi) {
-        acc = fold_in_order(hp, J, s, g_lo * kGroup - 1, acc);
-        acc = fold_in_order(gp, J, g_lo, g_hi - 1, acc);
-        s = g_hi * kGroup;
-    }
-    return fold_in_order(hp, J, s, b, acc);
 }
 
 // Rows phase 2: a warp per 32 rows of a piece, for the rows that cross
@@ -357,54 +303,6 @@ __global__ void spmm_coo_phase1_kernel(const int* __restrict__ rows,
     }
 }
 
-// Phase 2: a thread per segment edge s >= 1 of a piece; grid
-// (ceil(nseg / 256), P). The lane at a row's first crossing edge finds the
-// row's last segment b1 (the last segment whose first id is the row), and
-// the warp writes Y[row] = fold_segments(first = s - 1, b1).
-__global__ void spmm_coo_phase2_kernel(const int* __restrict__ rows,
-                                       const float* __restrict__ head,
-                                       const float* __restrict__ tail,
-                                       const float* __restrict__ group,
-                                       float* __restrict__ Y, int64_t N,
-                                       int J, int max_rows, int64_t nseg,
-                                       int64_t n_groups) {
-    const int64_t p = blockIdx.y;
-    const int64_t e = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-    const int lane = threadIdx.x % kWarp;
-    if (e - lane >= nseg) return;                     // warp-uniform
-    const int* pr = rows + p * N;
-    int row = -1;
-    int64_t b1 = 0;
-    if (e >= 1 && e < nseg) {
-        const int r = __ldg(pr + e * kSeg);
-        const bool starts = __ldg(pr + e * kSeg - 1) == r
-            && (e == 1 || __ldg(pr + (e - 1) * kSeg - 1) != r);
-        if (starts && r >= 0 && r < max_rows) {
-            // the last segment k >= e with rows[k * 256] == r
-            int64_t lo = e, hi = nseg;
-            while (hi - lo > 1) {
-                const int64_t mid = (lo + hi) >> 1;
-                if (__ldg(pr + mid * kSeg) == r) lo = mid;
-                else hi = mid;
-            }
-            row = r;
-            b1 = lo;
-        }
-    }
-    const float* hp = head + p * nseg * J;
-    const float* tp = tail + p * nseg * J;
-    const float* gp = group + p * n_groups * J;
-    for (unsigned todo = __ballot_sync(0xffffffffu, row >= 0); todo;
-         todo &= todo - 1) {
-        const int k = __ffs(todo) - 1;
-        const int64_t a = e - lane + k - 1;
-        const int64_t b = __shfl_sync(0xffffffffu, b1, k);
-        float* out = Y + (p * max_rows + __shfl_sync(0xffffffffu, row, k)) * J;
-        for (int j = lane; j < J; j += kWarp)
-            out[j] = fold_segments(hp + j, tp + j, gp + j, J, a, b);
-    }
-}
-
 }  // namespace
 
 extern "C" {
@@ -431,7 +329,7 @@ int spmm_csr_rows(const int* pos, const int* crd, const float* vals,
         const int64_t warps = n_groups * n_tiles;
         dim3 grid(unsigned((warps * kWarp + kThreads - 1) / kThreads),
                   unsigned(P));
-        spmm_rows_group_kernel<<<grid, kThreads, 0, s>>>(
+        segment_fold::group_sums<<<grid, kThreads, 0, s>>>(
             head, group, J, n_tiles, n_chunks, n_groups);
         err = int(cudaGetLastError());
         if (err != 0) return err;
@@ -457,7 +355,6 @@ int spmm_coo_nnz(const int* rows, const int* cols, const float* vals,
     if (err != 0) return err;
     const int n_tiles = (J + kWarp - 1) / kWarp;
     const int64_t nseg = (N + kSeg - 1) / kSeg;
-    const int64_t n_groups = nseg / kGroup;
     const int64_t warps1 = nseg * n_tiles;
     dim3 grid1(unsigned((warps1 * kWarp + kThreads - 1) / kThreads),
                unsigned(P));
@@ -465,19 +362,8 @@ int spmm_coo_nnz(const int* rows, const int* cols, const float* vals,
         rows, cols, vals, C, head, tail, Y, N, K, J, max_rows, n_tiles, nseg);
     err = int(cudaGetLastError());
     if (err != 0 || nseg < 2) return err;
-    if (n_groups > 0) {
-        const int64_t warps = n_groups * n_tiles;
-        dim3 grid(unsigned((warps * kWarp + kThreads - 1) / kThreads),
-                  unsigned(P));
-        spmm_rows_group_kernel<<<grid, kThreads, 0, s>>>(
-            head, group, J, n_tiles, nseg, n_groups);
-        err = int(cudaGetLastError());
-        if (err != 0) return err;
-    }
-    dim3 grid2(unsigned((nseg + kThreads - 1) / kThreads), unsigned(P));
-    spmm_coo_phase2_kernel<<<grid2, kThreads, 0, s>>>(
-        rows, head, tail, group, Y, N, J, max_rows, nseg, n_groups);
-    return int(cudaGetLastError());
+    return segment_fold::fold_rows<kSeg>(rows, head, tail, group, Y, P, N, J,
+                                         max_rows, nseg, s);
 }
 
 }  // extern "C"

@@ -21,18 +21,21 @@ _SIGNATURES = {
     # q, k, v, o, B, S, H, Hkv, hd, is_bf16, scale, stream
     "flash_attention_fwd": (_P,) * 4 + (_I,) * 6 + (ctypes.c_float, _P),
 }
-HEAD_DIMS = (16, 32, 64, 128)
-DTYPES = (torch.float32, torch.bfloat16)
+HEAD_DIMS = (16, 32, 64, 128, 256)     # the widths the card's kernels take
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)   # the plain version
+CARD_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
-                          v: torch.Tensor) -> torch.Tensor:
-    """The masked-einsum oracle: grouped scores in float32, the causal mask,
-    a float32 softmax, the weights cast to q's dtype and applied to v."""
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          scale=None) -> torch.Tensor:
+    """The masked-einsum oracle: grouped scores in float32 times ``scale``
+    (hd ** -0.5 by default), the causal mask, a float32 softmax, the
+    weights cast to q's dtype and applied to v."""
     B, S, H, hd = q.shape
     Hkv = k.shape[2]
+    scale = hd ** -0.5 if scale is None else scale
     qg = q.reshape(B, S, Hkv, H // Hkv, hd)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) / hd ** 0.5
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
     mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
     s = torch.where(mask, s, torch.full((), -1e30, device=q.device))
     w = torch.softmax(s, dim=-1).to(q.dtype)
@@ -44,8 +47,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     block_q: int = 128, block_k: int = 128) -> torch.Tensor:
     """Causal GQA attention: q (B, S, H, hd), k and v (B, S, Hkv, hd) with
     H = G·Hkv; query head h reads KV head h // G. Returns (B, S, H, hd) in
-    q's dtype (float32 or bfloat16; q, k and v of one dtype, contiguous;
-    hd in {16, 32, 64, 128}).
+    q's dtype (q, k and v of one float dtype, contiguous). On the CPU any
+    hd and float32, bfloat16 or float16 (the plain version). On the card
+    float32 or bfloat16 and hd up to 256: a width outside HEAD_DIMS is
+    zero-padded to the next one (zero columns leave q·k unchanged; the
+    scale stays the true width's) and the output sliced back; hd > 256 and
+    float16 raise (ROADMAP Queue 3 item 2).
 
     ``block_q`` and ``block_k`` are the TPU kernel's tile sizes. They are
     checked and accepted so its callers run unchanged, but the Hopper
@@ -62,10 +69,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if min(block_q, block_k) <= 0:
         raise ValueError(f"flash_attention: block sizes must be positive, "
                          f"got ({block_q}, {block_k})")
-    B, S, H, hd = q.shape
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {hd} is not one of "
-                         f"{HEAD_DIMS}")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: q, k and v must share one dtype "
                         f"of {DTYPES}, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -78,13 +81,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: inputs must all lie on one CUDA "
                          f"device or all on the CPU, got "
                          f"{sorted(map(str, devices))}")
+    B, S, H, hd = q.shape
+    if hd > HEAD_DIMS[-1] or q.dtype not in CARD_DTYPES:
+        raise NotImplementedError(
+            f"flash_attention: head_dim {hd} in {q.dtype} on the card; the "
+            f"kernels take hd <= {HEAD_DIMS[-1]} in {CARD_DTYPES} (ROADMAP "
+            f"Queue 3 item 2)")
+    if q.numel() == 0:
+        return torch.empty_like(q)
+    width = next(w for w in HEAD_DIMS if w >= hd)
+    if width != hd:                       # zero columns: q·k is unchanged
+        q, k, v = (torch.nn.functional.pad(x, (0, width - hd))
+                   for x in (q, k, v))
     o = torch.empty_like(q)
-    if o.numel() == 0:
-        return o
     with torch.cuda.device(q.device):
         err = library("flash_attention", _SIGNATURES).flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, H,
-            k.shape[2], hd, int(q.dtype == torch.bfloat16), hd ** -0.5,
+            k.shape[2], width, int(q.dtype == torch.bfloat16), hd ** -0.5,
             torch.cuda.current_stream().cuda_stream)
     check_launch("flash_attention", err)
-    return o
+    return o if width == hd else o[..., :hd].contiguous()

@@ -26,11 +26,12 @@ from ._build import check_launch, library, on_cpu
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
-    # rows, j, k, vals, C, D, head, tail, A, P, N, J, K, L, max_rows, stream
-    "spmttkrp_coo": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I,
-                     _I, _P),
+    # rows, j, k, vals, C, D, head, tail, group, A, P, N, J, K, L, max_rows,
+    # stream
+    "spmttkrp_coo": (_P,) * 10 + (_I, _L, _I, _I, _I, _I, _P),
 }
-_SEGMENT = 256          # entries per segment, kSeg in csrc/spmttkrp.cu
+SEGMENT = 256       # entries per segment, kSeg in csrc/spmttkrp.cu
+GROUP = 64          # segments per group sum, kGroup in csrc/segment_fold.cuh
 
 
 def supports(format: "fmt.Format", space: str) -> bool:
@@ -79,9 +80,10 @@ def spmttkrp_coo(rows: torch.Tensor, j: torch.Tensor, k: torch.Tensor,
                  vals: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
                  max_rows: int) -> torch.Tensor:
     """A (P, max_rows, L): A[p, r] = Σ vals[p, e]·C[j[p, e]]⊙D[k[p, e]] over
-    the entries of piece p with rows[p, e] == r. ``rows`` (P, N) must be
-    non-decreasing within each piece (the kernel's contract); ids outside
-    [0, max_rows) are dropped. ``C`` is (J, L), ``D`` (K, L)."""
+    the entries of piece p with rows[p, e] == r, summed in a fixed order.
+    ``rows`` (P, N) must be non-decreasing within each piece (the kernel's
+    contract, as :func:`spmm.spmm_coo_nnz`'s); ids outside [0, max_rows)
+    are dropped. ``C`` is (J, L), ``D`` (K, L)."""
     if rows.dim() != 2 or j.shape != rows.shape or k.shape != rows.shape \
             or vals.shape != rows.shape or C.dim() != 2 or D.dim() != 2 \
             or C.shape[1] != D.shape[1]:
@@ -97,14 +99,16 @@ def spmttkrp_coo(rows: torch.Tensor, j: torch.Tensor, k: torch.Tensor,
     A = torch.zeros((P, max_rows, L), dtype=torch.float32, device=rows.device)
     if P * max_rows * L == 0 or N == 0 or J * K == 0:
         return A                       # nothing to launch: no stored entry
-    nseg = -(-N // _SEGMENT)
+    nseg = -(-N // SEGMENT)
     head = torch.empty((P, nseg, L), dtype=torch.float32, device=rows.device)
     tail = torch.empty_like(head)
+    group = torch.empty((P, nseg // GROUP, L), dtype=torch.float32,
+                        device=rows.device)
     with torch.cuda.device(rows.device):
         err = library("spmttkrp", _SIGNATURES).spmttkrp_coo(
             rows.data_ptr(), j.data_ptr(), k.data_ptr(), vals.data_ptr(),
             C.data_ptr(), D.data_ptr(), head.data_ptr(), tail.data_ptr(),
-            A.data_ptr(), P, N, J, K, L, int(max_rows),
+            group.data_ptr(), A.data_ptr(), P, N, J, K, L, int(max_rows),
             torch.cuda.current_stream().cuda_stream)
     check_launch("spmttkrp_coo", err)
     return A

@@ -155,14 +155,51 @@ def test_flash_first_token_and_padding_rows():
                                rtol=2e-5)
 
 
+@pytest.mark.parametrize("hd", [24, 112, 256])
+def test_flash_other_head_widths_match_reference(hd):
+    """Widths outside the card's instances (24, zamba2-7b's 112) and the
+    widest instance, 256: the plain version against the Pallas kernel in
+    interpret mode, as test_flash_matches_reference_f32."""
+    q, k, v = _qkv(hd, 1, 40, 4, 2, hd)
+    want = ref_flash(q, k, v, block_q=16, block_k=16)
+    got = flash_attention(_t(q), _t(k), _t(v), block_q=16, block_k=16)
+    assert got.shape == (1, 40, 4, hd)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)
+
+
+def test_flash_matches_reference_float16():
+    """float16, which the reference takes, at the bf16 test's tolerance."""
+    q, k, v = _qkv(16, 2, 128, 4, 2, 16)
+    want = ref_flash(*(jnp.asarray(x, jnp.float16) for x in (q, k, v)))
+    got = flash_attention(*(_t(x).to(torch.float16) for x in (q, k, v)))
+    assert got.dtype == torch.float16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=3e-2,
+                               rtol=3e-2)
+
+
+@pytest.mark.parametrize("hd,width", [(24, 32), (112, 128), (200, 256)])
+def test_flash_zero_padding_keeps_the_result(hd, width):
+    """What the wrapper does on the card for a width outside its
+    instances: q, k and v zero-padded to the next instance, run with the
+    true width's scale and sliced back, give the unpadded result."""
+    q, k, v = (_t(x) for x in _qkv(hd + 1, 1, 33, 6, 2, hd))
+    pad = [torch.nn.functional.pad(x, (0, width - hd)) for x in (q, k, v)]
+    got = flash_attention_plain(*pad, scale=hd ** -0.5)[..., :hd]
+    np.testing.assert_allclose(got.numpy(),
+                               flash_attention_plain(q, k, v).numpy(),
+                               atol=1e-6, rtol=0)
+
+
 @pytest.mark.parametrize("bad", ["head_dim", "dtype", "mixed", "groups",
                                  "blocks", "layout"])
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take(bad):
     q, k, v = (_t(x) for x in _qkv(0, 1, 8, 4, 2, 16))
-    if bad == "head_dim":
-        q, k, v = (torch.zeros(x.shape[:3] + (24,)) for x in (q, k, v))
+    if bad == "head_dim":                # q and k of different widths
+        k, v = (torch.zeros(x.shape[:3] + (24,)) for x in (k, v))
     elif bad == "dtype":
-        q, k, v = (x.to(torch.float16) for x in (q, k, v))
+        q, k, v = (x.to(torch.int32) for x in (q, k, v))
     elif bad == "mixed":
         v = v.to(torch.bfloat16)
     elif bad == "groups":

@@ -187,7 +187,8 @@ def test_materialize_bcsr_nnz_matches_reference(key, block, pieces):
 def test_wrappers_on_cpu_use_plain_versions():
     """On CPU tensors the three wrappers return their plain versions'
     results (sorted ids, a dropped padding tail, an empty piece) and launch
-    nothing; a malformed call raises on every device."""
+    nothing; a malformed call raises on every device; a (32, 16) block, of
+    more than 256 entries, runs."""
     rng = np.random.default_rng(5)
     P, N, br, bc, R, gc = 3, 40, 4, 8, 6, 5
     brow = np.sort(rng.integers(0, R, (P, N)), axis=1).astype(np.int32)
@@ -229,7 +230,8 @@ def test_wrappers_on_cpu_use_plain_versions():
         bcsr.bcsr_sddmm(T(brow), T(bcol), T(tiles), C[:, :-1], Dt)
     with pytest.raises(TypeError):
         bcsr.bcsr_spmv(T(brow).long(), T(bcol), T(tiles), c_blk, R)
-    with pytest.raises(ValueError, match="larger"):
-        big = torch.zeros((1, 1, 32, 16))
-        bcsr.bcsr_spmv(T(brow[:1, :1]), T(bcol[:1, :1]), big,
-                       torch.zeros((1, 16)), 1)
+    # a block of more than 256 entries is taken (once refused here)
+    ids = torch.zeros((1, 1), dtype=torch.int32)
+    big = bcsr.bcsr_spmv(ids, ids, torch.ones((1, 1, 32, 16)),
+                         torch.ones((1, 16)), 1)
+    assert torch.equal(big, torch.full((1, 32), 16.0))

@@ -405,3 +405,100 @@ def test_gather_redesigns_take_their_paths(card):
             and ("4-byte offset" in c[0]) == off)
         launched = chip_smoke.device_breakdown(lambda: fns[name][0](*args))
         assert kernel in launched, (label, sorted(launched))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["bcsr_spmv", "bcsr_spmm", "bcsr_sddmm"])
+def test_blocked_kernels_take_oversized_blocks(card, name):
+    """Blocks with more than 32 rows or more than 256 entries, (33, 1) and
+    (64, 8), over chip_smoke's blocked edge cases (runs on segment edges,
+    ids below 0, padding): each blocked kernel launches, agrees with its
+    plain version and gives the same bits twice."""
+    kernel = chip_smoke.kernel_fns()[name][0]
+    cases = [c for c in chip_smoke.kernel_cases(np.random.default_rng(29),
+                                                card)
+             if c[1] == name and ("block=(33, 1)" in c[0]
+                                  or "block=(64, 8)" in c[0])]
+    assert {"(33, 1)" in c[0] for c in cases} == {True, False}
+    before = _build.LAUNCHES[name]
+    for label, _, args, abs_args in cases:
+        chip_smoke.compare_kernel(label, name, args, abs_args)
+        assert torch.equal(kernel(*args), kernel(*args)), label
+    assert _build.LAUNCHES[name] - before == 3 * len(cases)
+
+
+@pytest.mark.gpu
+def test_flash_attention_other_head_widths(card):
+    """hd 112 (zero-padded to the 128 instance) and 256 (its own instance)
+    in f32 and bf16 against the plain version (2e-5, 3e-2), position 0 is
+    v[0], two launches give the same bits; hd 300 and float16 raise on the
+    card, naming the ROADMAP item."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    gen = torch.Generator(card).manual_seed(1)
+    before = _build.LAUNCHES["flash_attention"]
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, S, H, Hkv, hd in ((2, 257, 8, 2, 112), (1, 200, 4, 1, 256)):
+            q, k, v = (torch.randn(shape, generator=gen, device=card)
+                       .to(dtype) for shape in
+                       ((B, S, H, hd), (B, S, Hkv, hd), (B, S, Hkv, hd)))
+            got = flash_attention(q, k, v)
+            chip_smoke.compare_flash(f"{dtype} {(B, S, H, Hkv, hd)}", got,
+                                     flash_attention_plain(q, k, v), q, v)
+            assert torch.equal(got, flash_attention(q, k, v))
+            n += 2
+    assert _build.LAUNCHES["flash_attention"] - before == n
+    for shape, dtype in (((1, 8, 2, 300), torch.float32),
+                         ((1, 8, 2, 64), torch.float16)):
+        x = torch.zeros(shape, device=card, dtype=dtype)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            flash_attention(x, x, x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["bcsr_sddmm", "spmttkrp_coo"])
+def test_blocked_sddmm_and_mttkrp_repeat_bit_for_bit(card, name):
+    """The two kernels redesigned to keep more gathers in flight and fold
+    in groups, at their edges: bcsr_sddmm at every block of chip_smoke's
+    blocked cases, K in {1, 7, 32, 33}, C shared and per piece and 4 bytes
+    off an aligned base; spmttkrp_coo over rows across one and two segment
+    edges, rows over 64, 65, 128 and 129 segments (the group fold), L in
+    {1, 7, 32, 33}. Each agrees with its plain version and two launches
+    give the same bits."""
+    kernel = chip_smoke.kernel_fns()[name][0]
+    cases = [c for c in chip_smoke.kernel_cases(np.random.default_rng(31),
+                                                card) if c[1] == name]
+    labels = " ".join(c[0] for c in cases)
+    assert ("C at a 4-byte offset" in labels if name == "bcsr_sddmm"
+            else "group edges" in labels)
+    before = _build.LAUNCHES[name]
+    for label, _, args, abs_args in cases:
+        chip_smoke.compare_kernel(label, name, args, abs_args)
+        assert torch.equal(kernel(*args), kernel(*args)), label
+    assert _build.LAUNCHES[name] - before == 3 * len(cases) > 0
+
+
+@pytest.mark.gpu
+def test_blocked_sddmm_and_mttkrp_take_their_paths(card):
+    """The kernels each wrapper launches, by name (torch.profiler): an
+    aligned C at K = 32 runs bcsr_sddmm's 16-byte instance and a C view 4
+    bytes off its 4-byte one; spmttkrp_coo over rows across many segments
+    runs phase 1, the group sums and the edge fold."""
+    fns = chip_smoke.kernel_fns()
+    cases = [c for c in chip_smoke.kernel_cases(np.random.default_rng(37),
+                                                card)
+             if c[1] in ("bcsr_sddmm", "spmttkrp_coo")]
+    want = {("bcsr_sddmm", "block=(4, 4) K=32 shared", False):
+            ("bcsr_sddmm_kernel<true",),
+            ("bcsr_sddmm", "block=(4, 4) K=32 shared", True):
+            ("bcsr_sddmm_kernel<false",),
+            ("spmttkrp_coo", "group edges L=32", False):
+            ("spmttkrp_phase1_kernel", "group_sums", "edge_fold")}
+    for (name, tag, off), kernels in want.items():
+        label, _, args, _ = next(
+            c for c in cases if c[1] == name and tag in c[0]
+            and ("4-byte offset" in c[0]) == off)
+        launched = " ".join(chip_smoke.device_breakdown(
+            lambda: fns[name][0](*args)))
+        assert all(k in launched for k in kernels), (label, launched)

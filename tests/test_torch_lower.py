@@ -240,6 +240,25 @@ def test_blocked_nonsquare_cell(expr, fmt_name, fm, strategy):
     _check_cell(expr, fmt_name, fm, strategy, 3)
 
 
+# Blocks with more than 32 rows or more than 256 entries, and ones longer
+# or wider than the 19 x 13 operand itself (ROADMAP Queue 3 item 1).
+OVERSIZED_BLOCKS = [(33, 1), (16, 32), (1, 300), (64, 8)]
+
+
+@pytest.mark.parametrize("strategy", ["rows", "nnz"])
+@pytest.mark.parametrize("fmt", ["bcsr", "bcsc"])
+@pytest.mark.parametrize("block", OVERSIZED_BLOCKS,
+                         ids=[f"{b[0]}x{b[1]}" for b in OVERSIZED_BLOCKS])
+@pytest.mark.parametrize("expr", ["spmv", "spmm", "sddmm"])
+def test_blocked_oversized_cell(expr, block, fmt, strategy):
+    """The blocked cells of test_blocked_nonsquare_cell at blocks the
+    kernels once refused: each lowers and runs on the CPU and equals the
+    reference's run() and both interpreters."""
+    make = "BCSR" if fmt == "bcsr" else "BCSC"
+    _check_cell(expr, f"{fmt}{block[0]}x{block[1]}",
+                lambda F: getattr(F, make)(block), strategy, 3)
+
+
 @pytest.mark.parametrize("strategy", ["rows", "nnz"])
 @pytest.mark.parametrize("fmt_name,fm", FORMATS_ADD,
                          ids=[f[0] for f in FORMATS_ADD])
