@@ -17,7 +17,7 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
              with each kernel's registers, shared memory and spills; then
              the HMMA (tensor-core) instructions of each flash kernel in
              the built library's SASS (``cuobjdump -sass``): every bf16
-             instance must have some.
+             and f16 instance, and the column-chunk ones, must have some.
 3. kernels — each Hopper kernel against its plain PyTorch version on the
              card: first at edge-case shapes (empty rows, an empty piece, a
              row longer than 128 entries, a slice longer than one 256-entry
@@ -35,8 +35,9 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
              be read, blocks (1, 1), (2, 2), (3, 5), (4, 4), (4, 8),
              (8, 4), (32, 8), (33, 1) and (64, 8) with a ragged last
              block-row and block-column, J in {1, 16, 33}, K in {1, 7,
-             32, 33}, and (4, 4) tiles and SDDMM's C 4 bytes off an
-             aligned base; for
+             32, 33}, and (4, 4) tiles (SpMV, SpMM) and SDDMM's C 4 bytes
+             off an aligned base, and block-rows over 70 and 128 segments
+             (the fold's 64-segment group sums) at (4, 4) and (3, 5); for
              the SpMM nnz kernel the SpMV nnz and SpMTTKRP streams, runs
              across one and two 256-entry segments, J in {1, 7, 16, 32,
              33, 130}; for the rows kernels' merge-path split (chunks of
@@ -56,20 +57,26 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
              values, a column of 901 entries (longer than a task and a
              128-entry window), three identical lists, one list alone
              over two windows, empty rows and pieces, tiles (), (1, 3),
-             (3, 2), (2, 2) and (4, 4);
+             (3, 2), (2, 2) and (4, 4); for the nnz unions a stream of
+             59 runs (not a multiple of 32) among which 40 of 40 entries
+             over 8 segments, tiles (), (4, 4) and (3, 5), and (4, 4)
+             values 4 bytes off an aligned base;
              for flash_attention every case of
              tests/test_flash_kernel.py with hd 128 added: G in {1, 2, 3,
              4, 8}, ragged S = 100, 200 and 300, f32 and bf16, and the
              bf16 kernel's tile edges S in {1, 15, 17, 65} at hd in
              {16, 32, 64} and G in {1, 3, 8}, and hd 24, 112 (zero-padded
-             to 32 and 128) and 256 in f32 and bf16), later
+             to 32 and 128) and 256 in f32 and bf16; float16 at the
+             llama3-8b layer's heads, tile edges and hd 24, 112 and 256;
+             hd 320 (padded to 384) and 512 in all three dtypes), later
              at the main path's shapes. Per-entry tolerance
              |got - plain| <= 1e-4 * scale + 1e-6, with ``scale`` the same
              computation on absolute values: f32 sums of up to a million
              terms, taken in a different order. A compressed result must
              have the plain version's pattern exactly. flash_attention is
              held at atol = rtol = 2e-5 in f32 and 3e-2 in bf16 (the
-             reference test's), and its position 0 must equal v[0].
+             reference test's) and 1e-2 in f16 (three more mantissa
+             bits), and its position 0 must equal v[0].
 4. main    — five paths, each driven through the public entry points with
              the kernel launch counts reset just before and read just
              after; each of the path's kernels must have launched.
@@ -120,19 +127,21 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
    spttv/rows), for spmv/nnz and spmm/nnz (the memset, phase 1, the group
    pass and phase 2), for sddmm/nnz (its one kernel), for spmttkrp/rows
    (the wrapper's zeroing of A, phase 1, the group pass and the edge
-   fold), for spmm_bcsr/rows (the wrapper's zeroing of Y, phase 1 and the
-   fold), for sddmm_bcsr/nnz (its one kernel), and for the two
-   SpAdd3 rows unions (bounds and count, fill, and the wrapper's torch
-   ops) gives the device time of each phase of its kernel
+   fold), for spmv_bcsr/rows and spmm_bcsr/rows (the wrapper's zeroing,
+   phase 1, the group sums and the edge fold), for sddmm_bcsr/nnz (its
+   one kernel), for the two SpAdd3 rows unions (bounds and count, fill,
+   and the wrapper's torch ops) and the two nnz unions (their one kernel)
+   gives the device time of each phase of its kernel
    (``torch.profiler``). The blocked kernels' yardsticks are
    ``torch.sparse`` BSR products and ``sampled_addmm`` over the
    scalarised block pattern.
    flash_attention is timed at the model's layer shapes (q (2, 4096, 32,
-   128), k and v (2, 4096, 8, 128)) in bf16 (the line's record) and f32
-   (a line of its own), and at head_dim 256 in both (lines of their own),
-   beside ``scaled_dot_product_attention(
+   128), k and v (2, 4096, 8, 128)) in bf16 (the line's record), f32 and
+   f16 (lines of their own), and at head_dim 256, 320 and 512 in all
+   three (lines of their own, with the edge checks' launches of that
+   dtype and width), beside ``scaled_dot_product_attention(
    is_causal=True, enable_gqa=True)``; its bound is the causal flops over
-   989 TFLOP/s bf16 (67 f32) against q, k, v and o moved once.
+   989 TFLOP/s bf16 and f16 (67 f32) against q, k, v and o moved once.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a card, or
 without the package beside this file, the script exits non-zero and prints
@@ -154,7 +163,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
-BF16_FLOPS = 989e12            # H100 SXM bf16 tensor cores, dense
+BF16_FLOPS = 989e12            # H100 SXM bf16 (and fp16) tensor cores, dense
 RTOL_ROW, ATOL = 1e-4, 1e-6
 AVG_NNZ, PIECES, SPMM_J, SEED = 16, 4, 32, 0    # the main path's cells
 LOG2_N, LOG2_I, LOG2_JK, REPS = 21, 20, 16, 20  # its sizes, timed launches
@@ -689,13 +698,45 @@ def union_task_pieces(rng, tile=(), R: int = 40, m: int = 1000):
     return out
 
 
+def union_run_stream(rng, counts, P, shape, tile=(), spread=None):
+    """An add stream of P chunks (dim0, dim1 (P, C) int32, nnz_count (P,),
+    vals (P, C, *tile) f32) holding counts[i] entries of coordinate i
+    (coordinates drawn without repeats from ``shape``): the entries of
+    coordinate i go to random chunks, or round-robin over ``spread[i]``
+    chunks where that is not 0 (so its run has that many segments), each
+    chunk in shuffled order. Padding slots hold coordinate (0, 0) and
+    1e30, which must not be read."""
+    import numpy as np
+    flat = rng.choice(shape[0] * shape[1], len(counts), replace=False)
+    coords = np.stack([flat // shape[1], flat % shape[1]], 1)
+    chunks = [[] for _ in range(P)]
+    for i, c in enumerate(counts):
+        for j in range(c):
+            p = (j % spread[i] if spread is not None and spread[i]
+                 else int(rng.integers(0, P)))
+            chunks[p].append(coords[i])
+    for ch in chunks:
+        rng.shuffle(ch)
+    C = max(1, max(len(ch) for ch in chunks)) + 3
+    dims = np.zeros((2, P, C), np.int32)
+    vals = np.full((P, C) + tuple(tile), 1e30, np.float32)
+    count = np.zeros(P, np.int32)
+    for p, ch in enumerate(chunks):
+        count[p] = len(ch)
+        if ch:
+            dims[:, p, :len(ch)] = np.asarray(ch).T
+            vals[p, :len(ch)] = rng.standard_normal((len(ch),) + tuple(tile))
+    return dims[0], dims[1], count, vals
+
+
 def spadd3_cases(rng, device):
     """SpAdd3 edge cases: the dense kernels on CSR / BCSR operands with a
     ragged last block row and column; the rows union over three pieces
     (the middle one empty, operand D empty in a whole piece, shard padding
     filled with values that would show if read, a row longer than one merge
     task); the nnz runs over an add stream with duplicates inside and
-    across chunks and an empty chunk."""
+    across chunks and an empty chunk, and over :func:`union_run_stream`'s
+    runs of up to 40 entries in 8 segments."""
     import numpy as np
     import torch
     from repro_torch.kernels import spadd3
@@ -756,12 +797,51 @@ def spadd3_cases(rng, device):
         name = "bcsr_spadd3_union_nnz" if block else "spadd3_union_nnz"
         yield (f"{name} chunks=4 block={block}", name, args,
                _abs_args(args))
+    # the nnz union's warps of 32 runs: U = 59, 40 runs of 40 entries over
+    # 8 segments among runs of 1-3 (a warp's walk longer than it stages),
+    # tiles (), (4, 4) and (3, 5), and (4, 4) values 4 bytes off an
+    # aligned base (the 4-byte kernel)
+    counts = np.concatenate([rng.integers(1, 4, 10), [40] * 40,
+                             rng.integers(1, 4, 9)])
+    spread = np.where(counts == 40, 8, 0)
+    for tile in ((), (4, 4), (3, 5)):
+        d0, d1, cnt, sv = dev(*union_run_stream(rng, counts, 8, (60, 70),
+                                                tile, spread))
+        perm, seg_ptr, run_ptr, _, _ = spadd3.plan_runs(d0, d1, cnt, (60, 70))
+        name = "bcsr_spadd3_union_nnz" if tile else "spadd3_union_nnz"
+        for off in (False, True) if tile == (4, 4) else (False,):
+            args = (_unaligned(sv) if off else sv, perm, seg_ptr, run_ptr)
+            yield (f"{name} runs=59 over 8 segments tile={tile}"
+                   + (" vals at a 4-byte offset" if off else ""), name, args,
+                   _abs_args(args))
+
+
+def long_block_row_pieces(rng, R: int = 8, grid_cols: int = 9,
+                          pad: int = 11):
+    """Two pieces (brow, bcol (2, N) int32) whose block-row 1 crosses more
+    than 64 128-block segments, so the fold folds whole groups of 64: in
+    piece 0 it starts at block 37 and ends 5 blocks into segment 69 (70
+    segments); in piece 1 it starts on segment 1's first block (its first
+    partial is a tail) and fills exactly 128 segments; short runs follow,
+    then padding with the dropped id R."""
+    import numpy as np
+    seg = 128
+    lens = [np.concatenate([[37, 69 * seg + 5 - 37],
+                            rng.integers(0, 4, R - 2)]),
+            np.concatenate([[seg, 128 * seg], rng.integers(0, 4, R - 2)])]
+    N = int(max(x.sum() for x in lens)) + pad
+    brow = np.full((2, N), R, np.int32)
+    for p, x in enumerate(lens):
+        brow[p, :x.sum()] = np.repeat(np.arange(R), x)
+    bcol = rng.integers(0, grid_cols, brow.shape).astype(np.int32)
+    return brow, bcol
 
 
 def bcsr_cases(rng, device):
     """Blocked SpMV, SpMM and SDDMM edge cases over four pieces per block
     shape ((1, 1), (2, 2), (3, 5), (4, 4), (4, 8), (8, 4), (32, 8), and
-    (33, 1) and (64, 8), more than 32 rows or 256 entries): piece
+    (33, 1) and (64, 8), more than 32 rows or 256 entries), then SpMV and
+    SpMM over :func:`long_block_row_pieces` at (4, 4) and (3, 5): piece
     0 holds an empty block-row, a run that ends on the last block of
     segment 0, one that starts on the first block of segment 1 and spans
     four segments, one cut by a segment edge and one that ends on a
@@ -773,7 +853,8 @@ def bcsr_cases(rng, device):
     not reach a sum. The dense operands are packed from matrices whose
     side is not a multiple of the block (a ragged last block-row and
     block-column). SDDMM also takes a C view 4 bytes off an aligned base
-    at (4, 4) and K = 32 (its 4-byte loads)."""
+    at (4, 4) and K = 32 (its 4-byte loads), and SpMV and SpMM (4, 4)
+    tiles 4 bytes off one (their generic instances)."""
     import numpy as np
     import torch
     from repro_torch.kernels.layout import (pack_mat_inner_blocks,
@@ -838,6 +919,27 @@ def bcsr_cases(rng, device):
                 args = (*args[:3], _unaligned(args[3]), args[4])
                 yield (f"bcsr_sddmm {label} K={K} {kind} C at a 4-byte "
                        "offset", "bcsr_sddmm", args, _abs_args(args))
+        if (br, bc) == (4, 4):    # the (4, 4) SpMV instance's 4-byte twin
+            t_off = _unaligned(tiles_t)
+            yield (f"bcsr_spmv {label} tiles at a 4-byte offset",
+                   "bcsr_spmv", (brow_t, bcol_t, t_off, c_t, R),
+                   (brow_t, bcol_t, t_off.abs(), c_t.abs(), R))
+    # block-rows over 70 and 128 segments: the fold's group sums
+    R, grid_cols = 8, 9
+    lbrow, lbcol = long_block_row_pieces(rng, R, grid_cols)
+    for br, bc in ((4, 4), (3, 5)):
+        brow_t, bcol_t, tiles_t = dev(lbrow, lbcol,
+                                      normal(*lbrow.shape, br, bc))
+        c_t, = dev(normal(grid_cols, bc))
+        label = f"long block-rows block=({br}, {bc})"
+        yield (f"bcsr_spmv {label}", "bcsr_spmv",
+               (brow_t, bcol_t, tiles_t, c_t, R),
+               (brow_t, bcol_t, tiles_t.abs(), c_t.abs(), R))
+        for J in (1, 33):
+            C_t, = dev(normal(grid_cols, bc, J))
+            yield (f"bcsr_spmm {label} J={J}", "bcsr_spmm",
+                   (brow_t, bcol_t, tiles_t, C_t, R),
+                   (brow_t, bcol_t, tiles_t.abs(), C_t.abs(), R))
 
 
 # tests/test_flash_kernel.py's cases (B, S, H, Hkv, hd) and dtypes, with
@@ -845,7 +947,11 @@ def bcsr_cases(rng, device):
 # kernel's tile edges: S shorter than a warp's 16 rows, one past them and
 # one past a 64-key stage, at G in {1, 3, 8} (3 leaves stacked rows unused);
 # then widths outside the instances (24, zamba2-7b's 112: zero-padded to 32
-# and 128) and the widest instance, 256, in both dtypes
+# and 128) and the widest instance, 256, in both dtypes; then float16 (the
+# f16 instances of the tensor-core kernel): the llama3-8b layer's heads
+# (32 / 8, hd 128), tile edges at G in {1, 3}, and hd 24, 112, 256; then
+# the column-chunk kernels, hd 320 (padded to 384) and 512, in all three
+# dtypes
 FLASH_CASES = ((2, 256, 4, 2, 32, "float32"), (1, 200, 8, 8, 16, "float32"),
                (2, 384, 6, 2, 64, "float32"), (1, 128, 16, 2, 32, "float32"),
                (2, 256, 4, 2, 64, "bfloat16"), (1, 100, 2, 1, 16, "float32"),
@@ -855,8 +961,14 @@ FLASH_CASES = ((2, 256, 4, 2, 32, "float32"), (1, 200, 8, 8, 16, "float32"),
     (1, S, 2 * G, 2, hd, "bfloat16") for S in (1, 15, 17, 65)
     for hd in (16, 32, 64) for G in (1, 3, 8)) + tuple(
     (1, 200, 8, 2, hd, dt) for hd in (24, 112, 256)
-    for dt in ("float32", "bfloat16"))
-FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # atol = rtol
+    for dt in ("float32", "bfloat16")) + (
+    (1, 300, 32, 8, 128, "float16"), (2, 256, 4, 2, 64, "float16")) + tuple(
+    (1, S, 2 * G, 2, 32, "float16") for S in (1, 17, 65) for G in (1, 3)) \
+    + tuple((1, 200, 8, 2, hd, "float16") for hd in (24, 112, 256)) + tuple(
+    (1, 200, 8, 2, hd, dt) for hd in (320, 512)
+    for dt in ("float32", "bfloat16", "float16"))
+# atol = rtol; f16 keeps three more mantissa bits than bf16
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2, "float16": 1e-2}
 
 
 def flash_cases(rng, device):
@@ -899,7 +1011,8 @@ def compare_flash(label, got, want, q, v) -> float:
 def hmma_counts(lib):
     """{kernel: tensor-core (HMMA) instructions} in the SASS of a built
     library (``cuobjdump -sass``); the flash kernels are named
-    ``mma_hd<d>`` / ``f32_hd<d>``."""
+    ``mma_hd<d>_<bf16|f16>`` / ``f32_hd<d>``, and the column-chunk ones
+    ``mma_wide_<bf16|f16>`` / ``f32_wide``."""
     import re
     from repro_torch.kernels._build import nvcc_path
     tool = Path(nvcc_path()).with_name("cuobjdump")
@@ -910,9 +1023,14 @@ def hmma_counts(lib):
         fn = re.search(r"Function : (\S+)", line)
         if fn:
             name = fn.group(1)
-            kind = re.search(r"flash_(mma|f32)_kernelILi(\d+)E", name)
+            kind = re.search(r"flash_(mma|f32)_(?:kernelILi(\d+)E|"
+                             r"wide_kernelI?)(13__nv_bfloat16|6__half)?",
+                             name)
             if kind:
-                name = f"{kind.group(1)}_hd{kind.group(2)}"
+                name = (f"{kind.group(1)}_"
+                        + (f"hd{kind.group(2)}" if kind.group(2) else "wide")
+                        + {None: "", "13__nv_bfloat16": "_bf16",
+                           "6__half": "_f16"}[kind.group(3)])
             counts[name] = 0
         elif name and re.search(r"/\*[0-9a-f]+\*/\s+HMMA", line):
             counts[name] += 1
@@ -1675,7 +1793,7 @@ def blocked_kernel_records(data, cells, launches, reps: int):
                                      Bb.vals.shape[0], Bb.shape[0],
                                      library[cell], reps))
         cell_ms[cell] = records[-1]["ms"]
-        if name in ("bcsr_spmm", "bcsr_sddmm"):   # each phase's kernel
+        if name in ("bcsr_spmv", "bcsr_spmm", "bcsr_sddmm"):   # phases
             phase("profile", name=name, cell=cell, **{
                 k.replace(" ", "_"): f"{v:.4f}" for k, v in
                 device_breakdown(lambda: fns[name][0](*args)).items()})
@@ -1690,23 +1808,34 @@ def blocked_kernel_records(data, cells, launches, reps: int):
 def device_breakdown(fn, reps: int = 3):
     """Device milliseconds per call of each CUDA kernel that ``fn``
     launches, from ``torch.profiler`` over ``reps`` calls (a wrapper with a
-    count and a fill phase launches two)."""
+    count and a fill phase launches two). One call more runs first inside
+    the profiler as its warm-up step: without it the tracer dropped the
+    first calls' kernels (a breakdown at two thirds of the kernel's time,
+    or none at all); a window that still records nothing is taken again,
+    up to three times."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     out = {}
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total",
-                     getattr(evt, "self_cuda_time_total", 0))
-        name = evt.key.replace("(anonymous namespace)::", "")
-        name = name.replace("void ", "").split("(")[0].split(",")[0]
-        if us > 0:
-            out[name[-48:]] = out.get(name[-48:], 0.0) + us / 1e3 / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=reps,
+                                       repeat=1)) \
+                as prof:
+            for _ in range(reps + 1):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        for evt in prof.key_averages():
+            us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0))
+            name = evt.key.replace("(anonymous namespace)::", "")
+            name = name.replace("void ", "").split("(")[0].split(",")[0]
+            if us > 0:
+                out[name[-48:]] = out.get(name[-48:], 0.0) + us / 1e3 / reps
+        if out:
+            break
     return out
 
 
@@ -1749,9 +1878,9 @@ def add_kernel_records(data, cells, launches, reps: int):
         records.append(kernel_record(name, args, launches[name], nnz, n_out,
                                      library[cell], reps))
         cell_ms[cell] = records[-1]["ms"]
-        if "union_rows" in name:
+        if "union" in name:
             fn = kernel_fns()[name][0]
-            phase("profile", name=name, **{
+            phase("profile", name=name, cell=cell, **{
                 k.replace(" ", "_"): f"{v:.4f}" for k, v in
                 device_breakdown(lambda: fn(*args)).items()})
     return records, cell_ms
@@ -1897,11 +2026,12 @@ def flash_record(cfg, batch: int, seq: int, device, dtype: str,
                  launches: int, reps: int, head_dim=None):
     """flash_attention at the model's layer shapes (q (batch, seq, H, hd);
     k, v (batch, seq, Hkv, hd); hd the model's unless ``head_dim`` is
-    given; standard normal from a seeded generator) in ``dtype``: checked against the plain version, timed beside it and
-    beside ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
-    (a yardstick the port never calls), with its bound: the causal flops
-    2·2·B·H·hd·S²/2 over the dtype's peak against q, k, v and o moved once
-    over the memory rate."""
+    given; standard normal from a seeded generator) in ``dtype``: checked
+    against the plain version, timed beside it and beside
+    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` (a
+    yardstick the port never calls), with its bound: the causal flops
+    2·2·B·H·hd·S²/2 over the dtype's peak (the tensor cores' for bf16 and
+    f16) against q, k, v and o moved once over the memory rate."""
     import torch
     import torch.nn.functional as F
     kernel, plain = kernel_fns()["flash_attention"]
@@ -1917,7 +2047,7 @@ def flash_record(cfg, batch: int, seq: int, device, dtype: str,
     flops = 2 * 2 * batch * H * hd * seq * seq / 2
     nbytes = q.element_size() * 2 * batch * seq * hd * (H + Hkv)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / (BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS) * 1e3
+    t_ops = flops / (F32_FLOPS if dtype == "float32" else BF16_FLOPS) * 1e3
     source, replaces = KERNELS["flash_attention"]
     return {
         "name": "flash_attention", "route": "cuda", "source": source,
@@ -2126,20 +2256,35 @@ def main(argv=None) -> int:
     phase("profile", name="prefill",
           total_ms=f"{sum(attn['profile'].values()):.2f}",
           **{k.replace(" ", "_"): f"{v:.2f}" for k, v in top})
-    flash = [flash_record(cfg, PREFILL_BATCH, args.attn_seq, device, dt,
-                          attn_launches["flash_attention"], args.reps)
-             for dt in ("bfloat16", "float32")]
-    records.append(flash[0])
-    # the widest instance, hd 256, at the layer's heads and length
-    wide = [flash_record(cfg, PREFILL_BATCH, args.attn_seq, device, dt, 0,
-                         args.reps, head_dim=256)
-            for dt in ("bfloat16", "float32")]
+    # the model's layer shapes in each dtype (bf16 is the path's record),
+    # then hd 256 (the widest instance) and the column-chunk kernels at
+    # hd 320 and 512, at the layer's heads and length; launches beside
+    # the other dtypes and widths: those of the edge checks (phase 3)
+    from repro_torch.kernels.flash_attention import padded_width
+    edge = {}
+    for *_, hd, dt in FLASH_CASES:
+        key = (dt, padded_width(hd))
+        edge[key] = edge.get(key, 0) + 1
+    short = {"bfloat16": "", "float32": " f32", "float16": " f16"}
+    extra = []
+    for hd in (None, 256, 320, 512):
+        for dt in ("bfloat16", "float32", "float16"):
+            width = padded_width(hd or cfg.resolved_head_dim)
+            rec = flash_record(
+                cfg, PREFILL_BATCH, args.attn_seq, device, dt,
+                attn_launches["flash_attention"] if hd is None
+                and dt == "bfloat16" else edge.get((dt, width), 0),
+                args.reps, head_dim=hd)
+            if hd is None and dt == "bfloat16":
+                records.append(rec)
+            else:
+                extra.append(dict(rec, name=f"flash_attention("
+                                  f"hd{hd or cfg.resolved_head_dim}"
+                                  f"{short[dt]})"))
     clocks("after the flash timing")
-    for r in records + [dict(ttv, name="spmv_csr_rows(spttv)"),
-                        dict(flash[1], name="flash_attention(f32)"),
-                        dict(wide[0], name="flash_attention(hd256)"),
-                        dict(wide[1], name="flash_attention(hd256 f32)")]:
+    for r in records + [dict(ttv, name="spmv_csr_rows(spttv)")] + extra:
         phase("kernel", name=r["name"], max_abs_err=f"{r['max_abs_err']:.3g}",
+              launches=r["launches"],
               ms=f"{r['ms']:.4f}", bound_ms=f"{r['bound_ms']:.4f}",
               plain_ms=f"{r['plain_ms']:.3f}",
               library_ms=("null" if r["library_ms"] is None

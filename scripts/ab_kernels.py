@@ -8,7 +8,10 @@ checkout, on one card and the main path's inputs.
         # build/parent: an unpacked ``git archive`` of the commit to compare
 
 Each named kernel is one that a lowered cell of ``chip_smoke.py``'s sparse
-paths launches (``chip_smoke.PATH_KERNELS``). The operands are made as
+paths launches (``chip_smoke.PATH_KERNELS``), or ``flash_attention``,
+which is taken at the llama3-8b layer's shapes in bf16 (q (2, 4096, 32,
+128), k and v (2, 4096, 8, 128), standard normal from a seeded
+generator: the prefill's launches). The sparse operands are made as
 ``chip_smoke.py`` makes them, at its main-path sizes; the cells of the
 paths that launch the named kernels are lowered with this tree's package,
 in ``chip_smoke.PATH_CELLS``' order, and each named kernel is taken with the
@@ -40,6 +43,7 @@ import chip_smoke as cs  # noqa: E402
 
 SPARSE_KERNELS = sorted({k for path in cs.PATH_CELLS
                          for k in cs.PATH_KERNELS[path]})
+KERNELS = SPARSE_KERNELS + ["flash_attention"]
 
 
 def load_parent(tree: Path):
@@ -121,9 +125,9 @@ def compare(name, cell, kargs, fns):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("kernels", nargs="+", choices=SPARSE_KERNELS,
+    ap.add_argument("kernels", nargs="+", choices=KERNELS,
                     metavar="KERNEL",
-                    help="kernels to compare: " + ", ".join(SPARSE_KERNELS))
+                    help="kernels to compare: " + ", ".join(KERNELS))
     ap.add_argument("--parent", type=Path, default=None,
                     help="root of an unpacked checkout to compare with")
     ap.add_argument("--out", type=Path, default=ROOT / "chiprun_out"
@@ -163,17 +167,31 @@ def main(argv=None) -> int:
                         or "spill" in line:
                     print(f"  {tag} {src}: {line.strip()}")
 
+    summary = {"device": smi, "kernels": {}}
+    if "flash_attention" in wanted:
+        cfg = cs.lm_config()
+        B, S = cs.PREFILL_BATCH, cs.PREFILL_SEQ
+        gen = torch.Generator(device).manual_seed(cs.SEED)
+        q, k, v = (torch.randn(shape, generator=gen, device=device)
+                   .to(torch.bfloat16) for shape in
+                   ((B, S, cfg.n_heads, cfg.resolved_head_dim),
+                    (B, S, cfg.n_kv_heads, cfg.resolved_head_dim),
+                    (B, S, cfg.n_kv_heads, cfg.resolved_head_dim)))
+        summary["kernels"]["flash_attention"] = {
+            "llama3-8b layer bf16": compare(
+                "flash_attention", "llama3-8b layer bf16", (q, k, v),
+                fns["flash_attention"])}
+        del q, k, v
     paths = [p for p in cs.PATH_CELLS
              if set(cs.PATH_KERNELS[p]) & set(wanted)]
     dims3 = ((1 << cs.LOG2_I, 1 << cs.LOG2_JK, 1 << cs.LOG2_JK)
              if "slice" in paths else None)
-    data = cs.make_inputs(1 << cs.LOG2_N, cs.AVG_NNZ, cs.SPMM_J, cs.SEED,
-                          dims3)
+    data = (cs.make_inputs(1 << cs.LOG2_N, cs.AVG_NNZ, cs.SPMM_J, cs.SEED,
+                           dims3) if paths else {})
     if {"add", "blocked"} & set(paths):
         data["add"] = cs.add_operands(1 << cs.LOG2_N, cs.SEED, data["B"])
-    stmts = cs.statements(data)
+    stmts = cs.statements(data) if paths else {}
     machine = tc.Machine(("x", cs.PIECES))
-    summary = {"device": smi, "kernels": {}}
     for expr, strat in (c for p in paths for c in cs.PATH_CELLS[p]):
         if strat not in ("rows", "nnz"):
             continue

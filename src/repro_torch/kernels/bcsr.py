@@ -8,8 +8,8 @@ blocks: a block-row id, a block-column and a (br, bc) tile per slot.
 - :func:`bcsr_spmv` replaces the TPU kernel ``repro/kernels/bcsr.py::
   bcsr_spmv`` and :func:`bcsr_spmm` ``repro/kernels/bcsr.py::bcsr_spmm``:
   block-row sums of the tile products, cut into fixed 128-block segments
-  and folded in a fixed order, so a block-row of any length is spread over
-  many warps.
+  and folded in a fixed order (``csrc/segment_fold.cuh``, through sums of
+  64 segments), so a block-row of any length is spread over many warps.
 - :func:`bcsr_sddmm` replaces ``repro/kernels/bcsr.py::bcsr_sddmm``: each
   stored tile times the (br, bc) block of C·D it samples.
 
@@ -29,17 +29,18 @@ from ._build import check_launch, library, on_cpu
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
-    # brow, bcol, tiles, c, head, tail, y, P, N, br, bc, grid_cols, R,
-    # stream
-    "bcsr_spmv": (_P,) * 7 + (_I, _L, _I, _I, _I, _I, _P),
-    # brow, bcol, tiles, C, head, tail, Y, P, N, br, bc, grid_cols, J, R,
-    # stream
-    "bcsr_spmm": (_P,) * 7 + (_I, _L, _I, _I, _I, _I, _I, _P),
+    # brow, bcol, tiles, c, head, tail, group, y, P, N, br, bc, grid_cols,
+    # R, stream
+    "bcsr_spmv": (_P,) * 8 + (_I, _L, _I, _I, _I, _I, _P),
+    # brow, bcol, tiles, C, head, tail, group, Y, P, N, br, bc, grid_cols,
+    # J, R, stream
+    "bcsr_spmm": (_P,) * 8 + (_I, _L, _I, _I, _I, _I, _I, _P),
     # brow, bcol, tiles, C, Dt, out, P, N, br, bc, n_c, c_stride, m, K,
     # stream
     "bcsr_sddmm": (_P,) * 6 + (_I, _L, _I, _I, _I, _L, _I, _I, _P),
 }
 SEGMENT = 128       # stored blocks per segment, kSeg in csrc/bcsr.cu
+GROUP = 64          # segments per group sum, kGroup in csrc/segment_fold.cuh
 
 
 def _stream(name, brow, bcol, tiles, **dense):
@@ -54,6 +55,20 @@ def _stream(name, brow, bcol, tiles, **dense):
                   {"tiles": tiles, **dense})
 
 
+def _scratch(P, N, width, device):
+    """The fold's f32 scratch, views of one allocation: head and tail
+    (P, nseg, *width) partials of the 128-block segments and group
+    (P, nseg // 64, *width) sums."""
+    nseg = -(-N // SEGMENT)
+    w = int(torch.Size(width).numel())
+    flat = torch.empty(P * (2 * nseg + nseg // GROUP) * w,
+                       dtype=torch.float32, device=device)
+    head, tail, group = flat.split([P * nseg * w, P * nseg * w,
+                                    P * (nseg // GROUP) * w])
+    return (head.view((P, nseg) + width), tail.view((P, nseg) + width),
+            group.view((P, nseg // GROUP) + width))
+
+
 def bcsr_spmv_plain(brow, bcol, tiles, c_blk, max_brows: int):
     return torch.stack([ref.leaf_bcsr_spmv_nnz(brow[p], bcol[p], tiles[p],
                                                c_blk, max_brows)
@@ -66,7 +81,10 @@ def bcsr_spmv(brow: torch.Tensor, bcol: torch.Tensor, tiles: torch.Tensor,
     Σ_e tiles[p, e, r]·c_blk[bcol[p, e]] over the stored blocks e of piece
     p with brow[p, e] == b. ``c_blk`` is the vector in column blocks,
     (grid_cols, bc). ``brow`` must be non-decreasing within each piece
-    (the kernel's contract); ids outside [0, max_brows) are dropped."""
+    (the kernel's contract); ids outside [0, max_brows) are dropped. The
+    (4, 4) block with tile and c bases on 16-byte boundaries takes its own
+    instance, any other the generic one; they sum a block-row's products
+    in different orders, each fixed by the stream alone."""
     if c_blk.dim() != 2 or c_blk.shape[1] != tiles.shape[-1]:
         raise ValueError(f"bcsr_spmv: c_blk {tuple(c_blk.shape)} is not "
                          f"(grid_cols, {tiles.shape[-1]})")
@@ -77,14 +95,13 @@ def bcsr_spmv(brow: torch.Tensor, bcol: torch.Tensor, tiles: torch.Tensor,
                     device=brow.device)
     if y.numel() == 0 or N == 0 or grid_cols == 0:
         return y                       # nothing to launch: no stored block
-    nseg = -(-N // SEGMENT)
-    head = torch.empty((P, nseg, br), dtype=torch.float32, device=y.device)
-    tail = torch.empty_like(head)
+    head, tail, group = _scratch(P, N, (br,), y.device)
     with torch.cuda.device(y.device):
         err = library("bcsr", _SIGNATURES).bcsr_spmv(
             brow.data_ptr(), bcol.data_ptr(), tiles.data_ptr(),
-            c_blk.data_ptr(), head.data_ptr(), tail.data_ptr(), y.data_ptr(),
-            P, N, br, bc, grid_cols, int(max_brows),
+            c_blk.data_ptr(), head.data_ptr(), tail.data_ptr(),
+            group.data_ptr(), y.data_ptr(), P, N, br, bc, grid_cols,
+            int(max_brows),
             torch.cuda.current_stream().cuda_stream)
     check_launch("bcsr_spmv", err)
     return y
@@ -115,15 +132,13 @@ def bcsr_spmm(brow: torch.Tensor, bcol: torch.Tensor, tiles: torch.Tensor,
                     device=brow.device)
     if Y.numel() == 0 or N == 0 or grid_cols == 0:
         return Y                       # nothing to launch: no stored block
-    nseg = -(-N // SEGMENT)
-    head = torch.empty((P, nseg, br, J), dtype=torch.float32,
-                       device=Y.device)
-    tail = torch.empty_like(head)
+    head, tail, group = _scratch(P, N, (br, J), Y.device)
     with torch.cuda.device(Y.device):
         err = library("bcsr", _SIGNATURES).bcsr_spmm(
             brow.data_ptr(), bcol.data_ptr(), tiles.data_ptr(),
-            C_blk.data_ptr(), head.data_ptr(), tail.data_ptr(), Y.data_ptr(),
-            P, N, br, bc, grid_cols, J, int(max_brows),
+            C_blk.data_ptr(), head.data_ptr(), tail.data_ptr(),
+            group.data_ptr(), Y.data_ptr(), P, N, br, bc, grid_cols, J,
+            int(max_brows),
             torch.cuda.current_stream().cuda_stream)
     check_launch("bcsr_spmm", err)
     return Y

@@ -26,12 +26,14 @@
 // the TPU has no scatter (layout.py:1-22). Here the stream is read as it
 // is. A power-law block pattern puts a third of a million blocks in one
 // block-row, so the reductions are cut into fixed 128-block segments, not
-// block-rows, and folded deterministically as in spmttkrp.cu:
-//  - Phase 1 (per segment): a run of equal block-rows that lies inside the
-//    segment, touching neither edge, belongs to no other segment and is
-//    written to the output directly. The run at the segment's start goes
-//    to head[seg], the run at its end (when it is another block-row) to
-//    tail[seg].
+// block-rows, and folded deterministically by segment_fold.cuh, as
+// spmm_coo_nnz and spmttkrp_coo are:
+//  - Phase 1 (per segment): a run of equal block-rows that lies in the
+//    segment alone is written to the output directly. A run that crosses
+//    a segment edge leaves its partial in tail[seg] of the segment where it
+//    starts (even at that segment's first block) and in head[seg] of every
+//    later segment it reaches, so every segment wholly inside one
+//    block-row writes its head.
 //    bcsr_spmm: a warp per (segment, 32-wide tile of j), lanes on j, each
 //    lane holding the br sums of its column, so every gathered line of C
 //    (one 128-byte line across the warp per block-column offset c at
@@ -44,16 +46,25 @@
 //    generic instance with bc at run time and warps over groups of 8 rows.
 //    Each (r, j) sum adds one fma per c, c in order
 //    within a block, blocks in stream order, from 0 at each run.
-//    bcsr_spmv (J = 1): a warp per (segment, r), lanes on stored blocks.
-//    Each lane forms its block's row-r product, a segmented shuffle scan
-//    over equal block-rows sums the runs of 32 blocks, and the open run is
-//    carried from one 32-block chunk to the next (and written when the
-//    next chunk starts another block-row).
-//  - Phase 2 (bcsr_fold, shared): a thread per (segment, output of a
-//    block-row). A block-row cut by segment edges is owned by the segment
-//    where it starts: that thread adds its edge partial and then the head
-//    partials of the following segments that continue the block-row (found
-//    by binary search over the segments' first ids), in segment order.
+//    bcsr_spmv (J = 1), the (4, 4) block: a warp per segment, lanes on
+//    stored blocks, each lane with its block's four row sums: each tile's
+//    64 bytes are read once by four 16-byte loads (a warp's loads cover
+//    32 contiguous tiles), each block's c quad by one 16-byte gather and
+//    the ids by one coalesced load per 32 blocks, all before the FMAs. A
+//    segmented shuffle scan over the 32 blocks sums each run's rows, and
+//    the open run is carried from chunk to chunk (details at the kernel).
+//    Any other block, or a tile or c base off a 16-byte boundary, takes
+//    the generic instance: a warp per (segment, r), lanes on stored
+//    blocks, the same scan over 32 blocks a chunk.
+//  - The fold (segment_fold::fold_rows<128>, W = br or br.J outputs a
+//    block-row): group sums of 64 heads, then a thread per segment edge
+//    takes each block-row that crosses edges at its first edge and writes
+//    tail[first] + the heads before the first whole group + the groups'
+//    sums + the heads after, in that order: the longest block-row of the
+//    main path (2,589 segments) folds 40 group sums and at most 126 heads.
+//    (bcsr_fold, which it replaced, added a block-row's heads one at a
+//    time on one thread: 0.151 of bcsr_spmm's 0.814 ms on the spmm_bcsr
+//    rows cell, NVIDIA H100 80GB HBM3 at 700 W.)
 //  bcsr_sddmm: outputs never overlap, so there is no reduction across
 //    blocks. A warp takes 64 consecutive stored blocks, lanes on (column,
 //    k-quad), with 16-byte gathers of Dt, several blocks' in flight before
@@ -74,6 +85,8 @@
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include "segment_fold.cuh"
 
 namespace {
 
@@ -97,6 +110,32 @@ struct Stream {
     }
     __device__ int first(int64_t s) const { return __ldg(brow + s * kSeg); }
     __device__ int last(int64_t s) const { return __ldg(brow + hi(s) - 1); }
+    // does the run of segment s's first (last) id go on beyond it?
+    __device__ bool open_lo(int64_t s) const {
+        return s > 0 && __ldg(brow + lo(s) - 1) == first(s);
+    }
+    __device__ bool open_hi(int64_t s) const {
+        return hi(s) < N && __ldg(brow + hi(s)) == last(s);
+    }
+};
+
+// Where a segment's run of block-row `row` goes, in segment_fold.cuh's
+// convention: the first run, when it began in an earlier segment, to head;
+// the last run (`at_end`), when it goes on in a later one, to tail (unless
+// it is also the first run that began earlier); any other run of an id in
+// [0, R) to the output row; a dropped id nowhere (nullptr).
+struct Slots {
+    float* head;          // this segment's head, tail and output rows,
+    float* tail;          // each at the caller's first output
+    float* out;
+    int64_t W;            // outputs per block-row
+    int first, R;
+    bool open_lo, open_hi;
+    __device__ float* at(int row, bool at_end) const {
+        if (row == first && open_lo) return head;
+        if (at_end && open_hi) return tail;
+        return row >= 0 && row < R ? out + int64_t(row) * W : nullptr;
+    }
 };
 
 // dst[k] = src[k] for k < T (a tile, or rows of one), read by warp-uniform
@@ -160,21 +199,21 @@ bcsr_spmm_phase1(const int* __restrict__ brow, const int* __restrict__ bcol,
     const float* Cj = C + j;
     const int64_t W = int64_t(br) * J;
     const int64_t w0 = int64_t(r0) * J + j;
-    float* Yp = Y + p * int64_t(R) * W + w0;
     const int64_t edge = (p * nseg + seg) * W + w0;
+    const Slots slots{head + edge, tail + edge, Y + p * int64_t(R) * W + w0,
+                      W, first, R, st.open_lo(seg), st.open_hi(seg)};
     float acc[BR];
 #pragma unroll
     for (int r = 0; r < BR; ++r) acc[r] = 0.f;
     int cur = first;
     auto put = [&](float* dst) {                 // the run's sums, rows r0..
-        if (!live) return;
+        if (!live || dst == nullptr) return;
 #pragma unroll
         for (int r = 0; r < BR; ++r)
             if (r < nr) dst[int64_t(r) * J] = acc[r];
     };
     auto next_run = [&](int row) {               // warp-uniform: a run ends
-        if (cur == first) put(head + edge);
-        else if (cur >= 0 && cur < R) put(Yp + int64_t(cur) * W);
+        put(slots.at(cur, false));
 #pragma unroll
         for (int r = 0; r < BR; ++r) acc[r] = 0.f;
         cur = row;
@@ -219,7 +258,7 @@ bcsr_spmm_phase1(const int* __restrict__ brow, const int* __restrict__ bcol,
             }
         }
     }
-    put((cur == first ? head : tail) + edge);
+    put(slots.at(cur, true));
 }
 
 // Inclusive scan over the lanes of equal key; keys are non-decreasing
@@ -235,7 +274,8 @@ __device__ __forceinline__ float segmented_scan(float v, int key, int lane) {
     return v;
 }
 
-// grid (ceil(nseg * br * 32 / 256), P), 256 threads: a warp per (seg, r)
+// The generic SpMV instance. grid (ceil(nseg * br * 32 / 256), P), 256
+// threads: a warp per (seg, r), lanes on stored blocks.
 __global__ void bcsr_spmv_phase1(const int* __restrict__ brow,
                                  const int* __restrict__ bcol,
                                  const float* __restrict__ tiles,
@@ -259,8 +299,9 @@ __global__ void bcsr_spmv_phase1(const int* __restrict__ brow,
     const int tile = br * bc;
     const int* pc = bcol + p * N;
     const float* pt = tiles + p * N * tile;
-    float* yp = y + p * int64_t(R) * br;
     const int64_t edge = (p * nseg + seg) * br + r;
+    const Slots slots{head + edge, tail + edge, y + p * int64_t(R) * br + r,
+                      br, first, R, st.open_lo(seg), st.open_hi(seg)};
     int cur = first;
     float carry = 0.f;
     for (int64_t base = lo; base < hi; base += kWarp) {
@@ -278,74 +319,116 @@ __global__ void bcsr_spmv_phase1(const int* __restrict__ brow,
         }
         if (__shfl_sync(0xffffffffu, key, 0) != cur) {
             // the carried run ended with the previous chunk
-            if (lane == 0) {
-                if (cur == first) head[edge] = carry;
-                else if (cur >= 0 && cur < R)
-                    yp[int64_t(cur) * br + r] = carry;
-            }
+            float* dst = slots.at(cur, false);
+            if (lane == 0 && dst) *dst = carry;
             carry = 0.f;
         }
         v = segmented_scan(v, key, lane);
         const int next = __shfl_down_sync(0xffffffffu, key, 1);
         const float total = v + (key == cur ? carry : 0.f);
         if (lane < cnt - 1 && next != key) {     // a run ends in the chunk
-            if (key == first) head[edge] = total;
-            else if (key >= 0 && key < R) yp[int64_t(key) * br + r] = total;
+            float* dst = slots.at(key, false);
+            if (dst) *dst = total;
         }
         carry = __shfl_sync(0xffffffffu, total, cnt - 1);   // runs on
         cur = __shfl_sync(0xffffffffu, key, cnt - 1);
     }
-    if (lane == 0) (cur == first ? head : tail)[edge] = carry;
+    float* dst = slots.at(cur, true);
+    if (lane == 0 && dst) *dst = carry;
 }
 
-// The head partials of segments t0, t0+1, ... whose first id is r, added
-// in segment order.
-__device__ float chain_sum(const Stream& st, const float* __restrict__ head,
-                           int64_t piece_edge0, int64_t W, int64_t w,
-                           int64_t t0, int r) {
-    if (t0 >= st.nseg || st.first(t0) != r) return 0.f;
-    // first segment at or after t0 whose first id is past r
-    int64_t a = t0 + 1, b = st.nseg;
-    while (a < b) {
-        const int64_t mid = (a + b) >> 1;
-        if (st.first(mid) <= r) a = mid + 1;
-        else b = mid;
-    }
-    float acc = 0.f;
-#pragma unroll 8
-    for (int64_t t = t0; t < a; ++t)
-        acc += __ldg(head + (piece_edge0 + t) * W + w);
-    return acc;
-}
-
-// grid (ceil(nseg * W / 256), P), 256 threads: a thread per (seg, w), W
-// outputs per block-row (br for SpMV, br * J for SpMM)
-__global__ void bcsr_fold(const int* __restrict__ brow,
-                          const float* __restrict__ head,
-                          const float* __restrict__ tail,
-                          float* __restrict__ out,
-                          int64_t N, int64_t W, int R, int64_t nseg) {
+// The (4, 4) SpMV instance. grid (ceil(nseg * 32 / 256), P), 256 threads:
+// a warp per segment, lanes on stored blocks, each lane with its block's
+// four row sums. Per 32-block chunk, lane t loads the id and block-column
+// of block t, its tile as four 16-byte loads (the warp's loads cover the
+// chunk's 2 KB of tiles) and its c quad as one 16-byte gather, all before
+// any FMA; then per row r the dot is x.x first, then y, z, w by fma. As in
+// the generic instance: if block 0 starts another block-row than the
+// carried run's, the carried run is written; a segmented inclusive scan
+// over the chunk's 32 lanes (shuffles 1 .. 16 up, among equal ids) sums
+// each run's four rows; a run that ends inside the chunk is written (scan
+// + carry when it continues the carried run) as one 16-byte store; the
+// chunk's last run is carried on. So a run's sum depends only on where its
+// blocks fall in the stream. (On an NVIDIA H100 80GB HBM3 at 700 W, phase 1
+// of the spmv_bcsr cells: this layout, 52 registers, 0.064 ms; lanes on
+// (block, row) with 8 blocks a step and four steps' loads ahead, 73
+// registers, 0.075; two chunks' loads ahead, 0.065.)
+__global__ void __launch_bounds__(kThreads)
+bcsr_spmv_phase1_44(const int* __restrict__ brow,
+                    const int* __restrict__ bcol,
+                    const float* __restrict__ tiles,
+                    const float* __restrict__ cvec,
+                    float* __restrict__ head, float* __restrict__ tail,
+                    float* __restrict__ y, int64_t N, int grid_cols, int R,
+                    int64_t nseg) {
     const int64_t p = blockIdx.y;
-    const int64_t idx = int64_t(blockIdx.x) * kThreads + threadIdx.x;
-    if (idx >= nseg * W) return;
-    const int64_t seg = idx / W, w = idx % W;
+    const int lane = threadIdx.x % kWarp;
+    const int64_t seg = int64_t(blockIdx.x) * (kThreads / kWarp)
+                        + threadIdx.x / kWarp;
+    if (seg >= nseg) return;                     // warp-uniform
     const Stream st{brow + p * N, N, nseg};
-    const int64_t e0 = p * nseg;                 // this piece's first edge
-    float* op = out + p * int64_t(R) * W;
-    const int hr = st.first(seg), tr = st.last(seg);
-    const bool multi = hr != tr;
-    // the tail's block-row starts here
-    if (multi && tr >= 0 && tr < R) {
-        float acc = tail[(e0 + seg) * W + w];
-        acc += chain_sum(st, head, e0, W, w, seg + 1, tr);
-        op[int64_t(tr) * W + w] = acc;
+    const int64_t lo = st.lo(seg), hi = st.hi(seg);
+    const int first = st.first(seg);
+    if (first >= R || st.last(seg) < 0) return;   // warp-uniform: dropped
+    const int* pc = bcol + p * N;
+    const float4* pt = reinterpret_cast<const float4*>(tiles + p * N * 16);
+    const float4* c4 = reinterpret_cast<const float4*>(cvec);
+    const int64_t edge = (p * nseg + seg) * 4;
+    const Slots slots{head + edge, tail + edge, y + p * int64_t(R) * 4, 4,
+                      first, R, st.open_lo(seg), st.open_hi(seg)};
+    auto put = [](float* dst, const float (&v)[4]) {   // one 16-byte store
+        if (dst) *reinterpret_cast<float4*>(dst) =
+            make_float4(v[0], v[1], v[2], v[3]);
+    };
+    int cur = first;
+    float carry[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int64_t base = lo; base < hi; base += kWarp) {
+        const int cnt = hi - base < kWarp ? int(hi - base) : kWarp;
+        const int64_t e = base + lane;
+        const int k = lane < cnt ? st.brow[e] : INT_MAX;   // past every id
+        const bool use = k >= 0 && k < R;        // else dropped
+        float4 t[4], c;                          // every load first
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+            t[r] = use ? __ldg(pt + e * 4 + r) : make_float4(0, 0, 0, 0);
+        c = use ? __ldg(c4 + clamp_index(pc[e], grid_cols))
+                : make_float4(0, 0, 0, 0);
+        float v[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+            v[r] = t[r].x * c.x;
+            v[r] = fmaf(t[r].y, c.y, v[r]);
+            v[r] = fmaf(t[r].z, c.z, v[r]);
+            v[r] = fmaf(t[r].w, c.w, v[r]);
+        }
+        if (__shfl_sync(0xffffffffu, k, 0) != cur) {
+            // the carried run ended with the previous chunk
+            if (lane == 0) put(slots.at(cur, false), carry);
+#pragma unroll
+            for (int r = 0; r < 4; ++r) carry[r] = 0.f;
+        }
+#pragma unroll
+        for (int d = 1; d < kWarp; d <<= 1) {
+            const int kw = __shfl_up_sync(0xffffffffu, k, d);
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+                const float w = __shfl_up_sync(0xffffffffu, v[r], d);
+                if (lane >= d && kw == k) v[r] += w;
+            }
+        }
+        const int next = __shfl_down_sync(0xffffffffu, k, 1);
+        float total[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+            total[r] = k == cur ? v[r] + carry[r] : v[r];
+        if (lane < cnt - 1 && next != k)         // a run ends in the chunk
+            put(slots.at(k, false), total);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)              // the last run goes on
+            carry[r] = __shfl_sync(0xffffffffu, total[r], cnt - 1);
+        cur = __shfl_sync(0xffffffffu, k, cnt - 1);
     }
-    // the head's block-row starts here
-    if (hr >= 0 && hr < R && (seg == 0 || st.last(seg - 1) != hr)) {
-        float acc = head[(e0 + seg) * W + w];
-        if (!multi) acc += chain_sum(st, head, e0, W, w, seg + 1, hr);
-        op[int64_t(hr) * W + w] = acc;
-    }
+    if (lane == 0) put(slots.at(cur, true), carry);
 }
 
 // bcsr_sddmm: a warp per (run of kSdBlocks consecutive stored blocks of a
@@ -554,42 +637,49 @@ int spmm_phase1(int br, int bc, bool vec, const int* brow, const int* bcol,
     return int(cudaGetLastError());
 }
 
-int fold(const int* brow, const float* head, const float* tail, float* out,
-         int P, int64_t N, int64_t W, int R, int64_t nseg, cudaStream_t s) {
-    dim3 grid(unsigned((nseg * W + kThreads - 1) / kThreads), unsigned(P));
-    bcsr_fold<<<grid, kThreads, 0, s>>>(brow, head, tail, out, N, W, R, nseg);
-    return int(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
 
 // brow, bcol: (P, N); tiles: (P, N, br, bc); c: (grid_cols * bc,);
-// head, tail: (P, nseg, br) scratch with nseg = ceil(N / 128);
-// y: (P, R * br), zeroed.
+// head, tail: (P, nseg, br) and group: (P, nseg / 64, br) f32 scratch with
+// nseg = ceil(N / 128); y: (P, R * br), zeroed.
 int bcsr_spmv(const int* brow, const int* bcol, const float* tiles,
-              const float* c, float* head, float* tail, float* y, int P,
-              int64_t N, int br, int bc, int grid_cols, int R, void* stream) {
+              const float* c, float* head, float* tail, float* group,
+              float* y, int P, int64_t N, int br, int bc, int grid_cols,
+              int R, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int64_t nseg = (N + kSeg - 1) / kSeg;
-    const int64_t warps = nseg * br;
-    dim3 grid(unsigned((warps * kWarp + kThreads - 1) / kThreads),
-              unsigned(P));
-    bcsr_spmv_phase1<<<grid, kThreads, 0, s>>>(
-        brow, bcol, tiles, c, head, tail, y, N, br, bc, grid_cols, R, nseg);
-    int err = int(cudaGetLastError());
+    // 16-byte tile and c loads need aligned bases (a view may start
+    // anywhere)
+    const bool vec = reinterpret_cast<uintptr_t>(tiles) % 16 == 0
+                     && reinterpret_cast<uintptr_t>(c) % 16 == 0;
+    if (br == 4 && bc == 4 && vec) {
+        dim3 grid(unsigned((nseg * kWarp + kThreads - 1) / kThreads),
+                  unsigned(P));
+        bcsr_spmv_phase1_44<<<grid, kThreads, 0, s>>>(
+            brow, bcol, tiles, c, head, tail, y, N, grid_cols, R, nseg);
+    } else {
+        const int64_t warps = nseg * br;
+        dim3 grid(unsigned((warps * kWarp + kThreads - 1) / kThreads),
+                  unsigned(P));
+        bcsr_spmv_phase1<<<grid, kThreads, 0, s>>>(
+            brow, bcol, tiles, c, head, tail, y, N, br, bc, grid_cols, R,
+            nseg);
+    }
+    const int err = int(cudaGetLastError());
     if (err != 0) return err;
-    return fold(brow, head, tail, y, P, N, br, R, nseg, s);
+    return segment_fold::fold_rows<kSeg>(brow, head, tail, group, y, P, N,
+                                         br, R, nseg, s);
 }
 
 // brow, bcol: (P, N); tiles: (P, N, br, bc), any block; C:
-// (grid_cols * bc, J); head, tail: (P, nseg, br, J) scratch; Y:
-// (P, R * br, J), zeroed.
+// (grid_cols * bc, J); head, tail: (P, nseg, br, J) and group:
+// (P, nseg / 64, br, J) scratch; Y: (P, R * br, J), zeroed.
 int bcsr_spmm(const int* brow, const int* bcol, const float* tiles,
-              const float* C, float* head, float* tail, float* Y, int P,
-              int64_t N, int br, int bc, int grid_cols, int J, int R,
-              void* stream) {
+              const float* C, float* head, float* tail, float* group,
+              float* Y, int P, int64_t N, int br, int bc, int grid_cols,
+              int J, int R, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int n_jt = (J + kWarp - 1) / kWarp;
     const int64_t nseg = (N + kSeg - 1) / kSeg;
@@ -609,7 +699,8 @@ int bcsr_spmm(const int* brow, const int* bcol, const float* tiles,
         err = int(cudaGetLastError());
     }
     if (err != 0) return err;
-    return fold(brow, head, tail, Y, P, N, int64_t(br) * J, R, nseg, s);
+    return segment_fold::fold_rows<kSeg>(brow, head, tail, group, Y, P, N,
+                                         br * J, R, nseg, s);
 }
 
 // brow, bcol: (P, N); tiles, out: (P, N, br, bc), any block; C: (n_c, K)

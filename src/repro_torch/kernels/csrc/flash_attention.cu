@@ -3,23 +3,28 @@
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:82
 // flash_attention (body _flash_kernel). q is (B, S, H, hd), k and v are
 // (B, S, Hkv, hd) with H = G.Hkv; query head h reads KV head h / G. The
-// output o (B, S, H, hd) has q's dtype (float32 or bfloat16).
+// output o (B, S, H, hd) has q's dtype (float32, bfloat16 or float16).
 //
 // What it computes, as the TPU kernel: s = q.k * hd^-0.5 in f32 under the
 // causal mask kv_pos <= q_pos (and kv_pos < S); an online softmax with a
 // running max m and denominator l in f32 and an f32 accumulator; masked
 // probabilities are set to 0 again, so a fully masked stretch of keys adds
-// nothing; for bf16 inputs p is rounded to bf16 before the PV product (the
-// TPU kernel's p.astype(v.dtype)); o = acc / max(l, 1e-30).
+// nothing; for bf16 (f16) inputs p is rounded to bf16 (f16) before the PV
+// product (the TPU kernel's p.astype(v.dtype)); o = acc / max(l, 1e-30).
 //
 // What bounds it on this card: operations. The causal work is
 // 2.2.B.H.hd.S^2/2 flops against (q + k + v + o) bytes read or written
 // once; at the llama3-8b layer shape (B 2, S 4096, H 32, Hkv 8, hd 128)
 // that is 275 GFLOP against 168 MB (bf16), about 1,600 flops per byte.
-// Two kernels, one per dtype:
-//  - bf16: flash_mma_kernel, on the tensor cores (989 TFLOP/s).
+// Two kernels, one per kind of dtype:
+//  - bf16 and f16: flash_mma_kernel<HD, T>, on the tensor cores (989
+//    TFLOP/s either way); the two instances differ only in the mma's input
+//    type and in how p and o are rounded.
 //  - f32: flash_f32_kernel, on the CUDA cores (67 TFLOP/s), the only way
 //    to meet the reference's f32 tolerance of 2e-5 (TF32 would not).
+// Both take hd in {16, 32, 64, 128, 256}; above 256 a column-chunk twin of
+// each (flash_mma_wide_kernel, flash_f32_wide_kernel, at the end) takes
+// any multiple of 128.
 //
 // What both do about it:
 //  - A thread block owns one output tile: the query positions of one q
@@ -44,12 +49,12 @@
 //    The block's q rows sit in shared memory (they arrive with the first
 //    K/V tile) and each k-step reloads its A fragment by ldmatrix: held in
 //    registers they cost 32 more a thread and spilled at hd 128.
-//  - S = Q.K^T and O += P.V run as mma.sync m16n8k16 bf16 x bf16 -> f32.
+//  - S = Q.K^T and O += P.V run as mma.sync m16n8k16 T x T -> f32.
 //    K fragments come by ldmatrix, V's by ldmatrix.trans (V is stored
 //    key-major, the PV product wants it dim-major).
 //  - P never leaves registers: the S accumulator fragment of keys
 //    16kk .. 16kk + 15 (two n-tiles of 8) is, pair by pair, the A fragment
-//    of PV's k-step kk once rounded to bf16.
+//    of PV's k-step kk once rounded to T.
 //  - A row's max and sum reduce over the 4 lanes that hold it (shuffles at
 //    offsets 1 and 2, in that order); l is kept per lane and reduced once
 //    at the end.
@@ -71,11 +76,15 @@
 // error of cudaFuncSetAttribute, which dynamic shared memory above 48 KB
 // needs: at hd 128 the f32 kernel's K/V tile pair is 64 KB, the bf16
 // kernel's two stages and q tile 80 KB; at hd 256, 128 KB and 160 KB, of
-// the 227 KB a block may take).
+// the 227 KB a block may take; the column-chunk kernels 64 KB (f32) and
+// 48 KB (16-bit) at any width).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -217,7 +226,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: the tensor cores
+// bf16 and f16: the tensor cores
 // ---------------------------------------------------------------------------
 
 constexpr int kWarps = 4;
@@ -265,23 +274,38 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t& r0,
                  : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(addr));
 }
 
-// d += a . b for one 16x8x16 tile: a the A fragment (rows gq and gq + 8,
-// k 2tq, 2tq + 1 and + 8), b0 / b1 the B fragment (k 2tq.. and 2tq + 8..,
-// column gq), d the C fragment (rows gq, gq + 8; columns 2tq, 2tq + 1).
-__device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                         const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// d += a . b for one 16x8x16 tile of T (bf16 or f16) in f32: a the A
+// fragment (rows gq and gq + 8, k 2tq, 2tq + 1 and + 8), b0 / b1 the B
+// fragment (k 2tq.. and 2tq + 8.., column gq), d the C fragment (rows gq,
+// gq + 8; columns 2tq, 2tq + 1).
+template <typename T>
+__device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4],
+                                      uint32_t b0, uint32_t b1) {
+    if constexpr (std::is_same_v<T, __half>)
+        asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+            "{%0, %1, %2, %3};\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+    else
+        asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+            "{%0, %1, %2, %3};\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// two floats as bf16x2, lo in the low half (the lower k / column index)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&x);
+// two floats as a T pair (round to nearest even), lo in the low half (the
+// lower k / column index)
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+    if constexpr (std::is_same_v<T, __half>) {
+        __half2 x = __floats2half2_rn(lo, hi);
+        return *reinterpret_cast<uint32_t*>(&x);
+    } else {
+        __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+        return *reinterpret_cast<uint32_t*>(&x);
+    }
 }
 
 // 2^x by the MUFU unit (ex2.approx, subnormal results flushed to 0)
@@ -291,12 +315,11 @@ __device__ __forceinline__ float fast_exp2(float x) {
     return y;
 }
 
-template <int HD>
+template <int HD, typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o, int S, int H, int Hkv,
+flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o, int S, int H,
+                 int Hkv,
                  int G, int GB, int BQ, int n_qt, int n_bh,
                  float scale_log2) {
     constexpr int CPR = HD / 8;          // 16-byte chunks per row
@@ -323,7 +346,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
     // this lane's rows 16 warp + gq (r = 0) and + 8 (r = 1)
     int pos[2];
     bool live[2];
-    int64_t word[2];                              // its o row, in bf16 pairs
+    int64_t word[2];                              // its o row, in T pairs
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
         const int rho = 16 * warp + gq + 8 * r;
@@ -361,8 +384,8 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
     const int64_t kv_stride = int64_t(Hkv) * HD;
-    const __nv_bfloat16* kb = k + (int64_t(b) * S * Hkv + kvh) * HD;
-    const __nv_bfloat16* vb = v + (int64_t(b) * S * Hkv + kvh) * HD;
+    const T* kb = k + (int64_t(b) * S * Hkv + kvh) * HD;
+    const T* vb = v + (int64_t(b) * S * Hkv + kvh) * HD;
 
     auto load = [&](int tile, int stage) {
         const int k0 = tile * kBK;
@@ -410,8 +433,8 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                     const int c = 2 * kc + ((lane >> 3) & 1);
                     uint32_t b0, b1, b2, b3;
                     ldsm_x4(sK + swz<CPR>(key, c) * 16, b0, b1, b2, b3);
-                    mma_bf16(s[2 * np], qa, b0, b1);
-                    mma_bf16(s[2 * np + 1], qa, b2, b3);
+                    mma16<T>(s[2 * np], qa, b0, b1);
+                    mma16<T>(s[2 * np + 1], qa, b2, b3);
                 }
             }
             // scale, mask (only a tile that reaches past the warp's first
@@ -451,7 +474,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                 acc[d][2] *= corr[1];
                 acc[d][3] *= corr[1];
             }
-            // p in f32 for l, in bf16 (the A fragment) for PV
+            // p in f32 for l, in T (the A fragment) for PV
 #pragma unroll
             for (int j = 0; j < NT; ++j) {
 #pragma unroll
@@ -469,10 +492,10 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
             for (int kk = 0; kk < NT / 2; ++kk) {
                 const uint32_t a[4] = {
-                    pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                    pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                    pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                    pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+                    pack2<T>(s[2 * kk][0], s[2 * kk][1]),
+                    pack2<T>(s[2 * kk][2], s[2 * kk][3]),
+                    pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                    pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
                 for (int dp = 0; dp < DT / 2; ++dp) {
                     const int key = 16 * kk + (lane & 7)
@@ -481,8 +504,8 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                     uint32_t b0, b1, b2, b3;
                     ldsm_x4_trans(sV + swz<CPR>(key, c) * 16, b0, b1, b2,
                                   b3);
-                    mma_bf16(acc[2 * dp], a, b0, b1);
-                    mma_bf16(acc[2 * dp + 1], a, b2, b3);
+                    mma16<T>(acc[2 * dp], a, b0, b1);
+                    mma16<T>(acc[2 * dp + 1], a, b2, b3);
                 }
             }
         }
@@ -498,8 +521,356 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
         const float den = fmaxf(l[r], 1e-30f);
 #pragma unroll
         for (int d = 0; d < DT; ++d)
-            o32[word[r] + 4 * d + tq] = pack_bf16(acc[d][2 * r] / den,
-                                                  acc[d][2 * r + 1] / den);
+            o32[word[r] + 4 * d + tq] = pack2<T>(acc[d][2 * r] / den,
+                                                 acc[d][2 * r + 1] / den);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// Head widths above 256: the output's columns in chunks of kChunk
+// ---------------------------------------------------------------------------
+// The widest instance above (256) already spills in bf16, so a wider head
+// takes a kernel whose block owns one kChunk-wide chunk of the output's
+// columns (grid dimension y) for the same stacked rows as above. It sums
+// the full-width scores Q.K^T over hd in kChunk-wide k-chunks, each staged
+// in shared memory (q's chunk beside k's), runs the same online softmax
+// and accumulates P.V for its own chunk of V only. So the scores are
+// recomputed once per chunk: hd / 128 times the QK flops. The wrapper
+// zero-pads hd to a multiple of kChunk and passes the true width's scale.
+constexpr int kChunk = 128;
+
+// 16-bit (bf16 or f16) on the tensor cores: flash_mma_kernel's tiles,
+// fragments, masking and softmax at a width of kChunk, one stage (no
+// cp.async double buffer: each k-chunk is waited for before its products).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_mma_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ o, int S,
+                      int H, int Hkv, int HD, int G, int GB, int BQ, int n_qt,
+                      int n_bh, float scale_log2) {
+    constexpr int CPR = kChunk / 8;      // 16-byte chunks per row
+    constexpr int KC = kChunk / 16;      // k-steps of one k-chunk
+    constexpr int NT = kBK / 8;          // score n-tiles of 8 keys
+    constexpr int DT = kChunk / 8;       // output n-tiles of 8 dims
+    constexpr int TILE = kBK * CPR;      // chunks per staged tile
+    static_assert(kRows == kBK, "q's and k's chunks share one walk");
+    extern __shared__ uint4 smem[];      // K, V, then Q: TILE chunks each
+
+    const int cc = blockIdx.y;           // output columns kChunk cc ..
+    const int n_kc = HD / kChunk;
+    const int bid = blockIdx.x;
+    const int qt = n_qt - 1 - bid / n_bh;         // heaviest tiles first
+    const int bh = bid % n_bh;
+    const int n_gr = (G + GB - 1) / GB;
+    const int gr = bh % n_gr;
+    const int kvh = (bh / n_gr) % Hkv;
+    const int b = bh / (n_gr * Hkv);
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+    const int gq = lane >> 2, tq = lane & 3;
+    const int q0 = qt * BQ;
+    const int kv_end = min(S, q0 + BQ);
+    const int n_tiles = (kv_end + kBK - 1) / kBK;
+
+    int pos[2];
+    bool live[2];
+    int64_t word[2];                              // its o chunk, in T pairs
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int rho = 16 * warp + gq + 8 * r;
+        const int qi = rho / GB, g = gr * GB + rho % GB;
+        pos[r] = q0 + qi;
+        live[r] = qi < BQ && g < G && pos[r] < S;
+        word[r] = live[r]
+            ? ((int64_t(b) * S + pos[r]) * H + kvh * G + g) * (HD / 2)
+              + cc * (kChunk / 2) : 0;
+    }
+    const int p_lo = q0 + 16 * warp / GB;
+    const int p_hi = q0 + min(16 * warp + 15, GB * BQ - 1) / GB;
+    const bool warp_live = 16 * warp < GB * BQ && p_lo < S;
+
+    const uint32_t sK =
+        static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+    const uint32_t sV = sK + TILE * 16;
+    const uint32_t sQ = sV + TILE * 16;
+    float acc[DT][4];
+#pragma unroll
+    for (int d = 0; d < DT; ++d)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) acc[d][x] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+    const int64_t kv_stride = int64_t(Hkv) * HD;
+    const T* kb = k + (int64_t(b) * S * Hkv + kvh) * HD;
+    const T* vb = v + (int64_t(b) * S * Hkv + kvh) * HD;
+
+    for (int it = 0; it < n_tiles; ++it) {
+        const int k0 = it * kBK;
+        const bool go = warp_live && k0 <= p_hi;
+        float s[NT][4];
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int x = 0; x < 4; ++x) s[j][x] = 0.f;
+        for (int kc = 0; kc < n_kc; ++kc) {
+            __syncthreads();                      // the last chunk is used
+            // row i / CPR of the K, Q (and, with the last k-chunk, V)
+            // tiles; keys past S and rows past the block's are zero-filled
+            for (int i = tid; i < TILE; i += kThreads) {
+                const int row = i / CPR, c = i % CPR;
+                const int d = kc * kChunk + 8 * c;
+                const bool in = k0 + row < S;
+                const int64_t off = in ? (k0 + row) * kv_stride : 0;
+                const uint32_t at = swz<CPR>(row, c) * 16;
+                cp_async16(sK + at, kb + off + d, in ? 16 : 0);
+                if (kc == n_kc - 1)
+                    cp_async16(sV + at, vb + off + cc * kChunk + 8 * c,
+                               in ? 16 : 0);
+                const int qi = row / GB, g = gr * GB + row % GB;
+                const bool qin = qi < BQ && g < G && q0 + qi < S;
+                const int64_t qoff =
+                    qin ? ((int64_t(b) * S + q0 + qi) * H + kvh * G + g) * HD
+                          + d : 0;
+                cp_async16(sQ + at, q + qoff, qin ? 16 : 0);
+            }
+            cp_async_commit();
+            cp_async_wait<0>();
+            __syncthreads();
+            if (go) {
+#pragma unroll
+                for (int ks = 0; ks < KC; ++ks) {
+                    uint32_t qa[4];
+                    ldsm_x4(sQ + swz<CPR>(16 * warp + (lane & 15),
+                                          2 * ks + (lane >> 4)) * 16,
+                            qa[0], qa[1], qa[2], qa[3]);
+#pragma unroll
+                    for (int np = 0; np < NT / 2; ++np) {
+                        const int key = 16 * np + (lane & 7)
+                                        + ((lane >> 4) << 3);
+                        const int c = 2 * ks + ((lane >> 3) & 1);
+                        uint32_t b0, b1, b2, b3;
+                        ldsm_x4(sK + swz<CPR>(key, c) * 16, b0, b1, b2, b3);
+                        mma16<T>(s[2 * np], qa, b0, b1);
+                        mma16<T>(s[2 * np + 1], qa, b2, b3);
+                    }
+                }
+            }
+        }
+        if (!go) continue;                        // warp-uniform
+        const bool masked = k0 + kBK - 1 > p_lo;
+        uint32_t dead = 0;                        // bit 4 j + x: masked
+        float mx[2] = {m[0], m[1]};
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+#pragma unroll
+            for (int x = 0; x < 4; ++x) {
+                float y = s[j][x] * scale_log2;
+                if (masked) {
+                    const int key = k0 + 8 * j + 2 * tq + (x & 1);
+                    if (key > pos[x >> 1] || key >= S) {
+                        y = kNegInf;
+                        dead |= 1u << (4 * j + x);
+                    }
+                }
+                s[j][x] = y;
+                mx[x >> 1] = fmaxf(mx[x >> 1], y);
+            }
+        }
+        float corr[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+            corr[r] = fast_exp2(m[r] - mx[r]);
+            m[r] = mx[r];
+            l[r] *= corr[r];
+        }
+#pragma unroll
+        for (int d = 0; d < DT; ++d) {
+            acc[d][0] *= corr[0];
+            acc[d][1] *= corr[0];
+            acc[d][2] *= corr[1];
+            acc[d][3] *= corr[1];
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+#pragma unroll
+            for (int x = 0; x < 4; ++x) {
+                const float p = (dead >> (4 * j + x)) & 1u
+                    ? 0.f : fast_exp2(s[j][x] - m[x >> 1]);
+                l[x >> 1] += p;
+                s[j][x] = p;
+            }
+        }
+#pragma unroll
+        for (int kk = 0; kk < NT / 2; ++kk) {
+            const uint32_t a[4] = {
+                pack2<T>(s[2 * kk][0], s[2 * kk][1]),
+                pack2<T>(s[2 * kk][2], s[2 * kk][3]),
+                pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+            for (int dp = 0; dp < DT / 2; ++dp) {
+                const int key = 16 * kk + (lane & 7)
+                                + (((lane >> 3) & 1) << 3);
+                const int c = 2 * dp + (lane >> 4);
+                uint32_t b0, b1, b2, b3;
+                ldsm_x4_trans(sV + swz<CPR>(key, c) * 16, b0, b1, b2, b3);
+                mma16<T>(acc[2 * dp], a, b0, b1);
+                mma16<T>(acc[2 * dp + 1], a, b2, b3);
+            }
+        }
+    }
+
+    uint32_t* o32 = reinterpret_cast<uint32_t*>(o);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        if (!live[r]) continue;
+        const float den = fmaxf(l[r], 1e-30f);
+#pragma unroll
+        for (int d = 0; d < DT; ++d)
+            o32[word[r] + 4 * d + tq] = pack2<T>(acc[d][2 * r] / den,
+                                                 acc[d][2 * r + 1] / den);
+    }
+}
+
+// f32 on the CUDA cores: flash_f32_kernel's lanes at a width of kChunk
+// (4 lanes a row, 64 rows a block, each lane 32 dims of the block's chunk
+// of the accumulator). A lane sums its share of the 64 keys' scores over
+// every k-chunk (q's chunk from device memory, k's staged), then the 4
+// lanes' partials are reduced by shuffles in a fixed order and the softmax
+// runs 16 keys at a time, as there.
+__global__ void __launch_bounds__(kF32Threads, 1)
+flash_f32_wide_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      int S, int H, int Hkv, int HD, int G, int GB, int BQ,
+                      int n_qt, int n_bh, float scale) {
+    constexpr int TPR = kChunk / 32;              // lanes per row
+    constexpr int DPT = kChunk / TPR;             // dims per lane
+    constexpr int NV = DPT / 4;                   // float4 chunks per lane
+    extern __shared__ float4 smem4[];
+    float4* sK = smem4;                           // (kBK, kChunk / 4)
+    float4* sV = smem4 + kBK * kChunk / 4;
+
+    const int cc = blockIdx.y;
+    const int n_kc = HD / kChunk;
+    const int bid = blockIdx.x;
+    const int qt = n_qt - 1 - bid / n_bh;         // heaviest tiles first
+    const int bh = bid % n_bh;
+    const int n_gr = (G + GB - 1) / GB;
+    const int gr = bh % n_gr;
+    const int kvh = (bh / n_gr) % Hkv;
+    const int b = bh / (n_gr * Hkv);
+    const int t = threadIdx.x;
+    const int row = t / TPR, sub = t % TPR;
+    const int qi = row / GB, g = gr * GB + row % GB;
+    const int q0 = qt * BQ;
+    const int qpos = q0 + qi;
+    const bool live = qi < BQ && g < G && qpos < S;
+    const int h = kvh * G + g;
+    const int64_t qrow = ((int64_t(b) * S + qpos) * H + h) * HD;
+
+    float acc[DPT];
+#pragma unroll
+    for (int d = 0; d < DPT; ++d) acc[d] = 0.f;
+    float m = kNegInf, l = 0.f;
+
+    const int kv_end = min(S, q0 + BQ);
+    const int64_t kv_stride = int64_t(Hkv) * HD;
+    const float* kb = k + (int64_t(b) * S * Hkv + kvh) * HD;
+    const float* vb = v + (int64_t(b) * S * Hkv + kvh) * HD;
+    float* sKf = reinterpret_cast<float*>(sK);
+    float* sVf = reinterpret_cast<float*>(sV);
+
+    for (int k0 = 0; k0 < kv_end; k0 += kBK) {
+        const int nk = min(kBK, kv_end - k0);
+        float s[kBK];                             // this lane's partials
+#pragma unroll
+        for (int c = 0; c < kBK; ++c) s[c] = 0.f;
+        for (int kc = 0; kc < n_kc; ++kc) {
+            float qr[DPT];
+#pragma unroll
+            for (int j = 0; j < NV; ++j) {
+                const int64_t at = qrow + kc * kChunk + 4 * (j * TPR + sub);
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    qr[4 * j + e] = live ? q[at + e] : 0.f;
+            }
+            __syncthreads();                      // the last chunk is used
+            for (int i = t; i < kBK * kChunk; i += kF32Threads) {
+                const int key = i / kChunk, d = i % kChunk;
+                float kx = 0.f, vx = 0.f;         // zero past the tile's end
+                if (key < nk) {
+                    const int64_t off = int64_t(k0 + key) * kv_stride;
+                    kx = kb[off + kc * kChunk + d];
+                    if (kc == n_kc - 1) vx = vb[off + cc * kChunk + d];
+                }
+                sKf[i] = kx;
+                if (kc == n_kc - 1) sVf[i] = vx;
+            }
+            __syncthreads();
+#pragma unroll
+            for (int c = 0; c < kBK; ++c) {
+                const float4* kr = sK + c * (kChunk / 4);
+                float dot = s[c];
+#pragma unroll
+                for (int j = 0; j < NV; ++j) {
+                    const float4 kk = kr[j * TPR + sub];
+                    dot += qr[4 * j] * kk.x + qr[4 * j + 1] * kk.y
+                           + qr[4 * j + 2] * kk.z + qr[4 * j + 3] * kk.w;
+                }
+                s[c] = dot;
+            }
+        }
+#pragma unroll
+        for (int c0 = 0; c0 < kBK; c0 += kCH) {
+            if (c0 >= nk) break;                  // block-uniform
+            float sc[kCH];
+            float mx = kNegInf;
+#pragma unroll
+            for (int c = 0; c < kCH; ++c) {
+                float dot = s[c0 + c];
+#pragma unroll
+                for (int off = 1; off < TPR; off <<= 1)
+                    dot += __shfl_xor_sync(0xffffffffu, dot, off);
+                const int kv = k0 + c0 + c;
+                const bool ok = c0 + c < nk && kv <= qpos && kv < S;
+                sc[c] = ok ? dot * scale : kNegInf;
+                mx = fmaxf(mx, sc[c]);
+            }
+            const float m_new = fmaxf(m, mx);
+            const float corr = expf(m - m_new);
+            l *= corr;
+#pragma unroll
+            for (int d = 0; d < DPT; ++d) acc[d] *= corr;
+#pragma unroll
+            for (int c = 0; c < kCH; ++c) {
+                const int kv = k0 + c0 + c;
+                const bool ok = c0 + c < nk && kv <= qpos && kv < S;
+                const float p = ok ? expf(sc[c] - m_new) : 0.f;
+                l += p;
+                const float4* vr = sV + (c0 + c) * (kChunk / 4);
+#pragma unroll
+                for (int j = 0; j < NV; ++j) {
+                    const float4 vv = vr[j * TPR + sub];
+                    acc[4 * j] += p * vv.x;
+                    acc[4 * j + 1] += p * vv.y;
+                    acc[4 * j + 2] += p * vv.z;
+                    acc[4 * j + 3] += p * vv.w;
+                }
+            }
+            m = m_new;
+        }
+    }
+    if (!live) return;
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+        const int64_t at = qrow + cc * kChunk + 4 * (j * TPR + sub);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[at + e] = acc[4 * j + e] * inv;
     }
 }
 
@@ -516,46 +887,87 @@ struct Tiling {
     unsigned blocks() const { return unsigned(int64_t(n_qt) * n_bh); }
 };
 
+// the dtype codes of flash_attention_fwd
+enum Dtype { kF32 = 0, kBF16 = 1, kF16 = 2 };
+
+template <typename K, typename... Args>
+int launch_kernel(K kernel, dim3 grid, int threads, size_t smem,
+                  cudaStream_t stream, Args... args) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return int(err);
+    kernel<<<grid, threads, smem, stream>>>(args...);
+    return int(cudaGetLastError());
+}
+
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                int S, int H, int Hkv, float scale, cudaStream_t stream) {
     constexpr int TPR = HD <= 32 ? 1 : HD / 32;
     const Tiling t(B, S, H, Hkv, kF32Threads / TPR);
-    const size_t smem = 2 * size_t(kBK) * HD * sizeof(float);
-    auto kernel = flash_f32_kernel<HD>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (err != cudaSuccess) return int(err);
-    kernel<<<t.blocks(), kF32Threads, smem, stream>>>(
+    return launch_kernel(
+        flash_f32_kernel<HD>, dim3(t.blocks()), kF32Threads,
+        2 * size_t(kBK) * HD * sizeof(float), stream,
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), S, H, Hkv,
         t.G, t.GB, t.BQ, t.n_qt, t.n_bh, scale);
-    return int(cudaGetLastError());
 }
 
-template <int HD>
+template <int HD, typename T>
 int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
                int S, int H, int Hkv, float scale, cudaStream_t stream) {
     const Tiling t(B, S, H, Hkv, kRows);
-    const size_t smem = (size_t(kStages) * 2 * kBK + kRows) * HD * 2;
-    auto kernel = flash_mma_kernel<HD>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (err != cudaSuccess) return int(err);
-    kernel<<<t.blocks(), kThreads, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<__nv_bfloat16*>(o), S, H, Hkv, t.G, t.GB, t.BQ, t.n_qt,
-        t.n_bh, scale * 1.4426950408889634f);
-    return int(cudaGetLastError());
+    return launch_kernel(
+        flash_mma_kernel<HD, T>, dim3(t.blocks()), kThreads,
+        (size_t(kStages) * 2 * kBK + kRows) * HD * 2, stream,
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), S, H, Hkv, t.G, t.GB,
+        t.BQ, t.n_qt, t.n_bh, scale * 1.4426950408889634f);
 }
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int H, int Hkv, int is_bf16, float scale, cudaStream_t s) {
-    return is_bf16 ? launch_mma<HD>(q, k, v, o, B, S, H, Hkv, scale, s)
-                   : launch_f32<HD>(q, k, v, o, B, S, H, Hkv, scale, s);
+           int S, int H, int Hkv, int dtype, float scale, cudaStream_t s) {
+    switch (dtype) {
+        case kBF16:
+            return launch_mma<HD, __nv_bfloat16>(q, k, v, o, B, S, H, Hkv,
+                                                 scale, s);
+        case kF16:
+            return launch_mma<HD, __half>(q, k, v, o, B, S, H, Hkv, scale, s);
+        default:
+            return launch_f32<HD>(q, k, v, o, B, S, H, Hkv, scale, s);
+    }
+}
+
+template <typename T>
+int launch_mma_wide(const void* q, const void* k, const void* v, void* o,
+                    int B, int S, int H, int Hkv, int hd, float scale,
+                    cudaStream_t stream) {
+    const Tiling t(B, S, H, Hkv, kRows);
+    return launch_kernel(
+        flash_mma_wide_kernel<T>, dim3(t.blocks(), hd / kChunk), kThreads,
+        size_t(3) * kBK * kChunk * 2, stream, static_cast<const T*>(q),
+        static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(o), S, H, Hkv, hd, t.G, t.GB, t.BQ, t.n_qt, t.n_bh,
+        scale * 1.4426950408889634f);
+}
+
+int launch_wide(const void* q, const void* k, const void* v, void* o, int B,
+                int S, int H, int Hkv, int hd, int dtype, float scale,
+                cudaStream_t s) {
+    if (dtype == kBF16)
+        return launch_mma_wide<__nv_bfloat16>(q, k, v, o, B, S, H, Hkv, hd,
+                                              scale, s);
+    if (dtype == kF16)
+        return launch_mma_wide<__half>(q, k, v, o, B, S, H, Hkv, hd, scale,
+                                       s);
+    const Tiling t(B, S, H, Hkv, kF32Threads / (kChunk / 32));
+    return launch_kernel(
+        flash_f32_wide_kernel, dim3(t.blocks(), hd / kChunk), kF32Threads,
+        2 * size_t(kBK) * kChunk * sizeof(float), s,
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), S, H, Hkv, hd,
+        t.G, t.GB, t.BQ, t.n_qt, t.n_bh, scale);
 }
 
 }  // namespace
@@ -563,22 +975,26 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 extern "C" {
 
 // q, o: (B, S, H, hd); k, v: (B, S, Hkv, hd); all contiguous, of one dtype
-// (bf16 when is_bf16, else float32); H a multiple of Hkv; hd in
-// {16, 32, 64, 128, 256} (the wrapper zero-pads any other hd <= 256 to the
-// next of these and passes the true width's scale).
+// (dtype 0 float32, 1 bf16, 2 f16); H a multiple of Hkv; hd in {16, 32,
+// 64, 128, 256} or a multiple of 128 above 256 (the wrapper zero-pads any
+// other hd to the next of these and passes the true width's scale).
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         void* o, int B, int S, int H, int Hkv, int hd,
-                        int is_bf16, float scale, void* stream) {
+                        int dtype, float scale, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (hd) {
-        case 16: return launch<16>(q, k, v, o, B, S, H, Hkv, is_bf16, scale, s);
-        case 32: return launch<32>(q, k, v, o, B, S, H, Hkv, is_bf16, scale, s);
-        case 64: return launch<64>(q, k, v, o, B, S, H, Hkv, is_bf16, scale, s);
+        case 16: return launch<16>(q, k, v, o, B, S, H, Hkv, dtype, scale, s);
+        case 32: return launch<32>(q, k, v, o, B, S, H, Hkv, dtype, scale, s);
+        case 64: return launch<64>(q, k, v, o, B, S, H, Hkv, dtype, scale, s);
         case 128:
-            return launch<128>(q, k, v, o, B, S, H, Hkv, is_bf16, scale, s);
+            return launch<128>(q, k, v, o, B, S, H, Hkv, dtype, scale, s);
         case 256:
-            return launch<256>(q, k, v, o, B, S, H, Hkv, is_bf16, scale, s);
-        default: return int(cudaErrorInvalidValue);
+            return launch<256>(q, k, v, o, B, S, H, Hkv, dtype, scale, s);
+        default:
+            if (hd > 256 && hd % kChunk == 0)
+                return launch_wide(q, k, v, o, B, S, H, Hkv, hd, dtype,
+                                   scale, s);
+            return int(cudaErrorInvalidValue);
     }
 }
 

@@ -47,8 +47,19 @@
 //      output coordinate) over seg_ptr (one segment per chunk within a run)
 //      over perm (stream slots in stream order). The kernel sums each
 //      segment in stream order and the segments in chunk order, the
-//      reference's order (per-chunk union, then the host dedupe); one
-//      thread per output element (coordinate x tile cell).
+//      reference's order (per-chunk union, then the host dedupe): 0 + each
+//      segment's entries, then 0 + the segments. A warp takes 32
+//      consecutive runs, whose index walk plan_runs lays out as three
+//      contiguous slices (their run_ptr, the seg_ptr of their segments, the
+//      perm of their entries): it reads each slice with coalesced loads
+//      into shared memory, so no lane walks a chain of dependent loads.
+//      Lanes then go on (run, tile quad), 16-byte gathers of the values
+//      (or (run, tile cell) and 4-byte ones, where the tile is not a
+//      multiple of 4 floats or the values' base is off a 16-byte boundary),
+//      the first entries of four steps' runs gathered before any add, and
+//      the 32 runs' sums leave as contiguous stores. Scalar values keep a
+//      thread per run walking run_ptr -> seg_ptr -> perm -> vals, the
+//      first version's kernel, which was faster there (PERF.md).
 //    What bounds both on this card: bytes (each stored value read once,
 //    each union entry written once; one add per duplicate).
 //    No float atomics anywhere: results repeat bit for bit.
@@ -581,25 +592,158 @@ union_rows_kernel(Three ops, int R, int tile, const int* __restrict__ trow,
     }
 }
 
-// One thread per (run u, tile cell k).
+// spadd3_union_runs, tiles of more than one float: a warp per 32
+// consecutive runs u0 .. u0 + nu - 1.
+// Their segments s0 .. s1 - 1 and entries e0 .. e1 - 1 are contiguous
+// (plan_runs), so the warp stages seg_ptr[s0 .. s1] and perm[e0 .. e1) in
+// shared memory, up to kSegCap + 1 and kPermCap of them (a longer walk
+// reads the rest from device memory, in the same order). Item it of the
+// warp is (run it / nq, element W (it % nq)), W = 4 floats (VEC) or 1, so
+// the warp's items are its runs' output floats in order; a lane takes
+// items lane, lane + 32, ... and gathers the first kAheadEnt entries of
+// kAheadSteps items before any add. Each output float is
+// 0 + (0 + the entries of segment 0 in order) + (0 + segment 1's) + ...,
+// exactly union_runs_plain's order and that of union_runs_kernel below,
+// so the bits are that kernel's.
+constexpr int kRunWarps = kThreads / 32;
+constexpr int kSegCap = 128;     // seg_ptr entries a warp stages, + 1
+constexpr int kPermCap = 256;    // perm entries a warp stages
+constexpr int kAheadSteps = 4;   // items a lane gathers for before adding
+constexpr int kAheadEnt = 3;     // entries an item gathers ahead
+static_assert(kAheadEnt == 3, "the add loop picks x[a][0..2] by hand");
+
+template <bool VEC>
+struct Lanes {
+    using V = float;
+    static constexpr int W = 1;
+    __device__ static V zero() { return 0.f; }
+    __device__ static V load(const float* p) { return __ldg(p); }
+    __device__ static void add(V& a, V b) { a += b; }
+    __device__ static void store(float* p, V v) { *p = v; }
+};
+
+template <>
+struct Lanes<true> {
+    using V = float4;
+    static constexpr int W = 4;
+    __device__ static V zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+    __device__ static V load(const float* p) {
+        return __ldg(reinterpret_cast<const float4*>(p));
+    }
+    __device__ static void add(V& a, V b) {
+        a.x += b.x;
+        a.y += b.y;
+        a.z += b.z;
+        a.w += b.w;
+    }
+    __device__ static void store(float* p, V v) {
+        *reinterpret_cast<float4*>(p) = v;
+    }
+};
+
+// At most 80 registers, so that three blocks (24 warps) fit an SM: the walk
+// is latency-bound, and more warps hide more of it than more registers do
+// (spadd3/bcsr/nnz device ms on an NVIDIA H100 80GB HBM3 at 700 W: 102
+// registers, 16 warps 0.559; 80 registers and 56 bytes spilled, 24 warps
+// 0.449; 64 registers, 32 warps 0.576).
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads, 3)
+union_runs_warp_kernel(const float* __restrict__ vals,
+                  const int* __restrict__ perm,
+                  const int* __restrict__ seg_ptr,
+                  const int* __restrict__ run_ptr, float* __restrict__ out,
+                  int64_t U, int tile) {
+    using L = Lanes<VEC>;
+    using V = typename L::V;
+    __shared__ int s_seg[kRunWarps][kSegCap + 1];
+    __shared__ int s_perm[kRunWarps][kPermCap];
+    const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+    const int64_t u0 = (int64_t(blockIdx.x) * kRunWarps + w) * 32;
+    if (u0 >= U) return;                              // warp-uniform
+    const int nu = U - u0 < 32 ? int(U - u0) : 32;
+    // the walk: run_ptr[u0 .. u0 + nu], then the two slices it bounds
+    const int rp = lane < nu ? __ldg(run_ptr + u0 + lane) : 0;
+    const int s0 = __shfl_sync(0xffffffffu, rp, 0);
+    const int s1 = __ldg(run_ptr + u0 + nu);
+    const int ns = s1 - s0 + 1;
+    for (int i = lane; i < ns && i <= kSegCap; i += 32)
+        s_seg[w][i] = __ldg(seg_ptr + s0 + i);
+    __syncwarp();
+    auto seg_at = [&](int s) {
+        return s - s0 <= kSegCap ? s_seg[w][s - s0] : __ldg(seg_ptr + s);
+    };
+    const int e0 = s_seg[w][0];
+    const int ne = seg_at(s1) - e0;
+    for (int i = lane; i < ne && i < kPermCap; i += 32)
+        s_perm[w][i] = __ldg(perm + e0 + i);
+    __syncwarp();
+    auto value = [&](int e, int k) {                  // entry e, float k..
+        const int slot = e - e0 < kPermCap ? s_perm[w][e - e0]
+                                           : __ldg(perm + e);
+        return L::load(vals + int64_t(slot) * tile + k);
+    };
+    const int nq = tile / L::W;                       // items a run
+    const int items = nu * nq;
+    float* dst = out + u0 * tile;
+    for (int it0 = 0; it0 < items; it0 += 32 * kAheadSteps) {
+        int sb[kAheadSteps], se[kAheadSteps], eb[kAheadSteps];
+        int k[kAheadSteps];
+        V x[kAheadSteps][kAheadEnt];                  // every gather first
+#pragma unroll
+        for (int a = 0; a < kAheadSteps; ++a) {
+            const int it = it0 + 32 * a + lane;
+            const int run = it < items ? it / nq : nu - 1;
+            const int next = __shfl_sync(0xffffffffu, rp, (run + 1) & 31);
+            sb[a] = __shfl_sync(0xffffffffu, rp, run);
+            se[a] = run + 1 < nu ? next : s1;
+            k[a] = (it - run * nq) * L::W;
+            eb[a] = seg_at(sb[a]);
+            const int ee = seg_at(se[a]);
+#pragma unroll
+            for (int i = 0; i < kAheadEnt; ++i)
+                x[a][i] = it < items && eb[a] + i < ee
+                    ? value(eb[a] + i, k[a]) : L::zero();
+        }
+#pragma unroll
+        for (int a = 0; a < kAheadSteps; ++a) {
+            const int it = it0 + 32 * a + lane;
+            if (it >= items) break;
+            V total = L::zero();
+            int e = eb[a];
+            for (int s = sb[a]; s < se[a]; ++s) {
+                V part = L::zero();
+                for (const int end = seg_at(s + 1); e < end; ++e) {
+                    const int i = e - eb[a];
+                    V v = i == 0 ? x[a][0] : i == 1 ? x[a][1]
+                        : i == 2 ? x[a][2] : value(e, k[a]);
+                    L::add(part, v);
+                }
+                L::add(total, part);
+            }
+            L::store(dst + int64_t(it) * L::W, total);
+        }
+    }
+}
+
+// spadd3_union_runs, scalar values: one thread per run, the same order.
+// (The warp kernel with lanes on runs took 1.70 ms of device time against
+// this kernel's 0.64 on the spadd3/csr/nnz cell: its walk is four
+// dependent loads for 32 floats of output; PERF.md.)
 __global__ void union_runs_kernel(const float* __restrict__ vals,
                                   const int* __restrict__ perm,
                                   const int* __restrict__ seg_ptr,
                                   const int* __restrict__ run_ptr,
-                                  float* __restrict__ out, int64_t U,
-                                  int tile) {
-    const int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (i >= U * tile) return;
-    const int64_t u = i / tile;
-    const int k = int(i - u * tile);
+                                  float* __restrict__ out, int64_t U) {
+    const int64_t u = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (u >= U) return;
     float total = 0.f;
     for (int s = __ldg(run_ptr + u); s < __ldg(run_ptr + u + 1); ++s) {
         float part = 0.f;
         for (int e = __ldg(seg_ptr + s); e < __ldg(seg_ptr + s + 1); ++e)
-            part += __ldg(vals + int64_t(__ldg(perm + e)) * tile + k);
+            part += __ldg(vals + __ldg(perm + e));
         total += part;
     }
-    out[i] = total;
+    out[u] = total;
 }
 
 inline unsigned blocks_for(int64_t threads) {
@@ -679,8 +823,24 @@ int spadd3_union_runs(const float* vals, const int* perm, const int* seg_ptr,
                       const int* run_ptr, float* out, int64_t U, int tile,
                       void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    union_runs_kernel<<<blocks_for(U * tile), kThreads, 0, s>>>(
-        vals, perm, seg_ptr, run_ptr, out, U, tile);
+    if (tile == 1) {
+        union_runs_kernel<<<blocks_for(U), kThreads, 0, s>>>(
+            vals, perm, seg_ptr, run_ptr, out, U);
+        return int(cudaGetLastError());
+    }
+    // 16-byte gathers and stores need whole quads and aligned bases (a view
+    // may start anywhere)
+    const bool vec = tile % 4 == 0
+                     && reinterpret_cast<uintptr_t>(vals) % 16 == 0
+                     && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+    const unsigned blocks = unsigned((U + 32 * kRunWarps - 1)
+                                     / (32 * kRunWarps));
+    if (vec)
+        union_runs_warp_kernel<true><<<blocks, kThreads, 0, s>>>(
+            vals, perm, seg_ptr, run_ptr, out, U, tile);
+    else
+        union_runs_warp_kernel<false><<<blocks, kThreads, 0, s>>>(
+            vals, perm, seg_ptr, run_ptr, out, U, tile);
     return int(cudaGetLastError());
 }
 

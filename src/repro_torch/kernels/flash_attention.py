@@ -1,7 +1,9 @@
 """Causal GQA flash attention, the LM stack's attention leaf.
 
 One Hopper source (``csrc/flash_attention.cu``: a tensor-core kernel for
-bf16, a CUDA-core kernel for f32) with its plain PyTorch version beside it.
+bf16 and f16, a CUDA-core kernel for f32, and for head widths above 256 a
+kernel of each kind whose blocks own 128-column chunks of the output) with
+its plain PyTorch version beside it.
 :func:`flash_attention` replaces the TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention``; the source note says
 what bounds it on the card and what its design does about that. The
@@ -18,12 +20,13 @@ from ._build import check_launch, library
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # q, k, v, o, B, S, H, Hkv, hd, is_bf16, scale, stream
+    # q, k, v, o, B, S, H, Hkv, hd, dtype code, scale, stream
     "flash_attention_fwd": (_P,) * 4 + (_I,) * 6 + (ctypes.c_float, _P),
 }
-HEAD_DIMS = (16, 32, 64, 128, 256)     # the widths the card's kernels take
-DTYPES = (torch.float32, torch.bfloat16, torch.float16)   # the plain version
-CARD_DTYPES = (torch.float32, torch.bfloat16)
+HEAD_DIMS = (16, 32, 64, 128, 256)     # the widths of the card's instances
+CHUNK = 128         # above 256, hd is padded to a multiple of this (kChunk)
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -43,24 +46,34 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(B, S, H, hd)
 
 
+def padded_width(hd: int) -> int:
+    """The width the card's kernels run ``hd`` at: the next of HEAD_DIMS,
+    or above 256 the next multiple of CHUNK."""
+    if hd > HEAD_DIMS[-1]:
+        return -(-hd // CHUNK) * CHUNK
+    return next(w for w in HEAD_DIMS if w >= hd)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     block_q: int = 128, block_k: int = 128) -> torch.Tensor:
     """Causal GQA attention: q (B, S, H, hd), k and v (B, S, Hkv, hd) with
     H = G·Hkv; query head h reads KV head h // G. Returns (B, S, H, hd) in
-    q's dtype (q, k and v of one float dtype, contiguous). On the CPU any
-    hd and float32, bfloat16 or float16 (the plain version). On the card
-    float32 or bfloat16 and hd up to 256: a width outside HEAD_DIMS is
-    zero-padded to the next one (zero columns leave q·k unchanged; the
-    scale stays the true width's) and the output sliced back; hd > 256 and
-    float16 raise (ROADMAP Queue 3 item 2).
+    q's dtype (q, k and v of one float dtype, contiguous): float32,
+    bfloat16 or float16 and any hd, on the CPU (the plain version) and on
+    the card. There a width up to 256 outside HEAD_DIMS is zero-padded to
+    the next one, a width above 256 to a multiple of 128 (zero columns
+    leave q·k unchanged; the scale stays the true width's), and the output
+    sliced back.
 
     ``block_q`` and ``block_k`` are the TPU kernel's tile sizes. They are
     checked and accepted so its callers run unchanged, but the Hopper
     kernels tile as they like and the result does not depend on them. A
     block stacks the G query heads of one KV head row-wise over a run of
-    positions and stages 64 keys at a time: bf16 runs on the tensor cores
-    (``mma.sync``), 64 rows a block (64 / G positions), 16 rows a warp;
-    f32 on the CUDA cores, 256 / max(1, hd / 32) rows a block."""
+    positions and stages 64 keys at a time: bf16 and f16 run on the tensor
+    cores (``mma.sync``), 64 rows a block (64 / G positions), 16 rows a
+    warp; f32 on the CUDA cores, 256 / max(1, hd / 32) rows a block. Above
+    256, a block owns 128 of the output's columns and recomputes the
+    full-width scores."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
             or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3] \
             or k.shape[2] == 0 or q.shape[2] % k.shape[2]:
@@ -82,14 +95,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"device or all on the CPU, got "
                          f"{sorted(map(str, devices))}")
     B, S, H, hd = q.shape
-    if hd > HEAD_DIMS[-1] or q.dtype not in CARD_DTYPES:
-        raise NotImplementedError(
-            f"flash_attention: head_dim {hd} in {q.dtype} on the card; the "
-            f"kernels take hd <= {HEAD_DIMS[-1]} in {CARD_DTYPES} (ROADMAP "
-            f"Queue 3 item 2)")
     if q.numel() == 0:
         return torch.empty_like(q)
-    width = next(w for w in HEAD_DIMS if w >= hd)
+    width = padded_width(hd)
     if width != hd:                       # zero columns: q·k is unchanged
         q, k, v = (torch.nn.functional.pad(x, (0, width - hd))
                    for x in (q, k, v))
@@ -97,7 +105,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(q.device):
         err = library("flash_attention", _SIGNATURES).flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, H,
-            k.shape[2], width, int(q.dtype == torch.bfloat16), hd ** -0.5,
+            k.shape[2], width, _CODES[q.dtype], hd ** -0.5,
             torch.cuda.current_stream().cuda_stream)
     check_launch("flash_attention", err)
     return o if width == hd else o[..., :hd].contiguous()

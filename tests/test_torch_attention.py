@@ -155,11 +155,12 @@ def test_flash_first_token_and_padding_rows():
                                rtol=2e-5)
 
 
-@pytest.mark.parametrize("hd", [24, 112, 256])
+@pytest.mark.parametrize("hd", [24, 112, 256, 320, 512])
 def test_flash_other_head_widths_match_reference(hd):
-    """Widths outside the card's instances (24, zamba2-7b's 112) and the
-    widest instance, 256: the plain version against the Pallas kernel in
-    interpret mode, as test_flash_matches_reference_f32."""
+    """Widths outside the card's instances (24, zamba2-7b's 112), the
+    widest instance, 256, and two widths of the column-chunk kernels (320,
+    512): the plain version against the Pallas kernel in interpret mode,
+    as test_flash_matches_reference_f32."""
     q, k, v = _qkv(hd, 1, 40, 4, 2, hd)
     want = ref_flash(q, k, v, block_q=16, block_k=16)
     got = flash_attention(_t(q), _t(k), _t(v), block_q=16, block_k=16)

@@ -10,15 +10,20 @@ tile loads allowed) one group of all 4 rows, the block's tile and C lines
 gathered before its run-end test; any other block groups of 8 rows. The
 ids come 32 blocks at a time; a block whose id lies outside [0, R) adds
 nothing. A run of equal ids is summed in stream order from 0, one fma per
-c in order into each (r, j) sum: the segment's first run goes to
-head[seg], a run that ends inside the segment to Y, the last to tail[seg]
-(a segment whose ids all lie outside [0, R) writes nothing). The fold
-(bcsr_fold, unchanged) gives each block-row cut by segment edges to the
-segment where it starts: its tail or head plus the heads of the following
-segments that continue it, found by the kernel's binary search, in order.
-Every output may be written at most once (asserted). The replaced phase 1
-(a thread per (r, j), ids and tiles staged 32 blocks at a time) is
-emulated beside it: head, tail and Y must have the same bits. Products are
+c in order into each (r, j) sum, and goes where segment_fold.cuh's
+convention puts it: the segment's first run to head[seg] when it began in
+an earlier segment, its last run to tail[seg] when it goes on into the
+next, any other run of a kept id to Y (a segment whose ids all lie outside
+[0, R) writes nothing). The fold (segment_fold::fold_rows<128>, shared
+with bcsr_spmv and emulated in test_torch_bcsr_spmv_emulation.py, W = br·J
+outputs a block-row): the heads of each group of 64 segments summed in
+order; each block-row at its first crossing edge folds tail[first] + the
+heads before the first group inside it + those groups' sums + the heads
+after. Every output may be written at most once (asserted). The replaced
+phase 1 (a thread per (r, j), ids and tiles staged 32 blocks at a time,
+each segment's first run in head and its last in tail) is emulated beside
+it: its head, tail and Y moved to the new convention must have the same
+bits. Products are
 fused into the adds (fma, emulated in float64 and rounded once to
 float32); the plain version and the JAX leaf sum in other orders and are
 held per entry at 1e-5 * scale + 1e-6, ``scale`` the same product on
@@ -31,6 +36,7 @@ import torch
 from repro.kernels import ref as rref
 
 from repro_torch.kernels import _build, bcsr
+from test_torch_bcsr_spmv_emulation import fold_rows
 
 SEG, WARP, GENERIC_ROWS = bcsr.SEGMENT, 32, 8   # kSeg, kWarp, kRows
 SHAPES = {(4, 4)}                               # the templated instances
@@ -42,12 +48,15 @@ def _fma(a, b, c):
 
 
 def _segments(pr, R):
-    """(seg, lo, hi) of the segments whose ids are not all dropped."""
+    """(seg, lo, hi, open_lo, open_hi) of the segments whose ids are not
+    all dropped; open_lo (open_hi): the run of its first (last) id goes on
+    beyond it."""
     N = pr.size
     for seg in range(-(-N // SEG)):
         lo, hi = seg * SEG, min(N, seg * SEG + SEG)
         if not (pr[lo] >= R or pr[hi - 1] < 0):
-            yield seg, lo, hi
+            yield (seg, lo, hi, lo > 0 and pr[lo - 1] == pr[lo],
+                   hi < N and pr[hi] == pr[hi - 1])
 
 
 def phase1(brow, bcol, tiles, C_blk, R, aligned=True):
@@ -67,8 +76,17 @@ def phase1(brow, bcol, tiles, C_blk, R, aligned=True):
     lanes = np.arange(WARP)
     for p in range(P):
         pr, pc = brow[p], np.clip(bcol[p], 0, grid_cols - 1)
-        for seg, lo, hi in _segments(pr, R):
+        for seg, lo, hi, open_lo, open_hi in _segments(pr, R):
             first = pr[lo]
+
+            def slot(row, at_end):
+                """The kernel's Slots::at: (kind, index) or None."""
+                if row == first and open_lo:
+                    return "head", seg
+                if at_end and open_hi:
+                    return "tail", seg
+                return ("Y", row) if 0 <= row < R else None
+
             for jt in range(n_jt):
                 j = jt * WARP + lanes
                 live = j < J
@@ -77,7 +95,10 @@ def phase1(brow, bcol, tiles, C_blk, R, aligned=True):
                     r0 = rg * BR
                     rs = np.arange(r0, min(br, r0 + BR))
 
-                    def put(kind, idx, acc):
+                    def put(where, acc):
+                        if where is None:
+                            return
+                        kind, idx = where
                         out = {"head": head, "tail": tail, "Y": Y}[kind]
                         for i, r in enumerate(rs):
                             out[(p, idx, r, jl)] = acc[i, live]
@@ -91,10 +112,7 @@ def phase1(brow, bcol, tiles, C_blk, R, aligned=True):
                             e = base + t
                             row = pr[e]
                             if row != cur:            # a run ends
-                                if cur == first:
-                                    put("head", seg, acc)
-                                elif 0 <= cur < R:
-                                    put("Y", cur, acc)
+                                put(slot(cur, False), acc)
                                 acc = np.zeros_like(acc)
                                 cur = row
                             if not 0 <= row < R:      # dropped: not read
@@ -103,7 +121,7 @@ def phase1(brow, bcol, tiles, C_blk, R, aligned=True):
                             cv = np.where(live, C_blk[pc[e]][:, jj], 0)
                             for c in range(bc):
                                 acc = _fma(tv[:, c, None], cv[c], acc)
-                    put("head" if cur == first else "tail", seg, acc)
+                    put(slot(cur, True), acc)
     return head, tail, Y, writes
 
 
@@ -118,7 +136,7 @@ def phase1_before(brow, bcol, tiles, C_blk, R):
     Y = np.zeros((P, R, br, J), np.float32)
     for p in range(P):
         pr, pc = brow[p], np.clip(bcol[p], 0, grid_cols - 1)
-        for seg, lo, hi in _segments(pr, R):
+        for seg, lo, hi, _, _ in _segments(pr, R):
             first = cur = pr[lo]
             acc = np.zeros((br, J), np.float32)
             for e in range(lo, hi):
@@ -137,54 +155,46 @@ def phase1_before(brow, bcol, tiles, C_blk, R):
     return head, tail, Y
 
 
-def fold(brow, head, tail, Y, R):
-    """bcsr_fold over phase 1's partials, in place on Y (P, R, br, J);
-    returns the writes to each block-row."""
-    P, nseg = head.shape[:2]
-    writes = np.zeros((P, R), np.int64)
-    for p in range(P):
+def to_new_convention(brow, head, tail, Y, R):
+    """The replaced phase 1's partials (each segment's first run in head,
+    its last, when another block-row, in tail) moved to segment_fold.cuh's
+    slots, in place on copies."""
+    head, tail, Y = head.copy(), tail.copy(), Y.copy()
+    for p in range(brow.shape[0]):
         pr = brow[p]
-        firsts = pr[::SEG][:nseg]
-        lasts = pr[np.minimum(np.arange(1, nseg + 1) * SEG, pr.size) - 1]
+        for seg, lo, hi, open_lo, open_hi in _segments(pr, R):
+            first, last = pr[lo], pr[hi - 1]
+            runs = [(first, head[p, seg].copy(), first == last)]
+            if first != last:
+                runs.append((last, tail[p, seg].copy(), True))
+            head[p, seg] = tail[p, seg] = np.nan
+            for row, acc, at_end in runs:
+                if row == first and open_lo:
+                    head[p, seg] = acc
+                elif at_end and open_hi:
+                    tail[p, seg] = acc
+                elif 0 <= row < R:
+                    Y[p, row] = acc
+    return head, tail, Y
 
-        def chain(t0, r):
-            if t0 >= nseg or firsts[t0] != r:
-                return np.float32(0)
-            a, b = t0 + 1, nseg                   # first later first past r
-            while a < b:
-                mid = (a + b) // 2
-                if firsts[mid] <= r:
-                    a = mid + 1
-                else:
-                    b = mid
-            acc = np.zeros(head.shape[2:], np.float32)
-            for t in range(t0, a):
-                acc = (acc + head[p, t]).astype(np.float32)
-            return acc
 
-        for seg in range(nseg):
-            hr, tr = firsts[seg], lasts[seg]
-            multi = hr != tr
-            if multi and 0 <= tr < R:
-                Y[p, tr] = (tail[p, seg] + chain(seg + 1, tr)) \
-                    .astype(np.float32)
-                writes[p, tr] += 1
-            if 0 <= hr < R and (seg == 0 or lasts[seg - 1] != hr):
-                acc = head[p, seg]
-                if not multi:
-                    acc = (acc + chain(seg + 1, hr)).astype(np.float32)
-                Y[p, hr] = acc
-                writes[p, hr] += 1
-    return writes
+def fold(brow, head, tail, Y, R):
+    """segment_fold::fold_rows<128> over phase 1's partials, in place on
+    Y (P, R, br, J); returns the writes to each block-row."""
+    P, nseg = head.shape[:2]
+    return np.stack([fold_rows(brow[p], head[p].reshape(nseg, -1),
+                               tail[p].reshape(nseg, -1),
+                               Y[p].reshape(R, -1), R) for p in range(P)])
 
 
 def _check(brow, bcol, tiles, C_blk, R, aligned=True):
     head, tail, Y, writes = phase1(brow, bcol, tiles, C_blk, R, aligned)
     assert all(w.max(initial=0) <= 1 for w in writes.values()), \
         "a phase-1 output written twice"
-    for new, old in zip((head, tail, Y),
-                        phase1_before(brow, bcol, tiles, C_blk, R)):
-        np.testing.assert_array_equal(new.view(np.int32), old.view(np.int32))
+    old = to_new_convention(brow, *phase1_before(brow, bcol, tiles, C_blk, R),
+                            R)
+    for new, was in zip((head, tail, Y), old):
+        np.testing.assert_array_equal(new.view(np.int32), was.view(np.int32))
     assert fold(brow, head, tail, Y, R).max(initial=0) <= 1, \
         "a block-row written twice"
     P, _, br, bc = tiles.shape

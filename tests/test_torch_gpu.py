@@ -429,17 +429,18 @@ def test_blocked_kernels_take_oversized_blocks(card, name):
 
 @pytest.mark.gpu
 def test_flash_attention_other_head_widths(card):
-    """hd 112 (zero-padded to the 128 instance) and 256 (its own instance)
-    in f32 and bf16 against the plain version (2e-5, 3e-2), position 0 is
-    v[0], two launches give the same bits; hd 300 and float16 raise on the
-    card, naming the ROADMAP item."""
+    """hd 112 (zero-padded to the 128 instance), 256 (its own instance),
+    300 (padded to 384) and 512 (the column-chunk kernels) in f32, bf16
+    and f16 against the plain version (2e-5, 3e-2, 1e-2), position 0 is
+    v[0], two launches give the same bits."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     gen = torch.Generator(card).manual_seed(1)
     before = _build.LAUNCHES["flash_attention"]
     n = 0
-    for dtype in (torch.float32, torch.bfloat16):
-        for B, S, H, Hkv, hd in ((2, 257, 8, 2, 112), (1, 200, 4, 1, 256)):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for B, S, H, Hkv, hd in ((2, 257, 8, 2, 112), (1, 200, 4, 1, 256),
+                                 (1, 130, 6, 2, 300), (2, 70, 4, 2, 512)):
             q, k, v = (torch.randn(shape, generator=gen, device=card)
                        .to(dtype) for shape in
                        ((B, S, H, hd), (B, S, Hkv, hd), (B, S, Hkv, hd)))
@@ -449,11 +450,65 @@ def test_flash_attention_other_head_widths(card):
             assert torch.equal(got, flash_attention(q, k, v))
             n += 2
     assert _build.LAUNCHES["flash_attention"] - before == n
-    for shape, dtype in (((1, 8, 2, 300), torch.float32),
-                         ((1, 8, 2, 64), torch.float16)):
-        x = torch.zeros(shape, device=card, dtype=dtype)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            flash_attention(x, x, x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["bcsr_spmv", "spadd3_union_nnz",
+                                  "bcsr_spadd3_union_nnz"])
+def test_spmv_and_union_redesigns_repeat_bit_for_bit(card, name):
+    """bcsr_spmv over chip_smoke's blocked cases (every block, tiles 4
+    bytes off an aligned base, block-rows over 70 and 128 segments) and
+    the two nnz union kernels over its SpAdd3 streams (runs over 8
+    segments, U = 59, values 4 bytes off): each agrees with its plain
+    version and two launches give the same bits."""
+    kernel = chip_smoke.kernel_fns()[name][0]
+    cases = [c for c in chip_smoke.kernel_cases(np.random.default_rng(41),
+                                                card) if c[1] == name]
+    labels = " ".join(c[0] for c in cases)
+    assert ("long block-rows" in labels if name == "bcsr_spmv"
+            else "over 8 segments" in labels)
+    before = _build.LAUNCHES[name]
+    for label, _, args, abs_args in cases:
+        chip_smoke.compare_kernel(label, name, args, abs_args)
+        assert torch.equal(kernel(*args), kernel(*args)), label
+    assert _build.LAUNCHES[name] - before == 3 * len(cases) > 0
+
+
+@pytest.mark.gpu
+def test_spmv_and_union_redesigns_take_their_paths(card):
+    """The kernels each wrapper launches, by name (torch.profiler): aligned
+    (4, 4) tiles run bcsr_spmv's (4, 4) instance, tiles 4 bytes off its
+    generic one, and a block-row over 70 segments the group sums and the
+    edge fold; (4, 4) union values run the 16-byte warp union kernel,
+    values 4 bytes off its 4-byte instance, and scalar values the kernel
+    with a thread per run."""
+    fns = chip_smoke.kernel_fns()
+    names = ("bcsr_spmv", "spadd3_union_nnz", "bcsr_spadd3_union_nnz")
+    cases = [c for c in chip_smoke.kernel_cases(np.random.default_rng(43),
+                                                card) if c[1] in names]
+    p1, p44 = "bcsr_spmv_phase1", "bcsr_spmv_phase1_44"
+    want = {("bcsr_spmv", "P=4 N=", "block=(4, 4)", False): ({p44}, {p1}),
+            ("bcsr_spmv", "P=4 N=", "block=(4, 4)", True): ({p1}, {p44}),
+            ("bcsr_spmv", "long block-rows", "block=(4, 4)", False):
+            ({p44, "segment_fold::group_sums",
+              "segment_fold::edge_fold<128>"}, set()),
+            ("bcsr_spadd3_union_nnz", "over 8 segments", "tile=(4, 4)",
+             False): ({"union_runs_warp_kernel<true>"},
+                      {"union_runs_warp_kernel<false>"}),
+            ("bcsr_spadd3_union_nnz", "over 8 segments", "tile=(4, 4)",
+             True): ({"union_runs_warp_kernel<false>"},
+                     {"union_runs_warp_kernel<true>"}),
+            ("spadd3_union_nnz", "over 8 segments", "tile=()", False):
+            ({"union_runs_kernel"}, {"union_runs_warp_kernel<true>",
+                                     "union_runs_warp_kernel<false>"})}
+    for (name, tag, block, off), (runs, not_runs) in want.items():
+        label, _, args, _ = next(
+            c for c in cases if c[1] == name and tag in c[0]
+            and block in c[0] and ("4-byte offset" in c[0]) == off)
+        launched = set(chip_smoke.device_breakdown(
+            lambda: fns[name][0](*args)))
+        assert runs <= launched and not (not_runs & launched), \
+            (label, sorted(launched))
 
 
 @pytest.mark.gpu
