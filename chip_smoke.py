@@ -77,9 +77,10 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
              held at atol = rtol = 2e-5 in f32 and 3e-2 in bf16 (the
              reference test's) and 1e-2 in f16 (three more mantissa
              bits), and its position 0 must equal v[0].
-4. main    — five paths, each driven through the public entry points with
-             the kernel launch counts reset just before and read just
-             after; each of the path's kernels must have launched.
+4. main    — six paths (a-d, f, then e), each driven through the public
+             entry points with the kernel launch counts reset just before
+             and read just after; each of the path's kernels must have
+             launched.
    a. ``powerlaw_matrix`` (n = m = 2^21, 16 entries per row on average,
       alpha 1.6, seed 0) in CSR on ``Machine(("x", 4))``: SpMV and SpMM
       (J = 32) under the rows and nnz strategies.
@@ -97,6 +98,24 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
       nnz over the add path's BCSR((4, 4)) operand B (1,977,760 stored
       blocks at the default side; its longest block-row 331,322) and the
       matrix path's dense operands.
+   f. The machine grids (``core/grid.py``) over the same operands, sizes
+      and seeds, nothing cut: on ``Machine(("x", 2), ("y", 2))`` SpMV, SpMM
+      and SDDMM over B and over the BCSR((4, 4)) B of path d under
+      ``default_grid_schedule`` (2x2 tiles, every tile in one launch of
+      the 1-D kernel), SpMV and SpMM under ``default_grid_nnz_schedule``
+      (the 1-D nnz kernels at 4 pieces); on ``Machine(("x", 2), ("y", 2),
+      ("z", 2))`` SpMTTKRP over the 3-tensor of path b in 2x2x2 bricks,
+      SpAdd3 over B and its shifts on the nested column split (the union
+      assembled on the host with ``Tensor.from_coo``, as the reference
+      does), and SpMM and SDDMM under ``default_replicated_schedule``
+      (2x2x2r: one launch per z-slice, two); on ``Machine(("x", 4))``
+      SpMV over path d's block pattern stored as compressed-root
+      BCSR((4, 4)), b[dcsr], which no leaf iterates: converted to CSR
+      (one convert miss cold, one hit warm, one ``fallbacks`` entry), then
+      ``spmv_csr_rows``; and ``A(i,j) = B(i,j) * c(j)``, outside the
+      emitter table, on the generic path (the interpreter on the card) at
+      side 2^10. Each cell's line adds its ``fallbacks`` and its per-axis
+      network bytes.
    e. The attention path, on a card freed of the sparse paths' data:
       llama3-8b at full width (d 4096, 32 heads, 8 KV heads, head_dim 128,
       d_ff 14336, vocab 128256), all 32 layers, bf16 weights from a seeded
@@ -115,7 +134,9 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
    lower times, the median ``run()`` time and the peak device memory. Every
    cell must give the same bits on two ``run()``s. The counts are read
    before any other launch: each cell's kernel must have launched exactly
-   once per ``run()`` and no other kernel at all.
+   as often per ``run()`` as its emitter documents (once; once per
+   z-slice for the replicated grid cells; never on the generic path) and
+   no other kernel at all.
 5. timing, after every count is read: the median time of each cell's
    kernel on the cell's own inputs (CUDA events, median of 20), and the
    ``{"kernels": [...]}`` line: per kernel its launches on the main path,
@@ -123,7 +144,9 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
    PyTorch library call's time on the same inputs (a yardstick only; the
    port never calls it, and for the blocked SpAdd3 kernels none exists),
    and a line for the SpMV rows kernel's second use, SpTTV over the (i, j)
-   fibres. A ``profile`` line per rows cell (spmv/rows, spmm/rows,
+   fibres; then a record per grid cell's kernel at the cell's tile shapes
+   (named ``kernel(cell_id)``, with the cell's launches and the 1-D
+   path's yardstick). A ``profile`` line per rows cell (spmv/rows, spmm/rows,
    spttv/rows), for spmv/nnz and spmm/nnz (the memset, phase 1, the group
    pass and phase 2), for sddmm/nnz (its one kernel), for spmttkrp/rows
    (the wrapper's zeroing of A, phase 1, the group pass and the edge
@@ -216,8 +239,17 @@ ADD_CELLS = (("spadd3", "rows"), ("spadd3", "nnz"), ("spadd3_bcsr", "rows"),
 BLOCKED_CELLS = (("spmv_bcsr", "rows"), ("spmv_bcsr", "nnz"),
                  ("spmm_bcsr", "rows"), ("spmm_bcsr", "nnz"),
                  ("sddmm_bcsr", "rows"), ("sddmm_bcsr", "nnz"))
+# the machine grids: (statement, strategy, mesh); "2x2x2r" is the replicated
+# 2.5-D schedule, "4x1" the 1-D conversion and generic cells
+GRID_CELLS = (("spmv", "rows", "2x2"), ("spmm", "rows", "2x2"),
+              ("sddmm", "rows", "2x2"), ("spmv_bcsr", "rows", "2x2"),
+              ("spmm_bcsr", "rows", "2x2"), ("sddmm_bcsr", "rows", "2x2"),
+              ("spmv", "nnz", "2x2"), ("spmm", "nnz", "2x2"),
+              ("spmttkrp", "rows", "2x2x2"), ("spadd3", "rows", "2x2x2"),
+              ("spmm", "rows", "2x2x2r"), ("sddmm", "rows", "2x2x2r"),
+              ("spmv_bdcsr", "rows", "4x1"), ("generic", "rows", "4x1"))
 PATH_CELLS = {"matrix": MATRIX_CELLS, "slice": SLICE_CELLS,
-              "add": ADD_CELLS, "blocked": BLOCKED_CELLS}
+              "add": ADD_CELLS, "blocked": BLOCKED_CELLS, "grid": GRID_CELLS}
 # the kernels each path must launch
 PATH_KERNELS = {"matrix": ("spmv_csr_rows", "spmv_coo_nnz", "spmm_csr_rows",
                            "spmm_coo_nnz"),
@@ -226,7 +258,12 @@ PATH_KERNELS = {"matrix": ("spmv_csr_rows", "spmv_coo_nnz", "spmm_csr_rows",
                         "bcsr_spadd3_union_rows", "bcsr_spadd3_union_nnz",
                         "spadd3_dense_rows", "bcsr_spadd3_dense_rows"),
                 "blocked": ("bcsr_spmv", "bcsr_spmm", "bcsr_sddmm"),
+                "grid": ("spmv_csr_rows", "spmm_csr_rows", "sddmm_coo",
+                         "bcsr_spmv", "bcsr_spmm", "bcsr_sddmm",
+                         "spmv_coo_nnz", "spmm_coo_nnz", "spmttkrp_coo",
+                         "spadd3_union_rows"),
                 "attention": ("flash_attention",)}
+GENERIC_SIDE = 1 << 10     # the generic path's dense output is side²
 
 
 def phase(tag: str, /, **fields) -> None:
@@ -1162,6 +1199,24 @@ def add_operands(n: int, seed: int, B=None):
                         _shifted(Bb, "D", 2, seed + 3))}
 
 
+def grid_operands(data, n_generic: int, seed: int):
+    """The grid path's two statements besides the other paths': the add
+    path's blocked B stored as compressed-root BCSR((4, 4)) (b[dcsr], which
+    no leaf iterates: the conversion cell), and a ``powerlaw_matrix`` of
+    side ``n_generic`` with a vector, from ``seed`` (the generic path)."""
+    import numpy as np
+    import repro_torch.core as tc
+    from repro_torch.data.spdata import powerlaw_matrix
+    Bb = data["add"]["blocked"][0]
+    bdcsr = tc.Tensor.from_blocks(
+        "B", Bb.shape, tc.Format(tc.DCSR().levels, block_shape=ADD_BLOCK),
+        Bb.block_coords(), Bb.vals, dedupe=False)
+    G = powerlaw_matrix("B", n_generic, n_generic, AVG_NNZ, alpha=1.6,
+                        seed=seed)
+    cg = np.random.default_rng(seed + 1).standard_normal(n_generic)
+    return {"bdcsr": bdcsr, "generic": (G, cg.astype(np.float32))}
+
+
 def statements(data):
     import numpy as np
     import repro_torch.core as tc
@@ -1209,6 +1264,14 @@ def statements(data):
             "A(i,j) = B(i,j) * C(i,k) * D(k,j)",
             A=tc.Tensor("A", Bb.shape, Bb.format, Bb.levels, Bb.vals),
             B=Bb, C=dense("C", data["Cs"]), D=dense("D", data["Ds"]))
+    if "grid" in data:
+        out["spmv_bdcsr"] = tc.parse_tin(
+            "a(i) = B(i,j) * c(j)", a=tc.Tensor.zeros_dense("a", (n,)),
+            B=data["grid"]["bdcsr"], c=dense("c", data["c"]))
+        G, cg = data["grid"]["generic"]
+        out["generic"] = tc.parse_tin(
+            "A(i,j) = B(i,j) * c(j)", A=tc.Tensor.zeros_dense("A", G.shape),
+            B=G, c=dense("c", cg))
     for kind, expr in (("scalar", "spadd3"), ("blocked", "spadd3_bcsr")):
         if kind in data.get("add", {}):
             ops_ = dict(zip("BCD", data["add"][kind]))
@@ -1225,6 +1288,8 @@ def _same_bits(a, b) -> bool:
     import torch
     if torch.is_tensor(a):
         return torch.equal(a, b)
+    if isinstance(a, np.ndarray):                 # the generic path's
+        return np.array_equal(a, b)
     return np.array_equal(a.vals, b.vals) and all(
         (x.pos is None or np.array_equal(x.pos, y.pos))
         and (x.crd is None or np.array_equal(x.crd, y.crd))
@@ -1250,8 +1315,10 @@ def drive_dense(data, expr: str, device, reps: int):
     """A dense SpAdd3 cell through ``kernels.ops`` (no lowering: the
     reference reaches its TPU kernels only there)."""
     import torch
+    from repro_torch.kernels import _build
     name, entry, args = dense_call(data, expr, device)
     calls = []
+    before = dict(_build.LAUNCHES)
 
     def run():
         calls.append(1)
@@ -1267,38 +1334,76 @@ def drive_dense(data, expr: str, device, reps: int):
     bitwise = torch.equal(res, run())
     _sync(device)
     return {"kernel": None, "cold_s": 0.0, "warm_s": 0.0, "run_ms": run_ms,
-            "runs": len(calls), "out": res, "bitwise": bitwise,
+            "runs": len(calls), "out": res, "bitwise": bitwise, "per_run": 1,
+            "launches": _launched_since(before),
             "call": (name, tuple(x for t in args[:3] for x in t)
                      + args[3:]),
             "max_mem": (torch.cuda.max_memory_allocated(device) - base
                         if device.type == "cuda" else 0)}
 
 
+def cell_name(cell) -> str:
+    """``expr/strategy``, and the mesh label of a grid path cell."""
+    return "/".join(str(x) for x in cell)
+
+
+def cell_schedule(stmt, strat: str, mesh, pieces: int):
+    """(machine, schedule) of a cell: the 1-D row or nnz schedule over
+    ``pieces`` when ``mesh`` is None or 1-D (``"Nx1"``), else the grid
+    schedule its label and strategy name (``"2x2"``, ``"2x2x2"``,
+    ``"2x2x2r"``: the replicated 2.5-D schedule)."""
+    import repro_torch.core as tc
+    from repro_torch.core import lower as L
+    dims = [int(x) for x in (mesh or f"{pieces}x1").rstrip("r").split("x")]
+    if mesh is None or dims[1:] == [1]:
+        machine = tc.Machine(("x", dims[0]))
+        return machine, (L.default_row_schedule if strat == "rows"
+                         else L.default_nnz_schedule)(stmt, machine)
+    machine = tc.Machine(*zip("xyz", dims))
+    if mesh.endswith("r"):
+        return machine, L.default_replicated_schedule(stmt, machine)
+    if strat == "nnz":
+        return machine, L.default_grid_nnz_schedule(stmt, machine)
+    return machine, (L.default_grid3_schedule if len(dims) == 3
+                     else L.default_grid_schedule)(stmt, machine)
+
+
+def _launched_since(before) -> dict:
+    """{kernel: launches} counted since the snapshot ``before`` of
+    ``_build.LAUNCHES``, for the kernels that launched at all."""
+    from repro_torch.kernels import _build
+    return {k: n - before[k] for k, n in _build.LAUNCHES.items()
+            if n != before[k]}
+
+
 def drive(stmts, cells, pieces: int, device, reps: int, data=None):
     """Lower (cold, then warm) and run each cell through the public entry
     points (the dense SpAdd3 cells through ``kernels.ops``). Returns
-    {cell: record}."""
+    {cell: record}; each record's ``launches`` counts every kernel launch
+    from the cell's cold lower to its last ``run()``."""
     import torch
-    import repro_torch.core as tc
     from repro_torch.core import lower as L
+    from repro_torch.kernels import _build
 
-    machine = tc.Machine(("x", pieces))
     out = {}
-    for expr, strat in cells:
+    for cell in cells:
+        expr, strat = cell[:2]
         if strat == "ops":
-            out[f"{expr}/{strat}"] = drive_dense(data, expr, device, reps)
+            out[cell_name(cell)] = drive_dense(data, expr, device, reps)
             continue
         stmt = stmts[expr]
-        sched = (L.default_row_schedule if strat == "rows"
-                 else L.default_nnz_schedule)(stmt, machine)
+        machine, sched = cell_schedule(stmt, strat, (cell[2:] or (None,))[0],
+                                       pieces)
         base = 0
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
             base = torch.cuda.memory_allocated(device)
         L.clear_lowering_caches()
+        before = dict(_build.LAUNCHES)
         t0 = time.perf_counter()
         k = L.lower(stmt, machine, schedule=sched, device=device)
         cold_s = time.perf_counter() - t0
+        cold_cache = k.cache
         t0 = time.perf_counter()
         k = L.lower(stmt, machine, schedule=sched, device=device)
         warm_s = time.perf_counter() - t0
@@ -1314,10 +1419,12 @@ def drive(stmts, cells, pieces: int, device, reps: int, data=None):
         run_ms = time_host(run, device, reps)
         res, again = run(), run()
         _sync(device)
-        out[f"{expr}/{strat}"] = {
+        out[cell_name(cell)] = {
             "kernel": k, "cold_s": cold_s, "warm_s": warm_s,
             "run_ms": run_ms, "runs": len(calls), "out": res,
             "bitwise": _same_bits(res, again), "call": leaf_call(k),
+            "per_run": launches_per_run(k), "cold_cache": cold_cache,
+            "launches": _launched_since(before),
             # this cell's own peak, above what earlier cells still hold
             "max_mem": (torch.cuda.max_memory_allocated(device) - base
                         if device.type == "cuda" else 0)}
@@ -1325,6 +1432,17 @@ def drive(stmts, cells, pieces: int, device, reps: int, data=None):
 
 
 def reference_products(data, exprs):
+    """float64 host results of ``exprs`` and their scales, each computed
+    once per ``data`` and kept there: the grid path checks its cells
+    against the same products as the other paths' cells."""
+    done = data.setdefault("host_products", {})
+    todo = set(exprs) - set(done)
+    if todo:
+        done.update(_reference_products(data, todo))
+    return {expr: done[expr] for expr in exprs}
+
+
+def _reference_products(data, exprs):
     """float64 host results of ``exprs`` and their scales (the same
     computation on absolute values): SpMV and SpMM with np.bincount over the
     CSR arrays, SDDMM per stored entry in chunks, SpTTV per (i, j) fibre and
@@ -1380,15 +1498,19 @@ def reference_products(data, exprs):
         out["spmttkrp"] = per_column(
             i, v3, lambda l: C3[:, l][j].astype(np.float64) * D3[:, l][c2],
             B3.shape[0], C3.shape[1])
-    if {"spmv_bcsr", "spmm_bcsr", "sddmm_bcsr"} & set(exprs):
+    if {"spmv_bcsr", "spmm_bcsr", "sddmm_bcsr", "spmv_bdcsr"} & set(exprs):
         Bb = data["add"]["blocked"][0]
-        if "spmv_bcsr" in exprs:
+        if {"spmv_bcsr", "spmv_bdcsr"} & set(exprs):
             y, sc = blocked_products(Bb, data["c"][:, None])
-            out["spmv_bcsr"] = (y[:, 0], sc[:, 0])
+            out["spmv_bcsr"] = out["spmv_bdcsr"] = (y[:, 0], sc[:, 0])
         if "spmm_bcsr" in exprs:
             out["spmm_bcsr"] = blocked_products(Bb, data["C"])
         if "sddmm_bcsr" in exprs:
             out["sddmm_bcsr"] = blocked_sampled(Bb, data["Cs"], data["Ds"])
+    if "generic" in exprs:
+        G, cg = data["grid"]["generic"]
+        dG = G.to_dense().astype(np.float64)
+        out["generic"] = (dG * cg, np.abs(dG) * np.abs(cg))
     for expr, (where, kind) in ADD_SOURCES.items():
         if expr in exprs:
             out[expr] = host_union(data[where][kind])
@@ -1514,6 +1636,15 @@ def check_cell(name: str, rec, data, want) -> float:
     got = rec["out"]
     if not rec["bitwise"]:
         raise AssertionError(f"{name}: two run()s gave different bits")
+    k = rec["kernel"]
+    if k is not None and (k.fallbacks or expr == "spmv_bdcsr") and (
+            k.fallbacks != ["B: b[dcsr] -> csr"]
+            or rec["cold_cache"].convert_misses != 1
+            or k.cache.convert_hits != 1):
+        raise AssertionError(
+            f"{name}: the conversion is not B's, once cold and cached warm: "
+            f"{k.fallbacks}, cold {rec['cold_cache'].as_dict()}, warm "
+            f"{k.cache.as_dict()}")
     if expr.startswith("spadd3"):
         return check_union(name, got, want[expr])
     if expr in ("sddmm", "spttv", "sddmm_bcsr"):
@@ -1534,9 +1665,24 @@ def check_cell(name: str, rec, data, want) -> float:
 
 def leaf_call(k):
     """(kernel name, args) of the Hopper kernel a lowered cell launches, on
-    the cell's own inputs; None for a leaf with no kernel (the flat SpTTV
-    products)."""
+    the cell's own inputs (a replicated grid cell's first z-slice); None for
+    a leaf with no kernel (the flat SpTTV products, the generic path)."""
     name = k.leaf_name
+    if name.startswith("generic["):
+        return None
+    if name in ("bcsr_spmv_grid_rows", "bcsr_spmm_grid_rows"):
+        return name[:9], (*k.args[:4], int(k.shards["B"].meta["max_brows"]))
+    if name == "spmm_grid_rep_rows":
+        return "spmm_csr_rows", (*k.args[:3], k.args[3][0])
+    if name == "sddmm_grid_rep_rows":
+        return "sddmm_coo", (*k.args[:3], k.args[3][0], k.args[4][0])
+    if name == "spmttkrp_grid3_rows":
+        return "spmttkrp_coo", (*k.args[:6],
+                                int(k.shards["B"].meta["max_rows"]))
+    if name == "spadd3_grid_rows":
+        return "spadd3_union_rows", k.args[:9]
+    if name in ("spmv_grid_rows", "spmm_grid_rows"):
+        return name.replace("_grid_rows", "_csr_rows"), k.args[:4]
     if name.startswith(("bcsr_spmv", "bcsr_spmm")):
         # (brow, bcol, tiles, packed dense operand, max_brows)
         return name[:9], (*k.args[:4], int(k.args[4]))
@@ -1562,12 +1708,26 @@ def leaf_call(k):
     return None
 
 
+def launches_per_run(k) -> int:
+    """The launches of the cell's kernel in one ``run()``, as its emitter
+    documents them: one for every tile of a grid stacked into one launch,
+    one per z-slice (R) for the replicated 2.5-D emitters, none on the
+    generic path."""
+    if k.leaf_name.startswith("generic["):
+        return 0
+    if k.leaf_name.endswith("_grid_rep_rows"):
+        return k.strategy.grid_shape[2]
+    return 1
+
+
 def run_slice(data, cells, pieces: int, device, reps: int = 10):
     """Phase 4 for one path: drive its cells and check every result
     against the host computation. Returns ({cell: record}, launches), the
     launches of each kernel during the drive alone, read straight after
-    it: on the card each cell's kernel must have launched once per
-    ``run()`` and no other kernel at all, on the CPU none."""
+    it. Each cell's own launches are read around that cell: on the card
+    its kernel must have launched as often per ``run()`` as its emitter
+    documents and no other kernel at all, on the CPU none; the path's
+    totals must be the sum of those."""
     from repro_torch.core.device import resolve_device
     from repro_torch.kernels import _build
     device = resolve_device(device)
@@ -1575,14 +1735,22 @@ def run_slice(data, cells, pieces: int, device, reps: int = 10):
     recs = drive(statements(data), cells, pieces, device, reps, data)
     launches = {k: n - before[k] for k, n in _build.LAUNCHES.items()}
     expected = dict.fromkeys(launches, 0)
-    for rec in recs.values():
-        if rec["call"] is not None and device.type == "cuda":
-            expected[rec["call"][0]] += rec["runs"]
+    for name, rec in recs.items():
+        own = {}
+        if (rec["call"] is not None and device.type == "cuda"
+                and rec["per_run"]):
+            own[rec["call"][0]] = rec["runs"] * rec["per_run"]
+        if rec["launches"] != own:
+            raise AssertionError(f"{name}: launches {rec['launches']} are "
+                                 f"not those documented per run() of its "
+                                 f"kernel: {own}")
+        for k, n in own.items():
+            expected[k] += n
     if launches != expected:
         raise AssertionError(f"launches during the drive {launches} are not "
-                             f"one per run() of each cell's kernel: "
-                             f"{expected}")
-    want = reference_products(data, {expr for expr, _ in cells})
+                             f"those documented per run() of each cell's "
+                             f"kernel: {expected}")
+    want = reference_products(data, {cell[0] for cell in cells})
     for name, rec in recs.items():
         rec["max_abs_err"] = check_cell(name, rec, data, want)
     return recs, launches
@@ -1738,20 +1906,16 @@ def kernel_records(data, cells, launches, reps: int):
     return records[:-1], records[-1], cell_ms
 
 
-def blocked_kernel_records(data, cells, launches, reps: int):
-    """The three blocked kernels, each on the inputs of one cell it serves
-    (spmv_bcsr/rows, spmm_bcsr/rows, sddmm_bcsr/nnz), and {cell: ms} of
-    all six blocked cells' kernels. Yardsticks: ``torch.sparse`` BSR @ c
-    and @ C, and ``sampled_addmm`` over the scalarised block pattern."""
+def blocked_library_operands(Bb, dev):
+    """The yardsticks' operands for a BCSR Bb on ``dev``: a
+    ``torch.sparse_bsr_tensor`` and B as a scalar CSR, whose row b·br + r
+    holds, block by block in block-column order, the bc entries of row r of
+    each stored block of block-row b."""
     import torch
-    Bb = data["add"]["blocked"][0]
-    dev = cells["spmv_bcsr/rows"]["kernel"].device
     br, bc = Bb.format.block_shape
     pos, crd, tiles = (torch.as_tensor(x).to(dev) for x in
                        (Bb.levels[1].pos, Bb.levels[1].crd, Bb.vals))
     bsr = torch.sparse_bsr_tensor(pos, crd, tiles, size=Bb.shape)
-    # B as a scalar CSR: row b·br + r holds, block by block in block-column
-    # order, the bc entries of row r of each stored block of block-row b
     nb, L = crd.numel(), (pos[1:] - pos[:-1]).long()
     brow = torch.repeat_interleave(torch.arange(L.numel(), device=dev), L)
     start = pos[:-1].long()[brow]
@@ -1767,8 +1931,18 @@ def blocked_kernel_records(data, cells, launches, reps: int):
         nb, br, bc).reshape(-1)
     crow = torch.zeros(L.numel() * br + 1, dtype=torch.int64, device=dev)
     torch.cumsum(L.repeat_interleave(br) * bc, 0, out=crow[1:])
-    scalar = torch.sparse_csr_tensor(crow, scols, svals, size=Bb.shape)
-    del brow, start, at
+    return bsr, torch.sparse_csr_tensor(crow, scols, svals, size=Bb.shape)
+
+
+def blocked_kernel_records(data, cells, launches, reps: int):
+    """The three blocked kernels, each on the inputs of one cell it serves
+    (spmv_bcsr/rows, spmm_bcsr/rows, sddmm_bcsr/nnz), and {cell: ms} of
+    all six blocked cells' kernels. Yardsticks: ``torch.sparse`` BSR @ c
+    and @ C, and ``sampled_addmm`` over the scalarised block pattern."""
+    import torch
+    Bb = data["add"]["blocked"][0]
+    dev = cells["spmv_bcsr/rows"]["kernel"].device
+    bsr, scalar = blocked_library_operands(Bb, dev)
     call = {c: leaf_call(cells[c]["kernel"]) for c in
             ("spmv_bcsr/rows", "spmm_bcsr/rows", "sddmm_bcsr/nnz")}
     c = torch.as_tensor(data["c"]).to(dev)
@@ -1803,6 +1977,73 @@ def blocked_kernel_records(data, cells, launches, reps: int):
             cell_ms[cell] = time_events(
                 lambda: fns[other[0]][0](*other[1]), reps)
     return records, cell_ms
+
+
+def grid_kernel_records(data, cells, reps: int):
+    """Each grid path cell's kernel on the cell's own inputs (a replicated
+    cell's first z-slice), labelled with the cell: its launches on the path
+    (counted around that cell's drive alone), its time, its bound at
+    the tile shapes, its plain version's time and the 1-D path's library
+    yardstick for the same function."""
+    import torch
+    dev = next(r["kernel"].device for r in cells.values() if r["kernel"])
+    Bb = data["add"]["blocked"][0]
+
+    def csr(t):
+        return torch.sparse_csr_tensor(
+            *(torch.as_tensor(x).to(dev) for x in
+              (t.levels[1].pos, t.levels[1].crd, t.vals)), size=t.shape)
+
+    Bcsr = csr(data["B"])
+    adds = [csr(t) for t in data["add"]["scalar"]]
+    bsr, scalar = blocked_library_operands(Bb, dev)
+    c, C, Cs, Ds = (torch.as_tensor(data[x]).to(dev)
+                    for x in ("c", "C", "Cs", "Ds"))
+    on_b = "torch.sparse_csr_tensor(B) @ "
+    sampled = "torch.sparse.sampled_addmm(B{}, C, D, beta=0).values() * " \
+        "B's values"
+    library = {
+        "spmv": (on_b + "c", lambda: Bcsr @ c),
+        "spmm": (on_b + "C", lambda: Bcsr @ C),
+        "sddmm": (sampled.format(""), lambda: torch.sparse.sampled_addmm(
+            Bcsr, Cs, Ds, beta=0.0).values() * Bcsr.values()),
+        "spmv_bcsr": ("torch.sparse_bsr_tensor(B) @ c", lambda: bsr @ c),
+        "spmm_bcsr": ("torch.sparse_bsr_tensor(B) @ C", lambda: bsr @ C),
+        "sddmm_bcsr": (sampled.format(" as scalar CSR"),
+                       lambda: torch.sparse.sampled_addmm(
+                           scalar, Cs, Ds, beta=0.0).values()
+                       * scalar.values()),
+        "spmttkrp": ("none: no single PyTorch call computes MTTKRP", None),
+        "spadd3": ("torch.sparse_csr_tensor addition B + C + D (cuSPARSE)",
+                   lambda: adds[0] + adds[1] + adds[2]),
+    }
+
+    def converted(k):
+        """The conversion cell's yardstick: the same SpMV on the kernel's
+        own operand, B as converted to CSR."""
+        Bk = csr(k.plans["B"].tensor)
+        return ("torch.sparse_csr_tensor(B converted to CSR) @ c",
+                lambda: Bk @ c)
+
+    records = []
+    for cell, rec in cells.items():
+        if rec["call"] is None:
+            continue                      # the generic path: no kernel
+        name, args = rec["call"]
+        k = rec["kernel"]
+        ops_ = [k.plans[acc.tensor.name].tensor
+                for acc in k.stmt.rhs.accesses() if acc.tensor.format.is_sparse]
+        nnz = sum(t.vals.shape[0] for t in ops_)
+        n_out = (rec["out"].levels[1].crd.shape[0] if name.startswith("spadd3")
+                 else args[0].shape[0] * args[-1] if name == "spmttkrp_coo"
+                 else k.stmt.lhs.tensor.shape[0])
+        expr = cell.split("/")[0]
+        r = kernel_record(name, args, rec["launches"].get(name, 0), nnz,
+                          n_out, converted(k) if expr == "spmv_bdcsr"
+                          else library[expr], reps)
+        records.append(dict(r, name=f"{name}({k.cell_id()})",
+                            cell=k.cell_id()))
+    return records
 
 
 def device_breakdown(fn, reps: int = 3):
@@ -2096,30 +2337,52 @@ def sparse_paths(args, device):
           longest_block_row=int(np.diff(
               data["add"]["blocked"][0].levels[1].pos).max()),
           seconds=f"{time.perf_counter() - t0:.1f}")
-    cells, launches = {}, dict.fromkeys(_build.LAUNCHES, 0)
+    t0 = time.perf_counter()
+    data["grid"] = grid_operands(data, GENERIC_SIDE, SEED)
+    phase("data-grid", bdcsr_blocks=data["grid"]["bdcsr"].vals.shape[0],
+          generic_side=GENERIC_SIDE,
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    cells, grid_cells = {}, {}
+    launches = dict.fromkeys(_build.LAUNCHES, 0)
     for path, path_cells in PATH_CELLS.items():
         _build.reset_launches()
-        recs, path_launches = run_slice(data, path_cells, PIECES, device,
-                                        max(args.reps // 2, 1))
+        t0 = time.perf_counter()
+        # the grid cells' run() is timed over fewer calls: the nested
+        # SpAdd3 union is assembled on the host and takes seconds
+        recs, path_launches = run_slice(
+            data, path_cells, PIECES, device,
+            max(args.reps // (10 if path == "grid" else 2), 1))
+        path_s = time.perf_counter() - t0
         for cell, rec in recs.items():
             k = rec["kernel"]
             out = rec["out"]
+            grid = {} if k is None else {
+                "fallbacks": json.dumps(k.fallbacks).replace(" ", ""),
+                "axes": json.dumps({n: a.network_bytes() for n, a in
+                                    k.comm.axes.items()}).replace(" ", "")}
             phase("main", cell=k.cell_id() if k else cell,
                   leaf=k.leaf_name if k else rec["call"][0],
-                  stored=("-" if torch.is_tensor(out)
+                  stored=("-" if not hasattr(out, "vals")
                           else out.vals.shape[0]),
                   cold_lower_s=f"{rec['cold_s']:.3f}",
                   warm_lower_s=f"{rec['warm_s']:.4f}",
                   run_ms=f"{rec['run_ms']:.3f}", runs=rec["runs"],
+                  launches_per_run=rec["per_run"],
+                  launches=json.dumps(rec["launches"]).replace(" ", ""),
                   max_abs_err=f"{rec['max_abs_err']:.3g}",
                   bitwise_repeat=rec["bitwise"],
-                  max_mem_gb=f"{rec['max_mem'] / 2**30:.2f}")
+                  max_mem_gb=f"{rec['max_mem'] / 2**30:.2f}",
+                  **(grid if path == "grid" else {}))
         missing = [k for k in PATH_KERNELS[path] if path_launches[k] == 0]
         if missing:
             raise AssertionError(f"kernels never launched on the {path} "
                                  f"path: {missing}")
-        phase("launches", path=path, **path_launches)
+        phase("launches", path=path, seconds=f"{path_s:.1f}",
+              **path_launches)
         clocks(f"after the {path} path")
+        if path == "grid":
+            grid_cells = recs
+            continue
         for k, v in path_launches.items():
             launches[k] += v
         cells.update(recs)
@@ -2136,6 +2399,9 @@ def sparse_paths(args, device):
         data, {c: r for c, r in cells.items() if "_bcsr/" in c
                and not c.startswith("spadd3")}, launches, args.reps)
     records += add_records + blocked_records
+    t0 = time.perf_counter()
+    records += grid_kernel_records(data, grid_cells, max(args.reps // 4, 3))
+    phase("grid-kernels", seconds=f"{time.perf_counter() - t0:.1f}")
     clocks("after the sparse kernels' timing")
     cell_ms.update(add_ms)
     cell_ms.update(blocked_ms)

@@ -22,15 +22,21 @@ SDDMM, SpTTV and SpMTTKRP (Fig. 9a, adapted):
 
 Host-side products (partitions, shards, ``CommStats``, ``cell_id``, cache
 counters) equal the reference's exactly. Blocked (BCSR, BCSC) operands lower
-for SpMV, SpMM, SDDMM and SpAdd3. Format conversion (an operand no leaf
-iterates directly, such as a blocked grid with a compressed root), grids,
-the autoscheduler and the elastic path are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item; nothing converts a
-format or falls back to a generic path.
+for SpMV, SpMM, SDDMM and SpAdd3. An operand no leaf iterates directly (a
+blocked grid with a compressed root, or blocked addends whose block shapes
+differ) is converted first, logged on this module's logger and recorded in
+``LoweredKernel.fallbacks``; a statement outside the emitter table runs the
+interpreter on the kernel's device (``generic[<sig>|<space>]``, a
+correctness path, not a performance one). Grid universe schedules lower
+through :mod:`.grid`; grid non-zero schedules through the 1-D nnz machinery
+at P·Q(·R) pieces, with the communication attributed to the axes. The
+autoscheduler and the elastic path are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -43,7 +49,8 @@ from .levels import tree_of
 from .partition import (CONVERT_CACHE_STATS, SHARD_CACHE_STATS,
                         ShardedTensor, TensorPartition,
                         block_aligned_row_bounds, clear_convert_cache,
-                        clear_shard_cache, fingerprint_memo,
+                        clear_shard_cache, convert_tensor_cached,
+                        fingerprint_memo,
                         materialize_add_stream, materialize_bcsr_nnz,
                         materialize_bcsr_rows, materialize_coo_nnz,
                         materialize_csr_rows, materialize_dense_rows,
@@ -66,12 +73,13 @@ from ..kernels import spmv as spmv_kernels
 from ..kernels.layout import (pack_mat_inner_blocks, pack_mat_row_blocks,
                               pack_rowwindow_blocks, pack_vec_blocks)
 
+log = logging.getLogger(__name__)
+
 
 @dataclasses.dataclass
 class AxisComm:
-    """Per-machine-axis communication ledger (grid schedules; empty for the
-    1-D schedules ported so far). Each payload byte reaches or leaves
-    ``size - 1`` peers."""
+    """Per-machine-axis communication ledger of a grid schedule. Each
+    payload byte reaches or leaves ``size - 1`` peers."""
 
     size: int = 1
     broadcast_bytes: int = 0
@@ -199,9 +207,14 @@ class LoweredKernel:
     """A distributed sparse kernel, ready to run on ``device``, with its
     plan artifacts. ``runner(*args)`` computes the result; ``args`` are the
     leaf's inputs, already on the device (with the host-side window
-    bounds the assembly reads). ``fallbacks`` is always empty:
-    the port converts no format (an operand it cannot iterate directly
-    raises at lower time)."""
+    bounds the assembly reads).
+
+    ``fallbacks`` records every operand the lowering had to convert because
+    no leaf iterates its declared format (each entry is
+    ``"name: <from> -> <to>"``); an empty list means the cell lowered
+    directly. ``declared_formats`` keeps the structured form (operand name
+    → declared format key): the plans hold the CONVERTED tensors, so the
+    declared key is only recoverable from here."""
 
     stmt: Assignment
     strategy: DistStrategy
@@ -214,6 +227,7 @@ class LoweredKernel:
     leaf_name: str
     device: torch.device
     fallbacks: List[str] = dataclasses.field(default_factory=list)
+    declared_formats: Dict[str, str] = dataclasses.field(default_factory=dict)
     cache: CacheStats = dataclasses.field(default_factory=CacheStats)
 
     def run(self) -> Union[torch.Tensor, Tensor]:
@@ -223,16 +237,21 @@ class LoweredKernel:
         sparse operand's (i, j) pattern with the values brought back from
         the device (the flat SpTTV paths assemble it on the host with
         ``Tensor.from_coo``); SpAdd3's union is built on the device and its
-        levels and values are copied back once."""
+        levels and values are copied back once (the grid union's tiles are
+        assembled on the host, as the reference does). The generic path
+        returns the interpreter's dense numpy result."""
         return self.runner(*self.args)
 
     def cell_id(self) -> str:
         """Conformance-matrix cell ID: ``<expr>/<format>/<strategy>/<mesh>``
-        (e.g. ``spmm/dcsr/nnz/4x1``)."""
+        (e.g. ``spmm/dcsr/nnz/4x1``). The format component is the sparse
+        operand's DECLARED format: a fallback cell keeps its declared key
+        and is told apart by a non-empty ``fallbacks`` list."""
         name = self._dist_sparse_name()
         key = "dense"
         if name is not None:
-            key = fmt.format_key(self.plans[name].tensor.format)
+            key = self.declared_formats.get(
+                name, fmt.format_key(self.plans[name].tensor.format))
         return (f"{expression_key(self.stmt.signature())}/{key}/"
                 f"{self.strategy.space_label}/{self.strategy.mesh_label}")
 
@@ -250,20 +269,30 @@ class LoweredKernel:
         """Human-readable plan provenance: what was chosen and what it
         costs."""
         comm, cs = self.comm, self.cache
-        return "\n".join([
-            f"kernel {self.cell_id()}  leaf={self.leaf_name}  "
-            f"device={self.device}",
-            f"  schedule: space={self.strategy.space} "
-            f"mesh={self.strategy.mesh_label} pieces={self.strategy.pieces}",
-            "  hand-picked schedule (no candidate search ran)",
-            f"  comm: replicate={comm.replicate_bytes} "
-            f"reduce={comm.reduce_bytes} "
-            f"redistribute={comm.redistribute_bytes} "
-            f"(net={comm.total_network_bytes()})",
-            f"  cache: plan {cs.plan_hits}h/{cs.plan_misses}m, "
-            f"shard {cs.shard_hits}h/{cs.shard_misses}m, "
-            f"runner {cs.runner_hits}h/{cs.runner_misses}m"
-            + (" [warm]" if cs.warm else "")])
+        lines = [f"kernel {self.cell_id()}  leaf={self.leaf_name}  "
+                 f"device={self.device}",
+                 f"  schedule: space={self.strategy.space} "
+                 f"mesh={self.strategy.mesh_label} "
+                 f"pieces={self.strategy.pieces}"]
+        if self.fallbacks:
+            lines.append("  fallbacks: " + "; ".join(self.fallbacks))
+        lines.append("  hand-picked schedule (no candidate search ran)")
+        if comm.axes:
+            lines.append("  comm: " + ", ".join(
+                f"{n}: bcast={a.broadcast_bytes} reduce={a.reduce_bytes}"
+                for n, a in comm.axes.items())
+                + f" (net={comm.total_network_bytes()})")
+        else:
+            lines.append(f"  comm: replicate={comm.replicate_bytes} "
+                         f"reduce={comm.reduce_bytes} "
+                         f"redistribute={comm.redistribute_bytes} "
+                         f"(net={comm.total_network_bytes()})")
+        lines.append(f"  cache: plan {cs.plan_hits}h/{cs.plan_misses}m, "
+                     f"shard {cs.shard_hits}h/{cs.shard_misses}m, "
+                     f"runner {cs.runner_hits}h/{cs.runner_misses}m, "
+                     f"convert {cs.convert_hits}h/{cs.convert_misses}m"
+                     + (" [warm]" if cs.warm else ""))
+        return "\n".join(lines)
 
 
 # ---------------------------------------------------------------------------
@@ -412,38 +441,52 @@ def expression_key(sig: str) -> str:
     return entry[0] if entry else sig
 
 
-def _check_operands(stmt: Assignment, space: str) -> None:
-    """The port's format dispatch. The reference converts an operand its
-    kernel family cannot iterate, and the blocked addends of an add whose
-    operands' formats or block shapes differ (``_normalize_operands``); no
-    such conversion is ported, so the operand raises instead."""
+def _normalize_operands(
+    stmt: Assignment, space: str,
+) -> Tuple[Assignment, List[str], Dict[str, str]]:
+    """Format-conversion fallback (logged): every sparse rhs operand whose
+    format the selected kernel family cannot iterate directly is converted
+    to the canonical target (CSR / CSF). The returned statement is what the
+    planner and emitters see; the fallback census (display strings + the
+    structured name → declared-key map) is recorded on the LoweredKernel.
+    A statement outside the table passes through unchanged (the generic
+    path takes it)."""
     sig = stmt.signature()
     entry = _SIG_KERNEL.get(sig)
     if entry is None:
-        raise NotImplementedError(
-            f"expression {sig}: only SpMV, SpMM, SpAdd3, SDDMM, SpTTV and "
-            "SpMTTKRP lower (other statements need the reference's generic "
-            "path, which is not ported)")
-    name, module = entry
+        return stmt, [], {}
+    kernel_name, module = entry
     supports = _kernel_supports(module)
-    sparse = {acc.tensor.name: acc.tensor.format
-              for acc in stmt.rhs.accesses() if acc.tensor.format.is_sparse}
-    if (len(sparse) > 1 and any(f.is_blocked for f in sparse.values())
-            and len(set(sparse.values())) > 1):
-        raise NotImplementedError(
-            f"{name}/{space} over blocked addends of differing formats or "
-            "block shapes (" + ", ".join(
-                f"{n}: {fmt.format_key(f)} {f.block_shape}"
-                for n, f in sparse.items()) + "): the reference converts "
-            "them, and format conversion is ROADMAP Queue 1 item 5.4")
+    mapping: Dict[str, Tensor] = {}
+    fallbacks: List[str] = []
+    declared: Dict[str, str] = {}
+    # Blocked operands of a multi-operand family (spadd3) must share ONE
+    # block layout: the tile-union leaves merge tiles positionally. Mixed
+    # layouts force the blocked operands through the conversion fallback.
+    sparse_ops = {acc.tensor.name: acc.tensor for acc in stmt.rhs.accesses()
+                  if acc.tensor.format.is_sparse}
+    force_convert: set = set()
+    if (len(sparse_ops) > 1
+            and any(t.format.is_blocked for t in sparse_ops.values())
+            and len({t.format for t in sparse_ops.values()}) > 1):
+        force_convert = {name for name, t in sparse_ops.items()
+                         if t.format.is_blocked}
     for acc in stmt.rhs.accesses():
         t = acc.tensor
-        if t.format.is_sparse and not supports(t.format, space):
-            raise NotImplementedError(
-                f"{name}/{space} over {t.name} stored as "
-                f"{fmt.format_key(t.format)}: the reference converts it to "
-                "a format its leaves iterate, and format conversion is "
-                "ROADMAP Queue 1 item 5.4")
+        if not t.format.is_sparse or t.name in mapping:
+            continue
+        if supports(t.format, space) and t.name not in force_convert:
+            continue
+        target = fmt.conversion_target(t.format)
+        declared[t.name] = fmt.format_key(t.format)
+        fallbacks.append(
+            f"{t.name}: {fmt.format_key(t.format)} -> {fmt.format_key(target)}")
+        log.warning(
+            "no direct %s/%s kernel for %s stored as %s; converting to %s "
+            "(conformance cell falls back)",
+            kernel_name, space, t.name, t.format, target)
+        mapping[t.name] = convert_tensor_cached(t, target)
+    return stmt.with_tensors(mapping), fallbacks, declared
 
 
 # ---------------------------------------------------------------------------
@@ -496,8 +539,16 @@ def _record_lower_metrics(k: LoweredKernel) -> None:
     if cs.warm:
         telemetry.METRICS.counter("lower.warm_count")
     comm = k.comm
-    telemetry.METRICS.counter("comm.replicate_bytes", comm.replicate_bytes)
-    telemetry.METRICS.counter("comm.reduce_bytes", comm.reduce_bytes)
+    if comm.axes:
+        for name, ax in comm.axes.items():
+            telemetry.METRICS.counter(f"comm.axis.{name}.broadcast_bytes",
+                                      ax.broadcast_bytes)
+            telemetry.METRICS.counter(f"comm.axis.{name}.reduce_bytes",
+                                      ax.reduce_bytes)
+    else:
+        telemetry.METRICS.counter("comm.replicate_bytes",
+                                  comm.replicate_bytes)
+        telemetry.METRICS.counter("comm.reduce_bytes", comm.reduce_bytes)
     telemetry.METRICS.counter("comm.network_bytes",
                               comm.total_network_bytes())
     telemetry.instant("lower.cache", **cs.as_dict())
@@ -508,17 +559,26 @@ def _lower_impl(stmt, machine, schedule, distributions, weights, device):
     if isinstance(schedule, str):
         raise NotImplementedError(
             f"schedule={schedule!r}: the autoscheduler is ROADMAP Queue 1 "
-            "item 9")
+            "item 7")
     if schedule is None:
         schedule = default_row_schedule(stmt, machine)
     strat = schedule.strategy()
-    if strat.is_grid:
-        raise NotImplementedError(
-            f"grid schedule {strat.mesh_label}: grids are ROADMAP Queue 1 "
-            "item 7")
     pieces = strat.pieces
     sig = stmt.signature()
-    _check_operands(stmt, strat.space)
+
+    # Format dispatch: convert operands with no direct leaf (logged).
+    stmt, fallbacks, declared_formats = _normalize_operands(stmt, strat.space)
+
+    # Grid universe schedules route to the grid subsystem: cross-product
+    # tile plans, per-axis communication, SUMMA-style emitters. Grid
+    # NON-ZERO schedules fall through: a nested pos-split canonicalizes to
+    # the flat equal split of the fused position space (pieces = P·Q), so
+    # the 1-D nnz machinery lowers them bit for bit as their Px1 twins;
+    # only the communication attribution (below) differs.
+    if strat.is_grid and strat.space == "universe":
+        from . import grid as grid_mod
+        return grid_mod.lower_grid(stmt, machine, strat, device, fallbacks,
+                                   declared_formats, snap, distributions)
 
     out_t: Tensor = stmt.lhs.tensor
     shards: Dict[str, ShardedTensor] = {}
@@ -626,16 +686,31 @@ def _lower_impl(stmt, machine, schedule, distributions, weights, device):
                     (rb[:, 1] - rb[:, 0]).sum()
                     - (rb[:, 1].max() - rb[:, 0].min())) * 4
 
+        # Grid nnz schedules: re-attribute the flat replicate/reduce payload
+        # to the machine axes under the hierarchical collective model
+        # (broadcast along x once, then along y within each of the P grid
+        # rows; reduce in reverse). Totals are unchanged (b·(PQ−1)).
+        if strat.is_grid:
+            m = 1
+            axes = {}
+            for d in strat.machine_dims:
+                axes[d.name] = AxisComm(size=d.size,
+                                        broadcast_bytes=m * comm.replicate_bytes,
+                                        reduce_bytes=m * comm.reduce_bytes)
+                m *= d.size
+            comm.axes = axes
+            comm.replicate_bytes = 0
+            comm.reduce_bytes = 0
+
     # ---- emit: pick leaf + build runner ------------------------------------
     with telemetry.span("lower.emit", sig=sig, space=strat.space) as esp:
-        leaf_name, runner, args = _EMITTERS[(sig, strat.space)](
-            stmt, plans, shards, device)
+        leaf_name, runner, args = _emit(stmt, strat, plans, shards, device)
         esp.set(leaf=leaf_name)
     return LoweredKernel(
         stmt=stmt, strategy=strat, machine=machine, plans=plans,
         shards=shards, runner=runner, args=args, comm=comm,
-        leaf_name=leaf_name,
-        device=device, cache=_cache_delta(snap))
+        leaf_name=leaf_name, device=device, fallbacks=fallbacks,
+        declared_formats=declared_formats, cache=_cache_delta(snap))
 
 
 def _plan_cache_key(stmt: Assignment, strat: DistStrategy,
@@ -778,6 +853,113 @@ def default_nnz_schedule(stmt: Assignment, machine: Machine) -> Schedule:
     fo, fi = IndexVar(f"{f.name}o"), IndexVar(f"{f.name}i")
     s.pos_split(f, fo, fi, machine.dims[0]).distribute(fo)
     s.communicate(stmt.tensors(), fo)
+    return s
+
+
+def default_grid_schedule(stmt: Assignment, machine: Machine) -> Schedule:
+    """2-D universe schedule — the paper's ``distribute((i, k) → (x, y))``:
+    divide the sparse operand's two index variables over the machine's two
+    dimensions and distribute both, tiling the operand onto the processor
+    grid (SUMMA-style for SpMM/SpMV, owner-computes tiles for SDDMM)."""
+    spa = stmt.sparse_accesses()[0]
+    if len(spa.idx) < 2 or len(machine.dims) < 2:
+        raise ValueError("grid schedule needs a 2-D sparse operand and a "
+                         "2-D machine")
+    i, k2 = spa.idx[0], spa.idx[1]
+    io, ii = IndexVar(f"{i.name}o"), IndexVar(f"{i.name}i")
+    ko, ki = IndexVar(f"{k2.name}o"), IndexVar(f"{k2.name}i")
+    s = Schedule(stmt, machine)
+    s.divide(i, io, ii, machine.dims[0])
+    s.divide(k2, ko, ki, machine.dims[1])
+    s.distribute(io, ko)
+    s.communicate(stmt.tensors(), io)
+    return s
+
+
+def default_grid_nnz_schedule(stmt: Assignment, machine: Machine) -> Schedule:
+    """2-D non-zero schedule: fuse the sparse loops, then NEST the position
+    split over both machine dimensions — color (p, q) owns block p*Q+q of
+    the fused non-zero stream (canonically equal to the flat P*Q split, so
+    2-D nnz cells are bit-for-bit their Px1 counterparts)."""
+    if len(machine.dims) < 2:
+        raise ValueError("grid nnz schedule needs a 2-D machine")
+    spa = stmt.sparse_accesses()[0]
+    s = Schedule(stmt, machine)
+    vs = list(spa.idx)
+    f = vs[0]
+    for v in vs[1:]:
+        nf = IndexVar(f"{f.name}{v.name}")
+        s.fuse(f, v, nf)
+        f = nf
+    outers = []
+    cur = f
+    for d in machine.dims:
+        co, ci = IndexVar(f"{cur.name}o"), IndexVar(f"{cur.name}i")
+        s.pos_split(cur, co, ci, d)
+        outers.append(co)
+        cur = ci
+    s.distribute(*outers)
+    s.communicate(stmt.tensors(), outers[0])
+    return s
+
+
+def default_grid3_schedule(stmt: Assignment, machine: Machine) -> Schedule:
+    """3-D universe schedule over an order-3 machine grid. An order-3
+    sparse operand maps its three index variables onto the three machine
+    dimensions (P×Q×R COO bricks); an order-2 operand nests a second
+    divide of its column variable so the grid reads ``i → x, j → (y, z)``
+    (the joint Q·R column split used by spadd3)."""
+    if len(machine.dims) < 3:
+        raise ValueError("grid3 schedule needs a 3-D machine")
+    spa = stmt.sparse_accesses()[0]
+    s = Schedule(stmt, machine)
+    if len(spa.idx) >= 3:
+        outers = []
+        for v, d in zip(spa.idx[:3], machine.dims[:3]):
+            vo, vi = IndexVar(f"{v.name}o"), IndexVar(f"{v.name}i")
+            s.divide(v, vo, vi, d)
+            outers.append(vo)
+        s.distribute(*outers)
+        s.communicate(stmt.tensors(), outers[0])
+        return s
+    i, j = spa.idx[0], spa.idx[1]
+    io, ii = IndexVar(f"{i.name}o"), IndexVar(f"{i.name}i")
+    jo, ji = IndexVar(f"{j.name}o"), IndexVar(f"{j.name}i")
+    jio, jii = IndexVar(f"{ji.name}o"), IndexVar(f"{ji.name}i")
+    s.divide(i, io, ii, machine.dims[0])
+    s.divide(j, jo, ji, machine.dims[1])
+    s.divide(ji, jio, jii, machine.dims[2])
+    s.distribute(io, jo, jio)
+    s.communicate(stmt.tensors(), io)
+    return s
+
+
+def default_replicated_schedule(stmt: Assignment, machine: Machine) -> Schedule:
+    """2.5-D communication-avoiding schedule: tile the sparse operand over
+    the first two machine dimensions (as the 2-D grid schedule does) and
+    split the remaining dense loop variable over the third, replicating
+    the sparse operand along it — each z-layer computes a disjoint slab of
+    the dense contraction, so the cross-grid reduction shrinks from a
+    (Q·R−1)-hop all-reduce to (Q−1) hops at the cost of broadcasting the
+    sparse operand R−1 extra times."""
+    if len(machine.dims) < 3:
+        raise ValueError("replicated schedule needs a 3-D machine")
+    spa = stmt.sparse_accesses()[0]
+    v0, v1 = spa.idx[0], spa.idx[1]
+    rest = [v for v in stmt.all_vars if v not in spa.idx]
+    if not rest:
+        raise ValueError("replicated schedule needs a loop variable outside "
+                         "the sparse operand's index set")
+    v2 = rest[0]
+    s = Schedule(stmt, machine)
+    outers = []
+    for v, d in zip((v0, v1, v2), machine.dims[:3]):
+        vo, vi = IndexVar(f"{v.name}o"), IndexVar(f"{v.name}i")
+        s.divide(v, vo, vi, d)
+        outers.append(vo)
+    s.distribute(*outers)
+    s.replicate([spa.tensor], machine.dims[2])
+    s.communicate(stmt.tensors(), outers[0])
     return s
 
 
@@ -1435,8 +1617,34 @@ def _emit_spmttkrp_nnz(stmt, plans, shards, device):
             *_spmttkrp_flat_runner(stmt, shards, device, "spmttkrp_nnz"))
 
 
-# One emitter per expression × strategy ported so far; the format variation
-# lives in the shards the emitters read, not in this table.
+# -- the generic path ----------------------------------------------------
+
+def _emit(stmt, strat, plans, shards, device):
+    """The emitter of (signature, space), or the generic path for a pair
+    outside the table."""
+    sig = stmt.signature()
+    emitter = _EMITTERS.get((sig, strat.space))
+    if emitter is None:
+        return (f"generic[{sig}|{strat.space}]",
+                *_emit_generic_fallback(stmt, device))
+    return emitter(stmt, plans, shards, device)
+
+
+def _emit_generic_fallback(stmt, device):
+    """Correctness fallback for any TIN statement: densify and contract
+    with the interpreter, on the kernel's own device. Kept for generality
+    (the paper supports all of tensor algebra); not a performance path,
+    and flagged as such by its leaf name."""
+    from .interp import interpret
+
+    def run():
+        return interpret(stmt, device=device)
+
+    return run, ()
+
+
+# One emitter per expression × strategy; the format variation lives in the
+# shards the emitters read, not in this table.
 _EMITTERS = {
     ("d1(i)=s2(i,j)*d1(j)", "universe"): _emit_spmv_rows,
     ("d1(i)=s2(i,j)*d1(j)", "nnz"): _emit_spmv_nnz,

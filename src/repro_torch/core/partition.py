@@ -1,7 +1,6 @@
 """Dependent partitioning for sparse coordinate trees (paper §III-A, §IV).
 
-The 1-D half of the reference's partitioner, ported as it is
-(host-side numpy): per-color ``(lo, hi)`` interval bounds for every level of
+The reference's partitioner, ported as it is (host-side numpy): per-color ``(lo, hi)`` interval bounds for every level of
 every tensor's coordinate tree, computed at plan time, then *materialized*
 into statically-shaped, padded per-shard arrays that the lowered leaves
 consume batched over pieces.
@@ -15,9 +14,12 @@ The level functions mirror paper Table I exactly:
 
 Blocked (BCSR/BCSC) tensors partition at block-row granularity (rows) or
 over their stored blocks (nnz); the SpAdd nnz strategy splits the
-concatenated entry stream of its addends (``materialize_add_stream``). Grid
-and elastic partitions and the blocked nnz materializer are not ported yet
-(ROADMAP Queue 1).
+concatenated entry stream of its addends (``materialize_add_stream``).
+Machine grids (``core/grid.py``) take cross-product tiles, order-3 bricks
+and dense row, column or tile windows (``partition_tensor_grid``,
+``partition_tensor_grid3``, ``partition_tensor_cols`` and the
+``materialize_*_grid`` / ``materialize_dense_cols`` materializers). The
+elastic per-piece partitions are not ported yet (ROADMAP Queue 1).
 """
 
 import contextlib
@@ -149,8 +151,10 @@ class TensorPartition:
     # Bounds over the *root coordinate space* (output-row ownership etc.).
     root_coord_bounds: Optional[Bounds] = None
     overlapping_root: bool = False  # preimage-derived roots may overlap
-    # Grid shape of a multi-axis tile partition; always None in this 1-D
-    # port, kept so partition_fingerprint keys match the reference's.
+    # Grid shape when this is a multi-axis tile partition: (P, Q) colors
+    # are row-major over the P×Q cross product of levels[0] row windows ×
+    # levels[1] column windows; (P, Q, R) bricks extend the cross product
+    # to levels[2] windows (core/grid.py). None for all 1-D partitions.
     grid: Optional[Tuple[int, ...]] = None
     # Transpose-walked universe partitions (column-major roots — CSC):
     # the row walk's permutation, walk position → storage position.
@@ -490,6 +494,67 @@ def partition_tensor_nonzeros(tensor: Tensor, pieces: int,
     )
 
 
+def partition_tensor_grid(tensor: Tensor, row_bounds: Bounds,
+                          col_bounds: Bounds) -> TensorPartition:
+    """2-D cross-product tile partition: color ``(p, q)`` (row-major flat
+    color ``p*Q + q``) owns the row window ``row_bounds[p]`` × column
+    window ``col_bounds[q]`` of the tensor — the machine-grid tiling of
+    paper Fig. 4c lifted to sparse coordinate trees (core/grid.py plans
+    the per-axis communication these tiles imply).
+
+    Unlike the 1-D partitions, a tile is NOT a contiguous interval of the
+    value space, so ``vals_bounds`` stays None; the grid materializers
+    (``materialize_csr_grid`` / ``materialize_bcsr_grid``) carry per-tile
+    global position indices instead. Blocked tensors interpret the (row,
+    col) windows at block granularity — the caller must pass block-aligned
+    bounds (``block_aligned_row_bounds``) so windows realize as whole
+    blocks."""
+    P, Q = row_bounds.shape[0], col_bounds.shape[0]
+    levels = [LevelPartition(coord_bounds=row_bounds.copy()),
+              LevelPartition(coord_bounds=col_bounds.copy())]
+    return TensorPartition(
+        tensor=tensor, pieces=P * Q, levels=levels,
+        vals_bounds=None, root_coord_bounds=row_bounds.copy(),
+        overlapping_root=False, grid=(P, Q),
+    )
+
+
+def partition_tensor_grid3(tensor: Tensor, b0: Bounds, b1: Bounds,
+                           b2: Bounds) -> TensorPartition:
+    """Order-3 cross-product brick partition: color ``(p, q, r)`` (row-major
+    flat color ``(p*Q + q)*R + r``) owns the dimension-0 window ``b0[p]`` ×
+    dimension-1 window ``b1[q]`` × dimension-2 window ``b2[r]`` — the 2-D
+    grid tiling lifted to P×Q×R machine grids for order-3 operands
+    (spmttkrp bricks)."""
+    P, Q, R = b0.shape[0], b1.shape[0], b2.shape[0]
+    levels = [LevelPartition(coord_bounds=b0.copy()),
+              LevelPartition(coord_bounds=b1.copy()),
+              LevelPartition(coord_bounds=b2.copy())]
+    return TensorPartition(
+        tensor=tensor, pieces=P * Q * R, levels=levels,
+        vals_bounds=None, root_coord_bounds=b0.copy(),
+        overlapping_root=False, grid=(P, Q, R),
+    )
+
+
+def partition_tensor_cols(tensor: Tensor, col_bounds: Bounds,
+                          ) -> TensorPartition:
+    """Column partition of a DENSE tensor (dim 1 sliced into windows) —
+    the co-operand plan for grid-distributed computations whose second
+    loop variable indexes the operand's trailing dimension (e.g. D(k, j)
+    under an (i, j) grid)."""
+    if not tensor.format.is_all_dense:
+        raise ValueError("column partition is dense-only; sparse operands "
+                         "take grid tiles or replication")
+    levels = [LevelPartition(),
+              LevelPartition(coord_bounds=col_bounds.copy())]
+    return TensorPartition(
+        tensor=tensor, pieces=col_bounds.shape[0], levels=levels,
+        vals_bounds=None, root_coord_bounds=None,
+    )
+
+
+
 def replicate_tensor(tensor: Tensor, pieces: int) -> TensorPartition:
     """Every color sees the whole tensor (TDN replication, paper Fig. 1
     ``ReplDense``)."""
@@ -518,8 +583,13 @@ class ShardedTensor:
       - ``bcsr_nnz``  : equal-stored-block shard (block coordinates + tiles).
       - ``add_stream`` / ``add_stream_blocked``: equal chunks of the SpAdd
         addends' concatenated entry (or block) stream.
+      - ``csr_grid`` / ``bcsr_grid``: (P·Q) row×col tiles, column-local
+        coordinates and global value positions (``val_idx``).
+      - ``coo3_grid`` : P×Q×R bricks, brick-local coordinates.
+      - ``dense_grid`` / ``dense_cols``: dense tile or column windows.
       - ``replicated``: single copy broadcast to every color.
-    Arrays all have leading dim = pieces (except replicated).
+    Arrays all have leading dim = pieces (except replicated and the dense
+    window stacks, whose leading dims are the windows).
     """
 
     kind: str
@@ -1117,6 +1187,292 @@ def _materialize_bcsr_nnz_impl(tensor: Tensor, part: TensorPartition,
                 root_dim=tensor.format.dim_of_level(0))
     return ShardedTensor(kind="bcsr_nnz", pieces=pieces, arrays=arrays,
                          meta=meta, partition=part)
+
+
+# ---------------------------------------------------------------------------
+# 2-D grid materializers: cross-product row×col tiles for the grid
+# distribution subsystem (core/grid.py). Each tile is a CSR-convention
+# shard over its row window with COLUMN-LOCAL coordinates (rebased to the
+# tile's column window) plus the global value positions of its entries —
+# tiles are non-contiguous in the value space, so assembly scatters by
+# index instead of by interval.
+# ---------------------------------------------------------------------------
+
+def materialize_csr_grid(tensor: Tensor, part: TensorPartition,
+                         ) -> ShardedTensor:
+    key = ("csr_grid", tensor_fingerprint(tensor),
+           partition_fingerprint(part))
+    return _cached_shards(
+        key, lambda: _materialize_csr_grid_impl(tensor, part), partition=part)
+
+
+def _materialize_csr_grid_impl(tensor: Tensor, part: TensorPartition,
+                               ) -> ShardedTensor:
+    """Row×col tile shards of any 2-D sparse matrix.
+
+    Built from the level tree's ROW WALK (core/levels.py): the identity
+    storage enumeration for row-major formats — per-tile entry order is
+    CSR order for free — and the transpose walk for column-major roots
+    (CSC), whose permutation re-sorts each tile's entries row-major and
+    maps them back to storage positions. Per tile: ``pos1`` walks the
+    tile's row window, ``crd1`` holds column-LOCAL coordinates,
+    ``val_idx`` the global (storage) value positions — the scatter map
+    for pattern-preserving outputs. Colors are row-major: flat color =
+    p*Q + q."""
+    P, Q = part.grid
+    rb = part.levels[0].coord_bounds            # (P, 2) row windows
+    cb = part.levels[1].coord_bounds            # (Q, 2) col windows
+    walk = tensor.level_tree().row_walk()       # row-sorted, perm → storage
+    coords = walk.coords.astype(np.int64)
+    r, c = coords[:, 0], coords[:, 1]
+    cmasks = [(c >= int(cb[q, 0])) & (c < int(cb[q, 1])) for q in range(Q)]
+    tiles = []
+    for p in range(P):
+        rlo, rhi = int(rb[p, 0]), int(rb[p, 1])
+        rmask = (r >= rlo) & (r < rhi)
+        for q in range(Q):
+            tiles.append(np.nonzero(rmask & cmasks[q])[0])
+    max_rows = int((rb[:, 1] - rb[:, 0]).max())
+    max_tnnz = max((int(t.shape[0]) for t in tiles), default=0)
+    pos_shards = np.zeros((P * Q, max_rows + 1), dtype=INT)
+    crd_shards = np.zeros((P * Q, max_tnnz), dtype=INT)
+    val_idx = np.zeros((P * Q, max_tnnz), dtype=INT)
+    vals_shards = np.zeros((P * Q, max_tnnz), dtype=tensor.vals.dtype)
+    nnz_count = np.zeros((P * Q,), dtype=INT)
+    for color, idx in enumerate(tiles):
+        p, q = divmod(color, Q)
+        rlo, rhi = int(rb[p, 0]), int(rb[p, 1])
+        clo = int(cb[q, 0])
+        k = idx.shape[0]
+        counts = np.bincount(r[idx] - rlo, minlength=max_rows)
+        pos = np.zeros(max_rows + 1, dtype=np.int64)
+        np.cumsum(counts, out=pos[1:])
+        pos[rhi - rlo + 1:] = pos[rhi - rlo]    # padded rows stay empty
+        pos_shards[color] = pos.astype(INT)
+        crd_shards[color, :k] = c[idx] - clo
+        val_idx[color, :k] = walk.perm[idx]
+        vals_shards[color, :k] = tensor.vals[walk.perm[idx]]
+        nnz_count[color] = k
+    arrays = {
+        "pos1": pos_shards, "crd1": crd_shards, "vals": vals_shards,
+        "val_idx": val_idx, "nnz_count": nnz_count,
+        "row_start": rb[:, 0].astype(INT),
+        "row_count": (rb[:, 1] - rb[:, 0]).astype(INT),
+        "col_start": cb[:, 0].astype(INT),
+        "col_count": (cb[:, 1] - cb[:, 0]).astype(INT),
+    }
+    meta = {"P": P, "Q": Q, "max_rows": max_rows, "max_tnnz": max_tnnz,
+            "n_rows": tensor.shape[0], "n_cols": tensor.shape[1]}
+    return ShardedTensor(kind="csr_grid", pieces=P * Q, arrays=arrays,
+                         meta=meta, partition=part)
+
+
+def materialize_bcsr_grid(tensor: Tensor, part: TensorPartition,
+                          ) -> ShardedTensor:
+    key = ("bcsr_grid", tensor_fingerprint(tensor),
+           partition_fingerprint(part))
+    return _cached_shards(
+        key, lambda: _materialize_bcsr_grid_impl(tensor, part),
+        partition=part)
+
+
+def _materialize_bcsr_grid_impl(tensor: Tensor, part: TensorPartition,
+                                ) -> ShardedTensor:
+    """Blocked row×col tile shards: the CSR grid convention lifted to the
+    block grid — windows are block-aligned (the planner guarantees it), so
+    each tile owns whole (br, bc) value tiles; ``crd1`` holds block-col
+    coordinates LOCAL to the tile's block-column window and ``val_idx``
+    the global stored-block positions. Column-major block grids (BCSC)
+    arrive through the blocked transpose walk, whose permutation re-sorts
+    each tile's blocks block-row-major."""
+    P, Q = part.grid
+    br, bc = tensor.format.block_shape
+    rb = part.levels[0].coord_bounds            # (P, 2) ROW windows
+    cb = part.levels[1].coord_bounds            # (Q, 2) COL windows
+    brb = np.stack([rb[:, 0] // br, -(-rb[:, 1] // br)], axis=1)
+    bcb = np.stack([cb[:, 0] // bc, -(-cb[:, 1] // bc)], axis=1)
+    walk = tensor.level_tree().row_walk()       # block-row-sorted
+    bcoords = walk.coords.astype(np.int64)      # (nb, 2), dim order
+    rblk, cblk = bcoords[:, 0], bcoords[:, 1]
+    cmasks = [(cblk >= bcb[q, 0]) & (cblk < bcb[q, 1]) for q in range(Q)]
+    tiles = []
+    for p in range(P):
+        rmask = (rblk >= brb[p, 0]) & (rblk < brb[p, 1])
+        for q in range(Q):
+            tiles.append(np.nonzero(rmask & cmasks[q])[0])
+    max_brows = int((brb[:, 1] - brb[:, 0]).max())
+    max_tbnnz = max((int(t.shape[0]) for t in tiles), default=0)
+    pos_shards = np.zeros((P * Q, max_brows + 1), dtype=INT)
+    crd_shards = np.zeros((P * Q, max_tbnnz), dtype=INT)
+    val_idx = np.zeros((P * Q, max_tbnnz), dtype=INT)
+    vals_shards = np.zeros((P * Q, max_tbnnz, br, bc),
+                           dtype=tensor.vals.dtype)
+    nnz_count = np.zeros((P * Q,), dtype=INT)
+    for color, idx in enumerate(tiles):
+        p, q = divmod(color, Q)
+        blo, bhi = int(brb[p, 0]), int(brb[p, 1])
+        k = idx.shape[0]
+        counts = np.bincount(rblk[idx] - blo, minlength=max_brows)
+        pos = np.zeros(max_brows + 1, dtype=np.int64)
+        np.cumsum(counts, out=pos[1:])
+        pos[bhi - blo + 1:] = pos[bhi - blo]
+        pos_shards[color] = pos.astype(INT)
+        crd_shards[color, :k] = cblk[idx] - int(bcb[q, 0])
+        val_idx[color, :k] = walk.perm[idx]
+        vals_shards[color, :k] = tensor.vals[walk.perm[idx]]
+        nnz_count[color] = k
+    arrays = {
+        "pos1": pos_shards, "crd1": crd_shards, "vals": vals_shards,
+        "val_idx": val_idx, "nnz_count": nnz_count,
+        "row_start": rb[:, 0].astype(INT),
+        "row_count": (rb[:, 1] - rb[:, 0]).astype(INT),
+        "col_start": cb[:, 0].astype(INT),
+        "col_count": (cb[:, 1] - cb[:, 0]).astype(INT),
+        "brow_start": brb[:, 0].astype(INT),
+        "bcol_start": bcb[:, 0].astype(INT),
+        "bcol_count": (bcb[:, 1] - bcb[:, 0]).astype(INT),
+    }
+    meta = dict(_blocked_meta(tensor), P=P, Q=Q, max_brows=max_brows,
+                max_tbnnz=max_tbnnz,
+                max_rows=int((rb[:, 1] - rb[:, 0]).max()))
+    return ShardedTensor(kind="bcsr_grid", pieces=P * Q, arrays=arrays,
+                         meta=meta, partition=part)
+
+
+def materialize_coo3_grid(tensor: Tensor, part: TensorPartition,
+                          ) -> ShardedTensor:
+    key = ("coo3_grid", tensor_fingerprint(tensor),
+           partition_fingerprint(part))
+    return _cached_shards(
+        key, lambda: _materialize_coo3_grid_impl(tensor, part),
+        partition=part)
+
+
+def _materialize_coo3_grid_impl(tensor: Tensor, part: TensorPartition,
+                                ) -> ShardedTensor:
+    """P×Q×R brick shards of an order-3 sparse tensor in COO convention.
+
+    Each brick (flat color ``(p*Q + q)*R + r``) holds its entries'
+    coordinates LOCAL to the brick's three windows (``dim0``/``dim1``/
+    ``dim2``) plus vals, padded to the widest brick. Padding slots keep
+    vals = 0 so segment-sum leaves can consume the full padded width
+    without masking. Entry order within a brick is storage order — the
+    segment-reduction leaves are order-independent, so no walk permutation
+    is needed regardless of the root's major dimension."""
+    P, Q, R = part.grid
+    b0 = part.levels[0].coord_bounds            # (P, 2) dim-0 windows
+    b1 = part.levels[1].coord_bounds            # (Q, 2) dim-1 windows
+    b2 = part.levels[2].coord_bounds            # (R, 2) dim-2 windows
+    coords = tensor.coords().astype(np.int64)   # (nnz, 3), dimension order
+    d0, d1, d2 = coords[:, 0], coords[:, 1], coords[:, 2]
+    masks1 = [(d1 >= int(b1[q, 0])) & (d1 < int(b1[q, 1])) for q in range(Q)]
+    masks2 = [(d2 >= int(b2[r, 0])) & (d2 < int(b2[r, 1])) for r in range(R)]
+    bricks = []
+    for p in range(P):
+        m0 = (d0 >= int(b0[p, 0])) & (d0 < int(b0[p, 1]))
+        for q in range(Q):
+            for r in range(R):
+                bricks.append(np.nonzero(m0 & masks1[q] & masks2[r])[0])
+    max_bnnz = max((int(b.shape[0]) for b in bricks), default=0)
+    n_colors = P * Q * R
+    dim_shards = [np.zeros((n_colors, max_bnnz), dtype=INT) for _ in range(3)]
+    vals_shards = np.zeros((n_colors, max_bnnz), dtype=tensor.vals.dtype)
+    nnz_count = np.zeros((n_colors,), dtype=INT)
+    starts = (b0[:, 0], b1[:, 0], b2[:, 0])
+    for color, idx in enumerate(bricks):
+        p, qr = divmod(color, Q * R)
+        q, r = divmod(qr, R)
+        k = idx.shape[0]
+        for d, (dcol, win) in enumerate(zip((d0, d1, d2), (p, q, r))):
+            dim_shards[d][color, :k] = dcol[idx] - int(starts[d][win])
+        vals_shards[color, :k] = tensor.vals[idx]
+        nnz_count[color] = k
+    arrays = {
+        "dim0": dim_shards[0], "dim1": dim_shards[1], "dim2": dim_shards[2],
+        "vals": vals_shards, "nnz_count": nnz_count,
+        "row_start": b0[:, 0].astype(INT),
+        "row_count": (b0[:, 1] - b0[:, 0]).astype(INT),
+    }
+    meta = {"P": P, "Q": Q, "R": R, "max_bnnz": max_bnnz,
+            "max_rows": int((b0[:, 1] - b0[:, 0]).max()),
+            "n_rows": tensor.shape[0]}
+    return ShardedTensor(kind="coo3_grid", pieces=n_colors, arrays=arrays,
+                         meta=meta, partition=part)
+
+
+def materialize_dense_grid(tensor: Tensor, row_bounds: Bounds,
+                           col_bounds: Bounds) -> ShardedTensor:
+    """Dense matrix tiled by row windows × column windows — the co-operand
+    plan when BOTH its indexing variables ride machine axes (e.g. C(k, j)
+    under a replicated 2.5-D SpMM, sliced k-rows by the y axis and j-cols
+    by the z axis). Shards stack tile-major: ``vals[g0, g1]`` is the
+    (max_rw, max_cw)-padded tile for row window g0 × col window g1."""
+    tp = partition_tensor_grid(tensor, row_bounds, col_bounds)
+    key = ("dense_grid", tensor_fingerprint(tensor),
+           _crc_arrays(0, row_bounds, col_bounds))
+    return _cached_shards(
+        key, lambda: _materialize_dense_grid_impl(
+            tensor, row_bounds, col_bounds, tp), partition=tp)
+
+
+def _materialize_dense_grid_impl(tensor: Tensor, row_bounds: Bounds,
+                                 col_bounds: Bounds,
+                                 tp: TensorPartition) -> ShardedTensor:
+    dense = tensor.to_dense()
+    G0, G1 = row_bounds.shape[0], col_bounds.shape[0]
+    rcounts = row_bounds[:, 1] - row_bounds[:, 0]
+    ccounts = col_bounds[:, 1] - col_bounds[:, 0]
+    max_rw, max_cw = int(rcounts.max()), int(ccounts.max())
+    shards = np.zeros((G0, G1, max_rw, max_cw) + dense.shape[2:],
+                      dtype=dense.dtype)
+    for g0 in range(G0):
+        rlo, rhi = int(row_bounds[g0, 0]), int(row_bounds[g0, 1])
+        for g1 in range(G1):
+            clo, chi = int(col_bounds[g1, 0]), int(col_bounds[g1, 1])
+            shards[g0, g1, : rhi - rlo, : chi - clo] = dense[rlo:rhi, clo:chi]
+    return ShardedTensor(
+        kind="dense_grid", pieces=G0 * G1,
+        arrays={"vals": shards,
+                "row_start": row_bounds[:, 0].astype(INT),
+                "row_count": rcounts.astype(INT),
+                "col_start": col_bounds[:, 0].astype(INT),
+                "col_count": ccounts.astype(INT)},
+        meta={"max_rows": max_rw, "max_cols": max_cw,
+              "n_rows": dense.shape[0], "n_cols": dense.shape[1]},
+        partition=tp,
+    )
+
+
+def materialize_dense_cols(tensor: Tensor, bounds: Bounds,
+                           ) -> ShardedTensor:
+    """Dense tensor sliced into column windows along dim 1 (the grid
+    co-operand whose indexing variable rides the second machine axis)."""
+    tp = partition_tensor_cols(tensor, bounds)
+    key = ("dense_cols", tensor_fingerprint(tensor), _crc_arrays(0, bounds))
+    return _cached_shards(
+        key, lambda: _materialize_dense_cols_impl(tensor, bounds, tp),
+        partition=tp)
+
+
+def _materialize_dense_cols_impl(tensor: Tensor, bounds: Bounds,
+                                 tp: TensorPartition) -> ShardedTensor:
+    dense = tensor.to_dense()
+    pieces = bounds.shape[0]
+    counts = bounds[:, 1] - bounds[:, 0]
+    max_cols = int(counts.max())
+    shards = np.zeros((pieces, dense.shape[0], max_cols) + dense.shape[2:],
+                      dtype=dense.dtype)
+    for p in range(pieces):
+        lo, hi = int(bounds[p, 0]), int(bounds[p, 1])
+        shards[p, :, : hi - lo] = dense[:, lo:hi]
+    return ShardedTensor(
+        kind="dense_cols", pieces=pieces,
+        arrays={"vals": shards,
+                "col_start": bounds[:, 0].astype(INT),
+                "col_count": counts.astype(INT)},
+        meta={"max_cols": max_cols, "n_cols": dense.shape[1]},
+        partition=tp,
+    )
 
 
 # ---------------------------------------------------------------------------

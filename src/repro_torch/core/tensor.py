@@ -469,13 +469,23 @@ class Tensor:
         Non-blocked sparse → sparse goes through the coordinate stream
         (explicitly stored zeros are preserved; duplicate COO entries merge
         by summation); anything involving a blocked or all-dense endpoint
-        goes through the dense image."""
+        has the dense image's result. Blocked → unblocked sparse takes it
+        from the stored cells without building the image (the nonzero
+        cells inside the tensor, each stored once), so a matrix whose dense
+        image would not fit in memory converts too."""
         if new_format == self.format:
             return self
         if new_format.order != self.order:
             raise ValueError(
                 f"cannot convert order-{self.order} tensor {self.name} to "
                 f"order-{new_format.order} format {new_format}")
+        if (self.format.is_blocked and not new_format.is_blocked
+                and not new_format.is_all_dense):
+            coords, inside = self._blocked_entries()
+            vals = self.vals.reshape(-1)[inside]
+            keep = vals != 0
+            return Tensor.from_coo(self.name, self.shape, coords[inside][keep],
+                                   vals[keep], new_format)
         if (self.format.is_blocked or new_format.is_blocked
                 or self.format.is_all_dense or new_format.is_all_dense):
             return Tensor.from_dense(self.name, self.to_dense(), new_format)

@@ -557,3 +557,84 @@ def test_blocked_sddmm_and_mttkrp_take_their_paths(card):
         launched = " ".join(chip_smoke.device_breakdown(
             lambda: fns[name][0](*args)))
         assert all(k in launched for k in kernels), (label, launched)
+
+
+@pytest.fixture(scope="module")
+def grid_data():
+    """The grid path's operands at a small size (chip_smoke's generators)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    data = chip_smoke.make_inputs(4096, 8, 33, seed=1, dims3=(2048, 64, 64),
+                                  rank=33)
+    data["add"] = chip_smoke.add_operands(4096, 1, data["B"])
+    data["grid"] = chip_smoke.grid_operands(data, 64, 1)
+    return data
+
+
+def _host(x):
+    if torch.is_tensor(x):
+        return x.cpu().numpy()
+    return np.asarray(x) if isinstance(x, np.ndarray) else x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", chip_smoke.GRID_CELLS,
+                         ids=chip_smoke.cell_name)
+def test_grid_cell_on_card_matches_cpu(card, grid_data, cell):
+    """One cell per grid emitter (and the grid nnz, conversion and generic
+    cells), lowered on the card: its kernel launches as many times per
+    run() as the emitter documents and nothing else launches (run_slice
+    raises otherwise), it agrees with the host computation, repeats bit
+    for bit, and matches the same cell lowered on the CPU."""
+    recs, launches = chip_smoke.run_slice(grid_data, (cell,), pieces=4,
+                                          device=None, reps=1)
+    (rec,) = recs.values()
+    assert rec["bitwise"]
+    if rec["call"] is not None:
+        assert rec["per_run"] >= 1
+        assert launches[rec["call"][0]] == rec["runs"] * rec["per_run"]
+    cpu, _ = chip_smoke.run_slice(grid_data, (cell,), pieces=4,
+                                  device="cpu", reps=1)
+    (want,) = cpu.values()
+    got, exp = _host(rec["out"]), _host(want["out"])
+    if isinstance(got, np.ndarray):
+        np.testing.assert_allclose(got, exp, rtol=1e-4, atol=1e-4)
+    else:
+        for gl, wl in zip(got.levels, exp.levels):
+            for x, y in ((gl.pos, wl.pos), (gl.crd, wl.crd)):
+                assert (x is None) == (y is None)
+                if x is not None:
+                    np.testing.assert_array_equal(x, y)
+        np.testing.assert_allclose(got.vals, exp.vals, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["csr", "bcsr"])
+@pytest.mark.parametrize("strategy", ["rows", "nnz"])
+def test_grid_equals_flat_twin_bitwise_on_card(card, strategy, fmt):
+    """A 2x2 SpMM grid cell on integer inputs gives exactly the bits of its
+    pieces-equal 4x1 twin on the card (every f32 sum is exact)."""
+    import repro_torch.core as tc
+    from repro_torch.core import lower as L
+    rng = np.random.default_rng(5)
+    n, m, J = 3000, 2000, 33
+    d = (rng.integers(-3, 4, (n, m))
+         * (rng.random((n, m)) < 0.01)).astype(np.float32)
+    d[7] = rng.integers(-3, 4, m)                       # a long row
+    fm = tc.CSR() if fmt == "csr" else tc.BCSR((4, 4))
+    stmt = tc.parse_tin(
+        "A(i,j) = B(i,k) * C(k,j)", A=tc.Tensor.zeros_dense("A", (n, J)),
+        B=tc.Tensor.from_dense("B", d, fm),
+        C=tc.Tensor.from_dense("C", rng.integers(-3, 4, (m, J))
+                               .astype(np.float32)))
+    M22, M4 = tc.Machine(("x", 2), ("y", 2)), tc.Machine(("x", 4))
+    grid, flat = ((L.default_grid_schedule, L.default_row_schedule)
+                  if strategy == "rows" else
+                  (L.default_grid_nnz_schedule, L.default_nnz_schedule))
+    kg = L.lower(stmt, M22, grid(stmt, M22), device=card)
+    k1 = L.lower(stmt, M4, flat(stmt, M4), device=card)
+    got = kg.run()
+    assert got.device.type == "cuda"
+    assert torch.equal(got, k1.run())
+    np.testing.assert_array_equal(got.cpu().numpy(), d @ stmt.rhs.accesses()[
+        1].tensor.to_dense())

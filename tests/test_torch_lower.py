@@ -326,39 +326,17 @@ def test_weighted_nnz_split_matches_reference():
     np.testing.assert_allclose(out[1][2], out[0][2], atol=1e-3)
 
 
-@pytest.mark.parametrize("case", ["bcsr", "grid", "spadd3", "auto"])
+@pytest.mark.parametrize("case", ["auto"])
 def test_unported_paths_raise(case):
-    """A blocked grid whose root is compressed (``b[dcsr]``, the ``bcsr``
-    case: the reference converts it, ``formats.supports_2d_default``),
-    grids, blocked addends whose block shapes differ (the reference
-    converts them) and the autoscheduler raise, naming their ROADMAP
-    item."""
+    """The autoscheduler raises, naming its ROADMAP item. (Format
+    conversion, grids and mixed-block addends lower now:
+    tests/test_torch_convert.py, test_torch_grid.py, test_torch_grid3.py.)"""
     rng = np.random.default_rng(0)
     dB, c = _arrays("spmv", rng, False)
-    fm = (lambda F: F.Format(F.DCSR().levels, block_shape=(2, 2))) \
-        if case == "bcsr" else (lambda F: F.CSR())
-    stmt = _stmt(tc, TF, "spmv", fm, dB, c)
+    stmt = _stmt(tc, TF, "spmv", lambda F: F.CSR(), dB, c)
     machine = tc.Machine(("x", 2))
-    kw = {}
-    if case == "grid":
-        machine = tc.Machine(("x", 2), ("y", 2))
-        s = tc.Schedule(stmt, machine)
-        i, k = stmt.sparse_accesses()[0].idx
-        io, ii, ko, ki = tc.index_vars("io ii ko ki")
-        s.divide(i, io, ii, machine.dims[0]).divide(k, ko, ki,
-                                                      machine.dims[1])
-        s.distribute(io, ko)
-        kw["schedule"] = s
-    elif case == "spadd3":
-        stmt = tc.parse_tin(
-            "A(i,j) = B(i,j) + C(i,j) + D(i,j)",
-            A=tc.Tensor.from_dense("A", np.zeros_like(dB), TF.CSR()),
-            **{name: tc.Tensor.from_dense(name, dB, TF.BCSR(block))
-               for name, block in zip("BCD", ((2, 2), (4, 4), (2, 2)))})
-    elif case == "auto":
-        kw["schedule"] = "auto"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_lower(stmt, machine, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+        t_lower(stmt, machine, device="cpu", schedule=case)
 
 
 def test_chip_smoke_slice_on_cpu():
@@ -444,4 +422,51 @@ def test_chip_smoke_blocked_path_on_cpu():
         assert rec["call"][0] in chip_smoke.PATH_KERNELS["blocked"]
         assert rec["max_abs_err"] < 1e-4
         assert rec["bitwise"] and rec["runs"] >= 3
+    assert _build.LAUNCHES == before
+
+
+def test_chip_smoke_grid_path_on_cpu():
+    """The chip script's grid path at a tiny size, on the CPU: the 2x2 grid
+    rows and nnz cells over B and its BCSR((4, 4)) twin, the 2x2x2 bricks,
+    nested-column SpAdd3 and replicated SpMM and SDDMM, the b[dcsr]
+    conversion cell and the generic path lower cold and warm, run, agree
+    with the host computation and repeat bit for bit; each cell's kernel is
+    the one its leaf documents; no kernel launches."""
+    before = dict(_build.LAUNCHES)
+    data = chip_smoke.make_inputs(256, 4, 5, seed=0, dims3=(64, 16, 16),
+                                  rank=3)
+    data["add"] = chip_smoke.add_operands(256, 0, data["B"])
+    data["grid"] = chip_smoke.grid_operands(data, 32, 0)
+    recs, launches = chip_smoke.run_slice(data, chip_smoke.GRID_CELLS,
+                                          pieces=4, device="cpu", reps=1)
+    assert set(launches.values()) == {0}
+    assert sorted(recs) == sorted(map(chip_smoke.cell_name,
+                                      chip_smoke.GRID_CELLS))
+    kernels = set()
+    for name, rec in recs.items():
+        k = rec["kernel"]
+        expr, strat, mesh = name.split("/")
+        assert k.cell_id().endswith(f"/{strat}/{mesh}")
+        assert rec["max_abs_err"] < 1e-3
+        assert rec["bitwise"] and rec["runs"] >= 3
+        call = chip_smoke.leaf_call(k)
+        assert (rec["call"] is None) == (call is None)
+        if expr == "generic":
+            assert k.leaf_name.startswith("generic[") and rec["call"] is None
+            assert rec["per_run"] == 0
+            continue
+        assert rec["per_run"] == (2 if mesh.endswith("r") else 1)
+        assert rec["call"][0] == call[0]
+        kernels.add(call[0])
+        # phase 5's record inputs: the kernel at the cell's own tiles
+        name_, args = call
+        assert chip_smoke.compare_kernel(name, name_, args,
+                                         chip_smoke._abs_args(args)) == 0.0
+        assert min(chip_smoke._moved(name_, args, 1, 1)) >= 0
+        if expr == "spmv_bdcsr":
+            assert k.fallbacks == ["B: b[dcsr] -> csr"]
+            assert k.cell_id() == "spmv/b[dcsr]/rows/4x1"
+        elif strat == "rows" and mesh != "4x1":
+            assert "grid" in k.leaf_name and k.comm.axes
+    assert kernels == set(chip_smoke.PATH_KERNELS["grid"])
     assert _build.LAUNCHES == before
