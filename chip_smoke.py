@@ -77,7 +77,7 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
              held at atol = rtol = 2e-5 in f32 and 3e-2 in bf16 (the
              reference test's) and 1e-2 in f16 (three more mantissa
              bits), and its position 0 must equal v[0].
-4. main    — six paths (a-d, f, then e), each driven through the public
+4. main    — seven paths (a-d, f, g, then e), each driven through the public
              entry points with the kernel launch counts reset just before
              and read just after; each of the path's kernels must have
              launched.
@@ -116,6 +116,31 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
       emitter table, on the generic path (the interpreter on the card) at
       side 2^10. Each cell's line adds its ``fallbacks`` and its per-axis
       network bytes.
+   g. The distributed executor (``repro_torch.distributed``), after the
+      sparse paths have freed their data: their operands and float64 host
+      products, written once under ``build/spmd/`` as .npy files that the
+      ranks memory-map; ranks spawned after the build, sharing the card
+      over gloo (a FileStore under ``build/spmd/``, every join timed). Four
+      ranks run the 1-D SpMV, SpMM and SDDMM cells over B and over the
+      BCSR((4, 4)) B (rows and nnz) on ``Machine(("x", 4))``, the 2x2 grid
+      rows SpMV, SpMM, SDDMM and blocked SpMM, the 2x2 nnz SpMV and SpMM
+      and the overlapped 2x2 SpMM at two chunks; eight ranks the 2x2x2
+      SpMTTKRP bricks and the 2x2x2r SpMM and SDDMM. Each rank lowers each
+      cell itself and calls ``to_spmd(k, mesh)()``: the result must be its
+      ``k.run()`` bit for bit (on rank 0 also within the tolerance of the
+      host product), and the cell's kernel must launch ``launches`` times
+      a call on every rank and no other kernel. Rank 0 prints one
+      ``[spmd]`` line a cell: the call's host-clock median (max over
+      ranks), the rank's kernel alone by CUDA events (one rank at a time;
+      min and max over ranks), the blocking gathers' ms, the bytes sent
+      and received beside ``k.comm``'s modelled network bytes, whether a
+      collective staged through the host, the peak device memory of the
+      largest rank. Then, in this process, ``profile_pieces`` over six
+      leaves (``[spmd-profile]``) and ``run_overlapped`` on the rows and
+      2x2 SpMM at chunks 2 and 4, overlap on and off, bits equal to
+      ``k.run()`` (``[spmd-overlap]``). The kernels line adds each
+      kernel's launches in the ranks' counted calls as
+      ``executor_launches``.
    e. The attention path, on a card freed of the sparse paths' data:
       llama3-8b at full width (d 4096, 32 heads, 8 KV heads, head_dim 128,
       d_ff 14336, vocab 128256), all 32 layers, bf16 weights from a seeded
@@ -264,6 +289,36 @@ PATH_KERNELS = {"matrix": ("spmv_csr_rows", "spmv_coo_nnz", "spmm_csr_rows",
                          "spadd3_union_rows"),
                 "attention": ("flash_attention",)}
 GENERIC_SIDE = 1 << 10     # the generic path's dense output is side²
+# the executor path (4g): (statement, strategy, mesh) per rank group; the
+# ranks share the card over gloo. "overlap2" is the overlapped grid SpMM at
+# two column chunks.
+SPMD_CELLS = {
+    4: (("spmv", "rows", "4x1"), ("spmv", "nnz", "4x1"),
+        ("spmm", "rows", "4x1"), ("spmm", "nnz", "4x1"),
+        ("sddmm", "rows", "4x1"), ("sddmm", "nnz", "4x1"),
+        ("spmv_bcsr", "rows", "4x1"), ("spmv_bcsr", "nnz", "4x1"),
+        ("spmm_bcsr", "rows", "4x1"), ("spmm_bcsr", "nnz", "4x1"),
+        ("sddmm_bcsr", "rows", "4x1"), ("sddmm_bcsr", "nnz", "4x1"),
+        ("spmv", "rows", "2x2"), ("spmm", "rows", "2x2"),
+        ("sddmm", "rows", "2x2"), ("spmm_bcsr", "rows", "2x2"),
+        ("spmv", "nnz", "2x2"), ("spmm", "nnz", "2x2"),
+        ("spmm", "overlap2", "2x2")),
+    8: (("spmttkrp", "rows", "2x2x2"), ("spmm", "rows", "2x2x2r"),
+        ("sddmm", "rows", "2x2x2r")),
+}
+# the parent's single-process cells: profile_pieces' six leaves, and the
+# two run_overlapped ones (at chunks 2 and 4, overlap on and off)
+SPMD_PROFILED = (("spmv", "rows", "4x1"), ("spmm", "rows", "4x1"),
+                 ("spmv", "nnz", "4x1"), ("spmm", "nnz", "4x1"),
+                 ("spmv", "rows", "2x2"), ("spmm", "rows", "2x2"))
+SPMD_OVERLAPPED = (("spmm", "rows", "4x1"), ("spmm", "rows", "2x2"))
+SPMD_KERNELS = ("spmv_csr_rows", "spmv_coo_nnz", "spmm_csr_rows",
+                "spmm_coo_nnz", "sddmm_coo", "spmttkrp_coo", "bcsr_spmv",
+                "bcsr_spmm", "bcsr_sddmm")
+SPMD_EXPRS = ("spmv", "spmm", "sddmm", "spmv_bcsr", "spmm_bcsr",
+              "sddmm_bcsr", "spmttkrp")
+SPMD_TIMEOUT_S = 420       # a rank group, from spawn to its last exit
+SPMD_DIR = ROOT / "build" / "spmd"
 
 
 def phase(tag: str, /, **fields) -> None:
@@ -1273,7 +1328,7 @@ def statements(data):
             "A(i,j) = B(i,j) * c(j)", A=tc.Tensor.zeros_dense("A", G.shape),
             B=G, c=dense("c", cg))
     for kind, expr in (("scalar", "spadd3"), ("blocked", "spadd3_bcsr")):
-        if kind in data.get("add", {}):
+        if len(data.get("add", {}).get(kind, ())) == 3:
             ops_ = dict(zip("BCD", data["add"][kind]))
             out[expr] = tc.parse_tin(
                 "A(i,j) = B(i,j) + C(i,j) + D(i,j)",
@@ -2387,6 +2442,12 @@ def sparse_paths(args, device):
             launches[k] += v
         cells.update(recs)
 
+    # path 4g's operands and host products, written once for its ranks
+    t0 = time.perf_counter()
+    save_spmd_operands(data)
+    phase("spmd-data", dir=SPMD_DIR.relative_to(ROOT),
+          seconds=f"{time.perf_counter() - t0:.1f}")
+
     # 3b + 5. kernels at the main path's shapes, timed once every count
     # is read
     records, ttv, cell_ms = kernel_records(
@@ -2411,6 +2472,358 @@ def sparse_paths(args, device):
               kernel_ms=(f"{cell_ms[cell]:.4f}" if cell in cell_ms
                          else "-"))
     return records, ttv
+
+
+# ---------------------------------------------------------------------------
+# Path 4g: the distributed executor, ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+def _save_tensor(T, name: str, out_dir: Path):
+    import numpy as np
+    levels = []
+    for l, ld in enumerate(T.levels):
+        for key in ("pos", "crd"):
+            if getattr(ld, key) is not None:
+                np.save(out_dir / f"{name}.{l}.{key}.npy", getattr(ld, key))
+        levels.append({"size": int(ld.size), "pos": ld.pos is not None,
+                       "crd": ld.crd is not None})
+    np.save(out_dir / f"{name}.vals.npy", T.vals)
+    return {"shape": list(T.shape), "levels": levels}
+
+
+def save_spmd_operands(data, out_dir: Path = SPMD_DIR) -> None:
+    """Write path 4g's operands once, as .npy files the ranks open with
+    ``mmap_mode="r"``: the matrix B (CSR), the BCSR((4, 4)) operand, the
+    3-tensor (CSF), the dense operands, and the float64 host products of
+    the path's expressions (with their scales), which rank 0 checks
+    against."""
+    import numpy as np
+    out_dir.mkdir(parents=True, exist_ok=True)
+    meta = {"B": _save_tensor(data["B"], "B", out_dir),
+            "Bb": _save_tensor(data["add"]["blocked"][0], "Bb", out_dir),
+            "B3": _save_tensor(data["B3"], "B3", out_dir)}
+    for key in ("c", "C", "Cs", "Ds", "c3", "C3", "D3"):
+        np.save(out_dir / f"{key}.npy", data[key])
+    for expr, (want, scale) in reference_products(data, SPMD_EXPRS).items():
+        np.save(out_dir / f"want.{expr}.npy", want)
+        np.save(out_dir / f"scale.{expr}.npy", scale)
+    (out_dir / "meta.json").write_text(json.dumps(meta))
+
+
+def load_spmd_operands(out_dir: Path = SPMD_DIR):
+    """The operands of :func:`save_spmd_operands`, memory-mapped, in the
+    ``data`` layout ``statements`` and ``reference_products`` read."""
+    import numpy as np
+    import repro_torch.core as tc
+    from repro_torch.core.tensor import LevelData
+    meta = json.loads((out_dir / "meta.json").read_text())
+
+    def mapped(name):
+        return np.load(out_dir / f"{name}.npy", mmap_mode="r")
+
+    def tensor(key, fmt):
+        m = meta[key]
+        levels = [LevelData(fmt.levels[l], lv["size"],
+                            pos=mapped(f"{key}.{l}.pos") if lv["pos"]
+                            else None,
+                            crd=mapped(f"{key}.{l}.crd") if lv["crd"]
+                            else None)
+                  for l, lv in enumerate(m["levels"])]
+        return tc.Tensor("B", m["shape"], fmt, levels, mapped(f"{key}.vals"))
+
+    data = {"B": tensor("B", tc.CSR()), "B3": tensor("B3", tc.CSF()),
+            "add": {"blocked": (tensor("Bb", tc.BCSR(ADD_BLOCK)),)}}
+    for key in ("c", "C", "Cs", "Ds", "c3", "C3", "D3"):
+        data[key] = mapped(key)
+    data["host_products"] = {expr: (mapped(f"want.{expr}"),
+                                    mapped(f"scale.{expr}"))
+                             for expr in SPMD_EXPRS}
+    return data
+
+
+def _spmd_cell(stmts, cell, device):
+    """(kernel, call) of an executor cell, lowered on ``device``."""
+    from repro_torch.core import lower as L
+    expr, strat, label = cell
+    overlap = strat.startswith("overlap")
+    machine, sched = cell_schedule(stmts[expr], "rows" if overlap else strat,
+                                   label, PIECES)
+    return L.lower(stmts[expr], machine, schedule=sched, device=device)
+
+
+def spmd_rank(rank: int, world: int, store: str, cells, reps: int,
+              out_dir: str, device: str, spmd_dir: str) -> None:
+    """One rank of path 4g: lower each cell itself, call ``to_spmd(k,
+    mesh)()`` 1 + ``reps`` times (the first call's result checked, all
+    timed on the host clock, the launches and collective bytes counted
+    over all of them), hold the result against ``k.run()`` bit for bit,
+    time the rank's kernel alone on its pieces (CUDA events, one rank at
+    a time), and give rank 0 every rank's numbers for the cell's
+    ``[spmd]`` line; rank 0 also checks the result against the float64
+    host product. Writes ``rank<r>.json``; exits non-zero on any
+    failure."""
+    import datetime
+    import os
+    import traceback
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    status = {"rank": rank, "ok": False}
+    try:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        from repro_torch.core import lower as L
+        from repro_torch.distributed import collectives as col
+        from repro_torch.distributed import executor as E
+        from repro_torch.distributed.mesh import make_mesh
+        from repro_torch.kernels import _build
+        device = torch.device(device)
+        on_card = device.type == "cuda"
+        dist.init_process_group(
+            "gloo", init_method=f"file://{store}", rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=SPMD_TIMEOUT_S))
+        data = load_spmd_operands(Path(spmd_dir))
+        stmts = statements(data)
+        meshes = {}
+        for label in dict.fromkeys(c[2] for c in cells):
+            dims = [int(x) for x in label.rstrip("r").split("x")]
+            if dims[1:] == [1]:
+                dims = dims[:1]
+            meshes[label] = make_mesh(dims, "xyz"[:len(dims)],
+                                      backend="gloo", device=device)
+        totals = {}
+        for cell in cells:
+            t0 = time.perf_counter()
+            k = _spmd_cell(stmts, cell, device)
+            lower_s = time.perf_counter() - t0
+            mesh = meshes[cell[2]]
+            chunks = int(cell[1][7:]) if cell[1].startswith("overlap") else 0
+            if on_card:
+                torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device) if on_card else 0
+            f = E.to_spmd(k, mesh, overlap=bool(chunks),
+                          overlap_chunks=chunks or 2)
+            before = dict(_build.LAUNCHES)
+            traffic = dict(col.TRAFFIC)
+            times, gathers = [], []
+            for i in range(reps + 1):
+                _sync(device)
+                t0 = time.perf_counter()
+                g0 = col.TRAFFIC["seconds"]
+                y = f()
+                _sync(device)
+                times.append((time.perf_counter() - t0) * 1e3)
+                gathers.append((col.TRAFFIC["seconds"] - g0) * 1e3)
+                if i == 0:
+                    out = y
+            calls = reps + 1
+            launched = {n: c - before[n] for n, c in _build.LAUNCHES.items()
+                        if c != before[n]}
+            want = {f.kernel: f.launches * calls} if on_card else {}
+            if launched != want:
+                raise AssertionError(f"rank {rank} {cell_name(cell)}: "
+                                     f"launches {launched}, want {want}")
+            for n, c in launched.items():
+                totals[n] = totals.get(n, 0) + c
+            peak = (torch.cuda.max_memory_allocated(device) if on_card
+                    else 0)
+            ref = k.run()
+            if not torch.is_tensor(ref):
+                ref = torch.from_numpy(np.asarray(ref.vals)).to(out.device)
+            if not torch.equal(out, ref):
+                raise AssertionError(f"rank {rank} {cell_name(cell)}: the "
+                                     "executor's result differs from "
+                                     "k.run()'s bits")
+            kernel_ms = None
+            for r in range(world):     # one rank at a time on the card
+                dist.barrier()
+                if r == rank:
+                    kernel_ms = (time_events(f.leaf, reps) if on_card
+                                 else time_host(f.leaf, device, reps))
+            err = None
+            if rank == 0:
+                err = check_rows(cell_name(cell), out,
+                                 *data["host_products"][cell[0]])
+            rec = {"call_ms": statistics.median(times),
+                   "kernel_ms": kernel_ms, "lower_s": lower_s,
+                   "collective_ms": statistics.median(gathers),
+                   "sent": (col.TRAFFIC["sent"] - traffic["sent"]) / calls,
+                   "received": (col.TRAFFIC["received"]
+                                - traffic["received"]) / calls,
+                   "staged": col.TRAFFIC["staged"] - traffic["staged"],
+                   "spmd_mem": peak - base, "peak_mem": peak}
+            recs = [None] * world
+            dist.all_gather_object(recs, rec)
+            if rank == 0:
+                gb = 2 ** 30
+                phase("spmd", cell=k.cell_id() + (f"+overlap{chunks}"
+                                                  if chunks else ""),
+                      leaf=k.leaf_name, ranks=world, backend=mesh.backend,
+                      staged=("none" if not any(r["staged"] for r in recs)
+                              else ",".join(col.staged_ops(mesh))),
+                      bits_equal_run=True,
+                      launches_per_call=json.dumps(
+                          {f.kernel: f.launches} if on_card else {}
+                      ).replace(" ", ""),
+                      call_ms=f"{max(r['call_ms'] for r in recs):.3f}",
+                      kernel_ms_min=f"{min(r['kernel_ms'] for r in recs):.4f}",
+                      kernel_ms_max=f"{max(r['kernel_ms'] for r in recs):.4f}",
+                      collective_ms=f"{max(r['collective_ms'] for r in recs):.3f}",
+                      sent_bytes=int(sum(r["sent"] for r in recs)),
+                      received_bytes=int(sum(r["received"] for r in recs)),
+                      modelled_bytes=k.comm.total_network_bytes(),
+                      lower_s=f"{max(r['lower_s'] for r in recs):.2f}",
+                      spmd_mem_gb=f"{max(r['spmd_mem'] for r in recs) / gb:.2f}",
+                      peak_mem_gb=f"{max(r['peak_mem'] for r in recs) / gb:.2f}",
+                      max_abs_err=f"{err:.3g}")
+            del k, f, y, out, ref
+            L.clear_lowering_caches()
+            E.clear_spmd_cache()
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+        status.update(ok=True, launches=totals)
+    except Exception:
+        status["error"] = traceback.format_exc()
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(status))
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    if not status["ok"]:
+        sys.exit(1)
+
+
+def run_rank_group(world: int, cells, reps: int, device, spmd_dir: Path):
+    """Spawn ``world`` ranks of :func:`spmd_rank` (start method spawn: the
+    card is already initialised here) on a FileStore under ``spmd_dir``,
+    and wait for them within ``SPMD_TIMEOUT_S``. Raises, naming the ranks,
+    if any rank fails, hangs or returns nothing; returns their statuses."""
+    import torch.multiprocessing as mp
+    out_dir = spmd_dir / f"ranks{world}"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for old in out_dir.iterdir():
+        old.unlink()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=spmd_rank, args=(
+        r, world, str(out_dir / "store"), cells, reps, str(out_dir),
+        str(device), str(spmd_dir))) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SPMD_TIMEOUT_S
+    try:
+        while any(p.is_alive() for p in procs):
+            if (any(p.exitcode not in (None, 0) for p in procs)
+                    or time.monotonic() > deadline):
+                break
+            time.sleep(0.1)
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(30)
+    statuses, bad = [], []
+    for r, p in enumerate(procs):
+        path = out_dir / f"rank{r}.json"
+        st = (json.loads(path.read_text()) if path.exists() else
+              {"rank": r, "ok": False,
+               "error": f"no result (exit code {p.exitcode})"})
+        statuses.append(st)
+        if not st["ok"] or p.exitcode != 0:
+            bad.append(st)
+    if bad or hung:
+        raise AssertionError(
+            f"path 4g: the {world}-rank group failed; ranks still running "
+            f"at the end: {hung}; "
+            + "; ".join(f"rank {st['rank']}: {st.get('error', '')[-2000:]}"
+                        for st in bad))
+    return statuses
+
+
+def spmd_parent(device, reps: int, spmd_dir: Path) -> None:
+    """Path 4g's single-process part on the card: ``profile_pieces`` over
+    the six profiled leaves (per-piece kernel ms by CUDA events, skew) and
+    ``run_overlapped`` on the rows and 2x2 SpMM at chunks 2 and 4, overlap
+    on and off: bits equal to ``k.run()``, the kernel launched once per
+    chunk, and the five ``executor.overlap.*`` values."""
+    import torch
+    from repro_torch.core import lower as L
+    from repro_torch.distributed.executor import (profile_pieces,
+                                                  run_overlapped)
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import telemetry
+    data = load_spmd_operands(spmd_dir)
+    stmts = statements(data)
+    on_card = device.type == "cuda"
+    for cell in SPMD_PROFILED:
+        L.clear_lowering_caches()
+        k = _spmd_cell(stmts, cell, device)
+        telemetry.METRICS.clear()
+        prof = profile_pieces(k, iters=reps)
+        phase("spmd-profile", cell=k.cell_id(), leaf=k.leaf_name,
+              piece_ms=",".join(f"{s * 1e3:.4f}" for s in prof.seconds),
+              skew=f"{prof.skew():.3f}",
+              stragglers=json.dumps(prof.stragglers()).replace(" ", ""))
+    for cell in SPMD_OVERLAPPED:
+        L.clear_lowering_caches()
+        k = _spmd_cell(stmts, cell, device)
+        ref = k.run()
+        kernel = {"spmm_rows": "spmm_csr_rows",
+                  "spmm_grid_rows": "spmm_csr_rows"}[k.leaf_name]
+        for chunks in (2, 4):
+            for overlap in (True, False):
+                telemetry.METRICS.clear()
+                before = dict(_build.LAUNCHES)
+                t0 = time.perf_counter()
+                got = run_overlapped(k, chunks=chunks, overlap=overlap)
+                _sync(device)
+                ms = (time.perf_counter() - t0) * 1e3
+                launched = {n: c - before[n] for n, c in
+                            _build.LAUNCHES.items() if c != before[n]}
+                if launched != ({kernel: chunks} if on_card else {}):
+                    raise AssertionError(f"run_overlapped {k.cell_id()} "
+                                         f"chunks {chunks}: launches "
+                                         f"{launched}")
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"run_overlapped {k.cell_id()} "
+                                         f"chunks {chunks} overlap "
+                                         f"{overlap}: bits differ from "
+                                         "k.run()")
+                snap = telemetry.METRICS.snapshot()
+                cnt = snap["counters"]
+                phase("spmd-overlap", cell=k.cell_id(), chunks=chunks,
+                      overlap=overlap, bits_equal_run=True,
+                      ms=f"{ms:.2f}",
+                      comm_s=f"{cnt['executor.overlap.comm_seconds']:.5f}",
+                      hidden_s=f"{cnt['executor.overlap.hidden_seconds']:.5f}",
+                      bytes=int(cnt["executor.overlap.bytes"]),
+                      hidden_bytes=int(cnt["executor.overlap.hidden_bytes"]),
+                      efficiency=f"{snap['gauges']['executor.overlap.efficiency']:.3f}")
+        del k, ref, got
+    L.clear_lowering_caches()
+
+
+def executor_path(args, device, spmd_dir: Path = SPMD_DIR):
+    """Path 4g over the operands :func:`save_spmd_operands` wrote: the
+    4-rank group (``Machine(("x", 4))`` and ``Machine(("x", 2), ("y",
+    2))``), then the 8-rank group (2x2x2), each rank on ``device`` over
+    gloo, then the parent's ``profile_pieces`` and ``run_overlapped``.
+    Returns the kernels' launches in the ranks' counted calls."""
+    t0 = time.perf_counter()
+    reps = max(args.reps // 5, 2)
+    launches = dict.fromkeys(SPMD_KERNELS, 0)
+    for world, cells in SPMD_CELLS.items():
+        for st in run_rank_group(world, cells, reps, device, spmd_dir):
+            for k, n in st["launches"].items():
+                launches[k] += n
+    missing = [k for k, n in launches.items() if n == 0]
+    if device.type == "cuda" and missing:
+        raise AssertionError(f"kernels never launched on the executor "
+                             f"path: {missing}")
+    phase("launches", path="executor",
+          seconds=f"{time.perf_counter() - t0:.1f}", **launches)
+    spmd_parent(device, reps, spmd_dir)
+    phase("executor", seconds=f"{time.perf_counter() - t0:.1f}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2487,14 +2900,21 @@ def main(argv=None) -> int:
         worst[name] = max(worst.get(name, 0.0), err)
     phase("kernels-edge", **{k: f"{v:.3g}" for k, v in worst.items()})
 
-    # 4a-d + 5. the sparse paths, their kernels timed after every count
+    # 4a-d, f + 5. the sparse paths, their kernels timed after every count
     records, ttv = sparse_paths(args, device)
-
-    # 4e. the attention path, on a card freed of the sparse paths' data
     from repro_torch.core import lower as L
     L.clear_lowering_caches()
     gc.collect()
     torch.cuda.empty_cache()
+
+    # 4g. the distributed executor, ranks sharing the card over gloo
+    spmd_launches = executor_path(args, device)
+    for r in records:
+        r["executor_launches"] = spmd_launches.get(r["name"], 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4e. the attention path, on a card freed of the sparse paths' data
     over = {"n_layers": args.attn_layers} if args.attn_layers else {}
     cfg = lm_config(**over)
     _build.reset_launches()
@@ -2548,6 +2968,8 @@ def main(argv=None) -> int:
                                   f"hd{hd or cfg.resolved_head_dim}"
                                   f"{short[dt]})"))
     clocks("after the flash timing")
+    for r in records:
+        r.setdefault("executor_launches", 0)
     for r in records + [dict(ttv, name="spmv_csr_rows(spttv)")] + extra:
         phase("kernel", name=r["name"], max_abs_err=f"{r['max_abs_err']:.3g}",
               launches=r["launches"],

@@ -829,35 +829,43 @@ def _emit_sddmm_grid_rep(stmt, gp, shards, device):
 def _brick_stream(B: ShardedTensor, max_jw: int, max_kw: int,
                   device: torch.device):
     """(rows, j, k, vals) of the brick shards on ``device``, the SpMTTKRP
-    kernel's stream, made once and cached with the shard: rows stay
-    brick-local with padding slots given the dropped id ``max_rows``; j and
-    k are offset into the flattened C and D windows (q·max_jw, r·max_kw).
-    A brick whose rows are not sorted (storage order of an unsorted COO
-    tree) is stable-sorted by row, the kernel's contract."""
+    kernel's stream, made once and cached with the shard: the bricks of
+    :func:`brick_stream_host` with j and k offset into the flattened C and
+    D windows (q·max_jw, r·max_kw)."""
     a = B.arrays
     Q, R = int(B.meta["Q"]), int(B.meta["R"])
-    max_rows = int(B.meta["max_rows"])
 
     def build():
-        colors = a["dim0"].shape[0]
-        ids = a["dim0"].astype(np.int64)
-        ids[np.arange(ids.shape[1])[None, :] >= a["nnz_count"][:, None]] = \
-            max_rows
-        j = a["dim1"] + (_window_of(colors, Q, R) * max_jw)[:, None]
-        k = a["dim2"] + (_window_of(colors, R) * max_kw)[:, None]
+        ids, j, k, vals = brick_stream_host(B, slice(None))
+        colors = ids.shape[0]
+        j = j + (_window_of(colors, Q, R) * max_jw)[:, None]
+        k = k + (_window_of(colors, R) * max_kw)[:, None]
         if max(int(j.max(initial=0)), int(k.max(initial=0))) >= 2**31:
             raise ValueError("spmttkrp_grid3: a flattened window offset "
                              "reaches 2^31, past the kernel's int32 indices")
-        rest = [j, k, a["vals"]]
-        if ids.size and (np.diff(ids, axis=1) < 0).any():
-            order = np.argsort(ids, axis=1, kind="stable")
-            ids = np.take_along_axis(ids, order, axis=1)
-            rest = [np.take_along_axis(x, order, axis=1) for x in rest]
-        return (ids.astype(np.int32), rest[0].astype(np.int32),
-                rest[1].astype(np.int32), rest[2])
+        return ids, j.astype(np.int32), k.astype(np.int32), vals
 
     return L._device_cached(B, ("brick_stream", max_jw, max_kw), device,
                             build)
+
+
+def brick_stream_host(B: ShardedTensor, bricks: slice):
+    """(rows, j, k, vals) host arrays of the ``bricks`` of a brick shard
+    set, brick-local: padding slots get the dropped row id ``max_rows``; a
+    brick whose rows are not sorted (storage order of an unsorted COO tree)
+    is stable-sorted by row, the kernel's contract."""
+    a = B.arrays
+    max_rows = int(B.meta["max_rows"])
+    ids = a["dim0"][bricks].astype(np.int64)
+    ids[np.arange(ids.shape[1])[None, :]
+        >= a["nnz_count"][bricks][:, None]] = max_rows
+    rest = [a["dim1"][bricks], a["dim2"][bricks], a["vals"][bricks]]
+    if ids.size and (np.diff(ids, axis=1) < 0).any():
+        order = np.argsort(ids, axis=1, kind="stable")
+        ids = np.take_along_axis(ids, order, axis=1)
+        rest = [np.take_along_axis(x, order, axis=1) for x in rest]
+    return (ids.astype(np.int32), rest[0].astype(np.int32),
+            rest[1].astype(np.int32), rest[2])
 
 
 def _emit_spmttkrp_grid3(stmt, gp, shards, device):

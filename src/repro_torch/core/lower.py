@@ -53,7 +53,8 @@ from .partition import (CONVERT_CACHE_STATS, SHARD_CACHE_STATS,
                         fingerprint_memo,
                         materialize_add_stream, materialize_bcsr_nnz,
                         materialize_bcsr_rows, materialize_coo_nnz,
-                        materialize_csr_rows, materialize_dense_rows,
+                        materialize_csr_rows, materialize_dense_cols,
+                        materialize_dense_grid, materialize_dense_rows,
                         materialize_replicated,
                         partition_by_bounds, partition_tensor_nonzeros,
                         partition_tensor_rows, replicate_tensor,
@@ -105,13 +106,20 @@ class CommStats:
     (non-zero strategies).
     ``redistribute_bytes``: data-vs-computation distribution mismatch cost
     (paper §II-D, final paragraph).
-    ``axes``: per-machine-axis breakdown for grid schedules."""
+    ``axes``: per-machine-axis breakdown for grid schedules.
+    ``overlap_total_bytes`` / ``overlap_hidden_bytes``: set by the
+    double-buffered executor (``distributed.executor.run_overlapped``): how
+    much of the shard-transfer traffic was in flight while a leaf kernel
+    ran. Attribution only: these re-describe bytes already counted above,
+    so they never enter ``total_network_bytes``."""
 
     pieces: int = 1
     replicate_bytes: int = 0
     reduce_bytes: int = 0
     redistribute_bytes: int = 0
     axes: Dict[str, AxisComm] = dataclasses.field(default_factory=dict)
+    overlap_total_bytes: int = 0
+    overlap_hidden_bytes: int = 0
 
     def total_network_bytes(self) -> int:
         # all-gather of b bytes to P nodes moves b*(P-1); reductions likewise
@@ -130,6 +138,9 @@ class CommStats:
         }
         if self.axes:
             out["axes"] = {n: a.as_dict() for n, a in self.axes.items()}
+        if self.overlap_total_bytes:
+            out["overlap_total_bytes"] = self.overlap_total_bytes
+            out["overlap_hidden_bytes"] = self.overlap_hidden_bytes
         return out
 
 
@@ -963,6 +974,23 @@ def default_replicated_schedule(stmt: Assignment, machine: Machine) -> Schedule:
     return s
 
 
+def _materialize_dense_operand(t: Tensor, plan: TensorPartition, pieces: int,
+                               cache: bool = False) -> ShardedTensor:
+    """Re-pack ONE all-dense operand under its existing partition geometry
+    — the same branch structure the 1-D and grid lowering paths use, minus
+    every sparse case (the dense chunks of ``run_overlapped``)."""
+    if plan.replicated:
+        return materialize_replicated(t, pieces, cache=cache)
+    if plan.grid is not None:
+        return materialize_dense_grid(t, plan.levels[0].coord_bounds,
+                                      plan.levels[1].coord_bounds,
+                                      cache=cache)
+    if plan.root_coord_bounds is None:
+        return materialize_dense_cols(t, plan.levels[1].coord_bounds,
+                                      cache=cache)
+    return materialize_dense_rows(t, plan.root_coord_bounds, cache=cache)
+
+
 # ---------------------------------------------------------------------------
 # Leaf emission: one emitter per expression × strategy. Every emitter
 # returns ``(leaf_name, runner, args)``; the shards' device copies in
@@ -1019,9 +1047,18 @@ def _nnz_leaf_inputs(B: ShardedTensor, row_start: np.ndarray, max_rows: int,
                      rows: str = "dim0"):
     """(rows_local, *cols, vals) of a coordinate-column shard set on
     ``device``, the flat leaves' inputs, prepared once and cached with the
-    shard. Rows (block-rows ``bdim0`` of a blocked shard, whose ``vals`` are
-    tiles) are rebased to each piece's window and clipped into it, as the
-    reference's emitter does; padding slots get the dropped id
+    shard (:func:`_nnz_leaf_host` on the device)."""
+    return _device_cached(
+        B, ("nnz_leaf_inputs", max_rows, rows) + cols, device,
+        lambda: _nnz_leaf_host(B, row_start, max_rows, cols, rows))
+
+
+def _nnz_leaf_host(B: ShardedTensor, row_start: np.ndarray, max_rows: int,
+                   cols: Tuple[str, ...] = ("dim1",), rows: str = "dim0"):
+    """The host arrays of :func:`_nnz_leaf_inputs`, made once and cached
+    with the shard. Rows (block-rows ``bdim0`` of a blocked shard, whose
+    ``vals`` are tiles) are rebased to each piece's window and clipped into
+    it, as the reference's emitter does; padding slots get the dropped id
     ``max_rows``, so each piece stays row-sorted. A piece whose rows are not
     sorted (column-major roots: CSC, BCSC) is stable-sorted by row, the
     order the row-run kernels require."""
@@ -1040,24 +1077,27 @@ def _nnz_leaf_inputs(B: ShardedTensor, row_start: np.ndarray, max_rows: int,
                 for x in rest]
         return (ids.astype(np.int32), *rest)
 
-    return _device_cached(B, ("nnz_leaf_inputs", max_rows, rows) + cols,
-                          device, build)
+    return _shard_cached(B, ("nnz_leaf_host", max_rows, rows) + cols, build)
 
 
 def _bcsr_row_ids(B: ShardedTensor, device: torch.device) -> torch.Tensor:
-    """Per-slot block-row ids (P, N) of a blocked row shard set, expanded
-    from ``pos1`` once and cached with the shard; padding slots get the
-    dropped id max_brows, so each piece stays sorted."""
-    def build():
-        pos = B.arrays["pos1"].astype(np.int64)
-        R = pos.shape[1] - 1
-        ids = np.full(B.arrays["crd1"].shape, R, dtype=np.int32)
-        for p in range(B.pieces):
-            ids[p, :pos[p, -1]] = np.repeat(np.arange(R, dtype=np.int32),
-                                            np.diff(pos[p]))
-        return ids
+    """Per-slot block-row ids (P, N) of a blocked row shard set on
+    ``device`` (:func:`bcsr_row_ids_host`), cached with the shard."""
+    return _device_cached(B, ("bcsr_row_ids",), device,
+                          lambda: bcsr_row_ids_host(B.arrays, slice(None)))
 
-    return _device_cached(B, ("bcsr_row_ids",), device, build)
+
+def bcsr_row_ids_host(a: Dict[str, np.ndarray], pieces: slice) -> np.ndarray:
+    """Per-slot block-row ids of the ``pieces`` of a blocked row shard set
+    (arrays ``a``), expanded from ``pos1``; padding slots get the dropped
+    id max_brows, so each piece stays sorted."""
+    pos = a["pos1"][pieces].astype(np.int64)
+    R = pos.shape[1] - 1
+    ids = np.full((pos.shape[0], a["crd1"].shape[1]), R, dtype=np.int32)
+    for p in range(pos.shape[0]):
+        ids[p, :pos[p, -1]] = np.repeat(np.arange(R, dtype=np.int32),
+                                        np.diff(pos[p]))
+    return ids
 
 
 def _packed(S: ShardedTensor, pack: Callable, grid: int, b: int,

@@ -723,10 +723,16 @@ def _cached_shards(key: Tuple, build: Callable[[], ShardedTensor],
     return sh
 
 
-def materialize_dense_rows(tensor: Tensor, bounds: Bounds) -> ShardedTensor:
+def materialize_dense_rows(tensor: Tensor, bounds: Bounds,
+                           cache: bool = True) -> ShardedTensor:
     tp = TensorPartition(tensor, bounds.shape[0],
                          [LevelPartition(coord_bounds=bounds)],
                          root_coord_bounds=bounds, vals_bounds=None)
+    if not cache:
+        # per-call dense contents (run_overlapped's chunks): re-pack
+        # directly instead of churning SHARD_CACHE with one-shot content
+        # fingerprints
+        return _materialize_dense_rows_impl(tensor, bounds, tp)
     key = ("dense_rows", tensor_fingerprint(tensor), _crc_arrays(0, bounds))
     return _cached_shards(
         key, lambda: _materialize_dense_rows_impl(tensor, bounds, tp),
@@ -1401,13 +1407,17 @@ def _materialize_coo3_grid_impl(tensor: Tensor, part: TensorPartition,
 
 
 def materialize_dense_grid(tensor: Tensor, row_bounds: Bounds,
-                           col_bounds: Bounds) -> ShardedTensor:
+                           col_bounds: Bounds,
+                           cache: bool = True) -> ShardedTensor:
     """Dense matrix tiled by row windows × column windows — the co-operand
     plan when BOTH its indexing variables ride machine axes (e.g. C(k, j)
     under a replicated 2.5-D SpMM, sliced k-rows by the y axis and j-cols
     by the z axis). Shards stack tile-major: ``vals[g0, g1]`` is the
     (max_rw, max_cw)-padded tile for row window g0 × col window g1."""
     tp = partition_tensor_grid(tensor, row_bounds, col_bounds)
+    if not cache:
+        return _materialize_dense_grid_impl(tensor, row_bounds, col_bounds,
+                                            tp)
     key = ("dense_grid", tensor_fingerprint(tensor),
            _crc_arrays(0, row_bounds, col_bounds))
     return _cached_shards(
@@ -1444,10 +1454,12 @@ def _materialize_dense_grid_impl(tensor: Tensor, row_bounds: Bounds,
 
 
 def materialize_dense_cols(tensor: Tensor, bounds: Bounds,
-                           ) -> ShardedTensor:
+                           cache: bool = True) -> ShardedTensor:
     """Dense tensor sliced into column windows along dim 1 (the grid
     co-operand whose indexing variable rides the second machine axis)."""
     tp = partition_tensor_cols(tensor, bounds)
+    if not cache:
+        return _materialize_dense_cols_impl(tensor, bounds, tp)
     key = ("dense_cols", tensor_fingerprint(tensor), _crc_arrays(0, bounds))
     return _cached_shards(
         key, lambda: _materialize_dense_cols_impl(tensor, bounds, tp),
@@ -1611,7 +1623,10 @@ def _materialize_add_stream_impl(tensors: Sequence[Tensor], pieces: int,
                          partition=part)
 
 
-def materialize_replicated(tensor: Tensor, pieces: int) -> ShardedTensor:
+def materialize_replicated(tensor: Tensor, pieces: int,
+                           cache: bool = True) -> ShardedTensor:
+    if not cache:
+        return _materialize_replicated_impl(tensor, pieces)
     key = ("replicated", tensor_fingerprint(tensor), int(pieces))
     return _cached_shards(
         key, lambda: _materialize_replicated_impl(tensor, pieces),

@@ -210,6 +210,32 @@ def instant(name: str, **attrs) -> None:
     TRACER.instant(name, **attrs)
 
 
+def overlap_report(tracer: "Tracer" = None) -> Dict[str, Any]:
+    """Roll up comm/compute-overlap attribution from recorded spans.
+
+    The overlapped executor (``distributed.executor.run_overlapped``)
+    emits one ``execute.overlap.chunk`` instant per dense-operand chunk
+    with ``comm_s`` (issue→ready transfer wall time), ``hidden_s`` (the
+    slice of that window spent under the previous chunk's compute), and
+    ``bytes``. This derives the summary:
+    ``efficiency = sum(hidden_s) / sum(comm_s)`` — the fraction of
+    transfer time the pipeline hid behind leaf kernels (0.0 when nothing
+    overlapped or tracing was disabled)."""
+    tracer = tracer or TRACER
+    chunks = [e for e in tracer.spans()
+              if e["name"] == "execute.overlap.chunk"]
+    comm_s = sum(float(e["args"].get("comm_s", 0.0)) for e in chunks)
+    hidden_s = sum(float(e["args"].get("hidden_s", 0.0)) for e in chunks)
+    nbytes = sum(int(e["args"].get("bytes", 0)) for e in chunks)
+    return {
+        "chunks": len(chunks),
+        "comm_s": comm_s,
+        "hidden_s": hidden_s,
+        "bytes": nbytes,
+        "efficiency": (hidden_s / comm_s) if comm_s > 0 else 0.0,
+    }
+
+
 # ---------------------------------------------------------------------------
 # Metrics registry
 # ---------------------------------------------------------------------------
@@ -222,6 +248,7 @@ _CACHE_SOURCES: Tuple[Tuple[str, str, str], ...] = (
     ("runner", "repro_torch.core.lower", "RUNNER_CACHE_STATS"),
     ("shard", "repro_torch.core.partition", "SHARD_CACHE_STATS"),
     ("convert", "repro_torch.core.partition", "CONVERT_CACHE_STATS"),
+    ("spmd_run", "repro_torch.distributed.executor", "SPMD_RUN_STATS"),
 )
 
 

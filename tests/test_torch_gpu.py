@@ -638,3 +638,77 @@ def test_grid_equals_flat_twin_bitwise_on_card(card, strategy, fmt):
     assert torch.equal(got, k1.run())
     np.testing.assert_array_equal(got.cpu().numpy(), d @ stmt.rhs.accesses()[
         1].tensor.to_dense())
+
+
+# -- the distributed executor on the card ------------------------------------
+
+SPMD_CARD_CELLS = [("spmv/csr/rows/2", "spmv", "csr", "rows", "2"),
+                   ("spmv/csr/nnz/2", "spmv", "csr", "nnz", "2"),
+                   ("spmm/csr/grid/1x2", "spmm", "csr", "grid", "1x2"),
+                   ("sddmm/bcsr44/nnz/2", "sddmm", "bcsr44", "nnz", "2")]
+
+
+@pytest.mark.gpu
+def test_executor_ranks_share_the_card(card, tmp_path):
+    """Two ranks on the one card, over gloo: every cell is its k.run() bit
+    for bit on both ranks and launches its kernel once per call on each;
+    the ring shift (staged through the host by table), the gather and the
+    reduce-scatter hold on the card; NCCL asked for the two ranks on one
+    device raises, naming them."""
+    from test_torch_spmd import operands, spawn_ranks
+    data = tmp_path / "data.npz"
+    np.savez(data, **operands())
+    statuses = spawn_ranks(2, SPMD_CARD_CELLS, data, str(tmp_path),
+                           device="cuda:0", checks=("nccl", "ring"))
+    for s in statuses:
+        for cell in SPMD_CARD_CELLS:
+            assert s["bits"][cell[0]], (cell[0], s["rank"])
+            assert s["launches"][cell[0]], (cell[0], s["rank"])
+        assert s["collectives"]["nccl_two_ranks_one_device"], s["rank"]
+        assert s["collectives"]["one_axis_ring_gather_scatter"], s["rank"]
+
+
+def _card_spmm(sched, card):
+    import repro_torch.core as tc
+    rng = np.random.default_rng(5)
+    n, m, j = 3000, 2000, 32
+    dB = np.where(rng.random((n, m)) < 0.01,
+                  rng.standard_normal((n, m)), 0).astype(np.float32)
+    stmt = tc.parse_tin("A(i,j) = B(i,k) * C(k,j)",
+                        A=tc.Tensor.zeros_dense("A", (n, j)),
+                        B=tc.Tensor.from_dense("B", dB, tc.CSR()),
+                        C=tc.Tensor.from_dense("C", rng.standard_normal(
+                            (m, j)).astype(np.float32)))
+    if sched == "grid":
+        machine = tc.Machine(("x", 2), ("y", 2))
+        s = tc.lower.default_grid_schedule(stmt, machine)
+    else:
+        machine = tc.Machine(("x", 4))
+        s = (tc.lower.default_nnz_schedule(stmt, machine) if sched == "nnz"
+             else tc.lower.default_row_schedule(stmt, machine))
+    return tc.lower_stmt(stmt, machine, schedule=s, device=card)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sched", ["rows", "nnz", "grid"])
+def test_run_overlapped_and_profile_pieces_on_card(card, sched):
+    """run_overlapped's copy stream and event: the chunked run is k.run()
+    bit for bit, overlapped or not, launching the kernel once a chunk;
+    profile_pieces times every piece with CUDA events."""
+    from repro_torch.distributed.executor import (profile_pieces,
+                                                  run_overlapped)
+    k = _card_spmm(sched, card)
+    kernel = {"spmm_rows": "spmm_csr_rows", "spmm_nnz": "spmm_coo_nnz",
+              "spmm_grid_rows": "spmm_csr_rows"}[k.leaf_name]
+    ref = k.run()
+    for chunks in (2, 4):
+        for overlap in (True, False):
+            before = dict(_build.LAUNCHES)
+            got = run_overlapped(k, chunks=chunks, overlap=overlap)
+            launched = {n: c - before[n] for n, c in _build.LAUNCHES.items()
+                        if c != before[n]}
+            assert got.device == ref.device and torch.equal(got, ref)
+            assert launched == {kernel: chunks}
+    prof = profile_pieces(k, iters=2)
+    assert prof.seconds.shape == (k.strategy.pieces,)
+    assert np.all(prof.seconds > 0)

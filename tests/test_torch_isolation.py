@@ -44,6 +44,10 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.core.lower, repro_torch.kernels.ops\n"
         "import repro_torch.data.spdata\n"
         "import repro_torch.runtime.telemetry, chip_smoke\n"
+        "import repro_torch.distributed.mesh\n"
+        "import repro_torch.distributed.collectives\n"
+        "import repro_torch.distributed.planner\n"
+        "import repro_torch.distributed.executor\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")
