@@ -77,10 +77,10 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
              held at atol = rtol = 2e-5 in f32 and 3e-2 in bf16 (the
              reference test's) and 1e-2 in f16 (three more mantissa
              bits), and its position 0 must equal v[0].
-4. main    — seven paths (a-d, f, g, then e), each driven through the public
-             entry points with the kernel launch counts reset just before
-             and read just after; each of the path's kernels must have
-             launched.
+4. main    — eight paths (a-d, f, h, g, then e), each driven through the
+             public entry points with the kernel launch counts reset just
+             before and read just after; each of the path's kernels must
+             have launched.
    a. ``powerlaw_matrix`` (n = m = 2^21, 16 entries per row on average,
       alpha 1.6, seed 0) in CSR on ``Machine(("x", 4))``: SpMV and SpMM
       (J = 32) under the rows and nnz strategies.
@@ -141,6 +141,48 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
       ``k.run()`` (``[spmd-overlap]``). The kernels line adds each
       kernel's launches in the ranks' counted calls as
       ``executor_launches``.
+   h. The runtime and sparse serving, after the other sparse paths' kernels
+      are timed, over path a's B and path d's BCSR((4, 4)) B with their
+      values redrawn as integers in [-3, 3] (seed 7 past the path's), and
+      integer c and C (J = 32): sums of such values are exact in f32, so a
+      P = 4 -> 3 shrink or an SpMV -> SpMM promotion, which reorder them,
+      keep the bits. (1) Recovery, three cells on ``Machine(("x", 4))``:
+      spmv/rows, spmm/nnz and spmv_bcsr/rows. Per cell a cold elastic
+      lower at P = 4, ``relower(dead=1)`` after it (its ``shard_reuse``)
+      and a cold re-lower at P = 3 with nothing cached, each timed; then
+      ``run_with_recovery`` for 8 steps, unfaulted and faulted (a device
+      loss of piece 1 at step 3, B corrupted at step 5; on the nnz cell
+      stragglers on piece 2 at steps 1 and 2 sleeping 0.25 and 1 s, with
+      ``StragglerMitigator(4, report_budget=2)``), each from cold caches,
+      checkpoints under ``build/recovery/`` every step (every 4 steps for
+      SpMM), removed after. The faulted state must be the unfaulted one's
+      bits and 36 x the host product's values; one restart, 3 pieces at
+      the end, B healed (and its fingerprint its own again), reuse >= 0.5
+      on the rows cells, a straggler re-plan on the nnz cell, the three
+      splits summing to ``recovery_s``; the cell's kernel launches once a
+      ``run()`` (1 + 8 steps, plus the steps replayed from the restored
+      checkpoint) and nothing else launches. One ``[recovery]`` line a
+      cell: the three lower times, the reuse, the recovery phases, one
+      checkpoint's MB and write seconds, the cell's peak device memory
+      above what earlier paths hold. (2) ``verify_byte_ledger`` on every
+      kernel paths a-d and f lowered (host work, ``[ledger]``), and
+      ``smoke_trace`` on the card into ``build/TRACE_smoke.json``,
+      validated (``[trace]``: its span counts). (3) ``SparseKernelServer``
+      over the integer B with SpMV requests, rows then nnz, ``max_batch``
+      8, the default buckets (1, 2 and 4 warmed besides 8): 64 requests of
+      2^21 integers, in bursts of 1, 3, 8, 5, 8, 2, 8, 8, 7, 6 and 8, a
+      burst a ``step()``. No runner may be built after the warm-up, each
+      batch launches its SpMM kernel once, every output must be the
+      per-request loop's bits and the first 8 agree with the host. One
+      ``[serve]`` line a schedule: requests/s, p50 and p99 latency,
+      occupancy, padded-slot waste, MB copied to the card per batch, the
+      8-column copy's host-clock ms and the kernel's CUDA-event ms at
+      bucket 8. Then ``band_decode_kernel(131072, 128, 8192)`` and
+      ``combine_kernel`` over olmoe-1b-7b's router (64 experts, top 8,
+      2 x 4096 tokens, a seeded top-k), one batch of 8 each against the
+      host (``[band]``, ``[moe]``). The kernels line adds each kernel's
+      launches here as ``runtime_launches`` (1, 2) and
+      ``serving_launches`` (3).
    e. The attention path, on a card freed of the sparse paths' data:
       llama3-8b at full width (d 4096, 32 heads, 8 KV heads, head_dim 128,
       d_ff 14336, vocab 128256), all 32 layers, bf16 weights from a seeded
@@ -2471,7 +2513,492 @@ def sparse_paths(args, device):
                                    if rec["kernel"] else cell),
               kernel_ms=(f"{cell_ms[cell]:.4f}" if cell in cell_ms
                          else "-"))
+
+    # 4h. the runtime and serving, over these operands, the byte ledger
+    # over every kernel the paths lowered
+    clocks("before the runtime path")
+    runtime, serving = runtime_path(
+        data, [rec["kernel"] for rec in (*cells.values(),
+                                         *grid_cells.values())
+               if rec["kernel"] is not None], device)
+    clocks("after the runtime path")
+    for r in records:
+        r["runtime_launches"] = runtime.get(r["name"], 0)
+        r["serving_launches"] = serving.get(r["name"], 0)
     return records, ttv
+
+
+# ---------------------------------------------------------------------------
+# Path 4h: the runtime (recovery, the byte ledger, the trace) and sparse
+# serving (SparseKernelServer, the band-decode and MoE-combine statements)
+# ---------------------------------------------------------------------------
+
+# (statement, strategy) of the recovery cells, on Machine(("x", 4))
+RUNTIME_CELLS = (("spmv", "rows"), ("spmm", "nnz"), ("spmv_bcsr", "rows"))
+RUNTIME_KERNELS = {"spmv": "spmv_csr_rows", "spmm": "spmm_coo_nnz",
+                   "spmv_bcsr": "bcsr_spmv"}
+SERVING_KERNELS = {"rows": "spmm_csr_rows", "nnz": "spmm_coo_nnz"}
+RECOVERY_STEPS = 8
+# device loss of piece 1 at step 3, B corrupted at step 5; on the nnz cell
+# stragglers on piece 2 at steps 1 and 2, sleeping 0.25 s and 1 s: the
+# watchdog flags a step above 4x the median step time, and once the first
+# slow step is in the median the second must exceed twice the first
+LOSS_STEP, CORRUPT_STEP = 3, 5
+STRAGGLERS = ((1, 0.25), (2, 1.0))
+SERVE_BURSTS = (1, 3, 8, 5, 8, 2, 8, 8, 7, 6, 8)    # 64 requests
+SERVE_MAX_BATCH = 8
+SERVE_HOST_CHECKED = 8     # requests also held against float64 on the host
+BAND = (131072, 128, 8192)     # seq_len, q_block, window
+MOE = (64, 8, 2 * 4096)        # olmoe-1b-7b's router: experts, top-k, tokens
+RUNTIME_DIR = ROOT / "build" / "recovery"
+TRACE_PATH = ROOT / "build" / "TRACE_smoke.json"
+
+
+def int_operands(data, seed: int):
+    """Path 4h's operands: the matrix path's B (CSR) and the blocked path's
+    BCSR((4, 4)) B on their own patterns, with every value redrawn as an
+    integer in [-3, 3], and integer dense operands c (n,) and C (n, J), all
+    from ``seed``. Sums of such values are exact in f32, so a P = 4 -> 3
+    shrink or an SpMV -> SpMM promotion, which reorder them, keep the
+    bits."""
+    import numpy as np
+    import repro_torch.core as tc
+    rng = np.random.default_rng(seed + 7)
+
+    def ints(shape):
+        return rng.integers(-3, 4, shape).astype(np.float32)
+
+    B, Bb = data["B"], data["add"]["blocked"][0]
+    return {"B": tc.Tensor("B", B.shape, B.format, B.levels,
+                           ints(B.vals.shape)),
+            "Bb": tc.Tensor("B", Bb.shape, Bb.format, Bb.levels,
+                            ints(Bb.vals.shape)),
+            "c": ints(B.shape[1]), "C": ints((B.shape[1], SPMM_J))}
+
+
+def runtime_statement(ops, expr: str):
+    import repro_torch.core as tc
+    B = ops["Bb"] if expr == "spmv_bcsr" else ops["B"]
+    n = B.shape[0]
+    if expr == "spmm":
+        return tc.parse_tin(
+            "A(i,j) = B(i,k) * C(k,j)",
+            A=tc.Tensor.zeros_dense("A", (n, SPMM_J)), B=B,
+            C=tc.Tensor.from_dense("C", ops["C"]))
+    return tc.parse_tin("a(i) = B(i,j) * c(j)",
+                        a=tc.Tensor.zeros_dense("a", (n,)), B=B,
+                        c=tc.Tensor.from_dense("c", ops["c"]))
+
+
+def csr_products(T, X):
+    """float64 host T @ X (n, J) and its scale for a CSR T: PyTorch's CPU
+    CSR product in float64 over T's arrays, on the values and on their
+    absolute values (independent of the port's kernels; multithreaded,
+    where numpy's per-row sums of 32 columns take tens of seconds at the
+    main path's size)."""
+    import warnings
+    import numpy as np
+    import torch
+    pos, crd = (torch.from_numpy(a.astype(np.int64))
+                for a in (T.levels[1].pos, T.levels[1].crd))
+    v = torch.from_numpy(T.vals.astype(np.float64))
+    x = torch.from_numpy(np.asarray(X, np.float64))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")       # "sparse CSR is in beta"
+        y, s = (torch.sparse_csr_tensor(pos, crd, w, T.shape,
+                                        check_invariants=False) @ z
+                for w, z in ((v, x), (v.abs(), x.abs())))
+    return y.numpy(), s.numpy()
+
+
+def int_products(ops, expr: str):
+    """float64 host result and scale of a recovery cell's statement."""
+    if expr == "spmv_bcsr":
+        y, s = blocked_products(ops["Bb"], ops["c"][:, None])
+    elif expr == "spmm":
+        return csr_products(ops["B"], ops["C"])
+    else:
+        y, s = csr_products(ops["B"], ops["c"][:, None])
+    return y[:, 0], s[:, 0]
+
+
+def _dir_mb(path: Path) -> float:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file()) / 1e6
+
+
+def recovery_cell(ops, expr: str, strat: str, device, ckpt_root: Path,
+                  stragglers=STRAGGLERS):
+    """One recovery cell: the elastic re-plan timed (a cold lower at P = 4,
+    a cold re-lower at P = 3 with nothing cached, and ``relower(dead=1)``
+    after an elastic lower), then ``run_with_recovery`` for
+    ``RECOVERY_STEPS`` steps unfaulted and faulted (device loss, corruption,
+    and on the nnz cell stragglers), each from cold caches. The faulted
+    state must have the unfaulted one's bits and agree with the host; every
+    step launches the cell's kernel once and nothing else. Prints one
+    ``[recovery]`` line; returns the launches of both runs."""
+    import shutil
+    import torch
+    import repro_torch.core as tc
+    from repro_torch.core import lower as L
+    from repro_torch.kernels import _build
+    from repro_torch.runtime.checkpoint import SparseCheckpoint
+    from repro_torch.runtime.elastic import run_with_recovery
+    from repro_torch.runtime.fault import (FaultEvent, FaultInjector,
+                                           StragglerMitigator)
+    t_cell = time.perf_counter()
+    name = f"{expr}/{strat}"
+    stmt = runtime_statement(ops, expr)
+    B = stmt.rhs.accesses()[0].tensor
+    fp0 = B.fingerprint()
+    M4, M3 = tc.Machine(("x", PIECES)), tc.Machine(("x", PIECES - 1))
+
+    def sched(m):
+        return None if strat == "rows" else L.default_nnz_schedule(stmt, m)
+
+    base = 0
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+    L.clear_lowering_caches()
+    t0 = time.perf_counter()
+    k4 = L.lower(stmt, M4, schedule=sched(M4), elastic=True, device=device)
+    cold4_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    k3 = L.relower(k4, M3, dead=1)
+    relower_s = time.perf_counter() - t0
+    reuse = k3.cache.shard_reuse
+    L.clear_lowering_caches()
+    t0 = time.perf_counter()
+    L.relower(k4, M3, dead=1)
+    cold3_s = time.perf_counter() - t0
+    del k4, k3
+
+    kernel = RUNTIME_KERNELS[expr]
+    every = 4 if expr == "spmm" else 1
+    steps = RECOVERY_STEPS
+    runs = {}
+    for faulted in (False, True):
+        events, mit = [], None
+        if faulted:
+            events = [FaultEvent(step=LOSS_STEP, kind="device_loss", piece=1),
+                      FaultEvent(step=CORRUPT_STEP, kind="corrupt",
+                                 tensor="B")]
+            if strat == "nnz":
+                events += [FaultEvent(step=s, kind="straggler", piece=2,
+                                      slowdown_s=sleep)
+                           for s, sleep in stragglers]
+                mit = StragglerMitigator(PIECES, report_budget=2)
+        ckdir = ckpt_root / f"{expr}-{strat}-{'faulted' if faulted else 'ref'}"
+        L.clear_lowering_caches()
+        before = dict(_build.LAUNCHES)
+        state, rep = run_with_recovery(
+            stmt, M4, steps, ckpt_dir=str(ckdir), schedule=sched(M4),
+            injector=FaultInjector(events) if faulted else None,
+            mitigator=mit, checkpoint_every=every, device=device)
+        _sync(device)
+        launches = _launched_since(before)
+        # one run() a step, the first run that sizes the state, and the
+        # steps replayed from the restored checkpoint
+        n_runs = 1 + steps + (LOSS_STEP - rep.restored_step if faulted
+                              else 0)
+        want = {kernel: n_runs} if device.type == "cuda" else {}
+        if launches != want:
+            raise AssertionError(f"recovery {name}: launches {launches}, "
+                                 f"want one a step: {want}")
+        runs[faulted] = (state, rep, launches)
+        shutil.rmtree(ckdir, ignore_errors=True)
+    (ref, ref_rep, ref_launches), (state, rep, launches) = runs[False], \
+        runs[True]
+    if not torch.equal(state, ref):
+        raise AssertionError(f"recovery {name}: the faulted state differs "
+                             "from the unfaulted run's")
+    if (ref_rep.restarts, ref_rep.final_pieces) != (0, PIECES):
+        raise AssertionError(f"recovery {name}: the unfaulted run "
+                             f"restarted: {ref_rep}")
+    if (rep.restarts != 1 or rep.final_pieces != PIECES - 1
+            or rep.healed != ["B"]
+            or (strat == "rows" and rep.shard_reuse < 0.5)
+            or (strat == "nnz" and rep.replans < 1)):
+        raise AssertionError(f"recovery {name}: report {rep}")
+    split = rep.restore_s + rep.replan_s + rep.rejit_s
+    if abs(split - rep.recovery_s) > 1e-9:
+        raise AssertionError(f"recovery {name}: splits {split} != "
+                             f"{rep.recovery_s}")
+    if B.fingerprint() != fp0:
+        raise AssertionError(f"recovery {name}: B was not healed")
+    total = steps * (steps + 1) // 2        # state = sum_t (t+1) * B @ x
+    y, s = int_products(ops, expr)
+    err = check_rows(f"recovery {name}", state, total * y, total * s)
+    # one checkpoint of the cell, timed on its own
+    ck = SparseCheckpoint(str(ckpt_root / f"{expr}-{strat}-timed"), keep=1)
+    tensors = {acc.tensor.name: acc.tensor for acc in stmt.accesses()}
+    t0 = time.perf_counter()
+    ck.save(0, tensors, {"state": state})
+    write_s = time.perf_counter() - t0
+    ckpt_mb = _dir_mb(ckpt_root / f"{expr}-{strat}-timed")
+    shutil.rmtree(ckpt_root / f"{expr}-{strat}-timed", ignore_errors=True)
+    # the cell's own peak, above what the earlier paths still hold
+    peak = ((torch.cuda.max_memory_allocated(device) - base) / 2**30
+            if device.type == "cuda" else 0.0)
+    phase("recovery", cell=f"{name}/{PIECES}x1", steps=steps,
+          cold_lower_s=f"{cold4_s:.3f}", cold_relower_p3_s=f"{cold3_s:.3f}",
+          relower_dead1_s=f"{relower_s:.3f}", shard_reuse=f"{reuse:.3f}",
+          faults=",".join(rep.faults), restarts=rep.restarts,
+          replans=rep.replans, restored_step=rep.restored_step,
+          final_pieces=rep.final_pieces,
+          loss_shard_reuse=f"{rep.shard_reuse:.3f}",
+          recovery_s=f"{rep.recovery_s:.4f}",
+          restore_s=f"{rep.restore_s:.4f}", replan_s=f"{rep.replan_s:.4f}",
+          rejit_s=f"{rep.rejit_s:.4f}", ckpt_every=every,
+          ckpt_mb=f"{ckpt_mb:.1f}", ckpt_write_s=f"{write_s:.3f}",
+          launches=json.dumps(launches).replace(" ", ""),
+          bits_equal_unfaulted=True, max_abs_err=f"{err:.3g}",
+          peak_gb=f"{peak:.2f}",
+          seconds=f"{time.perf_counter() - t_cell:.1f}")
+    _add_launches(launches, ref_launches)
+    return launches
+
+
+def serve_requests(n: int, count: int, seed: int):
+    import numpy as np
+    rng = np.random.default_rng(seed + 13)
+    return [rng.integers(-3, 4, n).astype(np.float32) for _ in range(count)]
+
+
+def serve_schedule(ops, strat: str, reqs, want, device):
+    """``SparseKernelServer`` over the integer B with SpMV requests under
+    the rows or nnz strategy: ``max_batch`` 8, the default buckets, every
+    bucket of the bursts warmed first. The requests arrive in
+    ``SERVE_BURSTS`` and each burst is one ``step()``. Checks: no runner
+    is built after the warm-up, each batch launches its SpMM kernel once,
+    every output is the per-request loop's bit for bit and the first
+    ``SERVE_HOST_CHECKED`` agree with the host. Prints one ``[serve]``
+    line, with a step's mean host ms and its phases from ``run_many``'s
+    spans (fill: stacking the requests on the host; rebind: the copy to
+    the card; run: the launch and the output's assembly, whose wait falls
+    in the step); returns the launches of the batches and of the
+    loop."""
+    import numpy as np
+    import torch
+    import repro_torch.core as tc
+    from repro_torch.core import lower as L
+    from repro_torch.core.cache import batch_bucket
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import SparseKernelServer
+    from repro_torch.runtime import telemetry
+    t_cell = time.perf_counter()
+    B = ops["B"]
+    n, m = B.shape
+    stmt = tc.parse_tin("a(i) = B(i,j) * c(j)",
+                        a=tc.Tensor.zeros_dense("a", (n,)), B=B,
+                        c=tc.Tensor.zeros_dense("c", (m,)))
+    L.clear_lowering_caches()
+    t0 = time.perf_counter()
+    srv = SparseKernelServer(
+        stmt, tc.Machine(("x", PIECES)),
+        None if strat == "rows" else L.default_nnz_schedule,
+        max_batch=SERVE_MAX_BATCH, device=device)
+    buckets = sorted({batch_bucket(b) for b in SERVE_BURSTS})
+    for b in buckets:
+        srv.kernel.warm(b)
+    warm_s = time.perf_counter() - t0
+    misses = L.RUNNER_CACHE_STATS["misses"]
+    kernel = SERVING_KERNELS[strat]
+    one = {kernel: 1} if device.type == "cuda" else {}
+    before_all = dict(_build.LAUNCHES)
+    rids, i, step_ms = [], 0, []
+    # the batches' phases, from run_many's spans
+    telemetry.TRACER.clear()
+    telemetry.TRACER.enable()
+    t0 = time.perf_counter()
+    try:
+        for burst in SERVE_BURSTS:
+            for _ in range(burst):
+                rids.append(srv.submit(reqs[i]))
+                i += 1
+            before = dict(_build.LAUNCHES)
+            t_step = time.perf_counter()
+            srv.step()
+            step_ms.append((time.perf_counter() - t_step) * 1e3)
+            got = _launched_since(before)
+            if got != one:
+                raise AssertionError(f"serve {strat}: a batch launched "
+                                     f"{got}, want {one}")
+        serve_s = time.perf_counter() - t0
+    finally:
+        telemetry.TRACER.disable()
+    span_ms = {}
+    for ev in telemetry.TRACER.spans():
+        if ev["dur_us"] is not None and ev["name"].startswith("serve.batch."):
+            span_ms.setdefault(ev["name"][12:], []).append(ev["dur_us"] / 1e3)
+    telemetry.TRACER.clear()
+    if L.RUNNER_CACHE_STATS["misses"] != misses:
+        raise AssertionError(f"serve {strat}: runners built after the "
+                             "warm-up")
+    outs = [srv.result(r) for r in rids]
+    loop = [srv.kernel.run_many([x])[0] for x in reqs]
+    _sync(device)
+    launches = _launched_since(before_all)
+    if not all(torch.equal(a, b) for a, b in zip(outs, loop)):
+        raise AssertionError(f"serve {strat}: run_many differs from the "
+                             "per-request loop")
+    k = SERVE_HOST_CHECKED
+    err = check_rows(f"serve {strat}", torch.stack(outs[:k], 1), *want)
+    sizes = np.array(SERVE_BURSTS)
+    bucket = np.array([batch_bucket(b) for b in SERVE_BURSTS])
+    e = srv.kernel._entries[SERVE_MAX_BATCH]
+    kernel_ms = copy_ms = "-"
+    if device.type == "cuda":
+        name, args = leaf_call(e.kernel)
+        fn = kernel_fns()[name][0]
+        kernel_ms = f"{time_events(lambda: fn(*args), 10):.4f}"
+        buf = np.zeros((m, SERVE_MAX_BATCH), np.float32)
+        copy_ms = f"{time_host(lambda: torch.from_numpy(buf).to(device), device, 5):.3f}"
+    st = srv.stats()
+    phase("serve", schedule=f"spmv/{strat}/{PIECES}x1", leaf=e.kernel.leaf_name,
+          requests=len(reqs), batches=len(SERVE_BURSTS),
+          buckets=",".join(map(str, buckets)), warm_s=f"{warm_s:.3f}",
+          requests_per_s=f"{len(reqs) / serve_s:.1f}",
+          p50_ms=f"{st['p50_ms']:.3f}", p99_ms=f"{st['p99_ms']:.3f}",
+          occupancy=f"{(sizes / bucket).mean():.3f}",
+          padded_slot_waste=f"{((bucket - sizes) / bucket).mean():.3f}",
+          h2d_mb_per_batch=f"{(bucket * m * 4).mean() / 1e6:.1f}",
+          copy_ms_batch8=copy_ms, kernel_ms_batch8=kernel_ms,
+          step_ms=f"{np.mean(step_ms):.3f}",
+          **{f"{k}_ms": f"{np.mean(v):.3f}" for k, v in span_ms.items()},
+          runner_misses_after_warm=0, bits_equal_loop=True,
+          max_abs_err=f"{err:.3g}",
+          launches=json.dumps(launches).replace(" ", ""),
+          seconds=f"{time.perf_counter() - t_cell:.1f}")
+    return launches
+
+
+def band_and_moe(device):
+    """The band-decode statement (``band_decode_kernel`` over
+    ``BAND``) and the MoE combine (``combine_kernel`` over a seeded top-k
+    dispatch at ``MOE``), each one batch of 8 requests, held against the
+    host; each batch launches one SpMM kernel. Returns the launches."""
+    import numpy as np
+    import torch
+    import repro_torch.core as tc
+    from repro_torch.kernels import _build
+    from repro_torch.models.moe import combine_kernel, dispatch_tensor
+    from repro_torch.models.sparse_attention import (band_decode_kernel,
+                                                     band_plan)
+    rng = np.random.default_rng(SEED + 17)
+    machine = tc.Machine(("x", PIECES))
+    one = {"spmm_csr_rows": 1} if device.type == "cuda" else {}
+    launches = {}
+
+    def batch(label, bk, T, cols):
+        before = dict(_build.LAUNCHES)
+        ys = bk.run_many(cols)
+        _sync(device)
+        got = _launched_since(before)
+        if got != one:
+            raise AssertionError(f"{label}: launched {got}, want {one}")
+        for kn, c in got.items():
+            launches[kn] = launches.get(kn, 0) + c
+        return check_rows(label, torch.stack(ys, 1),
+                          *csr_products(T, np.stack(cols, 1)))
+
+    S, qb, window = BAND
+    t0 = time.perf_counter()
+    bk = band_decode_kernel(S, qb, window, machine, batch=SERVE_MAX_BATCH,
+                            device=device)
+    lower_s = time.perf_counter() - t0
+    mask = band_plan(S, qb, window)
+    nq = mask.shape[0]
+    err = batch("band", bk, mask,
+                [rng.standard_normal(nq).astype(np.float32)
+                 for _ in range(SERVE_MAX_BATCH)])
+    phase("band", seq_len=S, q_block=qb, window=window, blocks=mask.nnz,
+          leaf=next(iter(bk._entries.values())).kernel.leaf_name,
+          lower_s=f"{lower_s:.3f}", max_abs_err=f"{err:.3g}")
+    E, topk, N = MOE
+    logits = rng.standard_normal((N, E))
+    tope = np.argsort(-logits, axis=1)[:, :topk]
+    top = np.take_along_axis(logits, tope, axis=1)
+    topw = (np.exp(top) / np.exp(top).sum(1, keepdims=True)).astype(
+        np.float32)
+    disp = dispatch_tensor(tope, topw, E)
+    t0 = time.perf_counter()
+    ck = combine_kernel(disp, machine, batch=SERVE_MAX_BATCH, device=device)
+    lower_s = time.perf_counter() - t0
+    err = batch("moe", ck, disp,
+                [rng.standard_normal(E).astype(np.float32)
+                 for _ in range(SERVE_MAX_BATCH)])
+    phase("moe", experts=E, top_k=topk, tokens=N, entries=disp.nnz,
+          lower_s=f"{lower_s:.3f}", max_abs_err=f"{err:.3g}")
+    return launches
+
+
+def _add_launches(total, more):
+    for k, n in more.items():
+        total[k] = total.get(k, 0) + n
+
+
+def runtime_path(data, kernels, device, stragglers=STRAGGLERS,
+                 ckpt_root: Path = RUNTIME_DIR, trace_path: Path = TRACE_PATH):
+    """Path 4h: (a) the three recovery cells over path 4h's integer
+    operands; (b) ``verify_byte_ledger`` on ``kernels`` (the cells paths
+    a-d and f lowered; host work only) and ``smoke_trace`` on ``device``,
+    its trace validated; (c) ``SparseKernelServer`` under rows and nnz,
+    then the band-decode and MoE-combine statements. Returns
+    (runtime launches, serving launches): every kernel launch of (a)-(b)
+    and of (c)."""
+    import numpy as np
+    import repro_torch.core as tc
+    from repro_torch.core import lower as L
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import telemetry
+    t_path = time.perf_counter()
+    t0 = time.perf_counter()
+    ops = int_operands(data, SEED)
+    phase("runtime-data", nnz=ops["B"].nnz, blocks=ops["Bb"].vals.shape[0],
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    # (a) recovery
+    runtime, serving = {}, {}
+    ckpt_root.mkdir(parents=True, exist_ok=True)
+    try:
+        for expr, strat in RUNTIME_CELLS:
+            _add_launches(runtime, recovery_cell(ops, expr, strat, device,
+                                                 ckpt_root, stragglers))
+    finally:
+        import shutil
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    # (b) the byte ledger over the earlier paths' kernels, and the trace
+    t0 = time.perf_counter()
+    reports = [telemetry.verify_byte_ledger(k) for k in kernels]
+    phase("ledger", cells=len(reports),
+          checks=sum(len(r["checks"]) for r in reports),
+          ok=all(r["ok"] for r in reports),
+          seconds=f"{time.perf_counter() - t0:.2f}")
+    before = dict(_build.LAUNCHES)
+    counts = telemetry.smoke_trace(str(trace_path), device=device)
+    _sync(device)
+    _add_launches(runtime, _launched_since(before))
+    phase("trace", path=trace_path, events=sum(counts.values()),
+          **{k.replace(".", "_"): v for k, v in sorted(counts.items())})
+    # (c) serving
+    B = ops["B"]
+    reqs = serve_requests(B.shape[1], sum(SERVE_BURSTS), SEED)
+    want = csr_products(B, np.stack(reqs[:SERVE_HOST_CHECKED], 1))
+    for strat in SERVING_KERNELS:
+        _add_launches(serving, serve_schedule(ops, strat, reqs, want, device))
+    del reqs
+    _add_launches(serving, band_and_moe(device))
+    L.clear_lowering_caches()
+    if device.type == "cuda":
+        missing = [k for k in RUNTIME_KERNELS.values() if not runtime.get(k)]
+        missing += [k for k in SERVING_KERNELS.values() if not serving.get(k)]
+        if missing:
+            raise AssertionError(f"kernels never launched on the runtime "
+                                 f"and serving path: {missing}")
+    phase("launches", path="runtime", **runtime)
+    phase("launches", path="serving", **serving)
+    phase("runtime", seconds=f"{time.perf_counter() - t_path:.1f}")
+    return runtime, serving
 
 
 # ---------------------------------------------------------------------------
@@ -2969,10 +3496,14 @@ def main(argv=None) -> int:
                                   f"{short[dt]})"))
     clocks("after the flash timing")
     for r in records:
-        r.setdefault("executor_launches", 0)
+        for key in ("executor_launches", "runtime_launches",
+                    "serving_launches"):
+            r.setdefault(key, 0)
     for r in records + [dict(ttv, name="spmv_csr_rows(spttv)")] + extra:
         phase("kernel", name=r["name"], max_abs_err=f"{r['max_abs_err']:.3g}",
               launches=r["launches"],
+              runtime_launches=r.get("runtime_launches", 0),
+              serving_launches=r.get("serving_launches", 0),
               ms=f"{r['ms']:.4f}", bound_ms=f"{r['bound_ms']:.4f}",
               plain_ms=f"{r['plain_ms']:.3f}",
               library_ms=("null" if r["library_ms"] is None

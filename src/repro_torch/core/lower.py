@@ -29,40 +29,49 @@ differ) is converted first, logged on this module's logger and recorded in
 interpreter on the kernel's device (``generic[<sig>|<space>]``, a
 correctness path, not a performance one). Grid universe schedules lower
 through :mod:`.grid`; grid non-zero schedules through the 1-D nnz machinery
-at P·Q(·R) pieces, with the communication attributed to the axes. The
-autoscheduler and the elastic path are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+at P·Q(·R) pieces, with the communication attributed to the axes.
+
+``lower(..., elastic=True)`` caches the 1-D shards per color, and
+:func:`relower` re-plans a lowered kernel onto a resized machine (a dead
+piece's window merged into a neighbor), re-packing only what the resize
+changed. The serving fast path batches requests over one frozen sparse
+operand (:class:`BatchedKernel`, :func:`lower_batched`): a batch of
+vectors (or fixed-width panels) is one SpMM, and :func:`rebind_dense`
+swaps the dense right-hand side without re-planning. The autoscheduler is
+not ported yet and raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Callable, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from .cache import LRUCache, avals_key
+from .cache import BATCH_BUCKETS, LRUCache, avals_key, batch_bucket
 from . import formats as fmt
 from .device import resolve_device
 from .levels import tree_of
 from .partition import (CONVERT_CACHE_STATS, SHARD_CACHE_STATS,
-                        ShardedTensor, TensorPartition,
+                        ShardedTensor, TensorPartition, _crc_arrays,
                         block_aligned_row_bounds, clear_convert_cache,
                         clear_shard_cache, convert_tensor_cached,
-                        fingerprint_memo,
+                        elastic_row_bounds, fingerprint_memo,
                         materialize_add_stream, materialize_bcsr_nnz,
                         materialize_bcsr_rows, materialize_coo_nnz,
                         materialize_csr_rows, materialize_dense_cols,
                         materialize_dense_grid, materialize_dense_rows,
+                        materialize_dense_rows_pieces, materialize_pieces,
                         materialize_replicated,
+                        materialize_replicated_elastic,
                         partition_by_bounds, partition_tensor_nonzeros,
                         partition_tensor_rows, replicate_tensor,
                         tensor_fingerprint, weights_fingerprint)
 from .schedule import DistStrategy, Schedule
 from .tdn import Distribution, Machine
 from .tensor import INT, LevelData, Tensor
-from .tin import Assignment, IndexVar
+from .tin import Access, Assignment, IndexVar, Mul
 from ..runtime import telemetry
 from ..kernels import bcsr as bcsr_kernels
 from ..kernels import ref as K
@@ -187,6 +196,14 @@ class CacheStats:
     convert_misses: int = 0
     tuned_hits: int = 0
     tuned_misses: int = 0
+
+    @property
+    def shard_reuse(self) -> float:
+        """Fraction of shard-cache lookups this lower served from cache —
+        the elastic-resize metric (a migration-style P→P−1 ``relower``
+        reuses ≥ 0.5). 0.0 when the lower did no shard lookups at all."""
+        total = self.shard_hits + self.shard_misses
+        return self.shard_hits / total if total else 0.0
 
     @property
     def warm(self) -> bool:
@@ -511,6 +528,8 @@ def lower(
     distributions: Optional[Dict[str, Distribution]] = None,
     weights: Optional[np.ndarray] = None,
     *,
+    elastic: bool = False,
+    init_bounds: Optional[np.ndarray] = None,
     device=None,
 ) -> LoweredKernel:
     """Compile a scheduled TIN statement into a distributed kernel that runs
@@ -521,12 +540,20 @@ def lower(
     row schedule). ``distributions`` declares the data distribution per
     tensor; where it disagrees with the schedule, ``comm.redistribute_bytes``
     charges the reshuffle (paper §II-D). ``weights`` (pieces,) skews the
-    non-zero splits toward faster shards."""
+    non-zero splits toward faster shards (the straggler re-plan).
+
+    ``elastic=True`` routes 1-D materialization through PER-PIECE shard
+    caching (``partition.materialize_pieces``): each color is its own
+    SHARD_CACHE entry, so a later :func:`relower` onto a resized machine
+    reuses every color whose window the resize left alone. The stacked
+    arrays are bit for bit the whole-set materializers' output (runners
+    are shared). ``init_bounds`` (pieces, 2) overrides the initial equal
+    split: :func:`relower` feeds the merged survivor windows here."""
     device = resolve_device(device)
     with fingerprint_memo(), telemetry.span(
             "lower", sig=stmt.signature()) as sp:
         k = _lower_impl(stmt, machine, schedule, distributions, weights,
-                        device)
+                        device, elastic=elastic, init_bounds=init_bounds)
         sp.set(cell=k.cell_id(), leaf=k.leaf_name,
                pieces=k.strategy.pieces, warm=k.cache.warm)
         _record_lower_metrics(k)
@@ -565,7 +592,8 @@ def _record_lower_metrics(k: LoweredKernel) -> None:
     telemetry.instant("lower.cache", **cs.as_dict())
 
 
-def _lower_impl(stmt, machine, schedule, distributions, weights, device):
+def _lower_impl(stmt, machine, schedule, distributions, weights, device,
+                elastic=False, init_bounds=None):
     snap = _cache_snapshot()
     if isinstance(schedule, str):
         raise NotImplementedError(
@@ -598,7 +626,7 @@ def _lower_impl(stmt, machine, schedule, distributions, weights, device):
     # ---- Steps 1 & 2 of Fig. 9a: initial + derived partitions, memoized --
     with telemetry.span("lower.plan", sig=sig, space=strat.space,
                         pieces=pieces):
-        plan_key = _plan_cache_key(stmt, strat, weights)
+        plan_key = _plan_cache_key(stmt, strat, weights, init_bounds)
         plans = _PLAN_CACHE.get(plan_key)
         telemetry.instant("lower.plan.cache", hit=plans is not None,
                           memoizable=True)
@@ -612,7 +640,7 @@ def _lower_impl(stmt, machine, schedule, distributions, weights, device):
             plans = {name: dataclasses.replace(p, tensor=current[name])
                      for name, p in plans.items()}
         else:
-            plans = _compute_plans(stmt, strat, out_t, weights)
+            plans = _compute_plans(stmt, strat, out_t, weights, init_bounds)
             _PLAN_CACHE.put(plan_key, {
                 name: dataclasses.replace(p, tensor=None)
                 for name, p in plans.items()})
@@ -647,10 +675,14 @@ def _lower_impl(stmt, machine, schedule, distributions, weights, device):
             if name == out_t.name and _output_is_assembled(sig):
                 continue  # assembled from the leaf results, not materialized
             if plan.replicated:
-                shards[name] = materialize_replicated(t, pieces)
+                shards[name] = (materialize_replicated_elastic(t, pieces)
+                                if elastic
+                                else materialize_replicated(t, pieces))
                 comm.replicate_bytes += _nbytes(t)
             elif strat.space == "nnz" and t.format.is_sparse:
-                shards[name] = (materialize_bcsr_nnz(t, plan)
+                kind = "bcsr_nnz" if t.format.is_blocked else "coo_nnz"
+                shards[name] = (materialize_pieces(kind, t, plan) if elastic
+                                else materialize_bcsr_nnz(t, plan)
                                 if t.format.is_blocked
                                 else materialize_coo_nnz(t, plan))
             elif (t.format.is_sparse and t.order >= 3
@@ -658,14 +690,19 @@ def _lower_impl(stmt, machine, schedule, distributions, weights, device):
                 # trailing-singleton trees (COO3) have no grouped middle
                 # level: the universe row plan materializes the flat walk
                 # (coordinate columns bucketed by row window)
-                shards[name] = materialize_coo_nnz(t, plan)
+                shards[name] = (materialize_pieces("coo_nnz", t, plan)
+                                if elastic else materialize_coo_nnz(t, plan))
             elif t.format.is_all_dense:
-                shards[name] = materialize_dense_rows(
-                    t, plan.root_coord_bounds)
+                shards[name] = (
+                    materialize_dense_rows_pieces(t, plan.root_coord_bounds)
+                    if elastic
+                    else materialize_dense_rows(t, plan.root_coord_bounds))
             elif t.format.is_blocked:
-                shards[name] = materialize_bcsr_rows(t, plan)
+                shards[name] = (materialize_pieces("bcsr_rows", t, plan)
+                                if elastic else materialize_bcsr_rows(t, plan))
             else:
-                shards[name] = materialize_csr_rows(t, plan)
+                shards[name] = (materialize_pieces("csr_rows", t, plan)
+                                if elastic else materialize_csr_rows(t, plan))
 
         # data-vs-computation distribution mismatch cost
         for name, d in (distributions or {}).items():
@@ -725,38 +762,55 @@ def _lower_impl(stmt, machine, schedule, distributions, weights, device):
 
 
 def _plan_cache_key(stmt: Assignment, strat: DistStrategy,
-                    weights: Optional[np.ndarray]) -> Tuple:
+                    weights: Optional[np.ndarray],
+                    init_bounds: Optional[np.ndarray] = None) -> Tuple:
     """Memoization key for the partitioning step: signature + strategy +
-    per-operand content fingerprints + straggler weights."""
+    per-operand content fingerprints + straggler weights + the elastic
+    init-bounds override."""
     ops = tuple((acc.tensor.name, tensor_fingerprint(acc.tensor),
                  tuple(v.name for v in acc.idx)) for acc in stmt.accesses())
+    init_crc = (None if init_bounds is None
+                else _crc_arrays(0, np.asarray(init_bounds, dtype=np.int64)))
     return (stmt.signature(), strat.space,
             tuple(v.name for v in strat.vars),
             tuple(d.size for d in strat.machine_dims),
-            tuple(strat.replicate), weights_fingerprint(weights), ops)
+            tuple(strat.replicate), weights_fingerprint(weights), init_crc,
+            ops)
 
 
 def _compute_plans(stmt: Assignment, strat: DistStrategy, out_t: Tensor,
                    weights: Optional[np.ndarray],
+                   init_bounds: Optional[np.ndarray] = None,
                    ) -> Dict[str, TensorPartition]:
-    """Fig. 9a steps 1 & 2: initial + derived coordinate-tree partitions."""
+    """Fig. 9a steps 1 & 2: initial + derived coordinate-tree partitions.
+
+    ``init_bounds`` replaces the equal initial split (universe: root
+    coordinate windows; nnz: split-level position windows) with
+    caller-supplied windows — relower's migration bounds, already
+    block-aligned because they come from a previous plan of the same
+    operands."""
     plans: Dict[str, TensorPartition] = {}
     pieces = strat.pieces
     dist_var = strat.var
     if strat.space == "universe":
         # coordinate-value loop -> createInitialUniversePartitions
         n = stmt.var_extent(dist_var)
-        bounds = partition_by_bounds(n, pieces)
-        # A blocked operand distributed on its row dimension snaps the split
-        # to block-row boundaries, so every co-partitioned tensor (the other
-        # addends, the output) shares the same per-color row windows.
-        for acc in stmt.rhs.accesses():
-            t = acc.tensor
-            if (t.format.is_sparse and t.format.is_blocked
-                    and dist_var in acc.idx and acc.idx.index(dist_var) == 0):
-                bounds = block_aligned_row_bounds(
-                    n, pieces, t.format.block_shape[0])
-                break
+        if init_bounds is not None:
+            bounds = np.asarray(init_bounds, dtype=np.int64)
+        else:
+            bounds = partition_by_bounds(n, pieces)
+            # A blocked operand distributed on its row dimension snaps the
+            # split to block-row boundaries, so every co-partitioned tensor
+            # (the other addends, the output) shares the same per-color row
+            # windows.
+            for acc in stmt.rhs.accesses():
+                t = acc.tensor
+                if (t.format.is_sparse and t.format.is_blocked
+                        and dist_var in acc.idx
+                        and acc.idx.index(dist_var) == 0):
+                    bounds = block_aligned_row_bounds(
+                        n, pieces, t.format.block_shape[0])
+                    break
         for acc in stmt.accesses():
             t = acc.tensor
             if t.name in plans:
@@ -792,7 +846,8 @@ def _compute_plans(stmt: Assignment, strat: DistStrategy, out_t: Tensor,
                        if acc.tensor.format.is_sparse), None)
     if pos_tensor is None:
         raise ValueError("nnz schedule requires a sparse rhs tensor")
-    p = partition_tensor_nonzeros(pos_tensor, pieces, weights)
+    p = partition_tensor_nonzeros(pos_tensor, pieces, weights,
+                                  init_bounds=init_bounds)
     plans[pos_tensor.name] = p
     for acc in stmt.accesses():
         t = acc.tensor
@@ -974,11 +1029,109 @@ def default_replicated_schedule(stmt: Assignment, machine: Machine) -> Schedule:
     return s
 
 
+# ---------------------------------------------------------------------------
+# Elastic re-plan: mesh-as-data. A Schedule traces against ONE machine, but
+# the STRATEGY it canonicalizes to is plain data (space, grid rank,
+# replication, tile), so moving a lowered kernel to a different machine is
+# a pure function of (strategy, new machine), not a re-trace of user
+# schedule code. relower() is the elastic entry point: rebuild the
+# schedule family on the new machine, derive migration-friendly initial
+# bounds, and re-lower with per-piece shard caching so everything the
+# resize did not touch is a cache hit.
+# ---------------------------------------------------------------------------
+
+
+def rebuild_schedule(stmt: Assignment, machine: Machine,
+                     strat: DistStrategy) -> Schedule:
+    """Re-instantiate ``strat``'s schedule family against a NEW machine:
+    one of the default 1-D, grid, grid-nnz, 3-D and replicated schedules,
+    with the strategy's tile hint carried over."""
+    nd = len(machine.dims)
+    if strat.replicate and nd >= 3:
+        s = default_replicated_schedule(stmt, machine)
+    elif nd >= 3:
+        s = default_grid3_schedule(stmt, machine)
+    elif nd == 2:
+        s = (default_grid_schedule(stmt, machine)
+             if strat.space == "universe"
+             else default_grid_nnz_schedule(stmt, machine))
+    elif strat.space == "universe":
+        s = default_row_schedule(stmt, machine)
+    else:
+        s = default_nnz_schedule(stmt, machine)
+    if strat.tile is not None:
+        s.tile_hint(*strat.tile)
+    return s
+
+
+def _elastic_init_bounds(kernel: LoweredKernel) -> Optional[np.ndarray]:
+    """The initial split the kernel's plans were derived from: universe →
+    the (block-aligned) root row windows; nnz → the position tensor's
+    split-level windows (== vals_bounds under full fusion / block split).
+    None when no migration-style reuse applies (grids, spadd3/nnz whose
+    per-operand splits are independent)."""
+    strat = kernel.strategy
+    if strat.is_grid:
+        return None
+    if (kernel.stmt.signature(), strat.space) in _SELF_MATERIALIZING:
+        return None
+    if strat.space == "universe":
+        for p in kernel.plans.values():
+            if not p.replicated and p.root_coord_bounds is not None:
+                return np.asarray(p.root_coord_bounds, dtype=np.int64)
+        return None
+    for acc in kernel.stmt.rhs.accesses():
+        if acc.tensor.format.is_sparse:
+            p = kernel.plans.get(acc.tensor.name)
+            if p is not None and p.vals_bounds is not None:
+                return np.asarray(p.vals_bounds, dtype=np.int64)
+            return None
+    return None
+
+
+def relower(kernel: LoweredKernel, new_machine: Machine, *,
+            dead: Optional[int] = None,
+            weights: Optional[np.ndarray] = None,
+            device=None) -> LoweredKernel:
+    """Re-plan a lowered kernel for a DIFFERENT machine — shrunk, grown,
+    or re-factorized — reusing every cache entry the resize leaves valid.
+
+    ``dead`` names the lost piece for a P→P−1 shrink: its window is merged
+    into a neighbor (``partition.elastic_row_bounds``) instead of
+    re-splitting equally, so P−2 of the surviving windows — and their
+    per-piece shard cache entries, seeded by a previous
+    ``lower(..., elastic=True)`` — are bitwise unchanged. Reuse is
+    observable as ``kernel.cache.shard_reuse``. Without ``dead`` (or for
+    grids / weighted re-plans) the new machine gets a fresh equal split;
+    replicated operands still hit regardless.
+
+    ``weights`` forwards to the straggler re-plan path:
+    ``relower(kernel, kernel.machine, weights=w)`` re-balances in place on
+    the SAME machine. The new kernel runs on ``device``, by default the
+    old kernel's."""
+    stmt = kernel.stmt
+    old = kernel.strategy
+    schedule = rebuild_schedule(stmt, new_machine, old)
+    new_strat = schedule.strategy()
+    init = None
+    if (dead is not None and weights is None
+            and not old.is_grid and not new_strat.is_grid
+            and new_strat.space == old.space
+            and new_strat.pieces == old.pieces - 1):
+        ob = _elastic_init_bounds(kernel)
+        if ob is not None and ob.shape[0] == old.pieces:
+            init = elastic_row_bounds(ob, dead)
+    return lower(stmt, new_machine, schedule=schedule, weights=weights,
+                 elastic=True, init_bounds=init,
+                 device=kernel.device if device is None else device)
+
+
 def _materialize_dense_operand(t: Tensor, plan: TensorPartition, pieces: int,
                                cache: bool = False) -> ShardedTensor:
     """Re-pack ONE all-dense operand under its existing partition geometry
     — the same branch structure the 1-D and grid lowering paths use, minus
-    every sparse case (the dense chunks of ``run_overlapped``)."""
+    every sparse case (rebinds and ``run_overlapped``'s chunks only ever
+    swap dense data)."""
     if plan.replicated:
         return materialize_replicated(t, pieces, cache=cache)
     if plan.grid is not None:
@@ -1699,3 +1852,228 @@ _EMITTERS = {
     ("d2(i,l)=s3(i,j,k)*d2(j,l)*d2(k,l)", "universe"): _emit_spmttkrp_rows,
     ("d2(i,l)=s3(i,j,k)*d2(j,l)*d2(k,l)", "nnz"): _emit_spmttkrp_nnz,
 }
+
+
+# ---------------------------------------------------------------------------
+# Serving fast path: bucketized request batching. A batch of per-request
+# vectors (or fixed-width panels) is stacked into one dense RHS, padded up
+# to the smallest registered bucket, and run as ONE SpMM over the frozen
+# sparse operand. Per bucket: one plan, one set of sparse shards (on the
+# device), one runner; each batch swaps only the dense RHS shard
+# (rebind_dense: no plan, no fingerprinting, a runner-cache hit), executes,
+# and slices the per-request outputs back out.
+# ---------------------------------------------------------------------------
+
+def rebind_dense(kernel: LoweredKernel, mapping: Dict[str, Tensor], *,
+                 cache: bool = False) -> LoweredKernel:
+    """A copy of ``kernel`` with dense operands swapped by name.
+
+    The partition geometry is kept (bounds depend only on shapes and the
+    sparse pattern, both unchanged), so the swap re-packs just the named
+    operands' shards and re-emits — a pure runner-cache hit when the new
+    values have the old shapes, with the swapped shards copied to the
+    kernel's device once. This is the serving hot path: no plan
+    recompute, no content fingerprinting of any operand. ``comm`` is
+    carried over unchanged (the model depends on shapes, not values).
+
+    Only all-dense operands can rebind; a sparse swap changes the
+    partition itself and must go through ``lower()`` / ``relower()``."""
+    strat = kernel.strategy
+    stmt = kernel.stmt.with_tensors(mapping)
+    plans = dict(kernel.plans)
+    shards = dict(kernel.shards)
+    for name, t in mapping.items():
+        old = plans.get(name)
+        if old is None:
+            raise KeyError(f"operand {name!r} not in kernel plans "
+                           f"({sorted(plans)})")
+        if (old.tensor is not None and old.tensor.format.is_sparse) \
+                or t.format.is_sparse:
+            raise ValueError(
+                f"rebind_dense only swaps all-dense operands; {name!r} is "
+                "sparse — re-plan through lower()/relower() instead")
+        plans[name] = dataclasses.replace(old, tensor=t)
+        if name in shards:
+            shards[name] = _materialize_dense_operand(
+                t, plans[name], strat.pieces, cache=cache)
+    if strat.is_grid and strat.space == "universe":
+        from . import grid as grid_mod
+        gp = grid_mod.compute_grid_plan(stmt, strat)
+        leaf_name, runner, args = grid_mod._emit_grid(stmt, gp, shards,
+                                                      kernel.device)
+    else:
+        leaf_name, runner, args = _emit(stmt, strat, plans, shards,
+                                        kernel.device)
+    return dataclasses.replace(kernel, stmt=stmt, plans=plans,
+                               shards=shards, runner=runner, args=args,
+                               leaf_name=leaf_name)
+
+
+#: Batchable signatures: per-request RHS shape, promoted signature.
+_BATCHABLE = {
+    "d1(i)=s2(i,j)*d1(j)": "spmv",        # requests are (m,) vectors
+    "d2(i,j)=s2(i,k)*d2(k,j)": "spmm",    # requests are (m, jw) panels
+}
+
+
+@dataclasses.dataclass
+class _BucketEntry:
+    kernel: LoweredKernel
+    rhs_name: str
+    out_name: str
+    bucket: int
+    jw: int                      # per-request column width (1 for spmv)
+    m: int                       # RHS rows
+
+
+class BatchedKernel:
+    """Bucketized request batching over one scheduled sparse statement.
+
+    ``run_many([x_0, ..., x_{B-1}])`` stacks the request vectors (or
+    fixed-width panels) as columns of one dense RHS on the host, pads the
+    batch up to the smallest registered bucket, executes the per-bucket
+    lowered SpMM once (one launch of its kernel) and slices the
+    per-request outputs back out. Each bucket lowers lazily exactly once —
+    one plan, one set of sparse shards, one runner — and later batches of
+    any size in that bucket reuse all three via :func:`rebind_dense`; the
+    stacked RHS is the batch's one host-to-device copy.
+
+    ``schedule`` may be a Schedule, None, or a callable ``(stmt, machine)
+    -> Schedule`` applied to the PROMOTED statement (e.g.
+    ``default_nnz_schedule`` / ``default_grid_schedule``). ``mesh`` routes
+    execution through the SPMD executor (``distributed.executor.to_spmd``;
+    every rank of the mesh calls ``run_many`` with the same batch) instead
+    of the single-process run. Every bucket runs on ``device``.
+    """
+
+    def __init__(self, stmt: Assignment, machine: Machine,
+                 schedule: Any = None, *, buckets=BATCH_BUCKETS,
+                 mesh: Any = None, device=None):
+        sig = stmt.signature()
+        if sig not in _BATCHABLE:
+            raise NotImplementedError(
+                f"lower_batched supports {sorted(_BATCHABLE)}; got {sig}")
+        self.stmt = stmt
+        self.machine = machine
+        self.schedule = schedule
+        self.buckets = tuple(sorted(int(b) for b in buckets))
+        self.mesh = mesh
+        self.device = resolve_device(device)
+        self.kind = _BATCHABLE[sig]
+        self._entries: Dict[int, _BucketEntry] = {}
+
+    # -- construction ------------------------------------------------------
+    def _promoted_stmt(self, bucket: int) -> Tuple[Assignment, str, str, int]:
+        stmt = self.stmt
+        sparse_acc = stmt.rhs.accesses()[0]
+        rhs_acc = stmt.rhs.accesses()[-1]
+        rhs_name = rhs_acc.tensor.name
+        out_name = stmt.lhs.tensor.name
+        n = stmt.lhs.tensor.shape[0]
+        m = rhs_acc.tensor.shape[0]
+        if self.kind == "spmv":
+            # promote a(i) = B(i,j) * c(j)  →  A(i,j) = B(i,k) * C(k,j):
+            # each request vector is one column of C. Index vars are
+            # rebuilt with the canonical SpMM names (the emitter table and
+            # default schedules key on them); a caller-tuned schedule is
+            # passed as a callable over the promoted statement.
+            i, k, j = IndexVar("i"), IndexVar("k"), IndexVar("j")
+            out = Tensor.zeros_dense(out_name, (n, bucket))
+            X = Tensor.from_dense(rhs_name,
+                                  np.zeros((m, bucket), np.float32))
+            bstmt = Assignment(
+                Access(out, (i, j)),
+                Mul(Access(sparse_acc.tensor, (i, k)),
+                    Access(X, (k, j))))
+            return bstmt, rhs_name, out_name, 1
+        # spmm: widen the dense RHS to bucket panels of the original width
+        jw = stmt.lhs.tensor.shape[1]
+        out = Tensor.zeros_dense(out_name, (n, bucket * jw))
+        X = Tensor.from_dense(rhs_name,
+                              np.zeros((m, bucket * jw), np.float32))
+        bstmt = stmt.with_tensors({out_name: out, rhs_name: X})
+        return bstmt, rhs_name, out_name, jw
+
+    def _entry(self, bucket: int) -> _BucketEntry:
+        e = self._entries.get(bucket)
+        if e is not None:
+            return e
+        bstmt, rhs_name, out_name, jw = self._promoted_stmt(bucket)
+        sched = self.schedule
+        if callable(sched) and not isinstance(sched, Schedule):
+            sched = sched(bstmt, self.machine)
+        with telemetry.span("serve.batch.lower", bucket=bucket):
+            kernel = lower(bstmt, self.machine, schedule=sched,
+                           device=self.device)
+        telemetry.METRICS.counter("serve.buckets_lowered")
+        e = _BucketEntry(kernel=kernel, rhs_name=rhs_name,
+                         out_name=out_name, bucket=bucket, jw=jw,
+                         m=bstmt.rhs.accesses()[-1].tensor.shape[0])
+        self._entries[bucket] = e
+        return e
+
+    def warm(self, batch: int) -> "BatchedKernel":
+        """Pre-lower the bucket that will serve batches of size ``batch``."""
+        self._entry(batch_bucket(batch, self.buckets))
+        return self
+
+    # -- execution ---------------------------------------------------------
+    def run_many(self, rhs_batch) -> List[torch.Tensor]:
+        """Execute one batched step over ``len(rhs_batch)`` requests and
+        return the per-request outputs ((n,) each for spmv requests,
+        (n, jw) for spmm panels, views of the batch's result on the
+        kernel's device), bit for bit equal to running the original
+        statement once per request."""
+        B = len(rhs_batch)
+        bucket = batch_bucket(B, self.buckets)
+        with telemetry.span("serve.batch", requests=B, bucket=bucket) as sp:
+            e = self._entry(bucket)
+            with telemetry.span("serve.batch.fill"):
+                buf = np.zeros((e.m, bucket * e.jw), np.float32)
+                for r, x in enumerate(rhs_batch):
+                    x = np.asarray(x, np.float32)
+                    if e.jw == 1:
+                        buf[:, r] = x.reshape(e.m)
+                    else:
+                        buf[:, r * e.jw:(r + 1) * e.jw] = \
+                            x.reshape(e.m, e.jw)
+            # the rebind copies the stacked RHS to the device
+            with telemetry.span("serve.batch.rebind", bytes=buf.nbytes):
+                X = Tensor.from_dense(e.rhs_name, buf)
+                e.kernel = rebind_dense(e.kernel, {e.rhs_name: X},
+                                        cache=False)
+            with telemetry.span("serve.batch.run"):
+                if self.mesh is not None:
+                    from ..distributed.executor import to_spmd
+                    y = to_spmd(e.kernel, self.mesh)()
+                else:
+                    y = e.kernel.run()
+            sp.set(leaf=e.kernel.leaf_name, h2d_bytes=buf.nbytes)
+        telemetry.METRICS.counter("serve.requests", B)
+        telemetry.METRICS.counter("serve.batches")
+        telemetry.METRICS.counter("serve.h2d_bytes", buf.nbytes)
+        telemetry.METRICS.observe("serve.batch.occupancy", B / bucket)
+        telemetry.METRICS.observe("serve.batch.padded_slot_waste",
+                                  (bucket - B) / bucket)
+        if e.jw == 1:
+            return [y[:, r] for r in range(B)]
+        return [y[:, r * e.jw:(r + 1) * e.jw] for r in range(B)]
+
+    def explain(self) -> str:
+        lines = [f"batched kernel over {self.stmt.signature()} "
+                 f"buckets={self.buckets}"]
+        for b, e in sorted(self._entries.items()):
+            lines.append(f"  bucket {b}: leaf={e.kernel.leaf_name} "
+                         f"pieces={e.kernel.strategy.pieces}")
+        return "\n".join(lines)
+
+
+def lower_batched(stmt: Assignment, machine: Machine, batch: int = 8,
+                  schedule: Any = None, *, buckets=BATCH_BUCKETS,
+                  mesh: Any = None, device=None) -> BatchedKernel:
+    """Batched-serving entry point: a :class:`BatchedKernel` for ``stmt``
+    on ``device`` with the bucket covering ``batch`` pre-lowered (one plan
+    + one runner, shared by every later ``run_many`` call in that
+    bucket)."""
+    return BatchedKernel(stmt, machine, schedule, buckets=buckets,
+                         mesh=mesh, device=device).warm(batch)

@@ -19,7 +19,10 @@ Machine grids (``core/grid.py``) take cross-product tiles, order-3 bricks
 and dense row, column or tile windows (``partition_tensor_grid``,
 ``partition_tensor_grid3``, ``partition_tensor_cols`` and the
 ``materialize_*_grid`` / ``materialize_dense_cols`` materializers). The
-elastic per-piece partitions are not ported yet (ROADMAP Queue 1).
+elastic path (``materialize_pieces``, ``materialize_dense_rows_pieces``,
+``materialize_replicated_elastic``) caches one shard entry per color, so a
+re-plan onto a resized machine (``elastic_row_bounds``) re-packs only the
+windows the resize changed.
 """
 
 import contextlib
@@ -677,6 +680,37 @@ def fingerprint_memo():
         _FP_MEMO = prev
 
 
+# Whole-tensor coordinate walks (``Tensor.coords``, ``Tensor.block_coords``)
+# memoized for the duration of one ``materialize_pieces`` call: it packs
+# every color with the whole-set impls, each of which would otherwise walk
+# the whole tensor again (P walks for P pieces). Keyed by object identity,
+# valid only inside the call.
+_WALK_MEMO: Optional[Dict[Tuple[int, str], np.ndarray]] = None
+
+
+def _walk(tensor: Tensor, name: str) -> np.ndarray:
+    """``getattr(tensor, name)()``, made once per tensor inside a
+    ``walk_memo`` scope."""
+    if _WALK_MEMO is None:
+        return getattr(tensor, name)()
+    key = (id(tensor), name)
+    hit = _WALK_MEMO.get(key)
+    if hit is None:
+        hit = _WALK_MEMO[key] = getattr(tensor, name)()
+    return hit
+
+
+@contextlib.contextmanager
+def walk_memo():
+    global _WALK_MEMO
+    prev = _WALK_MEMO
+    _WALK_MEMO = {}
+    try:
+        yield
+    finally:
+        _WALK_MEMO = prev
+
+
 def _crc_arrays(h: int, *arrays: Optional[np.ndarray]) -> int:
     for a in arrays:
         if a is None:
@@ -791,7 +825,7 @@ def _materialize_csr_rows_walk_impl(tensor: Tensor, part: TensorPartition,
     row_counts = rb[:, 1] - rb[:, 0]
     max_rows = int(row_counts.max()) if pieces else 0
     perm = part.walk_perm
-    coords = tensor.coords().astype(np.int64)      # storage order
+    coords = _walk(tensor, "coords").astype(np.int64)   # storage order
     wrows = coords[perm, 0] if perm.size else np.zeros((0,), np.int64)
     wcols = coords[perm, 1] if perm.size else np.zeros((0,), np.int64)
     vb = part.vals_bounds                          # walk-space intervals
@@ -974,7 +1008,8 @@ def _materialize_coo_nnz_impl(tensor: Tensor, part: TensorPartition,
     reduce into the output").
     """
     pieces = part.pieces
-    coords = tensor.coords()  # (nnz, order), dimension order, storage-sorted
+    # (nnz, order), dimension order, storage-sorted
+    coords = _walk(tensor, "coords")
     vb = part.vals_bounds
     counts = vb[:, 1] - vb[:, 0]
     max_nnz = int(counts.max())
@@ -1051,7 +1086,7 @@ def _materialize_bcsr_rows_walk_impl(tensor: Tensor, part: TensorPartition,
     bb = part.levels[0].coord_bounds               # block-row windows
     vb = part.vals_bounds                          # walk-space intervals
     perm = part.walk_perm
-    bcoords = tensor.block_coords().astype(np.int64)
+    bcoords = _walk(tensor, "block_coords").astype(np.int64)
     wbrow = bcoords[perm, 0] if perm.size else np.zeros((0,), np.int64)
     wbcol = bcoords[perm, 1] if perm.size else np.zeros((0,), np.int64)
     brow_counts = bb[:, 1] - bb[:, 0]
@@ -1160,7 +1195,7 @@ def _materialize_bcsr_nnz_impl(tensor: Tensor, part: TensorPartition,
     pieces = part.pieces
     br, bc = tensor.format.block_shape
     vb = part.vals_bounds
-    bcoords = tensor.block_coords().astype(np.int64)     # (nb, 2) dim order
+    bcoords = _walk(tensor, "block_coords").astype(np.int64)     # (nb, 2) dim order
     counts = vb[:, 1] - vb[:, 0]
     max_bnnz = int(counts.max()) if pieces else 0
     bdim0 = np.zeros((pieces, max_bnnz), dtype=INT)
@@ -1651,3 +1686,149 @@ def _materialize_replicated_impl(tensor: Tensor, pieces: int) -> ShardedTensor:
         partition=replicate_tensor(tensor, pieces),
     )
 
+
+
+# ---------------------------------------------------------------------------
+# Elastic materialization: per-PIECE shard caching + migration bounds
+#
+# The whole-set materializers above key one SHARD_CACHE entry per
+# (tensor, full partition); any resize changes the partition fingerprint
+# and re-packs everything. The elastic path (lower(..., elastic=True),
+# used by core.lower.relower) instead caches one entry PER COLOR, keyed
+# by the color's own window. Every per-color derivation in the
+# partitioners is row-independent (searchsorted / image / preimage are
+# elementwise per color), so slicing a partition to one color yields
+# bounds identical to that color's rows of the full partition: after a
+# migration-style resize (a dead piece's window merged into a neighbor,
+# ``elastic_row_bounds``) every surviving window is a cache hit and only
+# the merged window re-packs. Stacking the per-piece shards with the
+# padding rules of the whole-set impls reproduces their output bit for
+# bit (arrays and meta), so the emitters derive the same leaf inputs
+# from either, the kernels see the same padded widths, and the runners
+# (keyed on shapes + meta) are shared between the two paths.
+# ---------------------------------------------------------------------------
+
+
+def elastic_row_bounds(bounds: Bounds, dead: int) -> Bounds:
+    """Migration bounds for losing piece ``dead`` of a 1-D split: the dead
+    window is merged into its left neighbor (or the right one when piece 0
+    dies), every other window is untouched. P−2 of the P−1 surviving
+    windows are bitwise unchanged — the shard-reuse guarantee."""
+    b = np.asarray(bounds, dtype=np.int64)
+    pieces = b.shape[0]
+    if not 0 <= dead < pieces:
+        raise ValueError(f"dead piece {dead} out of range for {pieces} pieces")
+    if pieces < 2:
+        raise ValueError("cannot shrink a 1-piece partition")
+    keep = np.delete(b, dead, axis=0)
+    if dead == 0:
+        keep[0, 0] = b[0, 0]
+    else:
+        keep[dead - 1, 1] = b[dead, 1]
+    return keep
+
+
+def _slice_bounds(b: Optional[Bounds], p: int) -> Optional[Bounds]:
+    return None if b is None else b[p:p + 1]
+
+
+def _slice_partition(part: TensorPartition, p: int) -> TensorPartition:
+    """View of color ``p`` as a 1-piece partition (bounds rows sliced;
+    ``walk_perm`` carried whole — it indexes storage, not colors)."""
+    levels = [LevelPartition(coord_bounds=_slice_bounds(lv.coord_bounds, p),
+                             pos_bounds=_slice_bounds(lv.pos_bounds, p),
+                             replicated=lv.replicated)
+              for lv in part.levels]
+    return dataclasses.replace(
+        part, pieces=1, levels=levels,
+        vals_bounds=_slice_bounds(part.vals_bounds, p),
+        root_coord_bounds=_slice_bounds(part.root_coord_bounds, p),
+        grid=None)
+
+
+def _stack_piece_shards(kind: str, piece_shards: List[ShardedTensor],
+                        part: TensorPartition) -> ShardedTensor:
+    """Stack per-color 1-piece shards into one whole-set ShardedTensor,
+    reproducing the whole-set impls' padding bit for bit: ``pos*`` arrays
+    edge-pad (out-of-range rows stay empty), other stacked arrays zero-pad,
+    1-D per-color scalars concatenate; ``max_*`` meta takes the max."""
+    first = piece_shards[0]
+    arrays: Dict[str, np.ndarray] = {}
+    for name in first.arrays:
+        cols = [sh.arrays[name] for sh in piece_shards]
+        if cols[0].ndim == 1:
+            arrays[name] = np.concatenate(cols, axis=0)
+            continue
+        width = max(c.shape[1] for c in cols)
+        padded = []
+        for c in cols:
+            pad = width - c.shape[1]
+            if pad:
+                spec = [(0, 0), (0, pad)] + [(0, 0)] * (c.ndim - 2)
+                c = (np.pad(c, spec, mode="edge")
+                     if name.startswith("pos") else np.pad(c, spec))
+            padded.append(c)
+        arrays[name] = np.concatenate(padded, axis=0)
+    meta = {k: (max(sh.meta[k] for sh in piece_shards)
+                if k.startswith("max_") else first.meta[k])
+            for k in first.meta}
+    return ShardedTensor(kind=kind, pieces=part.pieces, arrays=arrays,
+                         meta=meta, partition=part)
+
+
+def materialize_pieces(kind: str, tensor: Tensor,
+                       part: TensorPartition) -> ShardedTensor:
+    """Elastic counterpart of materialize_{csr,bcsr}_rows / *_nnz: one
+    SHARD_CACHE entry per color, stacked. ``kind`` ∈ {csr_rows, bcsr_rows,
+    coo_nnz, bcsr_nnz}; transpose walks dispatch automatically."""
+    impls = {"csr_rows": _materialize_csr_rows_impl,
+             "csr_rows_walk": _materialize_csr_rows_walk_impl,
+             "bcsr_rows": _materialize_bcsr_rows_impl,
+             "bcsr_rows_walk": _materialize_bcsr_rows_walk_impl,
+             "coo_nnz": _materialize_coo_nnz_impl,
+             "bcsr_nnz": _materialize_bcsr_nnz_impl}
+    impl_key = kind
+    if part.walk_perm is not None and kind in ("csr_rows", "bcsr_rows"):
+        impl_key = kind + "_walk"
+    impl = impls[impl_key]
+    fp = tensor_fingerprint(tensor)
+    piece_shards = []
+    with walk_memo():
+        for p in range(part.pieces):
+            sp = _slice_partition(part, p)
+            key = (impl_key + "_piece", fp, partition_fingerprint(sp))
+            piece_shards.append(SHARD_CACHE.get_or_build(
+                key, lambda sp=sp: impl(tensor, sp)))
+    return _stack_piece_shards(piece_shards[0].kind, piece_shards, part)
+
+
+def materialize_dense_rows_pieces(tensor: Tensor,
+                                  bounds: Bounds) -> ShardedTensor:
+    """Elastic counterpart of materialize_dense_rows."""
+    fp = tensor_fingerprint(tensor)
+    bounds = np.asarray(bounds, dtype=np.int64)
+    piece_shards = []
+    for p in range(bounds.shape[0]):
+        b = bounds[p:p + 1]
+        tp = TensorPartition(tensor, 1, [LevelPartition(coord_bounds=b)],
+                             root_coord_bounds=b, vals_bounds=None)
+        key = ("dense_rows_piece", fp, _crc_arrays(0, b))
+        piece_shards.append(SHARD_CACHE.get_or_build(
+            key, lambda b=b, tp=tp: _materialize_dense_rows_impl(tensor, b,
+                                                                 tp)))
+    full = TensorPartition(tensor, bounds.shape[0],
+                           [LevelPartition(coord_bounds=bounds)],
+                           root_coord_bounds=bounds, vals_bounds=None)
+    return _stack_piece_shards("dense_rows", piece_shards, full)
+
+
+def materialize_replicated_elastic(tensor: Tensor,
+                                   pieces: int) -> ShardedTensor:
+    """Replicated shards hold ONE copy regardless of piece count, so the
+    elastic variant keys on content alone — every resize is a pure hit
+    (and the copy's device arrays, cached with it, are reused too)."""
+    key = ("replicated_src", tensor_fingerprint(tensor))
+    src = SHARD_CACHE.get_or_build(
+        key, lambda: _materialize_replicated_impl(tensor, 1))
+    return dataclasses.replace(src, pieces=pieces,
+                               partition=replicate_tensor(tensor, pieces))

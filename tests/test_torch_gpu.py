@@ -712,3 +712,139 @@ def test_run_overlapped_and_profile_pieces_on_card(card, sched):
     prof = profile_pieces(k, iters=2)
     assert prof.seconds.shape == (k.strategy.pieces,)
     assert np.all(prof.seconds > 0)
+
+
+# ---------------------------------------------------------------------------
+# The runtime and serving on the card
+# ---------------------------------------------------------------------------
+
+def _int_spmm_stmt(seed, n=4096, m=3000, j=8, fmt="csr", spmv=False):
+    """An integer-valued SpMM (or SpMV) over a sparse B with a row 200
+    times longer than the mean: every sum is exact in f32."""
+    import repro_torch.core as tc
+    rng = np.random.default_rng(seed)
+    dB = np.where(rng.random((n, m)) < 0.004, rng.integers(-3, 4, (n, m)),
+                  0).astype(np.float32)
+    dB[17] = rng.integers(-3, 4, m)
+    fm = tc.BCSR((4, 4)) if fmt == "bcsr" else tc.CSR()
+    B = tc.Tensor.from_dense("B", dB, fm)
+    if spmv:
+        return tc.parse_tin("a(i) = B(i,j) * c(j)",
+                            a=tc.Tensor.zeros_dense("a", (n,)), B=B,
+                            c=tc.Tensor.from_dense("c", rng.integers(
+                                -3, 4, m).astype(np.float32)))
+    return tc.parse_tin("A(i,j) = B(i,k) * C(k,j)",
+                        A=tc.Tensor.zeros_dense("A", (n, j)), B=B,
+                        C=tc.Tensor.from_dense("C", rng.integers(
+                            -3, 4, (m, j)).astype(np.float32)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("expr,fmt,sched", [("spmv", "csr", "rows"),
+                                            ("spmm", "csr", "nnz"),
+                                            ("spmv", "bcsr", "rows")])
+def test_recovery_on_card_matches_unfaulted_run(card, tmp_path, expr, fmt,
+                                                sched):
+    """run_with_recovery on the card: a device loss at step 3 (P = 4 -> 3)
+    and B corrupted at step 5 give the unfaulted run's bits, the state
+    stays on the card, and each step launches the cell's kernel once."""
+    import repro_torch.core as tc
+    from repro_torch.core import lower as L
+    from repro_torch.runtime.elastic import run_with_recovery
+    from repro_torch.runtime.fault import FaultEvent, FaultInjector
+    stmt = _int_spmm_stmt(5, fmt=fmt, spmv=expr == "spmv")
+    M4 = tc.Machine(("x", 4))
+    schedule = L.default_nnz_schedule(stmt, M4) if sched == "nnz" else None
+    kernel = {"spmv": "bcsr_spmv" if fmt == "bcsr" else "spmv_csr_rows",
+              "spmm": "spmm_coo_nnz"}[expr]
+    out = []
+    for faulted in (False, True):
+        L.clear_lowering_caches()
+        inj = FaultInjector([FaultEvent(step=3, kind="device_loss", piece=1),
+                             FaultEvent(step=5, kind="corrupt",
+                                        tensor="B")]) if faulted else None
+        before = dict(_build.LAUNCHES)
+        state, rep = run_with_recovery(
+            stmt, M4, 8, ckpt_dir=str(tmp_path / str(faulted)),
+            schedule=schedule, injector=inj, device=card)
+        launched = {n: c - before[n] for n, c in _build.LAUNCHES.items()
+                    if c != before[n]}
+        replayed = 3 - rep.restored_step if faulted else 0
+        assert launched == {kernel: 1 + 8 + replayed}
+        assert state.device.type == "cuda"
+        out.append((state, rep))
+    (ref, _), (state, rep) = out
+    assert torch.equal(state, ref)
+    assert rep.restarts == 1 and rep.final_pieces == 3
+    assert rep.healed == ["B"] and rep.shard_reuse >= 0.5
+    assert abs(rep.restore_s + rep.replan_s + rep.rejit_s
+               - rep.recovery_s) < 1e-9
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sched", ["rows", "nnz", "grid"])
+def test_run_many_matches_loop_on_card(card, sched):
+    """run_many on the card: each batch one launch of its SpMM kernel, the
+    per-request loop's bits, the exact product."""
+    import repro_torch.core as tc
+    from repro_torch.core import lower as L
+    stmt = _int_spmm_stmt(6, spmv=True)
+    B = stmt.rhs.accesses()[0].tensor.to_dense()
+    n, m = B.shape
+    stmt = tc.parse_tin("a(i) = B(i,j) * c(j)",
+                        a=tc.Tensor.zeros_dense("a", (n,)),
+                        B=stmt.rhs.accesses()[0].tensor,
+                        c=tc.Tensor.zeros_dense("c", (m,)))
+    if sched == "grid":
+        machine, fn = tc.Machine(("x", 2), ("y", 2)), L.default_grid_schedule
+    else:
+        machine = tc.Machine(("x", 4))
+        fn = L.default_nnz_schedule if sched == "nnz" else None
+    bk = L.lower_batched(stmt, machine, batch=8, schedule=fn, device=card)
+    kernel = {"rows": "spmm_csr_rows", "nnz": "spmm_coo_nnz",
+              "grid": "spmm_csr_rows"}[sched]
+    rng = np.random.default_rng(7)
+    reqs = [rng.integers(-3, 4, m).astype(np.float32) for _ in range(8)]
+    for size in (8, 5):
+        before = dict(_build.LAUNCHES)
+        batch = bk.run_many(reqs[:size])
+        launched = {n_: c - before[n_] for n_, c in _build.LAUNCHES.items()
+                    if c != before[n_]}
+        assert launched == {kernel: 1}
+        loop = [bk.run_many([r])[0] for r in reqs[:size]]
+        for r, yb, yl in zip(reqs, batch, loop):
+            assert yb.device.type == "cuda" and torch.equal(yb, yl)
+            assert np.array_equal(yb.cpu().numpy(), B @ r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sched", ["rows", "nnz"])
+@pytest.mark.parametrize("fmt", ["csr", "bcsr"])
+def test_elastic_lower_equals_plain_on_card(card, sched, fmt):
+    """An elastic lower on the card: the plain lower's shard arrays and
+    meta, and its run() bits, at P = 4 and on migration bounds at P = 3."""
+    import repro_torch.core as tc
+    from repro_torch.core import lower as L
+    from repro_torch.core.partition import elastic_row_bounds
+    stmt = _int_spmm_stmt(8, fmt=fmt)
+    M4, M3 = tc.Machine(("x", 4)), tc.Machine(("x", 3))
+
+    def schedule(m):
+        return L.default_nnz_schedule(stmt, m) if sched == "nnz" else None
+
+    L.clear_lowering_caches()
+    k = L.lower(stmt, M4, schedule=schedule(M4), elastic=True, device=card)
+    p = L.lower(stmt, M4, schedule=schedule(M4), device=card)
+    for name, sh in p.shards.items():
+        assert k.shards[name].meta == sh.meta
+        for x, a in sh.arrays.items():
+            assert np.array_equal(k.shards[name].arrays[x], a), (name, x)
+    ref = p.run()
+    assert torch.equal(k.run(), ref)
+    merged = elastic_row_bounds(L._elastic_init_bounds(k), 1)
+    k3 = L.lower(stmt, M3, schedule=schedule(M3), elastic=True,
+                 init_bounds=merged, device=card)
+    p3 = L.lower(stmt, M3, schedule=schedule(M3), init_bounds=merged,
+                 device=card)
+    assert torch.equal(k3.run(), p3.run()) and torch.equal(k3.run(), ref)
+    assert torch.equal(L.relower(k, M3, dead=2).run(), ref)

@@ -48,6 +48,13 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.distributed.collectives\n"
         "import repro_torch.distributed.planner\n"
         "import repro_torch.distributed.executor\n"
+        "import repro_torch.core.plan_search\n"
+        "import repro_torch.runtime.fault, repro_torch.runtime.checkpoint\n"
+        "import repro_torch.runtime.elastic\n"
+        "import repro_torch.launch, repro_torch.launch.report\n"
+        "import repro_torch.launch.serve\n"
+        "import repro_torch.models.sparse_attention\n"
+        "import repro_torch.models.moe\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")

@@ -16,6 +16,9 @@ the port's ``k.run()`` bit for bit on every rank. The rendezvous is a
 that fails ends its group at once. The single-process invariants follow:
 ``run_overlapped``, ``profile_pieces`` feeding ``lower(weights=)``, the
 run cache on a warm re-lower, and the leaves without a builder.
+``serve_rank_main`` is the batched-serving group of
+tests/test_torch_serving.py (``lower_batched(..., mesh=...)``), spawned
+through ``spawn_ranks`` as well.
 """
 import datetime
 import inspect
@@ -369,15 +372,71 @@ def rank_main(rank, world, store, data, cells, out_dir, device="cpu",
         sys.exit(1)
 
 
+def serve_rank_main(rank, world, store, data, cells, out_dir,
+                    device="cpu", checks=()):
+    """One rank of the batched-serving group: ``lower_batched(...,
+    mesh=...)`` over the integer SpMV of ``data`` for each schedule in
+    ``cells`` ("rows", "nnz" on 4 pieces, "grid" on 2x2), a batch of 8 and
+    one of 3 requests; each output must be the single-process
+    ``run_many``'s bit for bit and the exact product on every rank."""
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+    status = {"rank": rank, "ok": False}
+    try:
+        import repro_torch.core as core
+        from repro_torch.core import lower as L
+        from repro_torch.distributed import mesh as M
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=60))
+        d = dict(np.load(data))
+        n, m = d["B"].shape
+        stmt = core.parse_tin(
+            "a(i) = B(i,j) * c(j)", a=core.Tensor.zeros_dense("a", (n,)),
+            B=core.Tensor.from_dense("B", d["B"], core.CSR()),
+            c=core.Tensor.zeros_dense("c", (m,)))
+        bits, exact, leaves = {}, {}, {}
+        for sched in cells:
+            dims = (2, 2) if sched == "grid" else (world,)
+            machine = core.Machine(*zip("xy", dims))
+            mesh = M.make_mesh(dims, "xy"[:len(dims)], backend="gloo",
+                               device=device)
+            fn = {"rows": None, "nnz": L.default_nnz_schedule,
+                  "grid": L.default_grid_schedule}[sched]
+            bk = L.lower_batched(stmt, machine, batch=8, schedule=fn,
+                                 mesh=mesh, device=device)
+            plain = L.lower_batched(stmt, machine, batch=8, schedule=fn,
+                                    device=device)
+            ok_bits = ok_exact = True
+            for reqs in (list(d["R"]), list(d["R"][:3])):
+                got, want = bk.run_many(reqs), plain.run_many(reqs)
+                for g, w, r in zip(got, want, reqs):
+                    ok_bits &= bool(torch.equal(g, w))
+                    ok_exact &= bool(np.array_equal(g.cpu().numpy(),
+                                                    d["B"] @ r))
+            bits[sched], exact[sched] = ok_bits, ok_exact
+            leaves[sched] = bk._entries[8].kernel.leaf_name
+        status.update(ok=True, bits=bits, exact=exact, leaves=leaves)
+    except Exception:
+        status["error"] = traceback.format_exc()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump(status, fh)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    if not status["ok"]:
+        sys.exit(1)
+
+
 def spawn_ranks(world, cells, data, out_dir, device="cpu", checks=(),
-                timeout=RANK_TIMEOUT_S):
-    """Run ``rank_main`` in ``world`` spawned processes; returns the rank
-    statuses. A rank that fails ends the group at once; a group past
-    ``timeout`` is killed and fails, naming the ranks still running."""
+                timeout=RANK_TIMEOUT_S, target=None):
+    """Run ``target`` (by default ``rank_main``) in ``world`` spawned
+    processes; returns the rank statuses. A rank that fails ends the group
+    at once; a group past ``timeout`` is killed and fails, naming the ranks
+    still running."""
     import torch.multiprocessing as mp
     ctx = mp.get_context("spawn")
     store = os.path.join(out_dir, "store")
-    procs = [ctx.Process(target=rank_main,
+    procs = [ctx.Process(target=target or rank_main,
                          args=(r, world, store, str(data), cells, out_dir,
                                device, tuple(checks)))
              for r in range(world)]
