@@ -77,7 +77,7 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
              held at atol = rtol = 2e-5 in f32 and 3e-2 in bf16 (the
              reference test's) and 1e-2 in f16 (three more mantissa
              bits), and its position 0 must equal v[0].
-4. main    — eight paths (a-d, f, h, g, then e), each driven through the
+4. main    — nine paths (a-d, f, h, i, g, then e), each driven through the
              public entry points with the kernel launch counts reset just
              before and read just after; each of the path's kernels must
              have launched.
@@ -183,6 +183,27 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
       host (``[band]``, ``[moe]``). The kernels line adds each kernel's
       launches here as ``runtime_launches`` (1, 2) and
       ``serving_launches`` (3).
+   i. The autoscheduler, after path h, over the same operands, sizes and
+      seeds, nothing cut: ``lower(schedule="auto")`` on ``Machine(("x",
+      4))`` with the default ``SearchConfig`` (the model's top 3 lowered
+      and timed on the card, a warm-up and 3 calls each) for SpMV and SpMM
+      (J = 32) over path a's B, SpMV over path d's BCSR((4, 4)) B (every
+      candidate with the tuned tile) and SpMTTKRP (L = 32) over path b's
+      3-tensor, each from cold caches. Per cell: ``structural_stats``
+      timed alone; the cold lower traced (one tuned miss, one
+      ``plan_search.search`` span, the measured candidates its
+      ``plan_search.measure`` spans); the warm lower (one tuned hit, no
+      search, every cache warm); the winner's ``run()`` median, each call
+      launching exactly its kernel ``launches_per_run`` times, its result
+      the bits of a hand lower of ``winner.build()`` and checked against
+      the host product; then every enumerated point lowered by hand and
+      its ``run()`` median. One ``[auto]`` line a cell: the seconds of
+      the stats, the cold lower, the search and the warm lower, each
+      candidate's model cost and measured seconds, the model's and the
+      measured order, the winner, the hand cells' medians and the ratio
+      of the winner's to the best; one ``[autosched]`` line with the
+      path's seconds and peak memory. The kernels line adds each kernel's
+      launches here as ``autosched_launches``.
    e. The attention path, on a card freed of the sparse paths' data:
       llama3-8b at full width (d 4096, 32 heads, 8 KV heads, head_dim 128,
       d_ff 14336, vocab 128256), all 32 layers, bf16 weights from a seeded
@@ -2522,9 +2543,13 @@ def sparse_paths(args, device):
                                          *grid_cells.values())
                if rec["kernel"] is not None], device)
     clocks("after the runtime path")
+    # 4i. the autoscheduler over the same operands
+    autosched = autosched_path(data, device, args.reps)
+    clocks("after the autoscheduler path")
     for r in records:
         r["runtime_launches"] = runtime.get(r["name"], 0)
         r["serving_launches"] = serving.get(r["name"], 0)
+        r["autosched_launches"] = autosched.get(r["name"], 0)
     return records, ttv
 
 
@@ -2999,6 +3024,172 @@ def runtime_path(data, kernels, device, stragglers=STRAGGLERS,
     phase("launches", path="serving", **serving)
     phase("runtime", seconds=f"{time.perf_counter() - t_path:.1f}")
     return runtime, serving
+
+
+# ---------------------------------------------------------------------------
+# Path 4i: the autoscheduler (schedule="auto") over the sparse paths'
+# operands
+# ---------------------------------------------------------------------------
+
+# the statements the autoscheduler plans, on Machine(("x", 4)) with the
+# default SearchConfig (the model's top 3 measured on the card)
+AUTOSCHED_CELLS = ("spmv", "spmm", "spmv_bcsr", "spmttkrp")
+
+
+def _search_spans(events):
+    """(search s, {candidate: measure s}) of the ``plan_search`` spans in
+    ``events`` (one search is required)."""
+    searches = [e for e in events if e["name"] == "plan_search.search"]
+    if len(searches) != 1:
+        raise AssertionError(f"{len(searches)} plan_search.search spans in "
+                             "one cold lower")
+    return searches[0]["dur_us"] / 1e6, {
+        e["args"]["candidate"]: e["dur_us"] / 1e6 for e in events
+        if e["name"] == "plan_search.measure"}
+
+
+def autosched_cell(stmt, expr: str, data, want, device, reps: int):
+    """One cell of path 4i: the operand's structural stats timed alone; a
+    cold ``lower(schedule="auto")`` traced (one tuned miss, one search),
+    then a warm one (one tuned hit, no search, every cache warm); the
+    winner's ``run()`` timed, each call launching exactly its kernel
+    ``launches_per_run`` times, its result the bits of a hand lower of
+    ``winner.build()`` and within the tolerance of the host product; then
+    every enumerated point lowered by hand and its ``run()`` timed. One
+    ``[auto]`` line."""
+    import repro_torch.core as tc
+    from repro_torch.core import lower as L
+    from repro_torch.core import plan_search as PS
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import telemetry
+    machine = tc.Machine(("x", PIECES))
+    L.clear_lowering_caches()
+    t0 = time.perf_counter()
+    stats = PS.structural_stats(stmt)
+    stats_s = time.perf_counter() - t0
+    tracer = telemetry.TRACER
+    tracer.clear()
+    tracer.enable()
+    try:
+        t0 = time.perf_counter()
+        k = L.lower(stmt, machine, schedule="auto", device=device)
+        cold_s = time.perf_counter() - t0
+        cold_events = tracer.spans()
+        tracer.clear()
+        t0 = time.perf_counter()
+        warm = L.lower(stmt, machine, schedule="auto", device=device)
+        warm_s = time.perf_counter() - t0
+        warm_events = tracer.spans()
+    finally:
+        tracer.disable()
+        tracer.clear()
+    w = k.tuned
+    search_s, measure_s = _search_spans(cold_events)
+    if w is None or k.cache.tuned_misses != 1 or k.cache.tuned_hits:
+        raise AssertionError(f"{expr}: the cold auto lower is not one tuned "
+                             f"miss: {k.cache.as_dict()}")
+    if (warm.cache.tuned_hits != 1 or not warm.cache.warm
+            or warm.tuned is not w
+            or any(e["name"] == "plan_search.search" for e in warm_events)):
+        raise AssertionError(f"{expr}: the warm auto lower searched again or "
+                             f"missed a cache: {warm.cache.as_dict()}")
+    points = {p.label: p for p in PS.enumerate_points(stmt, machine, stats)}
+    measured = [c for c in w.candidates if c["measured_s"] is not None]
+    if (sorted(points) != sorted(c["label"] for c in w.candidates)
+            or len(measured) != min(PS.DEFAULT_CONFIG.refine_top_k,
+                                    len(points))
+            or sorted(measure_s) != sorted(c["label"] for c in measured)
+            or any(p.tile != w.tile for p in points.values())
+            or k.strategy.tile != w.tile):
+        raise AssertionError(f"{expr}: candidates {w.candidates} are not the "
+                             f"enumerated points {sorted(points)} with the "
+                             f"top {PS.DEFAULT_CONFIG.refine_top_k} measured "
+                             f"and the tile {w.tile} on each")
+    # the winner's run(): its kernel alone, launches_per_run a call
+    calls = []
+
+    def run():
+        calls.append(1)
+        return k.run()
+
+    before = dict(_build.LAUNCHES)
+    run_ms = time_host(run, device, reps)
+    res, again = run(), run()
+    _sync(device)
+    call, per = leaf_call(k), launches_per_run(k)
+    own = ({call[0]: len(calls) * per}
+           if call is not None and per and device.type == "cuda" else {})
+    if _launched_since(before) != own:
+        raise AssertionError(f"{expr}: launches {_launched_since(before)} "
+                             f"of the winner's run()s are not {own}")
+    sched, m = w.build(stmt, machine)
+    hand = L.lower(stmt, m, schedule=sched, device=device)
+    if hand.cell_id() != k.cell_id() or not _same_bits(hand.run(), res):
+        raise AssertionError(f"{expr}: the winner {k.cell_id()} does not "
+                             f"give the bits of a hand lower of {w.label}")
+    err = check_cell(f"{expr}/auto", {
+        "out": res, "bitwise": _same_bits(res, again), "kernel": k,
+        "cold_cache": k.cache}, data, want)
+    # every enumerated point as a hand cell
+    hand_ms, hand_cold_s = {}, {}
+    for label, p in points.items():
+        sched, m = p.build(stmt, machine)
+        t0 = time.perf_counter()
+        kh = L.lower(stmt, m, schedule=sched, device=device)
+        hand_cold_s[label] = round(time.perf_counter() - t0, 3)
+        hand_ms[label] = round(time_host(kh.run, device, reps), 4)
+    best = min(hand_ms, key=hand_ms.get)
+    cands = [{"label": c["label"], "est_s": float(f"{c['est_cost_s']:.4g}"),
+              "measured_s": (None if c["measured_s"] is None
+                             else float(f"{c['measured_s']:.4g}"))}
+             for c in w.candidates]
+    phase("auto", cell=k.cell_id(), leaf=k.leaf_name,
+          kernel=call[0] if call else "-", launches_per_run=per,
+          tile="-" if w.tile is None else "x".join(map(str, w.tile)),
+          stats_s=f"{stats_s:.3f}", cold_lower_s=f"{cold_s:.3f}",
+          search_s=f"{search_s:.3f}", warm_lower_s=f"{warm_s:.4f}",
+          measure_s=json.dumps({c: round(v, 3) for c, v in
+                                measure_s.items()}).replace(" ", ""),
+          candidates=json.dumps(cands).replace(" ", ""),
+          model_order=",".join(c["label"] for c in w.candidates),
+          measured_order=",".join(c["label"] for c in sorted(
+              measured, key=lambda c: c["measured_s"])),
+          winner=w.label, run_ms=f"{run_ms:.3f}", runs=len(calls),
+          hand_ms=json.dumps(hand_ms).replace(" ", ""),
+          hand_lower_s=json.dumps(hand_cold_s).replace(" ", ""),
+          best_hand=best, ratio=f"{run_ms / hand_ms[best]:.3f}",
+          max_abs_err=f"{err:.3g}", bits_of_hand_lower=True)
+
+
+def autosched_path(data, device, reps: int):
+    """Path 4i: ``lower(schedule="auto")`` over the matrix path's CSR B
+    (SpMV, SpMM), path d's BCSR((4, 4)) B (SpMV) and path b's CSF 3-tensor
+    (SpMTTKRP), from cold caches, with the launch counts set to 0 just
+    before and read just after. Returns the path's launches."""
+    import torch
+    from repro_torch.core import lower as L
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    base = 0
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+    stmts = statements(data)
+    want = reference_products(data, AUTOSCHED_CELLS)
+    _build.reset_launches()
+    for expr in AUTOSCHED_CELLS:
+        autosched_cell(stmts[expr], expr, data, want, device,
+                       max(reps // 2, 3))
+    launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+    L.clear_lowering_caches()
+    if device.type == "cuda" and not launches:
+        raise AssertionError("no kernel launched on the autoscheduler path")
+    peak = (torch.cuda.max_memory_allocated(device) - base
+            if device.type == "cuda" else 0)
+    phase("launches", path="autosched", **launches)
+    phase("autosched", seconds=f"{time.perf_counter() - t0:.1f}",
+          max_mem_gb=f"{peak / 2**30:.2f}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3497,13 +3688,14 @@ def main(argv=None) -> int:
     clocks("after the flash timing")
     for r in records:
         for key in ("executor_launches", "runtime_launches",
-                    "serving_launches"):
+                    "serving_launches", "autosched_launches"):
             r.setdefault(key, 0)
     for r in records + [dict(ttv, name="spmv_csr_rows(spttv)")] + extra:
         phase("kernel", name=r["name"], max_abs_err=f"{r['max_abs_err']:.3g}",
               launches=r["launches"],
               runtime_launches=r.get("runtime_launches", 0),
               serving_launches=r.get("serving_launches", 0),
+              autosched_launches=r.get("autosched_launches", 0),
               ms=f"{r['ms']:.4f}", bound_ms=f"{r['bound_ms']:.4f}",
               plain_ms=f"{r['plain_ms']:.3f}",
               library_ms=("null" if r["library_ms"] is None

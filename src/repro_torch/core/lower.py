@@ -37,13 +37,14 @@ piece's window merged into a neighbor), re-packing only what the resize
 changed. The serving fast path batches requests over one frozen sparse
 operand (:class:`BatchedKernel`, :func:`lower_batched`): a batch of
 vectors (or fixed-width panels) is one SpMM, and :func:`rebind_dense`
-swaps the dense right-hand side without re-planning. The autoscheduler is
-not ported yet and raises ``NotImplementedError`` naming its ROADMAP item.
+swaps the dense right-hand side without re-planning. ``schedule="auto"``
+hands the choice of schedule to the autoscheduler (:mod:`.plan_search`).
 """
 from __future__ import annotations
 
 import dataclasses
 import logging
+import sys
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -171,20 +172,33 @@ _RUNNER_CACHE = LRUCache(capacity=128)
 RUNNER_CACHE_STATS = _RUNNER_CACHE.stats
 
 
+def set_plan_cache_capacity(capacity: int) -> None:
+    _PLAN_CACHE.set_capacity(capacity)
+
+
+def set_runner_cache_capacity(capacity: int) -> None:
+    _RUNNER_CACHE.set_capacity(capacity)
+
+
 def clear_lowering_caches() -> None:
-    """Drop the plan, runner, shard and conversion caches (the cold path)."""
+    """Drop the plan, runner, shard, conversion and tuned-plan caches (the
+    cold path)."""
     _PLAN_CACHE.clear()
     _RUNNER_CACHE.clear()
     clear_shard_cache()
     clear_convert_cache()
+    plan_search = sys.modules.get("repro_torch.core.plan_search")
+    if plan_search is not None:  # deferred: the planner imports this module
+        plan_search.clear_tuned_plan_cache()
 
 
 @dataclasses.dataclass
 class CacheStats:
     """Per-lower cache effectiveness, snapshotted onto LoweredKernel.cache:
     how much of this lower's plan / shard-packing / runner-building work
-    was reused from previous lowers. ``tuned_*`` count the autoscheduler's
-    cache, which is not ported yet, and stay 0."""
+    was reused from previous lowers. ``tuned_*`` count the
+    autoscheduler's tuned-plan cache (:mod:`.plan_search`): a hit means the
+    lower skipped the candidate search entirely."""
 
     plan_hits: int = 0
     plan_misses: int = 0
@@ -216,18 +230,30 @@ class CacheStats:
         return dataclasses.asdict(self)
 
 
+def _tuned_cache_stats() -> Dict[str, int]:
+    """Tuned-plan cache counters, read lazily: plan_search imports this
+    module, so lower only sees its stats once the planner is in use."""
+    plan_search = sys.modules.get("repro_torch.core.plan_search")
+    if plan_search is None:
+        return {"hits": 0, "misses": 0}
+    return plan_search.TUNED_PLAN_CACHE_STATS
+
+
 def _cache_snapshot() -> Tuple[int, ...]:
+    tuned = _tuned_cache_stats()
     return (PLAN_CACHE_STATS["hits"], PLAN_CACHE_STATS["misses"],
             SHARD_CACHE_STATS["hits"], SHARD_CACHE_STATS["misses"],
             RUNNER_CACHE_STATS["hits"], RUNNER_CACHE_STATS["misses"],
-            CONVERT_CACHE_STATS["hits"], CONVERT_CACHE_STATS["misses"])
+            CONVERT_CACHE_STATS["hits"], CONVERT_CACHE_STATS["misses"],
+            tuned["hits"], tuned["misses"])
 
 
 def _cache_delta(snap: Tuple[int, ...]) -> CacheStats:
     d = [b - a for a, b in zip(snap, _cache_snapshot())]
     return CacheStats(plan_hits=d[0], plan_misses=d[1], shard_hits=d[2],
                       shard_misses=d[3], runner_hits=d[4], runner_misses=d[5],
-                      convert_hits=d[6], convert_misses=d[7])
+                      convert_hits=d[6], convert_misses=d[7],
+                      tuned_hits=d[8], tuned_misses=d[9])
 
 
 @dataclasses.dataclass
@@ -257,6 +283,9 @@ class LoweredKernel:
     fallbacks: List[str] = dataclasses.field(default_factory=list)
     declared_formats: Dict[str, str] = dataclasses.field(default_factory=dict)
     cache: CacheStats = dataclasses.field(default_factory=CacheStats)
+    # schedule="auto" provenance: the winning plan_search.SchedulePoint
+    # (estimated/measured costs, tile choice), None for hand schedules.
+    tuned: Optional[Any] = None
 
     def run(self) -> Union[torch.Tensor, Tensor]:
         """The result. A dense output (SpMV, SpMM, SpMTTKRP) is a tensor on
@@ -294,8 +323,9 @@ class LoweredKernel:
         return None
 
     def explain(self) -> str:
-        """Human-readable plan provenance: what was chosen and what it
-        costs."""
+        """Human-readable plan provenance: what was chosen, what it costs,
+        and, for ``schedule="auto"`` lowers, every candidate the
+        autoscheduler scored and which one won."""
         comm, cs = self.comm, self.cache
         lines = [f"kernel {self.cell_id()}  leaf={self.leaf_name}  "
                  f"device={self.device}",
@@ -304,7 +334,25 @@ class LoweredKernel:
                  f"pieces={self.strategy.pieces}"]
         if self.fallbacks:
             lines.append("  fallbacks: " + "; ".join(self.fallbacks))
-        lines.append("  hand-picked schedule (no candidate search ran)")
+        t = self.tuned
+        if t is not None:
+            cands = t.candidates or []
+            lines.append(
+                f"  autoscheduler winner: {t.label} "
+                f"est={t.est_cost_s:.3e}s"
+                + (f" measured={t.measured_s:.3e}s"
+                   if t.measured_s is not None else " (not measured)"))
+            if cands:
+                lines.append(f"  candidates scored: {len(cands)} "
+                             "(model cost order; top-K measured)")
+                for i, c in enumerate(cands):
+                    meas = (f" measured={c['measured_s']:.3e}s"
+                            if c["measured_s"] is not None else "")
+                    mark = " <- winner" if c["label"] == t.label else ""
+                    lines.append(f"    {i + 1:2d}. {c['label']:<28s} "
+                                 f"est={c['est_cost_s']:.3e}s{meas}{mark}")
+        else:
+            lines.append("  hand-picked schedule (no candidate search ran)")
         if comm.axes:
             lines.append("  comm: " + ", ".join(
                 f"{n}: bcast={a.broadcast_bytes} reduce={a.reduce_bytes}"
@@ -318,7 +366,8 @@ class LoweredKernel:
         lines.append(f"  cache: plan {cs.plan_hits}h/{cs.plan_misses}m, "
                      f"shard {cs.shard_hits}h/{cs.shard_misses}m, "
                      f"runner {cs.runner_hits}h/{cs.runner_misses}m, "
-                     f"convert {cs.convert_hits}h/{cs.convert_misses}m"
+                     f"convert {cs.convert_hits}h/{cs.convert_misses}m, "
+                     f"tuned {cs.tuned_hits}h/{cs.tuned_misses}m"
                      + (" [warm]" if cs.warm else ""))
         return "\n".join(lines)
 
@@ -524,7 +573,7 @@ def _normalize_operands(
 def lower(
     stmt: Assignment,
     machine: Machine,
-    schedule: Optional[Schedule] = None,
+    schedule: Union[Schedule, str, None] = None,
     distributions: Optional[Dict[str, Distribution]] = None,
     weights: Optional[np.ndarray] = None,
     *,
@@ -536,8 +585,13 @@ def lower(
     on ``device``: the card when None (raising when there is none), the
     CPU only when asked (``device="cpu"``).
 
-    ``schedule`` is a hand-built :class:`Schedule` or None (the default 1-D
-    row schedule). ``distributions`` declares the data distribution per
+    ``schedule`` is a hand-built :class:`Schedule`, None (the default 1-D
+    row schedule) or ``"auto"``: the autoscheduler (:mod:`.plan_search`)
+    enumerates strategy × grid-factorization × tile candidates, scores
+    them with a roofline model of the card, times the model's top K on
+    ``device``, and memoizes the winner in a tuned-plan cache keyed by
+    operand content (``kernel.cache.tuned_hits``; the winner is
+    ``kernel.tuned``). ``distributions`` declares the data distribution per
     tensor; where it disagrees with the schedule, ``comm.redistribute_bytes``
     charges the reshuffle (paper §II-D). ``weights`` (pieces,) skews the
     non-zero splits toward faster shards (the straggler re-plan).
@@ -565,12 +619,14 @@ def _record_lower_metrics(k: LoweredKernel) -> None:
     process metrics registry (+ a trace instant with the cache delta)."""
     cs = k.cache
     for field, v in (("plan", cs.plan_hits), ("shard", cs.shard_hits),
-                     ("runner", cs.runner_hits), ("convert", cs.convert_hits)):
+                     ("runner", cs.runner_hits), ("convert", cs.convert_hits),
+                     ("tuned", cs.tuned_hits)):
         if v:
             telemetry.METRICS.counter(f"lower.cache.{field}.hits", v)
     for field, v in (("plan", cs.plan_misses), ("shard", cs.shard_misses),
                      ("runner", cs.runner_misses),
-                     ("convert", cs.convert_misses)):
+                     ("convert", cs.convert_misses),
+                     ("tuned", cs.tuned_misses)):
         if v:
             telemetry.METRICS.counter(f"lower.cache.{field}.misses", v)
     telemetry.METRICS.counter("lower.count")
@@ -595,10 +651,15 @@ def _record_lower_metrics(k: LoweredKernel) -> None:
 def _lower_impl(stmt, machine, schedule, distributions, weights, device,
                 elastic=False, init_bounds=None):
     snap = _cache_snapshot()
+    tuned_point = None
     if isinstance(schedule, str):
-        raise NotImplementedError(
-            f"schedule={schedule!r}: the autoscheduler is ROADMAP Queue 1 "
-            "item 7")
+        if schedule != "auto":
+            raise ValueError(
+                f"unknown schedule string {schedule!r}; pass a Schedule, "
+                "None, or 'auto'")
+        from . import plan_search
+        schedule, machine, tuned_point = plan_search.resolve_auto(
+            stmt, machine, weights=weights, device=device)
     if schedule is None:
         schedule = default_row_schedule(stmt, machine)
     strat = schedule.strategy()
@@ -616,8 +677,10 @@ def _lower_impl(stmt, machine, schedule, distributions, weights, device,
     # only the communication attribution (below) differs.
     if strat.is_grid and strat.space == "universe":
         from . import grid as grid_mod
-        return grid_mod.lower_grid(stmt, machine, strat, device, fallbacks,
-                                   declared_formats, snap, distributions)
+        k = grid_mod.lower_grid(stmt, machine, strat, device, fallbacks,
+                                declared_formats, snap, distributions)
+        k.tuned = tuned_point
+        return k
 
     out_t: Tensor = stmt.lhs.tensor
     shards: Dict[str, ShardedTensor] = {}
@@ -758,7 +821,8 @@ def _lower_impl(stmt, machine, schedule, distributions, weights, device,
         stmt=stmt, strategy=strat, machine=machine, plans=plans,
         shards=shards, runner=runner, args=args, comm=comm,
         leaf_name=leaf_name, device=device, fallbacks=fallbacks,
-        declared_formats=declared_formats, cache=_cache_delta(snap))
+        declared_formats=declared_formats, cache=_cache_delta(snap),
+        tuned=tuned_point)
 
 
 def _plan_cache_key(stmt: Assignment, strat: DistStrategy,

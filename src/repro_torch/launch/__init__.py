@@ -1,3 +1,4 @@
-"""Launchers: the sparse-kernel server (:mod:`.serve`) and the telemetry
-report (:mod:`.report`). The LM server, the trainer and the dry-run
-tables wait for the LM stack (ROADMAP Queue 1 item 7)."""
+"""Launchers: the sparse-kernel server (:mod:`.serve`), the telemetry
+report (:mod:`.report`) and the card's roofline constants
+(:mod:`.roofline`, read by the autoscheduler). The LM server, the trainer
+and the dry-run tables wait for the LM stack (ROADMAP Queue 1 item 7)."""

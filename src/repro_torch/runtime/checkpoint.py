@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import json
 import os
+import pickle
 import shutil
 import threading
 from pathlib import Path
@@ -193,10 +194,24 @@ class CheckpointManager:
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
-        d = self.dir / f"step_{step:08d}"
-        manifest = json.loads((d / f"manifest_p{self.proc}.json").read_text())
+        d, manifest = self._manifest(step)
         leaves = [np.load(d / leaf["file"]) for leaf in manifest["leaves"]]
         return step, _unflatten(like, iter(leaves))
+
+    def _manifest(self, step: int) -> Tuple[Path, Dict[str, Any]]:
+        d = self.dir / f"step_{step:08d}"
+        return d, json.loads(
+            (d / f"manifest_p{self.proc}.json").read_text())
+
+    def read_leaf(self, step: int, name: str) -> np.ndarray:
+        """One leaf of ``step``, found by its manifest name: valid whatever
+        the caller's ``like`` tree holds (a restore into fewer tensors
+        than were saved shifts the positional leaves after them)."""
+        d, manifest = self._manifest(step)
+        for leaf in manifest["leaves"]:
+            if leaf["name"] == name:
+                return np.load(d / leaf["file"])
+        raise KeyError(f"no leaf {name!r} in step {step}")
 
     def _sweep_orphans(self) -> None:
         """Remove ``step_<N>.tmp/`` directories left by a crash mid-write.
@@ -231,10 +246,10 @@ class SparseCheckpoint:
     place. Arbitrary extra state (accumulators, step counters; tensors on
     any device) goes in ``extra`` and comes back as host arrays.
 
-    The snapshot keeps the reference's ``tuned`` leaf for the autoscheduler's
-    tuned-plan cache, which the port does not have yet (ROADMAP Queue 1
-    item 7): ``save`` writes it empty and ``restore`` reports
-    ``tuned_imported: 0``.
+    The ``tuned`` leaf carries the autoscheduler's tuned-plan cache
+    (:func:`repro_torch.core.plan_search.export_tuned_entries`, pickled):
+    ``restore`` merges it back, so a recovered run skips the candidate
+    search for operands whose fingerprints survived.
     """
 
     def __init__(self, directory: str, *, keep: int = 3,
@@ -269,11 +284,15 @@ class SparseCheckpoint:
     def save(self, step: int, tensors: Dict[str, Any],
              extra: Optional[Dict[str, Any]] = None, *,
              blocking: bool = True) -> None:
+        from ..core import plan_search
         fps = {n: self._crc(t) for n, t in tensors.items()}
+        tuned = np.frombuffer(
+            pickle.dumps(plan_search.export_tuned_entries()),
+            dtype=np.uint8).copy()
         state = {"extra": dict(extra or {}),
                  "fp": {n: np.int64(c) for n, c in fps.items()},
                  "tensors": {n: self._leaves(t) for n, t in tensors.items()},
-                 "tuned": np.zeros(0, dtype=np.uint8)}
+                 "tuned": tuned}
         self.mgr.save(step, state, blocking=blocking)
         self._last_fp = fps
 
@@ -290,9 +309,9 @@ class SparseCheckpoint:
                 step: Optional[int] = None,
                 ) -> Tuple[int, Dict[str, Any], Dict[str, Any]]:
         """Restore the newest (or given) step. Heals mismatched tensors in
-        place, leaves matching ones alone, and returns
-        ``(step, extra, info)`` where info counts what was ``reused`` vs
-        ``restored`` (plus ``tuned_imported``, 0 in the port)."""
+        place, leaves matching ones alone, merges tuned-plan entries back,
+        and returns ``(step, extra, info)`` where info counts what was
+        ``reused`` vs ``restored`` (plus ``tuned_imported``)."""
         step, got = self.mgr.restore(
             self._like(tensors, dict(extra_like or {})), step=step)
         reused, restored = [], []
@@ -304,8 +323,14 @@ class SparseCheckpoint:
                 self._copy_into(t, got["tensors"][n])
                 restored.append(n)
             self._last_fp[n] = saved_crc
+        n_tuned = 0
+        tuned = self.mgr.read_leaf(step, "tuned")
+        if tuned.size:
+            from ..core import plan_search
+            n_tuned = plan_search.import_tuned_entries(
+                pickle.loads(tuned.tobytes()))
         return step, got["extra"], {"reused": reused, "restored": restored,
-                                    "tuned_imported": 0}
+                                    "tuned_imported": n_tuned}
 
     def wait(self) -> None:
         self.mgr.wait()

@@ -13,8 +13,8 @@ One observability layer for the whole lowering/execution pipeline:
 
 - :class:`MetricsRegistry` — process-wide counters / gauges / histograms
   behind one :meth:`MetricsRegistry.snapshot` API, which also absorbs the
-  plan / runner / shard / convert / add-stream / spmd-run cache counters
-  with derived hit rates.
+  plan / runner / shard / convert / add-stream / tuned-plan / spmd-run
+  cache counters with derived hit rates.
 
 - :func:`verify_byte_ledger` — the model-vs-ledger cross-check: re-derive
   the communication bytes a kernel *should* have charged from the
@@ -25,9 +25,11 @@ One observability layer for the whole lowering/execution pipeline:
 
 Span taxonomy (dot-namespaced, the same names as the reference):
 ``lower`` > ``lower.plan`` / ``lower.materialize`` / ``lower.jit`` /
-``lower.emit``; ``partition.materialize``; ``execute.spmd`` /
-``execute.piece`` (timed with CUDA events on a card); ``recovery.restore``
-/ ``recovery.replan`` / ``recovery.rejit``; ``serve.batch``.
+``lower.emit``; ``plan_search.search`` > ``plan_search.measure`` (and
+the instant ``plan_search.tuned_cache``); ``partition.materialize``;
+``execute.spmd`` / ``execute.piece`` (timed with CUDA events on a card);
+``recovery.restore`` / ``recovery.replan`` / ``recovery.rejit``;
+``serve.batch``.
 
 CLI smoke (a traced 2x2 grid SpMM on the card, or where ``--device``
 says)::
@@ -345,6 +347,7 @@ _CACHE_SOURCES: Tuple[Tuple[str, str, str], ...] = (
     ("shard", "repro_torch.core.partition", "SHARD_CACHE_STATS"),
     ("convert", "repro_torch.core.partition", "CONVERT_CACHE_STATS"),
     ("add_stream", "repro_torch.core.partition", "ADD_STREAM_STATS"),
+    ("tuned_plan", "repro_torch.core.plan_search", "TUNED_PLAN_CACHE_STATS"),
     ("spmd_run", "repro_torch.distributed.executor", "SPMD_RUN_STATS"),
 )
 

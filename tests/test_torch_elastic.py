@@ -7,16 +7,18 @@ Both packages build their statements from the same numpy arrays.
 ``elastic_row_bounds``, ``relower``'s partitions and bounds, ``CacheStats``
 (with ``shard_reuse``), ``CommStats``, ``cell_id``, checkpoint leaf names
 and order, the fault harness's draws and ``RecoveryReport``'s non-time
-fields must be equal; on integer-valued operands the results and the
-recovered ``state`` must be equal bit for bit. Inside the port, an elastic
-lower has the plain lower's shard arrays, meta and ``run()`` bits for every
-format family × expression × strategy, and recovery gives the unfaulted
-run's bits. The injected straggler sleeps are 1 s, twenty times the
-reference's 0.05 s, and the loops that inject them run with one torch
-thread: the watchdog flags a step above 4× the median step time, and with
-six test workers on a few cores a step of these tiny kernels took up to
-0.5 s with a thread per core."""
+fields must be equal (the checkpoints' ``tuned`` leaves by the keys and
+candidates of the entries they pickle); on integer-valued operands the
+results and the recovered ``state`` must be equal bit for bit. Inside the
+port, an elastic lower has the plain lower's shard arrays, meta and
+``run()`` bits for every format family × expression × strategy, and
+recovery gives the unfaulted run's bits. The injected straggler sleeps
+are 1 s, twenty times the reference's 0.05 s, and the loops that inject
+them run with one torch thread: the watchdog flags a step above 4× the
+median step time, and with six test workers on a few cores a step of
+these tiny kernels took up to 0.5 s with a thread per core."""
 import json
+import pickle
 import sys
 import tempfile
 import time
@@ -30,6 +32,7 @@ from hypothesis import given, settings, strategies as st
 import repro.core as rc
 from repro.core import lower as RL
 from repro.core import partition as RP
+from repro.core import plan_search as RPS
 from repro.runtime import checkpoint as RCK
 from repro.runtime import elastic as RE
 from repro.runtime import fault as RFT
@@ -37,6 +40,7 @@ from repro.runtime import fault as RFT
 import repro_torch.core as tc
 from repro_torch.core import lower as TL
 from repro_torch.core import partition as TP
+from repro_torch.core import plan_search as TPS
 from repro_torch.distributed.mesh import resize_machine, shrink_machine
 from repro_torch.kernels import _build
 from repro_torch.runtime import checkpoint as TCK
@@ -436,20 +440,32 @@ def test_flatten_with_names_uniquifies_collisions():
     assert sum(n.startswith("a/b") for n in names) == 2
 
 
+def _tuned_leaf(step_dir: Path, manifest) -> list:
+    """The (key, point) pairs a checkpoint's ``tuned`` leaf pickles."""
+    leaf, = [l for l in manifest["leaves"] if l["name"] == "tuned"]
+    return pickle.loads(np.load(step_dir / leaf["file"]).tobytes())
+
+
 @pytest.mark.parametrize("fam", sorted(FAMILIES))
-def test_sparse_checkpoint_roundtrip_as_reference(fam, tmp_path):
+def test_sparse_checkpoint_roundtrip_as_reference(fam, tmp_path,
+                                                  monkeypatch):
     rng = np.random.default_rng(len(fam))
     dB, dC = _int_sparse(rng, (40, 32)), _ints(rng, (32, 4))
     manifests = {}
-    for core, CK in ((rc, RCK), (tc, TCK)):
+    for core, CK, PS in ((rc, RCK, RPS), (tc, TCK, TPS)):
+        monkeypatch.setattr(PS, "DEFAULT_CONFIG", PS.SearchConfig(0))
         stmt = _spmm(core, dB, dC, fam)
         tensors = {a.tensor.name: a.tensor for a in stmt.accesses()}
         B = tensors["B"]
         fp0 = B.fingerprint()
+        core.clear_lowering_caches()
+        core.lower_stmt(stmt, core.Machine(("x", 2)), schedule="auto",
+                        **({"device": "cpu"} if core is tc else {}))
         d = tmp_path / core.__name__
         ck = CK.SparseCheckpoint(str(d), keep=2, process_index=0)
         acc = np.arange(6, dtype=np.float32)
         ck.save(1, tensors, {"state": acc}, blocking=True)
+        PS.clear_tuned_plan_cache()
         assert ck.stale_operands(tensors) == []
         B.vals.reshape(-1)[0] += 3.0
         assert ck.stale_operands(tensors) == ["B"]
@@ -457,29 +473,78 @@ def test_sparse_checkpoint_roundtrip_as_reference(fam, tmp_path):
         assert step == 1 and np.array_equal(extra["state"], acc)
         assert info["restored"] == ["B"] and "C" in info["reused"]
         assert B.fingerprint() == fp0 and ck.stale_operands(tensors) == []
-        manifests[core] = (json.loads(
-            (d / "step_00000001" / "manifest_p0.json").read_text()), info)
-    (tm, tinfo), (rm, rinfo) = manifests[tc], manifests[rc]
-    # names, files, shapes and dtypes; the reference's tuned leaf pickles
-    # its (here empty) tuned-plan list, the port's is empty
+        m = json.loads((d / "step_00000001" / "manifest_p0.json")
+                       .read_text())
+        manifests[core] = (m, info, _tuned_leaf(d / "step_00000001", m),
+                           PS.export_tuned_entries())
+    (tm, tinfo, tleaf, tlive), (rm, rinfo, rleaf, rlive) = \
+        manifests[tc], manifests[rc]
+    # names, files, shapes and dtypes; the tuned leaves pickle each
+    # package's own SchedulePoint class, so they are held by their contents
     assert [l for l in tm["leaves"] if l["name"] != "tuned"] == \
         [l for l in rm["leaves"] if l["name"] != "tuned"]
     assert [(l["name"], l["file"]) for l in tm["leaves"]] == \
         [(l["name"], l["file"]) for l in rm["leaves"]]
-    assert tinfo == rinfo                     # tuned_imported 0 on both
+    assert tinfo == rinfo and tinfo["tuned_imported"] == 1
+    assert [k for k, _ in tleaf] == [k for k, _ in rleaf]
+    assert [k for k, _ in tlive] == [k for k, _ in tleaf]
+    assert [k for k, _ in rlive] == [k for k, _ in rleaf]
+    for (_, t), (_, r) in zip(tleaf, rleaf):
+        assert sorted(c["label"] for c in t.candidates) == \
+            sorted(c["label"] for c in r.candidates)
 
 
-def test_sparse_checkpoint_tuned_leaf_is_empty(tmp_path):
-    """The port has no tuned-plan cache (the autoscheduler is ROADMAP
-    Queue 1 item 7): the snapshot's ``tuned`` leaf is empty."""
+def test_sparse_checkpoint_tuned_leaf_is_empty(tmp_path, monkeypatch):
+    """The ``tuned`` leaf pickles the tuned-plan cache: the empty list
+    while the cache is empty (restore imports nothing), the cache's
+    entries once a ``schedule="auto"`` lower has filled it (restore
+    imports each entry the live cache lacks)."""
+    monkeypatch.setattr(TPS, "DEFAULT_CONFIG", TPS.SearchConfig(0))
     B = tc.Tensor.from_dense("B", np.eye(4, dtype=np.float32), tc.CSR())
+    c = tc.Tensor.from_dense("c", np.arange(4, dtype=np.float32))
+    stmt = tc.parse_tin("a(i) = B(i,j) * c(j)",
+                        a=tc.Tensor.zeros_dense("a", (4,)), B=B, c=c)
+    TL.clear_lowering_caches()
     ck = TCK.SparseCheckpoint(str(tmp_path), process_index=0)
     ck.save(3, {"B": B})
-    m = json.loads((tmp_path / "step_00000003" / "manifest_p0.json")
-                   .read_text())
-    tuned = [leaf for leaf in m["leaves"] if leaf["name"] == "tuned"]
-    assert tuned and tuned[0]["shape"] == [0]
+    step_dir = tmp_path / "step_00000003"
+    m = json.loads((step_dir / "manifest_p0.json").read_text())
+    assert _tuned_leaf(step_dir, m) == []
     assert ck.restore({"B": B})[2]["tuned_imported"] == 0
+    k = TL.lower(stmt, tc.Machine(("x", 2)), schedule="auto", device="cpu")
+    ck.save(4, {"B": B})
+    step_dir = tmp_path / "step_00000004"
+    m = json.loads((step_dir / "manifest_p0.json").read_text())
+    (key, point), = _tuned_leaf(step_dir, m)
+    assert key == TPS._tuned_key(stmt, tc.Machine(("x", 2)), None)
+    assert point.label == k.tuned.label
+    assert point.candidates == k.tuned.candidates
+    assert ck.restore({"B": B})[2]["tuned_imported"] == 0   # live key wins
+    TPS.clear_tuned_plan_cache()
+    assert ck.restore({"B": B})[2]["tuned_imported"] == 1
+
+
+def test_sparse_checkpoint_carries_tuned_plans(tmp_path):
+    """Twin of the reference's: a checkpoint taken after an auto lower
+    brings the tuned entry back into a cleared cache, and the re-lower then
+    skips the search."""
+    rng = np.random.default_rng(3)
+    stmt = _spmm(tc, _int_sparse(rng, (40, 32)), _ints(rng, (32, 4)))
+    tensors = {a.tensor.name: a.tensor for a in stmt.accesses()}
+    TL.clear_lowering_caches()
+    k = TL.lower(stmt, tc.Machine(("x", 2)), schedule="auto", device="cpu")
+    assert len(TPS.export_tuned_entries()) >= 1
+    key = TPS.export_tuned_entries()[-1][0]
+    ck = TCK.SparseCheckpoint(str(tmp_path), keep=2)
+    ck.save(1, tensors, blocking=True)
+    TPS.clear_tuned_plan_cache()
+    assert TPS.export_tuned_entries() == []
+    _, _, info = ck.restore(tensors)
+    assert info["tuned_imported"] >= 1
+    assert any(k2 == key for k2, _ in TPS.export_tuned_entries())
+    k2 = TL.lower(stmt, tc.Machine(("x", 2)), schedule="auto", device="cpu")
+    assert k2.cache.tuned_hits == 1 and k2.tuned.label == k.tuned.label
+    assert torch.equal(k2.run(), k.run())
 
 
 def test_checkpoint_roundtrip_with_tensors(tmp_path):

@@ -848,3 +848,45 @@ def test_elastic_lower_equals_plain_on_card(card, sched, fmt):
                  device=card)
     assert torch.equal(k3.run(), p3.run()) and torch.equal(k3.run(), ref)
     assert torch.equal(L.relower(k, M3, dead=2).run(), ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["csr", "bcsr"])
+def test_autoscheduler_measures_on_card(card, fmt):
+    """``schedule="auto"`` on the card with the default search: the model's
+    top 3 are lowered and timed there (``measured_s``), the winner is the
+    measured minimum and its run() has the bits of a hand lower of its
+    point (and the exact product); the warm re-lower hits the tuned-plan
+    cache without searching again."""
+    import repro_torch.core as tc
+    from repro_torch.core import lower as L
+    from repro_torch.core import plan_search as PS
+    stmt = _int_spmm_stmt(9, fmt=fmt)
+    machine = tc.Machine(("x", 4))
+    L.clear_lowering_caches()
+    k = L.lower(stmt, machine, schedule="auto", device=card)
+    w = k.tuned
+    assert w is not None and k.cache.tuned_misses == 1
+    top = w.candidates[:PS.DEFAULT_CONFIG.refine_top_k]
+    assert all(c["measured_s"] is not None and c["measured_s"] > 0
+               for c in top)
+    assert all(c["measured_s"] is None
+               for c in w.candidates[PS.DEFAULT_CONFIG.refine_top_k:])
+    assert w.label == min(top, key=lambda c: c["measured_s"])["label"]
+    assert k.strategy.tile == w.tile and (w.tile is not None) == (
+        fmt == "bcsr")
+    sched, m = w.build(stmt, machine)
+    hand = L.lower(stmt, m, schedule=sched, device=card)
+    got = k.run()
+    assert got.device.type == "cuda" and torch.equal(got, hand.run())
+    B = stmt.rhs.accesses()[0].tensor.to_dense()
+    C = stmt.rhs.accesses()[1].tensor.to_dense()
+    assert np.array_equal(got.cpu().numpy(), B @ C)
+    real = PS.search
+    PS.search = lambda *a, **kw: pytest.fail("the warm lower searched")
+    try:
+        warm = L.lower(stmt, machine, schedule="auto", device=card)
+    finally:
+        PS.search = real
+    assert warm.cache.tuned_hits == 1 and warm.cache.warm
+    assert warm.tuned is w and torch.equal(warm.run(), got)

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import repro_torch.core as tc
+from repro_torch.core import plan_search
 from repro_torch.kernels import ops
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -49,6 +50,7 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.distributed.planner\n"
         "import repro_torch.distributed.executor\n"
         "import repro_torch.core.plan_search\n"
+        "import repro_torch.kernels.autotune, repro_torch.launch.roofline\n"
         "import repro_torch.runtime.fault, repro_torch.runtime.checkpoint\n"
         "import repro_torch.runtime.elastic\n"
         "import repro_torch.launch, repro_torch.launch.report\n"
@@ -82,6 +84,10 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
         ops.spmv([0, 1], [0], [1.0], [2.0])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tc.interpret(stmt)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tc.lower_stmt(stmt, tc.Machine(("x", 2)), schedule="auto")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        plan_search.search(stmt, tc.Machine(("x", 2)))
     k = tc.lower_stmt(stmt, tc.Machine(("x", 2)), device="cpu")
     assert k.device == torch.device("cpu")
     np.testing.assert_array_equal(k.run().numpy(), np.ones(4, np.float32))

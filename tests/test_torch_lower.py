@@ -328,15 +328,23 @@ def test_weighted_nnz_split_matches_reference():
 
 @pytest.mark.parametrize("case", ["auto"])
 def test_unported_paths_raise(case):
-    """The autoscheduler raises, naming its ROADMAP item. (Format
-    conversion, grids and mixed-block addends lower now:
-    tests/test_torch_convert.py, test_torch_grid.py, test_torch_grid3.py.)"""
+    """Every schedule string the reference takes lowers in the port now:
+    ``"auto"`` runs the autoscheduler (tests/test_torch_plan_search.py) and
+    gives the reference's winner and result; any other string raises the
+    reference's ``ValueError``."""
     rng = np.random.default_rng(0)
     dB, c = _arrays("spmv", rng, False)
+    r_stmt = _stmt(rc, RF, "spmv", lambda F: F.CSR(), dB, c)
     stmt = _stmt(tc, TF, "spmv", lambda F: F.CSR(), dB, c)
     machine = tc.Machine(("x", 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        t_lower(stmt, machine, device="cpu", schedule=case)
+    k = t_lower(stmt, machine, device="cpu", schedule=case)
+    assert k.tuned is not None and k.cache.tuned_misses == 1
+    np.testing.assert_allclose(
+        k.run().numpy(), np.asarray(r_lower(r_stmt, rc.Machine(("x", 2)),
+                                            schedule=case).run()),
+        atol=1e-3)
+    with pytest.raises(ValueError, match="unknown schedule string"):
+        t_lower(stmt, machine, device="cpu", schedule="fast")
 
 
 def test_chip_smoke_slice_on_cpu():
@@ -470,3 +478,34 @@ def test_chip_smoke_grid_path_on_cpu():
             assert "grid" in k.leaf_name and k.comm.axes
     assert kernels == set(chip_smoke.PATH_KERNELS["grid"])
     assert _build.LAUNCHES == before
+
+
+def test_chip_smoke_autosched_path_on_cpu(capfd):
+    """Path 4i on the CPU at a tiny size: each of the four cells lowers
+    ``schedule="auto"`` cold (one tuned miss, one search, its top 3
+    measured on the CPU) and warm (one hit, no search), the winner gives
+    the bits of a hand lower of its point and agrees with the host
+    product, and every enumerated point runs as a hand cell; no kernel
+    launches."""
+    before = dict(_build.LAUNCHES)
+    data = chip_smoke.make_inputs(256, 4, 8, seed=0, dims3=(64, 16, 16),
+                                  rank=4)
+    data["add"] = chip_smoke.add_operands(256, 0, data["B"])
+    launches = chip_smoke.autosched_path(data, torch.device("cpu"), reps=2)
+    assert launches == {} and _build.LAUNCHES == dict.fromkeys(before, 0)
+    out = capfd.readouterr().out
+    lines = [l for l in out.splitlines() if l.startswith("[auto] ")]
+    assert len(lines) == len(chip_smoke.AUTOSCHED_CELLS)
+    fields = [dict(f.split("=", 1) for f in l.split()[1:]) for l in lines]
+    assert [f["cell"].split("/")[:2] for f in fields] == [
+        ["spmv", "csr"], ["spmm", "csr"], ["spmv", "bcsr"],
+        ["spmttkrp", "csf"]]
+    for f in fields:
+        assert f["bits_of_hand_lower"] == "True"
+        assert f["winner"] in f["model_order"].split(",")
+        assert float(f["search_s"]) > 0 and float(f["ratio"]) > 0
+    assert sorted(fields[1]["model_order"].split(",")) == \
+        ["nnz/4x1", "rows/2x1x2r", "rows/2x2", "rows/4x1"]
+    assert fields[2]["tile"] != "-" and fields[0]["tile"] == "-"
+    assert fields[3]["model_order"].count(",") == 1
+    assert "[autosched] " in out

@@ -1,7 +1,8 @@
 """The port's telemetry against the JAX package's, on the CPU (twins of
-tests/test_telemetry.py but ``test_explain_lists_scored_candidates``, whose
-autoscheduler is ROADMAP Queue 1 item 7): the span tracer and its Chrome
-export, the metrics snapshot and its markdown render, the byte-ledger
+tests/test_telemetry.py): the span tracer and its Chrome export, the
+autoscheduler's scored candidates in ``explain()`` and its
+``tuned_plan`` cache source, the metrics snapshot and its markdown
+render, the byte-ledger
 verifier (its reports must equal the reference's for the same statement,
 schedule and machine, over the 1-D census cells and the grids),
 ``profile_pieces`` feeding a weighted re-plan, the logger hierarchy, the
@@ -418,6 +419,37 @@ def test_metrics_snapshot_and_render():
     assert telemetry.METRICS.snapshot()["counters"] == {}
 
 
+def test_explain_lists_scored_candidates():
+    """``schedule="auto"`` with the default search (the H100 constants, the
+    model's top 3 measured, here on the CPU): ``explain()`` names the
+    winner and lists every candidate, the reference's, with the winner
+    marked; a hand-picked schedule says so instead."""
+    from repro.core import plan_search as RPS
+    stmt = _spmv()
+    TL.clear_lowering_caches()
+    k = TL.lower(stmt, M4, schedule="auto", device="cpu")
+    assert k.tuned is not None and k.tuned.candidates
+    assert len(k.tuned.candidates) >= 2
+    txt = k.explain()
+    assert "autoscheduler winner" in txt and "<- winner" in txt
+    assert txt.count("<- winner") == 1
+    for c in k.tuned.candidates:
+        assert c["label"] in txt
+    measured = [c for c in k.tuned.candidates if c["measured_s"] is not None]
+    assert len(measured) == min(3, len(k.tuned.candidates))
+    r_stmt = _spmv(rc)
+    want = RPS.search(r_stmt, rc.Machine(("x", 4)),
+                      config=RPS.SearchConfig(refine_top_k=0))
+    assert sorted(c["label"] for c in k.tuned.candidates) == \
+        sorted(c["label"] for c in want.candidates)
+    k2 = TL.lower(stmt, M4, schedule=TL.default_row_schedule(stmt, M4),
+                  device="cpu")
+    assert "hand-picked schedule" in k2.explain()
+    assert "comm:" in k2.explain()
+    snap = telemetry.METRICS.snapshot()
+    assert snap["caches"]["tuned_plan"]["misses"] >= 1
+
+
 @pytest.mark.parametrize("n", [0, 17, 1023, 1024, 5 << 20, 3 << 30,
                                7 << 42, -2048])
 def test_fmt_bytes_as_reference(n):
@@ -438,7 +470,9 @@ def test_report_cli_renders_a_snapshot(tmp_path):
 
 
 def test_logger_namespaces_and_configure_logging():
+    from repro_torch.core import plan_search as PS
     assert TL.log.name == "repro_torch.core.lower"
+    assert PS.log.name == "repro_torch.core.plan_search"
     root = telemetry.configure_logging(logging.DEBUG)
     assert root.name == "repro_torch" and root.level == logging.DEBUG
     assert root.handlers
