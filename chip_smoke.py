@@ -77,7 +77,7 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
              held at atol = rtol = 2e-5 in f32 and 3e-2 in bf16 (the
              reference test's) and 1e-2 in f16 (three more mantissa
              bits), and its position 0 must equal v[0].
-4. main    — nine paths (a-d, f, h, i, g, then e), each driven through the
+4. main    — ten paths (a-d, f, h, i, g, e, then j), each driven through the
              public entry points with the kernel launch counts reset just
              before and read just after; each of the path's kernels must
              have launched.
@@ -215,6 +215,41 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
       the same weights under ``variant="dense"``, relative Frobenius error
       of the logits <= 5e-2; (b) f32 at full width and 2 layers, flash
       against dense on every position at atol = rtol = 1e-3.
+   j. LM decode and serving, after e: (1) the LM ``Server`` on llama3-8b
+      at full width and depth, bf16 weights from seed 0 on the card, 8
+      slots of 4096 positions, 16 requests drawn as the reference's
+      ``main`` draws them (seed 0, prompts of 4-16 tokens), 32 new tokens
+      each: requests, tokens, tokens/s, the median and p99 step ms (host
+      clock, one sync a step) and the peak memory; every request must get
+      32 tokens, a second run the same tokens, and each request that took
+      a freed slot, alone in a fresh ``Server`` on the same weights, the
+      same tokens; then one step with the cache written in place against
+      one on a copy of the whole cache (``[serve-lm]``). (2) Each of the
+      ten architectures at full width with bf16 weights from seed 0, its
+      depth cut only to fit the card (llama4-scout-17b-a16e to 12 of its
+      48 layers; the cut printed): a prefill of 2 x 128 tokens (numpy
+      seed 0) through ``LM.apply(variant="flash", last_only=True)``, with
+      llava's 576 prefix embeddings and seamless's 1024 encoder frames
+      (seed 2); 8 decode steps from an empty cache, twice; two prefills
+      and the two decodes must give the same bits, flash_attention must
+      launch once per causal self-attention layer and prefill and nothing
+      else launch. Then, its launches not counted, one more flash prefill
+      over all positions with every flash_attention call held against the
+      plain version on the same q, k and v (FLASH_TOL, as phase 3), and
+      its logits against ``variant="dense"`` on the same weights and
+      tokens: relative Frobenius error <= 5e-2, or no more than 1.5 times
+      the ``chunked`` variant's against dense (printed; zamba2-7b's depth
+      and llama4's routing amplify any change of the attention's
+      rounding).
+      For llama3-8b, zamba2-7b, xlstm-125m, olmoe-1b-7b
+      (``moe_capacity_factor=16``) and seamless-m4t-medium, the
+      teacher-forced decode over the 128 positions against the forward:
+      relative Frobenius error of the logits <= 5e-2 with f32 activations
+      over the same weights for all five, and in bf16 for the attention
+      stacks (llama3, olmoe, seamless); the bf16 error of the recurrent
+      two is printed beside their bf16 forward's against the f32 one.
+      One ``[lm]`` line each: weights, init s, prefill and decode-step ms
+      (host clock), peak memory.
    Every sparse cell is lowered cold and warm and run; its result is
    checked per entry against a float64 host computation on the numpy
    arrays (same tolerance form; a SpAdd3 union must have the host union's
@@ -246,8 +281,9 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
    (``torch.profiler``). The blocked kernels' yardsticks are
    ``torch.sparse`` BSR products and ``sampled_addmm`` over the
    scalarised block pattern.
-   flash_attention is timed at the model's layer shapes (q (2, 4096, 32,
-   128), k and v (2, 4096, 8, 128)) in bf16 (the line's record), f32 and
+   flash_attention's launches in its record count paths e and j (j's
+   alone as ``lm_launches``). It is timed at the model's layer shapes (q
+   (2, 4096, 32, 128), k and v (2, 4096, 8, 128)) in bf16 (the record), f32 and
    f16 (lines of their own), and at head_dim 256, 320 and 512 in all
    three (lines of their own, with the edge checks' launches of that
    dtype and width), beside ``scaled_dot_product_attention(
@@ -1106,7 +1142,12 @@ def bcsr_cases(rng, device):
 # f16 instances of the tensor-core kernel): the llama3-8b layer's heads
 # (32 / 8, hd 128), tile edges at G in {1, 3}, and hd 24, 112, 256; then
 # the column-chunk kernels, hd 320 (padded to 384) and 512, in all three
-# dtypes
+# dtypes; last, the causal attention heads of path 4j's architectures at a
+# ragged length past two 64-key stages
+ARCH_HEADS = ((16, 8, 128), (40, 8, 128), (56, 8, 128), (16, 16, 128),
+              (48, 4, 128), (32, 32, 112))
+# (H, Hkv, hd): internlm2; llama4 and qwen3; llava; olmoe; starcoder2;
+# zamba2 (llama3's heads are above)
 FLASH_CASES = ((2, 256, 4, 2, 32, "float32"), (1, 200, 8, 8, 16, "float32"),
                (2, 384, 6, 2, 64, "float32"), (1, 128, 16, 2, 32, "float32"),
                (2, 256, 4, 2, 64, "bfloat16"), (1, 100, 2, 1, 16, "float32"),
@@ -1121,7 +1162,8 @@ FLASH_CASES = ((2, 256, 4, 2, 32, "float32"), (1, 200, 8, 8, 16, "float32"),
     (1, S, 2 * G, 2, 32, "float16") for S in (1, 17, 65) for G in (1, 3)) \
     + tuple((1, 200, 8, 2, hd, "float16") for hd in (24, 112, 256)) + tuple(
     (1, 200, 8, 2, hd, dt) for hd in (320, 512)
-    for dt in ("float32", "bfloat16", "float16"))
+    for dt in ("float32", "bfloat16", "float16")) + tuple(
+    (1, 130, H, Hkv, hd, "bfloat16") for H, Hkv, hd in ARCH_HEADS)
 # atol = rtol; f16 keeps three more mantissa bits than bf16
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2, "float16": 1e-2}
 
@@ -2423,6 +2465,393 @@ def flash_record(cfg, batch: int, seq: int, device, dtype: str,
     }
 
 
+# ---------------------------------------------------------------------------
+# Path 4j: LM decode, the Server loop and the ten architectures
+# ---------------------------------------------------------------------------
+
+SERVE = dict(slots=8, context=4096, requests=16, max_new=32)
+ARCH_BATCH, ARCH_SEQ = 2, 128      # each architecture's prefill
+ARCH_DECODE_STEPS = 8              # decode steps timed per architecture
+# the architectures of tests/test_archs.py::test_decode_matches_forward
+TEACHER_FORCED = ("llama3-8b", "zamba2-7b", "xlstm-125m", "olmoe-1b-7b",
+                  "seamless-m4t-medium")
+TF_RTOL = 5e-2          # teacher-forced decode vs forward, rel. Frobenius
+# the recurrent stacks' bf16 forward lies as far from their f32 forward as
+# from their bf16 decode (xlstm-125m at full width: 0.25; zamba2-7b's 81
+# layers: about 1), so their bf16 error is reported (with the bf16
+# forward's against the f32 one) and the f32 one is held
+BF16_HELD = ("llama3-8b", "olmoe-1b-7b", "seamless-m4t-medium")
+# flash against dense logits over a whole model: within LOGITS_RTOL, or no
+# farther than SENSITIVITY times the chunked variant (a second plain
+# attention, the same math rounded otherwise) lies from dense on the same
+# weights and tokens; zamba2's 81 bf16 layers and llama4's routing carry
+# any change of the attention's rounding to about 0.4 and 0.12 (flash and
+# chunked alike), while every flash call is held to its plain version
+SENSITIVITY = 1.5
+DEPTH_CAP = {"llama4-scout-17b-a16e": 12}    # about 204 GB at 48 layers
+FIT_HEADROOM = 10 << 30      # bytes kept free beside the weights
+
+
+def arch_config(name: str, free_bytes: int, **over):
+    """``name`` with bf16 weights (``param_dtype="bfloat16"``, the serving
+    rule) and ``over`` replaced; its depth cut to DEPTH_CAP, and further to
+    what fits in ``free_bytes`` less FIT_HEADROOM at two bytes a parameter.
+    Returns (config, the cut or None)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    cfg = dataclasses.replace(get_arch(name), param_dtype="bfloat16", **over)
+    per_layer = (cfg.param_count()
+                 - dataclasses.replace(cfg, n_layers=0).param_count()
+                 ) / cfg.n_layers
+    fixed = cfg.param_count() - per_layer * cfg.n_layers
+    fit = int((free_bytes - FIT_HEADROOM - 2 * fixed) // (2 * per_layer))
+    layers = min(cfg.n_layers, DEPTH_CAP.get(name, cfg.n_layers), fit)
+    if layers < 1:
+        raise AssertionError(f"{name} does not fit: {free_bytes} bytes free")
+    if layers == cfg.n_layers:
+        return cfg, None
+    return (dataclasses.replace(cfg, n_layers=layers),
+            f"{cfg.n_layers}->{layers} layers")
+
+
+def frontend_embeds(cfg, batch: int, device):
+    """(batch, frontend_tokens, d_model) standard normal from seed 2, or
+    None for a model without a frontend."""
+    import torch
+    if cfg.frontend == "none":
+        return None
+    gen = torch.Generator(device).manual_seed(SEED + 2)
+    return torch.randn((batch, cfg.frontend_tokens, cfg.d_model),
+                       generator=gen, device=device)
+
+
+def flash_layers(lm) -> int:
+    """Causal self-attention layers of one forward: flash_attention's
+    launches per apply under ``variant="flash"`` (the encoder and the
+    cross-attention are not causal and take the plain path)."""
+    kind = lm.group_kind
+    if kind in ("dense", "moe", "moe_interleaved"):
+        return lm.cfg.n_layers
+    return lm.n_groups if kind == "hybrid" else 0
+
+
+def fill_cross(lm, params, cache, fe) -> None:
+    """Encode ``fe`` once and stash each decoder layer's cross K/V in the
+    cache (tests/test_archs.py::test_decode_matches_forward's way)."""
+    enc = lm._run_encoder(params, fe, 0, "auto")
+    for g in range(lm.n_groups):
+        k, v = lm._encode_kv(params["cross"][g]["attn"], enc)
+        cache["enc_k"][g].copy_(k)
+        cache["enc_v"][g].copy_(v)
+
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def checked_flash_apply(lm, params, tokens, fe, label):
+    """``lm.apply(variant="flash")`` over every position, with each
+    flash_attention call held against its plain version on the same q, k
+    and v (:func:`compare_flash`: FLASH_TOL of the dtype, position 0 equal
+    to v[0]), so the kernel is checked at every shape and on every input
+    the main path gives it. Returns the logits, the largest error and the
+    calls' shapes, "HxHkvxhd" each."""
+    from repro_torch.models import attention
+    kernel, plain = kernel_fns()["flash_attention"]
+    errs, shapes = [], set()
+
+    def checked(q, k, v, **kw):
+        got = kernel(q, k, v, **kw)
+        shape = f"{q.shape[2]}x{k.shape[2]}x{q.shape[3]}"
+        errs.append(compare_flash(f"{label} flash_attention "
+                                  f"{tuple(q.shape)} {tuple(k.shape)}",
+                                  got, plain(q, k, v), q, v))
+        shapes.add(shape)
+        return got
+
+    attention.flash_attention = checked
+    try:
+        logits = lm.apply(params, tokens, fe, variant="flash")[0]
+    finally:
+        attention.flash_attention = kernel
+    return logits, max(errs, default=0.0), ",".join(sorted(shapes))
+
+
+def teacher_forced(lm, params, tokens, fe, device):
+    """Decode ``tokens`` one step at a time from an empty cache; returns
+    the relative Frobenius error of the steps' logits against the
+    forward's (``variant="flash"``) over every position, and the
+    forward's logits."""
+    import torch
+    B, S = tokens.shape
+    full, _ = lm.apply(params, tokens, fe if lm.cfg.is_encdec else None,
+                       variant="flash")
+    cache = lm.init_cache(B, S, device=device,
+                          src_len=lm.cfg.frontend_tokens
+                          if lm.cfg.is_encdec else 0)
+    if lm.cfg.is_encdec:
+        fill_cross(lm, params, cache, fe)
+    steps = [lm.decode_step(params, cache, tokens[:, s])[0]
+             for s in range(S)]
+    return _rel(torch.stack(steps, 1), full), full
+
+
+def run_arch(cfg, batch: int, seq: int, device, steps: int,
+             teacher: bool):
+    """One architecture at ``cfg``'s width: weights from a seeded
+    generator on the device; the ``flash`` prefill of ``batch`` x ``seq``
+    tokens (with its frontend: llava's prefix, seamless's encoder frames)
+    through ``LM.apply(last_only=True)``: a warm-up, a timed median, two
+    more whose bits must agree; ``steps`` decode steps from an empty cache,
+    each timed, twice from two caches with the same bits. Launches are
+    read straight after the prefills and decodes: flash_attention once per
+    causal self-attention layer and prefill, nothing else. Then, not
+    counted, :func:`checked_flash_apply` over all positions, and the same
+    weights and tokens under ``variant="dense"`` and ``"chunked"``: the
+    flash logits' relative Frobenius error against dense <= LOGITS_RTOL,
+    or <= SENSITIVITY x chunked's against dense. With
+    ``teacher``, the teacher-forced decode over the ``seq`` positions
+    against the forward in bf16 (held to TF_RTOL for BF16_HELD) and with
+    f32 activations over the same weights (always held). Returns the
+    record and the launches."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.models import LM
+    lm = LM(cfg)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    params = lm.init_params(torch.Generator(device).manual_seed(SEED),
+                            device)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    param_bytes = sum(t.numel() * t.element_size() for t in
+                      _tensors(params))
+    tokens = prefill_tokens(cfg, batch, seq, device)
+    fe = frontend_embeds(cfg, batch, device)
+    runs = []
+
+    def prefill():
+        runs.append(1)
+        return lm.apply(params, tokens, fe, variant="flash",
+                        last_only=True)[0]
+
+    src = cfg.frontend_tokens if cfg.is_encdec else 0
+
+    def decode(timed):
+        cache = lm.init_cache(batch, seq + steps, device=device,
+                              src_len=src)
+        if cfg.is_encdec:
+            fill_cross(lm, params, cache, fe)
+        for s in range(steps):
+            t = time.perf_counter()
+            logits, cache = lm.decode_step(params, cache, tokens[:, s])
+            _sync(device)
+            timed.append((time.perf_counter() - t) * 1e3)
+        return logits
+
+    with torch.inference_mode():
+        before = dict(_build.LAUNCHES)
+        prefill_ms = time_host(prefill, device, 3)
+        out, again = prefill(), prefill()
+        step_ms, spare = [], []
+        last, last2 = decode(step_ms), decode(spare)
+        _sync(device)
+        launches = {k: n - before[k] for k, n in _build.LAUNCHES.items()}
+        expected = dict.fromkeys(launches, 0)
+        if device.type == "cuda":
+            expected["flash_attention"] = flash_layers(lm) * len(runs)
+        if launches != expected:
+            raise AssertionError(f"{cfg.name}: launches {launches}, want "
+                                 f"{expected}")
+        for name, t in (("prefill", out), ("decode", last)):
+            if not torch.isfinite(t.float()).all():
+                raise AssertionError(f"{cfg.name}: non-finite {name} logits")
+        if out.shape != (batch, 1, lm.vp) or last.shape != (batch, lm.vp):
+            raise AssertionError(f"{cfg.name}: logits {tuple(out.shape)}, "
+                                 f"{tuple(last.shape)}")
+        if not (torch.equal(out, again) and torch.equal(last, last2)):
+            raise AssertionError(f"{cfg.name}: two calls gave other bits")
+        flash, kernel_err, shapes = checked_flash_apply(lm, params, tokens,
+                                                        fe, cfg.name)
+        dense = lm.apply(params, tokens, fe, variant="dense")[0]
+        vs_dense = _rel(flash, dense)
+        del flash
+        chunked_vs_dense = _rel(
+            lm.apply(params, tokens, fe, variant="chunked")[0], dense)
+        del dense
+        limit = max(LOGITS_RTOL, SENSITIVITY * chunked_vs_dense)
+        if not vs_dense <= limit:
+            raise AssertionError(f"{cfg.name}: flash vs dense logits: "
+                                 f"relative Frobenius {vs_dense} > {limit} "
+                                 f"(chunked vs dense {chunked_vs_dense})")
+        rec = {"arch": cfg.name, "layers": cfg.n_layers,
+               "d_model": cfg.d_model, "init_s": init_s,
+               "param_bytes": param_bytes, "prefill_ms": prefill_ms,
+               "decode_ms": statistics.median(step_ms + spare),
+               "flash_launches": launches.get("flash_attention", 0),
+               "flash_vs_dense": vs_dense,
+               "chunked_vs_dense": chunked_vs_dense, "kernel_err": kernel_err,
+               "kernel_shapes": shapes}
+        if teacher:
+            rec["tf_rel_bf16"], full16 = teacher_forced(lm, params, tokens,
+                                                        fe, device)
+            lm32 = LM(dataclasses.replace(cfg, dtype="float32"))
+            rec["tf_rel_f32"], full32 = teacher_forced(lm32, params, tokens,
+                                                       fe, device)
+            # how far bf16 activations alone carry the forward
+            rec["fwd_rel_bf16_f32"] = _rel(full16, full32)
+            del full16, full32
+            held = [("f32", rec["tf_rel_f32"])]
+            if cfg.name in BF16_HELD:
+                held.append(("bf16", rec["tf_rel_bf16"]))
+            for label, rel in held:
+                if not rel <= TF_RTOL:
+                    raise AssertionError(
+                        f"{cfg.name}: teacher-forced decode vs forward in "
+                        f"{label}: relative Frobenius {rel} > {TF_RTOL}")
+    rec["max_mem"] = (torch.cuda.max_memory_allocated(device)
+                      if device.type == "cuda" else 0)
+    del params
+    return rec, launches
+
+
+def run_server(cfg, device, slots: int, context: int, requests: int,
+               max_new: int):
+    """The LM Server at ``cfg`` (weights from seed 0 on the device):
+    ``requests`` requests drawn as the reference's ``main`` draws them
+    (seed 0, prompts of 4-16 tokens), ``max_new`` tokens each, on
+    ``slots`` slots of ``context`` positions. Checks: every request gets
+    ``max_new`` tokens; a second run on the same Server gives the same
+    tokens; every request that took a freed slot gets, alone in a fresh
+    Server on the same weights, the same tokens. Returns the record."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import Server, draw_requests
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    srv = Server(cfg, slots=slots, context=context, device=device)
+    _sync(device)
+    t0 = time.perf_counter()
+    out = srv.run(draw_requests(cfg.vocab_size, requests, max_new))
+    run_s = time.perf_counter() - t0
+    step_ms = list(srv.step_ms)
+    max_mem = (torch.cuda.max_memory_allocated(device)
+               if device.type == "cuda" else 0)
+    if sorted(out) != list(range(requests)) or any(
+            len(v) != max_new for v in out.values()):
+        raise AssertionError(f"server: token counts "
+                             f"{[len(v) for v in out.values()]}")
+    if srv.run(draw_requests(cfg.vocab_size, requests, max_new)) != out:
+        raise AssertionError("server: a second run gave other tokens")
+    # one decode step over the full slots, the cache written in place
+    # against a copy of the whole cache a step (the bytes the reference's
+    # functional attention_decode copies, layer by layer)
+    lm, params, cache = srv.lm, srv.params, srv.cache
+    toks = torch.zeros(slots, dtype=torch.long, device=device)
+    with torch.inference_mode():
+        inplace_ms = time_host(
+            lambda: lm.decode_step(params, cache, toks), device, 5)
+        copied_ms = time_host(
+            lambda: lm.decode_step(params, {k: v.clone() for k, v in
+                                            cache.items()}, toks), device, 5)
+        # device ms per kernel of one full step: the rest of the step's
+        # host-clock time the card waits on the host
+        profile = (device_breakdown(
+            lambda: lm.decode_step(params, cache, toks), reps=2)
+            if device.type == "cuda" else {})
+    cache_bytes = sum(v.numel() * v.element_size() for v in cache.values())
+    del srv, cache
+    reused = draw_requests(cfg.vocab_size, requests, max_new)[slots:]
+    for r in reused:
+        alone = Server(cfg, slots=slots, context=context, device=device,
+                       params=params)
+        got = alone.run([r])[r.rid]
+        del alone
+        if got != out[r.rid]:
+            raise AssertionError(f"server: request {r.rid} in a reused slot "
+                                 f"gave {out[r.rid]}, alone {got}")
+    tokens = sum(len(v) for v in out.values())
+    return {"requests": requests, "tokens": tokens, "run_s": run_s,
+            "tokens_per_s": tokens / run_s, "steps": len(step_ms),
+            "step_ms_median": statistics.median(step_ms),
+            "step_ms_p99": float(np.percentile(step_ms, 99)),
+            "max_mem": max_mem, "fresh_slot_checked": len(reused),
+            "step_ms_inplace": inplace_ms, "step_ms_copied": copied_ms,
+            "cache_bytes": cache_bytes, "profile": profile}
+
+
+def lm_path(device, serve=SERVE,
+            batch: int = ARCH_BATCH, seq: int = ARCH_SEQ,
+            steps: int = ARCH_DECODE_STEPS, reduce=None):
+    """Path 4j: (a) the Server on llama3-8b at full width and depth, bf16
+    weights; (b) every architecture at full width (depth cut only to fit
+    the card, printed), bf16 weights; one ``[serve-lm]`` line and one
+    ``[lm]`` line per architecture. ``reduce`` (a config -> config map)
+    shrinks the models for a rehearsal on the CPU. Returns the launches
+    summed over the path."""
+    import torch
+    from repro_torch.configs import all_archs
+    free = (torch.cuda.mem_get_info(device)[0] if device.type == "cuda"
+            else 1 << 40)
+    cfg, _ = arch_config(ARCH, free)
+    srv = run_server(reduce(cfg) if reduce else cfg, device, **serve)
+    phase("serve-lm", arch=ARCH, slots=serve["slots"],
+          context=serve["context"], requests=srv["requests"],
+          tokens=srv["tokens"], steps=srv["steps"],
+          run_s=f"{srv['run_s']:.3f}",
+          tokens_per_s=f"{srv['tokens_per_s']:.1f}",
+          step_ms_median=f"{srv['step_ms_median']:.3f}",
+          step_ms_p99=f"{srv['step_ms_p99']:.3f}",
+          max_mem_gb=f"{srv['max_mem'] / 2**30:.2f}",
+          cache_gb=f"{srv['cache_bytes'] / 2**30:.2f}",
+          step_ms_in_place=f"{srv['step_ms_inplace']:.3f}",
+          step_ms_cache_copied=f"{srv['step_ms_copied']:.3f}",
+          step_device_ms=f"{sum(srv['profile'].values()):.3f}",
+          repeat_bitwise=True,
+          fresh_slot_requests=srv["fresh_slot_checked"])
+    top = sorted(srv["profile"].items(), key=lambda kv: -kv[1])[:8]
+    phase("profile", name="server decode step",
+          total_ms=f"{sum(srv['profile'].values()):.3f}",
+          **{k.replace(" ", "_"): f"{v:.3f}" for k, v in top})
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    total = {}
+    for name in sorted(all_archs()):
+        free = (torch.cuda.mem_get_info(device)[0]
+                if device.type == "cuda" else 1 << 40)
+        over = ({"moe_capacity_factor": 16.0}
+                if name == "olmoe-1b-7b" else {})
+        cfg, cut = arch_config(name, free, **over)
+        rec, launches = run_arch(reduce(cfg) if reduce else cfg, batch, seq,
+                                 device, steps, name in TEACHER_FORCED)
+        _add_launches(total, launches)
+        tf = {}
+        if "tf_rel_f32" in rec:
+            tf = {"tf_rel_bf16": f"{rec['tf_rel_bf16']:.4g}",
+                  "tf_rel_f32": f"{rec['tf_rel_f32']:.4g}",
+                  "fwd_rel_bf16_vs_f32": f"{rec['fwd_rel_bf16_f32']:.4g}",
+                  "bf16_held": name in BF16_HELD}
+        phase("lm", arch=name, layers=rec["layers"], cut=cut or "none",
+              d_model=rec["d_model"],
+              weights_gb=f"{rec['param_bytes'] / 2**30:.2f}",
+              init_s=f"{rec['init_s']:.2f}",
+              prefill_ms=f"{rec['prefill_ms']:.3f}",
+              decode_ms=f"{rec['decode_ms']:.3f}",
+              max_mem_gb=f"{rec['max_mem'] / 2**30:.2f}",
+              flash_launches=rec["flash_launches"], bitwise_repeat=True,
+              flash_shapes=rec["kernel_shapes"] or "none",
+              kernel_max_abs_err=f"{rec['kernel_err']:.4g}",
+              flash_vs_dense=f"{rec['flash_vs_dense']:.4g}",
+              chunked_vs_dense=f"{rec['chunked_vs_dense']:.4g}", **tf)
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return total
+
+
 def sparse_paths(args, device):
     """Phases 4a-d and 5 for the four sparse paths: drive each with the
     launch counts of exactly its run, check the cells, then time the
@@ -3656,6 +4085,18 @@ def main(argv=None) -> int:
           f32_max_abs_err=f"{attn['f32_max_abs_err']:.3g}")
     phase("launches", path="attention", **attn_launches)
     clocks("after the attention path")
+
+    # 4j. LM decode, the Server loop and the ten architectures
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    lm_launches = lm_path(device)
+    if not lm_launches.get("flash_attention"):
+        raise AssertionError("flash_attention never launched on the LM "
+                             "path")
+    phase("lm-path", seconds=f"{time.perf_counter() - t0:.1f}",
+          max_mem_gb=f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f}")
+    phase("launches", path="lm", **lm_launches)
+    clocks("after the LM path")
     top = sorted(attn["profile"].items(), key=lambda kv: -kv[1])[:8]
     phase("profile", name="prefill",
           total_ms=f"{sum(attn['profile'].values()):.2f}",
@@ -3674,12 +4115,15 @@ def main(argv=None) -> int:
     for hd in (None, 256, 320, 512):
         for dt in ("bfloat16", "float32", "float16"):
             width = padded_width(hd or cfg.resolved_head_dim)
+            main_rec = hd is None and dt == "bfloat16"
             rec = flash_record(
                 cfg, PREFILL_BATCH, args.attn_seq, device, dt,
-                attn_launches["flash_attention"] if hd is None
-                and dt == "bfloat16" else edge.get((dt, width), 0),
+                attn_launches["flash_attention"]
+                + lm_launches["flash_attention"] if main_rec
+                else edge.get((dt, width), 0),
                 args.reps, head_dim=hd)
-            if hd is None and dt == "bfloat16":
+            if main_rec:
+                rec["lm_launches"] = lm_launches["flash_attention"]
                 records.append(rec)
             else:
                 extra.append(dict(rec, name=f"flash_attention("
@@ -3688,7 +4132,8 @@ def main(argv=None) -> int:
     clocks("after the flash timing")
     for r in records:
         for key in ("executor_launches", "runtime_launches",
-                    "serving_launches", "autosched_launches"):
+                    "serving_launches", "autosched_launches",
+                    "lm_launches"):
             r.setdefault(key, 0)
     for r in records + [dict(ttv, name="spmv_csr_rows(spttv)")] + extra:
         phase("kernel", name=r["name"], max_abs_err=f"{r['max_abs_err']:.3g}",
@@ -3696,6 +4141,7 @@ def main(argv=None) -> int:
               runtime_launches=r.get("runtime_launches", 0),
               serving_launches=r.get("serving_launches", 0),
               autosched_launches=r.get("autosched_launches", 0),
+              lm_launches=r.get("lm_launches", 0),
               ms=f"{r['ms']:.4f}", bound_ms=f"{r['bound_ms']:.4f}",
               plain_ms=f"{r['plain_ms']:.3f}",
               library_ms=("null" if r["library_ms"] is None

@@ -1,4 +1,4 @@
-"""Architecture configs — one module per ported architecture."""
+"""Architecture configs — one module per architecture (``--arch <id>``)."""
 from .base import (ArchConfig, ShapeConfig, STANDARD_SHAPES, all_archs,
                    get_arch, register)
 

@@ -4,8 +4,8 @@ reference's ``configs/base.py``, which is plain data and imports no JAX).
 Every architecture is an :class:`ArchConfig` (one module per arch in this
 package). Shapes are the four standard input shapes; ``long_500k`` runs
 with block-sparse sliding-window attention for full-attention archs and
-natively for SSM/hybrid archs. The port registers the architectures whose
-family its ``models`` package runs (the dense family: llama3-8b).
+natively for SSM/hybrid archs. The port registers all ten architectures of
+the reference.
 """
 from __future__ import annotations
 
@@ -176,18 +176,19 @@ def register(cfg: ArchConfig) -> ArchConfig:
 
 
 def get_arch(name: str) -> ArchConfig:
-    if not _REGISTRY:
-        _load_all()
+    _load_all()
     return _REGISTRY[name]
 
 
 def all_archs() -> Dict[str, ArchConfig]:
-    if not _REGISTRY:
-        _load_all()
+    _load_all()
     return dict(_REGISTRY)
 
 
 def _load_all() -> None:
-    # the ported architectures only; the other families wait for their
-    # model code (ROADMAP Queue 1 item 7)
-    from . import llama3_8b  # noqa: F401
+    # every time: one config module imported on its own has registered
+    # only itself
+    from . import (internlm2_1_8b, llama3_8b, llama4_scout_17b_a16e,  # noqa
+                   llava_next_34b, olmoe_1b_7b, qwen3_14b,
+                   seamless_m4t_medium, starcoder2_15b, xlstm_125m,
+                   zamba2_7b)

@@ -5,7 +5,7 @@ view of ``repro_torch.runtime.telemetry.METRICS.snapshot()``.
 
 The dry-run roofline tables of the JAX package's ``launch/report.py``
 (``load``, ``table``, ``summary``) read the dry-run records, which wait for
-the LM stack (ROADMAP Queue 1 item 7).
+the dry-run (ROADMAP Queue 1 item 7e).
 """
 from __future__ import annotations
 

@@ -1,4 +1,11 @@
-"""The sparse-kernel serving fast path.
+"""Serving: the LM decode loop with continuous-batching slots, and the
+sparse-kernel serving fast path.
+
+:class:`Server` is the LM decode loop: fixed slots over one decode cache
+on one card, every step one ``LM.decode_step`` over all slots, the argmax
+taken on the card and one host sync a step. A queued request that takes a
+freed slot finds that slot fresh (position 0, SSM and xLSTM states zero),
+so its tokens do not depend on which request the slot served before.
 
 :class:`SparseKernelServer` is a request queue over ONE lowered sparse
 statement: the sparse operand (an attention band mask, an MoE dispatch
@@ -7,11 +14,14 @@ one bucketized batched SpMM (``core.lower.lower_batched``), so
 steady-state serving pays no plan, shard or runner rebuilding: one
 host-to-device copy of the stacked requests and one kernel launch a batch.
 
-The LM decode server of the JAX package (``Server``, ``main``) needs the
-LM decode step and waits for it (ROADMAP Queue 1 item 7).
+A small end-to-end run on the card (``--device cpu`` for the CPU)::
+
+    python -m repro_torch.launch.serve --arch internlm2-1.8b --reduced \
+        --requests 8 --max-new 32
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import time
 from collections import deque
@@ -20,7 +30,106 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..configs.base import ArchConfig, get_arch
+from ..core.device import resolve_device
+from ..models.model import LM
 from ..runtime import telemetry
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray           # (S,) integer token ids
+    max_new: int
+    out: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class Server:
+    """Fixed-slot continuous batching on ``device`` (None: the card): up to
+    ``slots`` concurrent requests share one decode cache of ``context``
+    positions (``window`` > 0: a ring buffer of that many); finished
+    requests free their slot for the queue.
+
+    The model is ``LM(cfg)`` unsharded, its weights ``params`` or, by
+    default, drawn from a ``torch.Generator`` seeded with 0 on the
+    device. ``cfg`` is served as given (``param_dtype="bfloat16"`` for bf16
+    weights). A prompt is fed one token a step through the decode step, as
+    the reference feeds it. ``step_ms`` holds each step's host-clock time,
+    from its tokens to its argmax on the host."""
+
+    def __init__(self, cfg: ArchConfig, *, slots: int = 8,
+                 context: int = 512, window: int = 0, device=None,
+                 params=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.lm = LM(cfg)
+        self.context = context
+        self.window = window
+        self.params = (params if params is not None else
+                       self.lm.init_params(
+                           torch.Generator(self.device).manual_seed(0),
+                           self.device))
+        self.cache = self.lm.init_cache(
+            slots, context, window=window,
+            src_len=cfg.frontend_tokens if cfg.is_encdec else 0,
+            device=self.device)
+        self.slots: List[Optional[Request]] = [None] * slots
+        self.pos = np.zeros(slots, np.int64)     # the cache's pos, on the host
+        self.step_ms: List[float] = []
+
+    def _take(self, i: int, r: Request) -> None:
+        """Slot ``i`` takes request ``r``, fresh."""
+        self.slots[i] = r
+        self.lm.reset_slot(self.cache, i)
+        self.pos[i] = 0
+
+    def _feed_tokens(self) -> np.ndarray:
+        toks = np.zeros(len(self.slots), np.int64)
+        for i, r in enumerate(self.slots):
+            if r is None or r.done:
+                continue
+            if self.pos[i] < len(r.prompt):
+                toks[i] = r.prompt[self.pos[i]]
+            elif r.out:
+                toks[i] = r.out[-1]
+        return toks
+
+    def run(self, requests: List[Request]) -> Dict[int, List[int]]:
+        queue = list(requests)
+        with torch.inference_mode():
+            while queue or any(r is not None and not r.done
+                               for r in self.slots):
+                for i, r in enumerate(self.slots):
+                    if (r is None or r.done) and queue:
+                        self._take(i, queue.pop(0))
+                t0 = time.perf_counter()
+                toks = torch.from_numpy(self._feed_tokens()).to(self.device)
+                logits, self.cache = self.lm.decode_step(
+                    self.params, self.cache, toks, window=self.window)
+                nxt = logits.argmax(-1).cpu().numpy()   # the step's one sync
+                self.step_ms.append((time.perf_counter() - t0) * 1e3)
+                self.pos += 1
+                for i, r in enumerate(self.slots):
+                    if r is None or r.done:
+                        continue
+                    if self.pos[i] >= len(r.prompt):     # generation phase
+                        r.out.append(int(nxt[i]))
+                        if len(r.out) >= r.max_new or \
+                                self.pos[i] >= self.context - 1:
+                            r.done = True
+        return {r.rid: r.out for r in requests}
+
+
+def draw_requests(vocab_size: int, n: int, max_new: int) -> List[Request]:
+    """``n`` requests with prompts of 4-16 token ids in [2, vocab_size),
+    drawn as the reference's ``main`` draws them (numpy seed 0)."""
+    rng = np.random.default_rng(0)
+    return [Request(rid=i,
+                    prompt=rng.integers(2, vocab_size, rng.integers(4, 17),
+                                        dtype=np.int32),
+                    max_new=max_new)
+            for i in range(n)]
 
 
 @dataclasses.dataclass
@@ -121,3 +230,33 @@ class SparseKernelServer:
             out["slo_ms"] = float(self.slo_ms)
             out["slo_attainment"] = float((lat <= self.slo_ms).mean())
         return out
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=32)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--context", type=int, default=256)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card)")
+    args = ap.parse_args(argv)
+
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    reqs = draw_requests(cfg.vocab_size, args.requests, args.max_new)
+    srv = Server(cfg, slots=args.slots, context=args.context,
+                 device=args.device)
+    t0 = time.time()
+    out = srv.run(reqs)
+    dt = time.time() - t0
+    total = sum(len(v) for v in out.values())
+    print(f"served {len(out)} requests, {total} tokens in {dt:.2f}s "
+          f"({total / dt:.1f} tok/s) on {srv.device}")
+
+
+if __name__ == "__main__":
+    main()

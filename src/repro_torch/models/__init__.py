@@ -1,5 +1,6 @@
-"""Model stack: LM assembly and the layers it is built from (the dense
-family, with causal GQA attention through the Hopper flash kernel)."""
+"""Model stack: LM assembly for the ten architectures and the layers it is
+built from (attention, with causal GQA through the Hopper flash kernel;
+the SSM, xLSTM and gated-linear-attention mixers; the MoE layer)."""
 from .layers import NO_SHARD, ShardCtx
 from .model import LM
 

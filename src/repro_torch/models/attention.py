@@ -12,7 +12,9 @@ Variants of :func:`attention_apply`, as the reference's:
 - ``auto``     — windowed if a window is set, chunked above 8192 positions,
                  else dense.
 
-:func:`attention_decode` is one decode step against a ring-buffer KV cache.
+:func:`attention_decode_` is one decode step against a ring-buffer KV cache,
+written in place (the reference's ``attention_decode`` returns new caches;
+``LM.decode_step`` owns its cache, so no copy is made).
 GQA throughout: query head h reads KV head h // G, and K/V are contracted
 in their native (B, S, Hkv, hd) layout, never repeated.
 """
@@ -227,14 +229,15 @@ def attention_apply(params, x: torch.Tensor, *, n_heads: int, n_kv: int,
 # Decode (single token, KV cache)
 # ---------------------------------------------------------------------------
 
-def attention_decode(params, x: torch.Tensor, cache_k: torch.Tensor,
-                     cache_v: torch.Tensor, pos: torch.Tensor, *,
-                     n_heads: int, n_kv: int, head_dim: int,
-                     rope_theta: float = 10000.0, window: int = 0,
-                     ctx: ShardCtx = NO_SHARD):
-    """One decode step. x: (B, 1, d); cache_[kv]: (B, Sc, Hkv, hd), the full
-    context or the ring-buffer window. Returns (y, new_cache_k,
-    new_cache_v); the caches passed in are left as they are.
+def attention_decode_(params, x: torch.Tensor, cache_k: torch.Tensor,
+                      cache_v: torch.Tensor, pos: torch.Tensor, *,
+                      n_heads: int, n_kv: int, head_dim: int,
+                      rope_theta: float = 10000.0, window: int = 0,
+                      ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
+    """One decode step that writes the new K/V into ``cache_k`` and
+    ``cache_v`` in place (they may be views into a larger cache) and
+    returns y. x: (B, 1, d); cache_[kv]: (B, Sc, Hkv, hd), the full context
+    or the ring-buffer window.
 
     The new KV goes to slot ``pos % Sc`` (the identity when Sc is the full
     context, a ring buffer when Sc is the window). Slots are valid once
@@ -248,18 +251,16 @@ def attention_decode(params, x: torch.Tensor, cache_k: torch.Tensor,
     k = apply_rope(k, cos, sin)
     slot = (pos % Sc).long()
     bidx = torch.arange(B, device=x.device)
-    cache_k = cache_k.clone()
-    cache_v = cache_v.clone()
     cache_k[bidx, slot] = k[:, 0].to(cache_k.dtype)
     cache_v[bidx, slot] = v[:, 0].to(cache_v.dtype)
-    cache_k = ctx.cs(cache_k, "batch", "seq", None, None)
-    cache_v = ctx.cs(cache_v, "batch", "seq", None, None)
+    ck = ctx.cs(cache_k, "batch", "seq", None, None)
+    cv = ctx.cs(cache_v, "batch", "seq", None, None)
     scale = head_dim ** -0.5
-    s = _gqa_scores(q, cache_k) * scale           # (B,K,G,1,S)
+    s = _gqa_scores(q, ck) * scale                # (B,K,G,1,S)
     kv_pos = torch.arange(Sc, device=x.device)
     valid = kv_pos[None, :] < torch.clamp(pos[:, None] + 1, max=Sc)
     s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
     w = softmax_fp32(s).to(q.dtype)
-    out = _gqa_av(w, cache_v)
+    out = _gqa_av(w, cv)
     y = out.reshape(B, 1, n_heads * head_dim) @ params["wo"].to(x.dtype)
-    return ctx.cs(y, "batch", None, None), cache_k, cache_v
+    return ctx.cs(y, "batch", None, None)

@@ -1,7 +1,7 @@
 """The port's attention stack against the JAX package on the same numpy
 inputs: the layers, the flash kernel's plain version against the Pallas
 kernel (interpret mode, as tests/test_flash_kernel.py runs it), every
-``attention_apply`` variant and ``attention_decode`` over a wrapped ring
+``attention_apply`` variant and ``attention_decode_`` over a wrapped ring
 buffer."""
 import jax
 import jax.numpy as jnp
@@ -213,7 +213,7 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(bad):
 
 
 # ---------------------------------------------------------------------------
-# attention_apply and attention_decode, at 1e-4 in f32
+# attention_apply and attention_decode_, at 1e-4 in f32
 # ---------------------------------------------------------------------------
 
 D, H, HKV, HD = 64, 4, 2, 16
@@ -280,8 +280,9 @@ def test_gqa_helpers_match_reference():
 @pytest.mark.parametrize("Sc", [8, 32], ids=["ring8", "full32"])
 def test_attention_decode_matches_reference(Sc, qk_norm):
     """Twelve decode steps with per-sequence positions; with an 8-slot cache
-    the ring buffer wraps. Output and both caches agree at every step, and
-    the caches passed in are left unchanged."""
+    the ring buffer wraps. ``attention_decode_`` writes the new K/V into the
+    caches passed in (copies of the last step's): output and both caches
+    agree with the reference's returned ones at every step."""
     rp, p = _attn_params(qk_norm, seed=1)
     rng = np.random.default_rng(6)
     B = 2
@@ -296,10 +297,8 @@ def test_attention_decode_matches_reference(Sc, qk_norm):
         x = _normal(rng, B, 1, D)
         want, rck, rcv = RA.attention_decode(rp, jnp.asarray(x), rck, rcv,
                                              jnp.asarray(pos), **kw)
-        before = tk.clone()
-        got, nk, nv = A.attention_decode(p, _t(x), tk, tv, _t(pos), **kw)
-        assert torch.equal(tk, before)
-        tk, tv = nk, nv
+        tk, tv = tk.clone(), tv.clone()
+        got = A.attention_decode_(p, _t(x), tk, tv, _t(pos), **kw)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
                                    rtol=1e-4)
         np.testing.assert_allclose(tk.numpy(), np.asarray(rck), atol=1e-5,

@@ -890,3 +890,69 @@ def test_autoscheduler_measures_on_card(card, fmt):
         PS.search = real
     assert warm.cache.tuned_hits == 1 and warm.cache.warm
     assert warm.tuned is w and torch.equal(warm.run(), got)
+
+
+def _to(tree, device):
+    """A nested dict / list of tensors, copied to ``device``."""
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "llama3-8b",
+                                  "llama4-scout-17b-a16e", "llava-next-34b",
+                                  "olmoe-1b-7b", "qwen3-14b",
+                                  "seamless-m4t-medium", "starcoder2-15b",
+                                  "xlstm-125m", "zamba2-7b"])
+def test_lm_on_card_matches_cpu(card, arch):
+    """Every family at reduced size in f32, the same weights on the card and
+    on the CPU: the flash prefill (the kernel on the card, its plain
+    version on the CPU) and four decode steps from an empty cache agree at
+    1e-4 (MoE capacity raised, so no routing tie decides a drop)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import LM
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32",
+                              moe_capacity_factor=16.0)
+    lm = LM(cfg)
+    cpu = lm.init_params(torch.Generator().manual_seed(0), "cpu")
+    gpu = _to(cpu, card)
+    gen = torch.Generator().manual_seed(1)
+    tok = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen)
+    fe = (torch.randn((2, cfg.frontend_tokens, cfg.d_model), generator=gen)
+          if cfg.frontend != "none" else None)
+    want, _ = lm.apply(cpu, tok, fe, variant="flash")
+    got, _ = lm.apply(gpu, tok.to(card), None if fe is None else fe.to(card),
+                      variant="flash")
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    src = cfg.frontend_tokens if cfg.is_encdec else 0
+    c_cpu = lm.init_cache(2, 8, src_len=src, device="cpu")
+    c_gpu = lm.init_cache(2, 8, src_len=src, device=card)
+    for s in range(4):
+        want, _ = lm.decode_step(cpu, c_cpu, tok[:, s])
+        got, _ = lm.decode_step(gpu, c_gpu, tok[:, s].to(card))
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    for k, t in c_gpu.items():
+        torch.testing.assert_close(t.cpu(), c_cpu[k], atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_server_on_card_repeats_and_keeps_the_fresh_slot_rule(card):
+    """The reduced llama3-8b in bf16 on the card, 2 slots and 5 requests:
+    a second run gives the same tokens, and each request the tokens it
+    gets alone in a fresh Server on the same weights."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import Server, draw_requests
+    cfg = dataclasses.replace(get_arch("llama3-8b").reduced(),
+                              param_dtype="bfloat16")
+    srv = Server(cfg, slots=2, context=64, device=card)
+    first = srv.run(draw_requests(cfg.vocab_size, 5, 6))
+    assert srv.run(draw_requests(cfg.vocab_size, 5, 6)) == first
+    for r in draw_requests(cfg.vocab_size, 5, 6):
+        alone = Server(cfg, slots=2, context=64, device=card,
+                       params=srv.params)
+        assert alone.run([r]) == {r.rid: first[r.rid]}

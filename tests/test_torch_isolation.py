@@ -57,6 +57,10 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.launch.serve\n"
         "import repro_torch.models.sparse_attention\n"
         "import repro_torch.models.moe\n"
+        "import repro_torch.models.model, repro_torch.models.gla\n"
+        "import repro_torch.models.ssm, repro_torch.models.xlstm\n"
+        "import repro_torch.configs.base as cb\n"
+        "assert len(cb.all_archs()) == 10\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")

@@ -1,8 +1,9 @@
 """The port's LM (dense family) against the JAX package's on the same
-weights: the configs, the weight converter, ``LM.apply`` under the dense,
-chunked and flash variants (with and without ``last_only``) and ``loss``,
-at 1e-4 in f32; the port's own flash against dense at the reference test's
-1e-3; and the families the port does not run yet."""
+weights: the configs of all ten architectures, the weight converter,
+``LM.apply`` under the dense, chunked and flash variants (with and without
+``last_only``) and ``loss``, at 1e-4 in f32; and the port's own flash
+against dense at the reference test's 1e-3. The other families are
+tests/test_torch_archs.py's."""
 import dataclasses
 import functools
 import sys
@@ -63,16 +64,22 @@ def _tokens(vocab, B=2, S=128, seed=1):
 # ---------------------------------------------------------------------------
 
 def test_configs_match_reference():
-    cfg, ref = get_arch("llama3-8b"), rcfg.get_arch("llama3-8b")
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
-    assert dataclasses.asdict(cfg.reduced()) == dataclasses.asdict(
-        ref.reduced())
-    assert cfg.vocab_padded() == ref.vocab_padded() == 128256
-    assert cfg.resolved_head_dim == 128
-    assert cfg.param_count() == ref.param_count()
-    assert {k: dataclasses.asdict(v) for k, v in cfg.shapes().items()} == {
-        k: dataclasses.asdict(v) for k, v in ref.shapes().items()}
-    assert set(all_archs()) == {"llama3-8b"}
+    assert set(all_archs()) == set(rcfg.all_archs())
+    assert len(all_archs()) == 10
+    for name in sorted(all_archs()):
+        cfg, ref = get_arch(name), rcfg.get_arch(name)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(ref), name
+        assert dataclasses.asdict(cfg.reduced()) == dataclasses.asdict(
+            ref.reduced()), name
+        assert cfg.vocab_padded() == ref.vocab_padded(), name
+        assert cfg.resolved_head_dim == ref.resolved_head_dim, name
+        assert cfg.param_count() == ref.param_count(), name
+        assert cfg.active_param_count() == ref.active_param_count(), name
+        assert {k: dataclasses.asdict(v) for k, v in cfg.shapes().items()} \
+            == {k: dataclasses.asdict(v) for k, v in ref.shapes().items()}
+    assert get_arch("llama3-8b").vocab_padded() == 128256
+    assert {c.family for c in all_archs().values()} == {
+        "dense", "moe", "ssm", "hybrid", "vlm", "audio"}
 
 
 @pytest.mark.parametrize("which", ["llama3-8b", "fl"])
@@ -190,28 +197,6 @@ def test_bf16_activations_follow_the_reference_dtype_rules():
     lg32, _ = lm32.apply(p, tok, variant="flash", last_only=True)
     assert lg16.dtype == torch.bfloat16
     torch.testing.assert_close(lg16.float(), lg32, atol=5e-2, rtol=5e-2)
-
-
-# ---------------------------------------------------------------------------
-# What the port does not run yet
-# ---------------------------------------------------------------------------
-
-NOT_DENSE = {
-    "moe": dict(family="moe", moe_experts=4, moe_topk=2),
-    "moe_interleaved": dict(family="moe", moe_experts=4, moe_topk=1,
-                            moe_every=2),
-    "ssm": dict(family="ssm", ssm_state=16),
-    "hybrid": dict(family="hybrid", ssm_state=16, hybrid_attn_every=2),
-    "xlstm": dict(family="ssm", xlstm_pattern=("m", "s")),
-    "encdec": dict(family="audio", encoder_layers=2),
-}
-
-
-@pytest.mark.parametrize("kind", sorted(NOT_DENSE))
-def test_other_families_raise(kind):
-    cfg = dataclasses.replace(ArchConfig(**FL), **NOT_DENSE[kind])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        LM(cfg)
 
 
 def test_models_package_exports():
