@@ -77,10 +77,10 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
              held at atol = rtol = 2e-5 in f32 and 3e-2 in bf16 (the
              reference test's) and 1e-2 in f16 (three more mantissa
              bits), and its position 0 must equal v[0].
-4. main    — ten paths (a-d, f, h, i, g, e, then j), each driven through the
-             public entry points with the kernel launch counts reset just
-             before and read just after; each of the path's kernels must
-             have launched.
+4. main    — eleven paths (a-d, f, h, i, g, e, j, then k), each driven
+             through the public entry points with the kernel launch counts
+             reset just before and read just after; each of the path's
+             kernels must have launched (path k's: none).
    a. ``powerlaw_matrix`` (n = m = 2^21, 16 entries per row on average,
       alpha 1.6, seed 0) in CSR on ``Machine(("x", 4))``: SpMV and SpMM
       (J = 32) under the rows and nnz strategies.
@@ -250,6 +250,39 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
       two is printed beside their bf16 forward's against the f32 one.
       One ``[lm]`` line each: weights, init s, prefill and decode-step ms
       (host clock), peak memory.
+   k. The training stack, after j (``train_path``): (1) the ``Trainer`` on
+      internlm2-1.8b at full width and depth (24 layers, d 2048, 16 heads,
+      8 KV heads, head_dim 128, d_ff 8192, vocab 92544; f32 params from
+      seed 0 on the card, bf16 activations, remat on), 8 steps of a global
+      batch of 8 x 4096 tokens (the reference's train_4k length) in 4
+      microbatches from ``Pipeline`` seed 0, the first 8 steps of a
+      10,000-step run at peak lr 3e-4 (a 200-step warm-up: lr 1.5e-6 to
+      1.2e-5), no checkpoint: one ``[train]`` line a step (loss,
+      gnorm, lr, step seconds on the host clock, one sync a step), then
+      ``[train-summary]`` (tokens/s over the steps after the first, the peak
+      memory, the GiB of parameters and moments). Checks: every loss and
+      gnorm finite, the last loss below the first, every attention call
+      ``dense`` (24 layers x 4 microbatches x 2 a step: the forward and
+      its recomputation) and no kernel of the kernels line launched. (2)
+      The f32 twin: internlm2-1.8b at full width and 2 layers, f32
+      activations, weights from seed 1 on the card; one ``loss_and_grads``
+      on 2 x 256 tokens on the card and on the host's CPU: the loss within
+      1e-5 relative, each leaf's gradient within 1e-3 relative Frobenius
+      (TF32 off); one ``adamw_update`` on each from the card's gradients:
+      new parameters and moments within 1e-6 (``[train-twin]``). (3) The
+      reduced config: a ``Trainer`` checkpointing every 2 steps under
+      ``build/train/`` runs 4 steps; a second ``Trainer`` on a copy
+      resumes at step 4 and draws the same next batch; both run 2 more
+      steps, losses within 1e-5 (``[train-restart]``; the directories
+      removed after). (4) One step of the reduced config in f32
+      activations on a (data=2, model=2) mesh of 4 gloo ranks sharing the
+      card, each holding only its planned blocks of the parameters and
+      moments, against the same step in this process (the Trainer's
+      schedule: lr 1.5e-6): loss, gnorm and the gathered first moments
+      within 1e-5 relative, the gathered new parameters within 1e-5, every
+      rank's local shapes its spec's blocks (``[train-mesh]``, with the
+      largest share of the whole state a rank holds). ``[train-path]``
+      gives the path's seconds.
    Every sparse cell is lowered cold and warm and run; its result is
    checked per entry against a float64 host computation on the numpy
    arrays (same tolerance form; a SpAdd3 union must have the host union's
@@ -2546,7 +2579,10 @@ def fill_cross(lm, params, cache, fe) -> None:
 
 
 def _rel(got, want) -> float:
-    return float((got.float() - want.float()).norm() / want.float().norm())
+    """Relative Frobenius error (the largest |got| where want is 0)."""
+    den = float(want.double().norm())
+    return float((got.double() - want.double()).norm()) / den if den else \
+        float(got.abs().max())
 
 
 def checked_flash_apply(lm, params, tokens, fe, label):
@@ -2850,6 +2886,467 @@ def lm_path(device, serve=SERVE,
         if device.type == "cuda":
             torch.cuda.empty_cache()
     return total
+
+
+# ---------------------------------------------------------------------------
+# Path 4k: the training stack
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "internlm2-1.8b"
+# the reference's train_4k length; a global batch of 8 in 4 microbatches;
+# the first 8 steps of a 10,000-step run at peak lr 3e-4 (the Trainer's
+# default schedule: a 200-step warm-up). Without a warm-up (total_steps 8)
+# the loss rose from 11.85 to 12.34 and gnorm to 104 (PERF.md §6).
+TRAIN = dict(seq=4096, batch=8, accum=4, steps=8, lr=3e-4,
+             total_steps=10000)
+TWIN = dict(layers=2, batch=2, seq=256)     # the f32 twin, full width
+TWIN_LOSS_RTOL, TWIN_GRAD_RTOL, TWIN_ADAMW_TOL = 1e-5, 1e-3, 1e-6
+RESTART = dict(seq=64, batch=8, accum=2, ckpt_every=2, first=4, more=2)
+# the Trainer's schedule: the first step's lr is 3e-4 / 200 = 1.5e-6, so an
+# AdamW step near lr * sign(g) that flips where |g| is near 0 (up to 2 lr)
+# stays inside TRAIN_TOL; the first moments (the reduced gradient) are held
+# too. At lr 1e-3 a flip moved a parameter by 1.6e-5 (PERF.md §6).
+MESH_TRAIN = dict(shape=(2, 2), seq=32, batch=8, accum=2, lr=3e-4)
+TRAIN_TOL = 1e-5     # (3)'s losses and (4)'s against one process
+TRAIN_DIR = ROOT / "build" / "train"
+
+
+def _train_shape(seq: int, batch: int, accum: int):
+    from repro_torch.configs import ShapeConfig
+    return ShapeConfig("train", "train", seq_len=seq, global_batch=batch,
+                       grad_accum=accum)
+
+
+def _state_bytes(tr) -> int:
+    from repro_torch.tree import leaves
+    return sum(x.numel() * x.element_size()
+               for x in leaves((tr.params, tr.opt.mu, tr.opt.nu)))
+
+
+def _count_calls(module, names):
+    """Wrap ``module``'s functions ``names`` so each call adds one to its
+    count; returns the counts and a function that undoes the wrapping."""
+    counts = dict.fromkeys(names, 0)
+    orig = {n: getattr(module, n) for n in names}
+
+    def wrap(n):
+        def counted(*a, **k):
+            counts[n] += 1
+            return orig[n](*a, **k)
+        return counted
+    for n in names:
+        setattr(module, n, wrap(n))
+    return counts, lambda: [setattr(module, n, f) for n, f in orig.items()]
+
+
+def train_full(cfg, device, seq: int, batch: int, accum: int, steps: int,
+               lr: float, total_steps: int):
+    """(1) The ``Trainer`` on ``cfg`` (remat on, f32 params, bf16
+    activations), ``steps`` steps of ``batch`` x ``seq`` tokens in
+    ``accum`` microbatches from ``Pipeline`` seed 0 on the schedule of
+    ``total_steps`` at peak ``lr``, no checkpoint. One
+    ``[train]`` line a step. Checks: finite losses and gnorms, the last
+    loss below the first, every attention call ``dense`` (the layers times
+    the microbatches, twice a step under remat: the forward and its
+    recomputation) and no kernel of the kernel table launched."""
+    import math
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models import attention as A
+    from repro_torch.tree import leaves
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)        # the context, made if new
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, _train_shape(seq, batch, accum), peak_lr=lr,
+                 total_steps=total_steps, device=device)
+    init_s = time.perf_counter() - t0
+    counts, undo = _count_calls(A, ("_dense_attention",
+                                    "_chunked_attention",
+                                    "_windowed_attention", "flash_attention"))
+    _build.reset_launches()
+    try:
+        tr.run(steps, log_every=steps + 1)
+    finally:
+        undo()
+        tr.pipeline.close()
+    launched = {k: n for k, n in _build.LAUNCHES.items() if n}
+    log = tr.metrics_log
+    for rec in log:
+        phase("train", step=rec["step"], loss=f"{rec['loss']:.6f}",
+              gnorm=f"{rec['gnorm']:.6f}", lr=f"{rec['lr']:.6g}",
+              step_s=f"{rec['seconds']:.3f}")
+    losses = [r["loss"] for r in log]
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["gnorm"])
+               for r in log):
+        raise AssertionError(f"train: a loss or gnorm is not finite: {log}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: the last loss {losses[-1]} is not "
+                             f"below the first {losses[0]}")
+    per_step = (2 if cfg.remat else 1) * cfg.n_layers * tr.accum
+    if counts != {"_dense_attention": per_step * steps,
+                  "_chunked_attention": 0, "_windowed_attention": 0,
+                  "flash_attention": 0}:
+        raise AssertionError(f"train: attention calls {counts}, want "
+                             f"{per_step * steps} dense")
+    if launched:
+        raise AssertionError(f"train: kernels launched on the training "
+                             f"path: {launched}")
+    later = sorted(r["seconds"] for r in log[1:]) or [log[0]["seconds"]]
+    med = later[len(later) // 2]
+    rec = {"init_s": init_s, "step_s_median": med,
+           "first_step_s": log[0]["seconds"],
+           "tokens_per_s": batch * seq / med,
+           "max_mem": (torch.cuda.max_memory_allocated(device)
+                       if device.type == "cuda" else 0),
+           "state_bytes": _state_bytes(tr), "losses": losses,
+           "attention_calls": counts["_dense_attention"],
+           "params": sum(x.numel() for x in leaves(tr.params))}
+    del tr
+    return rec
+
+
+def train_twin(cfg, device, seq: int, batch: int):
+    """(2) The f32 twin: ``cfg`` in f32 activations, one ``loss_and_grads``
+    on ``batch`` x ``seq`` tokens (``Pipeline`` seed 0) from the same
+    weights (seed 1, drawn on the card and copied) on the card and on the
+    host's CPU: the loss within TWIN_LOSS_RTOL, each leaf's gradient
+    within TWIN_GRAD_RTOL (relative Frobenius; TF32 off). Then one
+    ``adamw_update`` on the card and on the CPU from the card's gradients:
+    the new parameters and moments within TWIN_ADAMW_TOL."""
+    import dataclasses
+    import torch
+    from repro_torch.data.pipeline import DataConfig, TokenSource
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import LM
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.tree import leaves, tree_map
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    shape = _train_shape(seq, batch, 1)
+    tok = TokenSource(DataConfig(cfg.vocab_size, seq, batch)).batch_at(0)
+    gen = torch.Generator(device).manual_seed(SEED + 1)
+    params = LM(cfg).init_params(gen, device)
+    host = tree_map(lambda p: p.detach().cpu(), params)
+    out = {}
+    for dev, p in ((device, params), (torch.device("cpu"), host)):
+        lm = S.build_lm(cfg, make_smoke_mesh(dev))
+        lg = S.make_loss_and_grads(lm, shape)
+        t0 = time.perf_counter()
+        loss, g = lg(p, torch.from_numpy(tok["tokens"]).to(dev))
+        _sync(dev)
+        out[dev.type] = (float(loss), g, time.perf_counter() - t0)
+    (l_card, g_card, s_card), (l_cpu, g_cpu, s_cpu) = out[device.type], \
+        out["cpu"]
+    grad_err = max(_rel(a.cpu(), b)
+                   for a, b in zip(leaves(g_card), leaves(g_cpu)))
+    loss_err = abs(l_card - l_cpu) / abs(l_cpu)
+    if loss_err > TWIN_LOSS_RTOL or grad_err > TWIN_GRAD_RTOL:
+        raise AssertionError(f"twin: loss {l_card} vs {l_cpu} ({loss_err:.3g}"
+                             f"), gradient {grad_err:.3g}")
+    g_host = tree_map(lambda g: g.cpu(), g_card)
+    new = []
+    for p, g in ((params, g_card), (host, g_host)):
+        opt = adamw_init(p)
+        p2, opt2, gn = adamw_update(p, g, opt, lr=TRAIN["lr"])
+        new.append([x.cpu() for x in leaves((p2, opt2.mu, opt2.nu))])
+    adamw_err = max(float((a - b).abs().max())
+                    for a, b in zip(*new))
+    if adamw_err > TWIN_ADAMW_TOL:
+        raise AssertionError(f"twin: adamw_update on the card vs the CPU "
+                             f"{adamw_err:.3g}")
+    return {"loss": l_card, "loss_rel": loss_err, "grad_rel": grad_err,
+            "adamw_abs": adamw_err, "card_s": s_card, "cpu_s": s_cpu}
+
+
+def train_restart(cfg, device, seq: int, batch: int, accum: int,
+                  ckpt_every: int, first: int, more: int,
+                  root: Path = TRAIN_DIR):
+    """(3) A ``Trainer`` with ``ckpt_every`` runs ``first`` steps into a
+    checkpoint directory under ``root``; a second ``Trainer`` on a copy of
+    it resumes at step ``first`` and draws the same next batch; both then
+    run ``more`` steps, whose losses must agree within TRAIN_TOL. The
+    directory goes after."""
+    import shutil
+    import numpy as np
+    from repro_torch.launch.train import Trainer
+    shape = _train_shape(seq, batch, accum)
+    a, b = root / "restart_a", root / "restart_b"
+    for d in (a, b):
+        shutil.rmtree(d, ignore_errors=True)
+    try:
+        tr = Trainer(cfg, shape, ckpt_dir=str(a), ckpt_every=ckpt_every,
+                     device=device)
+        tr.run(first, log_every=first + more + 1)
+        shutil.copytree(a, b)
+        tr2 = Trainer(cfg, shape, ckpt_dir=str(b), ckpt_every=ckpt_every,
+                      device=device)
+        if tr2.step != first:
+            raise AssertionError(f"restart: resumed at {tr2.step}, not "
+                                 f"{first}")
+        cursor = tr.pipeline.cursor()
+        b1, b2 = next(tr.pipeline), next(tr2.pipeline)
+        if not np.array_equal(b1["tokens"], b2["tokens"]):
+            raise AssertionError("restart: the next batches differ")
+        tr.pipeline.restore(cursor)
+        tr2.pipeline.restore(cursor)
+        tr.run(first + more, log_every=first + more + 1)
+        tr2.run(first + more, log_every=first + more + 1)
+        got = [r["loss"] for r in tr2.metrics_log]
+        want = [r["loss"] for r in tr.metrics_log[first:]]
+        err = max(abs(x - y) / abs(y) for x, y in zip(got, want))
+        if len(got) != more or err > TRAIN_TOL:
+            raise AssertionError(f"restart: losses {got} vs {want}")
+        tr.pipeline.close()
+        tr2.pipeline.close()
+    finally:
+        for d in (a, b):
+            shutil.rmtree(d, ignore_errors=True)
+    return {"resumed_at": first, "losses": got, "loss_rel": err}
+
+
+def train_mesh_rank(rank: int, world: int, store: str, out_dir: str,
+                    arch: str, mesh_shape, device: str, seq: int,
+                    batch: int, accum: int, lr: float) -> None:
+    """One rank of (4): the reduced ``arch`` in f32 activations on a
+    (data, model) mesh of ``mesh_shape`` over gloo; the whole parameters
+    from seed 0 on the rank's device, of which it keeps only its planned
+    blocks; one train step on ``Pipeline`` seed 0's first batch. Writes
+    ``rank<r>.json`` (its loss, gnorm, whether every local shape is its
+    spec's block and the bytes it holds) and, on rank 0, the gathered new
+    parameters and first moments; exits non-zero on any failure."""
+    import dataclasses
+    import datetime
+    import os
+    import traceback
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    status = {"rank": rank, "ok": False}
+    try:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        from repro_torch.configs import get_arch
+        from repro_torch.data.pipeline import DataConfig, TokenSource
+        from repro_torch.distributed import mesh as M, planner
+        from repro_torch.launch import steps as S
+        from repro_torch.models import LM
+        from repro_torch.optim import adamw_init
+        from repro_torch.tree import leaves
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=120))
+        mesh = M.make_mesh(mesh_shape, ("data", "model"), backend="gloo",
+                           device=device)
+        cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
+        gen = torch.Generator(mesh.device).manual_seed(SEED)
+        whole = LM(cfg).init_params(gen, mesh.device)
+        specs = planner.params_pspecs(whole, mesh)
+        params = planner.place(whole, specs, mesh)
+        want = [tuple(x[planner.block_of(x.shape, sp, mesh)].shape)
+                for x, sp in zip(leaves(whole),
+                                 leaves(specs, is_leaf=planner.is_spec))]
+        whole_bytes = sum(x.numel() * 4 for x in leaves(whole))
+        del whole
+        fn, _ = S.make_train_step(S.build_lm(cfg, mesh),
+                                  _train_shape(seq, batch, accum), mesh,
+                                  peak_lr=lr, param_specs=specs)
+        opt = adamw_init(params)
+        tok = TokenSource(DataConfig(cfg.vocab_size, seq, batch)).batch_at(0)
+        new_p, new_opt, m = fn(params, opt, torch.from_numpy(
+            tok["tokens"]).to(mesh.device))
+        local = [tuple(x.shape) for x in leaves(new_p)]
+        held = sum(x.numel() * 4 for x in leaves((new_p, new_opt.mu,
+                                                 new_opt.nu)))
+        gathered = leaves(planner.gather(new_p, specs, mesh)) + leaves(
+            planner.gather(new_opt.mu, specs, mesh))
+        if rank == 0:
+            np.savez(os.path.join(out_dir, "mesh.npz"),
+                     *[x.cpu().numpy() for x in gathered])
+        status.update(ok=True, loss=float(m["loss"]),
+                      gnorm=float(m["gnorm"]), shapes_ok=local == want,
+                      held_bytes=held, whole_bytes=3 * whole_bytes)
+    except Exception:
+        status["error"] = traceback.format_exc()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump(status, fh)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    if not status["ok"]:
+        sys.exit(1)
+
+
+def spawn_group(target, world: int, out_dir: Path, args, label: str,
+                timeout: float):
+    """Spawn ``world`` ranks of ``target(rank, world, store, out_dir,
+    *args)`` (start method spawn: the card is already initialised here) on
+    a FileStore in ``out_dir`` and wait for them within ``timeout``.
+    Raises, naming the ranks, if any rank fails, hangs or returns nothing;
+    returns their statuses (``rank<r>.json``)."""
+    import torch.multiprocessing as mp
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for old in out_dir.iterdir():
+        old.unlink()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(
+        r, world, str(out_dir / "store"), str(out_dir)) + tuple(args))
+        for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.is_alive() for p in procs):
+            if (any(p.exitcode not in (None, 0) for p in procs)
+                    or time.monotonic() > deadline):
+                break
+            time.sleep(0.1)
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(30)
+    statuses, bad = [], []
+    for r, p in enumerate(procs):
+        path = out_dir / f"rank{r}.json"
+        st = (json.loads(path.read_text()) if path.exists() else
+              {"rank": r, "ok": False,
+               "error": f"no result (exit code {p.exitcode})"})
+        statuses.append(st)
+        if not st["ok"] or p.exitcode != 0:
+            bad.append(st)
+    if bad or hung:
+        raise AssertionError(
+            f"{label}: the {world}-rank group failed; ranks still running "
+            f"at the end: {hung}; "
+            + "; ".join(f"rank {st['rank']}: {st.get('error', '')[-2000:]}"
+                        for st in bad))
+    return statuses
+
+
+def train_mesh(arch: str, device, shape=MESH_TRAIN["shape"],
+               seq: int = MESH_TRAIN["seq"], batch: int = MESH_TRAIN["batch"],
+               accum: int = MESH_TRAIN["accum"], lr: float = MESH_TRAIN["lr"],
+               root: Path = TRAIN_DIR):
+    """(4) One train step of the reduced ``arch`` (f32 activations) on a
+    (data, model) mesh of ``shape`` in that many gloo ranks on ``device``
+    (:func:`train_mesh_rank`), against the same step in this process on
+    one piece: the loss, the gnorm and each gathered first moment (the
+    reduced gradient, relative Frobenius) within TRAIN_TOL relative, the
+    gathered new parameters within TRAIN_TOL absolute, every rank's local
+    shapes its spec's blocks."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, TokenSource
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import LM
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import leaves
+    world = int(np.prod(shape))
+    out = root / f"mesh{world}"
+    t0 = time.perf_counter()
+    statuses = spawn_group(train_mesh_rank, world, out,
+                           (arch, tuple(shape), str(device), seq, batch,
+                            accum, lr), "train mesh", SPMD_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
+    mesh = make_smoke_mesh(device)
+    gen = torch.Generator(device).manual_seed(SEED)
+    params = LM(cfg).init_params(gen, device)
+    fn, _ = S.make_train_step(S.build_lm(cfg, mesh),
+                              _train_shape(seq, batch, accum), mesh,
+                              peak_lr=lr)
+    tok = TokenSource(DataConfig(cfg.vocab_size, seq, batch)).batch_at(0)
+    new_p, new_opt, m = fn(params, adamw_init(params),
+                           torch.from_numpy(tok["tokens"]).to(device))
+    got = np.load(out / "mesh.npz")
+    n = len(leaves(new_p))
+    param_err = max(float(np.abs(got[f"arr_{i}"] - x.cpu().numpy()).max())
+                    for i, x in enumerate(leaves(new_p)))
+    mu_err = max(_rel(torch.from_numpy(got[f"arr_{n + i}"]),
+                                x.cpu())
+                 for i, x in enumerate(leaves(new_opt.mu)))
+    loss, gnorm = float(m["loss"]), float(m["gnorm"])
+    loss_err = max(abs(s["loss"] - loss) / abs(loss) for s in statuses)
+    gnorm_err = max(abs(s["gnorm"] - gnorm) / abs(gnorm) for s in statuses)
+    if not all(s["shapes_ok"] for s in statuses):
+        raise AssertionError("train mesh: a rank's local shapes are not its "
+                             "spec's blocks")
+    if max(loss_err, gnorm_err, mu_err, param_err) > TRAIN_TOL:
+        raise AssertionError(f"train mesh: loss {loss_err:.3g}, gnorm "
+                             f"{gnorm_err:.3g}, moments {mu_err:.3g}, "
+                             f"params {param_err:.3g} from the one-process "
+                             f"step")
+    for d in out.iterdir():
+        d.unlink()
+    out.rmdir()
+    return {"world": world, "loss": loss, "loss_rel": loss_err,
+            "gnorm_rel": gnorm_err, "mu_rel": mu_err, "param_abs": param_err,
+            "held_fraction": max(s["held_bytes"] / s["whole_bytes"]
+                                 for s in statuses), "ranks_s": ranks_s}
+
+
+def train_path(device, train=TRAIN, twin=TWIN, restart=RESTART,
+               mesh=MESH_TRAIN, reduce=None, root: Path = TRAIN_DIR):
+    """Path 4k: (1) the Trainer on internlm2-1.8b at full width and depth;
+    (2) the f32 twin at full width and ``twin["layers"]`` layers, card
+    against CPU; (3) a restart of the reduced config from its checkpoint;
+    (4) one step of the reduced config on a (2, 2) mesh of gloo ranks
+    against the one-process step. ``reduce`` (a config -> config map)
+    shrinks (1) and (2) for a rehearsal on the CPU; (3) and (4) write
+    under ``root``. Prints the path's lines; returns its records."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    t_path = time.perf_counter()
+    cfg = get_arch(TRAIN_ARCH)
+    full = reduce(cfg) if reduce else cfg
+    rec = train_full(full, device, **train)
+    phase("train-summary", arch=TRAIN_ARCH, layers=full.n_layers,
+          d_model=full.d_model, vocab=full.vocab_size, remat=full.remat,
+          params=rec["params"], seq=train["seq"], batch=train["batch"],
+          accum=train["accum"], steps=train["steps"],
+          first_loss=f"{rec['losses'][0]:.6f}",
+          last_loss=f"{rec['losses'][-1]:.6f}",
+          first_step_s=f"{rec['first_step_s']:.3f}",
+          step_s_median=f"{rec['step_s_median']:.3f}",
+          tokens_per_s=f"{rec['tokens_per_s']:.1f}",
+          max_mem_gb=f"{rec['max_mem'] / 2**30:.2f}",
+          state_gb=f"{rec['state_bytes'] / 2**30:.2f}",
+          init_s=f"{rec['init_s']:.2f}",
+          dense_attention_calls=rec["attention_calls"], kernels_launched=0)
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    tw_cfg = dataclasses.replace(cfg, n_layers=twin["layers"])
+    tw = train_twin(reduce(tw_cfg) if reduce else tw_cfg, device,
+                    twin["seq"], twin["batch"])
+    phase("train-twin", layers=twin["layers"], batch=twin["batch"],
+          seq=twin["seq"], loss=f"{tw['loss']:.6f}",
+          loss_rel=f"{tw['loss_rel']:.3g}", grad_rel=f"{tw['grad_rel']:.3g}",
+          adamw_abs=f"{tw['adamw_abs']:.3g}", card_s=f"{tw['card_s']:.3f}",
+          cpu_s=f"{tw['cpu_s']:.3f}")
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    rs = train_restart(cfg.reduced(), device, root=root, **restart)
+    phase("train-restart", resumed_at=rs["resumed_at"],
+          losses=",".join(f"{x:.6f}" for x in rs["losses"]),
+          loss_rel=f"{rs['loss_rel']:.3g}", same_next_batch=True)
+    ms = train_mesh(TRAIN_ARCH, device, root=root, **mesh)
+    phase("train-mesh", ranks=ms["world"], mesh="x".join(
+        map(str, mesh["shape"])), loss=f"{ms['loss']:.6f}",
+          loss_rel=f"{ms['loss_rel']:.3g}", gnorm_rel=f"{ms['gnorm_rel']:.3g}",
+          moments_rel=f"{ms['mu_rel']:.3g}",
+          param_abs=f"{ms['param_abs']:.3g}",
+          held_fraction=f"{ms['held_fraction']:.3f}",
+          ranks_s=f"{ms['ranks_s']:.1f}")
+    phase("train-path", seconds=f"{time.perf_counter() - t_path:.1f}")
+    return {"full": rec, "twin": tw, "restart": rs, "mesh": ms}
 
 
 def sparse_paths(args, device):
@@ -3698,8 +4195,8 @@ def _spmd_cell(stmts, cell, device):
     return L.lower(stmts[expr], machine, schedule=sched, device=device)
 
 
-def spmd_rank(rank: int, world: int, store: str, cells, reps: int,
-              out_dir: str, device: str, spmd_dir: str) -> None:
+def spmd_rank(rank: int, world: int, store: str, out_dir: str, cells,
+              reps: int, device: str, spmd_dir: str) -> None:
     """One rank of path 4g: lower each cell itself, call ``to_spmd(k,
     mesh)()`` 1 + ``reps`` times (the first call's result checked, all
     timed on the host clock, the launches and collective bytes counted
@@ -3840,50 +4337,12 @@ def spmd_rank(rank: int, world: int, store: str, cells, reps: int,
 
 
 def run_rank_group(world: int, cells, reps: int, device, spmd_dir: Path):
-    """Spawn ``world`` ranks of :func:`spmd_rank` (start method spawn: the
-    card is already initialised here) on a FileStore under ``spmd_dir``,
-    and wait for them within ``SPMD_TIMEOUT_S``. Raises, naming the ranks,
-    if any rank fails, hangs or returns nothing; returns their statuses."""
-    import torch.multiprocessing as mp
-    out_dir = spmd_dir / f"ranks{world}"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    for old in out_dir.iterdir():
-        old.unlink()
-    ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=spmd_rank, args=(
-        r, world, str(out_dir / "store"), cells, reps, str(out_dir),
-        str(device), str(spmd_dir))) for r in range(world)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + SPMD_TIMEOUT_S
-    try:
-        while any(p.is_alive() for p in procs):
-            if (any(p.exitcode not in (None, 0) for p in procs)
-                    or time.monotonic() > deadline):
-                break
-            time.sleep(0.1)
-        hung = [r for r, p in enumerate(procs) if p.is_alive()]
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-            p.join(30)
-    statuses, bad = [], []
-    for r, p in enumerate(procs):
-        path = out_dir / f"rank{r}.json"
-        st = (json.loads(path.read_text()) if path.exists() else
-              {"rank": r, "ok": False,
-               "error": f"no result (exit code {p.exitcode})"})
-        statuses.append(st)
-        if not st["ok"] or p.exitcode != 0:
-            bad.append(st)
-    if bad or hung:
-        raise AssertionError(
-            f"path 4g: the {world}-rank group failed; ranks still running "
-            f"at the end: {hung}; "
-            + "; ".join(f"rank {st['rank']}: {st.get('error', '')[-2000:]}"
-                        for st in bad))
-    return statuses
+    """Spawn ``world`` ranks of :func:`spmd_rank` on a FileStore under
+    ``spmd_dir`` (:func:`spawn_group`, within ``SPMD_TIMEOUT_S``); returns
+    their statuses."""
+    return spawn_group(spmd_rank, world, spmd_dir / f"ranks{world}",
+                       (cells, reps, str(device), str(spmd_dir)), "path 4g",
+                       SPMD_TIMEOUT_S)
 
 
 def spmd_parent(device, reps: int, spmd_dir: Path) -> None:
@@ -4097,6 +4556,18 @@ def main(argv=None) -> int:
           max_mem_gb=f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f}")
     phase("launches", path="lm", **lm_launches)
     clocks("after the LM path")
+
+    # 4k. the training stack, on a card freed of path 4j's models
+    gc.collect()
+    torch.cuda.empty_cache()
+    _build.reset_launches()
+    train_path(device)
+    launched = {k: n for k, n in _build.LAUNCHES.items() if n}
+    if launched:
+        raise AssertionError(f"kernels launched on the training path: "
+                             f"{launched}")
+    phase("launches", path="train", **_build.LAUNCHES)
+    clocks("after the training path")
     top = sorted(attn["profile"].items(), key=lambda kv: -kv[1])[:8]
     phase("profile", name="prefill",
           total_ms=f"{sum(attn['profile'].values()):.2f}",

@@ -8,7 +8,10 @@ its plain PyTorch version beside it.
 ``repro/kernels/flash_attention.py::flash_attention``; the source note says
 what bounds it on the card and what its design does about that. The
 wrapper runs the plain version only when its inputs lie on the CPU; on a
-CUDA tensor it launches the kernel or raises.
+CUDA tensor it launches the kernel or raises. Neither takes a gradient
+through the wrapper (it refuses autograd, as the reference's kernel has no
+backward); :func:`flash_attention_plain` called directly stays
+differentiable.
 """
 from __future__ import annotations
 
@@ -73,7 +76,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     cores (``mma.sync``), 64 rows a block (64 / G positions), 16 rows a
     warp; f32 on the CUDA cores, 256 / max(1, hd / 32) rows a block. Above
     256, a block owns 128 of the output's columns and recomputes the
-    full-width scores."""
+    full-width scores.
+
+    The kernel has no gradient, as the reference's Pallas kernel has none
+    (no ``custom_vjp``; ``jax.grad`` through it fails): with autograd
+    recording and any of q, k, v requiring grad it raises, on both
+    devices, rather than return a result the backward would not reach.
+    Training takes the ``dense``, ``chunked`` or ``windowed`` attention."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention has no gradient: the reference's Pallas kernel "
+            "defines none, so the model cannot train through it; training "
+            "takes the 'dense', 'chunked' or 'windowed' attention variant")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
             or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3] \
             or k.shape[2] == 0 or q.shape[2] % k.shape[2]:

@@ -27,23 +27,59 @@ class ShardCtx:
 
     ``batch`` names the mesh axes the batch dim is sharded over, ``model``
     the tensor-parallel axis, ``seq`` the sequence-sharding axis, ``dp`` the
-    data-parallel degree. With ``active=False`` (one device) every
-    constraint is a no-op; the sharded form waits for the planner."""
+    data-parallel degree (the MoE layer's dispatch groups), ``axis_names``
+    the mesh's axes. With ``active=False`` (no mesh) every constraint is a
+    no-op.
+
+    An active context's :meth:`cs` is the reference's
+    ``with_sharding_constraint``, a layout hint that changes no value: the
+    port's activations are rank-local (``distributed/planner.py``), so it
+    checks the constraint as JAX does (one entry per dim, axes the mesh
+    has; JAX accepts a dim that does not divide by its axes' size, padding
+    it) and returns ``x`` itself."""
 
     batch: Tuple[str, ...] = ()
     model: Optional[str] = None
     seq: Optional[str] = None
     active: bool = False
     dp: int = 1
+    axis_names: Tuple[str, ...] = ()
+
+    def spec(self, *axes) -> Tuple:
+        """The placement of logical axis names ('batch' | 'model' | 'seq' |
+        None per dim): one entry per dim, as the reference's
+        ``PartitionSpec``."""
+        out = []
+        for a in axes:
+            if a == "batch":
+                # a one-name tuple is the name, as PartitionSpec has it
+                b = tuple(self.batch)
+                out.append(None if not b else b[0] if len(b) == 1 else b)
+            elif a == "model":
+                out.append(self.model)
+            elif a == "seq":
+                out.append(self.seq)
+            else:
+                out.append(None)
+        return tuple(out)
 
     def cs(self, x: torch.Tensor, *axes) -> torch.Tensor:
         """Constrain ``x`` to a placement built from logical axis names
         ('batch' | 'model' | 'seq' | None per dim)."""
         if not self.active:
             return x
-        raise NotImplementedError(
-            "sharding constraints (an active ShardCtx) wait for the "
-            "planner's DTensor placements: ROADMAP Queue 1 item 7")
+        sp = self.spec(*axes)
+        if len(sp) != x.dim():
+            raise ValueError(f"sharding constraint {sp} has {len(sp)} "
+                             f"entries for a tensor of rank {x.dim()}")
+        if self.axis_names:
+            for e in sp:
+                for a in ((e,) if isinstance(e, str) else e or ()):
+                    if a not in self.axis_names:
+                        raise ValueError(
+                            f"axis {a!r} of {sp} is not found in the mesh "
+                            f"{self.axis_names}")
+        return x
 
 
 NO_SHARD = ShardCtx()

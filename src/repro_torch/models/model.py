@@ -21,16 +21,22 @@ Python loop walks:
 - ``xlstm``: ``{"m0", "ln0", "s1", "ln1", ...}`` after the pattern.
 
 So the reference's weights carry over key for key (:mod:`.convert`).
-Activation rematerialization is a training concern and does not apply.
+Under ``cfg.remat`` each group's body runs under
+``torch.utils.checkpoint`` (non-reentrant) while autograd records, its
+activations recomputed in the backward, as the reference wraps its scan
+body in ``jax.checkpoint``; the encoder and the hybrid tail are not
+wrapped, as in the reference.
 
 The decode cache has the reference's keys, shapes and dtypes (stacked on
 the group axis); :meth:`LM.decode_step` writes it in place.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.device import resolve_device
@@ -331,11 +337,17 @@ class LM:
 
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         shared = params.get("shared_attn")
+        remat = cfg.remat and torch.is_grad_enabled()
         for g, gp in enumerate(params["blocks"]):
-            x, a = self._apply_group(
-                gp, x, window=window, variant=variant, enc_out=enc_out,
+            body = functools.partial(
+                self._apply_group, gp, window=window, variant=variant,
+                enc_out=enc_out,
                 cross=params["cross"][g] if cfg.is_encdec else None,
                 shared=shared)
+            if remat:
+                x, a = checkpoint(body, x, use_reentrant=False)
+            else:
+                x, a = body(x)
             aux = aux + a
         for lp in params.get("tail", ()):
             x = self._ssm_layer(lp, x)

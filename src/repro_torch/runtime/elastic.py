@@ -15,8 +15,8 @@ re-lowers with per-piece shard reuse, and resumes to produce bit for bit
 the unfaulted result. The accumulator stays on the kernel's device; only
 checkpoints copy it to the host.
 
-The LM half of the reference (``reshard_state``) places parameters with the
-parameter planner and waits for it (ROADMAP Queue 1 item 7).
+:func:`reshard_state` is the LM half: a host-restored training state placed
+on a new mesh with freshly planned specs (``distributed/planner.py``).
 """
 from __future__ import annotations
 
@@ -27,6 +27,22 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..distributed import planner
+
+
+def reshard_state(host_state: Dict[str, Any], params_like, mesh):
+    """Place a host-restored {params, opt, ...} state onto ``mesh`` with
+    freshly planned specs (the elastic-restart path): each rank keeps its
+    blocks of the whole arrays, on the mesh's device. ``params_like`` is
+    any tree with the whole parameters' shapes."""
+    p_spec = planner.params_pspecs(params_like, mesh)
+    out = dict(host_state)
+    out["params"] = planner.place(host_state["params"], p_spec, mesh)
+    if "opt" in host_state:
+        o_spec = planner.opt_pspecs(host_state["opt"], params_like, mesh)
+        out["opt"] = planner.place(host_state["opt"], o_spec, mesh)
+    return out
 
 
 def valid_resize(global_batch: int, new_dp: int) -> bool:

@@ -105,10 +105,16 @@ def test_initializers_draw_from_the_generator():
 
 
 def test_shard_ctx_is_a_no_op_until_active():
+    """Inactive, a constraint is not even checked; active, it is the
+    reference's layout hint: checked as JAX checks it (one entry per dim),
+    and the same tensor comes back (tests/test_torch_train.py holds the
+    mesh's context against the reference's)."""
     x = torch.ones(2, 3)
-    assert L.NO_SHARD.cs(x, "batch", None) is x
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        L.ShardCtx(batch=("data",), active=True).cs(x, "batch", None)
+    assert L.NO_SHARD.cs(x, "batch") is x
+    active = L.ShardCtx(batch=("data",), active=True)
+    assert active.cs(x, "batch", None) is x
+    with pytest.raises(ValueError, match="rank"):
+        active.cs(x, "batch")
 
 
 # ---------------------------------------------------------------------------

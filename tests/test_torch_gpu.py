@@ -956,3 +956,67 @@ def test_server_on_card_repeats_and_keeps_the_fresh_slot_rule(card):
         alone = Server(cfg, slots=2, context=64, device=card,
                        params=srv.params)
         assert alone.run([r]) == {r.rid: first[r.rid]}
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_cpu(card):
+    """One reduced internlm2-1.8b ``make_train_step`` step (f32
+    activations, TF32 off, 2 microbatches) on the card against the same
+    step on the CPU from the same weights and tokens: loss and gnorm at
+    1e-4, every first moment (the clipped mean gradient) at a relative
+    Frobenius error <= 1e-4, the new parameters within 4 lr (AdamW's first
+    step is near lr * sign(g)); no kernel launches."""
+    import dataclasses
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.data.pipeline import DataConfig, TokenSource
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import LM
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import leaves, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch("internlm2-1.8b").reduced(),
+                              dtype="float32")
+    shape = ShapeConfig("t", "train", seq_len=32, global_batch=4,
+                        grad_accum=2)
+    lr = 1e-3
+    host = LM(cfg).init_params(torch.Generator().manual_seed(0), "cpu")
+    tok = torch.from_numpy(TokenSource(DataConfig(cfg.vocab_size, 32, 4))
+                           .batch_at(0)["tokens"])
+    before = dict(_build.LAUNCHES)
+    out = []
+    for dev in (card, torch.device("cpu")):
+        mesh = make_smoke_mesh(dev)
+        fn, _ = steps.make_train_step(steps.build_lm(cfg, mesh), shape,
+                                      mesh, peak_lr=lr, total_steps=10)
+        p = tree_map(lambda x: x.clone().to(dev), host)
+        new_p, opt, m = fn(p, adamw_init(p), tok.to(dev))
+        out.append((tree_map(lambda x: x.cpu(), (new_p, opt.mu)),
+                    {k: float(v) for k, v in m.items()}))
+    assert _build.LAUNCHES == before
+    ((p_card, mu_card), m_card), ((p_cpu, mu_cpu), m_cpu) = out
+    for k in ("loss", "gnorm", "lr"):
+        assert m_card[k] == pytest.approx(m_cpu[k], rel=1e-4), k
+    for a, b in zip(leaves(mu_card), leaves(mu_cpu)):
+        assert float((a - b).norm() / b.norm()) <= 1e-4
+    for a, b in zip(leaves(p_card), leaves(p_cpu)):
+        assert float((a - b).abs().max()) <= 4 * lr
+
+
+@pytest.mark.gpu
+def test_flash_attention_refuses_autograd_on_card(card):
+    """The kernel has no backward (nor has the reference's): CUDA tensors
+    that require grad raise before any launch; under no_grad it runs."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    q = torch.randn(1, 64, 4, 64, device=card, dtype=torch.bfloat16,
+                    requires_grad=True)
+    k = torch.randn(1, 64, 2, 64, device=card, dtype=torch.bfloat16)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        flash_attention(q, k, k)
+    assert _build.LAUNCHES == before
+    with torch.no_grad():
+        o = flash_attention(q, k, k)
+    assert o.shape == q.shape and not o.requires_grad
+    assert _build.LAUNCHES["flash_attention"] == \
+        before["flash_attention"] + 1

@@ -13,6 +13,7 @@ import torch
 import repro_torch.core as tc
 from repro_torch.core import plan_search
 from repro_torch.kernels import ops
+from repro_torch.tree import leaves
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -59,6 +60,11 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.models.moe\n"
         "import repro_torch.models.model, repro_torch.models.gla\n"
         "import repro_torch.models.ssm, repro_torch.models.xlstm\n"
+        "import repro_torch.optim, repro_torch.optim.adamw\n"
+        "import repro_torch.optim.schedules, repro_torch.optim.grad_compress\n"
+        "import repro_torch.data, repro_torch.data.pipeline\n"
+        "import repro_torch.launch.steps, repro_torch.launch.train\n"
+        "import repro_torch.launch.mesh, repro_torch.tree\n"
         "import repro_torch.configs.base as cb\n"
         "assert len(cb.all_archs()) == 10\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -95,6 +101,26 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
     k = tc.lower_stmt(stmt, tc.Machine(("x", 2)), device="cpu")
     assert k.device == torch.device("cpu")
     np.testing.assert_array_equal(k.run().numpy(), np.ones(4, np.float32))
+
+
+def test_training_entry_points_need_a_card_unless_asked_for_cpu(
+        monkeypatch):
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_smoke_mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_arch("internlm2-1.8b").reduced()
+    shape = ShapeConfig("t", "train", seq_len=8, global_batch=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_smoke_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.Trainer(cfg, shape)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "internlm2-1.8b", "--reduced", "--steps", "1"])
+    tr = train.Trainer(cfg, shape, device="cpu")
+    assert tr.device == torch.device("cpu")
+    assert all(x.device.type == "cpu" for x in leaves((tr.params, tr.opt)))
+    tr.pipeline.close()
 
 
 def test_chip_smoke_refuses_to_run_without_a_card_or_the_package(tmp_path):
