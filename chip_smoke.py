@@ -282,7 +282,26 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
       within 1e-5 relative, the gathered new parameters within 1e-5, every
       rank's local shapes its spec's blocks (``[train-mesh]``, with the
       largest share of the whole state a rank holds). ``[train-path]``
-      gives the path's seconds.
+      gives the path's seconds. The last of (1)'s steps runs under
+      ``FlopCounterMode`` and is left out of the median step time.
+   l. The dry-run and the examples, after k (``dryrun_path``): (a)
+      ``launch/dryrun.run_card_cell`` on ``meta`` for path 4k's train
+      step (internlm2-1.8b, 8 x 4096 in 4 microbatches, mesh (1, 1)) and
+      path 4e's flash prefill (llama3-8b, 2 x 4096): the predicted peak
+      beside the peak the path measured in this run above its base
+      (``max_memory_allocated`` less the bytes allocated before it), the
+      predicted FLOPs (the train step's must equal ``FlopCounterMode``'s
+      count over 4k's last step), the achieved TFLOP/s and the
+      model-FLOPs share (6·N·D or 2·N·D over the step time over 989
+      TFLOP/s) (``[dryrun-train]``, ``[dryrun-prefill]``); (b) the
+      dry-run CLI on this host for seamless-m4t-medium's four shapes on
+      pod256 in a process of its own, started before path 4k so that it
+      runs beside 4k's steps on the card, every cell ok, with its wall
+      seconds (``[dryrun-cli]``); (c) the six
+      examples of ``repro_torch.examples`` in this process with their own
+      asserts (train_e2e 100 steps of its 300), the launches of each
+      (``[example]``): quickstart, spmv_distributed and serve_batched must
+      launch a Hopper kernel. ``[dryrun-path]`` gives the path's seconds.
    Every sparse cell is lowered cold and warm and run; its result is
    checked per entry against a float64 host computation on the numpy
    arrays (same tolerance form; a SpAdd3 union must have the host union's
@@ -2368,6 +2387,8 @@ def run_attention(cfg, batch: int, seq: int, device, reps: int):
     from repro_torch.models import LM
     device = resolve_device(device)
     lm = LM(cfg)
+    base = (torch.cuda.memory_allocated(device) if device.type == "cuda"
+            else 0)
     t0 = time.perf_counter()
     params = lm.init_params(torch.Generator(device).manual_seed(SEED),
                             device)
@@ -2435,6 +2456,7 @@ def run_attention(cfg, batch: int, seq: int, device, reps: int):
     rec = {"init_s": init_s, "run_ms": run_ms, "runs": runs,
            "tokens_per_s": batch * seq / (run_ms / 1e3),
            "param_bytes": param_bytes, "max_mem": max_mem,
+           "base_mem": base,
            "bitwise": bitwise, "rel_frobenius": rel,
            "f32_max_abs_err": float(err.max()), "layers": cfg.n_layers,
            "profile": profile}
@@ -2948,16 +2970,21 @@ def train_full(cfg, device, seq: int, batch: int, accum: int, steps: int,
     ``[train]`` line a step. Checks: finite losses and gnorms, the last
     loss below the first, every attention call ``dense`` (the layers times
     the microbatches, twice a step under remat: the forward and its
-    recomputation) and no kernel of the kernel table launched."""
+    recomputation) and no kernel of the kernel table launched. The last
+    step runs under ``FlopCounterMode`` (its count is ``step_flops``) and
+    is left out of the median step time."""
     import math
     import torch
+    from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.kernels import _build
     from repro_torch.launch.train import Trainer
     from repro_torch.models import attention as A
     from repro_torch.tree import leaves
+    base = 0
     if device.type == "cuda":
         torch.cuda.synchronize(device)        # the context, made if new
         torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
     t0 = time.perf_counter()
     tr = Trainer(cfg, _train_shape(seq, batch, accum), peak_lr=lr,
                  total_steps=total_steps, device=device)
@@ -2967,7 +2994,11 @@ def train_full(cfg, device, seq: int, batch: int, accum: int, steps: int,
                                     "_windowed_attention", "flash_attention"))
     _build.reset_launches()
     try:
-        tr.run(steps, log_every=steps + 1)
+        tr.run(steps - 1, log_every=steps + 1)
+        # the last step's FLOPs as FlopCounterMode counts them (path 4l
+        # holds the dry-run's count to it); its time is left out below
+        with FlopCounterMode(display=False) as fc:
+            tr.run(steps, log_every=steps + 1)
     finally:
         undo()
         tr.pipeline.close()
@@ -2993,13 +3024,14 @@ def train_full(cfg, device, seq: int, batch: int, accum: int, steps: int,
     if launched:
         raise AssertionError(f"train: kernels launched on the training "
                              f"path: {launched}")
-    later = sorted(r["seconds"] for r in log[1:]) or [log[0]["seconds"]]
+    later = sorted(r["seconds"] for r in log[1:-1]) or [log[0]["seconds"]]
     med = later[len(later) // 2]
     rec = {"init_s": init_s, "step_s_median": med,
            "first_step_s": log[0]["seconds"],
            "tokens_per_s": batch * seq / med,
            "max_mem": (torch.cuda.max_memory_allocated(device)
                        if device.type == "cuda" else 0),
+           "base_mem": base, "step_flops": fc.get_total_flops(),
            "state_bytes": _state_bytes(tr), "losses": losses,
            "attention_calls": counts["_dense_attention"],
            "params": sum(x.numel() for x in leaves(tr.params))}
@@ -3114,7 +3146,8 @@ def train_mesh_rank(rank: int, world: int, store: str, out_dir: str,
     from seed 0 on the rank's device, of which it keeps only its planned
     blocks; one train step on ``Pipeline`` seed 0's first batch. Writes
     ``rank<r>.json`` (its loss, gnorm, whether every local shape is its
-    spec's block and the bytes it holds) and, on rank 0, the gathered new
+    spec's block, the bytes it holds and the step's collective bytes by
+    kind) and, on rank 0, the gathered new
     parameters and first moments; exits non-zero on any failure."""
     import dataclasses
     import datetime
@@ -3154,8 +3187,13 @@ def train_mesh_rank(rank: int, world: int, store: str, out_dir: str,
                                   peak_lr=lr, param_specs=specs)
         opt = adamw_init(params)
         tok = TokenSource(DataConfig(cfg.vocab_size, seq, batch)).batch_at(0)
+        from repro_torch.distributed import collectives as C
+        before = dict(C.TRAFFIC_BY_KIND), C.TRAFFIC["received"]
         new_p, new_opt, m = fn(params, opt, torch.from_numpy(
             tok["tokens"]).to(mesh.device))
+        traffic = {k: C.TRAFFIC_BY_KIND[k] - before[0][k]
+                   for k in C.COLLECTIVE_KINDS}
+        traffic["received"] = C.TRAFFIC["received"] - before[1]
         local = [tuple(x.shape) for x in leaves(new_p)]
         held = sum(x.numel() * 4 for x in leaves((new_p, new_opt.mu,
                                                  new_opt.nu)))
@@ -3166,7 +3204,8 @@ def train_mesh_rank(rank: int, world: int, store: str, out_dir: str,
                      *[x.cpu().numpy() for x in gathered])
         status.update(ok=True, loss=float(m["loss"]),
                       gnorm=float(m["gnorm"]), shapes_ok=local == want,
-                      held_bytes=held, whole_bytes=3 * whole_bytes)
+                      held_bytes=held, whole_bytes=3 * whole_bytes,
+                      traffic=traffic)
     except Exception:
         status["error"] = traceback.format_exc()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
@@ -3347,6 +3386,188 @@ def train_path(device, train=TRAIN, twin=TWIN, restart=RESTART,
           ranks_s=f"{ms['ranks_s']:.1f}")
     phase("train-path", seconds=f"{time.perf_counter() - t_path:.1f}")
     return {"full": rec, "twin": tw, "restart": rs, "mesh": ms}
+
+
+# ---------------------------------------------------------------------------
+# Path 4l: the dry-run beside the card's own steps, and the six examples
+# ---------------------------------------------------------------------------
+
+BF16_PEAK_FLOPS = 989e12        # H100 SXM, dense bf16, tensor cores
+DRYRUN_CLI_ARCH = "seamless-m4t-medium"  # (b): its four shapes on pod256
+DRYRUN_CLI_TIMEOUT_S = 300
+EXAMPLES = ("quickstart", "spmv_distributed", "moe_sparse_dispatch",
+            "long_context_block_sparse", "serve_batched", "train_e2e")
+#: examples that must launch a Hopper kernel on the card
+EXAMPLE_KERNELS = ("quickstart", "spmv_distributed", "serve_batched")
+#: train_e2e's default is 300 steps; 100 keep its loss check
+EXAMPLE_ARGS = {"train_e2e": ["--steps", "100"]}
+
+
+def _peak_fields(prefix: str, rec: dict, measured: int) -> dict:
+    """The predicted peak beside the measured one (GiB, their gap)."""
+    m = rec["memory"]
+    pred = (m["argument_bytes_per_dev"] + m["output_bytes_per_dev"]
+            + m["temp_bytes_per_dev"] - m["alias_bytes_per_dev"])
+    gap = f"{(pred - measured) / measured:+.3f}" if measured else "n/a"
+    return {f"{prefix}predicted_peak_gib": f"{pred / 2**30:.3f}",
+            f"{prefix}measured_peak_gib": f"{measured / 2**30:.3f}",
+            f"{prefix}peak_gap": gap}
+
+
+def _share(roofline: dict, step_s: float) -> float:
+    """The model-FLOPs share: model FLOPs over the step time over the bf16
+    peak."""
+    return roofline["model_flops_per_dev"] / step_s / BF16_PEAK_FLOPS
+
+
+def dryrun_cells(train_cfg, train: dict, train_rec: dict, prefill_cfg,
+                 batch: int, seq: int, attn_rec: dict) -> dict:
+    """(a) The dry-run's predictions of path 4k's train step and path 4e's
+    flash prefill (``dryrun.run_card_cell`` on ``meta``, mesh (1, 1)),
+    beside what the card showed in this run: the peak memory above the
+    path's base, and for the train step the FLOPs ``FlopCounterMode``
+    counted over its last step, which must equal the prediction. Prints
+    the achieved TFLOP/s and the model-FLOPs share (model FLOPs over the
+    step time over 989 TFLOP/s) of both."""
+    from repro_torch.launch import dryrun
+    out = {}
+    shape = dryrun.card_shape("train", train["seq"], train["batch"],
+                              train["accum"])
+    rec = dryrun.run_card_cell(TRAIN_ARCH, shape, cfg=train_cfg)
+    if rec["status"] != "ok":
+        raise AssertionError(f"dry-run {TRAIN_ARCH} {shape.name}: "
+                             f"{rec['error']}\n{rec['traceback']}")
+    rl = rec["roofline"]
+    if rl["flops_per_dev"] != train_rec["step_flops"]:
+        raise AssertionError(
+            f"dry-run FLOPs {rl['flops_per_dev']} of the train step differ "
+            f"from FlopCounterMode's {train_rec['step_flops']} on the card")
+    step_s = train_rec["step_s_median"]
+    phase("dryrun-train", arch=TRAIN_ARCH, cell=shape.name, mesh="1x1",
+          **_peak_fields("", rec, train_rec["max_mem"]
+                         - train_rec["base_mem"]),
+          predicted_flops=f"{rl['flops_per_dev']:.6e}",
+          counted_flops=f"{train_rec['step_flops']:.6e}", flops_equal=True,
+          model_flops=f"{rl['model_flops_per_dev']:.6e}",
+          step_s=f"{step_s:.3f}",
+          achieved_tflops=f"{rl['flops_per_dev'] / step_s / 1e12:.2f}",
+          model_flops_share=f"{_share(rl, step_s):.4f}",
+          bound_s=f"{rl['roofline_bound_s']:.3f}",
+          dominant=rl["dominant"], count_s=rec["count_s"])
+    out["train"] = rec
+    shape = dryrun.card_shape("prefill", seq, batch)
+    rec = dryrun.run_card_cell(ARCH, shape, variant="flash", cfg=prefill_cfg)
+    if rec["status"] != "ok":
+        raise AssertionError(f"dry-run {ARCH} {shape.name}: "
+                             f"{rec['error']}\n{rec['traceback']}")
+    rl = rec["roofline"]
+    step_s = attn_rec["run_ms"] / 1e3
+    phase("dryrun-prefill", arch=ARCH, cell=shape.name + "_flash",
+          mesh="1x1", layers=prefill_cfg.n_layers,
+          **_peak_fields("", rec, attn_rec["max_mem"] - attn_rec["base_mem"]),
+          predicted_flops=f"{rl['flops_per_dev']:.6e}",
+          model_flops=f"{rl['model_flops_per_dev']:.6e}",
+          step_s=f"{step_s:.4f}",
+          achieved_tflops=f"{rl['flops_per_dev'] / step_s / 1e12:.2f}",
+          model_flops_share=f"{_share(rl, step_s):.4f}",
+          bound_s=f"{rl['roofline_bound_s']:.4f}",
+          dominant=rl["dominant"], count_s=rec["count_s"])
+    out["prefill"] = rec
+    return out
+
+
+def dryrun_cli_start(arch: str = DRYRUN_CLI_ARCH):
+    """(b) Start ``python -m repro_torch.launch.dryrun --arch <arch>
+    --shape all`` (pod256) in a process of its own on this host, to run
+    beside path 4k's steps on the card; :func:`dryrun_cli_finish` waits
+    for it in path 4l."""
+    import os
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                               else []))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", "all"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    return proc, arch, time.perf_counter()
+
+
+def dryrun_cli_finish(started, timeout: float = DRYRUN_CLI_TIMEOUT_S
+                      ) -> dict:
+    """Wait for (b) (killed past ``timeout`` seconds from its start): every
+    cell must be ``ok``. One ``[dryrun-cli]`` line with its wall seconds
+    and each cell's; returns its lines and wall seconds."""
+    proc, arch, t0 = started
+    try:
+        out, err = proc.communicate(
+            timeout=max(timeout - (time.perf_counter() - t0), 1))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"dry-run CLI: {arch} not done in {timeout} s")
+    wall = time.perf_counter() - t0
+    lines = [x for x in out.splitlines() if x.startswith("[")]
+    if proc.returncode or len(lines) != 4 or not all(
+            x.startswith("[ok]") for x in lines):
+        raise AssertionError(f"dry-run CLI: exit {proc.returncode}\n{out}"
+                             f"\n{err[-4000:]}")
+    phase("dryrun-cli", arch=arch, mesh="pod256", cells=len(lines),
+          wall_s=f"{wall:.1f}",
+          cells_s=",".join(x.split("wall=")[1].split("s ")[0]
+                           for x in lines),
+          peak_gib=",".join(x.split("mem/dev=")[1].rstrip("GiB")
+                            for x in lines))
+    return {"lines": lines, "wall_s": wall}
+
+
+def run_examples(device, names=EXAMPLES, extra=EXAMPLE_ARGS) -> dict:
+    """(c) The six examples in this process on ``device``, each with its
+    own asserts, the launch counts read around each; on the card
+    ``EXAMPLE_KERNELS`` must each launch a Hopper kernel. One ``[example]``
+    line each."""
+    import importlib
+    from repro_torch.kernels import _build
+    out = {}
+    for name in names:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        figures = mod.main(["--device", str(device)] + extra.get(name, []))
+        seconds = time.perf_counter() - t0
+        launched = {k: n for k, n in _build.LAUNCHES.items() if n}
+        if device.type == "cuda" and name in EXAMPLE_KERNELS and not launched:
+            raise AssertionError(f"example {name} launched no Hopper kernel")
+        phase("example", name=name, seconds=f"{seconds:.2f}",
+              args=" ".join(extra.get(name, [])) or "-",
+              launches=",".join(f"{k}:{n}" for k, n in sorted(
+                  launched.items())) or "none")
+        out[name] = {"figures": figures, "launches": launched,
+                     "seconds": seconds}
+    return out
+
+
+def dryrun_path(device, train_cfg, train: dict, train_rec: dict,
+                prefill_cfg, batch: int, seq: int, attn_rec: dict,
+                cli=None, names=EXAMPLES, extra=EXAMPLE_ARGS) -> dict:
+    """Path 4l: (a) :func:`dryrun_cells`, (c) :func:`run_examples`, then
+    (b), the dry-run CLI, which the caller started beforehand
+    (:func:`dryrun_cli_start`, ``cli``; None: no (b)) to run on the host
+    beside path 4k's work on the card; ``[dryrun-path]`` gives the
+    path's seconds."""
+    t0 = time.perf_counter()
+    try:
+        cells = dryrun_cells(train_cfg, train, train_rec, prefill_cfg,
+                             batch, seq, attn_rec)
+        ex = run_examples(device, names, extra)
+    except BaseException:
+        if cli:
+            cli[0].kill()
+            cli[0].communicate()
+        raise
+    cli = dryrun_cli_finish(cli) if cli else None
+    phase("dryrun-path", seconds=f"{time.perf_counter() - t0:.1f}")
+    return {"cells": cells, "cli": cli, "examples": ex}
 
 
 def sparse_paths(args, device):
@@ -4561,13 +4782,28 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     _build.reset_launches()
-    train_path(device)
+    # 4l (b), the dry-run CLI, runs on the host beside 4k's steps
+    cli = dryrun_cli_start()
+    try:
+        trained = train_path(device)
+    except BaseException:
+        cli[0].kill()
+        cli[0].communicate()
+        raise
     launched = {k: n for k, n in _build.LAUNCHES.items() if n}
     if launched:
         raise AssertionError(f"kernels launched on the training path: "
                              f"{launched}")
     phase("launches", path="train", **_build.LAUNCHES)
     clocks("after the training path")
+
+    # 4l. the dry-run beside paths 4k and 4e, its CLI, the six examples
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.configs import get_arch
+    dryrun_path(device, get_arch(TRAIN_ARCH), TRAIN, trained["full"], cfg,
+                PREFILL_BATCH, args.attn_seq, attn, cli=cli)
+    clocks("after the dry-run path")
     top = sorted(attn["profile"].items(), key=lambda kv: -kv[1])[:8]
     phase("profile", name="prefill",
           total_ms=f"{sum(attn['profile'].values()):.2f}",

@@ -4,7 +4,8 @@ The reference's generators (``repro/data/spdata.py``), deterministic in
 ``seed``: the same seed gives the same matrix in both packages, entry for
 entry. Stand-ins for the paper's datasets (Table II), matched on the
 structural property that drives its results: skewed row degrees
-(power-law, like web graphs such as arabic-2005), skewed slice sizes
+(power-law, like web graphs such as arabic-2005), banded PDE matrices
+(nlpkkt240; the weak-scaling matrix of Fig. 13), skewed slice sizes
 (FROSTT-like 3-tensors such as nell-2) and uniform random.
 """
 from __future__ import annotations
@@ -40,6 +41,20 @@ def powerlaw_matrix(name: str, n: int, m: int, avg_nnz_per_row: int = 16,
     cols = rng.integers(0, m, size=rows.shape[0])
     vals = rng.standard_normal(rows.shape[0]).astype(np.float32)
     return Tensor.from_coo(name, (n, m),
+                           np.stack([rows, cols], 1), vals, F.CSR())
+
+
+def banded_matrix(name: str, n: int, bandwidth: int = 5,
+                  seed: int = 0) -> Tensor:
+    """The weak-scaling matrix of paper Fig. 13 (synthetic banded)."""
+    rng = np.random.default_rng(seed)
+    offs = np.arange(-bandwidth, bandwidth + 1)
+    rows = np.repeat(np.arange(n, dtype=np.int64), offs.shape[0])
+    cols = rows + np.tile(offs, n)
+    keep = (cols >= 0) & (cols < n)
+    rows, cols = rows[keep], cols[keep]
+    vals = rng.standard_normal(rows.shape[0]).astype(np.float32)
+    return Tensor.from_coo(name, (n, n),
                            np.stack([rows, cols], 1), vals, F.CSR())
 
 

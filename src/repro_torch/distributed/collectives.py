@@ -22,7 +22,16 @@ received one copied back. :func:`staged_ops` lists what a mesh stages.
 received (a gather of b bytes over W ranks sends and receives
 b·(W − 1)), the host seconds its blocking gathers took, from the moment
 their input was ready on the device, and the calls it staged through the
-host; callers read it around a call.
+host; ``TRAFFIC_BY_KIND`` splits the received bytes by what the gather
+was for (``all-gather``: a replication, ``reduce``: a reduction,
+``permute``: a ring shift). Callers read them around a call.
+
+**A layout mesh gathers on ``meta``.** On a mesh with no process group
+(``launch.mesh.make_production_mesh``: axes and shape only), a gather
+over an axis of W > 1 ranks returns the W parts a real gather would, as
+``meta`` tensors of ``x``'s shape, and counts the bytes the real gather
+would move; no process group is touched. So one rank's step runs
+unchanged on ``meta`` and its collective bytes are the dry-run's.
 
 :func:`prefetch` and :func:`wait` are the double buffer of
 ``executor.run_overlapped``: a host-to-device copy from pinned memory on
@@ -47,6 +56,8 @@ HOST_STAGED = frozenset({("gloo", "p2p")})
 
 TRAFFIC: Dict[str, float] = {"sent": 0, "received": 0, "seconds": 0.0,
                               "staged": 0}
+COLLECTIVE_KINDS = ("all-gather", "reduce", "permute")
+TRAFFIC_BY_KIND: Dict[str, float] = dict.fromkeys(COLLECTIVE_KINDS, 0)
 
 
 def staged_ops(mesh: Mesh) -> Tuple[str, ...]:
@@ -56,20 +67,29 @@ def staged_ops(mesh: Mesh) -> Tuple[str, ...]:
     return tuple(sorted(op for b, op in HOST_STAGED if b == mesh.backend))
 
 
-def _count(nbytes: int, peers: int) -> None:
+def _count(nbytes: int, peers: int, kind: str) -> None:
     TRAFFIC["sent"] += nbytes * peers
     TRAFFIC["received"] += nbytes * peers
+    TRAFFIC_BY_KIND[kind] += nbytes * peers
 
 
 def gather_parts(x: torch.Tensor, mesh: Mesh, axis,
-                 async_op: bool = False):
+                 async_op: bool = False, kind: str = "all-gather"):
     """Every rank's ``x`` along ``axis``, in group-rank order (a list of
     tensors shaped like ``x``). With ``async_op`` returns ``(work, parts)``;
     the parts are valid after ``work.wait()`` (``work`` is None for a
-    one-rank axis)."""
+    one-rank axis and on a layout mesh). ``kind`` names the bytes in
+    ``TRAFFIC_BY_KIND``."""
     g, members = mesh.group(axis)
     if g is None:
-        return (None, [x]) if async_op else [x]
+        w = mesh.axis_extent(axis)
+        if w == 1:
+            return (None, [x]) if async_op else [x]
+        # a layout mesh: the parts a real gather returns, on meta
+        parts = [torch.empty(x.shape, dtype=x.dtype, device="meta")
+                 for _ in range(w)]
+        _count(x.numel() * x.element_size(), w - 1, kind)
+        return (None, parts) if async_op else parts
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in members]
     if not async_op and x.is_cuda:
@@ -80,7 +100,7 @@ def gather_parts(x: torch.Tensor, mesh: Mesh, axis,
     work = dist.all_gather(parts, x, group=g, async_op=async_op)
     if not async_op:
         TRAFFIC["seconds"] += time.perf_counter() - t0
-    _count(x.numel() * x.element_size(), len(members) - 1)
+    _count(x.numel() * x.element_size(), len(members) - 1, kind)
     return (work, parts) if async_op else parts
 
 
@@ -98,7 +118,7 @@ def replicate_all_gather(x: torch.Tensor, mesh: Mesh, axis) -> torch.Tensor:
 def reduce_rows(x: torch.Tensor, mesh: Mesh, axis) -> torch.Tensor:
     """Reduce overlapping output rows across shards (non-zero strategies):
     the sum over ``axis`` in piece order, on every rank."""
-    return sum_parts(gather_parts(x, mesh, axis))
+    return sum_parts(gather_parts(x, mesh, axis, kind="reduce"))
 
 
 def reduce_scatter_rows(x: torch.Tensor, mesh: Mesh, axis) -> torch.Tensor:
@@ -154,7 +174,7 @@ def ppermute_ring(x: torch.Tensor, mesh: Mesh, axis,
            dist.P2POp(dist.irecv, buf, members[(i - shift) % n], group=g)]
     for work in dist.batch_isend_irecv(ops):
         work.wait()
-    _count(x.numel() * x.element_size(), 1)
+    _count(x.numel() * x.element_size(), 1, "permute")
     return buf.to(x.device) if staged else buf
 
 

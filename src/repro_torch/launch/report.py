@@ -1,17 +1,92 @@
-"""Render telemetry snapshots as markdown (:func:`telemetry_table`): the
-view of ``repro_torch.runtime.telemetry.METRICS.snapshot()``.
+"""Aggregate the dry-run's records into the roofline table (:func:`table`,
+:func:`summary`), and render telemetry snapshots (:func:`telemetry_table`):
+the markdown view of ``repro_torch.runtime.telemetry.METRICS.snapshot()``.
 
+    python -m repro_torch.launch.report [pod256|pod512|card]
     python -m repro_torch.launch.report --telemetry SNAPSHOT.json
 
-The dry-run roofline tables of the JAX package's ``launch/report.py``
-(``load``, ``table``, ``summary``) read the dry-run records, which wait for
-the dry-run (ROADMAP Queue 1 item 7e).
+The records are the ones ``python -m repro_torch.launch.dryrun`` writes
+under ``experiments/dryrun_torch/``: predictions from the H100 SXM's
+datasheet figures (``launch/roofline.LM_HW``), not measurements.
 """
 from __future__ import annotations
 
 import json
 import sys
 from pathlib import Path
+
+OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
+
+ARCH_ORDER = ["llava-next-34b", "zamba2-7b", "xlstm-125m", "starcoder2-15b",
+              "llama3-8b", "internlm2-1.8b", "qwen3-14b", "olmoe-1b-7b",
+              "llama4-scout-17b-a16e", "seamless-m4t-medium"]
+SHAPE_ORDER = ["train_4k", "prefill_32k", "decode_32k", "long_500k"]
+
+
+def load(mesh="pod256"):
+    recs = {}
+    for f in OUT_DIR.glob(f"*_{mesh}.json"):
+        r = json.loads(f.read_text())
+        recs[(r["arch"], r["shape"])] = r
+    return recs
+
+
+def fmt_s(x):
+    if x >= 1:
+        return f"{x:.2f}s"
+    if x >= 1e-3:
+        return f"{x*1e3:.1f}ms"
+    return f"{x*1e6:.0f}us"
+
+
+def table(mesh="pod256") -> str:
+    recs = load(mesh)
+    rows = ["| arch | shape | compute | memory | collective | dominant | "
+            "bound | mem/dev | useful-FLOPs |",
+            "|---|---|---|---|---|---|---|---|---|"]
+    for a in ARCH_ORDER:
+        for s in SHAPE_ORDER:
+            r = recs.get((a, s))
+            if r is None:
+                rows.append(f"| {a} | {s} | - | - | - | MISSING | - | - | - |")
+                continue
+            if r["status"] != "ok":
+                rows.append(f"| {a} | {s} | - | - | - | "
+                            f"FAIL: {r.get('error','')[:40]} | - | - | - |")
+                continue
+            rl = r["roofline"]
+            rows.append(
+                f"| {a} | {s} | {fmt_s(rl['compute_s'])} | "
+                f"{fmt_s(rl['memory_s'])} | {fmt_s(rl['collective_s'])} | "
+                f"{rl['dominant'].replace('_s','')} | "
+                f"{fmt_s(rl['roofline_bound_s'])} | "
+                f"{r['memory']['peak_estimate_gib']:.2f}GiB | "
+                f"{rl.get('useful_flops_ratio', 0):.2f} |")
+    return "\n".join(rows)
+
+
+def summary(mesh="pod256"):
+    recs = load(mesh)
+    ok = [r for r in recs.values() if r["status"] == "ok"]
+    out = {
+        "cells_ok": len(ok), "cells_total": len(recs),
+        "over_16gib": sorted([(r["arch"], r["shape"],
+                               r["memory"]["peak_estimate_gib"])
+                              for r in ok
+                              if r["memory"]["peak_estimate_gib"] > 16],
+                             key=lambda t: -t[2]),
+        "most_collective_bound": sorted(
+            [(r["arch"], r["shape"],
+              r["roofline"]["collective_s"] /
+              max(r["roofline"]["roofline_bound_s"], 1e-12))
+             for r in ok], key=lambda t: -t[2])[:5],
+        "worst_compute_fraction": sorted(
+            [(r["arch"], r["shape"],
+              r["roofline"]["compute_fraction_at_bound"])
+             for r in ok if r["shape"] == "train_4k"],
+            key=lambda t: t[2])[:5],
+    }
+    return out
 
 
 def _fmt_bytes(n: float) -> str:
@@ -78,6 +153,7 @@ if __name__ == "__main__":
         payload = json.loads(Path(sys.argv[2]).read_text())
         print(telemetry_table(payload.get("telemetry", payload)))
         raise SystemExit(0)
-    print("usage: python -m repro_torch.launch.report --telemetry "
-          "SNAPSHOT.json", file=sys.stderr)
-    raise SystemExit(2)
+    mesh = sys.argv[1] if len(sys.argv) > 1 else "pod256"
+    print(table(mesh))
+    print()
+    print(json.dumps(summary(mesh), indent=2, default=str))

@@ -36,6 +36,7 @@ import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.overrides import TorchFunctionMode
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
@@ -56,6 +57,17 @@ def _noncausal(variant: str) -> str:
     attention: the flash kernel is causal self-attention only, so under
     ``flash`` they take ``auto`` (the reference raises there)."""
     return "auto" if variant == "flash" else variant
+
+
+class _FactoriesOnMeta(TorchFunctionMode):
+    """Every call that names a device makes its tensor on ``meta`` instead
+    (the inits name their generator's)."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if "device" in kwargs:
+            kwargs = dict(kwargs, device="meta")
+        return func(*args, **kwargs)
 
 
 class LM:
@@ -166,8 +178,19 @@ class LM:
         if generator.device.type != device.type:
             raise ValueError(f"the generator lives on {generator.device}, "
                              f"the parameters are meant for {device}")
+        return self._init_tree(generator, device)
+
+    def abstract_params(self) -> Dict[str, Any]:
+        """The parameter tree as ``meta`` tensors: shapes and dtypes only,
+        nothing allocated (the dry-run's stand-ins). There is no ``meta``
+        generator, so a CPU one draws, with every factory call sent to
+        ``meta``."""
+        with _FactoriesOnMeta():
+            return self._init_tree(torch.Generator(), torch.device("meta"))
+
+    def _init_tree(self, gen: torch.Generator,
+                   device: torch.device) -> Dict[str, Any]:
         cfg = self.cfg
-        gen = generator
         with torch.device(device):
             params: Dict[str, Any] = {
                 "embed": embed_init(gen, self.vp, cfg.d_model,

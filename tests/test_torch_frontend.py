@@ -270,6 +270,19 @@ def test_generators_match_reference(seed):
 
 
 @pytest.mark.parametrize("seed", [0, 3])
+def test_banded_matrix_matches_reference(seed):
+    """Entry for entry: the same band, CSR levels and values from the same
+    seed, the edges' rows cut short."""
+    for n, bw in ((200, 5), (37, 1), (9, 12)):
+        r = r_spdata.banded_matrix("B", n, bw, seed=seed)
+        t = t_spdata.banded_matrix("B", n, bw, seed=seed)
+        assert t.fingerprint() == r.fingerprint()
+        np.testing.assert_array_equal(t.coords(), r.coords())
+        np.testing.assert_array_equal(t.vals, r.vals)
+        assert t.nnz == r.nnz
+
+
+@pytest.mark.parametrize("seed", [0, 3])
 def test_powerlaw_tensor3_matches_reference(seed):
     """Entry for entry: the same CSF levels and values from the same seed."""
     r = r_spdata.powerlaw_tensor3("B", (300, 40, 50), avg_nnz_per_slice=6,

@@ -1020,3 +1020,31 @@ def test_flash_attention_refuses_autograd_on_card(card):
     assert o.shape == q.shape and not o.requires_grad
     assert _build.LAUNCHES["flash_attention"] == \
         before["flash_attention"] + 1
+
+
+@pytest.mark.gpu
+def test_dryrun_flops_equal_the_card_step(card):
+    """The ``meta`` FLOP count of a reduced train step (remat on, 2
+    microbatches) equals ``FlopCounterMode`` over the same step on the
+    card."""
+    import dataclasses
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.optim import adamw_init
+    cfg = dataclasses.replace(get_arch("internlm2-1.8b").reduced(),
+                              remat=True)
+    shape = ShapeConfig("t", "train", 64, 8, grad_accum=2)
+    meta = dryrun.count_step(cfg, shape, make_smoke_mesh("meta"))["flops"]
+    mesh = make_smoke_mesh(card)
+    lm = S.build_lm(cfg, mesh)
+    params = lm.init_params(torch.Generator(card).manual_seed(0), card)
+    fn, _ = S.make_train_step(lm, shape, mesh)
+    tokens = torch.randint(0, cfg.vocab_size, (8, 64), device=card,
+                           dtype=torch.int32)
+    with FlopCounterMode(display=False) as fc:
+        fn(params, adamw_init(params), tokens)
+    torch.cuda.synchronize(card)
+    assert fc.get_total_flops() == meta > 0

@@ -65,6 +65,13 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.data, repro_torch.data.pipeline\n"
         "import repro_torch.launch.steps, repro_torch.launch.train\n"
         "import repro_torch.launch.mesh, repro_torch.tree\n"
+        "import repro_torch.launch.dryrun\n"
+        "import repro_torch.examples.quickstart\n"
+        "import repro_torch.examples.spmv_distributed\n"
+        "import repro_torch.examples.moe_sparse_dispatch\n"
+        "import repro_torch.examples.long_context_block_sparse\n"
+        "import repro_torch.examples.serve_batched\n"
+        "import repro_torch.examples.train_e2e\n"
         "import repro_torch.configs.base as cb\n"
         "assert len(cb.all_archs()) == 10\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
