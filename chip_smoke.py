@@ -77,10 +77,22 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
              held at atol = rtol = 2e-5 in f32 and 3e-2 in bf16 (the
              reference test's) and 1e-2 in f16 (three more mantissa
              bits), and its position 0 must equal v[0].
+             Then the sLSTM scan (``slstm_fwd``, and ``slstm_bwd`` under
+             autograd) against the plain loop and autograd through it,
+             at 2 heads, in f32 and bf16 (``SLSTM_CASES``): S in {1, 2,
+             127} over B in {1, 3} and hd in {16, 64, 192, 256} (256's r
+             does not fit in shared memory), and S = 4096 at hd 192 (B 1
+             in f32, B 3 in bf16); a nonzero initial state
+             (without gradient at B = 1, as on the training path), |c|
+             crossing 1, one gate pre-activation in 200 above the clamp at
+             6. y and the final state at atol = rtol = 1e-4 in f32 and
+             3e-2 in bf16, each gradient at 1e-3 and 5e-2 relative
+             Frobenius (``[kernels-slstm]``: the worst of each).
 4. main    — eleven paths (a-d, f, h, i, g, e, j, then k), each driven
              through the public entry points with the kernel launch counts
              reset just before and read just after; each of the path's
-             kernels must have launched (path k's: none).
+             kernels must have launched (path k's: the sLSTM kernels of
+             its part 5 alone).
    a. ``powerlaw_matrix`` (n = m = 2^21, 16 entries per row on average,
       alpha 1.6, seed 0) in CSR on ``Machine(("x", 4))``: SpMV and SpMM
       (J = 32) under the rows and nnz strategies.
@@ -233,9 +245,12 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
       (seed 2); 8 decode steps from an empty cache, twice; two prefills
       and the two decodes must give the same bits, flash_attention must
       launch once per causal self-attention layer and prefill and nothing
-      else launch. Then, its launches not counted, one more flash prefill
-      over all positions with every flash_attention call held against the
-      plain version on the same q, k and v (FLASH_TOL, as phase 3), and
+      else launch (xlstm-125m: slstm_fwd once per sLSTM layer, 6, a
+      prefill and a decode step, and nothing else). Then, its launches not
+      counted, one more flash prefill over all positions with every
+      flash_attention call held against the plain version on the same q,
+      k and v (FLASH_TOL, as phase 3) and every sLSTM scan against the
+      plain loop on its own inputs (SLSTM_TOL), and
       its logits against ``variant="dense"`` on the same weights and
       tokens: relative Frobenius error <= 5e-2, or no more than 1.5 times
       the ``chunked`` variant's against dense (printed; zamba2-7b's depth
@@ -253,11 +268,11 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
    k. The training stack, after j (``train_path``): (1) the ``Trainer`` on
       internlm2-1.8b at full width and depth (24 layers, d 2048, 16 heads,
       8 KV heads, head_dim 128, d_ff 8192, vocab 92544; f32 params from
-      seed 0 on the card, bf16 activations, remat on), 8 steps of a global
+      seed 0 on the card, bf16 activations, remat on), 5 steps of a global
       batch of 8 x 4096 tokens (the reference's train_4k length) in 4
-      microbatches from ``Pipeline`` seed 0, the first 8 steps of a
+      microbatches from ``Pipeline`` seed 0, the first 5 steps of a
       10,000-step run at peak lr 3e-4 (a 200-step warm-up: lr 1.5e-6 to
-      1.2e-5), no checkpoint: one ``[train]`` line a step (loss,
+      7.5e-6), no checkpoint: one ``[train]`` line a step (loss,
       gnorm, lr, step seconds on the host clock, one sync a step), then
       ``[train-summary]`` (tokens/s over the steps after the first, the peak
       memory, the GiB of parameters and moments). Checks: every loss and
@@ -281,22 +296,38 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
       schedule: lr 1.5e-6): loss, gnorm and the gathered first moments
       within 1e-5 relative, the gathered new parameters within 1e-5, every
       rank's local shapes its spec's blocks (``[train-mesh]``, with the
-      largest share of the whole state a rank holds). ``[train-path]``
-      gives the path's seconds. The last of (1)'s steps runs under
+      largest share of the whole state a rank holds). (5) xlstm-125m at
+      full width and depth (12 layers, d 768, 4 heads of 192; f32 params,
+      bf16 activations, remat on) through the same Trainer at (1)'s shape,
+      the first 3 steps of a 30-step run (peak lr 3e-4 after a 3-step
+      warm-up): losses and gnorms finite, the first step's batch taken
+      again after the third below its first loss, slstm_fwd launched 6 x
+      4 x 2 times a step (forward and remat replay) and slstm_bwd 6 x 4
+      (``[train-xlstm]``, ``[train-xlstm-summary]``); its f32 twin at 2
+      layers as (2), but with the whole model's card-vs-CPU gradient gap
+      reported, not held (the kink of h at |c| = 1 makes it depend on the
+      devices' f32 ulps): the card's gradients through the kernels within
+      1e-3 of the card's through the plain loop, and each sLSTM scan's
+      gradients on the card within 1e-3 of the CPU's from the same inputs
+      (``[train-xlstm-twin]``, with the count of c across the kink).
+      ``[train-path]`` gives the path's seconds. The last step of (1) and of (5) runs under
       ``FlopCounterMode`` and is left out of the median step time.
    l. The dry-run and the examples, after k (``dryrun_path``): (a)
       ``launch/dryrun.run_card_cell`` on ``meta`` for path 4k's train
-      step (internlm2-1.8b, 8 x 4096 in 4 microbatches, mesh (1, 1)) and
-      path 4e's flash prefill (llama3-8b, 2 x 4096): the predicted peak
-      beside the peak the path measured in this run above its base
+      steps (internlm2-1.8b and xlstm-125m, 8 x 4096 in 4 microbatches,
+      mesh (1, 1); each counted by the CLI's ``--mesh card`` in a process
+      of its own, started before path 4j so that it runs beside 4j and
+      4k) and path 4e's flash prefill (llama3-8b, 2 x 4096): the
+      predicted peak beside the peak the path measured in this run above
+      its base
       (``max_memory_allocated`` less the bytes allocated before it), the
-      predicted FLOPs (the train step's must equal ``FlopCounterMode``'s
-      count over 4k's last step), the achieved TFLOP/s and the
+      predicted FLOPs (each train step's must equal ``FlopCounterMode``'s
+      count over its last step in 4k), the achieved TFLOP/s and the
       model-FLOPs share (6·N·D or 2·N·D over the step time over 989
       TFLOP/s) (``[dryrun-train]``, ``[dryrun-prefill]``); (b) the
-      dry-run CLI on this host for seamless-m4t-medium's four shapes on
-      pod256 in a process of its own, started before path 4k so that it
-      runs beside 4k's steps on the card, every cell ok, with its wall
+      dry-run CLI on this host for xlstm-125m's four shapes on pod256 in a
+      process of its own, started before path 4j so that it
+      runs beside 4j and 4k on the card, every cell ok, with its wall
       seconds (``[dryrun-cli]``); (c) the six
       examples of ``repro_torch.examples`` in this process with their own
       asserts (train_e2e 100 steps of its 300), the launches of each
@@ -333,6 +364,13 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
    (``torch.profiler``). The blocked kernels' yardsticks are
    ``torch.sparse`` BSR products and ``sampled_addmm`` over the
    scalarised block pattern.
+   The sLSTM kernels at path 4k's shape (xlstm-125m's layer over one
+   microbatch: B 2, S 4096, 4 heads of 192, bf16, the forward keeping its
+   states), each against its plain loop on the same inputs, their
+   launches those of paths j and k; the bound is the larger of the bytes
+   over 3.35 TB/s and the recurrent products' FLOPs over 67 TFLOP/s, and
+   ``serial_floor_ms`` beside it is S times one dependent step (a single
+   (b, head) chain over S); ``library_ms`` null (``[slstm-timing]``).
    flash_attention's launches in its record count paths e and j (j's
    alone as ``lm_launches``). It is timed at the model's layer shapes (q
    (2, 4096, 32, 128), k and v (2, 4096, 8, 128)) in bf16 (the record), f32 and
@@ -349,6 +387,7 @@ no result.
 from __future__ import annotations
 
 import argparse
+import atexit
 import gc
 import json
 import statistics
@@ -403,6 +442,11 @@ KERNELS = {
                    "src/repro/kernels/bcsr.py:160"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:82"),
+    # the sLSTM scan and its transpose: a lax.scan, no Pallas kernel
+    "slstm_fwd": ("src/repro_torch/kernels/csrc/slstm.cu",
+                  "none; src/repro/models/xlstm.py:145 slstm_apply"),
+    "slstm_bwd": ("src/repro_torch/kernels/csrc/slstm.cu",
+                  "none; src/repro/models/xlstm.py:145 slstm_apply"),
 }
 MATRIX_CELLS = (("spmv", "rows"), ("spmv", "nnz"), ("spmm", "rows"),
                 ("spmm", "nnz"))
@@ -529,6 +573,18 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _timed(fn):
+    """(fn(), its milliseconds by CUDA events): one call, no warm-up."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def time_events(fn, reps: int, warmup: int = 2) -> float:
     """Median milliseconds of ``reps`` calls, each timed by CUDA events."""
     import torch
@@ -580,7 +636,7 @@ def memory_rates(device) -> None:
 
 
 def time_host(fn, device, reps: int, warmup: int = 1,
-              budget_s: float = 20.0) -> float:
+              budget_s: float = 8.0) -> float:
     """Median milliseconds of up to ``reps`` calls on the host clock, each
     ending in a device synchronize; stops after ``budget_s`` seconds once 3
     calls are timed (a run() with host assembly takes seconds)."""
@@ -1340,6 +1396,115 @@ def compare_kernel(label, name, args, abs_args) -> float:
     return check_rows(label, got, want, scale)
 
 
+# the sLSTM scan's edge cases, (B, S, hd, dtype) at SLSTM_HEADS heads: S in
+# {1, 2, 127} over B in {1, 3}, every hd (192 is xlstm-125m's; 256's r
+# does not fit in shared memory and is read from L2) and both dtypes, then
+# S = 4096 at the model's hd, B 1 in f32 and B 3 in bf16
+SLSTM_HEADS = 2
+SLSTM_CASES = tuple((B, S, hd, dt) for S in (1, 2, 127) for B in (1, 3)
+                    for hd in (16, 64, 192, 256)
+                    for dt in ("float32", "bfloat16")) + (
+    (1, 4096, 192, "float32"), (3, 4096, 192, "bfloat16"))
+# y and the final (c, h): atol = rtol; each gradient: relative Frobenius
+SLSTM_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+SLSTM_GRAD_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
+SLSTM_INPUTS = ("zx", "ip", "fp", "op", "r", "c0", "h0")
+
+
+def slstm_inputs(rng, B: int, S: int, H: int, hd: int, dtype: str, device,
+                 grad: bool = True):
+    """The scan's inputs, standard normal from ``rng`` unless said: zx in
+    ``dtype``; ip with one entry in 200 raised above the clamp at 6; fp
+    centred on 1; r scaled by hd ** -0.5 (the model's init); a nonzero
+    initial state, c0 of scale 2 so that |c| crosses 1."""
+    import numpy as np
+    import torch
+    d = H * hd
+
+    def t(a, dt="float32"):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+            device=device, dtype=getattr(torch, dt)).requires_grad_(grad)
+    ip = rng.standard_normal((B, S, d))
+    hot = rng.random((B, S, d)) < 5e-3
+    ip[hot] = 6.0 + 3.0 * rng.random(int(hot.sum()))
+    return [t(rng.standard_normal((B, S, d)), dtype), t(ip),
+            t(rng.standard_normal((B, S, d)) + 1.0),
+            t(rng.standard_normal((B, S, d))),
+            t(rng.standard_normal((H, hd, hd)) * hd ** -0.5),
+            t(rng.standard_normal((B, d)) * 2.0),
+            t(rng.standard_normal((B, d)))]
+
+
+def slstm_check(label: str, ins, rng) -> dict:
+    """``slstm_scan`` on the card (``slstm_fwd``, then ``slstm_bwd`` under
+    autograd) against the plain loop on the same inputs and autograd
+    through it: y and the final (c, h) entry by entry at SLSTM_TOL of the
+    dtype (atol = rtol), the gradients of a random weighting of y, c and h
+    with respect to every input at SLSTM_GRAD_TOL (relative Frobenius).
+    Returns the worst of each."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import slstm as K
+    dt = str(ins[0].dtype).split(".")[-1]
+    tol = SLSTM_TOL[dt]
+    B, S, d = ins[0].shape
+    w = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+         .to(ins[0].device) for shape in ((B, S, d), (B, d), (B, d))]
+
+    need = [t for t in ins if t.requires_grad]
+
+    def run(fn):
+        y, c, h = fn(*ins)[:3]
+        loss = ((y.float() * w[0]).sum() + (c * w[1]).sum()
+                + (h * w[2]).sum())
+        return (y, c, h), torch.autograd.grad(loss, need)
+    got, g_got = run(K.slstm_scan)
+    want, g_want = run(K.slstm_scan_plain)
+    _sync(ins[0].device)
+    out = {}
+    for name, a, b in zip(("y", "c", "h"), got, want):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"{label}: {name} {tuple(a.shape)} "
+                                 f"{a.dtype}, want {tuple(b.shape)} "
+                                 f"{b.dtype}")
+        a, b = a.detach().float(), b.detach().float()
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{label}: non-finite {name}")
+        err = (a - b).abs()
+        bad = err > tol + tol * b.abs()
+        if bad.any():
+            raise AssertionError(f"{label}: {name}: {int(bad.sum())} "
+                                 f"entries off by up to {float(err.max())} "
+                                 f"(tolerance {tol})")
+        out[name] = float(err.max()) if err.numel() else 0.0
+    names = [n for n, t in zip(SLSTM_INPUTS, ins) if t.requires_grad]
+    for name, a, b in zip(names, g_got, g_want):
+        rel = _rel(a.float(), b.float())
+        if not rel <= SLSTM_GRAD_TOL[dt]:
+            raise AssertionError(f"{label}: d{name} relative Frobenius "
+                                 f"{rel} > {SLSTM_GRAD_TOL[dt]}")
+        out["d" + name] = rel
+    return out
+
+
+def slstm_checks(rng, device, cases=SLSTM_CASES) -> dict:
+    """Phase 3 for the sLSTM scan: :func:`slstm_check` over ``cases``; at
+    B = 1 the initial state takes no gradient (the training path's zero
+    state: the backward skips dh0's product). Returns {dtype: {quantity:
+    worst}}."""
+    worst = {}
+    for B, S, hd, dt in cases:
+        ins = slstm_inputs(rng, B, S, SLSTM_HEADS, hd, dt, device)
+        if B == 1:
+            for t in ins[5:]:
+                t.requires_grad_(False)
+        errs = slstm_check(f"slstm B={B} S={S} hd={hd} {dt}", ins, rng)
+        for k, v in errs.items():
+            worst.setdefault(dt, {})[k] = max(worst.get(dt, {}).get(k, 0.0),
+                                              v)
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -1622,14 +1787,17 @@ def drive(stmts, cells, pieces: int, device, reps: int, data=None):
         if not k.cache.warm:
             raise AssertionError(f"{k.cell_id()}: warm re-lower missed a "
                                  f"cache: {k.cache.as_dict()}")
-        calls = []
+        calls, last = [], []
 
-        def run(k=k, calls=calls):
+        def run(k=k, calls=calls, last=last):
             calls.append(1)
-            return k.run()
+            out = k.run()
+            last[:] = last[-1:] + [out]
+            return out
 
-        run_ms = time_host(run, device, reps)
-        res, again = run(), run()
+        # the last two timed runs' results are the bit check
+        run_ms = time_host(run, device, max(reps, 2))
+        res, again = last
         _sync(device)
         out[cell_name(cell)] = {
             "kernel": k, "cold_s": cold_s, "warm_s": warm_s,
@@ -2049,7 +2217,7 @@ def kernel_record(name, args, launches, nnz, n_out, library, reps):
         "plain_ms": time_events(lambda: plain(*args), max(reps // 4, 3)),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": (time_events(library[1], reps)
+        "library_ms": (time_events(library[1], max(reps // 4, 3))
                        if library[1] is not None else None),
         "library_call": library[0],
     }
@@ -2520,6 +2688,91 @@ def flash_record(cfg, batch: int, seq: int, device, dtype: str,
     }
 
 
+def slstm_records(device, launches: dict, reps: int) -> list:
+    """Phase 5 for the sLSTM kernels at the shape path 4k gives them:
+    xlstm-125m's sLSTM layer over one microbatch (B 2, S 4096, d 768, 4
+    heads of 192), bf16 activations, from the zero state, the forward
+    keeping every step's state for the backward (training). Each kernel
+    against its plain version on the same inputs (the largest absolute
+    error of every output), CUDA-event medians of ``reps`` (the plain
+    loops': the compared call, CUDA events around it), and the bound: the inputs read and outputs written once
+    over 3.35 TB/s against the recurrent products' FLOPs over 67 TFLOP/s
+    (f32). ``serial_floor_ms`` is S times one dependent step, measured as
+    the forward of a single (b, head) chain (B = 1, one head) over S.
+    ``launches`` {kernel: count} are the main path's (4j and 4k). No
+    single PyTorch call computes this recurrence: ``library_ms`` null.
+    ``max_abs_plain`` is the largest plain output beside the error (the
+    backward's gradients grow over S where the input gate is large)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import slstm as K
+    cfg = get_arch(XLSTM_ARCH)
+    B, S = TRAIN["batch"] // TRAIN["accum"], TRAIN["seq"]
+    H = cfg.n_heads
+    hd = cfg.d_model // H
+    rng = np.random.default_rng(SEED + 9)
+    with torch.no_grad():
+        ins = slstm_inputs(rng, B, S, H, hd, "bfloat16", device, grad=False)
+        zx, ip, fp, op, r, c0, h0 = ins
+        c0.zero_()
+        h0.zero_()
+        out = torch.ops.repro_torch.slstm_scan(*ins, True)
+        # the plain loops take seconds: the compared call is the timed one
+        want, fwd_plain = _timed(lambda: K.slstm_scan_plain(*ins,
+                                                            save=True))
+        err_f = max(float((a.float() - b.float()).abs().max())
+                    for a, b in zip(out, want))
+        ref_f = max(float(b.float().abs().max()) for b in want)
+        y, c, h, cs, hs, zs = out
+        gy = torch.from_numpy(rng.standard_normal(y.shape).astype(
+            np.float32)).to(device=device, dtype=y.dtype)
+        bwd_args = (gy, None, None, ip, fp, op, r, c0, cs, zs, False)
+        got_b = torch.ops.repro_torch.slstm_scan_bwd(*bwd_args)
+        want_b, bwd_plain = _timed(lambda: K.slstm_scan_bwd_plain(
+            *bwd_args))
+        err_b = max(float((a.float() - b.float()).abs().max())
+                    for a, b in zip(got_b, want_b))
+        ref_b = max(float(b.float().abs().max()) for b in want_b)
+        one = slstm_inputs(rng, 1, S, 1, hd, "bfloat16", device, grad=False)
+        chain_ms = time_events(
+            lambda: torch.ops.repro_torch.slstm_scan(*one, False), reps)
+        times = {
+            "fwd": time_events(
+                lambda: torch.ops.repro_torch.slstm_scan(*ins, True), reps),
+            "bwd": time_events(
+                lambda: torch.ops.repro_torch.slstm_scan_bwd(*bwd_args),
+                reps),
+            "fwd_plain": fwd_plain, "bwd_plain": bwd_plain}
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts
+                   if t is not None)
+    d = H * hd
+    moved = {"fwd": nbytes(ins) + nbytes(out),
+             "bwd": nbytes(bwd_args[:-1]) + nbytes(got_b[:-1])}
+    flops = {"fwd": 2 * B * S * d * hd, "bwd": 2 * B * (S - 1) * d * hd}
+    recs = []
+    for part, err, ref in (("fwd", err_f, ref_f), ("bwd", err_b, ref_b)):
+        name = f"slstm_{part}"
+        t_bytes = moved[part] / HBM_BYTES_PER_S * 1e3
+        t_ops = flops[part] / F32_FLOPS * 1e3
+        source, replaces = KERNELS[name]
+        recs.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches.get(name, 0),
+            "max_abs_err": err, "max_abs_plain": ref, "ms": times[part],
+            "plain_ms": times[f"{part}_plain"],
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None,
+            "library_call": "none: no PyTorch call computes the sLSTM "
+                            "recurrence",
+            "serial_floor_ms": chain_ms, "step_us": chain_ms / S * 1e3,
+            "shape": f"B{B} S{S} H{H} hd{hd} bfloat16"})
+    return recs
+
+
 # ---------------------------------------------------------------------------
 # Path 4j: LM decode, the Server loop and the ten architectures
 # ---------------------------------------------------------------------------
@@ -2607,16 +2860,29 @@ def _rel(got, want) -> float:
         float(got.abs().max())
 
 
+def slstm_layers(lm) -> int:
+    """sLSTM layers of one forward: slstm_fwd's launches per apply and per
+    decode step."""
+    if lm.group_kind != "xlstm":
+        return 0
+    return lm.n_groups * lm.cfg.xlstm_pattern.count("s")
+
+
 def checked_flash_apply(lm, params, tokens, fe, label):
     """``lm.apply(variant="flash")`` over every position, with each
     flash_attention call held against its plain version on the same q, k
     and v (:func:`compare_flash`: FLASH_TOL of the dtype, position 0 equal
-    to v[0]), so the kernel is checked at every shape and on every input
-    the main path gives it. Returns the logits, the largest error and the
-    calls' shapes, "HxHkvxhd" each."""
+    to v[0]), and each sLSTM scan (``slstm_fwd``) against the plain loop
+    on the same inputs (y and the final state at SLSTM_TOL of the dtype),
+    so the kernels are checked at every shape and on every input the main
+    path gives them. Returns the logits, flash's largest error, the
+    calls' shapes ("HxHkvxhd" each) and the scans' largest error."""
+    import torch
+    from repro_torch.kernels import slstm as K
     from repro_torch.models import attention
+    from repro_torch.models import xlstm as XL
     kernel, plain = kernel_fns()["flash_attention"]
-    errs, shapes = [], set()
+    errs, shapes, scan_errs = [], set(), []
 
     def checked(q, k, v, **kw):
         got = kernel(q, k, v, **kw)
@@ -2627,12 +2893,31 @@ def checked_flash_apply(lm, params, tokens, fe, label):
         shapes.add(shape)
         return got
 
+    def checked_scan(*ins):
+        got = K.slstm_scan(*ins)
+        want = K.slstm_scan_plain(*ins)[:3]
+        tol = SLSTM_TOL[str(ins[0].dtype).split(".")[-1]]
+        for name, a, b in zip(("y", "c", "h"), got, want):
+            a, b = a.float(), b.float()
+            err = (a - b).abs()
+            if not torch.isfinite(a).all() or (err > tol + tol
+                                                * b.abs()).any():
+                raise AssertionError(f"{label} slstm_fwd "
+                                     f"{tuple(ins[0].shape)}: {name} off by "
+                                     f"up to {float(err.max())} (tolerance "
+                                     f"{tol})")
+            scan_errs.append(float(err.max()))
+        return got
+
     attention.flash_attention = checked
+    XL.slstm_scan = checked_scan
     try:
         logits = lm.apply(params, tokens, fe, variant="flash")[0]
     finally:
         attention.flash_attention = kernel
-    return logits, max(errs, default=0.0), ",".join(sorted(shapes))
+        XL.slstm_scan = K.slstm_scan
+    return logits, max(errs, default=0.0), ",".join(sorted(shapes)), \
+        max(scan_errs, default=0.0)
 
 
 def teacher_forced(lm, params, tokens, fe, device):
@@ -2688,12 +2973,14 @@ def run_arch(cfg, batch: int, seq: int, device, steps: int,
                       _tensors(params))
     tokens = prefill_tokens(cfg, batch, seq, device)
     fe = frontend_embeds(cfg, batch, device)
-    runs = []
+    runs, last = [], []
 
     def prefill():
         runs.append(1)
-        return lm.apply(params, tokens, fe, variant="flash",
-                        last_only=True)[0]
+        out = lm.apply(params, tokens, fe, variant="flash",
+                       last_only=True)[0]
+        last[:] = last[-1:] + [out]
+        return out
 
     src = cfg.frontend_tokens if cfg.is_encdec else 0
 
@@ -2711,8 +2998,9 @@ def run_arch(cfg, batch: int, seq: int, device, steps: int,
 
     with torch.inference_mode():
         before = dict(_build.LAUNCHES)
+        # the last two timed prefills' logits are the bit check
         prefill_ms = time_host(prefill, device, 3)
-        out, again = prefill(), prefill()
+        out, again = last
         step_ms, spare = [], []
         last, last2 = decode(step_ms), decode(spare)
         _sync(device)
@@ -2720,6 +3008,8 @@ def run_arch(cfg, batch: int, seq: int, device, steps: int,
         expected = dict.fromkeys(launches, 0)
         if device.type == "cuda":
             expected["flash_attention"] = flash_layers(lm) * len(runs)
+            expected["slstm_fwd"] = slstm_layers(lm) * (len(runs)
+                                                        + 2 * steps)
         if launches != expected:
             raise AssertionError(f"{cfg.name}: launches {launches}, want "
                                  f"{expected}")
@@ -2731,8 +3021,8 @@ def run_arch(cfg, batch: int, seq: int, device, steps: int,
                                  f"{tuple(last.shape)}")
         if not (torch.equal(out, again) and torch.equal(last, last2)):
             raise AssertionError(f"{cfg.name}: two calls gave other bits")
-        flash, kernel_err, shapes = checked_flash_apply(lm, params, tokens,
-                                                        fe, cfg.name)
+        flash, kernel_err, shapes, slstm_err = checked_flash_apply(
+            lm, params, tokens, fe, cfg.name)
         dense = lm.apply(params, tokens, fe, variant="dense")[0]
         vs_dense = _rel(flash, dense)
         del flash
@@ -2751,7 +3041,9 @@ def run_arch(cfg, batch: int, seq: int, device, steps: int,
                "flash_launches": launches.get("flash_attention", 0),
                "flash_vs_dense": vs_dense,
                "chunked_vs_dense": chunked_vs_dense, "kernel_err": kernel_err,
-               "kernel_shapes": shapes}
+               "kernel_shapes": shapes,
+               "slstm_launches": launches.get("slstm_fwd", 0),
+               "slstm_err": slstm_err}
         if teacher:
             rec["tf_rel_bf16"], full16 = teacher_forced(lm, params, tokens,
                                                         fe, device)
@@ -2902,6 +3194,8 @@ def lm_path(device, serve=SERVE,
               flash_launches=rec["flash_launches"], bitwise_repeat=True,
               flash_shapes=rec["kernel_shapes"] or "none",
               kernel_max_abs_err=f"{rec['kernel_err']:.4g}",
+              slstm_launches=rec["slstm_launches"],
+              slstm_max_abs_err=f"{rec['slstm_err']:.4g}",
               flash_vs_dense=f"{rec['flash_vs_dense']:.4g}",
               chunked_vs_dense=f"{rec['chunked_vs_dense']:.4g}", **tf)
         gc.collect()
@@ -2916,11 +3210,15 @@ def lm_path(device, serve=SERVE,
 
 TRAIN_ARCH = "internlm2-1.8b"
 # the reference's train_4k length; a global batch of 8 in 4 microbatches;
-# the first 8 steps of a 10,000-step run at peak lr 3e-4 (the Trainer's
+# the first 5 steps of a 10,000-step run at peak lr 3e-4 (the Trainer's
 # default schedule: a 200-step warm-up). Without a warm-up (total_steps 8)
 # the loss rose from 11.85 to 12.34 and gnorm to 104 (PERF.md §6).
-TRAIN = dict(seq=4096, batch=8, accum=4, steps=8, lr=3e-4,
+TRAIN = dict(seq=4096, batch=8, accum=4, steps=5, lr=3e-4,
              total_steps=10000)
+# (5) xlstm-125m through the same Trainer at 4k's shape: the first 3 steps
+# of a 30-step run (a 3-step warm-up to peak lr 3e-4)
+XLSTM_ARCH = "xlstm-125m"
+XLSTM_TRAIN = dict(TRAIN, steps=3, total_steps=30)
 TWIN = dict(layers=2, batch=2, seq=256)     # the f32 twin, full width
 TWIN_LOSS_RTOL, TWIN_GRAD_RTOL, TWIN_ADAMW_TOL = 1e-5, 1e-3, 1e-6
 RESTART = dict(seq=64, batch=8, accum=2, ckpt_every=2, first=4, more=2)
@@ -2962,17 +3260,25 @@ def _count_calls(module, names):
 
 
 def train_full(cfg, device, seq: int, batch: int, accum: int, steps: int,
-               lr: float, total_steps: int):
+               lr: float, total_steps: int, tag: str = "train",
+               same_batch: bool = False):
     """(1) The ``Trainer`` on ``cfg`` (remat on, f32 params, bf16
     activations), ``steps`` steps of ``batch`` x ``seq`` tokens in
     ``accum`` microbatches from ``Pipeline`` seed 0 on the schedule of
     ``total_steps`` at peak ``lr``, no checkpoint. One
-    ``[train]`` line a step. Checks: finite losses and gnorms, the last
-    loss below the first, every attention call ``dense`` (the layers times
+    ``[<tag>]`` line a step. Checks: finite losses and gnorms, the last
+    loss below the first (with ``same_batch``: the loss of the first
+    step's batch, taken again after the last step under ``no_grad`` over
+    its microbatches, below the first step's: a falling loss seen through
+    the batch-to-batch spread of a few steps), every attention call
+    ``dense`` (the layers times
     the microbatches, twice a step under remat: the forward and its
-    recomputation) and no kernel of the kernel table launched. The last
-    step runs under ``FlopCounterMode`` (its count is ``step_flops``) and
-    is left out of the median step time."""
+    recomputation) and, of the kernel table, only the sLSTM kernels
+    launched, exactly: ``slstm_fwd`` once per sLSTM layer and microbatch
+    for the forward and again for its recomputation, ``slstm_bwd`` once
+    for the backward (none for internlm2-1.8b). The last step runs under
+    ``FlopCounterMode`` (its count is ``step_flops``) and is left out of
+    the median step time."""
     import math
     import torch
     from torch.utils.flop_counter import FlopCounterMode
@@ -3005,25 +3311,41 @@ def train_full(cfg, device, seq: int, batch: int, accum: int, steps: int,
     launched = {k: n for k, n in _build.LAUNCHES.items() if n}
     log = tr.metrics_log
     for rec in log:
-        phase("train", step=rec["step"], loss=f"{rec['loss']:.6f}",
+        phase(tag, step=rec["step"], loss=f"{rec['loss']:.6f}",
               gnorm=f"{rec['gnorm']:.6f}", lr=f"{rec['lr']:.6g}",
               step_s=f"{rec['seconds']:.3f}")
     losses = [r["loss"] for r in log]
     if not all(math.isfinite(r["loss"]) and math.isfinite(r["gnorm"])
                for r in log):
         raise AssertionError(f"train: a loss or gnorm is not finite: {log}")
-    if not losses[-1] < losses[0]:
+    again = None
+    if same_batch:
+        from repro_torch.data.pipeline import DataConfig, TokenSource
+        tok = torch.from_numpy(TokenSource(DataConfig(
+            cfg.vocab_size, seq, batch)).batch_at(0)["tokens"]).to(device)
+        with torch.no_grad():
+            again = sum(float(tr.lm.loss(tr.params, t))
+                        for t in tok.chunk(tr.accum)) / tr.accum
+        if not (math.isfinite(again) and again < losses[0]):
+            raise AssertionError(f"train: the first step's batch has loss "
+                                 f"{again} after {steps} steps, not below "
+                                 f"its first {losses[0]}")
+    elif not losses[-1] < losses[0]:
         raise AssertionError(f"train: the last loss {losses[-1]} is not "
                              f"below the first {losses[0]}")
-    per_step = (2 if cfg.remat else 1) * cfg.n_layers * tr.accum
-    if counts != {"_dense_attention": per_step * steps,
+    replays = 2 if cfg.remat else 1
+    scans = slstm_layers(tr.lm) * tr.accum * steps
+    attn = 0 if tr.lm.group_kind == "xlstm" else cfg.n_layers
+    if counts != {"_dense_attention": replays * attn * tr.accum * steps,
                   "_chunked_attention": 0, "_windowed_attention": 0,
                   "flash_attention": 0}:
         raise AssertionError(f"train: attention calls {counts}, want "
-                             f"{per_step * steps} dense")
-    if launched:
+                             f"{replays * attn * tr.accum * steps} dense")
+    want = ({"slstm_fwd": replays * scans, "slstm_bwd": scans}
+            if scans and device.type == "cuda" else {})
+    if launched != want:
         raise AssertionError(f"train: kernels launched on the training "
-                             f"path: {launched}")
+                             f"path: {launched}, want {want}")
     later = sorted(r["seconds"] for r in log[1:-1]) or [log[0]["seconds"]]
     med = later[len(later) // 2]
     rec = {"init_s": init_s, "step_s_median": med,
@@ -3034,6 +3356,7 @@ def train_full(cfg, device, seq: int, batch: int, accum: int, steps: int,
            "base_mem": base, "step_flops": fc.get_total_flops(),
            "state_bytes": _state_bytes(tr), "losses": losses,
            "attention_calls": counts["_dense_attention"],
+           "launches": launched, "first_batch_again": again,
            "params": sum(x.numel() for x in leaves(tr.params))}
     del tr
     return rec
@@ -3046,7 +3369,18 @@ def train_twin(cfg, device, seq: int, batch: int):
     host's CPU: the loss within TWIN_LOSS_RTOL, each leaf's gradient
     within TWIN_GRAD_RTOL (relative Frobenius; TF32 off). Then one
     ``adamw_update`` on the card and on the CPU from the card's gradients:
-    the new parameters and moments within TWIN_ADAMW_TOL."""
+    the new parameters and moments within TWIN_ADAMW_TOL.
+
+    With sLSTM layers the whole model's gradient is not held card against
+    CPU: h = o c / max(|c|, 1) has a kink at |c| = 1, and the f32 ulps
+    by which the two devices' earlier layers differ move a few of the
+    S·B·d values of c across it, each changing its gradient by O(1)
+    (xlstm-125m's twin: 2 of 393,216, 6e-3 apart; PERF.md §6). Instead
+    (:func:`scan_twin`) the card's gradients through the kernels are held
+    within TWIN_GRAD_RTOL of the card's through the plain loop, and each
+    sLSTM scan's gradients on the card within TWIN_GRAD_RTOL of the CPU's
+    on the same inputs; the whole model's gap and the count of c that
+    cross the kink are reported."""
     import dataclasses
     import torch
     from repro_torch.data.pipeline import DataConfig, TokenSource
@@ -3066,17 +3400,25 @@ def train_twin(cfg, device, seq: int, batch: int):
         lm = S.build_lm(cfg, make_smoke_mesh(dev))
         lg = S.make_loss_and_grads(lm, shape)
         t0 = time.perf_counter()
-        loss, g = lg(p, torch.from_numpy(tok["tokens"]).to(dev))
+        with _scan_inputs() as scans:
+            loss, g = lg(p, torch.from_numpy(tok["tokens"]).to(dev))
         _sync(dev)
-        out[dev.type] = (float(loss), g, time.perf_counter() - t0)
-    (l_card, g_card, s_card), (l_cpu, g_cpu, s_cpu) = out[device.type], \
-        out["cpu"]
+        out[dev.type] = (float(loss), g, time.perf_counter() - t0, scans)
+    (l_card, g_card, s_card, scans), (l_cpu, g_cpu, s_cpu, cpu_scans) = \
+        out[device.type], out["cpu"]
     grad_err = max(_rel(a.cpu(), b)
                    for a, b in zip(leaves(g_card), leaves(g_cpu)))
     loss_err = abs(l_card - l_cpu) / abs(l_cpu)
-    if loss_err > TWIN_LOSS_RTOL or grad_err > TWIN_GRAD_RTOL:
+    held = TWIN_GRAD_RTOL if not scans else float("inf")
+    if loss_err > TWIN_LOSS_RTOL or grad_err > held:
         raise AssertionError(f"twin: loss {l_card} vs {l_cpu} ({loss_err:.3g}"
                              f"), gradient {grad_err:.3g}")
+    extra = {}
+    if scans:
+        lg = S.make_loss_and_grads(S.build_lm(cfg, make_smoke_mesh(device)),
+                                   shape)
+        extra = scan_twin(lg, params, torch.from_numpy(tok["tokens"]).to(
+            device), g_card, scans, cpu_scans)
     g_host = tree_map(lambda g: g.cpu(), g_card)
     new = []
     for p, g in ((params, g_card), (host, g_host)):
@@ -3089,7 +3431,77 @@ def train_twin(cfg, device, seq: int, batch: int):
         raise AssertionError(f"twin: adamw_update on the card vs the CPU "
                              f"{adamw_err:.3g}")
     return {"loss": l_card, "loss_rel": loss_err, "grad_rel": grad_err,
-            "adamw_abs": adamw_err, "card_s": s_card, "cpu_s": s_cpu}
+            "adamw_abs": adamw_err, "card_s": s_card, "cpu_s": s_cpu,
+            **extra}
+
+
+class _scan_inputs:
+    """Record the inputs of every sLSTM scan the model calls in the
+    block (detached)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import slstm as K
+        from repro_torch.models import xlstm as XL
+        self.calls = []
+
+        def recorded(*ins):
+            self.calls.append([t.detach() for t in ins])
+            return K.slstm_scan(*ins)
+        XL.slstm_scan = recorded
+        return self.calls
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import slstm as K
+        from repro_torch.models import xlstm as XL
+        XL.slstm_scan = K.slstm_scan
+
+
+def scan_twin(lg, params, tokens, g_card, scans, cpu_scans) -> dict:
+    """The sLSTM half of the f32 twin (:func:`train_twin`): (a) the
+    gradients of ``lg`` on the card with each scan run as the plain loop
+    (autograd) against ``g_card``, through the kernels, each leaf within
+    TWIN_GRAD_RTOL; (b) each recorded scan of the card's forward run again
+    on the card and on the CPU from the same inputs, the gradients of a
+    random weighting of y with respect to zx, ip, fp, op and r within
+    TWIN_GRAD_RTOL; (c) how many c of the card's and the CPU's scans lie
+    on either side of |c| = 1 (reported)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import slstm as K
+    from repro_torch.models import xlstm as XL
+    from repro_torch.tree import leaves
+    XL.slstm_scan = lambda *ins: K.slstm_scan_plain(*ins)[:3]
+    try:
+        _, g_plain = lg(params, tokens)
+    finally:
+        XL.slstm_scan = K.slstm_scan
+    vs_plain = max(_rel(a, b) for a, b in zip(leaves(g_card),
+                                               leaves(g_plain)))
+    rng = np.random.default_rng(SEED + 3)
+    vs_cpu, flips = 0.0, 0
+    for ins, cpu_ins in zip(scans, cpu_scans):
+        w = torch.from_numpy(rng.standard_normal(ins[0].shape).astype(
+            np.float32))
+        grads = []
+        for dev_ins in (ins, [t.cpu() for t in ins]):
+            x = [t.clone().requires_grad_(i < 5)
+                 for i, t in enumerate(dev_ins)]
+            y = K.slstm_scan(*x)[0]
+            grads.append(torch.autograd.grad(
+                (y * w.to(y.device)).sum(), x[:5]))
+        vs_cpu = max([vs_cpu] + [_rel(a.cpu(), b) for a, b in
+                                 zip(*grads)])
+        with torch.no_grad():
+            c_card = K.slstm_scan_plain(*[t.cpu() for t in ins],
+                                        save=True)[3]
+            c_cpu = K.slstm_scan_plain(*cpu_ins, save=True)[3]
+        flips += int(((c_card.abs() >= 1) != (c_cpu.abs() >= 1)).sum())
+    if vs_plain > TWIN_GRAD_RTOL or vs_cpu > TWIN_GRAD_RTOL:
+        raise AssertionError(f"twin: gradients through the kernels vs the "
+                             f"plain loop on the card {vs_plain:.3g}, the "
+                             f"scans' card vs CPU {vs_cpu:.3g}")
+    return {"kernel_vs_plain_rel": vs_plain, "scan_card_vs_cpu_rel": vs_cpu,
+            "kink_flips": flips}
 
 
 def train_restart(cfg, device, seq: int, batch: int, accum: int,
@@ -3329,27 +3741,11 @@ def train_mesh(arch: str, device, shape=MESH_TRAIN["shape"],
                                  for s in statuses), "ranks_s": ranks_s}
 
 
-def train_path(device, train=TRAIN, twin=TWIN, restart=RESTART,
-               mesh=MESH_TRAIN, reduce=None, root: Path = TRAIN_DIR):
-    """Path 4k: (1) the Trainer on internlm2-1.8b at full width and depth;
-    (2) the f32 twin at full width and ``twin["layers"]`` layers, card
-    against CPU; (3) a restart of the reduced config from its checkpoint;
-    (4) one step of the reduced config on a (2, 2) mesh of gloo ranks
-    against the one-process step. ``reduce`` (a config -> config map)
-    shrinks (1) and (2) for a rehearsal on the CPU; (3) and (4) write
-    under ``root``. Prints the path's lines; returns its records."""
-    import dataclasses
-    import torch
-    from repro_torch.configs import get_arch
-    t_path = time.perf_counter()
-    cfg = get_arch(TRAIN_ARCH)
-    full = reduce(cfg) if reduce else cfg
-    rec = train_full(full, device, **train)
-    phase("train-summary", arch=TRAIN_ARCH, layers=full.n_layers,
-          d_model=full.d_model, vocab=full.vocab_size, remat=full.remat,
-          params=rec["params"], seq=train["seq"], batch=train["batch"],
-          accum=train["accum"], steps=train["steps"],
-          first_loss=f"{rec['losses'][0]:.6f}",
+def _train_summary(tag: str, arch: str, cfg, train: dict, rec: dict):
+    phase(tag, arch=arch, layers=cfg.n_layers, d_model=cfg.d_model,
+          vocab=cfg.vocab_size, remat=cfg.remat, params=rec["params"],
+          seq=train["seq"], batch=train["batch"], accum=train["accum"],
+          steps=train["steps"], first_loss=f"{rec['losses'][0]:.6f}",
           last_loss=f"{rec['losses'][-1]:.6f}",
           first_step_s=f"{rec['first_step_s']:.3f}",
           step_s_median=f"{rec['step_s_median']:.3f}",
@@ -3357,18 +3753,54 @@ def train_path(device, train=TRAIN, twin=TWIN, restart=RESTART,
           max_mem_gb=f"{rec['max_mem'] / 2**30:.2f}",
           state_gb=f"{rec['state_bytes'] / 2**30:.2f}",
           init_s=f"{rec['init_s']:.2f}",
-          dense_attention_calls=rec["attention_calls"], kernels_launched=0)
+          dense_attention_calls=rec["attention_calls"],
+          kernels_launched=",".join(f"{k}:{n}" for k, n in sorted(
+              rec["launches"].items())) or 0,
+          **({} if rec["first_batch_again"] is None else {
+              "first_batch_loss_after": f"{rec['first_batch_again']:.6f}"}))
+
+
+def _twin_line(tag: str, arch: str, twin: dict, tw: dict):
+    scan = {} if "kink_flips" not in tw else {
+        "kernel_vs_plain_rel": f"{tw['kernel_vs_plain_rel']:.3g}",
+        "scan_card_vs_cpu_rel": f"{tw['scan_card_vs_cpu_rel']:.3g}",
+        "kink_flips": tw["kink_flips"]}
+    phase(tag, arch=arch, layers=twin["layers"], batch=twin["batch"],
+          seq=twin["seq"], loss=f"{tw['loss']:.6f}",
+          loss_rel=f"{tw['loss_rel']:.3g}", grad_rel=f"{tw['grad_rel']:.3g}",
+          adamw_abs=f"{tw['adamw_abs']:.3g}", card_s=f"{tw['card_s']:.3f}",
+          cpu_s=f"{tw['cpu_s']:.3f}", **scan)
+
+
+def train_path(device, train=TRAIN, twin=TWIN, restart=RESTART,
+               mesh=MESH_TRAIN, reduce=None, root: Path = TRAIN_DIR):
+    """Path 4k: (1) the Trainer on internlm2-1.8b at full width and depth;
+    (2) the f32 twin at full width and ``twin["layers"]`` layers, card
+    against CPU; (3) a restart of the reduced config from its checkpoint;
+    (4) one step of the reduced config on a (2, 2) mesh of gloo ranks
+    against the one-process step; (5) xlstm-125m at full width and depth
+    through the Trainer at (1)'s shape and XLSTM_TRAIN's steps and
+    schedule (the sLSTM kernels, forward, remat replay and backward), and
+    its f32 twin as (2). ``reduce`` (a config -> config
+    map) shrinks (1), (2) and (5) for a rehearsal on the CPU; (3) and (4)
+    write under ``root``. Prints the path's lines; returns its records."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build
+    t_path = time.perf_counter()
+    start = dict(_build.LAUNCHES)
+    cfg = get_arch(TRAIN_ARCH)
+    full = reduce(cfg) if reduce else cfg
+    rec = train_full(full, device, **train)
+    _train_summary("train-summary", TRAIN_ARCH, full, train, rec)
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
     tw_cfg = dataclasses.replace(cfg, n_layers=twin["layers"])
     tw = train_twin(reduce(tw_cfg) if reduce else tw_cfg, device,
                     twin["seq"], twin["batch"])
-    phase("train-twin", layers=twin["layers"], batch=twin["batch"],
-          seq=twin["seq"], loss=f"{tw['loss']:.6f}",
-          loss_rel=f"{tw['loss_rel']:.3g}", grad_rel=f"{tw['grad_rel']:.3g}",
-          adamw_abs=f"{tw['adamw_abs']:.3g}", card_s=f"{tw['card_s']:.3f}",
-          cpu_s=f"{tw['cpu_s']:.3f}")
+    _twin_line("train-twin", TRAIN_ARCH, twin, tw)
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -3384,8 +3816,31 @@ def train_path(device, train=TRAIN, twin=TWIN, restart=RESTART,
           param_abs=f"{ms['param_abs']:.3g}",
           held_fraction=f"{ms['held_fraction']:.3f}",
           ranks_s=f"{ms['ranks_s']:.1f}")
+    # (5) xlstm-125m: the sLSTM kernels under the Trainer; (1)-(4) launch
+    # no kernel
+    before = dict(_build.LAUNCHES)
+    if before != start:
+        raise AssertionError(f"kernels launched on the training path "
+                             f"(1)-(4): {_launched_since(start)}")
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    xcfg = get_arch(XLSTM_ARCH)
+    xfull = reduce(xcfg) if reduce else xcfg
+    xtrain = dict(train, steps=XLSTM_TRAIN["steps"],
+                  total_steps=XLSTM_TRAIN["total_steps"])
+    xrec = train_full(xfull, device, tag="train-xlstm", same_batch=True,
+                      **xtrain)
+    _train_summary("train-xlstm-summary", XLSTM_ARCH, xfull, xtrain, xrec)
+    gc.collect()
+    xtw_cfg = dataclasses.replace(xcfg, n_layers=twin["layers"])
+    xtw = train_twin(reduce(xtw_cfg) if reduce else xtw_cfg, device,
+                     twin["seq"], twin["batch"])
+    _twin_line("train-xlstm-twin", XLSTM_ARCH, twin, xtw)
     phase("train-path", seconds=f"{time.perf_counter() - t_path:.1f}")
-    return {"full": rec, "twin": tw, "restart": rs, "mesh": ms}
+    return {"full": rec, "twin": tw, "restart": rs, "mesh": ms,
+            "xlstm": xrec, "xlstm_twin": xtw, "xlstm_train": xtrain,
+            "launches": _launched_since(before)}
 
 
 # ---------------------------------------------------------------------------
@@ -3393,7 +3848,7 @@ def train_path(device, train=TRAIN, twin=TWIN, restart=RESTART,
 # ---------------------------------------------------------------------------
 
 BF16_PEAK_FLOPS = 989e12        # H100 SXM, dense bf16, tensor cores
-DRYRUN_CLI_ARCH = "seamless-m4t-medium"  # (b): its four shapes on pod256
+DRYRUN_CLI_ARCH = "xlstm-125m"  # (b): its four shapes on pod256
 DRYRUN_CLI_TIMEOUT_S = 300
 EXAMPLES = ("quickstart", "spmv_distributed", "moe_sparse_dispatch",
             "long_context_block_sparse", "serve_batched", "train_e2e")
@@ -3420,30 +3875,30 @@ def _share(roofline: dict, step_s: float) -> float:
     return roofline["model_flops_per_dev"] / step_s / BF16_PEAK_FLOPS
 
 
-def dryrun_cells(train_cfg, train: dict, train_rec: dict, prefill_cfg,
-                 batch: int, seq: int, attn_rec: dict) -> dict:
-    """(a) The dry-run's predictions of path 4k's train step and path 4e's
-    flash prefill (``dryrun.run_card_cell`` on ``meta``, mesh (1, 1)),
-    beside what the card showed in this run: the peak memory above the
-    path's base, and for the train step the FLOPs ``FlopCounterMode``
-    counted over its last step, which must equal the prediction. Prints
-    the achieved TFLOP/s and the model-FLOPs share (model FLOPs over the
-    step time over 989 TFLOP/s) of both."""
+def dryrun_train_cell(arch: str, cfg, train: dict, train_rec: dict,
+                      tag: str = "dryrun-train", started=None) -> dict:
+    """The dry-run's prediction of one of path 4k's train steps
+    (``dryrun.run_card_cell`` on ``meta``, mesh (1, 1); with ``started``,
+    the record of the process :func:`dryrun_card_start` began) beside what
+    the card showed: the peak above the path's base, and the FLOPs
+    ``FlopCounterMode`` counted over its last step, which must equal the
+    prediction. One ``[<tag>]`` line; returns the record."""
     from repro_torch.launch import dryrun
-    out = {}
     shape = dryrun.card_shape("train", train["seq"], train["batch"],
                               train["accum"])
-    rec = dryrun.run_card_cell(TRAIN_ARCH, shape, cfg=train_cfg)
+    rec = (dryrun_card_finish(started) if started
+           else dryrun.run_card_cell(arch, shape, cfg=cfg))
     if rec["status"] != "ok":
-        raise AssertionError(f"dry-run {TRAIN_ARCH} {shape.name}: "
+        raise AssertionError(f"dry-run {arch} {shape.name}: "
                              f"{rec['error']}\n{rec['traceback']}")
     rl = rec["roofline"]
     if rl["flops_per_dev"] != train_rec["step_flops"]:
         raise AssertionError(
-            f"dry-run FLOPs {rl['flops_per_dev']} of the train step differ "
-            f"from FlopCounterMode's {train_rec['step_flops']} on the card")
+            f"dry-run FLOPs {rl['flops_per_dev']} of the {arch} train step "
+            f"differ from FlopCounterMode's {train_rec['step_flops']} on "
+            f"the card")
     step_s = train_rec["step_s_median"]
-    phase("dryrun-train", arch=TRAIN_ARCH, cell=shape.name, mesh="1x1",
+    phase(tag, arch=arch, cell=shape.name, mesh="1x1",
           **_peak_fields("", rec, train_rec["max_mem"]
                          - train_rec["base_mem"]),
           predicted_flops=f"{rl['flops_per_dev']:.6e}",
@@ -3454,7 +3909,28 @@ def dryrun_cells(train_cfg, train: dict, train_rec: dict, prefill_cfg,
           model_flops_share=f"{_share(rl, step_s):.4f}",
           bound_s=f"{rl['roofline_bound_s']:.3f}",
           dominant=rl["dominant"], count_s=rec["count_s"])
-    out["train"] = rec
+    return rec
+
+
+def dryrun_cells(train_cfg, train: dict, train_rec: dict, prefill_cfg,
+                 batch: int, seq: int, attn_rec: dict, xlstm=None,
+                 cards=None) -> dict:
+    """(a) The dry-run's predictions of path 4k's train step
+    (:func:`dryrun_train_cell`), of its xlstm-125m step when ``xlstm`` =
+    (config, train shape, record) is given, and of path 4e's flash prefill
+    (``dryrun.run_card_cell`` on ``meta``, mesh (1, 1)), beside what the
+    card showed in this run. Prints the achieved TFLOP/s and the
+    model-FLOPs share (model FLOPs over the step time over 989 TFLOP/s)
+    of each. ``cards`` {arch: :func:`dryrun_card_start`'s handle} gives the
+    train cells counted in processes of their own."""
+    from repro_torch.launch import dryrun
+    cards = cards or {}
+    out = {"train": dryrun_train_cell(TRAIN_ARCH, train_cfg, train,
+                                      train_rec,
+                                      started=cards.get(TRAIN_ARCH))}
+    if xlstm is not None:
+        out["xlstm"] = dryrun_train_cell(XLSTM_ARCH, *xlstm,
+                                         started=cards.get(XLSTM_ARCH))
     shape = dryrun.card_shape("prefill", seq, batch)
     rec = dryrun.run_card_cell(ARCH, shape, variant="flash", cfg=prefill_cfg)
     if rec["status"] != "ok":
@@ -3476,21 +3952,70 @@ def dryrun_cells(train_cfg, train: dict, train_rec: dict, prefill_cfg,
     return out
 
 
-def dryrun_cli_start(arch: str = DRYRUN_CLI_ARCH):
-    """(b) Start ``python -m repro_torch.launch.dryrun --arch <arch>
-    --shape all`` (pod256) in a process of its own on this host, to run
-    beside path 4k's steps on the card; :func:`dryrun_cli_finish` waits
-    for it in path 4l."""
+def _dryrun_start(argv):
+    """``python -m repro_torch.launch.dryrun <argv>`` in a process of its
+    own on this host; returns (process, start time)."""
     import os
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
                                else []))
     proc = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-         "--shape", "all"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)
-    return proc, arch, time.perf_counter()
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *argv],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    return proc, time.perf_counter()
+
+
+def dryrun_cli_start(arch: str = DRYRUN_CLI_ARCH):
+    """(b) Start ``python -m repro_torch.launch.dryrun --arch <arch>
+    --shape all`` (pod256) in a process of its own on this host, to run
+    beside the card's paths (it starts before path 4j);
+    :func:`dryrun_cli_finish` waits for it in path 4l."""
+    proc, t0 = _dryrun_start(["--arch", arch, "--shape", "all"])
+    return proc, arch, t0
+
+
+def dryrun_card_start(arch: str, train: dict):
+    """(a)'s count of a train step of path 4k (``--mesh card`` at
+    ``train``'s shape) in a process of its own, started with (b);
+    :func:`dryrun_card_finish` reads its record in path 4l."""
+    proc, t0 = _dryrun_start([
+        "--arch", arch, "--mesh", "card", "--kind", "train", "--seq-len",
+        str(train["seq"]), "--global-batch", str(train["batch"]),
+        "--grad-accum", str(train["accum"])])
+    return proc, arch, t0, train
+
+
+def dryrun_card_finish(started, timeout: float = DRYRUN_CLI_TIMEOUT_S
+                       ) -> dict:
+    """Wait for a :func:`dryrun_card_start` process (killed past
+    ``timeout`` seconds from its start) and return its record."""
+    from repro_torch.launch import dryrun
+    proc, arch, t0, train = started
+    try:
+        out, err = proc.communicate(
+            timeout=max(timeout - (time.perf_counter() - t0), 1))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"dry-run card cell: {arch} not done in "
+                             f"{timeout} s")
+    name = dryrun.card_shape("train", train["seq"], train["batch"],
+                             train["accum"]).name
+    path = dryrun.OUT_DIR / f"{arch}_{name}_card.json"
+    if proc.returncode or not path.exists():
+        raise AssertionError(f"dry-run card cell {arch}: exit "
+                             f"{proc.returncode}\n{out}\n{err[-4000:]}")
+    return json.loads(path.read_text())
+
+
+def stop_processes(*started) -> None:
+    """Kill those of the background dry-run processes still running."""
+    for st in started:
+        if st and st[0].poll() is None:
+            st[0].kill()
+            st[0].communicate()
 
 
 def dryrun_cli_finish(started, timeout: float = DRYRUN_CLI_TIMEOUT_S
@@ -3549,8 +4074,10 @@ def run_examples(device, names=EXAMPLES, extra=EXAMPLE_ARGS) -> dict:
 
 def dryrun_path(device, train_cfg, train: dict, train_rec: dict,
                 prefill_cfg, batch: int, seq: int, attn_rec: dict,
-                cli=None, names=EXAMPLES, extra=EXAMPLE_ARGS) -> dict:
-    """Path 4l: (a) :func:`dryrun_cells`, (c) :func:`run_examples`, then
+                cli=None, names=EXAMPLES, extra=EXAMPLE_ARGS,
+                xlstm=None, cards=None) -> dict:
+    """Path 4l: (a) :func:`dryrun_cells` (with ``xlstm``, path 4k's
+    xlstm-125m step too), (c) :func:`run_examples`, then
     (b), the dry-run CLI, which the caller started beforehand
     (:func:`dryrun_cli_start`, ``cli``; None: no (b)) to run on the host
     beside path 4k's work on the card; ``[dryrun-path]`` gives the
@@ -3558,28 +4085,21 @@ def dryrun_path(device, train_cfg, train: dict, train_rec: dict,
     t0 = time.perf_counter()
     try:
         cells = dryrun_cells(train_cfg, train, train_rec, prefill_cfg,
-                             batch, seq, attn_rec)
+                             batch, seq, attn_rec, xlstm, cards)
         ex = run_examples(device, names, extra)
     except BaseException:
-        if cli:
-            cli[0].kill()
-            cli[0].communicate()
+        stop_processes(cli, *(cards or {}).values())
         raise
     cli = dryrun_cli_finish(cli) if cli else None
     phase("dryrun-path", seconds=f"{time.perf_counter() - t0:.1f}")
     return {"cells": cells, "cli": cli, "examples": ex}
 
 
-def sparse_paths(args, device):
-    """Phases 4a-d and 5 for the four sparse paths: drive each with the
-    launch counts of exactly its run, check the cells, then time the
-    kernels at the main path's shapes. Returns the kernel records and the
-    SpTTV rows record; the paths' data goes with the call."""
+def path_data(args) -> dict:
+    """The sparse paths' operands, all on the host (``[data]``,
+    ``[data-add]``, ``[data-grid]``); ``main`` makes them in a thread
+    beside the build and phase 3."""
     import numpy as np
-    import torch
-    from repro_torch.kernels import _build
-
-    # 4. the main path: each path with the launch counts of exactly its run
     t0 = time.perf_counter()
     dims3 = (1 << args.log2_i, 1 << args.log2_jk, 1 << args.log2_jk)
     data = make_inputs(1 << args.log2_n, AVG_NNZ, SPMM_J, SEED, dims3)
@@ -3607,6 +4127,19 @@ def sparse_paths(args, device):
     phase("data-grid", bdcsr_blocks=data["grid"]["bdcsr"].vals.shape[0],
           generic_side=GENERIC_SIDE,
           seconds=f"{time.perf_counter() - t0:.1f}")
+    return data
+
+
+def sparse_paths(args, device, data):
+    """Phases 4a-d and 5 for the four sparse paths over ``data``
+    (:func:`path_data`): drive each with the launch counts of exactly its
+    run, check the cells, then time the kernels at the main path's shapes.
+    Returns the kernel records and the SpTTV rows record; the paths' data
+    goes with the call."""
+    import torch
+    from repro_torch.kernels import _build
+
+    # 4. the main path: each path with the launch counts of exactly its run
     cells, grid_cells = {}, {}
     launches = dict.fromkeys(_build.LAUNCHES, 0)
     for path, path_cells in PATH_CELLS.items():
@@ -3616,7 +4149,7 @@ def sparse_paths(args, device):
         # SpAdd3 union is assembled on the host and takes seconds
         recs, path_launches = run_slice(
             data, path_cells, PIECES, device,
-            max(args.reps // (10 if path == "grid" else 2), 1))
+            max(args.reps // (10 if path == "grid" else 4), 1))
         path_s = time.perf_counter() - t0
         for cell, rec in recs.items():
             k = rec["kernel"]
@@ -3660,6 +4193,7 @@ def sparse_paths(args, device):
 
     # 3b + 5. kernels at the main path's shapes, timed once every count
     # is read
+    t0 = time.perf_counter()
     records, ttv, cell_ms = kernel_records(
         data, {c: r for c, r in cells.items()
                if not c.startswith("spadd3") and "_bcsr/" not in c},
@@ -3670,6 +4204,7 @@ def sparse_paths(args, device):
         data, {c: r for c, r in cells.items() if "_bcsr/" in c
                and not c.startswith("spadd3")}, launches, args.reps)
     records += add_records + blocked_records
+    phase("sparse-kernels", seconds=f"{time.perf_counter() - t0:.1f}")
     t0 = time.perf_counter()
     records += grid_kernel_records(data, grid_cells, max(args.reps // 4, 3))
     phase("grid-kernels", seconds=f"{time.perf_counter() - t0:.1f}")
@@ -4636,7 +5171,8 @@ def executor_path(args, device, spmd_dir: Path = SPMD_DIR):
     gloo, then the parent's ``profile_pieces`` and ``run_overlapped``.
     Returns the kernels' launches in the ranks' counted calls."""
     t0 = time.perf_counter()
-    reps = max(args.reps // 5, 2)
+    # two timed calls a cell (a call moves up to 0.8 s over gloo)
+    reps = max(args.reps // 20, 1)
     launches = dict.fromkeys(SPMD_KERNELS, 0)
     for world, cells in SPMD_CELLS.items():
         for st in run_rank_group(world, cells, reps, device, spmd_dir):
@@ -4669,7 +5205,7 @@ def main(argv=None) -> int:
                     help="side of the dense SpAdd3 sums (default 15: a "
                     "4 GiB output)")
     ap.add_argument("--reps", type=int, default=REPS,
-                    help="timed kernel launches (run() takes half)")
+                    help="timed kernel launches (run() a quarter)")
     ap.add_argument("--attn-layers", type=int, default=0,
                     help="layers of the attention path's llama3-8b (default "
                     "0: all 32; fewer is a quick rehearsal)")
@@ -4703,6 +5239,12 @@ def main(argv=None) -> int:
     clocks("start")
     memory_rates(device)
 
+    # the sparse paths' operands, made on the host beside the build and
+    # phase 3 (numpy releases the GIL in its bulk work)
+    from concurrent.futures import ThreadPoolExecutor
+    data_pool = ThreadPoolExecutor(1)
+    data_job = data_pool.submit(path_data, args)
+
     # 2. build
     t0 = time.perf_counter()
     logs = _build.build(force=True)
@@ -4722,13 +5264,23 @@ def main(argv=None) -> int:
     # 3a. kernels against plain at edge-case shapes
     rng = np.random.default_rng(SEED)
     worst = {}
+    t0 = time.perf_counter()
     for label, name, kargs, abs_args in kernel_cases(rng, device):
         err = compare_kernel(label, name, kargs, abs_args)
         worst[name] = max(worst.get(name, 0.0), err)
-    phase("kernels-edge", **{k: f"{v:.3g}" for k, v in worst.items()})
+    phase("kernels-edge", seconds=f"{time.perf_counter() - t0:.1f}",
+          **{k: f"{v:.3g}" for k, v in worst.items()})
+    # 3b. the sLSTM scan and its transpose against the plain loop
+    t0 = time.perf_counter()
+    for dt, errs in slstm_checks(rng, device).items():
+        phase("kernels-slstm", dtype=dt, cases=sum(
+            c[3] == dt for c in SLSTM_CASES),
+              **{k: f"{v:.3g}" for k, v in errs.items()})
+    phase("kernels-slstm-path", seconds=f"{time.perf_counter() - t0:.1f}")
 
     # 4a-d, f + 5. the sparse paths, their kernels timed after every count
-    records, ttv = sparse_paths(args, device)
+    records, ttv = sparse_paths(args, device, data_job.result())
+    data_pool.shutdown()
     from repro_torch.core import lower as L
     L.clear_lowering_caches()
     gc.collect()
@@ -4745,6 +5297,7 @@ def main(argv=None) -> int:
     over = {"n_layers": args.attn_layers} if args.attn_layers else {}
     cfg = lm_config(**over)
     _build.reset_launches()
+    t0 = time.perf_counter()
     attn, attn_launches = run_attention(cfg, PREFILL_BATCH, args.attn_seq,
                                         device, 5)
     missing = [k for k in PATH_KERNELS["attention"]
@@ -4763,16 +5316,26 @@ def main(argv=None) -> int:
           bitwise_repeat=attn["bitwise"],
           rel_frobenius_vs_dense=f"{attn['rel_frobenius']:.4g}",
           f32_max_abs_err=f"{attn['f32_max_abs_err']:.3g}")
-    phase("launches", path="attention", **attn_launches)
+    phase("launches", path="attention",
+          seconds=f"{time.perf_counter() - t0:.1f}", **attn_launches)
     clocks("after the attention path")
+
+    # 4l's counts on the host, (b) the dry-run CLI and (a) 4k's two train
+    # cells, run in processes of their own beside paths 4j and 4k
+    cli = dryrun_cli_start()
+    cards = {arch: dryrun_card_start(arch, shape) for arch, shape in
+             ((TRAIN_ARCH, TRAIN), (XLSTM_ARCH, XLSTM_TRAIN))}
+    atexit.register(stop_processes, cli, *cards.values())
 
     # 4j. LM decode, the Server loop and the ten architectures
     _build.reset_launches()
     t0 = time.perf_counter()
     lm_launches = lm_path(device)
-    if not lm_launches.get("flash_attention"):
-        raise AssertionError("flash_attention never launched on the LM "
-                             "path")
+    missing = [k for k in ("flash_attention", "slstm_fwd")
+               if not lm_launches.get(k)]
+    if missing:
+        raise AssertionError(f"kernels never launched on the LM path: "
+                             f"{missing}")
     phase("lm-path", seconds=f"{time.perf_counter() - t0:.1f}",
           max_mem_gb=f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f}")
     phase("launches", path="lm", **lm_launches)
@@ -4782,18 +5345,15 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     _build.reset_launches()
-    # 4l (b), the dry-run CLI, runs on the host beside 4k's steps
-    cli = dryrun_cli_start()
-    try:
-        trained = train_path(device)
-    except BaseException:
-        cli[0].kill()
-        cli[0].communicate()
-        raise
+    trained = train_path(device)
+    # (1)-(4) launch nothing (train_path checks); (5) the sLSTM kernels
     launched = {k: n for k, n in _build.LAUNCHES.items() if n}
-    if launched:
+    if launched != trained["launches"] or not all(
+            launched.get(k) for k in ("slstm_fwd", "slstm_bwd")):
         raise AssertionError(f"kernels launched on the training path: "
-                             f"{launched}")
+                             f"{launched}, want the sLSTM kernels of (5): "
+                             f"{trained['launches']}")
+    train_launches = dict(_build.LAUNCHES)
     phase("launches", path="train", **_build.LAUNCHES)
     clocks("after the training path")
 
@@ -4802,7 +5362,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     from repro_torch.configs import get_arch
     dryrun_path(device, get_arch(TRAIN_ARCH), TRAIN, trained["full"], cfg,
-                PREFILL_BATCH, args.attn_seq, attn, cli=cli)
+                PREFILL_BATCH, args.attn_seq, attn, cli=cli,
+                xlstm=(get_arch(XLSTM_ARCH), trained["xlstm_train"],
+                       trained["xlstm"]), cards=cards)
     clocks("after the dry-run path")
     top = sorted(attn["profile"].items(), key=lambda kv: -kv[1])[:8]
     phase("profile", name="prefill",
@@ -4819,16 +5381,19 @@ def main(argv=None) -> int:
         edge[key] = edge.get(key, 0) + 1
     short = {"bfloat16": "", "float32": " f32", "float16": " f16"}
     extra = []
+    t0 = time.perf_counter()
     for hd in (None, 256, 320, 512):
         for dt in ("bfloat16", "float32", "float16"):
             width = padded_width(hd or cfg.resolved_head_dim)
             main_rec = hd is None and dt == "bfloat16"
+            # the other dtypes and widths over fewer timed launches
             rec = flash_record(
                 cfg, PREFILL_BATCH, args.attn_seq, device, dt,
                 attn_launches["flash_attention"]
                 + lm_launches["flash_attention"] if main_rec
                 else edge.get((dt, width), 0),
-                args.reps, head_dim=hd)
+                args.reps if main_rec else max(args.reps // 4, 3),
+                head_dim=hd)
             if main_rec:
                 rec["lm_launches"] = lm_launches["flash_attention"]
                 records.append(rec)
@@ -4836,7 +5401,21 @@ def main(argv=None) -> int:
                 extra.append(dict(rec, name=f"flash_attention("
                                   f"hd{hd or cfg.resolved_head_dim}"
                                   f"{short[dt]})"))
+    phase("flash-timing", seconds=f"{time.perf_counter() - t0:.1f}")
     clocks("after the flash timing")
+    # the sLSTM kernels at path 4k's shape; launches of paths 4j and 4k
+    t0 = time.perf_counter()
+    scan_launches = {k: lm_launches.get(k, 0) + train_launches.get(k, 0)
+                     for k in ("slstm_fwd", "slstm_bwd")}
+    slstm_recs = slstm_records(device, scan_launches, args.reps)
+    for r in slstm_recs:
+        r["lm_launches"] = lm_launches.get(r["name"], 0)
+        phase("slstm-timing", name=r["name"], shape=r["shape"],
+              serial_floor_ms=f"{r['serial_floor_ms']:.4f}",
+              step_us=f"{r['step_us']:.4f}",
+              max_abs_plain=f"{r['max_abs_plain']:.4g}")
+    records.extend(slstm_recs)
+    phase("slstm-timing-path", seconds=f"{time.perf_counter() - t0:.1f}")
     for r in records:
         for key in ("executor_launches", "runtime_launches",
                     "serving_launches", "autosched_launches",

@@ -26,9 +26,13 @@ fragmentation on the card come on top.
 
 **A cell has a budget** of ``CELL_BUDGET_S`` seconds of counting on
 the host (in the main thread, where an alarm can stop it). A step whose
-eager ``meta`` run makes millions of op calls takes hours: the sLSTM's time
-loop (xlstm-125m) runs S Python steps a layer. Such a cell is recorded
-as an error (``TimeoutError``), not counted.
+eager ``meta`` run made millions of op calls would take hours; such a
+cell is recorded as an error (``TimeoutError``), not counted. The
+sLSTM's recurrence (xlstm-125m) is one op over the whole sequence
+(:mod:`..kernels.slstm`, registered when the model is imported), with a
+fake and a FLOP formula of its own, so its count does not grow with S and
+its HBM bytes are the fused op's inputs and outputs, counted once as
+``ByteCounter`` counts any op.
 
 A ``--mesh card`` cell runs the one-rank smoke mesh (1, 1) at a shape
 given on the command line, so that the prediction can be set beside a

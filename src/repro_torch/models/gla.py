@@ -62,7 +62,12 @@ def gla_chunked(xv: torch.Tensor, log_decay: torch.Tensor,
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # (B,nc,Q,Q,H)
     tri = torch.ones((chunk, chunk), dtype=torch.bool,
                      device=xv.device).tril()
-    decay = torch.where(tri[None, None, :, :, None], torch.exp(seg), 0.0)
+    # masked before exp: above the diagonal seg is a sum of -g >= 0 that
+    # can overflow, and exp's gradient there would be 0 * inf = NaN (the
+    # reference masks after exp, and its jax.grad is NaN there); the
+    # forward's values are the same
+    decay = torch.exp(torch.where(tri[None, None, :, :, None], seg,
+                                  float("-inf")))
     decay = decay.permute(0, 1, 4, 2, 3).to(dt)             # (B,nc,H,Q,Q)
     qk = torch.einsum("bcqhn,bckhn->bchqk", Q_c, K_c)
     M = qk * decay * s_c.to(dt).permute(0, 1, 3, 2)[:, :, :, None, :]

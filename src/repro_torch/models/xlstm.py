@@ -7,8 +7,14 @@ the reference's ``models/xlstm.py``).
   values carry a constant-1 channel, whose output channel is q·n_t, so one
   gla pass gives numerator and denominator.
 - **sLSTM**: scalar-memory LSTM with exponential gating and per-head
-  recurrent mixing, a loop over time (the reference's ``lax.scan``) of
-  :func:`_slstm_step`; decode is one step. Its (c, h) state stays float32.
+  recurrent mixing. The four input projections (z and the three gates)
+  depend on x alone and are taken once over the whole sequence; the
+  recurrence is one op over time, :func:`..kernels.slstm.slstm_scan`
+  (the reference's ``lax.scan``): on the card the Hopper kernel
+  ``slstm_fwd`` (and ``slstm_bwd`` under autograd), one launch a layer;
+  on the CPU the plain loop of the reference's step; on ``meta`` a fake
+  and a FLOP formula, one dispatched op whatever S is. Decode is the same
+  op at S = 1 from the cache's state. The (c, h) state stays float32.
 
 Both follow the paper's (m, s) pattern; mLSTM blocks carry the
 up-projection (pre-LN residual), sLSTM blocks their output projection.
@@ -20,6 +26,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels.slstm import slstm_scan
 from .gla import gla_chunked, gla_decode_step
 from .layers import NO_SHARD, ShardCtx, dense_init, rmsnorm
 
@@ -127,44 +134,33 @@ def slstm_state_shape(batch: int, d: int) -> Tuple[int, ...]:
     return (batch, 2, d)  # (c, h)
 
 
-def _slstm_step(params, n_heads, carry, xt):
-    """carry: (c, h) each (B, d) float32; xt: (B, d) pre-activations."""
-    c, h = carry
-    B, d = c.shape
-    hd = d // n_heads
-    hh = h.reshape(B, n_heads, hd)
-    rec = torch.einsum("bhx,hxy->bhy", hh, params["r"]).reshape(B, d)
-    z = torch.tanh(xt @ params["wz"].to(xt.dtype) + rec.to(xt.dtype))
-    x32 = xt.float()
-    i = torch.exp(torch.clamp(x32 @ params["wi"], max=6.0))
-    f = torch.sigmoid(x32 @ params["wf"])
-    o = torch.sigmoid(x32 @ params["wo_gate"])
-    c_new = f * c + i * z.float()
-    n = torch.clamp(torch.abs(c_new), min=1.0)
-    h_new = o * (c_new / n)
-    return (c_new, h_new.float()), h_new.to(xt.dtype)
+def _slstm_inputs(params, x):
+    """The step's four inputs over the whole sequence: zx = x·wz in x's
+    dtype and the gate pre-activations x·wi, x·wf, x·wo_gate in f32."""
+    x32 = x.float()
+    return (x @ params["wz"].to(x.dtype), x32 @ params["wi"],
+            x32 @ params["wf"], x32 @ params["wo_gate"])
+
+
+def _slstm_out(params, y, dtype):
+    return rmsnorm(y, params["norm"]) @ params["proj"].to(dtype)
 
 
 def slstm_apply(params: Dict, x: torch.Tensor, *, n_heads: int,
                 ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
     B, S, d = x.shape
-    carry = (torch.zeros((B, d), dtype=torch.float32, device=x.device),
-             torch.zeros((B, d), dtype=torch.float32, device=x.device))
-    ys = []
-    for t in range(S):
-        carry, yt = _slstm_step(params, n_heads, carry, x[:, t])
-        ys.append(yt)
-    y = rmsnorm(torch.stack(ys, dim=1), params["norm"])
-    out = y @ params["proj"].to(x.dtype)
-    return ctx.cs(out, "batch", None, None)
+    zero = torch.zeros((B, d), dtype=torch.float32, device=x.device)
+    y, _, _ = slstm_scan(*_slstm_inputs(params, x), params["r"], zero, zero)
+    return ctx.cs(_slstm_out(params, y, x.dtype), "batch", None, None)
 
 
 def slstm_decode(params: Dict, x: torch.Tensor, state: torch.Tensor, *,
                  n_heads: int, ctx: ShardCtx = NO_SHARD):
-    """x: (B,1,d); state: (B,2,d) = (c,h). Returns (out, new_state)."""
+    """x: (B,1,d); state: (B,2,d) = (c,h). Returns (out, new_state): the
+    scan at S = 1 from the state."""
     c, h = state[:, 0].float(), state[:, 1].float()
-    (c_new, h_new), y = _slstm_step(params, n_heads, (c, h), x[:, 0])
-    y = rmsnorm(y[:, None, :], params["norm"])
-    out = y @ params["proj"].to(x.dtype)
+    y, c_new, h_new = slstm_scan(*_slstm_inputs(params, x), params["r"],
+                                 c, h)
+    out = _slstm_out(params, y, x.dtype)
     new_state = torch.stack([c_new, h_new], dim=1).to(state.dtype)
     return ctx.cs(out, "batch", None, None), new_state

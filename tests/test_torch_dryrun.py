@@ -246,7 +246,7 @@ STEP_SHAPES = {"train": ShapeConfig("t", "train", 32, 4, grad_accum=2),
 
 @pytest.mark.parametrize("kind", sorted(STEP_SHAPES))
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "zamba2-7b",
-                                  "seamless-m4t-medium"])
+                                  "seamless-m4t-medium", "xlstm-125m"])
 def test_step_outputs_match_reference_eval_shape(arch, kind):
     cfg, rc = get_arch(arch).reduced(), rcfg.get_arch(arch).reduced()
     shape = STEP_SHAPES[kind]
@@ -345,14 +345,15 @@ def test_flops_against_reference_hlo():
     assert abs(dry["flops"] - want) / want == 0.0, (dry["flops"], want)
 
 
-def test_meta_flops_equal_the_real_step_on_the_cpu():
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "xlstm-125m"])
+def test_meta_flops_equal_the_real_step_on_the_cpu(arch):
     """The CPU's twin of the card check of path 4l: the meta count of a
     reduced train step (remat on) equals ``FlopCounterMode`` over the
-    same step run on the CPU."""
+    same step run on the CPU (xlstm-125m: the sLSTM scan's formula on
+    both, the plain loop inside it on the CPU)."""
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.optim import adamw_init
-    cfg = dataclasses.replace(get_arch("internlm2-1.8b").reduced(),
-                              remat=True)
+    cfg = dataclasses.replace(get_arch(arch).reduced(), remat=True)
     shape = ShapeConfig("t", "train", 32, 4, grad_accum=2)
     meta = dryrun.count_step(cfg, shape, make_smoke_mesh(META))["flops"]
     mesh = make_smoke_mesh("cpu")
@@ -466,6 +467,28 @@ def test_cli_one_full_cell_and_report(tmp_path, monkeypatch, capsys):
         dryrun.run_cell("xlstm-125m", "decode_32k", False, save_hlo=True)
 
 
+def test_xlstm_prefill_32k_full_size_counts(monkeypatch):
+    """xlstm-125m's prefill_32k on pod256 at full size: the sLSTM scan is
+    one op a layer on meta, so the cell counts within seconds (it stopped
+    at the 900 s budget while the scan looped over S), and its logits are
+    the reference's eval_shape: (32, 50432) bf16."""
+    import time
+    counted = {}
+    count = dryrun.count_step
+    monkeypatch.setattr(dryrun, "count_step",
+                        lambda *a, **k: counted.setdefault("c", count(*a,
+                                                                      **k)))
+    t0 = time.time()
+    rec = dryrun.run_cell("xlstm-125m", "prefill_32k", False)
+    assert rec["status"] == "ok", rec.get("error")
+    assert time.time() - t0 < 60
+    # rank 0's rows of the (32, 50432) logits: 32 over the 16 data ranks
+    out = counted["c"]["outputs"]
+    assert (out.shape[0] * 16, out.shape[1]) == (32, 50432)
+    assert out.dtype == torch.bfloat16
+    assert rec["roofline"]["flops_per_dev"] > 0
+
+
 def test_failed_cell_is_recorded():
     bad = dataclasses.replace(get_arch("internlm2-1.8b").reduced(),
                               train_attn_variant="flash")
@@ -476,7 +499,7 @@ def test_failed_cell_is_recorded():
 
 
 def test_cell_over_budget_is_recorded(monkeypatch):
-    monkeypatch.setattr(dryrun, "CELL_BUDGET_S", 0.05)
+    monkeypatch.setattr(dryrun, "CELL_BUDGET_S", 0.005)
     rec = dryrun.run_card_cell("xlstm-125m",
                                dryrun.card_shape("prefill", 512, 2),
                                cfg=get_arch("xlstm-125m").reduced())

@@ -1048,3 +1048,92 @@ def test_dryrun_flops_equal_the_card_step(card):
         fn(params, adamw_init(params), tokens)
     torch.cuda.synchronize(card)
     assert fc.get_total_flops() == meta > 0
+
+
+@pytest.mark.gpu
+def test_slstm_kernels_match_plain_versions(card):
+    """slstm_fwd and slstm_bwd against the plain loop and autograd through
+    it (chip_smoke's phase 3 cases at S <= 127, and S = 4096 at hd 192 in
+    bf16): one launch of each a case, within SLSTM_TOL and SLSTM_GRAD_TOL."""
+    cases = [c for c in chip_smoke.SLSTM_CASES if c[1] <= 127] + [
+        (1, 4096, 192, "bfloat16")]
+    before = dict(_build.LAUNCHES)
+    worst = chip_smoke.slstm_checks(np.random.default_rng(5), card, cases)
+    assert set(worst) == {"float32", "bfloat16"}
+    for name in ("slstm_fwd", "slstm_bwd"):
+        assert _build.LAUNCHES[name] - before[name] == len(cases)
+
+
+@pytest.mark.gpu
+def test_slstm_forward_repeats_bit_for_bit(card):
+    """No atomics: two launches on the same inputs give the same bits,
+    so remat's replay saves the states of the first pass."""
+    import torch
+    ins = chip_smoke.slstm_inputs(np.random.default_rng(6), 2, 300, 4, 192,
+                                  "bfloat16", card, grad=False)
+    a = torch.ops.repro_torch.slstm_scan(*ins, True)
+    b = torch.ops.repro_torch.slstm_scan(*ins, True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+def test_xlstm_train_step_on_card_matches_cpu(card):
+    """One reduced xlstm-125m ``make_train_step`` step (f32 activations,
+    remat on, 2 microbatches) on the card against the same step on the
+    CPU: loss and gnorm at 1e-4, every first moment at a relative
+    Frobenius error <= 1e-3; the sLSTM kernels launch (forward, replay,
+    backward) and nothing else."""
+    import dataclasses
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.data.pipeline import DataConfig, TokenSource
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import LM
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import leaves, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch("xlstm-125m").reduced(),
+                              dtype="float32", remat=True)
+    shape = ShapeConfig("t", "train", seq_len=64, global_batch=4,
+                        grad_accum=2)
+    host = LM(cfg).init_params(torch.Generator().manual_seed(0), "cpu")
+    tok = torch.from_numpy(TokenSource(DataConfig(cfg.vocab_size, 64, 4))
+                           .batch_at(0)["tokens"])
+    out = []
+    for dev in (card, torch.device("cpu")):
+        before = dict(_build.LAUNCHES)
+        mesh = make_smoke_mesh(dev)
+        fn, _ = steps.make_train_step(steps.build_lm(cfg, mesh), shape,
+                                      mesh, peak_lr=1e-3, total_steps=10)
+        p = tree_map(lambda x: x.clone().to(dev), host)
+        _, opt, m = fn(p, adamw_init(p), tok.to(dev))
+        launched = {k: n - before[k] for k, n in _build.LAUNCHES.items()
+                    if n != before[k]}
+        out.append((tree_map(lambda x: x.cpu(), opt.mu),
+                    {k: float(v) for k, v in m.items()}, launched))
+    (mu_card, m_card, l_card), (mu_cpu, m_cpu, l_cpu) = out
+    assert l_cpu == {} and l_card == {"slstm_fwd": 2 * 2, "slstm_bwd": 2}
+    for k in ("loss", "gnorm"):
+        assert m_card[k] == pytest.approx(m_cpu[k], rel=1e-4), k
+    for a, b in zip(leaves(mu_card), leaves(mu_cpu)):
+        assert float((a - b).norm() / b.norm()) <= 1e-3
+
+
+@pytest.mark.gpu
+def test_slstm_build_failure_raises(card, monkeypatch):
+    """A kernel that does not build raises on CUDA tensors: the op never
+    falls back to the plain loop."""
+    from repro_torch.kernels import slstm as K
+
+    def fail(*a, **k):
+        raise RuntimeError("nvcc failed for slstm")
+
+    def fallback(*a, **k):
+        raise AssertionError("CUDA inputs fell back to the plain loop")
+    monkeypatch.setattr(_build, "build", fail)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(K, "slstm_scan_plain", fallback)
+    ins = chip_smoke.slstm_inputs(np.random.default_rng(7), 1, 4, 2, 16,
+                                  "float32", card, grad=False)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        K.slstm_scan(*ins)

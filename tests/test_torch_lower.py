@@ -378,7 +378,10 @@ def test_chip_smoke_slice_on_cpu():
             rng, torch.device("cpu")):
         assert chip_smoke.compare_kernel(label, name, args, abs_args) == 0.0
         seen.add(name)
-    assert seen == set(chip_smoke.KERNELS)
+    # the sLSTM kernels' edge cases are SLSTM_CASES, held by their own
+    # comparison (tests/test_torch_slstm.py rehearses it)
+    assert seen | {"slstm_fwd", "slstm_bwd"} == set(chip_smoke.KERNELS)
+    assert {c[1] for c in chip_smoke.SLSTM_CASES} == {1, 2, 127, 4096}
 
 
 def test_chip_smoke_add_path_on_cpu():

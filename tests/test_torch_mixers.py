@@ -109,6 +109,37 @@ def test_gla_chunked_bf16_keeps_the_reference_casts():
     np.testing.assert_allclose(_np(gh), _np(wh), atol=3e-2, rtol=3e-2)
 
 
+def test_gla_chunked_gradient_is_finite_where_the_gate_sum_overflows():
+    """A chunk whose gates sum below -88 overflows exp above the diagonal.
+    The reference masks after exp, so its jax.grad is NaN there; the port
+    masks before exp: its forward equals the reference's and its gradient
+    equals that of the step-by-step recurrence (``gla_decode_step``)."""
+    B, S, H, P, N, chunk = 1, 16, 2, 3, 4, 16
+    inp = _gla_inputs(21, B, S, H, P, N, False)
+    inp["log_decay"] = inp["log_decay"] - 8.0     # 15 steps: about -125
+    jin = [jnp.asarray(v) for v in inp.values()]
+
+    def jloss(g):
+        return jnp.sum(RG.gla_chunked(jin[0], g, *jin[2:], chunk=chunk)[0])
+    assert np.isnan(np.asarray(jax.grad(jloss)(jin[1]))).any()
+    tin = [torch.from_numpy(v) for v in inp.values()]
+    g = tin[1].clone().requires_grad_()
+    y, _ = G.gla_chunked(tin[0], g, *tin[2:], chunk=chunk)
+    want_y, _ = RG.gla_chunked(*jin, chunk=chunk)
+    np.testing.assert_allclose(_np(y.detach()), _np(want_y), **TOL)
+    (got,) = torch.autograd.grad(y.sum(), g)
+    g2 = tin[1].clone().requires_grad_()
+    h = torch.zeros((B, H, N, P))
+    steps = []
+    for t in range(S):
+        yt, h = G.gla_decode_step(h, tin[0][:, t], g2[:, t], tin[2][:, t],
+                                  tin[3][:, t], tin[4][:, t])
+        steps.append(yt)
+    (want,) = torch.autograd.grad(torch.stack(steps, 1).sum(), g2)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **TOL)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shared_kq", [False, True], ids=["per_head", "shared"])
 def test_gla_decode_step_matches_reference(shared_kq, dtype):

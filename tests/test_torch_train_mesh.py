@@ -56,4 +56,11 @@ def test_chip_smoke_train_path_on_cpu(tmp_path, capsys):
         assert sum(line.startswith(f"[{tag}] ") for line in lines) == 1
     assert out["full"]["attention_calls"] == 2 * 2 * 4 * 4
     assert out["restart"]["resumed_at"] == 4
+    # (5) xlstm-125m reduced: its steps, summary and twin, no kernel here
+    assert sum(line.startswith("[train-xlstm] ") for line in lines) == 3
+    for tag in ("train-xlstm-summary", "train-xlstm-twin"):
+        assert sum(line.startswith(f"[{tag}] ") for line in lines) == 1
+    assert out["xlstm"]["attention_calls"] == 0 and out["launches"] == {}
+    assert out["xlstm"]["first_batch_again"] < out["xlstm"]["losses"][0]
+    assert out["xlstm_twin"]["kernel_vs_plain_rel"] <= 1e-3
     assert not any(tmp_path.iterdir())
