@@ -79,15 +79,18 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
              bits), and its position 0 must equal v[0].
              Then the sLSTM scan (``slstm_fwd``, and ``slstm_bwd`` under
              autograd) against the plain loop and autograd through it,
-             at 2 heads, in f32 and bf16 (``SLSTM_CASES``): S in {1, 2,
-             127} over B in {1, 3} and hd in {16, 64, 192, 256} (256's r
-             does not fit in shared memory), and S = 4096 at hd 192 (B 1
-             in f32, B 3 in bf16); a nonzero initial state
-             (without gradient at B = 1, as on the training path), |c|
-             crossing 1, one gate pre-activation in 200 above the clamp at
-             6. y and the final state at atol = rtol = 1e-4 in f32 and
-             3e-2 in bf16, each gradient at 1e-3 and 5e-2 relative
-             Frobenius (``[kernels-slstm]``: the worst of each).
+             at 2 heads (``SLSTM_CASES``): S in {1, 2, 127} over B in
+             {1, 3} and hd in {16, 64, 192, 256} in f32 and bf16, S in
+             {1, 127} over B in {1, 3} and hd in {16, 192} in f16, S =
+             4096 at hd 192 (B 1 in f32, B 3 in bf16 and f16), and hd
+             640 (bf16), past the cluster kernels' limit, on the
+             one-block kernels (each case's design checked); a nonzero
+             initial state (without gradient at B = 1, as on the
+             training path), |c| crossing 1, one gate pre-activation in
+             200 above the clamp at 6. y and the final state at atol =
+             rtol = 1e-4 in f32, 3e-2 in bf16 and 1e-2 in f16, each
+             gradient at 1e-3, 5e-2 and 1e-2 relative Frobenius
+             (``[kernels-slstm]``: the worst of each).
 4. main    — eleven paths (a-d, f, h, i, g, e, j, then k), each driven
              through the public entry points with the kernel launch counts
              reset just before and read just after; each of the path's
@@ -365,12 +368,20 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
    ``torch.sparse`` BSR products and ``sampled_addmm`` over the
    scalarised block pattern.
    The sLSTM kernels at path 4k's shape (xlstm-125m's layer over one
-   microbatch: B 2, S 4096, 4 heads of 192, bf16, the forward keeping its
-   states), each against its plain loop on the same inputs, their
-   launches those of paths j and k; the bound is the larger of the bytes
-   over 3.35 TB/s and the recurrent products' FLOPs over 67 TFLOP/s, and
-   ``serial_floor_ms`` beside it is S times one dependent step (a single
-   (b, head) chain over S); ``library_ms`` null (``[slstm-timing]``).
+   microbatch: B 2, S 4096, 4 heads of 192, the forward keeping its
+   states), a record a dtype (bf16; float16 and f32 as
+   ``slstm_fwd(f16)``, ``slstm_fwd(f32)``, ...), each against its plain
+   loop on the same inputs, their launches those of paths j and k in
+   that dtype as the wrapper counted them (``slstm.ROUTES``, with phase
+   3's beside them as ``edge_launches``); the bound is the larger of the
+   bytes over 3.35 TB/s and the recurrent products' FLOPs over 67
+   TFLOP/s, and ``serial_floor_ms`` beside it is S times one dependent
+   step (a single (b, head) chain over S); ``library_ms`` null
+   (``[slstm-timing]``, with the launch shape: blocks a cluster,
+   k-slices, threads). Before
+   them ``[cluster-step]``: the exchange alone, hd / C doubles a block at
+   C = 2, 4, 8 and 16 over 8 clusters and S steps, by a split cluster
+   barrier a step and by st.async counted on mbarriers (the kernels').
    flash_attention's launches in its record count paths e and j (j's
    alone as ``lm_launches``). It is timed at the model's layer shapes (q
    (2, 4096, 32, 128), k and v (2, 4096, 8, 128)) in bf16 (the record), f32 and
@@ -1397,17 +1408,25 @@ def compare_kernel(label, name, args, abs_args) -> float:
 
 
 # the sLSTM scan's edge cases, (B, S, hd, dtype) at SLSTM_HEADS heads: S in
-# {1, 2, 127} over B in {1, 3}, every hd (192 is xlstm-125m's; 256's r
-# does not fit in shared memory and is read from L2) and both dtypes, then
-# S = 4096 at the model's hd, B 1 in f32 and B 3 in bf16
+# {1, 2, 127} over B in {1, 3}, every hd (192 is xlstm-125m's, on a
+# cluster of slstm.plan's C blocks a recurrence; 16 takes one block; 256
+# the widest phase 3 sends to the cluster kernels) in f32 and bf16;
+# float16 at S in {1, 127}, B in {1, 3} and hd in {16, 192}; S = 4096 at
+# the model's hd, B 1 in f32 and B 3 in bf16 and f16; then hd 640, past
+# the cluster kernels' limit (480, csrc/slstm.cu kClusterMaxHd), which
+# launches the one-block kernels
 SLSTM_HEADS = 2
 SLSTM_CASES = tuple((B, S, hd, dt) for S in (1, 2, 127) for B in (1, 3)
                     for hd in (16, 64, 192, 256)
-                    for dt in ("float32", "bfloat16")) + (
-    (1, 4096, 192, "float32"), (3, 4096, 192, "bfloat16"))
-# y and the final (c, h): atol = rtol; each gradient: relative Frobenius
-SLSTM_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
-SLSTM_GRAD_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
+                    for dt in ("float32", "bfloat16")) + tuple(
+    (B, S, hd, "float16") for S in (1, 127) for B in (1, 3)
+    for hd in (16, 192)) + (
+    (1, 4096, 192, "float32"), (3, 4096, 192, "bfloat16"),
+    (3, 4096, 192, "float16"), (3, 127, 640, "bfloat16"))
+# y and the final (c, h): atol = rtol; each gradient: relative Frobenius.
+# float16 keeps three more mantissa bits than bf16: 1e-2 for both
+SLSTM_TOL = {"float32": 1e-4, "bfloat16": 3e-2, "float16": 1e-2}
+SLSTM_GRAD_TOL = {"float32": 1e-3, "bfloat16": 5e-2, "float16": 1e-2}
 SLSTM_INPUTS = ("zx", "ip", "fp", "op", "r", "c0", "h0")
 
 
@@ -1490,15 +1509,31 @@ def slstm_check(label: str, ins, rng) -> dict:
 def slstm_checks(rng, device, cases=SLSTM_CASES) -> dict:
     """Phase 3 for the sLSTM scan: :func:`slstm_check` over ``cases``; at
     B = 1 the initial state takes no gradient (the training path's zero
-    state: the backward skips dh0's product). Returns {dtype: {quantity:
-    worst}}."""
+    state: the backward skips dh0's product). On the card each case must
+    launch one forward and one backward in its dtype, of the design
+    ``slstm.plan`` names for its width (the cluster kernels up to hd 480,
+    the one-block kernels past it). Returns {dtype: {quantity: worst}}."""
+    import torch
+    from repro_torch.kernels import slstm as K
     worst = {}
     for B, S, hd, dt in cases:
         ins = slstm_inputs(rng, B, S, SLSTM_HEADS, hd, dt, device)
         if B == 1:
             for t in ins[5:]:
                 t.requires_grad_(False)
-        errs = slstm_check(f"slstm B={B} S={S} hd={hd} {dt}", ins, rng)
+        label = f"slstm B={B} S={S} hd={hd} {dt}"
+        before = dict(K.ROUTES)
+        errs = slstm_check(label, ins, rng)
+        if device.type == "cuda":
+            ran = {key: n - before[key] for key, n in K.ROUTES.items()
+                   if n != before[key]}
+            want = {}
+            for k in ("slstm_fwd", "slstm_bwd"):
+                shape = K.plan(B * SLSTM_HEADS, hd, getattr(torch, dt),
+                               k == "slstm_bwd")
+                want[(k, "cluster" if shape["C"] else "block", dt)] = 1
+            if ran != want:
+                raise AssertionError(f"{label}: launched {ran}, want {want}")
         for k, v in errs.items():
             worst.setdefault(dt, {})[k] = max(worst.get(dt, {}).get(k, 0.0),
                                               v)
@@ -2688,21 +2723,46 @@ def flash_record(cfg, batch: int, seq: int, device, dtype: str,
     }
 
 
-def slstm_records(device, launches: dict, reps: int) -> list:
+# the sLSTM kernels' phase-5 records a dtype: bf16 (path 4k's), then the
+# float16 of path 4j's last run and the f32 of path 4k's twin
+SLSTM_RECORD_DTYPES = (("bfloat16", ""), ("float16", "(f16)"),
+                       ("float32", "(f32)"))
+
+
+def slstm_launch_fields(routes: dict) -> dict:
+    """A phase line's fields for a copy of ``slstm.ROUTES``: the nonzero
+    counts as ``<kernel>_<design>_<dtype>``."""
+    return {"_".join(key): n for key, n in routes.items() if n} or {
+        "slstm": "none"}
+
+
+def slstm_records(device, lm_scans: dict, train_scans: dict,
+                  edge_scans: dict, reps: int) -> list:
     """Phase 5 for the sLSTM kernels at the shape path 4k gives them:
     xlstm-125m's sLSTM layer over one microbatch (B 2, S 4096, d 768, 4
-    heads of 192), bf16 activations, from the zero state, the forward
-    keeping every step's state for the backward (training). Each kernel
-    against its plain version on the same inputs (the largest absolute
-    error of every output), CUDA-event medians of ``reps`` (the plain
-    loops': the compared call, CUDA events around it), and the bound: the inputs read and outputs written once
+    heads of 192), from the zero state, the forward keeping every step's
+    state for the backward (training); a record a dtype of
+    :data:`SLSTM_RECORD_DTYPES` (``slstm_fwd``, ``slstm_bwd`` in bf16,
+    ``slstm_fwd(f16)``, ``slstm_fwd(f32)``, ...). Each kernel against its
+    plain version on the same
+    inputs (the largest absolute error of every output), CUDA-event
+    medians of ``reps`` (the plain loops': the compared call, CUDA events
+    around it), and the bound: the inputs read and outputs written once
     over 3.35 TB/s against the recurrent products' FLOPs over 67 TFLOP/s
     (f32). ``serial_floor_ms`` is S times one dependent step, measured as
     the forward of a single (b, head) chain (B = 1, one head) over S.
-    ``launches`` {kernel: count} are the main path's (4j and 4k). No
-    single PyTorch call computes this recurrence: ``library_ms`` null.
-    ``max_abs_plain`` is the largest plain output beside the error (the
-    backward's gradients grow over S where the input gate is large)."""
+    ``launches`` are the main path's in the record's dtype, as the wrapper
+    counted them (``slstm.ROUTES``: ``lm_scans`` over the calls path 4j
+    counts, ``train_scans`` over 4k, reset just before), beside
+    ``lm_launches``, ``train_launches`` and ``edge_launches`` (phase 3's,
+    ``edge_scans``). No single
+    PyTorch call computes this recurrence: ``library_ms`` null. Each
+    record names the launch shape (``slstm.plan``: blocks a cluster,
+    k-slices, threads) and the exchange's own ns a step at that cluster
+    width (:func:`cluster_steps`, whose ``[cluster-step]`` lines it
+    prints). ``max_abs_plain`` is the
+    largest plain output beside the error (the backward's gradients grow
+    over S where the input gate is large)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
@@ -2713,64 +2773,121 @@ def slstm_records(device, launches: dict, reps: int) -> list:
     hd = cfg.d_model // H
     rng = np.random.default_rng(SEED + 9)
     with torch.no_grad():
-        ins = slstm_inputs(rng, B, S, H, hd, "bfloat16", device, grad=False)
-        zx, ip, fp, op, r, c0, h0 = ins
-        c0.zero_()
-        h0.zero_()
-        out = torch.ops.repro_torch.slstm_scan(*ins, True)
-        # the plain loops take seconds: the compared call is the timed one
-        want, fwd_plain = _timed(lambda: K.slstm_scan_plain(*ins,
-                                                            save=True))
-        err_f = max(float((a.float() - b.float()).abs().max())
-                    for a, b in zip(out, want))
-        ref_f = max(float(b.float().abs().max()) for b in want)
-        y, c, h, cs, hs, zs = out
-        gy = torch.from_numpy(rng.standard_normal(y.shape).astype(
-            np.float32)).to(device=device, dtype=y.dtype)
-        bwd_args = (gy, None, None, ip, fp, op, r, c0, cs, zs, False)
-        got_b = torch.ops.repro_torch.slstm_scan_bwd(*bwd_args)
-        want_b, bwd_plain = _timed(lambda: K.slstm_scan_bwd_plain(
-            *bwd_args))
-        err_b = max(float((a.float() - b.float()).abs().max())
-                    for a, b in zip(got_b, want_b))
-        ref_b = max(float(b.float().abs().max()) for b in want_b)
+        timed = {"bfloat16": _slstm_timed(rng, device, B, S, H, hd,
+                                          "bfloat16", reps)}
         one = slstm_inputs(rng, 1, S, 1, hd, "bfloat16", device, grad=False)
         chain_ms = time_events(
             lambda: torch.ops.repro_torch.slstm_scan(*one, False), reps)
-        times = {
-            "fwd": time_events(
-                lambda: torch.ops.repro_torch.slstm_scan(*ins, True), reps),
-            "bwd": time_events(
-                lambda: torch.ops.repro_torch.slstm_scan_bwd(*bwd_args),
-                reps),
-            "fwd_plain": fwd_plain, "bwd_plain": bwd_plain}
+        step_ns = cluster_steps(device, hd, B * H, S, reps)
+        for dtype, _ in SLSTM_RECORD_DTYPES[1:]:
+            timed[dtype] = _slstm_timed(rng, device, B, S, H, hd, dtype,
+                                        reps)
+    recs = []
+    for dtype, tag in SLSTM_RECORD_DTYPES:
+        for part, (err, ref, ms, plain_ms, moved, flops) in \
+                timed[dtype].items():
+            base = f"slstm_{part}"
+            shape = K.plan(B * H, hd, getattr(torch, dtype), part == "bwd")
+            t_bytes = moved / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / F32_FLOPS * 1e3
+            source, replaces = KERNELS[base]
+            counts = {which: K.route_count(base, dtype=dtype, routes=routes)
+                      for which, routes in (("lm", lm_scans),
+                                            ("train", train_scans),
+                                            ("edge", edge_scans))}
+            recs.append({
+                "name": base + tag, "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": counts["lm"] + counts["train"],
+                "lm_launches": counts["lm"],
+                "train_launches": counts["train"],
+                "edge_launches": counts["edge"], "max_abs_err": err,
+                "max_abs_plain": ref, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": None,
+                "library_call": "none: no PyTorch call computes the sLSTM "
+                                "recurrence",
+                "serial_floor_ms": chain_ms, "step_us": chain_ms / S * 1e3,
+                "shape": f"B{B} S{S} H{H} hd{hd} {dtype}",
+                "cluster": shape["C"], "k_slices": shape["KS"],
+                "threads": shape["threads"],
+                "cluster_step_ns": step_ns[("st.async", shape["C"])]})
+    return recs
+
+
+def _slstm_timed(rng, device, B, S, H, hd, dtype, reps) -> dict:
+    """slstm_fwd and slstm_bwd at (B, S, H, hd) in ``dtype`` against the
+    plain loops (:func:`slstm_records`): {"fwd" | "bwd": (max abs error,
+    max abs plain output, kernel ms, plain ms, bytes moved, FLOPs)}."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import slstm as K
+    ins = slstm_inputs(rng, B, S, H, hd, dtype, device, grad=False)
+    zx, ip, fp, op, r, c0, h0 = ins
+    c0.zero_()
+    h0.zero_()
+    out = torch.ops.repro_torch.slstm_scan(*ins, True)
+    # the plain loops take seconds: the compared call is the timed one
+    want, fwd_plain = _timed(lambda: K.slstm_scan_plain(*ins, save=True))
+    y, c, h, cs, hs, zs = out
+    gy = torch.from_numpy(rng.standard_normal(y.shape).astype(
+        np.float32)).to(device=device, dtype=y.dtype)
+    bwd_args = (gy, None, None, ip, fp, op, r, c0, cs, zs, False)
+    got_b = torch.ops.repro_torch.slstm_scan_bwd(*bwd_args)
+    want_b, bwd_plain = _timed(lambda: K.slstm_scan_bwd_plain(*bwd_args))
+
+    def worst(got, want):
+        return (max(float((a.float() - b.float()).abs().max())
+                    for a, b in zip(got, want)),
+                max(float(b.float().abs().max()) for b in want))
 
     def nbytes(ts):
         return sum(t.numel() * t.element_size() for t in ts
                    if t is not None)
     d = H * hd
-    moved = {"fwd": nbytes(ins) + nbytes(out),
-             "bwd": nbytes(bwd_args[:-1]) + nbytes(got_b[:-1])}
-    flops = {"fwd": 2 * B * S * d * hd, "bwd": 2 * B * (S - 1) * d * hd}
-    recs = []
-    for part, err, ref in (("fwd", err_f, ref_f), ("bwd", err_b, ref_b)):
-        name = f"slstm_{part}"
-        t_bytes = moved[part] / HBM_BYTES_PER_S * 1e3
-        t_ops = flops[part] / F32_FLOPS * 1e3
-        source, replaces = KERNELS[name]
-        recs.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches.get(name, 0),
-            "max_abs_err": err, "max_abs_plain": ref, "ms": times[part],
-            "plain_ms": times[f"{part}_plain"],
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
-            "library_call": "none: no PyTorch call computes the sLSTM "
-                            "recurrence",
-            "serial_floor_ms": chain_ms, "step_us": chain_ms / S * 1e3,
-            "shape": f"B{B} S{S} H{H} hd{hd} bfloat16"})
-    return recs
+    fwd_ms = time_events(
+        lambda: torch.ops.repro_torch.slstm_scan(*ins, True), reps)
+    bwd_ms = time_events(
+        lambda: torch.ops.repro_torch.slstm_scan_bwd(*bwd_args), reps)
+    return {"fwd": (*worst(out, want), fwd_ms, fwd_plain,
+                    nbytes(ins) + nbytes(out), 2 * B * S * d * hd),
+            "bwd": (*worst(got_b, want_b), bwd_ms, bwd_plain,
+                    nbytes(bwd_args[:-1]) + nbytes(got_b[:-1]),
+                    2 * B * (S - 1) * d * hd)}
+
+
+def cluster_steps(device, hd: int, clusters: int, steps: int,
+                  reps: int) -> dict:
+    """``[cluster-step]``: the cluster kernels' exchange alone
+    (``slstm_cluster_probe``), ``steps`` steps in ``clusters`` clusters of
+    C blocks at C = 2, 4, 8 and 16, each block storing hd / C doubles (8
+    lanes a column, 4 where 8 would pass 512 threads) to every block of
+    its cluster: by a split cluster barrier a step (``barrier``), and by
+    st.async stores counted on the receivers' mbarriers (``st.async``, the
+    kernels' way). CUDA-event medians of ``reps``; returns {(exchange, C):
+    ns a step} and prints one line per pair."""
+    import torch
+    from repro_torch.kernels import slstm as K
+    lib = K.library("slstm", K._SIGNATURES)
+    sink = torch.empty(16 * clusters, dtype=torch.float64, device=device)
+    out = {}
+    for C in (2, 4, 8, 16):
+        W = hd // C
+        ks = 8 if W * 8 <= 512 else 4
+        for mode, how in ((0, "barrier"), (1, "st.async")):
+            def probe():
+                err = lib.slstm_cluster_probe(
+                    C, W, ks, clusters, steps, mode, sink.data_ptr(),
+                    torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"slstm_cluster_probe C={C}: CUDA "
+                                       f"error {err}")
+            ns = time_events(probe, reps) / steps * 1e6
+            out[(how, C)] = ns
+            phase("cluster-step", exchange=how, C=C, columns=W,
+                  clusters=clusters, steps=steps, ns_per_step=f"{ns:.1f}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2959,7 +3076,7 @@ def run_arch(cfg, batch: int, seq: int, device, steps: int,
     record and the launches."""
     import dataclasses
     import torch
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, slstm as K
     from repro_torch.models import LM
     lm = LM(cfg)
     if device.type == "cuda":
@@ -2997,7 +3114,7 @@ def run_arch(cfg, batch: int, seq: int, device, steps: int,
         return logits
 
     with torch.inference_mode():
-        before = dict(_build.LAUNCHES)
+        before, before_scans = dict(_build.LAUNCHES), dict(K.ROUTES)
         # the last two timed prefills' logits are the bit check
         prefill_ms = time_host(prefill, device, 3)
         out, again = last
@@ -3005,14 +3122,19 @@ def run_arch(cfg, batch: int, seq: int, device, steps: int,
         last, last2 = decode(step_ms), decode(spare)
         _sync(device)
         launches = {k: n - before[k] for k, n in _build.LAUNCHES.items()}
+        scans = {key: n - before_scans[key] for key, n in K.ROUTES.items()
+                 if n != before_scans[key]}
         expected = dict.fromkeys(launches, 0)
         if device.type == "cuda":
             expected["flash_attention"] = flash_layers(lm) * len(runs)
             expected["slstm_fwd"] = slstm_layers(lm) * (len(runs)
                                                         + 2 * steps)
-        if launches != expected:
+        if launches != expected or any(
+                K.route_count(k, routes=scans) != launches[k]
+                for k in ("slstm_fwd", "slstm_bwd")):
             raise AssertionError(f"{cfg.name}: launches {launches}, want "
-                                 f"{expected}")
+                                 f"{expected}; sLSTM's by design and dtype "
+                                 f"{scans}")
         for name, t in (("prefill", out), ("decode", last)):
             if not torch.isfinite(t.float()).all():
                 raise AssertionError(f"{cfg.name}: non-finite {name} logits")
@@ -3043,7 +3165,7 @@ def run_arch(cfg, batch: int, seq: int, device, steps: int,
                "chunked_vs_dense": chunked_vs_dense, "kernel_err": kernel_err,
                "kernel_shapes": shapes,
                "slstm_launches": launches.get("slstm_fwd", 0),
-               "slstm_err": slstm_err}
+               "slstm_scans": scans, "slstm_err": slstm_err}
         if teacher:
             rec["tf_rel_bf16"], full16 = teacher_forced(lm, params, tokens,
                                                         fe, device)
@@ -3137,10 +3259,12 @@ def lm_path(device, serve=SERVE,
             steps: int = ARCH_DECODE_STEPS, reduce=None):
     """Path 4j: (a) the Server on llama3-8b at full width and depth, bf16
     weights; (b) every architecture at full width (depth cut only to fit
-    the card, printed), bf16 weights; one ``[serve-lm]`` line and one
-    ``[lm]`` line per architecture. ``reduce`` (a config -> config map)
+    the card, printed), bf16 weights, then xlstm-125m again with float16
+    activations; one ``[serve-lm]`` line and one ``[lm]`` line per
+    architecture and dtype. ``reduce`` (a config -> config map)
     shrinks the models for a rehearsal on the CPU. Returns the launches
-    summed over the path."""
+    summed over the path and the sLSTM kernels' launches of the same
+    calls by (kernel, design, dtype) (``slstm.ROUTES``' keys)."""
     import torch
     from repro_torch.configs import all_archs
     free = (torch.cuda.mem_get_info(device)[0] if device.type == "cuda"
@@ -3168,24 +3292,30 @@ def lm_path(device, serve=SERVE,
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    total = {}
-    for name in sorted(all_archs()):
+    total, scans = {}, {}
+    # the ten in bf16 activations, then xlstm-125m in float16 (the sLSTM
+    # kernels' f16 instances, every scan held to the plain loop)
+    runs = [(name, {}) for name in sorted(all_archs())] + [
+        (XLSTM_ARCH, {"dtype": "float16"})]
+    for name, dtype in runs:
         free = (torch.cuda.mem_get_info(device)[0]
                 if device.type == "cuda" else 1 << 40)
-        over = ({"moe_capacity_factor": 16.0}
-                if name == "olmoe-1b-7b" else {})
+        over = dict(dtype, **({"moe_capacity_factor": 16.0}
+                              if name == "olmoe-1b-7b" else {}))
         cfg, cut = arch_config(name, free, **over)
         rec, launches = run_arch(reduce(cfg) if reduce else cfg, batch, seq,
-                                 device, steps, name in TEACHER_FORCED)
+                                 device, steps,
+                                 name in TEACHER_FORCED and not dtype)
         _add_launches(total, launches)
+        _add_launches(scans, rec["slstm_scans"])
         tf = {}
         if "tf_rel_f32" in rec:
             tf = {"tf_rel_bf16": f"{rec['tf_rel_bf16']:.4g}",
                   "tf_rel_f32": f"{rec['tf_rel_f32']:.4g}",
                   "fwd_rel_bf16_vs_f32": f"{rec['fwd_rel_bf16_f32']:.4g}",
                   "bf16_held": name in BF16_HELD}
-        phase("lm", arch=name, layers=rec["layers"], cut=cut or "none",
-              d_model=rec["d_model"],
+        phase("lm", arch=name, dtype=cfg.dtype, layers=rec["layers"],
+              cut=cut or "none", d_model=rec["d_model"],
               weights_gb=f"{rec['param_bytes'] / 2**30:.2f}",
               init_s=f"{rec['init_s']:.2f}",
               prefill_ms=f"{rec['prefill_ms']:.3f}",
@@ -3201,7 +3331,7 @@ def lm_path(device, serve=SERVE,
         gc.collect()
         if device.type == "cuda":
             torch.cuda.empty_cache()
-    return total
+    return total, scans
 
 
 # ---------------------------------------------------------------------------
@@ -5270,13 +5400,23 @@ def main(argv=None) -> int:
         worst[name] = max(worst.get(name, 0.0), err)
     phase("kernels-edge", seconds=f"{time.perf_counter() - t0:.1f}",
           **{k: f"{v:.3g}" for k, v in worst.items()})
-    # 3b. the sLSTM scan and its transpose against the plain loop
+    # 3b. the sLSTM scan and its transpose against the plain loop; both
+    # designs launched (the one-block kernels for the case past the limit)
+    from repro_torch.kernels import slstm as K
     t0 = time.perf_counter()
+    K.reset_routes()
     for dt, errs in slstm_checks(rng, device).items():
         phase("kernels-slstm", dtype=dt, cases=sum(
             c[3] == dt for c in SLSTM_CASES),
               **{k: f"{v:.3g}" for k, v in errs.items()})
-    phase("kernels-slstm-path", seconds=f"{time.perf_counter() - t0:.1f}")
+    edge_scans = dict(K.ROUTES)
+    for design in ("cluster", "block"):
+        if not all(K.route_count(k, design, routes=edge_scans)
+                   for k in ("slstm_fwd", "slstm_bwd")):
+            raise AssertionError(f"phase 3 launched no {design} sLSTM "
+                                 f"kernel: {edge_scans}")
+    phase("kernels-slstm-path", seconds=f"{time.perf_counter() - t0:.1f}",
+          **slstm_launch_fields(edge_scans))
 
     # 4a-d, f + 5. the sparse paths, their kernels timed after every count
     records, ttv = sparse_paths(args, device, data_job.result())
@@ -5330,7 +5470,7 @@ def main(argv=None) -> int:
     # 4j. LM decode, the Server loop and the ten architectures
     _build.reset_launches()
     t0 = time.perf_counter()
-    lm_launches = lm_path(device)
+    lm_launches, lm_scans = lm_path(device)
     missing = [k for k in ("flash_attention", "slstm_fwd")
                if not lm_launches.get(k)]
     if missing:
@@ -5339,13 +5479,16 @@ def main(argv=None) -> int:
     phase("lm-path", seconds=f"{time.perf_counter() - t0:.1f}",
           max_mem_gb=f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f}")
     phase("launches", path="lm", **lm_launches)
+    phase("slstm-launches", path="lm", **slstm_launch_fields(lm_scans))
     clocks("after the LM path")
 
     # 4k. the training stack, on a card freed of path 4j's models
     gc.collect()
     torch.cuda.empty_cache()
     _build.reset_launches()
+    K.reset_routes()
     trained = train_path(device)
+    train_scans = dict(K.ROUTES)
     # (1)-(4) launch nothing (train_path checks); (5) the sLSTM kernels
     launched = {k: n for k, n in _build.LAUNCHES.items() if n}
     if launched != trained["launches"] or not all(
@@ -5353,8 +5496,9 @@ def main(argv=None) -> int:
         raise AssertionError(f"kernels launched on the training path: "
                              f"{launched}, want the sLSTM kernels of (5): "
                              f"{trained['launches']}")
-    train_launches = dict(_build.LAUNCHES)
     phase("launches", path="train", **_build.LAUNCHES)
+    phase("slstm-launches", path="train",
+          **slstm_launch_fields(train_scans))
     clocks("after the training path")
 
     # 4l. the dry-run beside paths 4k and 4e, its CLI, the six examples
@@ -5403,16 +5547,21 @@ def main(argv=None) -> int:
                                   f"{short[dt]})"))
     phase("flash-timing", seconds=f"{time.perf_counter() - t0:.1f}")
     clocks("after the flash timing")
-    # the sLSTM kernels at path 4k's shape; launches of paths 4j and 4k
+    # the sLSTM kernels at path 4k's shape, a record a dtype; launches of
+    # paths 4j and 4k and of phase 3 as the wrappers counted them by dtype
     t0 = time.perf_counter()
-    scan_launches = {k: lm_launches.get(k, 0) + train_launches.get(k, 0)
-                     for k in ("slstm_fwd", "slstm_bwd")}
-    slstm_recs = slstm_records(device, scan_launches, args.reps)
+    slstm_recs = slstm_records(device, lm_scans, train_scans, edge_scans,
+                               args.reps)
     for r in slstm_recs:
-        r["lm_launches"] = lm_launches.get(r["name"], 0)
         phase("slstm-timing", name=r["name"], shape=r["shape"],
+              ms=f"{r['ms']:.4f}", cluster=r["cluster"],
+              k_slices=r["k_slices"], threads=r["threads"],
+              cluster_step_ns=f"{r['cluster_step_ns']:.1f}",
               serial_floor_ms=f"{r['serial_floor_ms']:.4f}",
-              step_us=f"{r['step_us']:.4f}",
+              step_us=f"{r['step_us']:.4f}", launches=r["launches"],
+              lm_launches=r["lm_launches"],
+              train_launches=r["train_launches"],
+              edge_launches=r["edge_launches"],
               max_abs_plain=f"{r['max_abs_plain']:.4g}")
     records.extend(slstm_recs)
     phase("slstm-timing-path", seconds=f"{time.perf_counter() - t0:.1f}")

@@ -7,9 +7,18 @@ versions beside it. It replaces no Pallas kernel: the reference's
 ``repro/models/xlstm.py::slstm_apply`` is a ``lax.scan``, one op whose size
 does not depend on S, and its gradient is that scan's transpose. The four
 input projections do not depend on the recurrence and are taken outside
-(:mod:`..models.xlstm`), so the op takes zx (x's dtype), the gate
-pre-activations ip, fp, op (f32), ``r`` (H, hd, hd) f32 and the initial
-(c, h) f32.
+(:mod:`..models.xlstm`), so the op takes zx (x's dtype: float32, bfloat16
+or float16), the gate pre-activations ip, fp, op (f32), ``r`` (H, hd, hd)
+f32 and the initial (c, h) f32.
+
+On the card each (batch row, head) recurrence runs on a thread-block
+cluster of C blocks (:func:`plan`): r's column slices in registers as
+double, h (or the backward's dzpre) exchanged through distributed shared
+memory (stores counted on each block's mbarrier), a helper warp a block
+for the inputs, gates and outputs (``csrc/slstm.cu``). Heads wider than
+480 (``kClusterMaxHd``) launch the one-block kernels instead (a block per
+recurrence). The entry points choose the shape themselves; :func:`plan`
+asks which. :data:`ROUTES` counts the launches of each design and dtype.
 
 :func:`slstm_scan` is ``torch.ops.repro_torch.slstm_scan``, a
 ``torch.library.custom_op`` with three behaviours:
@@ -40,16 +49,42 @@ from torch.utils.flop_counter import flop_registry, register_flop_formula
 from ._build import check_launch, library
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # zx, ip, fp, op, r, c0, h0, y, c, h, cs, hs, zs, B, S, H, hd, dtype,
-    # save, stream
-    "slstm_fwd": (_P,) * 13 + (_I,) * 6 + (_P,),
+    # save -> cluster, stream
+    "slstm_fwd": (_P,) * 13 + (_I,) * 6 + (_IP, _P),
     # gy, gc, gh, ip, fp, op, rT, c0, cs, zs, dzx, dip, dfp, dop, dc0, dh0,
-    # B, S, H, hd, dtype, need_dh0, stream
-    "slstm_bwd": (_P,) * 16 + (_I,) * 6 + (_P,),
+    # B, S, H, hd, dtype, need_dh0 -> cluster, stream
+    "slstm_bwd": (_P,) * 16 + (_I,) * 6 + (_IP, _P),
+    # chains, hd, dtype, backward -> C, KS, KT, threads
+    "slstm_plan": (_I,) * 4 + (_IP,) * 4,
+    # C, W, KS, clusters, iters, mode, sink, stream
+    "slstm_cluster_probe": (_I,) * 6 + (_P, _P),
 }
-DTYPES = (torch.float32, torch.bfloat16)     # the activations' (the LM's)
-_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)  # the activations'
+_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# launches by (kernel, design, activations' dtype), counted where the
+# wrappers launch, beside _build.LAUNCHES' one count per kernel: "cluster"
+# the cluster kernels, "block" the one-block kernels
+ROUTES = {(k, design, str(dt).removeprefix("torch.")): 0
+          for k in ("slstm_fwd", "slstm_bwd")
+          for design in ("cluster", "block") for dt in DTYPES}
+
+
+def reset_routes() -> None:
+    for key in ROUTES:
+        ROUTES[key] = 0
+
+
+def route_count(kernel: str, design: Optional[str] = None,
+                dtype: Optional[str] = None, routes=None) -> int:
+    """Launches of ``kernel`` in :data:`ROUTES` (or ``routes``, a copy of
+    it), of one design and dtype name where given."""
+    routes = ROUTES if routes is None else routes
+    return sum(n for (k, g, dt), n in routes.items()
+               if k == kernel and design in (None, g)
+               and dtype in (None, dt))
 
 
 def _gates(ip, fp, op):
@@ -185,6 +220,29 @@ def _check_shapes(zx, ip, fp, op, r, c0, h0) -> None:
                              f"{tuple(t.shape)}")
 
 
+def plan(chains: int, hd: int, dtype: torch.dtype,
+         backward: bool = False) -> dict:
+    """The launch shape ``slstm_fwd`` (or ``slstm_bwd``) takes on the
+    current card for ``chains`` = B·H recurrences of width hd, as
+    ``slstm_plan`` reports it: {"C": blocks a chain (0: the one-block
+    kernel, hd > 480), "KS": k-slices a column, "KT": terms a lane,
+    "threads": a block}. The rule (csrc/slstm.cu's header) reads the
+    card's SM count and how many clusters it holds at once."""
+    out = [ctypes.c_int() for _ in range(4)]
+    err = library("slstm", _SIGNATURES).slstm_plan(
+        chains, hd, _CODES[dtype], int(backward),
+        *(ctypes.byref(o) for o in out))
+    if err:
+        raise RuntimeError(f"slstm_plan failed with CUDA error {err} for "
+                           f"{chains} chains of hd {hd}")
+    return dict(zip(("C", "KS", "KT", "threads"), (o.value for o in out)))
+
+
+def _count(kernel: str, cluster: ctypes.c_int, dtype: torch.dtype) -> None:
+    ROUTES[(kernel, "cluster" if cluster.value else "block",
+            str(dtype).removeprefix("torch."))] += 1
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
@@ -212,13 +270,16 @@ def _scan_op(zx: torch.Tensor, ip: torch.Tensor, fp: torch.Tensor,
     zs = torch.empty((B, T, d), dtype=zx.dtype, device=zx.device)
     if B * H == 0:                        # no block to launch
         return y, c, h, cs, hs, zs
+    cluster = ctypes.c_int()
     with torch.cuda.device(zx.device):
         err = library("slstm", _SIGNATURES).slstm_fwd(
             *(t.data_ptr() for t in (zx, ip, fp, op, r, c0, h0, y, c, h)),
             _ptr(cs) if save else None, _ptr(hs) if save else None,
             _ptr(zs) if save else None, B, S, H, hd, _CODES[zx.dtype],
-            int(save), torch.cuda.current_stream().cuda_stream)
+            int(save), ctypes.byref(cluster),
+            torch.cuda.current_stream().cuda_stream)
     check_launch("slstm_fwd", err)
+    _count("slstm_fwd", cluster, zx.dtype)
     return y, c, h, cs, hs, zs
 
 
@@ -260,14 +321,16 @@ def _bwd_op(gy: Optional[torch.Tensor], gc: Optional[torch.Tensor],
     dh0 = (torch.empty_like(c0) if need_dh0 else torch.zeros_like(c0))
     if B * H == 0:                        # no block to launch
         return dzx, dip, dfp, dop, dc0, dh0
+    cluster = ctypes.c_int()
     with torch.cuda.device(zs.device):
         err = library("slstm", _SIGNATURES).slstm_bwd(
             _ptr(gy), _ptr(gc), _ptr(gh),
             *(t.data_ptr() for t in (ip, fp, op, rT, c0, cs, zs, dzx, dip,
                                      dfp, dop, dc0, dh0)),
             B, S, H, hd, _CODES[zs.dtype], int(need_dh0),
-            torch.cuda.current_stream().cuda_stream)
+            ctypes.byref(cluster), torch.cuda.current_stream().cuda_stream)
     check_launch("slstm_bwd", err)
+    _count("slstm_bwd", cluster, zs.dtype)
     return dzx, dip, dfp, dop, dc0, dh0
 
 
@@ -336,7 +399,7 @@ def slstm_scan(zx: torch.Tensor, ip: torch.Tensor, fp: torch.Tensor,
                op: torch.Tensor, r: torch.Tensor, c0: torch.Tensor,
                h0: torch.Tensor):
     """The sLSTM scan over S from the state (c0, h0): zx (B, S, d) in the
-    activations' dtype (float32 or bfloat16); ip, fp, op (B, S,
+    activations' dtype (float32, bfloat16 or float16); ip, fp, op (B, S,
     d), r (H, hd, hd), c0 and h0 (B, d), all float32, on one device.
     Returns (y, c, h): y (B, S, d) in zx's dtype and the final state f32.
 

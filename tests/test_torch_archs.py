@@ -321,3 +321,24 @@ def test_bf16_recurrent_stack_tracks_reference(arch, record_property):
     assert got["fwd_port_vs_ref"] <= got["ref_bf16_vs_f32"], got
     assert got["decode_port_vs_ref"] <= got["ref_bf16_vs_f32"], got
     assert got["tf_port"] <= got["tf_ref"], got
+
+
+def test_float16_xlstm_matches_reference():
+    """The reduced xlstm-125m in float16 activations computes in the port
+    as in the reference (its sLSTM op takes float16, as the reference's
+    scan does): float16 logits within 1e-2 relative Frobenius of the
+    reference's, on the same weights and tokens."""
+    over = dict(dtype="float16")
+    rc = dataclasses.replace(rcfg.get_arch("xlstm-125m").reduced(), **over)
+    cfg = dataclasses.replace(get_arch("xlstm-125m").reduced(), **over)
+    rlm = RLM(rc)
+    rp = rlm.init_params(jax.random.PRNGKey(0))
+    p = lm_params_from_reference(jax.tree.map(np.asarray, rp), cfg, "cpu")
+    tok = _tokens(cfg)
+    want = jax.jit(lambda p, t: rlm.apply(p, t)[0])(rp, jnp.asarray(tok))
+    with torch.inference_mode():
+        got = LM(cfg).apply(p, torch.from_numpy(tok))[0]
+    assert got.dtype == torch.float16 and str(want.dtype) == "float16"
+    assert got.shape == want.shape
+    assert torch.isfinite(got).all()
+    assert _rel(got.float().numpy(), want) <= 1e-2

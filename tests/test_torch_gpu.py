@@ -1054,12 +1054,13 @@ def test_dryrun_flops_equal_the_card_step(card):
 def test_slstm_kernels_match_plain_versions(card):
     """slstm_fwd and slstm_bwd against the plain loop and autograd through
     it (chip_smoke's phase 3 cases at S <= 127, and S = 4096 at hd 192 in
-    bf16): one launch of each a case, within SLSTM_TOL and SLSTM_GRAD_TOL."""
+    bf16): one launch of each a case, of the design its width calls for,
+    within SLSTM_TOL and SLSTM_GRAD_TOL, in all three dtypes."""
     cases = [c for c in chip_smoke.SLSTM_CASES if c[1] <= 127] + [
         (1, 4096, 192, "bfloat16")]
     before = dict(_build.LAUNCHES)
     worst = chip_smoke.slstm_checks(np.random.default_rng(5), card, cases)
-    assert set(worst) == {"float32", "bfloat16"}
+    assert set(worst) == {"float32", "bfloat16", "float16"}
     for name in ("slstm_fwd", "slstm_bwd"):
         assert _build.LAUNCHES[name] - before[name] == len(cases)
 
@@ -1067,13 +1068,45 @@ def test_slstm_kernels_match_plain_versions(card):
 @pytest.mark.gpu
 def test_slstm_forward_repeats_bit_for_bit(card):
     """No atomics: two launches on the same inputs give the same bits,
-    so remat's replay saves the states of the first pass."""
+    so remat's replay saves the states of the first pass; in all three
+    dtypes, and the transpose too."""
     import torch
-    ins = chip_smoke.slstm_inputs(np.random.default_rng(6), 2, 300, 4, 192,
-                                  "bfloat16", card, grad=False)
-    a = torch.ops.repro_torch.slstm_scan(*ins, True)
-    b = torch.ops.repro_torch.slstm_scan(*ins, True)
-    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    for dt in ("float32", "bfloat16", "float16"):
+        ins = chip_smoke.slstm_inputs(np.random.default_rng(6), 2, 300, 4,
+                                      192, dt, card, grad=False)
+        a = torch.ops.repro_torch.slstm_scan(*ins, True)
+        b = torch.ops.repro_torch.slstm_scan(*ins, True)
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), dt
+        gy = torch.randn(a[0].shape, device=card,
+                         generator=torch.Generator(card).manual_seed(1)
+                         ).to(a[0].dtype)
+        args = (gy, None, None, *ins[1:4], ins[4], ins[5], a[3], a[5],
+                True)
+        da = torch.ops.repro_torch.slstm_scan_bwd(*args)
+        db = torch.ops.repro_torch.slstm_scan_bwd(*args)
+        assert all(torch.equal(x, y) for x, y in zip(da, db)), dt
+
+
+@pytest.mark.gpu
+def test_slstm_designs_by_width(card):
+    """xlstm-125m's shapes take the cluster kernels (4 heads of 192 at B 2:
+    clusters of at least 2 blocks a recurrence); a head past the cluster
+    kernels' 480 (hd 640) launches the one-block kernels, held to the
+    plain loop's bits and its gradients, and the launches are counted by
+    design and dtype."""
+    from repro_torch.kernels import slstm as K
+    for backward in (False, True):
+        assert K.plan(8, 192, torch.bfloat16, backward)["C"] >= 2
+        assert K.plan(2, 16, torch.float16, backward)["C"] >= 1
+        assert K.plan(2, 640, torch.float32, backward)["C"] == 0
+    before = dict(K.ROUTES)
+    worst = chip_smoke.slstm_checks(np.random.default_rng(8), card,
+                                    [(1, 64, 640, "float16")])
+    assert worst["float16"]["y"] == 0.0
+    ran = {key: n - before[key] for key, n in K.ROUTES.items()
+           if n != before[key]}
+    assert ran == {("slstm_fwd", "block", "float16"): 1,
+                   ("slstm_bwd", "block", "float16"): 1}
 
 
 @pytest.mark.gpu

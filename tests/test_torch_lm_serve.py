@@ -169,23 +169,27 @@ def test_chip_smoke_lm_path_on_cpu(capsys):
     reduced: the Server's checks (token counts, a second run, the
     fresh-slot rule), each architecture's prefill and decode with their
     repeat checks, the flash prefill against the dense one and the five
-    teacher-forced checks; no kernel launches, one line per
-    architecture."""
+    teacher-forced checks, then xlstm-125m in float16; no kernel launches,
+    one line per architecture and dtype."""
     import sys
     from pathlib import Path
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import chip_smoke
     from repro_torch.kernels import _build
     before = dict(_build.LAUNCHES)
-    total = chip_smoke.lm_path(
+    total, scans = chip_smoke.lm_path(
         torch.device("cpu"), serve=dict(slots=2, context=64, requests=4,
                                         max_new=4),
         seq=12, steps=3, reduce=lambda c: c.reduced())
     assert set(total.values()) <= {0} and _build.LAUNCHES == before
+    assert not scans
     lines = capsys.readouterr().out.splitlines()
     assert sum(line.startswith("[serve-lm] ") for line in lines) == 1
     lm = [line for line in lines if line.startswith("[lm] ")]
-    assert len(lm) == 10
+    # the ten architectures, then xlstm-125m again in float16
+    assert len(lm) == 11
+    assert [line for line in lm if "dtype=float16" in line] == [lm[-1]]
+    assert "arch=xlstm-125m" in lm[-1]
     assert sum("tf_rel_f32=" in line for line in lm) == 5
     assert all("flash_vs_dense=" in line for line in lm)
     assert "cut=none" in " ".join(lm)

@@ -4,7 +4,7 @@
   gradients of ``slstm_apply`` (autograd through the op's backward)
   against ``jax.grad`` of the reference's, with respect to x and every
   parameter, at the reduced width (d 64, hd 16) and at xlstm-125m's hd 192;
-  f32 at 1e-4, bf16 at 5e-2 (the mixers' tolerances);
+  f32 at 1e-4, bf16 at 5e-2 (the mixers' tolerances), f16 at 1e-2;
 - the explicit reverse loop the ``slstm_bwd`` kernel follows against
   autograd through the plain forward loop, with a nonzero initial state,
   pre-activations above the clamp at 6 and |c| crossing 1;
@@ -26,7 +26,9 @@ from repro_torch.kernels import slstm as K
 from repro_torch.models import xlstm as XL
 
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
-       "bfloat16": dict(atol=5e-2, rtol=5e-2)}
+       "bfloat16": dict(atol=5e-2, rtol=5e-2),
+       "float16": dict(atol=1e-2, rtol=1e-2)}
+DTYPES = ["float32", "bfloat16", "float16"]
 # (d, heads): the reduced xlstm width (hd 16) and xlstm-125m's hd 192
 WIDTHS = {"hd16": (64, 4), "hd192": (384, 2)}
 
@@ -41,8 +43,8 @@ def _params(tree, grad=False):
     out = {}
     for k, v in tree.items():
         t = torch.from_numpy(np.array(v, np.float32)).to(
-            {"float32": torch.float32,
-             "bfloat16": torch.bfloat16}[str(v.dtype)])
+            {"float32": torch.float32, "bfloat16": torch.bfloat16,
+             "float16": torch.float16}[str(v.dtype)])
         out[k] = t.requires_grad_(grad)
     return out
 
@@ -62,7 +64,7 @@ def _case(width, dtype, seed, B=2, S=6):
     return rp, x, w, nh
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("width", sorted(WIDTHS))
 def test_apply_matches_reference(width, dtype):
     rp, x, _, nh = _case(width, dtype, 1)
@@ -73,7 +75,7 @@ def test_apply_matches_reference(width, dtype):
     np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("width", sorted(WIDTHS))
 def test_gradients_match_reference_jax_grad(width, dtype):
     """jax.grad of sum(slstm_apply(params, x) · w) with respect to x and
@@ -118,6 +120,28 @@ def test_decode_matches_reference_from_a_nonzero_state(width):
         np.testing.assert_allclose(_np(tst), _np(jst), **TOL["float32"])
 
 
+@pytest.mark.parametrize("width", sorted(WIDTHS))
+def test_decode_in_float16_matches_reference(width):
+    """The op at S = 1 in float16 activations from the cache's float16
+    state, step after step, at the float16 tolerance."""
+    rp, x, _, nh = _case(width, "float16", 3)
+    d = x.shape[-1]
+    rng = np.random.default_rng(31)
+    st = (rng.standard_normal(RXL.slstm_state_shape(2, d)) * 2).astype(
+        np.float16)
+    jst, tst = jnp.asarray(st), torch.from_numpy(st)
+    p = _params(rp)
+    xh = x.astype(np.float16)
+    for t in range(x.shape[1]):
+        want, jst = RXL.slstm_decode(rp, jnp.asarray(xh[:, t:t + 1]), jst,
+                                     n_heads=nh)
+        got, tst = XL.slstm_decode(p, torch.from_numpy(xh[:, t:t + 1]), tst,
+                                   n_heads=nh)
+        assert got.dtype == tst.dtype == torch.float16
+        np.testing.assert_allclose(_np(got), _np(want), **TOL["float16"])
+        np.testing.assert_allclose(_np(tst), _np(jst), **TOL["float16"])
+
+
 def _scan_inputs(dtype, seed, B=3, S=9, H=2, hd=16, grad=True,
                  state_grad=True):
     """Inputs that reach every branch of the backward: ip above the clamp
@@ -146,7 +170,7 @@ def _loss(y, c, h, seed=7):
 
 @pytest.mark.parametrize("state_grad", [True, False],
                          ids=["state-grad", "zero-state"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_explicit_backward_matches_autograd_through_the_loop(dtype,
                                                              state_grad):
     ins = _scan_inputs(getattr(torch, dtype), 4, state_grad=state_grad)
@@ -255,7 +279,7 @@ def test_mixed_devices_and_dtypes_raise():
 def test_chip_smoke_slstm_checks_on_cpu():
     """chip_smoke's phase 3 for the scan, rehearsed on the CPU over its
     short cases: the plain loop against itself through the op, every
-    gradient named, both dtypes; the inputs reach the clamp and |c| = 1."""
+    gradient named, all three dtypes; the inputs reach the clamp and |c| = 1."""
     import sys
     from pathlib import Path
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -263,7 +287,7 @@ def test_chip_smoke_slstm_checks_on_cpu():
     cases = [c for c in chip_smoke.SLSTM_CASES if c[1] <= 2 and c[2] <= 64]
     worst = chip_smoke.slstm_checks(np.random.default_rng(0),
                                     torch.device("cpu"), cases)
-    assert set(worst) == {"float32", "bfloat16"}
+    assert set(worst) == {"float32", "bfloat16", "float16"}
     assert set(worst["float32"]) == {"y", "c", "h", "dzx", "dip", "dfp",
                                      "dop", "dr", "dc0", "dh0"}
     assert worst["float32"]["y"] == 0.0
