@@ -17,7 +17,8 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
              with each kernel's registers, shared memory and spills; then
              the HMMA (tensor-core) instructions of each flash kernel in
              the built library's SASS (``cuobjdump -sass``): every bf16
-             and f16 instance, and the column-chunk ones, must have some.
+             and f16 instance, and the column-chunk ones, must have some,
+             and every f32 one (FFMA on the CUDA cores) none.
 3. kernels — each Hopper kernel against its plain PyTorch version on the
              card: first at edge-case shapes (empty rows, an empty piece, a
              row longer than 128 entries, a slice longer than one 256-entry
@@ -68,7 +69,13 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
              {16, 32, 64} and G in {1, 3, 8}, and hd 24, 112 (zero-padded
              to 32 and 128) and 256 in f32 and bf16; float16 at the
              llama3-8b layer's heads, tile edges and hd 24, 112 and 256;
-             hd 320 (padded to 384) and 512 in all three dtypes), later
+             hd 320 (padded to 384) and 512 in all three dtypes; hd
+             640 in f32 (the f32 column-chunk kernel) at G 1 and 3; the
+             f32 kernel's tile edges: S one below and one past its
+             stacked rows a block (``f32_plan``, held equal to the
+             library's ``flash_f32_plan`` at every width in
+             ``[f32-plan]``) and one past a 64-key stage at hd 128, 256
+             and 512 and G in {1, 3, 8}), later
              at the main path's shapes. Per-entry tolerance
              |got - plain| <= 1e-4 * scale + 1e-6, with ``scale`` the same
              computation on absolute values: f32 sums of up to a million
@@ -376,18 +383,27 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
    3's beside them as ``edge_launches``); the bound is the larger of the
    bytes over 3.35 TB/s and the recurrent products' FLOPs over 67
    TFLOP/s, and ``serial_floor_ms`` beside it is S times one dependent
-   step (a single (b, head) chain over S); ``library_ms`` null
+   step (the record's own kernel, forward or backward, over a single
+   (b, head) chain over S); ``library_ms`` null
    (``[slstm-timing]``, with the launch shape: blocks a cluster,
    k-slices, threads). Before
    them ``[cluster-step]``: the exchange alone, hd / C doubles a block at
    C = 2, 4, 8 and 16 over 8 clusters and S steps, by a split cluster
    barrier a step and by st.async counted on mbarriers (the kernels').
-   flash_attention's launches in its record count paths e and j (j's
-   alone as ``lm_launches``). It is timed at the model's layer shapes (q
-   (2, 4096, 32, 128), k and v (2, 4096, 8, 128)) in bf16 (the record), f32 and
-   f16 (lines of their own), and at head_dim 256, 320 and 512 in all
-   three (lines of their own, with the edge checks' launches of that
-   dtype and width), beside ``scaled_dot_product_attention(
+   Then the one-block sLSTM kernels past the cluster kernels' width
+   (``slstm_fwd(hd640)``, ``slstm_bwd(hd640)``): phase 3's hd-640 case
+   (B 3, 2 heads, bf16) at S 4096, bound and launches as above (phase
+   3's). flash_attention's wrapper counts its launches by dtype and
+   padded width (``flash_attention.ROUTES``; ``[flash-launches]`` prints
+   paths e's and j's). Its record counts the bf16 launches of paths e and
+   j at every width, every call included (j's alone as
+   ``lm_launches``). It is timed at the model's layer shapes (q (2, 4096,
+   32, 128), k and v (2, 4096, 8, 128)) in bf16 (the record), f32 and f16,
+   in f32 at head_dim 64 (path j's seamless-m4t-medium), and at head_dim
+   256, 320 and 512 in all three (lines of their own, each with the
+   launches of its dtype and width on paths e and j, the f32 twin and
+   teacher-forced forwards included, and in phase 3), beside
+   ``scaled_dot_product_attention(
    is_causal=True, enable_gqa=True)``; its bound is the causal flops over
    989 TFLOP/s bf16 and f16 (67 f32) against q, k, v and o moved once.
 
@@ -1260,9 +1276,12 @@ def bcsr_cases(rng, device):
 # and 128) and the widest instance, 256, in both dtypes; then float16 (the
 # f16 instances of the tensor-core kernel): the llama3-8b layer's heads
 # (32 / 8, hd 128), tile edges at G in {1, 3}, and hd 24, 112, 256; then
-# the column-chunk kernels, hd 320 (padded to 384) and 512, in all three
-# dtypes; last, the causal attention heads of path 4j's architectures at a
-# ragged length past two 64-key stages
+# hd 320 (padded to 384) and 512 in all three dtypes (the column-chunk
+# kernels in bf16 and f16, the f32 kernel's own instances); then the
+# causal attention heads of path 4j's architectures at a ragged length past
+# two 64-key stages; then hd 640, past the f32 kernel's widths (its
+# column-chunk twin), at G 1 and 3; last, the f32 kernel's tile edges
+# (:func:`f32_edge_cases`)
 ARCH_HEADS = ((16, 8, 128), (40, 8, 128), (56, 8, 128), (16, 16, 128),
               (48, 4, 128), (32, 32, 112))
 # (H, Hkv, hd): internlm2; llama4 and qwen3; llava; olmoe; starcoder2;
@@ -1282,17 +1301,46 @@ FLASH_CASES = ((2, 256, 4, 2, 32, "float32"), (1, 200, 8, 8, 16, "float32"),
     + tuple((1, 200, 8, 2, hd, "float16") for hd in (24, 112, 256)) + tuple(
     (1, 200, 8, 2, hd, dt) for hd in (320, 512)
     for dt in ("float32", "bfloat16", "float16")) + tuple(
-    (1, 130, H, Hkv, hd, "bfloat16") for H, Hkv, hd in ARCH_HEADS)
+    (1, 130, H, Hkv, hd, "bfloat16") for H, Hkv, hd in ARCH_HEADS) + tuple(
+    (1, 130, 2 * G, 2, 640, "float32") for G in (1, 3))
+F32_EDGE_WIDTHS = (128, 256, 512)
+
+
+def f32_edge_cases() -> tuple:
+    """The f32 kernel's tile edges at hd in F32_EDGE_WIDTHS: S one below
+    and one past a block's stacked rows (``f32_plan``'s BM, the kernel's
+    rule) and one past a 64-key stage, at G in {1, 3, 8} (3 leaves stacked
+    rows unused)."""
+    from repro_torch.kernels.flash_attention import f32_plan
+    return tuple(
+        (1, S, 2 * G, 2, hd, "float32") for hd in F32_EDGE_WIDTHS
+        for S in sorted({f32_plan(hd)["BM"] - 1, f32_plan(hd)["BM"] + 1, 65})
+        for G in (1, 3, 8))
+
+
+def check_f32_plan() -> dict:
+    """The built library's F32Plan (``flash_f32_plan``) against the
+    wrapper's mirror ``f32_plan`` at every f32 width; returns {hd: BM}."""
+    from repro_torch.kernels.flash_attention import (F32_WIDTHS, f32_plan,
+                                                     f32_plan_card)
+    out = {}
+    for hd in F32_WIDTHS:
+        card, mirror = f32_plan_card(hd), f32_plan(hd)
+        if any(mirror[key] != n for key, n in card.items()):
+            raise AssertionError(f"f32 flash hd {hd}: the library's plan "
+                                 f"{card} is not f32_plan's {mirror}")
+        out[hd] = card["BM"]
+    return out
 # atol = rtol; f16 keeps three more mantissa bits than bf16
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2, "float16": 1e-2}
 
 
 def flash_cases(rng, device):
     """flash_attention's edge cases: standard-normal q, k, v (made in
-    float32 and cast) per FLASH_CASES."""
+    float32 and cast) per FLASH_CASES, then :func:`f32_edge_cases`."""
     import numpy as np
     import torch
-    for B, S, H, Hkv, hd, dt in FLASH_CASES:
+    for B, S, H, Hkv, hd, dt in FLASH_CASES + f32_edge_cases():
         q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32)).to(device=device, dtype=getattr(torch, dt))
             for shape in ((B, S, H, hd), (B, S, Hkv, hd), (B, S, Hkv, hd)))
@@ -2750,7 +2798,8 @@ def slstm_records(device, lm_scans: dict, train_scans: dict,
     around it), and the bound: the inputs read and outputs written once
     over 3.35 TB/s against the recurrent products' FLOPs over 67 TFLOP/s
     (f32). ``serial_floor_ms`` is S times one dependent step, measured as
-    the forward of a single (b, head) chain (B = 1, one head) over S.
+    the record's own kernel over a single (b, head) chain (B = 1, one
+    head) over S (:func:`_slstm_chain`).
     ``launches`` are the main path's in the record's dtype, as the wrapper
     counted them (``slstm.ROUTES``: ``lm_scans`` over the calls path 4j
     counts, ``train_scans`` over 4k, reset just before), beside
@@ -2762,7 +2811,12 @@ def slstm_records(device, lm_scans: dict, train_scans: dict,
     width (:func:`cluster_steps`, whose ``[cluster-step]`` lines it
     prints). ``max_abs_plain`` is the
     largest plain output beside the error (the backward's gradients grow
-    over S where the input gate is large)."""
+    over S where the input gate is large). Then ``slstm_fwd(hd640)`` and
+    ``slstm_bwd(hd640)``: the one-block kernels past the cluster kernels'
+    width at phase 3's hd-640 case (B 3, SLSTM_HEADS heads, bf16) with S
+    raised to 4096, the same bound and serial floor over a quarter of the
+    timed launches, their launches phase 3's (the main path sends them
+    none) and no exchange (``cluster_step_ns`` None)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
@@ -2775,45 +2829,81 @@ def slstm_records(device, lm_scans: dict, train_scans: dict,
     with torch.no_grad():
         timed = {"bfloat16": _slstm_timed(rng, device, B, S, H, hd,
                                           "bfloat16", reps)}
-        one = slstm_inputs(rng, 1, S, 1, hd, "bfloat16", device, grad=False)
-        chain_ms = time_events(
-            lambda: torch.ops.repro_torch.slstm_scan(*one, False), reps)
+        chain_ms = _slstm_chain(rng, device, S, hd, reps)
         step_ns = cluster_steps(device, hd, B * H, S, reps)
         for dtype, _ in SLSTM_RECORD_DTYPES[1:]:
             timed[dtype] = _slstm_timed(rng, device, B, S, H, hd, dtype,
                                         reps)
+        # phase 3's case past the limit, over fewer timed launches (its
+        # forward takes about 0.33 s)
+        wide_B, wide_hd, wide_reps = 3, 640, max(reps // 4, 3)
+        timed["hd640"] = _slstm_timed(rng, device, wide_B, S, SLSTM_HEADS,
+                                      wide_hd, "bfloat16", wide_reps)
+        wide_chain_ms = _slstm_chain(rng, device, S, wide_hd, wide_reps)
     recs = []
+
+    def record(part, tag, dtype, measured, shape, chain, counts, step,
+               launches):
+        err, ref, ms, plain_ms, moved, flops = measured
+        base = f"slstm_{part}"
+        t_bytes = moved / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / F32_FLOPS * 1e3
+        source, replaces = KERNELS[base]
+        b, s, h, d = shape
+        plan = K.plan(b * h, d, getattr(torch, dtype), part == "bwd")
+        return {
+            "name": base + tag, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "lm_launches": counts["lm"], "train_launches": counts["train"],
+            "edge_launches": counts["edge"], "max_abs_err": err,
+            "max_abs_plain": ref, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None,
+            "library_call": "none: no PyTorch call computes the sLSTM "
+                            "recurrence",
+            "serial_floor_ms": chain[part],
+            "step_us": chain[part] / s * 1e3,
+            "shape": f"B{b} S{s} H{h} hd{d} {dtype}", "cluster": plan["C"],
+            "k_slices": plan["KS"], "threads": plan["threads"],
+            "cluster_step_ns": step.get(("st.async", plan["C"]))}
+
     for dtype, tag in SLSTM_RECORD_DTYPES:
-        for part, (err, ref, ms, plain_ms, moved, flops) in \
-                timed[dtype].items():
+        for part, measured in timed[dtype].items():
             base = f"slstm_{part}"
-            shape = K.plan(B * H, hd, getattr(torch, dtype), part == "bwd")
-            t_bytes = moved / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / F32_FLOPS * 1e3
-            source, replaces = KERNELS[base]
             counts = {which: K.route_count(base, dtype=dtype, routes=routes)
                       for which, routes in (("lm", lm_scans),
                                             ("train", train_scans),
                                             ("edge", edge_scans))}
-            recs.append({
-                "name": base + tag, "route": "cuda", "source": source,
-                "replaces": replaces,
-                "launches": counts["lm"] + counts["train"],
-                "lm_launches": counts["lm"],
-                "train_launches": counts["train"],
-                "edge_launches": counts["edge"], "max_abs_err": err,
-                "max_abs_plain": ref, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": None,
-                "library_call": "none: no PyTorch call computes the sLSTM "
-                                "recurrence",
-                "serial_floor_ms": chain_ms, "step_us": chain_ms / S * 1e3,
-                "shape": f"B{B} S{S} H{H} hd{hd} {dtype}",
-                "cluster": shape["C"], "k_slices": shape["KS"],
-                "threads": shape["threads"],
-                "cluster_step_ns": step_ns[("st.async", shape["C"])]})
+            recs.append(record(part, tag, dtype, measured, (B, S, H, hd),
+                               chain_ms, counts, step_ns,
+                               counts["lm"] + counts["train"]))
+    for part, measured in timed["hd640"].items():
+        edge = K.route_count(f"slstm_{part}", "block", "bfloat16",
+                             edge_scans)
+        recs.append(record(part, f"(hd{wide_hd})", "bfloat16", measured,
+                           (wide_B, S, SLSTM_HEADS, wide_hd), wide_chain_ms,
+                           {"lm": 0, "train": 0, "edge": edge}, {}, edge))
     return recs
+
+
+def _slstm_chain(rng, device, S, hd, reps) -> dict:
+    """{"fwd" | "bwd": ms} of slstm_fwd (without the saved states) and of
+    slstm_bwd over one (b, head) chain of S steps at width hd in bf16: the
+    serial floor of :func:`slstm_records`' records."""
+    import numpy as np
+    import torch
+    ins = slstm_inputs(rng, 1, S, 1, hd, "bfloat16", device, grad=False)
+    zx, ip, fp, op, r, c0, h0 = ins
+    y, c, h, cs, hs, zs = torch.ops.repro_torch.slstm_scan(*ins, True)
+    gy = torch.from_numpy(rng.standard_normal(y.shape).astype(
+        np.float32)).to(device=device, dtype=y.dtype)
+    bwd_args = (gy, None, None, ip, fp, op, r, c0, cs, zs, False)
+    return {"fwd": time_events(
+                lambda: torch.ops.repro_torch.slstm_scan(*ins, False), reps),
+            "bwd": time_events(
+                lambda: torch.ops.repro_torch.slstm_scan_bwd(*bwd_args),
+                reps)}
 
 
 def _slstm_timed(rng, device, B, S, H, hd, dtype, reps) -> dict:
@@ -5390,14 +5480,23 @@ def main(argv=None) -> int:
     if not all(n > 0 for f, n in hmma.items() if f.startswith("mma")):
         raise AssertionError(f"the bf16 flash kernel does not run on the "
                              f"tensor cores: HMMA counts {hmma}")
+    f32 = {f: n for f, n in hmma.items() if f.startswith("f32")}
+    if not f32 or any(f32.values()):
+        raise AssertionError(f"the f32 flash kernels must run on the CUDA "
+                             f"cores alone: HMMA counts {f32}")
+    phase("f32-plan", **{f"hd{hd}_rows": bm
+                         for hd, bm in check_f32_plan().items()})
 
     # 3a. kernels against plain at edge-case shapes
+    from repro_torch.kernels import flash_attention as FA
     rng = np.random.default_rng(SEED)
     worst = {}
     t0 = time.perf_counter()
+    FA.reset_routes()
     for label, name, kargs, abs_args in kernel_cases(rng, device):
         err = compare_kernel(label, name, kargs, abs_args)
         worst[name] = max(worst.get(name, 0.0), err)
+    edge_flash = dict(FA.ROUTES)
     phase("kernels-edge", seconds=f"{time.perf_counter() - t0:.1f}",
           **{k: f"{v:.3g}" for k, v in worst.items()})
     # 3b. the sLSTM scan and its transpose against the plain loop; both
@@ -5437,9 +5536,11 @@ def main(argv=None) -> int:
     over = {"n_layers": args.attn_layers} if args.attn_layers else {}
     cfg = lm_config(**over)
     _build.reset_launches()
+    FA.reset_routes()
     t0 = time.perf_counter()
     attn, attn_launches = run_attention(cfg, PREFILL_BATCH, args.attn_seq,
                                         device, 5)
+    attn_flash = dict(FA.ROUTES)
     missing = [k for k in PATH_KERNELS["attention"]
                if attn_launches[k] == 0]
     if missing:
@@ -5469,8 +5570,10 @@ def main(argv=None) -> int:
 
     # 4j. LM decode, the Server loop and the ten architectures
     _build.reset_launches()
+    FA.reset_routes()
     t0 = time.perf_counter()
     lm_launches, lm_scans = lm_path(device)
+    lm_flash = dict(FA.ROUTES)
     missing = [k for k in ("flash_attention", "slstm_fwd")
                if not lm_launches.get(k)]
     if missing:
@@ -5479,6 +5582,9 @@ def main(argv=None) -> int:
     phase("lm-path", seconds=f"{time.perf_counter() - t0:.1f}",
           max_mem_gb=f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f}")
     phase("launches", path="lm", **lm_launches)
+    for path, routes in (("attention", attn_flash), ("lm", lm_flash)):
+        phase("flash-launches", path=path, **{
+            f"{dt}_hd{w}": n for (dt, w), n in sorted(routes.items())})
     phase("slstm-launches", path="lm", **slstm_launch_fields(lm_scans))
     clocks("after the LM path")
 
@@ -5515,31 +5621,38 @@ def main(argv=None) -> int:
           total_ms=f"{sum(attn['profile'].values()):.2f}",
           **{k.replace(" ", "_"): f"{v:.2f}" for k, v in top})
     # the model's layer shapes in each dtype (bf16 is the path's record),
-    # then hd 256 (the widest instance) and the column-chunk kernels at
-    # hd 320 and 512, at the layer's heads and length; launches beside
-    # the other dtypes and widths: those of the edge checks (phase 3)
+    # then hd 64 in f32 (path 4j's seamless-m4t-medium), hd 256 (the widest
+    # instance) and hd 320 and 512, at the layer's heads and length. Each
+    # record's launches are those of its dtype and width (the main record's:
+    # bf16 at every width) on paths 4e and 4j, every call counted
+    # where the wrapper launches (the teacher-forced and checked forwards
+    # too), and for the other records phase 3's beside them
     from repro_torch.kernels.flash_attention import padded_width
-    edge = {}
-    for *_, hd, dt in FLASH_CASES:
-        key = (dt, padded_width(hd))
-        edge[key] = edge.get(key, 0) + 1
+
+    def flash_count(routes, dt, width):
+        return sum(n for (d, w), n in routes.items()
+                   if (d == dt and w == width)
+                   or (dt is None and d == "bfloat16"))
     short = {"bfloat16": "", "float32": " f32", "float16": " f16"}
     extra = []
     t0 = time.perf_counter()
-    for hd in (None, 256, 320, 512):
-        for dt in ("bfloat16", "float32", "float16"):
+    for hd, dts in ((None, ("bfloat16", "float32", "float16")),
+                    (64, ("float32",)), (256, tuple(short)),
+                    (320, tuple(short)), (512, tuple(short))):
+        for dt in dts:
             width = padded_width(hd or cfg.resolved_head_dim)
             main_rec = hd is None and dt == "bfloat16"
+            key = (None, None) if main_rec else (dt, width)
+            lm_n = flash_count(lm_flash, *key)
+            path_n = flash_count(attn_flash, *key) + lm_n
             # the other dtypes and widths over fewer timed launches
             rec = flash_record(
                 cfg, PREFILL_BATCH, args.attn_seq, device, dt,
-                attn_launches["flash_attention"]
-                + lm_launches["flash_attention"] if main_rec
-                else edge.get((dt, width), 0),
+                path_n if main_rec else path_n + edge_flash.get(key, 0),
                 args.reps if main_rec else max(args.reps // 4, 3),
                 head_dim=hd)
+            rec["lm_launches"] = lm_n
             if main_rec:
-                rec["lm_launches"] = lm_launches["flash_attention"]
                 records.append(rec)
             else:
                 extra.append(dict(rec, name=f"flash_attention("
@@ -5556,7 +5669,8 @@ def main(argv=None) -> int:
         phase("slstm-timing", name=r["name"], shape=r["shape"],
               ms=f"{r['ms']:.4f}", cluster=r["cluster"],
               k_slices=r["k_slices"], threads=r["threads"],
-              cluster_step_ns=f"{r['cluster_step_ns']:.1f}",
+              cluster_step_ns=("none" if r["cluster_step_ns"] is None
+                               else f"{r['cluster_step_ns']:.1f}"),
               serial_floor_ms=f"{r['serial_floor_ms']:.4f}",
               step_us=f"{r['step_us']:.4f}", launches=r["launches"],
               lm_launches=r["lm_launches"],

@@ -11,7 +11,11 @@ Each named kernel is one that a lowered cell of ``chip_smoke.py``'s sparse
 paths launches (``chip_smoke.PATH_KERNELS``), or ``flash_attention``,
 which is taken at the llama3-8b layer's shapes in bf16 (q (2, 4096, 32,
 128), k and v (2, 4096, 8, 128), standard normal from a seeded
-generator: the prefill's launches). The sparse operands are made as
+generator: the prefill's launches), in f32 at head widths 64, 128, 256,
+320 and 512 (``FLASH_F32_WIDTHS``; the same heads and length), and in f32
+at seamless-m4t-medium's heads (16 of 64) and the length and batch of
+``chip_smoke.py``'s path 4j (2 x 128), where its teacher-forced forward
+launches the f32 kernel at hd 64. The sparse operands are made as
 ``chip_smoke.py`` makes them, at its main-path sizes; the cells of the
 paths that launch the named kernels are lowered with this tree's package,
 in ``chip_smoke.PATH_CELLS``' order, and each named kernel is taken with the
@@ -44,6 +48,7 @@ import chip_smoke as cs  # noqa: E402
 SPARSE_KERNELS = sorted({k for path in cs.PATH_CELLS
                          for k in cs.PATH_KERNELS[path]})
 KERNELS = SPARSE_KERNELS + ["flash_attention"]
+FLASH_F32_WIDTHS = (64, 128, 256, 320, 512)
 
 
 def load_parent(tree: Path):
@@ -169,19 +174,27 @@ def main(argv=None) -> int:
 
     summary = {"device": smi, "kernels": {}}
     if "flash_attention" in wanted:
+        from repro_torch.configs import get_arch
         cfg = cs.lm_config()
-        B, S = cs.PREFILL_BATCH, cs.PREFILL_SEQ
-        gen = torch.Generator(device).manual_seed(cs.SEED)
-        q, k, v = (torch.randn(shape, generator=gen, device=device)
-                   .to(torch.bfloat16) for shape in
-                   ((B, S, cfg.n_heads, cfg.resolved_head_dim),
-                    (B, S, cfg.n_kv_heads, cfg.resolved_head_dim),
-                    (B, S, cfg.n_kv_heads, cfg.resolved_head_dim)))
-        summary["kernels"]["flash_attention"] = {
-            "llama3-8b layer bf16": compare(
-                "flash_attention", "llama3-8b layer bf16", (q, k, v),
-                fns["flash_attention"])}
-        del q, k, v
+        sm = get_arch("seamless-m4t-medium")
+        layer = (cs.PREFILL_BATCH, cs.PREFILL_SEQ, cfg.n_heads,
+                 cfg.n_kv_heads)
+        cells = summary["kernels"]["flash_attention"] = {}
+        for dtype, (B, S, H, Hkv), hd, cell in [
+                (torch.bfloat16, layer, cfg.resolved_head_dim,
+                 "llama3-8b layer bf16")] + [
+                (torch.float32, layer, hd, f"llama3-8b layer f32 hd{hd}")
+                for hd in FLASH_F32_WIDTHS] + [
+                (torch.float32, (cs.ARCH_BATCH, cs.ARCH_SEQ, sm.n_heads,
+                                 sm.n_kv_heads), sm.resolved_head_dim,
+                 "seamless-m4t-medium path 4j f32")]:
+            gen = torch.Generator(device).manual_seed(cs.SEED)
+            q, k, v = (torch.randn(shape, generator=gen, device=device)
+                       .to(dtype) for shape in
+                       ((B, S, H, hd), (B, S, Hkv, hd), (B, S, Hkv, hd)))
+            cells[cell] = compare("flash_attention", cell, (q, k, v),
+                                  fns["flash_attention"])
+            del q, k, v
     paths = [p for p in cs.PATH_CELLS
              if set(cs.PATH_KERNELS[p]) & set(wanted)]
     dims3 = ((1 << cs.LOG2_I, 1 << cs.LOG2_JK, 1 << cs.LOG2_JK)

@@ -19,12 +19,15 @@
 // Two kernels, one per kind of dtype:
 //  - bf16 and f16: flash_mma_kernel<HD, T>, on the tensor cores (989
 //    TFLOP/s either way); the two instances differ only in the mma's input
-//    type and in how p and o are rounded.
-//  - f32: flash_f32_kernel, on the CUDA cores (67 TFLOP/s), the only way
-//    to meet the reference's f32 tolerance of 2e-5 (TF32 would not).
-// Both take hd in {16, 32, 64, 128, 256}; above 256 a column-chunk twin of
-// each (flash_mma_wide_kernel, flash_f32_wide_kernel, at the end) takes
-// any multiple of 128.
+//    type and in how p and o are rounded. It takes hd in {16, 32, 64, 128,
+//    256}; above 256 a column-chunk twin (flash_mma_wide_kernel, at the
+//    end) takes any multiple of 128.
+//  - f32: flash_f32_kernel<HD>, register-tiled FFMA on the CUDA cores (67
+//    TFLOP/s), the only way to meet the reference's f32 tolerance of 2e-5
+//    (TF32 would not); hd in {16, 32, 64, 128, 256, 384, 512}, the scores
+//    computed once at the full width (its section below says what bounds
+//    it: the shared-memory pipe). Heads past 512 take an f32
+//    column-chunk kernel (flash_f32_wide_kernel, at the end).
 //
 // What both do about it:
 //  - A thread block owns one output tile: the query positions of one q
@@ -74,10 +77,10 @@
 //
 // The entry point returns cudaGetLastError() after its launch (or the
 // error of cudaFuncSetAttribute, which dynamic shared memory above 48 KB
-// needs: at hd 128 the f32 kernel's K/V tile pair is 64 KB, the bf16
-// kernel's two stages and q tile 80 KB; at hd 256, 128 KB and 160 KB, of
-// the 227 KB a block may take; the column-chunk kernels 64 KB (f32) and
-// 48 KB (16-bit) at any width).
+// needs: the f32 kernel 225 KB at hd 128 and 208.5 KB at 256, 384 and 512
+// (F32Plan::smem); the bf16 kernel's two stages and q tile 80 KB at hd 128
+// and 160 KB at 256, of the 227 KB a block may take; the column-chunk
+// kernels 64 KB (f32) and 48 KB (16-bit) at any width).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -90,140 +93,6 @@ namespace {
 
 constexpr int kBK = 64;          // keys per staged K/V tile
 constexpr float kNegInf = -1e30f;
-
-// ---------------------------------------------------------------------------
-// f32: the CUDA cores
-// ---------------------------------------------------------------------------
-//  - hd is split over TPR = max(1, hd / 32) adjacent lanes; a lane holds
-//    its 4-float chunks j.TPR + sub of q and of the accumulator in
-//    registers (interleaved, so the TPR lanes of a row read 16 B each of
-//    one contiguous key row: no bank conflicts, and the rows of a warp
-//    share it by broadcast). q.k is reduced over the TPR lanes by
-//    shuffles in a fixed order.
-//  - Keys are taken 16 at a time: one max, one rescale of l and the
-//    accumulator per 16 keys.
-
-constexpr int kF32Threads = 256;
-constexpr int kCH = 16;          // keys per softmax step
-
-template <int HD>
-__global__ void __launch_bounds__(kF32Threads, 2)
-flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
-                 int S, int H, int Hkv, int G, int GB, int BQ, int n_qt,
-                 int n_bh, float scale) {
-    constexpr int TPR = HD <= 32 ? 1 : HD / 32;   // lanes per row
-    constexpr int DPT = HD / TPR;                 // dims per lane
-    constexpr int NV = DPT / 4;                   // float4 chunks per lane
-    extern __shared__ float4 smem4[];
-    float4* sK = smem4;                           // (kBK, HD / 4)
-    float4* sV = smem4 + kBK * HD / 4;
-
-    const int bid = blockIdx.x;
-    const int qt = n_qt - 1 - bid / n_bh;         // heaviest tiles first
-    const int bh = bid % n_bh;
-    const int n_gr = (G + GB - 1) / GB;
-    const int gr = bh % n_gr;
-    const int kvh = (bh / n_gr) % Hkv;
-    const int b = bh / (n_gr * Hkv);
-    const int t = threadIdx.x;
-    const int row = t / TPR, sub = t % TPR;
-    const int qi = row / GB, g = gr * GB + row % GB;
-    const int q0 = qt * BQ;
-    const int qpos = q0 + qi;
-    const bool live = qi < BQ && g < G && qpos < S;
-    const int h = kvh * G + g;
-
-    float qr[DPT], acc[DPT];
-#pragma unroll
-    for (int j = 0; j < NV; ++j) {
-        const int64_t base = ((int64_t(b) * S + qpos) * H + h) * HD
-                             + 4 * (j * TPR + sub);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-            qr[4 * j + e] = live ? q[base + e] : 0.f;
-            acc[4 * j + e] = 0.f;
-        }
-    }
-    float m = kNegInf, l = 0.f;
-
-    const int kv_end = min(S, q0 + BQ);           // keys past it are masked
-    const int64_t kv_stride = int64_t(Hkv) * HD;
-    const float* kb = k + (int64_t(b) * S * Hkv + kvh) * HD;
-    const float* vb = v + (int64_t(b) * S * Hkv + kvh) * HD;
-    float* sKf = reinterpret_cast<float*>(sK);
-    float* sVf = reinterpret_cast<float*>(sV);
-
-    for (int k0 = 0; k0 < kv_end; k0 += kBK) {
-        const int nk = min(kBK, kv_end - k0);
-        __syncthreads();                          // the last tile is used
-        for (int i = t; i < kBK * HD; i += kF32Threads) {
-            const int key = i / HD, d = i % HD;
-            float kx = 0.f, vx = 0.f;             // zero past the tile's end
-            if (key < nk) {
-                const int64_t off = int64_t(k0 + key) * kv_stride + d;
-                kx = kb[off];
-                vx = vb[off];
-            }
-            sKf[i] = kx;
-            sVf[i] = vx;
-        }
-        __syncthreads();
-        for (int c0 = 0; c0 < nk; c0 += kCH) {
-            float s[kCH];
-            float mx = kNegInf;
-#pragma unroll
-            for (int c = 0; c < kCH; ++c) {
-                const float4* kr = sK + (c0 + c) * (HD / 4);
-                float dot = 0.f;
-#pragma unroll
-                for (int j = 0; j < NV; ++j) {
-                    const float4 kk = kr[j * TPR + sub];
-                    dot += qr[4 * j] * kk.x + qr[4 * j + 1] * kk.y
-                           + qr[4 * j + 2] * kk.z + qr[4 * j + 3] * kk.w;
-                }
-#pragma unroll
-                for (int off = 1; off < TPR; off <<= 1)
-                    dot += __shfl_xor_sync(0xffffffffu, dot, off);
-                const int kv = k0 + c0 + c;
-                const bool ok = c0 + c < nk && kv <= qpos && kv < S;
-                s[c] = ok ? dot * scale : kNegInf;
-                mx = fmaxf(mx, s[c]);
-            }
-            const float m_new = fmaxf(m, mx);
-            const float corr = expf(m - m_new);
-            l *= corr;
-#pragma unroll
-            for (int d = 0; d < DPT; ++d) acc[d] *= corr;
-#pragma unroll
-            for (int c = 0; c < kCH; ++c) {
-                const int kv = k0 + c0 + c;
-                const bool ok = c0 + c < nk && kv <= qpos && kv < S;
-                const float p = ok ? expf(s[c] - m_new) : 0.f;
-                l += p;
-                const float4* vr = sV + (c0 + c) * (HD / 4);
-#pragma unroll
-                for (int j = 0; j < NV; ++j) {
-                    const float4 vv = vr[j * TPR + sub];
-                    acc[4 * j] += p * vv.x;
-                    acc[4 * j + 1] += p * vv.y;
-                    acc[4 * j + 2] += p * vv.z;
-                    acc[4 * j + 3] += p * vv.w;
-                }
-            }
-            m = m_new;
-        }
-    }
-    if (!live) return;
-    const float inv = 1.f / fmaxf(l, 1e-30f);
-#pragma unroll
-    for (int j = 0; j < NV; ++j) {
-        const int64_t base = ((int64_t(b) * S + qpos) * H + h) * HD
-                             + 4 * (j * TPR + sub);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[base + e] = acc[4 * j + e] * inv;
-    }
-}
 
 // ---------------------------------------------------------------------------
 // bf16 and f16: the tensor cores
@@ -527,9 +396,327 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// f32: the CUDA cores
+// ---------------------------------------------------------------------------
+// flash_f32_kernel<HD> (hd 16 to 256, and the padded 384 and 512): f32 FFMA
+// on the CUDA cores, no TF32 (the reference's f32 tolerance is 2e-5; TF32
+// keeps about three decimal digits). What bounds it is the shared-memory
+// pipe, not the FMA units: an SM reads 32 floats a clock from shared memory
+// (whatever the width of the load) and does 128 FMAs, so a product must
+// reuse every float it reads about four times to run at the FMA rate. So:
+//  - Register micro-tiles. The scores of a 64-key tile (BM stacked rows x
+//    64 keys) are outer products over d: a thread owns SR = BM / 16 rows
+//    (SR ty + r) x 4 keys (tx + 16 j) and, per 4 dims, reads SR + 4
+//    float4s for 16 SR FMAs (8 x 4: 2.7 FMAs a float at hd 128; 4 x 4: 2
+//    at the other widths). P goes through shared memory (transposed, keys
+//    x rows), and O += P.V is a second register-tiled product: a thread
+//    owns OR rows x 4 NJ dims of every V slab's part of O and, per key,
+//    reads OR + 4 NJ floats for 4 OR NJ FMAs (8 x 8: 4 a float at hd 128
+//    and 256; 4 x 8: 2.7 at 384 and 512). A row's max and sum reduce over
+//    the 16 lanes that hold it by shuffles at offsets 1, 2, 4, 8, in that
+//    order; the sum is kept per lane and reduced once at the end. The V
+//    slabs of a tile are walked unrolled, so that each one's part of O is
+//    named at compile time and stays in registers.
+//  - Scores once, at the full width. BM is chosen by width so that O fits
+//    in registers: 128 rows at hd 128 (64 floats a thread), 64 rows else
+//    (up to 128 floats a thread at hd 512). Q sits whole in shared memory,
+//    row-major (its reads are broadcasts). K and V come in slabs of 64
+//    keys x D dims (the whole width up to 256, 128 above: 64 KB at most),
+//    the scores summed over the K slabs and each V slab adding to its own
+//    part of O, so nothing is recomputed at any hd.
+//  - Asynchronous staging. Q (once, with the first slab) and the slabs (a
+//    tile's K slabs, then its V slabs) arrive by 16-byte cp.async through a
+//    ring of R slabs (4, or as many as 227 KB leave: 2 at hd 256 and 512,
+//    3 at 384), so R - 1 slabs load during a slab's products; keys past S
+//    are zero-filled (src-size 0). Slab rows are XOR-swizzled in 16-byte
+//    chunks (swz) so that the 8 keys a quarter-warp reads fall in 8 bank
+//    groups; P^T likewise for its stores.
+//  - Scores are scaled by hd^-0.5 . log2(e) and exponentiated by
+//    ex2.approx, as in the 16-bit kernel; masked scores take the finite
+//    -1e30 and masked p is set to 0 again; only tiles that reach past the
+//    block's first position are masked.
+// Shared memory: Q BM x hd, R slabs, P^T 64 x BM and 2 BM floats (the
+// rows' rescale and sums): 225 KB at hd 128, 208.5 KB at 256, 384 and 512.
+// (Measured and not kept: 128-key tiles above hd 256, scores 4 x 8 a
+// thread, 2.7 % faster at hd 320 and 1.7 % slower at 512.)
+
+constexpr int kF32Threads = 256;
+constexpr int kSmemBytes = 232448;   // the most a block may take (227 KB)
+
+// flash_f32_kernel<HD>'s tiles: BM stacked rows a block; K and V staged in
+// NSL slabs of kBK keys x D dims each, through a ring of R slabs; the
+// scores' micro-tile SR rows x 4 keys; the output's OR rows x NJ 16-byte
+// chunks of each slab, TOC threads across a slab's CD chunks. CQ, CD, CP:
+// 16-byte chunks in a row of Q, of a slab, of P^T.
+// flash_f32_plan (the entry point at the end) reports them; the wrapper's
+// f32_plan mirrors the rule for the CPU and is held equal to it on the card.
+template <int HD>
+struct F32Plan {
+    static constexpr int BM = HD == 128 ? 128 : 64;
+    static constexpr int D = HD <= 256 ? HD : 128;
+    static constexpr int NSL = HD / D;
+    static constexpr int CQ = HD / 4, CD = D / 4, CP = BM / 4;
+    static constexpr int SR = BM / 16;
+    static constexpr int OC = BM * D / kF32Threads;   // O floats a slab
+    static constexpr int OR = OC >= 64 ? 8 : OC >= 16 ? 4 : OC / 4;
+    static constexpr int TOC = kF32Threads * OR / BM;
+    static constexpr int NJ = CD / TOC;
+    static constexpr int FIXED = (BM * HD + kBK * BM + 2 * BM) * 4;
+    static constexpr int SLAB = kBK * D * 4;
+    static constexpr int FIT = (kSmemBytes - FIXED) / SLAB;
+    static constexpr int R = FIT < 4 ? FIT : 4;
+    static constexpr size_t smem = FIXED + size_t(R) * SLAB;
+    static_assert(HD % D == 0 && SR % 4 == 0 && OR >= 1 && R >= 2,
+                  "a width the f32 kernel has no tiles for");
+};
+
+// O (OR rows x NJ chunks of one slab) += P V over the slab's kBK keys: P^T
+// rows OR oy .. from sP, V chunks ox + TOC j of each key from the slab
+template <int CD, int CP, int TOC, int OR, int NJ>
+__device__ __forceinline__ void f32_pv(float (&acc)[OR][4 * NJ],
+                                       const float4* slab, const float4* sP,
+                                       int ox, int oy) {
+    const float* sPf = reinterpret_cast<const float*>(sP);
+#pragma unroll 8
+    for (int key = 0; key < kBK; ++key) {
+        float pr[OR];
+        if constexpr (OR % 4 == 0) {
+#pragma unroll
+            for (int rc = 0; rc < OR / 4; ++rc) {
+                const float4 p4 = sP[swz<CP>(key, OR * oy / 4 + rc)];
+                pr[4 * rc] = p4.x;
+                pr[4 * rc + 1] = p4.y;
+                pr[4 * rc + 2] = p4.z;
+                pr[4 * rc + 3] = p4.w;
+            }
+        } else {
+#pragma unroll
+            for (int r = 0; r < OR; ++r) {
+                const int row = OR * oy + r;
+                pr[r] = sPf[swz<CP>(key, row / 4) * 4 + row % 4];
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+            const float4 vf = slab[swz<CD>(key, ox + TOC * j)];
+#pragma unroll
+            for (int r = 0; r < OR; ++r) {
+                acc[r][4 * j] = fmaf(pr[r], vf.x, acc[r][4 * j]);
+                acc[r][4 * j + 1] = fmaf(pr[r], vf.y, acc[r][4 * j + 1]);
+                acc[r][4 * j + 2] = fmaf(pr[r], vf.z, acc[r][4 * j + 2]);
+                acc[r][4 * j + 3] = fmaf(pr[r], vf.w, acc[r][4 * j + 3]);
+            }
+        }
+    }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kF32Threads, 1)
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 int S, int H, int Hkv, int G, int GB, int BQ, int n_qt,
+                 int n_bh, float scale_log2) {
+    using P = F32Plan<HD>;
+    constexpr int BM = P::BM, D = P::D, NSL = P::NSL, CQ = P::CQ;
+    constexpr int CD = P::CD, CP = P::CP, SR = P::SR, TOC = P::TOC;
+    constexpr int OR = P::OR, NJ = P::NJ, R = P::R;
+    constexpr int SLAB = kBK * CD;               // float4s a slab
+    extern __shared__ float4 smem4[];
+    float4* sQ = smem4;                          // (BM, CQ), row-major
+    float4* sRing = sQ + BM * CQ;                // R slabs (kBK, CD), swizzled
+    float4* sP = sRing + R * SLAB;               // P^T (kBK, CP), swizzled
+    float* sCorr = reinterpret_cast<float*>(sP + kBK * CP);  // BM
+    float* sL = sCorr + BM;                                  // BM
+
+    const int bid = blockIdx.x;
+    const int qt = n_qt - 1 - bid / n_bh;        // heaviest tiles first
+    const int bh = bid % n_bh;
+    const int n_gr = (G + GB - 1) / GB;
+    const int gr = bh % n_gr;
+    const int kvh = (bh / n_gr) % Hkv;
+    const int b = bh / (n_gr * Hkv);
+    const int t = threadIdx.x;
+    const int tx = t % 16, ty = t / 16;          // scores: keys, rows
+    const int ox = t % TOC, oy = t / TOC;        // output: chunks, rows
+    const int q0 = qt * BQ;
+    const int kv_end = min(S, q0 + BQ);          // keys past it are masked
+    // step i takes slab i: tile i / (2 NSL); of it, for p = i % (2 NSL),
+    // K's dims D p .. + D - 1 (p < NSL), else V's D (p - NSL) ..
+    const int n_steps = (kv_end + kBK - 1) / kBK * 2 * NSL;
+
+    const int64_t kv_stride = int64_t(Hkv) * HD;
+    const float* kb = k + (int64_t(b) * S * Hkv + kvh) * HD;
+    const float* vb = v + (int64_t(b) * S * Hkv + kvh) * HD;
+    const uint32_t sQa =
+        static_cast<uint32_t>(__cvta_generic_to_shared(smem4));
+    const uint32_t sRa = sQa + BM * CQ * 16;
+
+    // the block's q rows, zero-filled where no row is live, arrive with the
+    // first slab
+    for (int i = t; i < BM * CQ; i += kF32Threads) {
+        const int rho = i / CQ, c = i % CQ;
+        const int qi = rho / GB, g = gr * GB + rho % GB;
+        const bool in = qi < BQ && g < G && q0 + qi < S;
+        const int64_t off =
+            in ? ((int64_t(b) * S + q0 + qi) * H + kvh * G + g) * HD + 4 * c
+               : 0;
+        cp_async16(sQa + i * 16, q + off, in ? 16 : 0);
+    }
+    auto load = [&](int i) {                     // slab i into slot i % R
+        const int k0 = i / (2 * NSL) * kBK, p = i % (2 * NSL);
+        const float* src = (p < NSL ? kb : vb) + (p % NSL) * D;
+        const uint32_t dst = sRa + (i % R) * SLAB * 16;
+        for (int e = t; e < SLAB; e += kF32Threads) {
+            const int key = e / CD, c = e % CD;
+            const bool in = k0 + key < S;
+            const int64_t off = in ? (k0 + key) * kv_stride + 4 * c : 0;
+            cp_async16(dst + swz<CD>(key, c) * 16, src + off, in ? 16 : 0);
+        }
+    };
+
+    float s[SR][4], m[SR], l[SR];
+    float acc[NSL][OR][4 * NJ];
+#pragma unroll
+    for (int r = 0; r < SR; ++r) {
+        m[r] = kNegInf;
+        l[r] = 0.f;
+    }
+#pragma unroll
+    for (int sl = 0; sl < NSL; ++sl)
+#pragma unroll
+        for (int r = 0; r < OR; ++r)
+#pragma unroll
+            for (int e = 0; e < 4 * NJ; ++e) acc[sl][r][e] = 0.f;
+
+#pragma unroll
+    for (int i = 0; i < R - 1; ++i) {
+        if (i < n_steps) load(i);
+        cp_async_commit();
+    }
+    // slab i's slot, once it has landed and slot i - 1 is free again
+    auto next = [&](int i) -> const float4* {
+        cp_async_wait<R - 2>();
+        __syncthreads();
+        if (i + R - 1 < n_steps) load(i + R - 1);
+        cp_async_commit();
+        return sRing + (i % R) * SLAB;
+    };
+    for (int i = 0; i < n_steps;) {
+        const int k0 = i / (2 * NSL) * kBK;
+        // S = Q K^T over the K slabs, d in order
+#pragma unroll
+        for (int r = 0; r < SR; ++r)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) s[r][j] = 0.f;
+        for (int p = 0; p < NSL; ++p, ++i) {
+            const float4* slab = next(i);
+            const float4* qrow = sQ + SR * ty * CQ + p * CD;
+#pragma unroll 8
+            for (int c = 0; c < CD; ++c) {
+                float4 kf[4];
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                    kf[j] = slab[swz<CD>(tx + 16 * j, c)];
+#pragma unroll
+                for (int r = 0; r < SR; ++r) {
+                    const float4 qf = qrow[r * CQ + c];
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) {
+                        s[r][j] = fmaf(qf.x, kf[j].x, s[r][j]);
+                        s[r][j] = fmaf(qf.y, kf[j].y, s[r][j]);
+                        s[r][j] = fmaf(qf.z, kf[j].z, s[r][j]);
+                        s[r][j] = fmaf(qf.w, kf[j].w, s[r][j]);
+                    }
+                }
+            }
+        }
+        // scale, mask (only a tile that reaches past the block's first
+        // position), the rows' new max over their 16 lanes, p, and P^T and
+        // the rescale to shared memory
+        const bool masked = k0 + kBK - 1 > q0;
+#pragma unroll
+        for (int r = 0; r < SR; ++r) {
+            const int rho = SR * ty + r;
+            const int pos = q0 + rho / GB;
+            uint32_t dead = 0;
+            float mx = m[r];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                const int key = k0 + tx + 16 * j;
+                if (masked && (key > pos || key >= S)) dead |= 1u << j;
+                s[r][j] = (dead >> j) & 1u ? kNegInf : s[r][j] * scale_log2;
+                mx = fmaxf(mx, s[r][j]);
+            }
+#pragma unroll
+            for (int off = 1; off < 16; off <<= 1)
+                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+            const float corr = fast_exp2(m[r] - mx);
+            m[r] = mx;
+            l[r] *= corr;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                const float pj = (dead >> j) & 1u
+                    ? 0.f : fast_exp2(s[r][j] - mx);
+                l[r] += pj;
+                s[r][j] = pj;
+            }
+            if (tx == 0) sCorr[rho] = corr;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int rc = 0; rc < SR / 4; ++rc)
+                sP[swz<CP>(tx + 16 * j, SR * ty / 4 + rc)] =
+                    make_float4(s[4 * rc][j], s[4 * rc + 1][j],
+                                s[4 * rc + 2][j], s[4 * rc + 3][j]);
+        // O = O . corr + P V over the V slabs
+#pragma unroll
+        for (int sl = 0; sl < NSL; ++sl, ++i) {
+            const float4* slab = next(i);
+            if (sl == 0) {
+#pragma unroll
+                for (int r = 0; r < OR; ++r) {
+                    const float cr = sCorr[OR * oy + r];
+#pragma unroll
+                    for (int x = 0; x < NSL; ++x)
+#pragma unroll
+                        for (int e = 0; e < 4 * NJ; ++e) acc[x][r][e] *= cr;
+                }
+            }
+            f32_pv<CD, CP, TOC, OR, NJ>(acc[sl], slab, sP, ox, oy);
+        }
+    }
+
+#pragma unroll
+    for (int r = 0; r < SR; ++r) {
+#pragma unroll
+        for (int off = 1; off < 16; off <<= 1)
+            l[r] += __shfl_xor_sync(0xffffffffu, l[r], off);
+        if (tx == 0) sL[SR * ty + r] = l[r];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < OR; ++r) {
+        const int rho = OR * oy + r;
+        const int qi = rho / GB, g = gr * GB + rho % GB;
+        if (qi >= BQ || g >= G || q0 + qi >= S) continue;
+        const float den = fmaxf(sL[rho], 1e-30f);
+        float4* orow = reinterpret_cast<float4*>(
+            o + ((int64_t(b) * S + q0 + qi) * H + kvh * G + g) * HD);
+#pragma unroll
+        for (int sl = 0; sl < NSL; ++sl)
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+                orow[sl * CD + ox + TOC * j] = make_float4(
+                    acc[sl][r][4 * j] / den, acc[sl][r][4 * j + 1] / den,
+                    acc[sl][r][4 * j + 2] / den, acc[sl][r][4 * j + 3] / den);
+    }
+}
+
+// ---------------------------------------------------------------------------
 // Head widths above 256: the output's columns in chunks of kChunk
 // ---------------------------------------------------------------------------
-// The widest instance above (256) already spills in bf16, so a wider head
+// The widest 16-bit instance above (256) already spills, so a wider head
 // takes a kernel whose block owns one kChunk-wide chunk of the output's
 // columns (grid dimension y) for the same stacked rows as above. It sums
 // the full-width scores Q.K^T over hd in kChunk-wide k-chunks, each staged
@@ -537,7 +724,11 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // and accumulates P.V for its own chunk of V only. So the scores are
 // recomputed once per chunk: hd / 128 times the QK flops. The wrapper
 // zero-pads hd to a multiple of kChunk and passes the true width's scale.
+// In f32, flash_f32_kernel<384> and <512> take the padded 320 and 512 and
+// recompute nothing; only heads past 512, which no configuration of the
+// port has, keep the f32 column-chunk kernel below.
 constexpr int kChunk = 128;
+constexpr int kCH = 16;          // keys per softmax step (f32 column chunks)
 
 // 16-bit (bf16 or f16) on the tensor cores: flash_mma_kernel's tiles,
 // fragments, masking and softmax at a width of kChunk, one stage (no
@@ -735,12 +926,14 @@ flash_mma_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-// f32 on the CUDA cores: flash_f32_kernel's lanes at a width of kChunk
-// (4 lanes a row, 64 rows a block, each lane 32 dims of the block's chunk
-// of the accumulator). A lane sums its share of the 64 keys' scores over
-// every k-chunk (q's chunk from device memory, k's staged), then the 4
-// lanes' partials are reduced by shuffles in a fixed order and the softmax
-// runs 16 keys at a time, as there.
+// f32 on the CUDA cores, heads past 512 only: 4 lanes a row, 64 rows a
+// block, each lane 32 dims of the block's chunk of the accumulator (a
+// lane's 4-float chunks j.4 + sub, so the 4 lanes of a row read 16 B each
+// of one contiguous key row). A lane sums its share of the 64 keys' scores
+// over every k-chunk (q's chunk from device memory, k's staged), then the
+// 4 lanes' partials are reduced by shuffles in a fixed order and the
+// softmax runs 16 keys at a time. One FMA per float read from shared
+// memory and synchronous staging: 6 % of its bound at hd 512 (PERF.md).
 __global__ void __launch_bounds__(kF32Threads, 1)
 flash_f32_wide_kernel(const float* __restrict__ q,
                       const float* __restrict__ k,
@@ -903,14 +1096,13 @@ int launch_kernel(K kernel, dim3 grid, int threads, size_t smem,
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                int S, int H, int Hkv, float scale, cudaStream_t stream) {
-    constexpr int TPR = HD <= 32 ? 1 : HD / 32;
-    const Tiling t(B, S, H, Hkv, kF32Threads / TPR);
+    const Tiling t(B, S, H, Hkv, F32Plan<HD>::BM);
     return launch_kernel(
         flash_f32_kernel<HD>, dim3(t.blocks()), kF32Threads,
-        2 * size_t(kBK) * HD * sizeof(float), stream,
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), S, H, Hkv,
-        t.G, t.GB, t.BQ, t.n_qt, t.n_bh, scale);
+        F32Plan<HD>::smem, stream, static_cast<const float*>(q),
+        static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<float*>(o), S, H, Hkv, t.G, t.GB, t.BQ, t.n_qt, t.n_bh,
+        scale * 1.4426950408889634f);
 }
 
 template <int HD, typename T>
@@ -961,6 +1153,8 @@ int launch_wide(const void* q, const void* k, const void* v, void* o, int B,
     if (dtype == kF16)
         return launch_mma_wide<__half>(q, k, v, o, B, S, H, Hkv, hd, scale,
                                        s);
+    if (hd == 384) return launch_f32<384>(q, k, v, o, B, S, H, Hkv, scale, s);
+    if (hd == 512) return launch_f32<512>(q, k, v, o, B, S, H, Hkv, scale, s);
     const Tiling t(B, S, H, Hkv, kF32Threads / (kChunk / 32));
     return launch_kernel(
         flash_f32_wide_kernel, dim3(t.blocks(), hd / kChunk), kF32Threads,
@@ -968,6 +1162,15 @@ int launch_wide(const void* q, const void* k, const void* v, void* o, int B,
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), S, H, Hkv, hd,
         t.G, t.GB, t.BQ, t.n_qt, t.n_bh, scale);
+}
+
+template <int HD>
+int f32_plan(int* out) {
+    using P = F32Plan<HD>;
+    const int v[] = {P::BM, P::D, P::R, P::SR, P::OR, P::TOC, P::NJ,
+                     int(P::smem)};
+    for (int i = 0; i < 8; ++i) out[i] = v[i];
+    return 0;
 }
 
 }  // namespace
@@ -995,6 +1198,23 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
                 return launch_wide(q, k, v, o, B, S, H, Hkv, hd, dtype,
                                    scale, s);
             return int(cudaErrorInvalidValue);
+    }
+}
+
+// flash_f32_kernel<hd>'s tiles as F32Plan chooses them, for hd in {16, 32,
+// 64, 128, 256, 384, 512}: out[0..7] = BM, D, R, SR, OR, TOC, NJ, smem
+// (repro_torch.kernels.flash_attention.f32_plan mirrors the rule). Launches
+// nothing.
+int flash_f32_plan(int hd, int* out) {
+    switch (hd) {
+        case 16: return f32_plan<16>(out);
+        case 32: return f32_plan<32>(out);
+        case 64: return f32_plan<64>(out);
+        case 128: return f32_plan<128>(out);
+        case 256: return f32_plan<256>(out);
+        case 384: return f32_plan<384>(out);
+        case 512: return f32_plan<512>(out);
+        default: return int(cudaErrorInvalidValue);
     }
 }
 

@@ -1,9 +1,9 @@
 """Causal GQA flash attention, the LM stack's attention leaf.
 
 One Hopper source (``csrc/flash_attention.cu``: a tensor-core kernel for
-bf16 and f16, a CUDA-core kernel for f32, and for head widths above 256 a
-kernel of each kind whose blocks own 128-column chunks of the output) with
-its plain PyTorch version beside it.
+bf16 and f16, whose blocks own 128-column chunks of the output above hd
+256, and a CUDA-core kernel for f32 up to hd 512, with a column-chunk twin
+past it) with its plain PyTorch version beside it.
 :func:`flash_attention` replaces the TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention``; the source note says
 what bounds it on the card and what its design does about that. The
@@ -11,11 +11,13 @@ wrapper runs the plain version only when its inputs lie on the CPU; on a
 CUDA tensor it launches the kernel or raises. Neither takes a gradient
 through the wrapper (it refuses autograd, as the reference's kernel has no
 backward); :func:`flash_attention_plain` called directly stays
-differentiable.
+differentiable. :data:`ROUTES` counts the launches by dtype and the width
+the card ran, and :func:`f32_plan` mirrors the f32 kernel's tiles.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Tuple
 
 import torch
 
@@ -25,11 +27,61 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # q, k, v, o, B, S, H, Hkv, hd, dtype code, scale, stream
     "flash_attention_fwd": (_P,) * 4 + (_I,) * 6 + (ctypes.c_float, _P),
+    # hd -> BM, D, R, SR, OR, TOC, NJ, smem (F32Plan<hd>)
+    "flash_f32_plan": (_I, ctypes.POINTER(ctypes.c_int)),
 }
 HEAD_DIMS = (16, 32, 64, 128, 256)     # the widths of the card's instances
 CHUNK = 128         # above 256, hd is padded to a multiple of this (kChunk)
 DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# launches by (dtype name, padded width), counted where the wrapper
+# launches, beside _build.LAUNCHES' one count for the kernel
+ROUTES: Dict[Tuple[str, int], int] = {}
+# flash_f32_kernel's widths, threads a block, keys a K/V tile and shared
+# memory a block may take (csrc/flash_attention.cu)
+F32_WIDTHS = (16, 32, 64, 128, 256, 384, 512)
+F32_THREADS, F32_BK, F32_SMEM = 256, 64, 232448
+_PLAN_KEYS = ("BM", "D", "R", "SR", "OR", "TOC", "NJ", "smem")
+
+
+def reset_routes() -> None:
+    ROUTES.clear()
+
+
+def f32_plan(hd: int) -> dict:
+    """flash_f32_kernel<hd>'s tiles as F32Plan chooses them: BM stacked
+    rows a block (128 at hd 128, 64 else); K and V in NSL slabs of 64 keys
+    x D dims through a ring of R slabs; the scores' micro-tile SR rows x 4
+    keys a thread; O's OR rows x NJ 16-byte chunks of each slab, TOC
+    threads across a slab's CD chunks; CQ, CD, CP the 16-byte chunks in a
+    row of Q, of a slab, of P^T; ``smem`` the bytes a block takes. The
+    kernel decides; this mirrors it for the CPU emulation and the edge
+    cases, and :func:`f32_plan_card` (the library's own report) is held
+    equal to it on the card."""
+    if hd not in F32_WIDTHS:
+        raise ValueError(f"flash_f32_kernel has no instance for hd {hd}")
+    BM = 128 if hd == 128 else 64
+    D = hd if hd <= 256 else 128
+    OC = BM * D // F32_THREADS              # O floats a thread a slab
+    OR = 8 if OC >= 64 else 4 if OC >= 16 else OC // 4
+    TOC = F32_THREADS * OR // BM
+    fixed = (BM * hd + F32_BK * BM + 2 * BM) * 4
+    slab = F32_BK * D * 4
+    R = min(4, (F32_SMEM - fixed) // slab)
+    return dict(BM=BM, D=D, NSL=hd // D, CQ=hd // 4, CD=D // 4, CP=BM // 4,
+                SR=BM // 16, TOC=TOC, OR=OR, NJ=D // 4 // TOC, R=R,
+                smem=fixed + R * slab)
+
+
+def f32_plan_card(hd: int) -> dict:
+    """The keys of :data:`_PLAN_KEYS` as the built library's
+    ``flash_f32_plan`` reports F32Plan<hd> (needs the CUDA toolkit)."""
+    out = (ctypes.c_int * len(_PLAN_KEYS))()
+    err = library("flash_attention", _SIGNATURES).flash_f32_plan(hd, out)
+    if err:
+        raise ValueError(f"flash_f32_plan: no instance for hd {hd} "
+                         f"(CUDA error {err})")
+    return dict(zip(_PLAN_KEYS, out))
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -74,9 +126,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     block stacks the G query heads of one KV head row-wise over a run of
     positions and stages 64 keys at a time: bf16 and f16 run on the tensor
     cores (``mma.sync``), 64 rows a block (64 / G positions), 16 rows a
-    warp; f32 on the CUDA cores, 256 / max(1, hd / 32) rows a block. Above
-    256, a block owns 128 of the output's columns and recomputes the
-    full-width scores.
+    warp; above 256 a block owns 128 of the output's columns and
+    recomputes the full-width scores. f32 runs on the CUDA cores, rows a
+    block by width (:func:`f32_plan`), the scores once at the full width
+    up to 512; past 512 a column-chunk twin recomputes them too. The
+    card's kernels load and store 16 bytes at a time: q, k and v must
+    start on a 16-byte boundary there (a fresh tensor does).
 
     The kernel has no gradient, as the reference's Pallas kernel has none
     (no ``custom_vjp``; ``jax.grad`` through it fails): with autograd
@@ -117,10 +172,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q, k, v = (torch.nn.functional.pad(x, (0, width - hd))
                    for x in (q, k, v))
     o = torch.empty_like(q)
+    for name, x in (("q", q), ("k", k), ("v", v), ("o", o)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must start on a "
+                             f"16-byte boundary on the card, got address "
+                             f"{x.data_ptr():#x}")
     with torch.cuda.device(q.device):
         err = library("flash_attention", _SIGNATURES).flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, H,
             k.shape[2], width, _CODES[q.dtype], hd ** -0.5,
             torch.cuda.current_stream().cuda_stream)
     check_launch("flash_attention", err)
+    key = (str(q.dtype).removeprefix("torch."), width)
+    ROUTES[key] = ROUTES.get(key, 0) + 1
     return o if width == hd else o[..., :hd].contiguous()

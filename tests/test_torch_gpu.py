@@ -430,25 +430,34 @@ def test_blocked_kernels_take_oversized_blocks(card, name):
 @pytest.mark.gpu
 def test_flash_attention_other_head_widths(card):
     """hd 112 (zero-padded to the 128 instance), 256 (its own instance),
-    300 (padded to 384) and 512 (the column-chunk kernels) in f32, bf16
-    and f16 against the plain version (2e-5, 3e-2, 1e-2), position 0 is
-    v[0], two launches give the same bits."""
+    300 (padded to 384) and 512 (the column-chunk kernels in bf16 and f16,
+    the f32 kernel's own instances in f32) in f32, bf16 and f16, then hd
+    640 in f32 (the f32 column-chunk kernel) at G 1 and 3, then the f32
+    kernel's tile edges (chip_smoke.f32_edge_cases: S one below and one
+    past a block's stacked rows and one past a 64-key stage, G in {1, 3,
+    8}, hd 128, 256 and 512), against the plain version (2e-5, 3e-2,
+    1e-2), position 0 is v[0], two launches give the same bits."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     gen = torch.Generator(card).manual_seed(1)
     before = _build.LAUNCHES["flash_attention"]
     n = 0
-    for dtype in (torch.float32, torch.bfloat16, torch.float16):
-        for B, S, H, Hkv, hd in ((2, 257, 8, 2, 112), (1, 200, 4, 1, 256),
-                                 (1, 130, 6, 2, 300), (2, 70, 4, 2, 512)):
-            q, k, v = (torch.randn(shape, generator=gen, device=card)
-                       .to(dtype) for shape in
-                       ((B, S, H, hd), (B, S, Hkv, hd), (B, S, Hkv, hd)))
-            got = flash_attention(q, k, v)
-            chip_smoke.compare_flash(f"{dtype} {(B, S, H, Hkv, hd)}", got,
-                                     flash_attention_plain(q, k, v), q, v)
-            assert torch.equal(got, flash_attention(q, k, v))
-            n += 2
+    cases = [(dtype, shape) for dtype in (torch.float32, torch.bfloat16,
+                                          torch.float16)
+             for shape in ((2, 257, 8, 2, 112), (1, 200, 4, 1, 256),
+                           (1, 130, 6, 2, 300), (2, 70, 4, 2, 512))] + [
+        (torch.float32, (1, 130, 2 * G, 2, 640)) for G in (1, 3)] + [
+        (getattr(torch, dt), shape)
+        for *shape, dt in chip_smoke.f32_edge_cases()]
+    for dtype, (B, S, H, Hkv, hd) in cases:
+        q, k, v = (torch.randn(shape, generator=gen, device=card).to(dtype)
+                   for shape in ((B, S, H, hd), (B, S, Hkv, hd),
+                                 (B, S, Hkv, hd)))
+        got = flash_attention(q, k, v)
+        chip_smoke.compare_flash(f"{dtype} {(B, S, H, Hkv, hd)}", got,
+                                 flash_attention_plain(q, k, v), q, v)
+        assert torch.equal(got, flash_attention(q, k, v))
+        n += 2
     assert _build.LAUNCHES["flash_attention"] - before == n
 
 
@@ -1001,6 +1010,37 @@ def test_train_step_on_card_matches_cpu(card):
         assert float((a - b).norm() / b.norm()) <= 1e-4
     for a, b in zip(leaves(p_card), leaves(p_cpu)):
         assert float((a - b).abs().max()) <= 4 * lr
+
+
+@pytest.mark.gpu
+def test_flash_f32_plan_is_the_kernels(card):
+    """The wrapper's f32_plan is the library's F32Plan at every f32
+    width."""
+    from repro_torch.kernels.flash_attention import F32_WIDTHS
+    assert sorted(chip_smoke.check_f32_plan()) == sorted(F32_WIDTHS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_refuses_unaligned_views(card, dtype):
+    """A contiguous view that starts off a 16-byte boundary raises a
+    ValueError before any launch (the kernels load 16 bytes at a time);
+    the same values in a fresh tensor run and match the plain version."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    B, S, H, Hkv, hd = 1, 70, 4, 2, 64
+    flat = torch.randn(B * S * H * hd + 1, device=card).to(dtype)
+    q = flat[1:].view(B, S, H, hd)
+    k, v = (torch.randn(B, S, Hkv, hd, device=card).to(dtype)
+            for _ in range(2))
+    assert q.is_contiguous() and q.data_ptr() % 16
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(q, k, v)
+    assert _build.LAUNCHES == before
+    q = q.clone()
+    chip_smoke.compare_flash("aligned copy", flash_attention(q, k, v),
+                             flash_attention_plain(q, k, v), q, v)
 
 
 @pytest.mark.gpu
