@@ -1280,8 +1280,21 @@ def bcsr_cases(rng, device):
 # kernels in bf16 and f16, the f32 kernel's own instances); then the
 # causal attention heads of path 4j's architectures at a ragged length past
 # two 64-key stages; then hd 640, past the f32 kernel's widths (its
-# column-chunk twin), at G 1 and 3; last, the f32 kernel's tile edges
-# (:func:`f32_edge_cases`)
+# column-chunk twin), at G 1 and 3; then the wide 16-bit kernel's tile
+# edges (flash_mma_wide_kernel at 384 and 512): S one below, at and one
+# past 16 rows, a 32-row group, 64 keys and a 128-key tile, at G in {1, 3,
+# 8}, hd 320 and 512 in bf16 and f16; then hd 640 in bf16 and f16 (the
+# 16-bit column-chunk
+# kernel) at G 1 and 3; last, the f32 kernel's tile edges
+# (:func:`f32_edge_cases`). Every case is launched twice and must repeat
+# bit for bit.
+WIDE16_EDGE_CASES = tuple(
+    (1, S, 2 * G, 2, hd, dt) for hd in (320, 512)
+    for dt in ("bfloat16", "float16")
+    for S in (15, 16, 17, 31, 32, 33, 63, 64, 65, 127, 128, 129)
+    for G in (1, 3, 8)) + tuple(
+    (1, 130, 2 * G, 2, 640, dt) for dt in ("bfloat16", "float16")
+    for G in (1, 3))
 ARCH_HEADS = ((16, 8, 128), (40, 8, 128), (56, 8, 128), (16, 16, 128),
               (48, 4, 128), (32, 32, 112))
 # (H, Hkv, hd): internlm2; llama4 and qwen3; llava; olmoe; starcoder2;
@@ -1302,7 +1315,8 @@ FLASH_CASES = ((2, 256, 4, 2, 32, "float32"), (1, 200, 8, 8, 16, "float32"),
     (1, 200, 8, 2, hd, dt) for hd in (320, 512)
     for dt in ("float32", "bfloat16", "float16")) + tuple(
     (1, 130, H, Hkv, hd, "bfloat16") for H, Hkv, hd in ARCH_HEADS) + tuple(
-    (1, 130, 2 * G, 2, 640, "float32") for G in (1, 3))
+    (1, 130, 2 * G, 2, 640, "float32") for G in (1, 3)) \
+    + WIDE16_EDGE_CASES
 F32_EDGE_WIDTHS = (128, 256, 512)
 
 
@@ -1372,11 +1386,36 @@ def compare_flash(label, got, want, q, v) -> float:
     return float(err.max()) if err.numel() else 0.0
 
 
+def flash_kernel_name(symbol: str):
+    """The short name of a flash kernel's mangled symbol, or None:
+    ``mma_hd<d>_<bf16|f16>`` and ``f32_hd<d>`` (flash_mma_kernel,
+    flash_f32_kernel), ``mma_wide<W>_<bf16|f16>`` (flash_mma_wide_kernel),
+    ``mma_chunk_<bf16|f16>`` and ``f32_wide`` (the column-chunk kernels
+    past hd 512)."""
+    import re
+    kind = re.search(r"flash_(mma|f32)_(?:(wide|chunk)_)?kernelI?"
+                     r"(?:Li(\d+)E)?(13__nv_bfloat16|6__half)?", symbol)
+    if not kind:
+        return None
+    route, variant, width, dtype = kind.groups()
+    return (f"{route}_{variant or 'hd'}{width or ''}"
+            + {None: "", "13__nv_bfloat16": "_bf16",
+               "6__half": "_f16"}[dtype])
+
+
+# the flash library's kernels by flash_kernel_name: every instance
+FLASH_KERNELS = tuple(
+    [f"mma_hd{d}_{t}" for d in (16, 32, 64, 128, 256) for t in ("bf16", "f16")]
+    + [f"f32_hd{d}" for d in (16, 32, 64, 128, 256, 384, 512)]
+    + [f"mma_wide{w}_{t}" for w in (384, 512) for t in ("bf16", "f16")]
+    + ["mma_chunk_bf16", "mma_chunk_f16", "f32_wide"])
+
+
 def hmma_counts(lib):
-    """{kernel: tensor-core (HMMA) instructions} in the SASS of a built
-    library (``cuobjdump -sass``); the flash kernels are named
-    ``mma_hd<d>_<bf16|f16>`` / ``f32_hd<d>``, and the column-chunk ones
-    ``mma_wide_<bf16|f16>`` / ``f32_wide``."""
+    """{kernel: tensor-core (HMMA) instructions} in the SASS of the built
+    flash library (``cuobjdump -sass``), by :func:`flash_kernel_name`
+    (other functions by their symbol); each kernel of FLASH_KERNELS must
+    appear once."""
     import re
     from repro_torch.kernels._build import nvcc_path
     tool = Path(nvcc_path()).with_name("cuobjdump")
@@ -1386,19 +1425,38 @@ def hmma_counts(lib):
     for line in sass.splitlines():
         fn = re.search(r"Function : (\S+)", line)
         if fn:
-            name = fn.group(1)
-            kind = re.search(r"flash_(mma|f32)_(?:kernelILi(\d+)E|"
-                             r"wide_kernelI?)(13__nv_bfloat16|6__half)?",
-                             name)
-            if kind:
-                name = (f"{kind.group(1)}_"
-                        + (f"hd{kind.group(2)}" if kind.group(2) else "wide")
-                        + {None: "", "13__nv_bfloat16": "_bf16",
-                           "6__half": "_f16"}[kind.group(3)])
+            name = flash_kernel_name(fn.group(1)) or fn.group(1)
+            if name in counts:
+                raise AssertionError(f"two SASS functions named {name}")
             counts[name] = 0
         elif name and re.search(r"/\*[0-9a-f]+\*/\s+HMMA", line):
             counts[name] += 1
+    missing = set(FLASH_KERNELS) - set(counts)
+    if missing:
+        raise AssertionError(f"flash kernels not in the SASS: "
+                             f"{sorted(missing)}")
     return counts
+
+
+def ptxas_usage(log: str) -> dict:
+    """{flash kernel: (registers, spill store bytes, spill load bytes)}
+    from a build's ``ptxas -v`` output, by :func:`flash_kernel_name`."""
+    import re
+    out, name, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name, spills = flash_kernel_name(entry.group(1)), (0, 0)
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill:
+            spills = (int(spill.group(1)), int(spill.group(2)))
+        used = re.search(r"Used (\d+) registers", line)
+        if used and name:
+            out[name] = (int(used.group(1)), *spills)
+            name = None
+    return out
 
 
 def kernel_fns():
@@ -1443,7 +1501,11 @@ def compare_kernel(label, name, args, abs_args) -> float:
     want = plain(*args)
     if name == "flash_attention":
         _sync(got.device)
-        return compare_flash(label, got, want, args[0], args[2])
+        err = compare_flash(label, got, want, args[0], args[2])
+        if not torch.equal(got, kernel(*args)):
+            raise AssertionError(f"{label}: a second launch gave other "
+                                 "bits")
+        return err
     scale = plain(*abs_args)
     if isinstance(got, tuple):
         for g, w in zip(got[:-1], want[:-1]):
@@ -5478,8 +5540,17 @@ def main(argv=None) -> int:
     hmma = hmma_counts(_build.lib_path("flash_attention"))
     phase("sass", library="flash_attention", instruction="HMMA", **hmma)
     if not all(n > 0 for f, n in hmma.items() if f.startswith("mma")):
-        raise AssertionError(f"the bf16 flash kernel does not run on the "
+        raise AssertionError(f"a 16-bit flash kernel does not run on the "
                              f"tensor cores: HMMA counts {hmma}")
+    usage = ptxas_usage(logs["flash_attention"])
+    phase("flash-registers", **{f: "{}:{}:{}".format(*u)
+                                for f, u in sorted(usage.items())})
+    spilled = {f: u for f, u in usage.items()
+               if f.startswith("mma_wide") and (u[1] or u[2])}
+    if spilled or not any(f.startswith("mma_wide") for f in usage):
+        raise AssertionError(f"flash_mma_wide_kernel must not spill: "
+                             f"(registers, spill stores, spill loads) "
+                             f"{spilled or usage}")
     f32 = {f: n for f, n in hmma.items() if f.startswith("f32")}
     if not f32 or any(f32.values()):
         raise AssertionError(f"the f32 flash kernels must run on the CUDA "
@@ -5622,7 +5693,8 @@ def main(argv=None) -> int:
           **{k.replace(" ", "_"): f"{v:.2f}" for k, v in top})
     # the model's layer shapes in each dtype (bf16 is the path's record),
     # then hd 64 in f32 (path 4j's seamless-m4t-medium), hd 256 (the widest
-    # instance) and hd 320 and 512, at the layer's heads and length. Each
+    # instance), hd 320 and 512 and hd 640 (the column-chunk kernels), at
+    # the layer's heads and length. Each
     # record's launches are those of its dtype and width (the main record's:
     # bf16 at every width) on paths 4e and 4j, every call counted
     # where the wrapper launches (the teacher-forced and checked forwards
@@ -5638,18 +5710,20 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     for hd, dts in ((None, ("bfloat16", "float32", "float16")),
                     (64, ("float32",)), (256, tuple(short)),
-                    (320, tuple(short)), (512, tuple(short))):
+                    (320, tuple(short)), (512, tuple(short)),
+                    (640, tuple(short))):
         for dt in dts:
             width = padded_width(hd or cfg.resolved_head_dim)
             main_rec = hd is None and dt == "bfloat16"
             key = (None, None) if main_rec else (dt, width)
             lm_n = flash_count(lm_flash, *key)
             path_n = flash_count(attn_flash, *key) + lm_n
-            # the other dtypes and widths over fewer timed launches
+            # the other dtypes and widths over fewer timed launches (an
+            # eighth: the hd-640 f32 column-chunk kernel is slow)
             rec = flash_record(
                 cfg, PREFILL_BATCH, args.attn_seq, device, dt,
                 path_n if main_rec else path_n + edge_flash.get(key, 0),
-                args.reps if main_rec else max(args.reps // 4, 3),
+                args.reps if main_rec else max(args.reps // 8, 3),
                 head_dim=hd)
             rec["lm_launches"] = lm_n
             if main_rec:

@@ -9,10 +9,11 @@ checkout, on one card and the main path's inputs.
 
 Each named kernel is one that a lowered cell of ``chip_smoke.py``'s sparse
 paths launches (``chip_smoke.PATH_KERNELS``), or ``flash_attention``,
-which is taken at the llama3-8b layer's shapes in bf16 (q (2, 4096, 32,
-128), k and v (2, 4096, 8, 128), standard normal from a seeded
-generator: the prefill's launches), in f32 at head widths 64, 128, 256,
-320 and 512 (``FLASH_F32_WIDTHS``; the same heads and length), and in f32
+which is taken at the llama3-8b layer's heads and length (q (2, 4096, 32,
+hd), k and v (2, 4096, 8, hd), standard normal from a seeded generator;
+at hd 128 in bf16, the prefill's launches) in bf16 and f16 at head widths
+128, 256, 320 and 512 (``FLASH_16_WIDTHS``), in f32 at 64, 128, 256, 320
+and 512 (``FLASH_F32_WIDTHS``), and in f32
 at seamless-m4t-medium's heads (16 of 64) and the length and batch of
 ``chip_smoke.py``'s path 4j (2 x 128), where its teacher-forced forward
 launches the f32 kernel at hd 64. The sparse operands are made as
@@ -48,6 +49,7 @@ import chip_smoke as cs  # noqa: E402
 SPARSE_KERNELS = sorted({k for path in cs.PATH_CELLS
                          for k in cs.PATH_KERNELS[path]})
 KERNELS = SPARSE_KERNELS + ["flash_attention"]
+FLASH_16_WIDTHS = (128, 256, 320, 512)
 FLASH_F32_WIDTHS = (64, 128, 256, 320, 512)
 
 
@@ -181,8 +183,10 @@ def main(argv=None) -> int:
                  cfg.n_kv_heads)
         cells = summary["kernels"]["flash_attention"] = {}
         for dtype, (B, S, H, Hkv), hd, cell in [
-                (torch.bfloat16, layer, cfg.resolved_head_dim,
-                 "llama3-8b layer bf16")] + [
+                (dtype, layer, hd, f"llama3-8b layer {tag} hd{hd}")
+                for hd in FLASH_16_WIDTHS
+                for dtype, tag in ((torch.bfloat16, "bf16"),
+                                   (torch.float16, "f16"))] + [
                 (torch.float32, layer, hd, f"llama3-8b layer f32 hd{hd}")
                 for hd in FLASH_F32_WIDTHS] + [
                 (torch.float32, (cs.ARCH_BATCH, cs.ARCH_SEQ, sm.n_heads,

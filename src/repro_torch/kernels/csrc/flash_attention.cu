@@ -20,8 +20,10 @@
 //  - bf16 and f16: flash_mma_kernel<HD, T>, on the tensor cores (989
 //    TFLOP/s either way); the two instances differ only in the mma's input
 //    type and in how p and o are rounded. It takes hd in {16, 32, 64, 128,
-//    256}; above 256 a column-chunk twin (flash_mma_wide_kernel, at the
-//    end) takes any multiple of 128.
+//    256}. flash_mma_wide_kernel<W, T> takes the padded 384 and 512: its
+//    warps split O's columns and the scores are computed once at the full
+//    width (its section below). Heads past 512 take a 16-bit column-chunk
+//    kernel (flash_mma_chunk_kernel, at the end) at any multiple of 128.
 //  - f32: flash_f32_kernel<HD>, register-tiled FFMA on the CUDA cores (67
 //    TFLOP/s), the only way to meet the reference's f32 tolerance of 2e-5
 //    (TF32 would not); hd in {16, 32, 64, 128, 256, 384, 512}, the scores
@@ -79,8 +81,9 @@
 // error of cudaFuncSetAttribute, which dynamic shared memory above 48 KB
 // needs: the f32 kernel 225 KB at hd 128 and 208.5 KB at 256, 384 and 512
 // (F32Plan::smem); the bf16 kernel's two stages and q tile 80 KB at hd 128
-// and 160 KB at 256, of the 227 KB a block may take; the column-chunk
-// kernels 64 KB (f32) and 48 KB (16-bit) at any width).
+// and 160 KB at 256, of the 227 KB a block may take; the wide 16-bit
+// kernel 194 KB at 384 and 210 KB at 512 (WidePlan::smem); the
+// column-chunk kernels 64 KB (f32) and 48 KB (16-bit) at any width).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -714,19 +717,432 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// Head widths above 256: the output's columns in chunks of kChunk
+// bf16 and f16 above hd 256: the scores once, O split by column
 // ---------------------------------------------------------------------------
-// The widest 16-bit instance above (256) already spills, so a wider head
-// takes a kernel whose block owns one kChunk-wide chunk of the output's
-// columns (grid dimension y) for the same stacked rows as above. It sums
-// the full-width scores Q.K^T over hd in kChunk-wide k-chunks, each staged
-// in shared memory (q's chunk beside k's), runs the same online softmax
-// and accumulates P.V for its own chunk of V only. So the scores are
-// recomputed once per chunk: hd / 128 times the QK flops. The wrapper
-// zero-pads hd to a multiple of kChunk and passes the true width's scale.
-// In f32, flash_f32_kernel<384> and <512> take the padded 320 and 512 and
-// recompute nothing; only heads past 512, which no configuration of the
-// port has, keep the f32 column-chunk kernel below.
+// flash_mma_wide_kernel<W, T> takes the widths the wrapper pads hd 257-512
+// to, W = 384 and 512. The widest flash_mma_kernel instance (256) already
+// spills, for each of its warps holds 16 rows of O at the full width. Here
+// the warps of a block split O's columns, so a thread holds W / 4 floats of
+// it (128 at 512), while the scores are still computed once at the full
+// width. What bounds it is operations, as above, on the tensor cores; what
+// feeds them, ldmatrix from shared memory, is the pipe its design spares:
+//  - 8 warps, 64 stacked rows a block (flash_mma_kernel's rows, heads and
+//    tile order) in two row groups of 32, one block an SM, 128-key tiles.
+//    Warp w is row group rg = w / 4 (rows 32 rg .. 32 rg + 31, two 16-row
+//    m-tiles) and part pt = w % 4 of it. In S = Q.K^T the four warps of a
+//    group split the keys (pt takes keys 32 pt .. 32 pt + 31 of the tile,
+//    over the full width, one ascending k-step chain a score); in O +=
+//    P.V they split the output's columns (pt takes D / 4 of every V slab
+//    of D dims). So a warp multiplies 32 x 32 score tiles and 32-row strips
+//    of O, and a 16-byte ldmatrix read feeds 2 16x8x16 products in the
+//    scores and 2 (D 128) to 8 / 3 (D 256) in P.V, about half the reads a
+//    product of warps that own 16 rows.
+//  - Q sits whole in shared memory (48 KB at 384, 64 KB at 512) and arrives
+//    once, with the first slab. K and V come in slabs of 128 keys x D dims
+//    (WidePlan: D 256 at 512, 128 at 384): a tile's K slabs, then its V
+//    slabs, through one cp.async ring of R slabs (2 at 512, 4 at 384), so
+//    R - 1 slabs load during a slab's products; keys past S are
+//    zero-filled (src-size 0). Q, slabs and P are XOR-swizzled in 16-byte
+//    chunks (swz) as above, and the loads' and ldmatrix's addresses are
+//    per-lane offsets computed once.
+//  - The softmax: a warp takes its keys' row max over the quad, the group
+//    trade theirs through shared memory behind a named barrier of its 128
+//    threads, and all four take the same max, correction and m. Each writes
+//    its p, rounded to T, into a 64 x 128 P tile in shared memory and keeps
+//    its keys' part of l (the four parts are added, part 0's first, at the
+//    end). After a V slab's barrier a warp reads its 32 rows of P by
+//    ldmatrix, two A fragments a 16-key step.
+// Shared memory: Q, the ring, P and the groups' maxima and sums: 194 KB at
+// 384, 210 KB at 512 (WidePlan::smem). Heads past 512 take the
+// column-chunk kernel after it. (Probed at the llama3-8b layer's heads and
+// length and not kept, being slower: 16-row warps in pairs over 64-key
+// tiles, with 128-dim or full-width slabs; 16 warps; two blocks of 32 rows
+// an SM; 128-dim slabs at 512 and 192-dim at 384; a ring of 3 at 384;
+// skipping the rescale where no row's max moved.)
+constexpr int kWideRows = 64;        // stacked rows a block
+constexpr int kGroupRows = 32;       // rows of a row group, two m-tiles
+constexpr int kSplit = 4;            // warps a row group
+constexpr int kWideWarps = kSplit * kWideRows / kGroupRows;
+constexpr int kWideThreads = 32 * kWideWarps;
+constexpr int kWideBK = 128;         // keys of a tile
+constexpr int kWideRing = 4;         // most slabs in the cp.async ring
+
+// flash_mma_wide_kernel<W, T>'s tiles: K and V in NSL slabs of kWideBK keys
+// x D dims a tile, through a ring of R slabs (as many as 227 KB leave, at
+// most kWideRing); shared memory: Q (kWideRows x W), the ring, P
+// (kWideRows x kWideBK), then the groups' maxima and sums in f32
+template <int W>
+struct WidePlan {
+    static constexpr int D = W == 512 ? 256 : 128;
+    static constexpr int NSL = W / D;
+    static constexpr int CPQ = W / 8;           // 16-byte chunks: a row of Q,
+    static constexpr int CPS = D / 8;           // of a slab,
+    static constexpr int CPP = kWideBK / 8;     // of P
+    static constexpr int SLAB = kWideBK * CPS;  // chunks of a slab
+    static constexpr int FIXED =
+        (kWideRows * CPQ + kWideRows * CPP) * 16
+        + 2 * kSplit * kWideRows * int(sizeof(float));
+    static constexpr int FIT = (kSmemBytes - FIXED) / (SLAB * 16);
+    static constexpr int R = FIT < kWideRing ? FIT : kWideRing;
+    static constexpr size_t smem = FIXED + size_t(R) * SLAB * 16;
+    static_assert(W % D == 0 && D % (16 * kSplit) == 0 && R >= 2
+                  && kSplit * 32 == kWideBK && kWideThreads % CPS == 0,
+                  "whole slabs, a warp's keys and columns in n-tile pairs");
+};
+static_assert(WidePlan<384>::smem == 198656 &&
+              WidePlan<512>::smem == 215040, "the wide plan's shared bytes");
+
+// the named barrier of one row group's warps (id 1 + rg)
+__device__ __forceinline__ void group_sync(int id) {
+    asm volatile("bar.sync %0, %1;\n" :: "r"(id), "n"(32 * kSplit)
+                 : "memory");
+}
+
+template <int W, typename T>
+__global__ void __launch_bounds__(kWideThreads, 1)
+flash_mma_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ o, int S,
+                      int H, int Hkv, int RW, int G, int GB, int BQ,
+                      int n_qt, int n_bh, float scale_log2) {
+    using P = WidePlan<W>;
+    constexpr int D = P::D, NSL = P::NSL, CPQ = P::CPQ, CPS = P::CPS;
+    constexpr int CPP = P::CPP, SLAB = P::SLAB, R = P::R;
+    constexpr int KS = D / 16;           // k-steps of a slab
+    constexpr int CW = D / kSplit;       // a warp's columns of a V slab
+    constexpr int NT = 4;                // its score n-tiles (32 keys)
+    constexpr int DT = CW / 8;           // its output n-tiles of a slab
+    constexpr int ROW = CPQ * 16;        // bytes of a row of Q
+    extern __shared__ uint4 smem[];      // Q, ring, P, then sMax and sL
+
+    const int bid = blockIdx.x;
+    const int qt = n_qt - 1 - bid / n_bh;         // heaviest tiles first
+    const int bh = bid % n_bh;
+    const int n_gr = (G + GB - 1) / GB;
+    const int gr = bh % n_gr;
+    const int kvh = (bh / n_gr) % Hkv;
+    const int b = bh / (n_gr * Hkv);
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+    const int rg = warp / kSplit, pt = warp % kSplit;  // row group, part
+    const int gq = lane >> 2, tq = lane & 3;
+    const int q0 = qt * BQ;
+    const int kv_end = min(S, q0 + BQ);           // keys past it are masked
+    // step i takes slab i: tile i / (2 NSL); of it, for p = i % (2 NSL),
+    // K's dims D p .. (p < NSL), else V's D (p - NSL) ..
+    const int n_steps = (kv_end + kWideBK - 1) / kWideBK * 2 * NSL;
+
+    // this lane's rows 32 rg + 16 mt + gq + 8 h (row index r = 2 mt + h),
+    // at positions q0 + (row0 + 8 r) / GB
+    const int row0 = kGroupRows * rg + gq;
+    // the positions the row group spans; a group wholly past the tile's
+    // rows or past S computes nothing
+    const int p_lo = q0 + kGroupRows * rg / GB;
+    const int p_hi =
+        q0 + min(kGroupRows * rg + kGroupRows - 1, GB * BQ - 1) / GB;
+    const bool rg_live = kGroupRows * rg < GB * BQ && p_lo < S;
+
+    const uint32_t sQ =
+        static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+    const uint32_t sRing = sQ + kWideRows * CPQ * 16;
+    const uint32_t sP = sRing + R * SLAB * 16;
+    uint32_t* sPw = reinterpret_cast<uint32_t*>(smem + kWideRows * CPQ
+                                                + R * SLAB);
+    float* sMax = reinterpret_cast<float*>(smem + kWideRows * CPQ + R * SLAB
+                                           + kWideRows * CPP);  // [kSplit][kWideRows]
+    float* sL = sMax + kSplit * kWideRows;                      // [kSplit][kWideRows]
+    // The ldmatrix addresses. Each lane addresses a row (or key) x with
+    // x % 8 = lane % 8 at some chunk c, which swz maps to c ^ (lane % 8), a
+    // change of c's low 3 bits alone. So the chunks 8 u + 2 t + h (t < 4; h
+    // the lane's half, lane / 16 for Q and P, lane / 8 % 2 for K) take four
+    // byte offsets a lane, xa and xb, beside constants. V's chunks CW / 8
+    // pt + 2 dp + lane / 16 take xa's too when CW / 8 is a multiple of 8
+    // (VA), else offsets of their own, xv.
+    constexpr bool VA = CW % 64 == 0;
+    uint32_t xa[4], xb[4], xv[VA ? 1 : DT / 2];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+        xa[t] = ((2 * t + (lane >> 4)) ^ (lane & 7)) * 16;
+        xb[t] = ((2 * t + ((lane >> 3) & 1)) ^ (lane & 7)) * 16;
+    }
+    if constexpr (!VA) {
+#pragma unroll
+        for (int dp = 0; dp < DT / 2; ++dp)
+            xv[dp] =
+                ((CW / 8 * pt + 2 * dp + (lane >> 4)) ^ (lane & 7)) * 16;
+    }
+    // Q and P (A): rows 32 rg + lane % 16 (+ 16 mt); K (B): keys 32 pt +
+    // lane % 8 + 8 (lane / 16) (+ 16 np); V (B, trans): keys lane % 8 + 8
+    // (lane / 8 % 2) (+ 16 kk)
+    const int arow = kGroupRows * rg + (lane & 15);
+    const uint32_t aQ = sQ + arow * ROW;
+    const uint32_t aP = sP + arow * CPP * 16;
+    const uint32_t oK = (32 * pt + (lane & 7) + ((lane >> 4) << 3)) * CPS
+                        * 16;
+    const uint32_t oV = ((lane & 7) + (((lane >> 3) & 1) << 3)) * CPS * 16
+                        + (VA ? pt * (CW / 8) * 16 : 0);
+
+    // The block's q rows, zero-filled where no row is live, arrive with
+    // the first slab. Rows of q, k, v and o hold RW values in memory (a
+    // multiple of 8, at most W): dims past RW are zero-filled here and
+    // never stored.
+    const int rc = RW / 8;                        // 16-byte chunks a row
+    for (int i = tid; i < kWideRows * CPQ; i += kWideThreads) {
+        const int rho = i / CPQ, c = i % CPQ;
+        const int qi = rho / GB, g = gr * GB + rho % GB;
+        const bool in = qi < BQ && g < G && q0 + qi < S && c < rc;
+        const int64_t off =
+            in ? ((int64_t(b) * S + q0 + qi) * H + kvh * G + g) * RW + 8 * c
+               : 0;
+        cp_async16(sQ + swz<CPQ>(rho, c) * 16, q + off, in ? 16 : 0);
+    }
+    // a slab's loads: thread tid takes chunk lc of keys lkey + LK j; LK is
+    // a multiple of 8, so the swizzle is the same for every j
+    constexpr int LK = kWideThreads / CPS;
+    static_assert(LK % 8 == 0 && kWideBK % LK == 0, "whole load passes");
+    const int lkey = tid / CPS, lc = tid % CPS;
+    const int64_t kv_stride = int64_t(Hkv) * RW;
+    const T* kb = k + (int64_t(b) * S * Hkv + kvh) * RW + lkey * kv_stride
+                  + 8 * lc;
+    const T* vb = v + (int64_t(b) * S * Hkv + kvh) * RW + lkey * kv_stride
+                  + 8 * lc;
+    const uint32_t ldst = sRing + swz<CPS>(lkey, lc) * 16;
+    auto load = [&](int i) {                      // slab i into slot i % R
+        const int k0 = i / (2 * NSL) * kWideBK, p = i % (2 * NSL);
+        const T* src = (p < NSL ? kb : vb) + (p % NSL) * D + k0 * kv_stride;
+        const uint32_t dst = ldst + (i % R) * SLAB * 16;
+        const bool dim_in = (p % NSL) * CPS + lc < rc;
+#pragma unroll
+        for (int j = 0; j < kWideBK / LK; ++j) {
+            const bool in = dim_in && k0 + lkey + LK * j < S;
+            cp_async16(dst + j * LK * CPS * 16,
+                       in ? src + j * LK * kv_stride : q, in ? 16 : 0);
+        }
+    };
+
+    float acc[NSL][2][DT][4];
+#pragma unroll
+    for (int sl = 0; sl < NSL; ++sl)
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int d = 0; d < DT; ++d)
+#pragma unroll
+                for (int x = 0; x < 4; ++x) acc[sl][mt][d][x] = 0.f;
+    float m[4], l[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+        m[r] = kNegInf;
+        l[r] = 0.f;
+    }
+
+#pragma unroll
+    for (int i = 0; i < R - 1; ++i) {
+        if (i < n_steps) load(i);
+        cp_async_commit();
+    }
+    // slab i's slot, once it has landed and slot i - 1 is free again
+    auto next = [&](int i) -> uint32_t {
+        cp_async_wait<R - 2>();
+        __syncthreads();
+        if (i + R - 1 < n_steps) load(i + R - 1);
+        cp_async_commit();
+        return sRing + (i % R) * SLAB * 16;
+    };
+    for (int i = 0; i < n_steps;) {
+        const int k0 = i / (2 * NSL) * kWideBK;
+        const bool go = rg_live && k0 <= p_hi;    // the same for the group
+        // S = Q K^T over the K slabs at the full width, this warp's 32 rows
+        // x 32 keys, k-step ks = KS p + kc: A at Q's chunk 2 ks + lane / 16
+        // (m-tile mt: rows + 16 mt); B at keys 32 pt + 16 np + 0..7 / 8..15
+        // (lane / 16: n-tile 2 np / + 1), the slab's chunk 2 kc + lane / 8
+        // % 2
+        float s[2][NT][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int j = 0; j < NT; ++j)
+#pragma unroll
+                for (int x = 0; x < 4; ++x) s[mt][j][x] = 0.f;
+#pragma unroll
+        for (int p = 0; p < NSL; ++p, ++i) {
+            const uint32_t slab = next(i);
+            if (!go) continue;
+#pragma unroll
+            for (int kc = 0; kc < KS; ++kc) {
+                const int ks = KS * p + kc;
+                uint32_t qa[2][4];
+#pragma unroll
+                for (int mt = 0; mt < 2; ++mt)
+                    ldsm_x4(aQ + mt * 16 * ROW + (ks >> 2) * 128
+                            + xa[ks & 3], qa[mt][0], qa[mt][1], qa[mt][2],
+                            qa[mt][3]);
+#pragma unroll
+                for (int np = 0; np < NT / 2; ++np) {
+                    uint32_t b0, b1, b2, b3;
+                    ldsm_x4(slab + oK + np * 16 * CPS * 16 + (kc >> 2) * 128
+                            + xb[kc & 3], b0, b1, b2, b3);
+#pragma unroll
+                    for (int mt = 0; mt < 2; ++mt) {
+                        mma16<T>(s[mt][2 * np], qa[mt], b0, b1);
+                        mma16<T>(s[mt][2 * np + 1], qa[mt], b2, b3);
+                    }
+                }
+            }
+        }
+        if (go) {
+            // scale, mask (only a tile that reaches past the group's first
+            // position), the rows' max over the quad, then over the group
+            const bool masked = k0 + kWideBK - 1 > p_lo;
+            uint32_t dead = 0;                    // bit 16 mt + 4 j + x
+            float mx[4] = {m[0], m[1], m[2], m[3]};
+            int pos[4];
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+                pos[r] = masked ? q0 + (row0 + 8 * r) / GB : 0;
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+                for (int j = 0; j < NT; ++j)
+#pragma unroll
+                    for (int x = 0; x < 4; ++x) {
+                        const int r = 2 * mt + (x >> 1);
+                        float y = s[mt][j][x] * scale_log2;
+                        if (masked) {
+                            const int key = k0 + 32 * pt + 8 * j + 2 * tq
+                                            + (x & 1);
+                            if (key > pos[r] || key >= S) {
+                                y = kNegInf;
+                                dead |= 1u << (16 * mt + 4 * j + x);
+                            }
+                        }
+                        s[mt][j][x] = y;
+                        mx[r] = fmaxf(mx[r], y);
+                    }
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+                mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+                mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+                if (tq == 0) sMax[pt * kWideRows + row0 + 8 * r] = mx[r];
+            }
+            group_sync(1 + rg);
+            float corr[4];
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+#pragma unroll
+                for (int h = 0; h < kSplit; ++h)
+                    mx[r] = fmaxf(mx[r], sMax[h * kWideRows + row0 + 8 * r]);
+                corr[r] = fast_exp2(m[r] - mx[r]);
+                m[r] = mx[r];
+                l[r] *= corr[r];
+            }
+#pragma unroll
+            for (int sl = 0; sl < NSL; ++sl)
+#pragma unroll
+                for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+                    for (int d = 0; d < DT; ++d) {
+                        acc[sl][mt][d][0] *= corr[2 * mt];
+                        acc[sl][mt][d][1] *= corr[2 * mt];
+                        acc[sl][mt][d][2] *= corr[2 * mt + 1];
+                        acc[sl][mt][d][3] *= corr[2 * mt + 1];
+                    }
+            // p in f32 for l; in T, into P's chunk 4 pt + j of its rows
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+                for (int j = 0; j < NT; ++j) {
+#pragma unroll
+                    for (int x = 0; x < 4; ++x) {
+                        const int r = 2 * mt + (x >> 1);
+                        const float p = (dead >> (16 * mt + 4 * j + x)) & 1u
+                            ? 0.f : fast_exp2(s[mt][j][x] - m[r]);
+                        l[r] += p;
+                        s[mt][j][x] = p;
+                    }
+#pragma unroll
+                    for (int h = 0; h < 2; ++h)
+                        sPw[swz<CPP>(row0 + 16 * mt + 8 * h, 4 * pt + j) * 4
+                            + tq] = pack2<T>(s[mt][j][2 * h],
+                                             s[mt][j][2 * h + 1]);
+                }
+        }
+        // O += P V over the V slabs, this warp's columns of each: k-step kk
+        // is keys 16 kk .. + 15, P's chunk 2 kk + lane / 16 (m-tile mt: rows
+        // + 16 mt); V at keys 16 kk + 0..7 / 8..15 (lane / 8 % 2) and the
+        // slab's chunk CW / 8 pt + 2 dp + lane / 16 (n-tile 2 dp / + 1)
+#pragma unroll
+        for (int sl = 0; sl < NSL; ++sl, ++i) {
+            const uint32_t slab = next(i);        // P is whole after it
+            if (!go) continue;
+#pragma unroll
+            for (int kk = 0; kk < kWideBK / 16; ++kk) {
+                uint32_t pa[2][4];
+#pragma unroll
+                for (int mt = 0; mt < 2; ++mt)
+                    ldsm_x4(aP + mt * 16 * CPP * 16 + (kk >> 2) * 128
+                            + xa[kk & 3], pa[mt][0], pa[mt][1], pa[mt][2],
+                            pa[mt][3]);
+#pragma unroll
+                for (int dp = 0; dp < DT / 2; ++dp) {
+                    uint32_t b0, b1, b2, b3, vx;
+                    if constexpr (VA) vx = (dp >> 2) * 128 + xa[dp & 3];
+                    else vx = xv[dp];
+                    ldsm_x4_trans(slab + oV + kk * 16 * CPS * 16 + vx, b0,
+                                  b1, b2, b3);
+#pragma unroll
+                    for (int mt = 0; mt < 2; ++mt) {
+                        mma16<T>(acc[sl][mt][2 * dp], pa[mt], b0, b1);
+                        mma16<T>(acc[sl][mt][2 * dp + 1], pa[mt], b2, b3);
+                    }
+                }
+            }
+        }
+    }
+
+    // l: over the quad's lanes, then the group's parts, part 0's first
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        if (tq == 0) sL[pt * kWideRows + row0 + 8 * r] = l[r];
+    }
+    __syncthreads();
+    uint32_t* o32 = reinterpret_cast<uint32_t*>(o);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+        const int rho = row0 + 8 * r, mt = r / 2, h = r % 2;
+        const int qi = rho / GB, g = gr * GB + rho % GB;
+        if (qi >= BQ || g >= G || q0 + qi >= S) continue;
+        float lr = sL[rho];
+#pragma unroll
+        for (int x = 1; x < kSplit; ++x) lr += sL[x * kWideRows + rho];
+        const float den = fmaxf(lr, 1e-30f);
+        // its columns D sl + CW pt + 8 d + 2 tq below RW, in T pairs
+        const int64_t word =
+            ((int64_t(b) * S + q0 + qi) * H + kvh * G + g) * (RW / 2)
+            + pt * (CW / 2) + tq;
+#pragma unroll
+        for (int sl = 0; sl < NSL; ++sl)
+#pragma unroll
+            for (int d = 0; d < DT; ++d)
+                if (D * sl + CW * pt + 8 * d < RW)
+                    o32[word + sl * (D / 2) + 4 * d] =
+                        pack2<T>(acc[sl][mt][d][2 * h] / den,
+                                 acc[sl][mt][d][2 * h + 1] / den);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// Head widths past 512: the output's columns in chunks of kChunk
+// ---------------------------------------------------------------------------
+// No configuration of the port has a head past 512. There a block owns one
+// kChunk-wide chunk of the output's columns (grid dimension y) for the
+// same stacked rows as above. It sums the full-width scores Q.K^T over hd
+// in kChunk-wide k-chunks, each staged in shared memory (q's chunk beside
+// k's), runs the same online softmax and accumulates P.V for its own chunk
+// of V only. So the scores are recomputed once per chunk: hd / 128 times
+// the QK flops. The wrapper zero-pads hd to a multiple of kChunk and passes
+// the true width's scale. Below 512 flash_mma_wide_kernel (bf16, f16) and
+// flash_f32_kernel<384> and <512> (f32) recompute nothing.
 constexpr int kChunk = 128;
 constexpr int kCH = 16;          // keys per softmax step (f32 column chunks)
 
@@ -735,10 +1151,10 @@ constexpr int kCH = 16;          // keys per softmax step (f32 column chunks)
 // cp.async double buffer: each k-chunk is waited for before its products).
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_mma_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ o, int S,
-                      int H, int Hkv, int HD, int G, int GB, int BQ, int n_qt,
-                      int n_bh, float scale_log2) {
+flash_mma_chunk_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ o, int S,
+                       int H, int Hkv, int HD, int G, int GB, int BQ,
+                       int n_qt, int n_bh, float scale_log2) {
     constexpr int CPR = kChunk / 8;      // 16-byte chunks per row
     constexpr int KC = kChunk / 16;      // k-steps of one k-chunk
     constexpr int NT = kBK / 8;          // score n-tiles of 8 keys
@@ -1131,13 +1547,35 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     }
 }
 
-template <typename T>
+template <int W, typename T>
 int launch_mma_wide(const void* q, const void* k, const void* v, void* o,
-                    int B, int S, int H, int Hkv, int hd, float scale,
+                    int B, int S, int H, int Hkv, int row, float scale,
                     cudaStream_t stream) {
+    const Tiling t(B, S, H, Hkv, kWideRows);
+    return launch_kernel(
+        flash_mma_wide_kernel<W, T>, dim3(t.blocks()), kWideThreads,
+        WidePlan<W>::smem, stream, static_cast<const T*>(q),
+        static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(o), S, H, Hkv, row, t.G, t.GB, t.BQ, t.n_qt, t.n_bh,
+        scale * 1.4426950408889634f);
+}
+
+// 16-bit heads above 256: flash_mma_wide_kernel at 384 and 512 (rows of
+// `row` values in memory), the column-chunk kernel past 512
+template <typename T>
+int launch_mma_above(const void* q, const void* k, const void* v, void* o,
+                     int B, int S, int H, int Hkv, int hd, int row,
+                     float scale, cudaStream_t stream) {
+    if (hd == 384)
+        return launch_mma_wide<384, T>(q, k, v, o, B, S, H, Hkv, row, scale,
+                                       stream);
+    if (hd == 512)
+        return launch_mma_wide<512, T>(q, k, v, o, B, S, H, Hkv, row, scale,
+                                       stream);
+    if (row != hd) return int(cudaErrorInvalidValue);
     const Tiling t(B, S, H, Hkv, kRows);
     return launch_kernel(
-        flash_mma_wide_kernel<T>, dim3(t.blocks(), hd / kChunk), kThreads,
+        flash_mma_chunk_kernel<T>, dim3(t.blocks(), hd / kChunk), kThreads,
         size_t(3) * kBK * kChunk * 2, stream, static_cast<const T*>(q),
         static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<T*>(o), S, H, Hkv, hd, t.G, t.GB, t.BQ, t.n_qt, t.n_bh,
@@ -1145,14 +1583,15 @@ int launch_mma_wide(const void* q, const void* k, const void* v, void* o,
 }
 
 int launch_wide(const void* q, const void* k, const void* v, void* o, int B,
-                int S, int H, int Hkv, int hd, int dtype, float scale,
-                cudaStream_t s) {
+                int S, int H, int Hkv, int hd, int row, int dtype,
+                float scale, cudaStream_t s) {
     if (dtype == kBF16)
-        return launch_mma_wide<__nv_bfloat16>(q, k, v, o, B, S, H, Hkv, hd,
-                                              scale, s);
+        return launch_mma_above<__nv_bfloat16>(q, k, v, o, B, S, H, Hkv, hd,
+                                               row, scale, s);
     if (dtype == kF16)
-        return launch_mma_wide<__half>(q, k, v, o, B, S, H, Hkv, hd, scale,
-                                       s);
+        return launch_mma_above<__half>(q, k, v, o, B, S, H, Hkv, hd, row,
+                                        scale, s);
+    if (row != hd) return int(cudaErrorInvalidValue);
     if (hd == 384) return launch_f32<384>(q, k, v, o, B, S, H, Hkv, scale, s);
     if (hd == 512) return launch_f32<512>(q, k, v, o, B, S, H, Hkv, scale, s);
     const Tiling t(B, S, H, Hkv, kF32Threads / (kChunk / 32));
@@ -1177,14 +1616,21 @@ int f32_plan(int* out) {
 
 extern "C" {
 
-// q, o: (B, S, H, hd); k, v: (B, S, Hkv, hd); all contiguous, of one dtype
-// (dtype 0 float32, 1 bf16, 2 f16); H a multiple of Hkv; hd in {16, 32,
-// 64, 128, 256} or a multiple of 128 above 256 (the wrapper zero-pads any
-// other hd to the next of these and passes the true width's scale).
+// q, o: (B, S, H, row); k, v: (B, S, Hkv, row); all contiguous, of one
+// dtype (dtype 0 float32, 1 bf16, 2 f16); H a multiple of Hkv; hd, the
+// width the kernels run at, in {16, 32, 64, 128, 256} or a multiple of 128
+// above 256 (the wrapper zero-pads any other width to the next of these and
+// passes the true width's scale). row is hd, except for bf16 and f16 at hd
+// 384 and 512, whose kernel takes rows of any multiple of 8 up to hd and
+// zero-fills the rest in shared memory.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         void* o, int B, int S, int H, int Hkv, int hd,
-                        int dtype, float scale, void* stream) {
+                        int row, int dtype, float scale, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (row > 256 && row < hd && row % 8 == 0)
+        return launch_wide(q, k, v, o, B, S, H, Hkv, hd, row, dtype, scale,
+                           s);
+    if (row != hd) return int(cudaErrorInvalidValue);
     switch (hd) {
         case 16: return launch<16>(q, k, v, o, B, S, H, Hkv, dtype, scale, s);
         case 32: return launch<32>(q, k, v, o, B, S, H, Hkv, dtype, scale, s);
@@ -1195,7 +1641,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
             return launch<256>(q, k, v, o, B, S, H, Hkv, dtype, scale, s);
         default:
             if (hd > 256 && hd % kChunk == 0)
-                return launch_wide(q, k, v, o, B, S, H, Hkv, hd, dtype,
+                return launch_wide(q, k, v, o, B, S, H, Hkv, hd, hd, dtype,
                                    scale, s);
             return int(cudaErrorInvalidValue);
     }

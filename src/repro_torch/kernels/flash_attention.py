@@ -1,9 +1,10 @@
 """Causal GQA flash attention, the LM stack's attention leaf.
 
-One Hopper source (``csrc/flash_attention.cu``: a tensor-core kernel for
-bf16 and f16, whose blocks own 128-column chunks of the output above hd
-256, and a CUDA-core kernel for f32 up to hd 512, with a column-chunk twin
-past it) with its plain PyTorch version beside it.
+One Hopper source (``csrc/flash_attention.cu``: tensor-core kernels for
+bf16 and f16, whose warps split the output's columns at the padded hd 384
+and 512, and a CUDA-core kernel for f32 up to hd 512, each computing the
+scores once at the full width, with column-chunk kernels past 512) with
+its plain PyTorch version beside it.
 :func:`flash_attention` replaces the TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention``; the source note says
 what bounds it on the card and what its design does about that. The
@@ -25,13 +26,16 @@ from ._build import check_launch, library
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # q, k, v, o, B, S, H, Hkv, hd, dtype code, scale, stream
-    "flash_attention_fwd": (_P,) * 4 + (_I,) * 6 + (ctypes.c_float, _P),
+    # q, k, v, o, B, S, H, Hkv, hd, row, dtype code, scale, stream
+    "flash_attention_fwd": (_P,) * 4 + (_I,) * 7 + (ctypes.c_float, _P),
     # hd -> BM, D, R, SR, OR, TOC, NJ, smem (F32Plan<hd>)
     "flash_f32_plan": (_I, ctypes.POINTER(ctypes.c_int)),
 }
 HEAD_DIMS = (16, 32, 64, 128, 256)     # the widths of the card's instances
 CHUNK = 128         # above 256, hd is padded to a multiple of this (kChunk)
+# the widths whose 16-bit kernel reads rows of any multiple of 8 up to them
+# and zero-fills the rest itself (flash_mma_wide_kernel)
+WIDE16 = (384, 512)
 DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # launches by (dtype name, padded width), counted where the wrapper
@@ -118,7 +122,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the card. There a width up to 256 outside HEAD_DIMS is zero-padded to
     the next one, a width above 256 to a multiple of 128 (zero columns
     leave q·k unchanged; the scale stays the true width's), and the output
-    sliced back.
+    sliced back; in bf16 and f16 at a width of 264-512 that is a multiple
+    of 8 the kernel zero-fills the columns itself (:data:`WIDE16`), so
+    nothing is copied.
 
     ``block_q`` and ``block_k`` are the TPU kernel's tile sizes. They are
     checked and accepted so its callers run unchanged, but the Hopper
@@ -126,10 +132,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     block stacks the G query heads of one KV head row-wise over a run of
     positions and stages 64 keys at a time: bf16 and f16 run on the tensor
     cores (``mma.sync``), 64 rows a block (64 / G positions), 16 rows a
-    warp; above 256 a block owns 128 of the output's columns and
-    recomputes the full-width scores. f32 runs on the CUDA cores, rows a
-    block by width (:func:`f32_plan`), the scores once at the full width
-    up to 512; past 512 a column-chunk twin recomputes them too. The
+    warp; at the padded 384 and 512 four warps share 32 rows, splitting
+    the keys of 128-key tiles of the full-width scores and then the
+    output's columns. f32 runs
+    on the CUDA cores, rows a block by width (:func:`f32_plan`), the
+    scores once at the full width up to 512. Past 512 both take
+    column-chunk kernels, whose blocks own 128 of the output's columns and
+    recompute the full-width scores. The
     card's kernels load and store 16 bytes at a time: q, k and v must
     start on a 16-byte boundary there (a fresh tensor does).
 
@@ -168,8 +177,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.numel() == 0:
         return torch.empty_like(q)
     width = padded_width(hd)
-    if width != hd:                       # zero columns: q·k is unchanged
-        q, k, v = (torch.nn.functional.pad(x, (0, width - hd))
+    row = hd if (q.dtype != torch.float32 and width in WIDE16
+                 and hd % 8 == 0) else width
+    if row != hd:                         # zero columns: q·k is unchanged
+        q, k, v = (torch.nn.functional.pad(x, (0, row - hd))
                    for x in (q, k, v))
     o = torch.empty_like(q)
     for name, x in (("q", q), ("k", k), ("v", v), ("o", o)):
@@ -180,9 +191,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(q.device):
         err = library("flash_attention", _SIGNATURES).flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, H,
-            k.shape[2], width, _CODES[q.dtype], hd ** -0.5,
+            k.shape[2], width, row, _CODES[q.dtype], hd ** -0.5,
             torch.cuda.current_stream().cuda_stream)
     check_launch("flash_attention", err)
     key = (str(q.dtype).removeprefix("torch."), width)
     ROUTES[key] = ROUTES.get(key, 0) + 1
-    return o if width == hd else o[..., :hd].contiguous()
+    return o if row == hd else o[..., :hd].contiguous()

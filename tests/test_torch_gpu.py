@@ -272,12 +272,14 @@ def test_lm_flash_matches_dense_on_card(card):
 @pytest.mark.parametrize("name", ["flash_attention", "spmv_coo_nnz"])
 def test_redesigned_kernels_repeat_bit_for_bit(card, name):
     """The two kernels redesigned last, at their tiles' edges:
-    flash_attention's bf16 tensor-core kernel at every bf16 case of
+    flash_attention's bf16 tensor-core kernels at every bf16 case of
     chip_smoke.FLASH_CASES (S in {1, 15, 17, 65}, hd in {16, 32, 64}, G in
-    {1, 3, 8} among them), spmv_coo_nnz over the block-edge pieces (runs
+    {1, 3, 8} among them, and the wide kernel's edges at hd 320 and 512),
+    spmv_coo_nnz over the block-edge pieces (runs
     on a block's last entry, of 1024 and 1025, over six blocks, 1,190
     empty rows, padding, an empty piece, a piece of one row). Each agrees with
-    its plain version and two launches give the same bits."""
+    its plain version and two launches give the same bits (compare_kernel
+    launches flash_attention a second time to check its bits itself)."""
     kernel = chip_smoke.kernel_fns()[name][0]
     cases = [c for c in chip_smoke.kernel_cases(np.random.default_rng(17),
                                                 card)
@@ -287,7 +289,8 @@ def test_redesigned_kernels_repeat_bit_for_bit(card, name):
     for label, _, args, abs_args in cases:
         chip_smoke.compare_kernel(label, name, args, abs_args)
         assert torch.equal(kernel(*args), kernel(*args)), label
-    assert _build.LAUNCHES[name] - before == 3 * len(cases) > 0
+    per_case = 4 if name == "flash_attention" else 3
+    assert _build.LAUNCHES[name] - before == per_case * len(cases) > 0
 
 
 @pytest.mark.gpu
@@ -382,7 +385,8 @@ def test_gather_redesigns_repeat_bit_for_bit(card, name):
     for label, _, args, abs_args in cases:
         chip_smoke.compare_kernel(label, name, args, abs_args)
         assert torch.equal(kernel(*args), kernel(*args)), label
-    assert _build.LAUNCHES[name] - before == 3 * len(cases) > 0
+    per_case = 4 if name == "flash_attention" else 3
+    assert _build.LAUNCHES[name] - before == per_case * len(cases) > 0
 
 
 @pytest.mark.gpu
@@ -430,13 +434,20 @@ def test_blocked_kernels_take_oversized_blocks(card, name):
 @pytest.mark.gpu
 def test_flash_attention_other_head_widths(card):
     """hd 112 (zero-padded to the 128 instance), 256 (its own instance),
-    300 (padded to 384) and 512 (the column-chunk kernels in bf16 and f16,
+    300 (padded to 384), 392 (run at 512; in bf16 and f16 read unpadded,
+    ending inside the second 256-dim slab) and 512 (flash_mma_wide_kernel
+    in bf16 and f16,
     the f32 kernel's own instances in f32) in f32, bf16 and f16, then hd
-    640 in f32 (the f32 column-chunk kernel) at G 1 and 3, then the f32
-    kernel's tile edges (chip_smoke.f32_edge_cases: S one below and one
-    past a block's stacked rows and one past a 64-key stage, G in {1, 3,
-    8}, hd 128, 256 and 512), against the plain version (2e-5, 3e-2,
-    1e-2), position 0 is v[0], two launches give the same bits."""
+    640 in f32 (the f32 column-chunk kernel) at G 1 and 3, then the wide
+    16-bit kernel's tile edges and hd 640 in bf16 and f16
+    (chip_smoke.WIDE16_EDGE_CASES: S one below, at and one past 16 rows,
+    a 32-row group, 64 keys and a 128-key tile, G in {1, 3, 8}, hd 320 and
+    512; hd 640 at G 1 and 3), then the f32 kernel's tile edges
+    (chip_smoke.f32_edge_cases:
+    S one below and one past a block's stacked rows and one past a 64-key
+    stage, G in {1, 3, 8}, hd 128, 256 and 512), against the plain version
+    (2e-5, 3e-2, 1e-2), position 0 is v[0], two launches give the same
+    bits."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     gen = torch.Generator(card).manual_seed(1)
@@ -445,10 +456,12 @@ def test_flash_attention_other_head_widths(card):
     cases = [(dtype, shape) for dtype in (torch.float32, torch.bfloat16,
                                           torch.float16)
              for shape in ((2, 257, 8, 2, 112), (1, 200, 4, 1, 256),
-                           (1, 130, 6, 2, 300), (2, 70, 4, 2, 512))] + [
+                           (1, 130, 6, 2, 300), (1, 130, 6, 2, 392),
+                           (2, 70, 4, 2, 512))] + [
         (torch.float32, (1, 130, 2 * G, 2, 640)) for G in (1, 3)] + [
         (getattr(torch, dt), shape)
-        for *shape, dt in chip_smoke.f32_edge_cases()]
+        for *shape, dt in chip_smoke.WIDE16_EDGE_CASES
+        + chip_smoke.f32_edge_cases()]
     for dtype, (B, S, H, Hkv, hd) in cases:
         q, k, v = (torch.randn(shape, generator=gen, device=card).to(dtype)
                    for shape in ((B, S, H, hd), (B, S, Hkv, hd),
@@ -480,7 +493,8 @@ def test_spmv_and_union_redesigns_repeat_bit_for_bit(card, name):
     for label, _, args, abs_args in cases:
         chip_smoke.compare_kernel(label, name, args, abs_args)
         assert torch.equal(kernel(*args), kernel(*args)), label
-    assert _build.LAUNCHES[name] - before == 3 * len(cases) > 0
+    per_case = 4 if name == "flash_attention" else 3
+    assert _build.LAUNCHES[name] - before == per_case * len(cases) > 0
 
 
 @pytest.mark.gpu
@@ -540,7 +554,8 @@ def test_blocked_sddmm_and_mttkrp_repeat_bit_for_bit(card, name):
     for label, _, args, abs_args in cases:
         chip_smoke.compare_kernel(label, name, args, abs_args)
         assert torch.equal(kernel(*args), kernel(*args)), label
-    assert _build.LAUNCHES[name] - before == 3 * len(cases) > 0
+    per_case = 4 if name == "flash_attention" else 3
+    assert _build.LAUNCHES[name] - before == per_case * len(cases) > 0
 
 
 @pytest.mark.gpu
