@@ -70,12 +70,16 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
              to 32 and 128) and 256 in f32 and bf16; float16 at the
              llama3-8b layer's heads, tile edges and hd 24, 112 and 256;
              hd 320 (padded to 384) and 512 in all three dtypes; hd
-             640 in f32 (the f32 column-chunk kernel) at G 1 and 3; the
-             f32 kernel's tile edges: S one below and one past its
+             640, 768 and 1024 in f32 (the f32 cluster kernel) at G 1
+             and 3, 2048 (its widest) and 2176 (past it: the f32
+             column-chunk kernel); the wide 16-bit kernel's tile edges
+             at hd 200, 256, 320 and 512 and hd 130 (padded to 256);
+             the f32 kernel's tile edges: S one below and one past its
              stacked rows a block (``f32_plan``, held equal to the
              library's ``flash_f32_plan`` at every width in
-             ``[f32-plan]``) and one past a 64-key stage at hd 128, 256
-             and 512 and G in {1, 3, 8}), later
+             ``[f32-plan]``; the cluster kernel's ``f32_cluster_plan``
+             in ``[f32-cluster-plan]``) and one past a 64-key stage at
+             hd 128, 256 and 512 and G in {1, 3, 8}), later
              at the main path's shapes. Per-entry tolerance
              |got - plain| <= 1e-4 * scale + 1e-6, with ``scale`` the same
              computation on absolute values: f32 sums of up to a million
@@ -1273,26 +1277,30 @@ def bcsr_cases(rng, device):
 # kernel's tile edges: S shorter than a warp's 16 rows, one past them and
 # one past a 64-key stage, at G in {1, 3, 8} (3 leaves stacked rows unused);
 # then widths outside the instances (24, zamba2-7b's 112: zero-padded to 32
-# and 128) and the widest instance, 256, in both dtypes; then float16 (the
+# and 128) and 256 (the wide 16-bit kernel's narrowest), in both dtypes;
+# then float16 (the
 # f16 instances of the tensor-core kernel): the llama3-8b layer's heads
 # (32 / 8, hd 128), tile edges at G in {1, 3}, and hd 24, 112, 256; then
-# hd 320 (padded to 384) and 512 in all three dtypes (the column-chunk
-# kernels in bf16 and f16, the f32 kernel's own instances); then the
-# causal attention heads of path 4j's architectures at a ragged length past
-# two 64-key stages; then hd 640, past the f32 kernel's widths (its
-# column-chunk twin), at G 1 and 3; then the wide 16-bit kernel's tile
-# edges (flash_mma_wide_kernel at 384 and 512): S one below, at and one
-# past 16 rows, a 32-row group, 64 keys and a 128-key tile, at G in {1, 3,
-# 8}, hd 320 and 512 in bf16 and f16; then hd 640 in bf16 and f16 (the
-# 16-bit column-chunk
-# kernel) at G 1 and 3; last, the f32 kernel's tile edges
-# (:func:`f32_edge_cases`). Every case is launched twice and must repeat
-# bit for bit.
+# hd 320 (padded to 384) and 512 in all three dtypes (the wide 16-bit
+# kernel, the f32 kernel's own instances); then the causal attention heads
+# of path 4j's architectures at a ragged length past two 64-key stages;
+# then f32 past 512 (flash_f32_cluster_kernel, a cluster of hd / 128
+# blocks) at hd 640, 768 and 1024 and G 1 and 3, at its widest, 2048, and
+# at 2176, past it (the f32 column-chunk kernel); then the wide 16-bit
+# kernel's tile edges (flash_mma_wide_kernel at 256, 384 and 512): S one
+# below, at and one past 16 rows, a 32-row group, 64 keys and a 128-key
+# tile, at G in {1, 3, 8}, hd 200 and 256 (rows read unpadded), 320 and
+# 512 in bf16 and f16, and hd 130 (zero-padded to 256); then hd 640 in bf16
+# and f16 (the 16-bit column-chunk kernel) at G 1 and 3; last, the f32
+# kernel's tile edges (:func:`f32_edge_cases`). Every case is launched
+# twice and must repeat bit for bit.
 WIDE16_EDGE_CASES = tuple(
-    (1, S, 2 * G, 2, hd, dt) for hd in (320, 512)
+    (1, S, 2 * G, 2, hd, dt) for hd in (200, 256, 320, 512)
     for dt in ("bfloat16", "float16")
     for S in (15, 16, 17, 31, 32, 33, 63, 64, 65, 127, 128, 129)
     for G in (1, 3, 8)) + tuple(
+    (1, S, 2 * G, 2, 130, dt) for dt in ("bfloat16", "float16")
+    for S in (17, 129) for G in (1, 3)) + tuple(
     (1, 130, 2 * G, 2, 640, dt) for dt in ("bfloat16", "float16")
     for G in (1, 3))
 ARCH_HEADS = ((16, 8, 128), (40, 8, 128), (56, 8, 128), (16, 16, 128),
@@ -1315,7 +1323,9 @@ FLASH_CASES = ((2, 256, 4, 2, 32, "float32"), (1, 200, 8, 8, 16, "float32"),
     (1, 200, 8, 2, hd, dt) for hd in (320, 512)
     for dt in ("float32", "bfloat16", "float16")) + tuple(
     (1, 130, H, Hkv, hd, "bfloat16") for H, Hkv, hd in ARCH_HEADS) + tuple(
-    (1, 130, 2 * G, 2, 640, "float32") for G in (1, 3)) \
+    (1, 130, 2 * G, 2, hd, "float32") for hd in (640, 768, 1024)
+    for G in (1, 3)) + (
+    (1, 130, 2, 1, 2048, "float32"), (1, 70, 2, 1, 2176, "float32")) \
     + WIDE16_EDGE_CASES
 F32_EDGE_WIDTHS = (128, 256, 512)
 
@@ -1344,6 +1354,31 @@ def check_f32_plan() -> dict:
             raise AssertionError(f"f32 flash hd {hd}: the library's plan "
                                  f"{card} is not f32_plan's {mirror}")
         out[hd] = card["BM"]
+    return out
+
+
+# the f32 cluster kernel's widths held in [f32-cluster-plan]: hd 640 (the
+# timed width), 1024 (the widest portable cluster, 8 blocks) and 2048 (its
+# widest, 16 blocks)
+F32_CLUSTER_WIDTHS = (640, 1024, 2048)
+
+
+def check_f32_cluster_plan() -> dict:
+    """The built library's ClusterPlan (``flash_f32_cluster_plan``) against
+    the wrapper's mirror ``f32_cluster_plan`` at F32_CLUSTER_WIDTHS;
+    returns {hd: clusters of hd / 128 blocks the card holds at once},
+    each at least 1."""
+    from repro_torch.kernels.flash_attention import (f32_cluster_plan,
+                                                     f32_cluster_plan_card)
+    out = {}
+    for hd in F32_CLUSTER_WIDTHS:
+        card, mirror = f32_cluster_plan_card(hd), f32_cluster_plan(hd)
+        if any(mirror[key] != n for key, n in card.items()
+               if key != "resident") or card["resident"] < 1:
+            raise AssertionError(f"f32 cluster flash hd {hd}: the library's "
+                                 f"plan {card} is not f32_cluster_plan's "
+                                 f"{mirror}, or no cluster is resident")
+        out[hd] = card["resident"]
     return out
 # atol = rtol; f16 keeps three more mantissa bits than bf16
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2, "float16": 1e-2}
@@ -1390,10 +1425,11 @@ def flash_kernel_name(symbol: str):
     """The short name of a flash kernel's mangled symbol, or None:
     ``mma_hd<d>_<bf16|f16>`` and ``f32_hd<d>`` (flash_mma_kernel,
     flash_f32_kernel), ``mma_wide<W>_<bf16|f16>`` (flash_mma_wide_kernel),
-    ``mma_chunk_<bf16|f16>`` and ``f32_wide`` (the column-chunk kernels
-    past hd 512)."""
+    ``f32_cluster`` (flash_f32_cluster_kernel), ``mma_chunk_<bf16|f16>``
+    and ``f32_wide`` (the column-chunk kernels past hd 512 and, in f32,
+    2048)."""
     import re
-    kind = re.search(r"flash_(mma|f32)_(?:(wide|chunk)_)?kernelI?"
+    kind = re.search(r"flash_(mma|f32)_(?:(wide|chunk|cluster)_)?kernelI?"
                      r"(?:Li(\d+)E)?(13__nv_bfloat16|6__half)?", symbol)
     if not kind:
         return None
@@ -1405,10 +1441,13 @@ def flash_kernel_name(symbol: str):
 
 # the flash library's kernels by flash_kernel_name: every instance
 FLASH_KERNELS = tuple(
-    [f"mma_hd{d}_{t}" for d in (16, 32, 64, 128, 256) for t in ("bf16", "f16")]
+    [f"mma_hd{d}_{t}" for d in (16, 32, 64, 128) for t in ("bf16", "f16")]
     + [f"f32_hd{d}" for d in (16, 32, 64, 128, 256, 384, 512)]
-    + [f"mma_wide{w}_{t}" for w in (384, 512) for t in ("bf16", "f16")]
-    + ["mma_chunk_bf16", "mma_chunk_f16", "f32_wide"])
+    + [f"mma_wide{w}_{t}" for w in (256, 384, 512) for t in ("bf16", "f16")]
+    + ["f32_cluster", "mma_chunk_bf16", "mma_chunk_f16", "f32_wide"])
+# the kernels whose build must spill nothing (checked in [flash-registers])
+NO_SPILL = tuple(f for f in FLASH_KERNELS
+                 if f.startswith("mma_wide") or f == "f32_cluster")
 
 
 def hmma_counts(lib):
@@ -1432,9 +1471,12 @@ def hmma_counts(lib):
         elif name and re.search(r"/\*[0-9a-f]+\*/\s+HMMA", line):
             counts[name] += 1
     missing = set(FLASH_KERNELS) - set(counts)
-    if missing:
+    extra = {f for f in counts if f.startswith(("mma_", "f32_"))} \
+        - set(FLASH_KERNELS)
+    if missing or extra:
         raise AssertionError(f"flash kernels not in the SASS: "
-                             f"{sorted(missing)}")
+                             f"{sorted(missing)}; in it and not in "
+                             f"FLASH_KERNELS: {sorted(extra)}")
     return counts
 
 
@@ -5546,9 +5588,10 @@ def main(argv=None) -> int:
     phase("flash-registers", **{f: "{}:{}:{}".format(*u)
                                 for f, u in sorted(usage.items())})
     spilled = {f: u for f, u in usage.items()
-               if f.startswith("mma_wide") and (u[1] or u[2])}
-    if spilled or not any(f.startswith("mma_wide") for f in usage):
-        raise AssertionError(f"flash_mma_wide_kernel must not spill: "
+               if f in NO_SPILL and (u[1] or u[2])}
+    if spilled or set(NO_SPILL) - set(usage):
+        raise AssertionError(f"flash_mma_wide_kernel and "
+                             f"flash_f32_cluster_kernel must not spill: "
                              f"(registers, spill stores, spill loads) "
                              f"{spilled or usage}")
     f32 = {f: n for f, n in hmma.items() if f.startswith("f32")}
@@ -5557,6 +5600,8 @@ def main(argv=None) -> int:
                              f"cores alone: HMMA counts {f32}")
     phase("f32-plan", **{f"hd{hd}_rows": bm
                          for hd, bm in check_f32_plan().items()})
+    phase("f32-cluster-plan", **{f"hd{hd}_resident_clusters": n for hd, n
+                                 in check_f32_cluster_plan().items()})
 
     # 3a. kernels against plain at edge-case shapes
     from repro_torch.kernels import flash_attention as FA
@@ -5692,9 +5737,10 @@ def main(argv=None) -> int:
           total_ms=f"{sum(attn['profile'].values()):.2f}",
           **{k.replace(" ", "_"): f"{v:.2f}" for k, v in top})
     # the model's layer shapes in each dtype (bf16 is the path's record),
-    # then hd 64 in f32 (path 4j's seamless-m4t-medium), hd 256 (the widest
-    # instance), hd 320 and 512 and hd 640 (the column-chunk kernels), at
-    # the layer's heads and length. Each
+    # then hd 64 in f32 (path 4j's seamless-m4t-medium), hd 256 (the wide
+    # 16-bit kernel's narrowest), hd 320 and 512, and hd 640 (the f32
+    # cluster kernel, the 16-bit column-chunk kernel), at the layer's
+    # heads and length. Each
     # record's launches are those of its dtype and width (the main record's:
     # bf16 at every width) on paths 4e and 4j, every call counted
     # where the wrapper launches (the teacher-forced and checked forwards
@@ -5718,12 +5764,12 @@ def main(argv=None) -> int:
             key = (None, None) if main_rec else (dt, width)
             lm_n = flash_count(lm_flash, *key)
             path_n = flash_count(attn_flash, *key) + lm_n
-            # the other dtypes and widths over fewer timed launches (an
-            # eighth: the hd-640 f32 column-chunk kernel is slow)
+            # the other dtypes and widths over a quarter of the timed
+            # launches
             rec = flash_record(
                 cfg, PREFILL_BATCH, args.attn_seq, device, dt,
                 path_n if main_rec else path_n + edge_flash.get(key, 0),
-                args.reps if main_rec else max(args.reps // 8, 3),
+                args.reps if main_rec else max(args.reps // 4, 3),
                 head_dim=hd)
             rec["lm_launches"] = lm_n
             if main_rec:

@@ -12,11 +12,16 @@ paths launches (``chip_smoke.PATH_KERNELS``), or ``flash_attention``,
 which is taken at the llama3-8b layer's heads and length (q (2, 4096, 32,
 hd), k and v (2, 4096, 8, hd), standard normal from a seeded generator;
 at hd 128 in bf16, the prefill's launches) in bf16 and f16 at head widths
-128, 256, 320 and 512 (``FLASH_16_WIDTHS``), in f32 at 64, 128, 256, 320
-and 512 (``FLASH_F32_WIDTHS``), and in f32
+128, 256, 320, 512 and 640 (``FLASH_16_WIDTHS``), in f32 at 64, 128, 256,
+320, 512 and 640 (``FLASH_F32_WIDTHS``), and in f32
 at seamless-m4t-medium's heads (16 of 64) and the length and batch of
 ``chip_smoke.py``'s path 4j (2 x 128), where its teacher-forced forward
-launches the f32 kernel at hd 64. The sparse operands are made as
+launches the f32 kernel at hd 64; ``--cells`` keeps only the flash cells
+whose name matches a regular expression (a probe of one cell against a
+variant tree in the parent slot). Each flash cell also times
+``scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` on the
+same inputs in the same process (``sdpa_ms``: a yardstick the port never
+calls). The sparse operands are made as
 ``chip_smoke.py`` makes them, at its main-path sizes; the cells of the
 paths that launch the named kernels are lowered with this tree's package,
 in ``chip_smoke.PATH_CELLS``' order, and each named kernel is taken with the
@@ -36,6 +41,7 @@ import argparse
 import importlib
 import importlib.util
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -49,8 +55,8 @@ import chip_smoke as cs  # noqa: E402
 SPARSE_KERNELS = sorted({k for path in cs.PATH_CELLS
                          for k in cs.PATH_KERNELS[path]})
 KERNELS = SPARSE_KERNELS + ["flash_attention"]
-FLASH_16_WIDTHS = (128, 256, 320, 512)
-FLASH_F32_WIDTHS = (64, 128, 256, 320, 512)
+FLASH_16_WIDTHS = (128, 256, 320, 512, 640)
+FLASH_F32_WIDTHS = (64, 128, 256, 320, 512, 640)
 
 
 def load_parent(tree: Path):
@@ -139,6 +145,9 @@ def main(argv=None) -> int:
                     help="root of an unpacked checkout to compare with")
     ap.add_argument("--out", type=Path, default=ROOT / "chiprun_out"
                     / "ab_kernels.json")
+    ap.add_argument("--cells", default="",
+                    help="regular expression: only the flash cells whose "
+                         "name it matches (default: every cell)")
     args = ap.parse_args(argv)
 
     import torch
@@ -176,6 +185,7 @@ def main(argv=None) -> int:
 
     summary = {"device": smi, "kernels": {}}
     if "flash_attention" in wanted:
+        import torch.nn.functional as F
         from repro_torch.configs import get_arch
         cfg = cs.lm_config()
         sm = get_arch("seamless-m4t-medium")
@@ -192,13 +202,21 @@ def main(argv=None) -> int:
                 (torch.float32, (cs.ARCH_BATCH, cs.ARCH_SEQ, sm.n_heads,
                                  sm.n_kv_heads), sm.resolved_head_dim,
                  "seamless-m4t-medium path 4j f32")]:
+            if not re.search(args.cells, cell):
+                continue
             gen = torch.Generator(device).manual_seed(cs.SEED)
             q, k, v = (torch.randn(shape, generator=gen, device=device)
                        .to(dtype) for shape in
                        ((B, S, H, hd), (B, S, Hkv, hd), (B, S, Hkv, hd)))
             cells[cell] = compare("flash_attention", cell, (q, k, v),
                                   fns["flash_attention"])
-            del q, k, v
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            cells[cell]["sdpa_ms"] = cs.time_events(
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True), cs.REPS)
+            print(f"[ab] kernel=flash_attention cell={cell} "
+                  f"sdpa_ms={cells[cell]['sdpa_ms']:.4f}", flush=True)
+            del q, k, v, qt, kt, vt
     paths = [p for p in cs.PATH_CELLS
              if set(cs.PATH_KERNELS[p]) & set(wanted)]
     dims3 = ((1 << cs.LOG2_I, 1 << cs.LOG2_JK, 1 << cs.LOG2_JK)

@@ -19,17 +19,20 @@
 // Two kernels, one per kind of dtype:
 //  - bf16 and f16: flash_mma_kernel<HD, T>, on the tensor cores (989
 //    TFLOP/s either way); the two instances differ only in the mma's input
-//    type and in how p and o are rounded. It takes hd in {16, 32, 64, 128,
-//    256}. flash_mma_wide_kernel<W, T> takes the padded 384 and 512: its
-//    warps split O's columns and the scores are computed once at the full
-//    width (its section below). Heads past 512 take a 16-bit column-chunk
-//    kernel (flash_mma_chunk_kernel, at the end) at any multiple of 128.
+//    type and in how p and o are rounded. It takes hd in {16, 32, 64,
+//    128}. flash_mma_wide_kernel<W, T> takes the padded 256, 384 and 512:
+//    its warps split O's columns and the scores are computed once at the
+//    full width (its section below). Heads past 512 take a 16-bit
+//    column-chunk kernel (flash_mma_chunk_kernel) at any multiple of 128.
 //  - f32: flash_f32_kernel<HD>, register-tiled FFMA on the CUDA cores (67
 //    TFLOP/s), the only way to meet the reference's f32 tolerance of 2e-5
 //    (TF32 would not); hd in {16, 32, 64, 128, 256, 384, 512}, the scores
 //    computed once at the full width (its section below says what bounds
-//    it: the shared-memory pipe). Heads past 512 take an f32
-//    column-chunk kernel (flash_f32_wide_kernel, at the end).
+//    it: the shared-memory pipe). Past 512, up to 2048, a thread-block
+//    cluster of hd / 128 blocks (flash_f32_cluster_kernel) splits O's
+//    columns and still computes the scores once; past 2048 (a cluster
+//    would exceed 16 blocks) an f32 column-chunk kernel
+//    (flash_f32_wide_kernel), a choice by width made before the launch.
 //
 // What both do about it:
 //  - A thread block owns one output tile: the query positions of one q
@@ -80,9 +83,10 @@
 // The entry point returns cudaGetLastError() after its launch (or the
 // error of cudaFuncSetAttribute, which dynamic shared memory above 48 KB
 // needs: the f32 kernel 225 KB at hd 128 and 208.5 KB at 256, 384 and 512
-// (F32Plan::smem); the bf16 kernel's two stages and q tile 80 KB at hd 128
-// and 160 KB at 256, of the 227 KB a block may take; the wide 16-bit
-// kernel 194 KB at 384 and 210 KB at 512 (WidePlan::smem); the
+// (F32Plan::smem); the bf16 kernel's two stages and q tile 80 KB at hd 128,
+// of the 227 KB a block may take; the wide 16-bit kernel 178 KB at 256,
+// 194 KB at 384 and 210 KB at 512 (WidePlan::smem); the f32 cluster
+// kernel 208.5 KB a block at any width (ClusterPlan::smem); the
 // column-chunk kernels 64 KB (f32) and 48 KB (16-bit) at any width).
 
 #include <cuda_bf16.h>
@@ -473,15 +477,16 @@ struct F32Plan {
                   "a width the f32 kernel has no tiles for");
 };
 
-// O (OR rows x NJ chunks of one slab) += P V over the slab's kBK keys: P^T
-// rows OR oy .. from sP, V chunks ox + TOC j of each key from the slab
-template <int CD, int CP, int TOC, int OR, int NJ>
+// O (OR rows x NJ chunks of one slab) += P V over the slab's keys K0 ..
+// K0 + NK - 1 (all kBK by default), in order: P^T rows OR oy .. from sP, V
+// chunks ox + TOC j of each key from the slab
+template <int CD, int CP, int TOC, int OR, int NJ, int K0 = 0, int NK = kBK>
 __device__ __forceinline__ void f32_pv(float (&acc)[OR][4 * NJ],
                                        const float4* slab, const float4* sP,
                                        int ox, int oy) {
     const float* sPf = reinterpret_cast<const float*>(sP);
 #pragma unroll 8
-    for (int key = 0; key < kBK; ++key) {
+    for (int key = K0; key < K0 + NK; ++key) {
         float pr[OR];
         if constexpr (OR % 4 == 0) {
 #pragma unroll
@@ -717,15 +722,16 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 and f16 above hd 256: the scores once, O split by column
+// bf16 and f16 above hd 128: the scores once, O split by column
 // ---------------------------------------------------------------------------
-// flash_mma_wide_kernel<W, T> takes the widths the wrapper pads hd 257-512
-// to, W = 384 and 512. The widest flash_mma_kernel instance (256) already
-// spills, for each of its warps holds 16 rows of O at the full width. Here
-// the warps of a block split O's columns, so a thread holds W / 4 floats of
-// it (128 at 512), while the scores are still computed once at the full
-// width. What bounds it is operations, as above, on the tensor cores; what
-// feeds them, ldmatrix from shared memory, is the pipe its design spares:
+// flash_mma_wide_kernel<W, T> takes the widths the wrapper pads hd 129-512
+// to, W = 256, 384 and 512. A flash_mma_kernel instance at 256 spilled
+// (255 registers, 432 B), for each of its warps holds 16 rows of O at the
+// full width. Here the warps of a block split O's columns, so a thread
+// holds W / 4 floats of it (128 at 512), while the scores are still
+// computed once at the full width. What bounds it is operations, as above,
+// on the tensor cores; what feeds them, ldmatrix from shared memory, is the
+// pipe its design spares:
 //  - 8 warps, 64 stacked rows a block (flash_mma_kernel's rows, heads and
 //    tile order) in two row groups of 32, one block an SM, 128-key tiles.
 //    Warp w is row group rg = w / 4 (rows 32 rg .. 32 rg + 31, two 16-row
@@ -737,14 +743,14 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 //    of O, and a 16-byte ldmatrix read feeds 2 16x8x16 products in the
 //    scores and 2 (D 128) to 8 / 3 (D 256) in P.V, about half the reads a
 //    product of warps that own 16 rows.
-//  - Q sits whole in shared memory (48 KB at 384, 64 KB at 512) and arrives
-//    once, with the first slab. K and V come in slabs of 128 keys x D dims
-//    (WidePlan: D 256 at 512, 128 at 384): a tile's K slabs, then its V
-//    slabs, through one cp.async ring of R slabs (2 at 512, 4 at 384), so
-//    R - 1 slabs load during a slab's products; keys past S are
-//    zero-filled (src-size 0). Q, slabs and P are XOR-swizzled in 16-byte
-//    chunks (swz) as above, and the loads' and ldmatrix's addresses are
-//    per-lane offsets computed once.
+//  - Q sits whole in shared memory (32 KB at 256, 48 KB at 384, 64 KB at
+//    512) and arrives once, with the first slab. K and V come in slabs of
+//    128 keys x D dims (WidePlan: D 256 at 256 and 512, 128 at 384): a
+//    tile's K slabs, then its V slabs, through one cp.async ring of R slabs
+//    (2 at 256 and 512, 4 at 384), so R - 1 slabs load during a slab's
+//    products; keys past S are zero-filled (src-size 0). Q, slabs and P are
+//    XOR-swizzled in 16-byte chunks (swz) as above, and the loads' and
+//    ldmatrix's addresses are per-lane offsets computed once.
 //  - The softmax: a warp takes its keys' row max over the quad, the group
 //    trade theirs through shared memory behind a named barrier of its 128
 //    threads, and all four take the same max, correction and m. Each writes
@@ -752,13 +758,14 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 //    its keys' part of l (the four parts are added, part 0's first, at the
 //    end). After a V slab's barrier a warp reads its 32 rows of P by
 //    ldmatrix, two A fragments a 16-key step.
-// Shared memory: Q, the ring, P and the groups' maxima and sums: 194 KB at
-// 384, 210 KB at 512 (WidePlan::smem). Heads past 512 take the
-// column-chunk kernel after it. (Probed at the llama3-8b layer's heads and
+// Shared memory: Q, the ring, P and the groups' maxima and sums: 178 KB at
+// 256, 194 KB at 384, 210 KB at 512 (WidePlan::smem). Heads past 512 take
+// the column-chunk kernel after it. (Probed at the llama3-8b layer's heads and
 // length and not kept, being slower: 16-row warps in pairs over 64-key
 // tiles, with 128-dim or full-width slabs; 16 warps; two blocks of 32 rows
-// an SM; 128-dim slabs at 512 and 192-dim at 384; a ring of 3 at 384;
-// skipping the rescale where no row's max moved.)
+// an SM; 128-dim slabs at 512, 192-dim at 384 and 128-dim with a ring of 4
+// at 256; a ring of 3 at 384; skipping the rescale where no row's max
+// moved.)
 constexpr int kWideRows = 64;        // stacked rows a block
 constexpr int kGroupRows = 32;       // rows of a row group, two m-tiles
 constexpr int kSplit = 4;            // warps a row group
@@ -773,7 +780,7 @@ constexpr int kWideRing = 4;         // most slabs in the cp.async ring
 // (kWideRows x kWideBK), then the groups' maxima and sums in f32
 template <int W>
 struct WidePlan {
-    static constexpr int D = W == 512 ? 256 : 128;
+    static constexpr int D = W == 384 ? 128 : 256;
     static constexpr int NSL = W / D;
     static constexpr int CPQ = W / 8;           // 16-byte chunks: a row of Q,
     static constexpr int CPS = D / 8;           // of a slab,
@@ -789,7 +796,8 @@ struct WidePlan {
                   && kSplit * 32 == kWideBK && kWideThreads % CPS == 0,
                   "whole slabs, a warp's keys and columns in n-tile pairs");
 };
-static_assert(WidePlan<384>::smem == 198656 &&
+static_assert(WidePlan<256>::smem == 182272 &&
+              WidePlan<384>::smem == 198656 &&
               WidePlan<512>::smem == 215040, "the wide plan's shared bytes");
 
 // the named barrier of one row group's warps (id 1 + rg)
@@ -1134,15 +1142,18 @@ flash_mma_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------------
 // Head widths past 512: the output's columns in chunks of kChunk
 // ---------------------------------------------------------------------------
-// No configuration of the port has a head past 512. There a block owns one
-// kChunk-wide chunk of the output's columns (grid dimension y) for the
-// same stacked rows as above. It sums the full-width scores Q.K^T over hd
-// in kChunk-wide k-chunks, each staged in shared memory (q's chunk beside
-// k's), runs the same online softmax and accumulates P.V for its own chunk
-// of V only. So the scores are recomputed once per chunk: hd / 128 times
-// the QK flops. The wrapper zero-pads hd to a multiple of kChunk and passes
-// the true width's scale. Below 512 flash_mma_wide_kernel (bf16, f16) and
-// flash_f32_kernel<384> and <512> (f32) recompute nothing.
+// No configuration of the port has a head past 512. The wrapper zero-pads
+// hd there to a multiple of kChunk and passes the true width's scale. The
+// column-chunk kernels (bf16 and f16 at any such width, f32 past 2048): a
+// block owns one kChunk-wide chunk of the output's columns (grid dimension
+// y) for the same stacked rows as above. It sums the full-width scores
+// Q.K^T over hd in kChunk-wide k-chunks, each staged in shared memory (q's
+// chunk beside k's), runs the same online softmax and accumulates P.V for
+// its own chunk of V only. So the scores are recomputed once per chunk: hd
+// / 128 times the QK flops. f32 from 640 to 2048 takes the cluster kernel
+// at the end of this section, which computes them once, as
+// flash_mma_wide_kernel (bf16, f16) and flash_f32_kernel (f32) do below
+// 512.
 constexpr int kChunk = 128;
 constexpr int kCH = 16;          // keys per softmax step (f32 column chunks)
 
@@ -1342,7 +1353,7 @@ flash_mma_chunk_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-// f32 on the CUDA cores, heads past 512 only: 4 lanes a row, 64 rows a
+// f32 on the CUDA cores, heads past 2048 only: 4 lanes a row, 64 rows a
 // block, each lane 32 dims of the block's chunk of the accumulator (a
 // lane's 4-float chunks j.4 + sub, so the 4 lanes of a row read 16 B each
 // of one contiguous key row). A lane sums its share of the 64 keys' scores
@@ -1484,6 +1495,373 @@ flash_f32_wide_kernel(const float* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// f32 past hd 512: a thread-block cluster computes the scores once
+// ---------------------------------------------------------------------------
+// flash_f32_cluster_kernel takes f32 at the widths 640 to 2048 (multiples
+// of kChunk). flash_f32_kernel cannot: at 64 rows a resident Q of hd 640
+// is 160 KB, which leaves room for one slab of its ring. Here a cluster of
+// NC = hd / kChunk blocks owns one output tile: flash_f32_kernel's 64
+// stacked rows, heads and heaviest-first order (tile c = blockIdx.x / NC).
+// Block r of it (its rank in the cluster) owns O's columns kChunk r ..
+// kChunk r + 127 and holds the same 128 dims of Q (32 KB), so:
+//  - Scores. For each 64-key tile block r multiplies its slice of Q by its
+//    128 dims of the tile's keys, with flash_f32_kernel's 4 x 4 micro-tiles
+//    (2 FMAs a float read), and stores the 64 x 64 partial in its own shared
+//    memory (thread t's 16 scores at the float4s t + 256 x, so that a
+//    warp's stores and loads are contiguous). The partials are added by a
+//    reduce-scatter and an all-gather through distributed shared memory
+//    (mapa, ld.shared::cluster), each behind a cluster barrier: block r
+//    adds slice r of the tile (float4s SL r .. SL r + SL - 1, SL = 1024 /
+//    NC rounded up) over the NC blocks' partials in rank order 0 .. NC - 1
+//    into its own sum buffer; then every thread loads its 16 scores from
+//    the blocks that own them. So every block holds the same full-width
+//    scores, bit for bit, and runs the same masked online softmax: Q.K^T is
+//    computed once across the cluster, not NC times, and a block loads
+//    about 2 (NC - 1) / NC of a tile's partial from its peers, where each
+//    thread loading its own 16 scores of every partial loads NC - 1 (on
+//    the H100 at hd 640 and the llama3-8b layer's heads and length: 64.1
+//    ms that way, 62.8 this way, 56.0 with no exchange at all).
+//  - Overlap. Both barriers are split: a block arrives once its partial
+//    (its slice's sums) is stored and waits after the first (second) half
+//    of the tile before's P.V, which covers the peers' skew and the
+//    barriers' latency (the first design, one barrier, took 71.7 ms
+//    unsplit against 64.1 split, same card and shapes). Each buffer is
+//    written again only after a barrier that every block reaches once it
+//    has read it: the partial after the second, the sums after the next
+//    tile's first.
+//  - O. P^T goes through shared memory and O += P.V runs over the block's
+//    own 128 columns of each V slab (f32_pv, 4 x 8 of O a thread, 2.7 FMAs
+//    a float). K and V slabs (64 keys x the block's 128 dims) arrive by
+//    cp.async through a ring of R = 4 slabs in the order K 0, then K t + 1
+//    and V t, then the last V, each R - 1 steps ahead of its use; keys past
+//    S are zero-filled. Scale, exponent and masking are flash_f32_kernel's
+//    (hd^-0.5 . log2 e, ex2.approx, -1e30, masked p set to 0 again).
+//  - Every block of a cluster reaches every barrier: the tiles are the
+//    cluster's (its rows are shared). A last barrier keeps a block from
+//    leaving while a peer may still read its sums.
+// Clusters of more than 8 blocks are non-portable: the launch asks the
+// card how many clusters of NC blocks it holds at once
+// (cudaOccupancyMaxActiveClusters) and returns an error if none. The
+// widest cluster is kF32MaxCluster blocks, hd 2048; past it the f32
+// column-chunk kernel above takes the width, a choice made before the
+// launch. Shared memory: Q's slice, the ring, the partial and the slice's
+// sums, P^T and the rows' rescale and sums: 208.5 KB a block
+// (ClusterPlan::smem).
+constexpr int kF32MaxCluster = 16;   // blocks a cluster at most: hd 2048
+
+// flash_f32_cluster_kernel's tiles, by flash_f32_kernel's rules at 64 rows
+// and a kChunk-wide slab: SR rows x 4 keys of the scores, OR rows x NJ
+// 16-byte chunks of O a thread and TOC threads across a slab's CD chunks;
+// PART floats a score tile (the partial, the sums); R ring slots (as many
+// as 227 KB leave, at most 4). flash_f32_cluster_plan (an entry point at
+// the end) reports them, and the wrapper's f32_cluster_plan mirrors them.
+struct ClusterPlan {
+    static constexpr int BM = 64;
+    static constexpr int D = kChunk;
+    static constexpr int CD = D / 4, CP = BM / 4;
+    static constexpr int SR = BM / 16;
+    static constexpr int OC = BM * D / kF32Threads;   // O floats a thread
+    static constexpr int OR = OC >= 64 ? 8 : OC >= 16 ? 4 : OC / 4;
+    static constexpr int TOC = kF32Threads * OR / BM;
+    static constexpr int NJ = CD / TOC;
+    static constexpr int PART = BM * kBK;
+    static constexpr int FIXED = (BM * D + 2 * PART + kBK * BM + 2 * BM) * 4;
+    static constexpr int SLAB = kBK * D * 4;
+    static constexpr int FIT = (kSmemBytes - FIXED) / SLAB;
+    static constexpr int R = FIT < 4 ? FIT : 4;
+    static constexpr size_t smem = FIXED + size_t(R) * SLAB;
+    static_assert(4 * SR * kF32Threads == PART && SR % 4 == 0
+                  && TOC * NJ == CD && R >= 2,
+                  "a thread's scores tile the partial; O's chunks a slab");
+};
+static_assert(ClusterPlan::smem == 213504, "the cluster plan's shared bytes");
+
+__device__ __forceinline__ unsigned cluster_rank() {
+    unsigned r;
+    asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+    return r;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+    asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+    asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// the address in cluster block ``rank``'s shared memory of ``local``'s here
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t local,
+                                                 unsigned rank) {
+    uint32_t remote;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+                 : "=r"(remote) : "r"(local), "r"(rank));
+    return remote;
+}
+
+__device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
+    float4 x;
+    asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+                 : "=f"(x.x), "=f"(x.y), "=f"(x.z), "=f"(x.w) : "r"(addr));
+    return x;
+}
+
+__global__ void __launch_bounds__(kF32Threads, 1)
+flash_f32_cluster_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         int S, int H, int Hkv, int HD, int G, int GB,
+                         int BQ, int n_qt, int n_bh, float scale_log2) {
+    using P = ClusterPlan;
+    constexpr int BM = P::BM, CD = P::CD, CP = P::CP, SR = P::SR;
+    constexpr int TOC = P::TOC, OR = P::OR, NJ = P::NJ, R = P::R;
+    constexpr int SLAB = kBK * CD;               // float4s a slab
+    constexpr int PART4 = P::PART / 4;           // float4s a partial
+    extern __shared__ float4 smem4[];
+    float4* sQ = smem4;                          // (BM, CD), row-major
+    float4* sRing = sQ + BM * CD;                // R slabs (kBK, CD), swizzled
+    float4* sPart = sRing + R * SLAB;            // the partial, by thread
+    float4* sSum = sPart + PART4;                // the sums, by thread
+    float4* sP = sSum + PART4;                   // P^T (kBK, CP), swizzled
+    float* sCorr = reinterpret_cast<float*>(sP + kBK * CP);  // BM
+    float* sL = sCorr + BM;                                  // BM
+
+    const int NC = HD / kChunk;
+    const int me = int(cluster_rank());
+    const int col0 = me * kChunk;                // this block's columns
+    const int SL = (PART4 + NC - 1) / NC;        // float4s a sum slice
+    const int bid = blockIdx.x / NC;             // the cluster's tile
+    const int qt = n_qt - 1 - bid / n_bh;        // heaviest tiles first
+    const int bh = bid % n_bh;
+    const int n_gr = (G + GB - 1) / GB;
+    const int gr = bh % n_gr;
+    const int kvh = (bh / n_gr) % Hkv;
+    const int b = bh / (n_gr * Hkv);
+    const int t = threadIdx.x;
+    const int tx = t % 16, ty = t / 16;          // scores: keys, rows
+    const int ox = t % TOC, oy = t / TOC;        // output: chunks, rows
+    const int q0 = qt * BQ;
+    const int kv_end = min(S, q0 + BQ);          // keys past it are masked
+    const int n_tiles = (kv_end + kBK - 1) / kBK;
+    const int n_steps = 2 * n_tiles;             // a K and a V slab a tile
+
+    const int64_t kv_stride = int64_t(Hkv) * HD;
+    const float* kb = k + (int64_t(b) * S * Hkv + kvh) * HD + col0;
+    const float* vb = v + (int64_t(b) * S * Hkv + kvh) * HD + col0;
+    const uint32_t sQa =
+        static_cast<uint32_t>(__cvta_generic_to_shared(smem4));
+    const uint32_t sRa = sQa + BM * CD * 16;
+    const uint32_t sPartA = sRa + R * SLAB * 16;
+    const uint32_t sSumA = sPartA + PART4 * 16;
+
+    // the block's 128 dims of the q rows, zero-filled where no row is live,
+    // arrive with the first slab
+    for (int i = t; i < BM * CD; i += kF32Threads) {
+        const int rho = i / CD, c = i % CD;
+        const int qi = rho / GB, g = gr * GB + rho % GB;
+        const bool in = qi < BQ && g < G && q0 + qi < S;
+        const int64_t off =
+            in ? ((int64_t(b) * S + q0 + qi) * H + kvh * G + g) * HD + col0
+                 + 4 * c : 0;
+        cp_async16(sQa + i * 16, q + off, in ? 16 : 0);
+    }
+    // step i takes slab i into slot i % R: K of tile 0; then K of tile
+    // (i + 1) / 2 for odd i and V of tile i / 2 - 1 for even i; the last
+    // step V of the last tile
+    auto load = [&](int i) {
+        const bool is_v = i > 0 && (i % 2 == 0 || i == n_steps - 1);
+        const int tile = !is_v ? (i + 1) / 2
+                         : i == n_steps - 1 ? n_tiles - 1 : i / 2 - 1;
+        const int k0 = tile * kBK;
+        const float* src = is_v ? vb : kb;
+        const uint32_t dst = sRa + (i % R) * SLAB * 16;
+        for (int e = t; e < SLAB; e += kF32Threads) {
+            const int key = e / CD, c = e % CD;
+            const bool in = k0 + key < S;
+            const int64_t off = in ? (k0 + key) * kv_stride + 4 * c : 0;
+            cp_async16(dst + swz<CD>(key, c) * 16, src + off, in ? 16 : 0);
+        }
+    };
+
+    float s[SR][4], m[SR], l[SR], acc[OR][4 * NJ];
+#pragma unroll
+    for (int r = 0; r < SR; ++r) {
+        m[r] = kNegInf;
+        l[r] = 0.f;
+    }
+#pragma unroll
+    for (int r = 0; r < OR; ++r)
+#pragma unroll
+        for (int e = 0; e < 4 * NJ; ++e) acc[r][e] = 0.f;
+
+#pragma unroll
+    for (int i = 0; i < R - 1; ++i) {
+        if (i < n_steps) load(i);
+        cp_async_commit();
+    }
+    // slab i's slot, once it has landed and slot i - 1 is free again
+    auto next = [&](int i) -> const float4* {
+        cp_async_wait<R - 2>();
+        __syncthreads();
+        if (i + R - 1 < n_steps) load(i + R - 1);
+        cp_async_commit();
+        return sRing + (i % R) * SLAB;
+    };
+    // O = O . corr, with the corr of the tile whose P V comes next
+    auto rescale = [&]() {
+#pragma unroll
+        for (int r = 0; r < OR; ++r) {
+            const float cr = sCorr[OR * oy + r];
+#pragma unroll
+            for (int e = 0; e < 4 * NJ; ++e) acc[r][e] *= cr;
+        }
+    };
+    int i = 0;
+    for (int tile = 0; tile < n_tiles; ++tile) {
+        const int k0 = tile * kBK;
+        // this block's 128 dims of S = Q K^T, d in order
+        {
+            const float4* slab = next(i++);
+#pragma unroll
+            for (int r = 0; r < SR; ++r)
+#pragma unroll
+                for (int j = 0; j < 4; ++j) s[r][j] = 0.f;
+            const float4* qrow = sQ + SR * ty * CD;
+#pragma unroll 8
+            for (int c = 0; c < CD; ++c) {
+                float4 kf[4];
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                    kf[j] = slab[swz<CD>(tx + 16 * j, c)];
+#pragma unroll
+                for (int r = 0; r < SR; ++r) {
+                    const float4 qf = qrow[r * CD + c];
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) {
+                        s[r][j] = fmaf(qf.x, kf[j].x, s[r][j]);
+                        s[r][j] = fmaf(qf.y, kf[j].y, s[r][j]);
+                        s[r][j] = fmaf(qf.z, kf[j].z, s[r][j]);
+                        s[r][j] = fmaf(qf.w, kf[j].w, s[r][j]);
+                    }
+                }
+            }
+#pragma unroll
+            for (int x = 0; x < SR; ++x)
+                sPart[x * kF32Threads + t] =
+                    make_float4(s[x][0], s[x][1], s[x][2], s[x][3]);
+        }
+        cluster_arrive();                        // this block's partial is in
+        // O += P V of the tile before over the first half of its keys
+        const float4* vslab = tile > 0 ? next(i++) : nullptr;
+        if (tile > 0) {
+            rescale();
+            f32_pv<CD, CP, TOC, OR, NJ, 0, kBK / 2>(acc, vslab, sP, ox, oy);
+        }
+        cluster_wait();                          // every block's partial is in
+        // this block's slice of the full-width scores: the NC partials
+        // added in rank order
+        for (int e = me * SL + t; e < min(me * SL + SL, PART4);
+             e += kF32Threads) {
+            float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+            for (int rank = 0; rank < NC; ++rank) {
+                const float4 p4 = ld_cluster4(cluster_addr(sPartA + e * 16,
+                                                           rank));
+                sum.x += p4.x;
+                sum.y += p4.y;
+                sum.z += p4.z;
+                sum.w += p4.w;
+            }
+            sSum[e] = sum;
+        }
+        cluster_arrive();                        // this block's sums are in
+        if (tile > 0)                            // the second half
+            f32_pv<CD, CP, TOC, OR, NJ, kBK / 2, kBK / 2>(acc, vslab, sP,
+                                                          ox, oy);
+        cluster_wait();                          // every block's sums are in
+        // this thread's 16 scores, from the blocks that summed them
+#pragma unroll
+        for (int x = 0; x < SR; ++x) {
+            const int e = x * kF32Threads + t;
+            const float4 p4 = ld_cluster4(cluster_addr(sSumA + e * 16,
+                                                       e / SL));
+            s[x][0] = p4.x;
+            s[x][1] = p4.y;
+            s[x][2] = p4.z;
+            s[x][3] = p4.w;
+        }
+        __syncthreads();                    // the tile before's P^T is read
+        // scale, mask (only a tile that reaches past the block's first
+        // position), the rows' new max over their 16 lanes, p, and P^T and
+        // the rescale to shared memory
+        const bool masked = k0 + kBK - 1 > q0;
+#pragma unroll
+        for (int r = 0; r < SR; ++r) {
+            const int rho = SR * ty + r;
+            const int pos = q0 + rho / GB;
+            uint32_t dead = 0;
+            float mx = m[r];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                const int key = k0 + tx + 16 * j;
+                if (masked && (key > pos || key >= S)) dead |= 1u << j;
+                s[r][j] = (dead >> j) & 1u ? kNegInf : s[r][j] * scale_log2;
+                mx = fmaxf(mx, s[r][j]);
+            }
+#pragma unroll
+            for (int off = 1; off < 16; off <<= 1)
+                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+            const float corr = fast_exp2(m[r] - mx);
+            m[r] = mx;
+            l[r] *= corr;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                const float pj = (dead >> j) & 1u
+                    ? 0.f : fast_exp2(s[r][j] - mx);
+                l[r] += pj;
+                s[r][j] = pj;
+            }
+            if (tx == 0) sCorr[rho] = corr;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int rc = 0; rc < SR / 4; ++rc)
+                sP[swz<CP>(tx + 16 * j, SR * ty / 4 + rc)] =
+                    make_float4(s[4 * rc][j], s[4 * rc + 1][j],
+                                s[4 * rc + 2][j], s[4 * rc + 3][j]);
+    }
+    cluster_arrive();                            // the last sums are read
+    const float4* vslab = next(i);               // V of the last tile
+    rescale();
+    f32_pv<CD, CP, TOC, OR, NJ>(acc, vslab, sP, ox, oy);
+
+#pragma unroll
+    for (int r = 0; r < SR; ++r) {
+#pragma unroll
+        for (int off = 1; off < 16; off <<= 1)
+            l[r] += __shfl_xor_sync(0xffffffffu, l[r], off);
+        if (tx == 0) sL[SR * ty + r] = l[r];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < OR; ++r) {
+        const int rho = OR * oy + r;
+        const int qi = rho / GB, g = gr * GB + rho % GB;
+        if (qi >= BQ || g >= G || q0 + qi >= S) continue;
+        const float den = fmaxf(sL[rho], 1e-30f);
+        float4* orow = reinterpret_cast<float4*>(
+            o + ((int64_t(b) * S + q0 + qi) * H + kvh * G + g) * HD + col0);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+            orow[ox + TOC * j] = make_float4(
+                acc[r][4 * j] / den, acc[r][4 * j + 1] / den,
+                acc[r][4 * j + 2] / den, acc[r][4 * j + 3] / den);
+    }
+    cluster_wait();        // no block leaves while a peer may read its sums
+}
+
+// ---------------------------------------------------------------------------
 
 // Stacked rows of one KV head: GB of its G query heads by BQ positions,
 // in n_gr groups of heads.
@@ -1533,20 +1911,6 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
         t.BQ, t.n_qt, t.n_bh, scale * 1.4426950408889634f);
 }
 
-template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int H, int Hkv, int dtype, float scale, cudaStream_t s) {
-    switch (dtype) {
-        case kBF16:
-            return launch_mma<HD, __nv_bfloat16>(q, k, v, o, B, S, H, Hkv,
-                                                 scale, s);
-        case kF16:
-            return launch_mma<HD, __half>(q, k, v, o, B, S, H, Hkv, scale, s);
-        default:
-            return launch_f32<HD>(q, k, v, o, B, S, H, Hkv, scale, s);
-    }
-}
-
 template <int W, typename T>
 int launch_mma_wide(const void* q, const void* k, const void* v, void* o,
                     int B, int S, int H, int Hkv, int row, float scale,
@@ -1560,47 +1924,108 @@ int launch_mma_wide(const void* q, const void* k, const void* v, void* o,
         scale * 1.4426950408889634f);
 }
 
-// 16-bit heads above 256: flash_mma_wide_kernel at 384 and 512 (rows of
-// `row` values in memory), the column-chunk kernel past 512
+// 16-bit heads: flash_mma_kernel up to 128, flash_mma_wide_kernel at 256,
+// 384 and 512 (rows of `row` values in memory), the column-chunk kernel
+// past 512
 template <typename T>
-int launch_mma_above(const void* q, const void* k, const void* v, void* o,
-                     int B, int S, int H, int Hkv, int hd, int row,
-                     float scale, cudaStream_t stream) {
-    if (hd == 384)
-        return launch_mma_wide<384, T>(q, k, v, o, B, S, H, Hkv, row, scale,
-                                       stream);
-    if (hd == 512)
-        return launch_mma_wide<512, T>(q, k, v, o, B, S, H, Hkv, row, scale,
-                                       stream);
-    if (row != hd) return int(cudaErrorInvalidValue);
-    const Tiling t(B, S, H, Hkv, kRows);
-    return launch_kernel(
-        flash_mma_chunk_kernel<T>, dim3(t.blocks(), hd / kChunk), kThreads,
-        size_t(3) * kBK * kChunk * 2, stream, static_cast<const T*>(q),
-        static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(o), S, H, Hkv, hd, t.G, t.GB, t.BQ, t.n_qt, t.n_bh,
-        scale * 1.4426950408889634f);
+int launch16(const void* q, const void* k, const void* v, void* o, int B,
+             int S, int H, int Hkv, int hd, int row, float scale,
+             cudaStream_t s) {
+    switch (hd) {
+        case 16: return launch_mma<16, T>(q, k, v, o, B, S, H, Hkv, scale, s);
+        case 32: return launch_mma<32, T>(q, k, v, o, B, S, H, Hkv, scale, s);
+        case 64: return launch_mma<64, T>(q, k, v, o, B, S, H, Hkv, scale, s);
+        case 128:
+            return launch_mma<128, T>(q, k, v, o, B, S, H, Hkv, scale, s);
+        case 256:
+            return launch_mma_wide<256, T>(q, k, v, o, B, S, H, Hkv, row,
+                                           scale, s);
+        case 384:
+            return launch_mma_wide<384, T>(q, k, v, o, B, S, H, Hkv, row,
+                                           scale, s);
+        case 512:
+            return launch_mma_wide<512, T>(q, k, v, o, B, S, H, Hkv, row,
+                                           scale, s);
+        default: {
+            const Tiling t(B, S, H, Hkv, kRows);
+            return launch_kernel(
+                flash_mma_chunk_kernel<T>, dim3(t.blocks(), hd / kChunk),
+                kThreads, size_t(3) * kBK * kChunk * 2, s,
+                static_cast<const T*>(q), static_cast<const T*>(k),
+                static_cast<const T*>(v), static_cast<T*>(o), S, H, Hkv, hd,
+                t.G, t.GB, t.BQ, t.n_qt, t.n_bh,
+                scale * 1.4426950408889634f);
+        }
+    }
 }
 
-int launch_wide(const void* q, const void* k, const void* v, void* o, int B,
-                int S, int H, int Hkv, int hd, int row, int dtype,
-                float scale, cudaStream_t s) {
-    if (dtype == kBF16)
-        return launch_mma_above<__nv_bfloat16>(q, k, v, o, B, S, H, Hkv, hd,
-                                               row, scale, s);
-    if (dtype == kF16)
-        return launch_mma_above<__half>(q, k, v, o, B, S, H, Hkv, hd, row,
-                                        scale, s);
-    if (row != hd) return int(cudaErrorInvalidValue);
-    if (hd == 384) return launch_f32<384>(q, k, v, o, B, S, H, Hkv, scale, s);
-    if (hd == 512) return launch_f32<512>(q, k, v, o, B, S, H, Hkv, scale, s);
-    const Tiling t(B, S, H, Hkv, kF32Threads / (kChunk / 32));
-    return launch_kernel(
-        flash_f32_wide_kernel, dim3(t.blocks(), hd / kChunk), kF32Threads,
-        2 * size_t(kBK) * kChunk * sizeof(float), s,
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), S, H, Hkv, hd,
-        t.G, t.GB, t.BQ, t.n_qt, t.n_bh, scale);
+// flash_f32_cluster_kernel's launch for clusters of NC blocks over
+// ``tiles`` output tiles (cfg points at attr); *resident: the clusters of
+// NC blocks the card holds at once
+cudaError_t cluster_setup(int NC, unsigned tiles, cudaStream_t stream,
+                          cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                          int* resident) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_f32_cluster_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, int(ClusterPlan::smem));
+    if (err == cudaSuccess && NC > 8)
+        err = cudaFuncSetAttribute(
+            flash_f32_cluster_kernel,
+            cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    *cfg = cudaLaunchConfig_t{};
+    cfg->gridDim = dim3(tiles * unsigned(NC));
+    cfg->blockDim = dim3(kF32Threads);
+    cfg->dynamicSmemBytes = ClusterPlan::smem;
+    cfg->stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = NC;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg->attrs = attr;
+    cfg->numAttrs = 1;
+    return cudaOccupancyMaxActiveClusters(resident, flash_f32_cluster_kernel,
+                                          cfg);
+}
+
+// f32 heads: flash_f32_kernel up to 512, the cluster kernel up to kChunk
+// kF32MaxCluster, the column-chunk kernel past it (by width, before any
+// launch)
+int launch32(const void* q, const void* k, const void* v, void* o, int B,
+             int S, int H, int Hkv, int hd, float scale, cudaStream_t s) {
+    switch (hd) {
+        case 16: return launch_f32<16>(q, k, v, o, B, S, H, Hkv, scale, s);
+        case 32: return launch_f32<32>(q, k, v, o, B, S, H, Hkv, scale, s);
+        case 64: return launch_f32<64>(q, k, v, o, B, S, H, Hkv, scale, s);
+        case 128: return launch_f32<128>(q, k, v, o, B, S, H, Hkv, scale, s);
+        case 256: return launch_f32<256>(q, k, v, o, B, S, H, Hkv, scale, s);
+        case 384: return launch_f32<384>(q, k, v, o, B, S, H, Hkv, scale, s);
+        case 512: return launch_f32<512>(q, k, v, o, B, S, H, Hkv, scale, s);
+        default: break;
+    }
+    const int NC = hd / kChunk;
+    if (NC > kF32MaxCluster) {
+        const Tiling t(B, S, H, Hkv, kF32Threads / (kChunk / 32));
+        return launch_kernel(
+            flash_f32_wide_kernel, dim3(t.blocks(), NC), kF32Threads,
+            2 * size_t(kBK) * kChunk * sizeof(float), s,
+            static_cast<const float*>(q), static_cast<const float*>(k),
+            static_cast<const float*>(v), static_cast<float*>(o), S, H, Hkv,
+            hd, t.G, t.GB, t.BQ, t.n_qt, t.n_bh, scale);
+    }
+    const Tiling t(B, S, H, Hkv, ClusterPlan::BM);
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr[1];
+    int resident = 0;
+    cudaError_t err = cluster_setup(NC, t.blocks(), s, &cfg, attr, &resident);
+    if (err != cudaSuccess) return int(err);
+    if (resident < 1) return int(cudaErrorInvalidConfiguration);
+    err = cudaLaunchKernelEx(
+        &cfg, flash_f32_cluster_kernel, static_cast<const float*>(q),
+        static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<float*>(o), S, H, Hkv, hd, t.G, t.GB, t.BQ, t.n_qt,
+        t.n_bh, scale * 1.4426950408889634f);
+    return err != cudaSuccess ? int(err) : int(cudaGetLastError());
 }
 
 template <int HD>
@@ -1618,32 +2043,32 @@ extern "C" {
 
 // q, o: (B, S, H, row); k, v: (B, S, Hkv, row); all contiguous, of one
 // dtype (dtype 0 float32, 1 bf16, 2 f16); H a multiple of Hkv; hd, the
-// width the kernels run at, in {16, 32, 64, 128, 256} or a multiple of 128
-// above 256 (the wrapper zero-pads any other width to the next of these and
-// passes the true width's scale). row is hd, except for bf16 and f16 at hd
-// 384 and 512, whose kernel takes rows of any multiple of 8 up to hd and
-// zero-fills the rest in shared memory.
+// width the kernels run at, in {16, 32, 64, 128, 256, 384, 512} or a
+// multiple of 128 above 512 (the wrapper zero-pads any other width to the
+// next of these and passes the true width's scale). row is hd, except for
+// bf16 and f16 at hd 256, 384 and 512, whose kernel takes rows of any
+// multiple of 8 above 128 up to hd and zero-fills the rest in shared
+// memory.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         void* o, int B, int S, int H, int Hkv, int hd,
                         int row, int dtype, float scale, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (row > 256 && row < hd && row % 8 == 0)
-        return launch_wide(q, k, v, o, B, S, H, Hkv, hd, row, dtype, scale,
-                           s);
-    if (row != hd) return int(cudaErrorInvalidValue);
-    switch (hd) {
-        case 16: return launch<16>(q, k, v, o, B, S, H, Hkv, dtype, scale, s);
-        case 32: return launch<32>(q, k, v, o, B, S, H, Hkv, dtype, scale, s);
-        case 64: return launch<64>(q, k, v, o, B, S, H, Hkv, dtype, scale, s);
-        case 128:
-            return launch<128>(q, k, v, o, B, S, H, Hkv, dtype, scale, s);
-        case 256:
-            return launch<256>(q, k, v, o, B, S, H, Hkv, dtype, scale, s);
+    const bool instance = hd == 16 || hd == 32 || hd == 64 || hd == 128
+                          || hd == 256 || hd == 384 || hd == 512;
+    const bool short_rows = dtype != kF32 && hd >= 256 && hd <= 512
+                            && row > 128 && row < hd && row % 8 == 0;
+    if (!(instance || (hd > 512 && hd % kChunk == 0))
+        || (row != hd && !short_rows))
+        return int(cudaErrorInvalidValue);
+    switch (dtype) {
+        case kBF16:
+            return launch16<__nv_bfloat16>(q, k, v, o, B, S, H, Hkv, hd, row,
+                                           scale, s);
+        case kF16:
+            return launch16<__half>(q, k, v, o, B, S, H, Hkv, hd, row, scale,
+                                    s);
         default:
-            if (hd > 256 && hd % kChunk == 0)
-                return launch_wide(q, k, v, o, B, S, H, Hkv, hd, hd, dtype,
-                                   scale, s);
-            return int(cudaErrorInvalidValue);
+            return launch32(q, k, v, o, B, S, H, Hkv, hd, scale, s);
     }
 }
 
@@ -1662,6 +2087,28 @@ int flash_f32_plan(int hd, int* out) {
         case 512: return f32_plan<512>(out);
         default: return int(cudaErrorInvalidValue);
     }
+}
+
+// flash_f32_cluster_kernel's tiles at the f32 width hd (a multiple of 128
+// from 640 to 128 kF32MaxCluster): out[0..10] = NC, BM, D, R, SR, OR, TOC,
+// NJ, smem, the widest width the kernel takes, and the clusters of NC
+// blocks the card holds at once (repro_torch.kernels.flash_attention.
+// f32_cluster_plan mirrors all but the last). Launches nothing.
+int flash_f32_cluster_plan(int hd, int* out) {
+    using P = ClusterPlan;
+    const int NC = hd / kChunk;
+    if (hd <= 512 || hd % kChunk || NC > kF32MaxCluster)
+        return int(cudaErrorInvalidValue);
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr[1];
+    int resident = 0;
+    const cudaError_t err = cluster_setup(NC, 1, nullptr, &cfg, attr,
+                                          &resident);
+    if (err != cudaSuccess) return int(err);
+    const int v[] = {NC, P::BM, P::D, P::R, P::SR, P::OR, P::TOC, P::NJ,
+                     int(P::smem), kChunk * kF32MaxCluster, resident};
+    for (int i = 0; i < 11; ++i) out[i] = v[i];
+    return 0;
 }
 
 }  // extern "C"

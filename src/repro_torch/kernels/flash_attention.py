@@ -1,10 +1,12 @@
 """Causal GQA flash attention, the LM stack's attention leaf.
 
 One Hopper source (``csrc/flash_attention.cu``: tensor-core kernels for
-bf16 and f16, whose warps split the output's columns at the padded hd 384
-and 512, and a CUDA-core kernel for f32 up to hd 512, each computing the
-scores once at the full width, with column-chunk kernels past 512) with
-its plain PyTorch version beside it.
+bf16 and f16, whose warps split the output's columns at the padded hd 256,
+384 and 512, with a column-chunk kernel past 512; CUDA-core kernels for
+f32, one block a tile up to hd 512 and a thread-block cluster whose blocks
+split the output's columns up to 2048, with a column-chunk kernel past it;
+all but the column-chunk kernels compute the scores once at the full
+width) with its plain PyTorch version beside it.
 :func:`flash_attention` replaces the TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention``; the source note says
 what bounds it on the card and what its design does about that. The
@@ -13,7 +15,8 @@ CUDA tensor it launches the kernel or raises. Neither takes a gradient
 through the wrapper (it refuses autograd, as the reference's kernel has no
 backward); :func:`flash_attention_plain` called directly stays
 differentiable. :data:`ROUTES` counts the launches by dtype and the width
-the card ran, and :func:`f32_plan` mirrors the f32 kernel's tiles.
+the card ran; :func:`f32_plan` and :func:`f32_cluster_plan` mirror the f32
+kernels' tiles.
 """
 from __future__ import annotations
 
@@ -30,12 +33,14 @@ _SIGNATURES = {
     "flash_attention_fwd": (_P,) * 4 + (_I,) * 7 + (ctypes.c_float, _P),
     # hd -> BM, D, R, SR, OR, TOC, NJ, smem (F32Plan<hd>)
     "flash_f32_plan": (_I, ctypes.POINTER(ctypes.c_int)),
+    # hd -> NC, BM, D, R, SR, OR, TOC, NJ, smem, widest, resident clusters
+    "flash_f32_cluster_plan": (_I, ctypes.POINTER(ctypes.c_int)),
 }
-HEAD_DIMS = (16, 32, 64, 128, 256)     # the widths of the card's instances
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the widths a head up to 256 is padded to
 CHUNK = 128         # above 256, hd is padded to a multiple of this (kChunk)
-# the widths whose 16-bit kernel reads rows of any multiple of 8 up to them
-# and zero-fills the rest itself (flash_mma_wide_kernel)
-WIDE16 = (384, 512)
+# the widths whose 16-bit kernel reads rows of any multiple of 8 above 128
+# up to them and zero-fills the rest itself (flash_mma_wide_kernel)
+WIDE16 = (256, 384, 512)
 DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # launches by (dtype name, padded width), counted where the wrapper
@@ -46,6 +51,11 @@ ROUTES: Dict[Tuple[str, int], int] = {}
 F32_WIDTHS = (16, 32, 64, 128, 256, 384, 512)
 F32_THREADS, F32_BK, F32_SMEM = 256, 64, 232448
 _PLAN_KEYS = ("BM", "D", "R", "SR", "OR", "TOC", "NJ", "smem")
+# flash_f32_cluster_kernel: blocks a cluster at most (kF32MaxCluster), so
+# it takes f32 from 640 to 2048; past that the f32 column-chunk kernel
+F32_CLUSTER_MAX = 16
+_CLUSTER_KEYS = ("NC", "BM", "D", "R", "SR", "OR", "TOC", "NJ", "smem",
+                 "widest", "resident")
 
 
 def reset_routes() -> None:
@@ -88,6 +98,46 @@ def f32_plan_card(hd: int) -> dict:
     return dict(zip(_PLAN_KEYS, out))
 
 
+def f32_cluster_plan(hd: int) -> dict:
+    """flash_f32_cluster_kernel's tiles at the f32 width ``hd`` (a
+    multiple of 128 from 640 to 128·F32_CLUSTER_MAX), as ClusterPlan
+    chooses them: NC = hd / 128 blocks a cluster, each owning 128 of the
+    output's columns; BM = 64 stacked rows; K and V slabs of 64 keys x D =
+    128 dims through a ring of R slabs; SR, OR, TOC, NJ, CD, CP as in
+    :func:`f32_plan`; PART floats a score tile (a block holds its partial
+    and its slice's sums in two); ``smem`` the bytes a block takes;
+    ``widest`` the widest width the kernel takes.
+    :func:`f32_cluster_plan_card` is held equal to it on the card."""
+    if hd <= 512 or hd % CHUNK or hd // CHUNK > F32_CLUSTER_MAX:
+        raise ValueError(f"flash_f32_cluster_kernel takes no hd {hd}")
+    BM, D = 64, CHUNK
+    OC = BM * D // F32_THREADS
+    OR = 8 if OC >= 64 else 4 if OC >= 16 else OC // 4
+    TOC = F32_THREADS * OR // BM
+    part = BM * F32_BK
+    fixed = (BM * D + 2 * part + F32_BK * BM + 2 * BM) * 4
+    slab = F32_BK * D * 4
+    R = min(4, (F32_SMEM - fixed) // slab)
+    return dict(NC=hd // CHUNK, BM=BM, D=D, CD=D // 4, CP=BM // 4,
+                SR=BM // 16, OR=OR, TOC=TOC, NJ=D // 4 // TOC, R=R,
+                PART=part, smem=fixed + R * slab,
+                widest=CHUNK * F32_CLUSTER_MAX)
+
+
+def f32_cluster_plan_card(hd: int) -> dict:
+    """The keys of :data:`_CLUSTER_KEYS` as the built library's
+    ``flash_f32_cluster_plan`` reports them; ``resident`` is the clusters
+    of NC blocks the card holds at once (needs the CUDA toolkit and a
+    card)."""
+    out = (ctypes.c_int * len(_CLUSTER_KEYS))()
+    err = library("flash_attention", _SIGNATURES).flash_f32_cluster_plan(
+        hd, out)
+    if err:
+        raise ValueError(f"flash_f32_cluster_plan: no cluster for hd {hd} "
+                         f"(CUDA error {err})")
+    return dict(zip(_CLUSTER_KEYS, out))
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale=None) -> torch.Tensor:
     """The masked-einsum oracle: grouped scores in float32 times ``scale``
@@ -122,7 +172,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the card. There a width up to 256 outside HEAD_DIMS is zero-padded to
     the next one, a width above 256 to a multiple of 128 (zero columns
     leave q·k unchanged; the scale stays the true width's), and the output
-    sliced back; in bf16 and f16 at a width of 264-512 that is a multiple
+    sliced back; in bf16 and f16 at a width of 136-512 that is a multiple
     of 8 the kernel zero-fills the columns itself (:data:`WIDE16`), so
     nothing is copied.
 
@@ -132,13 +182,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     block stacks the G query heads of one KV head row-wise over a run of
     positions and stages 64 keys at a time: bf16 and f16 run on the tensor
     cores (``mma.sync``), 64 rows a block (64 / G positions), 16 rows a
-    warp; at the padded 384 and 512 four warps share 32 rows, splitting
-    the keys of 128-key tiles of the full-width scores and then the
-    output's columns. f32 runs
-    on the CUDA cores, rows a block by width (:func:`f32_plan`), the
-    scores once at the full width up to 512. Past 512 both take
-    column-chunk kernels, whose blocks own 128 of the output's columns and
-    recompute the full-width scores. The
+    warp up to hd 128; at the padded 256, 384 and 512 four warps share 32
+    rows, splitting the keys of 128-key tiles of the full-width scores and
+    then the output's columns. f32 runs on the CUDA cores, rows a block by
+    width (:func:`f32_plan`), the scores once at the full width up to 512;
+    from 640 to 2048 a cluster of hd / 128 blocks, each owning 128 of the
+    output's columns, adds its blocks' partial scores in rank order, so
+    the scores are still computed once (:func:`f32_cluster_plan`). Past
+    512 (16-bit) and 2048 (f32) column-chunk kernels take the width, whose
+    blocks own 128 of the output's columns and recompute the full-width
+    scores. The
     card's kernels load and store 16 bytes at a time: q, k and v must
     start on a 16-byte boundary there (a fresh tensor does).
 

@@ -1,8 +1,8 @@
 """A numpy emulation of the index logic of flash_attention's wide 16-bit
 kernel (``flash_mma_wide_kernel<W, T>`` in
-src/repro_torch/kernels/csrc/flash_attention.cu, W = 384 and 512: the
-widths the wrapper pads hd 257-512 to), held against the kernel's plain
-version and the Pallas kernel in interpret mode.
+src/repro_torch/kernels/csrc/flash_attention.cu, W = 256, 384 and 512:
+the widths the wrapper pads 16-bit hd 129-512 to), held against the
+kernel's plain version and the Pallas kernel in interpret mode.
 
 The emulation walks the kernel's blocks, steps and warps as the kernel
 does. A block holds 64 stacked rows (row rho is query head gr·GB + rho % GB
@@ -61,20 +61,20 @@ SOURCE = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 # take
 ROWS, GROUP, SPLIT, BK, RING, SMEM_MAX = 64, 32, 4, 128, 4, 232448
 WARPS = SPLIT * ROWS // GROUP
-WIDTHS = (384, 512)
+WIDTHS = (256, 384, 512)
 NEG = np.float32(-1e30)
 LOG2E = 1.4426950408889634
 HKV = 2
 
 
 def plan(W: int) -> dict:
-    """WidePlan<W>: D dims a slab (256 at 512, 128 at 384), NSL slabs a
+    """WidePlan<W>: D dims a slab (128 at 384, 256 else), NSL slabs a
     tile, 16-byte chunks a row of Q, of a slab and of P, R ring slots (as
     many as 227 KB leave, at most 4), shared bytes (Q, the ring, P, the
     groups' maxima and sums), a warp's columns of a V slab (CW), and the
     f32 registers a thread holds: O (32 rows x W / 4 columns over 32
     lanes), its scores (32 rows x 32 keys) and a k-step's P fragments."""
-    D = 256 if W == 512 else 128
+    D = 128 if W == 384 else 256
     cpq, cps, cpp = W // 8, D // 8, BK // 8
     fixed = (ROWS * cpq + ROWS * cpp) * 16 + 2 * SPLIT * ROWS * 4
     R = min(RING, (SMEM_MAX - fixed) // (BK * cps * 16))
@@ -230,7 +230,7 @@ def _qkv(G, hd, S, seed=0):
 
 
 DTYPES = ("bfloat16", "float16")
-HDS = (300, 320, 392, 512)
+HDS = (136, 200, 256, 300, 320, 392, 512)
 GROUPS = (1, 3, 8)
 SEQS = (1, 15, 17, 33, 65, 129, 200)
 
@@ -251,8 +251,8 @@ def _pallas(G, hd, dtype):
 def test_wide_walk_matches_plain_and_pallas(dtype, hd, G, S):
     """The walk in bf16 (3e-2) and f16 (1e-2) against the plain version
     and the Pallas kernel; position 0 is v[0]. hd 300 comes padded to 384;
-    320 and 392 unpadded (392 ends inside the second 256-dim slab of
-    512)."""
+    136, 200, 320 and 392 unpadded (136 and 200 inside the one 256-dim
+    slab of 256, 392 inside the second 256-dim slab of 512)."""
     round_fn, _, tol = ROUNDING[dtype]
     q, k, v = (round_fn(x[:, :S]) for x in _qkv(G, hd, max(SEQS)))
     got = emulate(q, k, v, round_fn)
@@ -267,7 +267,7 @@ def test_wide_walk_matches_plain_and_pallas(dtype, hd, G, S):
                                atol=1e-6, rtol=1e-6)
 
 
-@pytest.mark.parametrize("hd", [320, 512])
+@pytest.mark.parametrize("hd", [200, 320, 512])
 @pytest.mark.parametrize("G", [1, 130])
 def test_wide_rows_cover_every_output_once(G, hd):
     """The stacked-row map (more heads than a block's rows split over
@@ -314,7 +314,7 @@ def test_wide_plan_fits_a_block(W):
     least two ring slots; O, the scores and a k-step's P fragments fit a
     thread's 255 registers with room to spare, O at most 128 floats."""
     P = plan(W)
-    assert "static constexpr int D = W == 512 ? 256 : 128;" in SOURCE
+    assert "static constexpr int D = W == 384 ? 128 : 256;" in SOURCE
     found = re.search(rf"WidePlan<{W}>::smem == (\d+)", SOURCE)
     assert found and int(found.group(1)) == P["smem"]
     assert P["smem"] <= SMEM_MAX and P["R"] >= 2

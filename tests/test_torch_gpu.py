@@ -433,16 +433,19 @@ def test_blocked_kernels_take_oversized_blocks(card, name):
 
 @pytest.mark.gpu
 def test_flash_attention_other_head_widths(card):
-    """hd 112 (zero-padded to the 128 instance), 256 (its own instance),
+    """hd 112 (zero-padded to the 128 instance), 256 (its own width),
     300 (padded to 384), 392 (run at 512; in bf16 and f16 read unpadded,
     ending inside the second 256-dim slab) and 512 (flash_mma_wide_kernel
-    in bf16 and f16,
+    in bf16 and f16 at 256, 384 and 512,
     the f32 kernel's own instances in f32) in f32, bf16 and f16, then hd
-    640 in f32 (the f32 column-chunk kernel) at G 1 and 3, then the wide
+    640, 768 and 1024 in f32 (flash_f32_cluster_kernel, clusters of 5, 6
+    and 8 blocks) at G 1 and 3, 2048 (its widest, 16 blocks) and 2176
+    (past it: the f32 column-chunk kernel), then the wide
     16-bit kernel's tile edges and hd 640 in bf16 and f16
     (chip_smoke.WIDE16_EDGE_CASES: S one below, at and one past 16 rows,
-    a 32-row group, 64 keys and a 128-key tile, G in {1, 3, 8}, hd 320 and
-    512; hd 640 at G 1 and 3), then the f32 kernel's tile edges
+    a 32-row group, 64 keys and a 128-key tile, G in {1, 3, 8}, hd 200,
+    256, 320 and 512; hd 130, padded to 256; hd 640 at G 1 and 3), then
+    the f32 kernel's tile edges
     (chip_smoke.f32_edge_cases:
     S one below and one past a block's stacked rows and one past a 64-key
     stage, G in {1, 3, 8}, hd 128, 256 and 512), against the plain version
@@ -458,7 +461,10 @@ def test_flash_attention_other_head_widths(card):
              for shape in ((2, 257, 8, 2, 112), (1, 200, 4, 1, 256),
                            (1, 130, 6, 2, 300), (1, 130, 6, 2, 392),
                            (2, 70, 4, 2, 512))] + [
-        (torch.float32, (1, 130, 2 * G, 2, 640)) for G in (1, 3)] + [
+        (torch.float32, (1, 130, 2 * G, 2, hd)) for hd in (640, 768, 1024)
+        for G in (1, 3)] + [
+        (torch.float32, (1, 130, 2, 1, 2048)),
+        (torch.float32, (1, 70, 2, 1, 2176))] + [
         (getattr(torch, dt), shape)
         for *shape, dt in chip_smoke.WIDE16_EDGE_CASES
         + chip_smoke.f32_edge_cases()]
@@ -1033,6 +1039,19 @@ def test_flash_f32_plan_is_the_kernels(card):
     width."""
     from repro_torch.kernels.flash_attention import F32_WIDTHS
     assert sorted(chip_smoke.check_f32_plan()) == sorted(F32_WIDTHS)
+
+
+@pytest.mark.gpu
+def test_flash_f32_cluster_plan_is_the_kernels(card):
+    """The wrapper's f32_cluster_plan is the library's ClusterPlan at hd
+    640, 1024 and 2048, and the card holds a cluster of each width's
+    blocks; the library refuses a width past the widest cluster."""
+    from repro_torch.kernels.flash_attention import (F32_CLUSTER_MAX,
+                                                     f32_cluster_plan_card)
+    resident = chip_smoke.check_f32_cluster_plan()
+    assert sorted(resident) == list(chip_smoke.F32_CLUSTER_WIDTHS)
+    with pytest.raises(ValueError):
+        f32_cluster_plan_card(128 * (F32_CLUSTER_MAX + 1))
 
 
 @pytest.mark.gpu
