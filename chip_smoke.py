@@ -18,7 +18,9 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
              the HMMA (tensor-core) instructions of each flash kernel in
              the built library's SASS (``cuobjdump -sass``): every bf16
              and f16 instance, and the column-chunk ones, must have some,
-             and every f32 one (FFMA on the CUDA cores) none.
+             and every f32 one (FFMA on the CUDA cores) none; the split
+             sLSTM forward's six instances (``[slstm-registers]``) must
+             spill nothing.
 3. kernels — each Hopper kernel against its plain PyTorch version on the
              card: first at edge-case shapes (empty rows, an empty piece, a
              row longer than 128 entries, a slice longer than one 256-entry
@@ -71,8 +73,11 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
              llama3-8b layer's heads, tile edges and hd 24, 112 and 256;
              hd 320 (padded to 384) and 512 in all three dtypes; hd
              640, 768 and 1024 in f32 (the f32 cluster kernel) at G 1
-             and 3, 2048 (its widest) and 2176 (past it: the f32
-             column-chunk kernel); the wide 16-bit kernel's tile edges
+             and 3, 2048 (its widest cluster of 128-column blocks),
+             2176 and 2432 (blocks of 256 columns, the last one's
+             second half past hd), 4096 (its widest) and 4224 (past
+             it: the f32 column-chunk kernel); the wide 16-bit kernel's
+             tile edges
              at hd 200, 256, 320 and 512 and hd 130 (padded to 256);
              the f32 kernel's tile edges: S one below and one past its
              stacked rows a block (``f32_plan``, held equal to the
@@ -93,9 +98,14 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
              at 2 heads (``SLSTM_CASES``): S in {1, 2, 127} over B in
              {1, 3} and hd in {16, 64, 192, 256} in f32 and bf16, S in
              {1, 127} over B in {1, 3} and hd in {16, 192} in f16, S =
-             4096 at hd 192 (B 1 in f32, B 3 in bf16 and f16), and hd
-             640 (bf16), past the cluster kernels' limit, on the
-             one-block kernels (each case's design checked); a nonzero
+             4096 at hd 192 (B 1 in f32, B 3 in bf16 and f16), hd 640
+             (bf16, B 3 and 5: clusters of 16 and of 8), past the
+             cluster kernels' 480: the split cluster forward (its plan
+             held equal to ``slstm.split_shape``'s in
+             ``[slstm-split-plan]``) and the one-block backward, and hd
+             1024 (bf16),
+             past the split forward's 960: both one-block kernels (each
+             case's design checked); a nonzero
              initial state (without gradient at B = 1, as on the
              training path), |c| crossing 1, one gate pre-activation in
              200 above the clamp at 6. y and the final state at atol =
@@ -394,10 +404,11 @@ Phases, one line each (a failing phase raises and the script exits non-zero):
    them ``[cluster-step]``: the exchange alone, hd / C doubles a block at
    C = 2, 4, 8 and 16 over 8 clusters and S steps, by a split cluster
    barrier a step and by st.async counted on mbarriers (the kernels').
-   Then the one-block sLSTM kernels past the cluster kernels' width
-   (``slstm_fwd(hd640)``, ``slstm_bwd(hd640)``): phase 3's hd-640 case
-   (B 3, 2 heads, bf16) at S 4096, bound and launches as above (phase
-   3's). flash_attention's wrapper counts its launches by dtype and
+   Then phase 3's hd-640 case (B 3, 2 heads, bf16) at S 4096, past the
+   cluster kernels' 480 (``slstm_fwd(hd640)``: the split cluster
+   forward, with its exchange's ``[cluster-step]`` at its C;
+   ``slstm_bwd(hd640)``: the one-block backward), bound as above,
+   launches phase 3's at hd 640 (its B 3 and B 5 cases). flash_attention's wrapper counts its launches by dtype and
    padded width (``flash_attention.ROUTES``; ``[flash-launches]`` prints
    paths e's and j's). Its record counts the bf16 launches of paths e and
    j at every width, every call included (j's alone as
@@ -1285,8 +1296,10 @@ def bcsr_cases(rng, device):
 # kernel, the f32 kernel's own instances); then the causal attention heads
 # of path 4j's architectures at a ragged length past two 64-key stages;
 # then f32 past 512 (flash_f32_cluster_kernel, a cluster of hd / 128
-# blocks) at hd 640, 768 and 1024 and G 1 and 3, at its widest, 2048, and
-# at 2176, past it (the f32 column-chunk kernel); then the wide 16-bit
+# blocks) at hd 640, 768 and 1024 and G 1 and 3, at 2048 (the widest
+# cluster of 128-column blocks), at 2176 and 2432 at G 1 and 3 (blocks of
+# 256 columns, the last one's second half past hd), at 4096 (its widest)
+# and at 4224, past it (the f32 column-chunk kernel); then the wide 16-bit
 # kernel's tile edges (flash_mma_wide_kernel at 256, 384 and 512): S one
 # below, at and one past 16 rows, a 32-row group, 64 keys and a 128-key
 # tile, at G in {1, 3, 8}, hd 200 and 256 (rows read unpadded), 320 and
@@ -1325,7 +1338,9 @@ FLASH_CASES = ((2, 256, 4, 2, 32, "float32"), (1, 200, 8, 8, 16, "float32"),
     (1, 130, H, Hkv, hd, "bfloat16") for H, Hkv, hd in ARCH_HEADS) + tuple(
     (1, 130, 2 * G, 2, hd, "float32") for hd in (640, 768, 1024)
     for G in (1, 3)) + (
-    (1, 130, 2, 1, 2048, "float32"), (1, 70, 2, 1, 2176, "float32")) \
+    (1, 130, 2, 1, 2048, "float32"), (1, 70, 2, 1, 2176, "float32"),
+    (1, 130, 6, 2, 2176, "float32"), (1, 70, 6, 2, 2432, "float32"),
+    (1, 70, 2, 1, 4096, "float32"), (1, 70, 2, 1, 4224, "float32")) \
     + WIDE16_EDGE_CASES
 F32_EDGE_WIDTHS = (128, 256, 512)
 
@@ -1358,9 +1373,10 @@ def check_f32_plan() -> dict:
 
 
 # the f32 cluster kernel's widths held in [f32-cluster-plan]: hd 640 (the
-# timed width), 1024 (the widest portable cluster, 8 blocks) and 2048 (its
-# widest, 16 blocks)
-F32_CLUSTER_WIDTHS = (640, 1024, 2048)
+# timed width), 1024 (the widest portable cluster, 8 blocks), 2048 (16
+# blocks of 128 columns), 2176 (the timed width past it: 9 blocks of 256)
+# and 4096 (its widest, 16 blocks of 256)
+F32_CLUSTER_WIDTHS = (640, 1024, 2048, 2176, 4096)
 
 
 def check_f32_cluster_plan() -> dict:
@@ -1425,9 +1441,9 @@ def flash_kernel_name(symbol: str):
     """The short name of a flash kernel's mangled symbol, or None:
     ``mma_hd<d>_<bf16|f16>`` and ``f32_hd<d>`` (flash_mma_kernel,
     flash_f32_kernel), ``mma_wide<W>_<bf16|f16>`` (flash_mma_wide_kernel),
-    ``f32_cluster`` (flash_f32_cluster_kernel), ``mma_chunk_<bf16|f16>``
-    and ``f32_wide`` (the column-chunk kernels past hd 512 and, in f32,
-    2048)."""
+    ``f32_cluster<BW>`` (flash_f32_cluster_kernel<BW>),
+    ``mma_chunk_<bf16|f16>`` and ``f32_wide`` (the column-chunk kernels
+    past hd 512 and, in f32, 4096)."""
     import re
     kind = re.search(r"flash_(mma|f32)_(?:(wide|chunk|cluster)_)?kernelI?"
                      r"(?:Li(\d+)E)?(13__nv_bfloat16|6__half)?", symbol)
@@ -1444,10 +1460,11 @@ FLASH_KERNELS = tuple(
     [f"mma_hd{d}_{t}" for d in (16, 32, 64, 128) for t in ("bf16", "f16")]
     + [f"f32_hd{d}" for d in (16, 32, 64, 128, 256, 384, 512)]
     + [f"mma_wide{w}_{t}" for w in (256, 384, 512) for t in ("bf16", "f16")]
-    + ["f32_cluster", "mma_chunk_bf16", "mma_chunk_f16", "f32_wide"])
+    + ["f32_cluster128", "f32_cluster256", "mma_chunk_bf16",
+       "mma_chunk_f16", "f32_wide"])
 # the kernels whose build must spill nothing (checked in [flash-registers])
 NO_SPILL = tuple(f for f in FLASH_KERNELS
-                 if f.startswith("mma_wide") or f == "f32_cluster")
+                 if f.startswith(("mma_wide", "f32_cluster")))
 
 
 def hmma_counts(lib):
@@ -1480,15 +1497,34 @@ def hmma_counts(lib):
     return counts
 
 
-def ptxas_usage(log: str) -> dict:
-    """{flash kernel: (registers, spill store bytes, spill load bytes)}
-    from a build's ``ptxas -v`` output, by :func:`flash_kernel_name`."""
+def slstm_split_name(symbol: str):
+    """``fwd_split_<f32|bf16|f16>`` for the mangled symbol of a split sLSTM
+    forward (``slstm_fwd_cluster<T, KT, true>``), or None."""
+    import re
+    kind = re.search(r"slstm_fwd_clusterI(f|13__nv_bfloat16|6__half)"
+                     r"Li\d+ELb1EE", symbol)
+    if not kind:
+        return None
+    return "fwd_split_" + {"f": "f32", "13__nv_bfloat16": "bf16",
+                           "6__half": "f16"}[kind.group(1)]
+
+
+# the split sLSTM forward's instances, one a dtype, which must spill
+# nothing ([slstm-registers])
+SLSTM_SPLIT_KERNELS = tuple(f"fwd_split_{t}" for t in ("f32", "bf16",
+                                                       "f16"))
+
+
+def ptxas_usage(log: str, name_of=flash_kernel_name) -> dict:
+    """{kernel: (registers, spill store bytes, spill load bytes)} from a
+    build's ``ptxas -v`` output, by ``name_of`` (a symbol's short name, or
+    None to skip it)."""
     import re
     out, name, spills = {}, None, (0, 0)
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            name, spills = flash_kernel_name(entry.group(1)), (0, 0)
+            name, spills = name_of(entry.group(1)), (0, 0)
             continue
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
@@ -1566,7 +1602,10 @@ def compare_kernel(label, name, args, abs_args) -> float:
 # float16 at S in {1, 127}, B in {1, 3} and hd in {16, 192}; S = 4096 at
 # the model's hd, B 1 in f32 and B 3 in bf16 and f16; then hd 640, past
 # the cluster kernels' limit (480, csrc/slstm.cu kClusterMaxHd), which
-# launches the one-block kernels
+# launches the split cluster forward (up to kSplitMaxHd, 960) and the
+# one-block backward, at B 3 (6 chains: clusters of 16 on the H100) and
+# B 5 (10 chains: the rule halves C to 8), and hd 1024, past the split
+# forward's limit, which launches both one-block kernels
 SLSTM_HEADS = 2
 SLSTM_CASES = tuple((B, S, hd, dt) for S in (1, 2, 127) for B in (1, 3)
                     for hd in (16, 64, 192, 256)
@@ -1574,7 +1613,8 @@ SLSTM_CASES = tuple((B, S, hd, dt) for S in (1, 2, 127) for B in (1, 3)
     (B, S, hd, "float16") for S in (1, 127) for B in (1, 3)
     for hd in (16, 192)) + (
     (1, 4096, 192, "float32"), (3, 4096, 192, "bfloat16"),
-    (3, 4096, 192, "float16"), (3, 127, 640, "bfloat16"))
+    (3, 4096, 192, "float16"), (3, 127, 640, "bfloat16"),
+    (5, 127, 640, "bfloat16"), (1, 127, 1024, "bfloat16"))
 # y and the final (c, h): atol = rtol; each gradient: relative Frobenius.
 # float16 keeps three more mantissa bits than bf16: 1e-2 for both
 SLSTM_TOL = {"float32": 1e-4, "bfloat16": 3e-2, "float16": 1e-2}
@@ -1658,13 +1698,15 @@ def slstm_check(label: str, ins, rng) -> dict:
     return out
 
 
-def slstm_checks(rng, device, cases=SLSTM_CASES) -> dict:
+def slstm_checks(rng, device, cases=SLSTM_CASES, by_width=None) -> dict:
     """Phase 3 for the sLSTM scan: :func:`slstm_check` over ``cases``; at
     B = 1 the initial state takes no gradient (the training path's zero
     state: the backward skips dh0's product). On the card each case must
     launch one forward and one backward in its dtype, of the design
     ``slstm.plan`` names for its width (the cluster kernels up to hd 480,
-    the one-block kernels past it). Returns {dtype: {quantity: worst}}."""
+    the forward's split cluster kernel up to 960, the one-block kernels
+    past them); ``by_width``, where given, gathers those launches by
+    (kernel, design, dtype, hd). Returns {dtype: {quantity: worst}}."""
     import torch
     from repro_torch.kernels import slstm as K
     worst = {}
@@ -1686,10 +1728,39 @@ def slstm_checks(rng, device, cases=SLSTM_CASES) -> dict:
                 want[(k, "cluster" if shape["C"] else "block", dt)] = 1
             if ran != want:
                 raise AssertionError(f"{label}: launched {ran}, want {want}")
+            if by_width is not None:
+                for key, n in ran.items():
+                    by_width[key + (hd,)] = by_width.get(key + (hd,), 0) + n
         for k, v in errs.items():
             worst.setdefault(dt, {})[k] = max(worst.get(dt, {}).get(k, 0.0),
                                               v)
     return worst
+
+
+def check_split_plans() -> dict:
+    """{f"chains{B·H}_hd{hd}": "C:KS:KX"} of the split forward's plan for
+    each SLSTM_CASES case past the cluster kernels' width up to the split
+    forward's, each equal to ``slstm.split_shape``'s at its C; raises if
+    one differs or if these cases do not take two values of C."""
+    import torch
+    from repro_torch.kernels import slstm as K
+    out, Cs = {}, set()
+    for B, _, hd, dt in SLSTM_CASES:
+        if not K.CLUSTER_MAX_HD < hd <= K.SPLIT_MAX_HD:
+            continue
+        chains = B * SLSTM_HEADS
+        got = K.plan(chains, hd, getattr(torch, dt))
+        want = K.split_shape(hd, got["C"])
+        keys = ("C", "KS", "KT", "KX", "threads")
+        if want is None or any(got[k] != want[k] for k in keys):
+            raise AssertionError(f"split sLSTM plan at {chains} chains of "
+                                 f"hd {hd}: {got}, split_shape: {want}")
+        out[f"chains{chains}_hd{hd}"] = "{C}:{KS}:{KX}".format(**got)
+        Cs.add(got["C"])
+    if len(Cs) < 2:
+        raise AssertionError(f"the split sLSTM cases launch one cluster "
+                             f"width only: {out}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2889,7 +2960,7 @@ def slstm_launch_fields(routes: dict) -> dict:
 
 
 def slstm_records(device, lm_scans: dict, train_scans: dict,
-                  edge_scans: dict, reps: int) -> list:
+                  edge_scans: dict, edge_by_width: dict, reps: int) -> list:
     """Phase 5 for the sLSTM kernels at the shape path 4k gives them:
     xlstm-125m's sLSTM layer over one microbatch (B 2, S 4096, d 768, 4
     heads of 192), from the zero state, the forward keeping every step's
@@ -2916,11 +2987,14 @@ def slstm_records(device, lm_scans: dict, train_scans: dict,
     prints). ``max_abs_plain`` is the
     largest plain output beside the error (the backward's gradients grow
     over S where the input gate is large). Then ``slstm_fwd(hd640)`` and
-    ``slstm_bwd(hd640)``: the one-block kernels past the cluster kernels'
-    width at phase 3's hd-640 case (B 3, SLSTM_HEADS heads, bf16) with S
-    raised to 4096, the same bound and serial floor over a quarter of the
-    timed launches, their launches phase 3's (the main path sends them
-    none) and no exchange (``cluster_step_ns`` None)."""
+    ``slstm_bwd(hd640)``: phase 3's hd-640 case (B 3, SLSTM_HEADS heads,
+    bf16), past the cluster kernels' 480, with S raised to 4096: the split
+    cluster forward (``shared_terms`` a lane in shared memory, its
+    exchange's ns a step at its C in ``[cluster-step]``) and the one-block
+    backward (no exchange: ``cluster_step_ns`` None), the same bound and
+    serial floor over a quarter of the timed launches, their launches
+    phase 3's at hd 640, its B 3 and B 5 cases (``edge_by_width``,
+    gathered by :func:`slstm_checks`; the main path sends them none)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
@@ -2944,6 +3018,9 @@ def slstm_records(device, lm_scans: dict, train_scans: dict,
         timed["hd640"] = _slstm_timed(rng, device, wide_B, S, SLSTM_HEADS,
                                       wide_hd, "bfloat16", wide_reps)
         wide_chain_ms = _slstm_chain(rng, device, S, wide_hd, wide_reps)
+        wide_C = K.plan(wide_B * SLSTM_HEADS, wide_hd, torch.bfloat16)["C"]
+        wide_step = cluster_steps(device, wide_hd, wide_B * SLSTM_HEADS, S,
+                                  wide_reps, Cs=(wide_C,)) if wide_C else {}
     recs = []
 
     def record(part, tag, dtype, measured, shape, chain, counts, step,
@@ -2970,6 +3047,7 @@ def slstm_records(device, lm_scans: dict, train_scans: dict,
             "step_us": chain[part] / s * 1e3,
             "shape": f"B{b} S{s} H{h} hd{d} {dtype}", "cluster": plan["C"],
             "k_slices": plan["KS"], "threads": plan["threads"],
+            "shared_terms": plan["KX"],
             "cluster_step_ns": step.get(("st.async", plan["C"]))}
 
     for dtype, tag in SLSTM_RECORD_DTYPES:
@@ -2983,11 +3061,15 @@ def slstm_records(device, lm_scans: dict, train_scans: dict,
                                chain_ms, counts, step_ns,
                                counts["lm"] + counts["train"]))
     for part, measured in timed["hd640"].items():
-        edge = K.route_count(f"slstm_{part}", "block", "bfloat16",
-                             edge_scans)
+        design = "cluster" if K.plan(wide_B * SLSTM_HEADS, wide_hd,
+                                     torch.bfloat16, part == "bwd")["C"] \
+            else "block"
+        edge = edge_by_width.get((f"slstm_{part}", design, "bfloat16",
+                                  wide_hd), 0)
         recs.append(record(part, f"(hd{wide_hd})", "bfloat16", measured,
                            (wide_B, S, SLSTM_HEADS, wide_hd), wide_chain_ms,
-                           {"lm": 0, "train": 0, "edge": edge}, {}, edge))
+                           {"lm": 0, "train": 0, "edge": edge},
+                           wide_step if design == "cluster" else {}, edge))
     return recs
 
 
@@ -3052,11 +3134,11 @@ def _slstm_timed(rng, device, B, S, H, hd, dtype, reps) -> dict:
 
 
 def cluster_steps(device, hd: int, clusters: int, steps: int,
-                  reps: int) -> dict:
+                  reps: int, Cs=(2, 4, 8, 16)) -> dict:
     """``[cluster-step]``: the cluster kernels' exchange alone
     (``slstm_cluster_probe``), ``steps`` steps in ``clusters`` clusters of
-    C blocks at C = 2, 4, 8 and 16, each block storing hd / C doubles (8
-    lanes a column, 4 where 8 would pass 512 threads) to every block of
+    C blocks at each C of ``Cs``, each block storing ceil(hd / C) doubles
+    (8 lanes a column, 4 where 8 would pass 512 threads) to every block of
     its cluster: by a split cluster barrier a step (``barrier``), and by
     st.async stores counted on the receivers' mbarriers (``st.async``, the
     kernels' way). CUDA-event medians of ``reps``; returns {(exchange, C):
@@ -3066,8 +3148,8 @@ def cluster_steps(device, hd: int, clusters: int, steps: int,
     lib = K.library("slstm", K._SIGNATURES)
     sink = torch.empty(16 * clusters, dtype=torch.float64, device=device)
     out = {}
-    for C in (2, 4, 8, 16):
-        W = hd // C
+    for C in Cs:
+        W = -(-hd // C)
         ks = 8 if W * 8 <= 512 else 4
         for mode, how in ((0, "barrier"), (1, "st.async")):
             def probe():
@@ -5594,6 +5676,15 @@ def main(argv=None) -> int:
                              f"flash_f32_cluster_kernel must not spill: "
                              f"(registers, spill stores, spill loads) "
                              f"{spilled or usage}")
+    split = ptxas_usage(logs["slstm"], slstm_split_name)
+    phase("slstm-registers", **{f: "{}:{}:{}".format(*u)
+                                for f, u in sorted(split.items())})
+    if set(split) != set(SLSTM_SPLIT_KERNELS) or any(
+            u[1] or u[2] for u in split.values()):
+        raise AssertionError(f"the split sLSTM forward must build once a "
+                             f"dtype and spill nothing: "
+                             f"(registers, spill stores, spill loads) "
+                             f"{split}")
     f32 = {f: n for f, n in hmma.items() if f.startswith("f32")}
     if not f32 or any(f32.values()):
         raise AssertionError(f"the f32 flash kernels must run on the CUDA "
@@ -5620,7 +5711,9 @@ def main(argv=None) -> int:
     from repro_torch.kernels import slstm as K
     t0 = time.perf_counter()
     K.reset_routes()
-    for dt, errs in slstm_checks(rng, device).items():
+    edge_by_width = {}
+    for dt, errs in slstm_checks(rng, device,
+                                 by_width=edge_by_width).items():
         phase("kernels-slstm", dtype=dt, cases=sum(
             c[3] == dt for c in SLSTM_CASES),
               **{k: f"{v:.3g}" for k, v in errs.items()})
@@ -5632,6 +5725,7 @@ def main(argv=None) -> int:
                                  f"kernel: {edge_scans}")
     phase("kernels-slstm-path", seconds=f"{time.perf_counter() - t0:.1f}",
           **slstm_launch_fields(edge_scans))
+    phase("slstm-split-plan", **check_split_plans())
 
     # 4a-d, f + 5. the sparse paths, their kernels timed after every count
     records, ttv = sparse_paths(args, device, data_job.result())
@@ -5738,9 +5832,10 @@ def main(argv=None) -> int:
           **{k.replace(" ", "_"): f"{v:.2f}" for k, v in top})
     # the model's layer shapes in each dtype (bf16 is the path's record),
     # then hd 64 in f32 (path 4j's seamless-m4t-medium), hd 256 (the wide
-    # 16-bit kernel's narrowest), hd 320 and 512, and hd 640 (the f32
-    # cluster kernel, the 16-bit column-chunk kernel), at the layer's
-    # heads and length. Each
+    # 16-bit kernel's narrowest), hd 320 and 512, hd 640 (the f32 cluster
+    # kernel, the 16-bit column-chunk kernel) and hd 2176 in f32 (the f32
+    # cluster kernel's 256-column blocks), at the layer's heads and
+    # length. Each
     # record's launches are those of its dtype and width (the main record's:
     # bf16 at every width) on paths 4e and 4j, every call counted
     # where the wrapper launches (the teacher-forced and checked forwards
@@ -5757,7 +5852,7 @@ def main(argv=None) -> int:
     for hd, dts in ((None, ("bfloat16", "float32", "float16")),
                     (64, ("float32",)), (256, tuple(short)),
                     (320, tuple(short)), (512, tuple(short)),
-                    (640, tuple(short))):
+                    (640, tuple(short)), (2176, ("float32",))):
         for dt in dts:
             width = padded_width(hd or cfg.resolved_head_dim)
             main_rec = hd is None and dt == "bfloat16"
@@ -5784,7 +5879,7 @@ def main(argv=None) -> int:
     # paths 4j and 4k and of phase 3 as the wrappers counted them by dtype
     t0 = time.perf_counter()
     slstm_recs = slstm_records(device, lm_scans, train_scans, edge_scans,
-                               args.reps)
+                               edge_by_width, args.reps)
     for r in slstm_recs:
         phase("slstm-timing", name=r["name"], shape=r["shape"],
               ms=f"{r['ms']:.4f}", cluster=r["cluster"],

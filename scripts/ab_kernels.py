@@ -13,7 +13,9 @@ which is taken at the llama3-8b layer's heads and length (q (2, 4096, 32,
 hd), k and v (2, 4096, 8, hd), standard normal from a seeded generator;
 at hd 128 in bf16, the prefill's launches) in bf16 and f16 at head widths
 128, 256, 320, 512 and 640 (``FLASH_16_WIDTHS``), in f32 at 64, 128, 256,
-320, 512 and 640 (``FLASH_F32_WIDTHS``), and in f32
+320, 512, 640 and 2176 (``FLASH_F32_WIDTHS``; a cell in ``SLOW_CELLS`` is
+timed over fewer launches: a launch of its parent took seconds), and in
+f32
 at seamless-m4t-medium's heads (16 of 64) and the length and batch of
 ``chip_smoke.py``'s path 4j (2 x 128), where its teacher-forced forward
 launches the f32 kernel at hd 64; ``--cells`` keeps only the flash cells
@@ -56,7 +58,9 @@ SPARSE_KERNELS = sorted({k for path in cs.PATH_CELLS
                          for k in cs.PATH_KERNELS[path]})
 KERNELS = SPARSE_KERNELS + ["flash_attention"]
 FLASH_16_WIDTHS = (128, 256, 320, 512, 640)
-FLASH_F32_WIDTHS = (64, 128, 256, 320, 512, 640)
+FLASH_F32_WIDTHS = (64, 128, 256, 320, 512, 640, 2176)
+# cells timed over fewer launches than chip_smoke.REPS, by name
+SLOW_CELLS = {"llama3-8b layer f32 hd2176": 3}
 
 
 def load_parent(tree: Path):
@@ -101,9 +105,10 @@ def peak_mb(fn) -> float:
     return (torch.cuda.max_memory_allocated() - base) / 2**20
 
 
-def compare(name, cell, kargs, fns):
+def compare(name, cell, kargs, fns, reps=None):
     """The record of kernel ``name`` on ``kargs`` (cell ``cell``'s),
-    {version: wrapper}."""
+    {version: wrapper}, each time the median of ``reps`` launches
+    (``chip_smoke.REPS`` by default)."""
     import torch
     outs = {tag: fn(*kargs) for tag, fn in fns.items()}
     torch.cuda.synchronize()
@@ -117,7 +122,7 @@ def compare(name, cell, kargs, fns):
     rec["ms"] = {tag: [] for tag in fns}
     for tag in order:
         rec["ms"][tag].append(cs.time_events(lambda: fns[tag](*kargs),
-                                             cs.REPS))
+                                             reps or cs.REPS))
     rec["peak_mb"] = {tag: peak_mb(lambda: fn(*kargs))
                       for tag, fn in fns.items()}
     rec["phases"] = {tag: cs.device_breakdown(lambda: fn(*kargs))
@@ -208,12 +213,14 @@ def main(argv=None) -> int:
             q, k, v = (torch.randn(shape, generator=gen, device=device)
                        .to(dtype) for shape in
                        ((B, S, H, hd), (B, S, Hkv, hd), (B, S, Hkv, hd)))
+            reps = SLOW_CELLS.get(cell)
             cells[cell] = compare("flash_attention", cell, (q, k, v),
-                                  fns["flash_attention"])
+                                  fns["flash_attention"], reps)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             cells[cell]["sdpa_ms"] = cs.time_events(
                 lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True), cs.REPS)
+                    qt, kt, vt, is_causal=True, enable_gqa=True),
+                reps or cs.REPS)
             print(f"[ab] kernel=flash_attention cell={cell} "
                   f"sdpa_ms={cells[cell]['sdpa_ms']:.4f}", flush=True)
             del q, k, v, qt, kt, vt

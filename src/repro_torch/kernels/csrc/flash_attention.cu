@@ -28,11 +28,12 @@
 //    TFLOP/s), the only way to meet the reference's f32 tolerance of 2e-5
 //    (TF32 would not); hd in {16, 32, 64, 128, 256, 384, 512}, the scores
 //    computed once at the full width (its section below says what bounds
-//    it: the shared-memory pipe). Past 512, up to 2048, a thread-block
-//    cluster of hd / 128 blocks (flash_f32_cluster_kernel) splits O's
-//    columns and still computes the scores once; past 2048 (a cluster
-//    would exceed 16 blocks) an f32 column-chunk kernel
-//    (flash_f32_wide_kernel), a choice by width made before the launch.
+//    it: the shared-memory pipe). Past 512, up to 4096, a thread-block
+//    cluster of at most 16 blocks (flash_f32_cluster_kernel<BW>, each
+//    block owning BW = 128 of O's columns up to hd 2048 and 256 above)
+//    splits O's columns and still computes the scores once; past 4096 an
+//    f32 column-chunk kernel (flash_f32_wide_kernel), a choice by width
+//    made before the launch.
 //
 // What both do about it:
 //  - A thread block owns one output tile: the query positions of one q
@@ -86,7 +87,7 @@
 // (F32Plan::smem); the bf16 kernel's two stages and q tile 80 KB at hd 128,
 // of the 227 KB a block may take; the wide 16-bit kernel 178 KB at 256,
 // 194 KB at 384 and 210 KB at 512 (WidePlan::smem); the f32 cluster
-// kernel 208.5 KB a block at any width (ClusterPlan::smem); the
+// kernel 208.5 KB a block at any width (ClusterPlan<BW>::smem); the
 // column-chunk kernels 64 KB (f32) and 48 KB (16-bit) at any width).
 
 #include <cuda_bf16.h>
@@ -1144,13 +1145,13 @@ flash_mma_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------------
 // No configuration of the port has a head past 512. The wrapper zero-pads
 // hd there to a multiple of kChunk and passes the true width's scale. The
-// column-chunk kernels (bf16 and f16 at any such width, f32 past 2048): a
+// column-chunk kernels (bf16 and f16 at any such width, f32 past 4096): a
 // block owns one kChunk-wide chunk of the output's columns (grid dimension
 // y) for the same stacked rows as above. It sums the full-width scores
 // Q.K^T over hd in kChunk-wide k-chunks, each staged in shared memory (q's
 // chunk beside k's), runs the same online softmax and accumulates P.V for
 // its own chunk of V only. So the scores are recomputed once per chunk: hd
-// / 128 times the QK flops. f32 from 640 to 2048 takes the cluster kernel
+// / 128 times the QK flops. f32 from 640 to 4096 takes the cluster kernel
 // at the end of this section, which computes them once, as
 // flash_mma_wide_kernel (bf16, f16) and flash_f32_kernel (f32) do below
 // 512.
@@ -1353,7 +1354,7 @@ flash_mma_chunk_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-// f32 on the CUDA cores, heads past 2048 only: 4 lanes a row, 64 rows a
+// f32 on the CUDA cores, heads past 4096 only: 4 lanes a row, 64 rows a
 // block, each lane 32 dims of the block's chunk of the accumulator (a
 // lane's 4-float chunks j.4 + sub, so the 4 lanes of a row read 16 B each
 // of one contiguous key row). A lane sums its share of the 64 keys' scores
@@ -1497,84 +1498,102 @@ flash_f32_wide_kernel(const float* __restrict__ q,
 // ---------------------------------------------------------------------------
 // f32 past hd 512: a thread-block cluster computes the scores once
 // ---------------------------------------------------------------------------
-// flash_f32_cluster_kernel takes f32 at the widths 640 to 2048 (multiples
-// of kChunk). flash_f32_kernel cannot: at 64 rows a resident Q of hd 640
-// is 160 KB, which leaves room for one slab of its ring. Here a cluster of
-// NC = hd / kChunk blocks owns one output tile: flash_f32_kernel's 64
-// stacked rows, heads and heaviest-first order (tile c = blockIdx.x / NC).
-// Block r of it (its rank in the cluster) owns O's columns kChunk r ..
-// kChunk r + 127 and holds the same 128 dims of Q (32 KB), so:
+// flash_f32_cluster_kernel<BW> takes f32 at the widths 640 to 4096
+// (multiples of kChunk). flash_f32_kernel cannot: at 64 rows a resident Q
+// of hd 640 is 160 KB, which leaves room for one slab of its ring. Here a
+// cluster of NC = ceil(hd / BW) blocks owns one output tile:
+// flash_f32_kernel's 64 stacked rows, heads and heaviest-first order (tile
+// c = blockIdx.x / NC). Block r of it (its rank in the cluster) owns O's
+// columns BW r .. BW r + BW - 1 and holds the same BW dims of Q, M = BW /
+// kChunk slices of 128. BW is 128 up to hd 2048 (NC = hd / 128, at most
+// kF32MaxCluster) and 256 above it, up to hd 4096 (kF32MaxBlockCols): a
+// cluster of 16 blocks cannot hold more columns of 128, so a block takes
+// two, its Q slice 64 KB beside a ring of 3 slabs. Where hd / 128 is odd
+// the last block's second 128 columns lie past hd: its Q, K and V there
+// are zero-filled (they add nothing to the scores) and its O there is not
+// stored. So:
 //  - Scores. For each 64-key tile block r multiplies its slice of Q by its
-//    128 dims of the tile's keys, with flash_f32_kernel's 4 x 4 micro-tiles
-//    (2 FMAs a float read), and stores the 64 x 64 partial in its own shared
-//    memory (thread t's 16 scores at the float4s t + 256 x, so that a
-//    warp's stores and loads are contiguous). The partials are added by a
-//    reduce-scatter and an all-gather through distributed shared memory
-//    (mapa, ld.shared::cluster), each behind a cluster barrier: block r
-//    adds slice r of the tile (float4s SL r .. SL r + SL - 1, SL = 1024 /
-//    NC rounded up) over the NC blocks' partials in rank order 0 .. NC - 1
-//    into its own sum buffer; then every thread loads its 16 scores from
-//    the blocks that own them. So every block holds the same full-width
-//    scores, bit for bit, and runs the same masked online softmax: Q.K^T is
-//    computed once across the cluster, not NC times, and a block loads
-//    about 2 (NC - 1) / NC of a tile's partial from its peers, where each
-//    thread loading its own 16 scores of every partial loads NC - 1 (on
-//    the H100 at hd 640 and the llama3-8b layer's heads and length: 64.1
-//    ms that way, 62.8 this way, 56.0 with no exchange at all).
+//    BW dims of the tile's keys, one 128-dim slab after the other, with
+//    flash_f32_kernel's 4 x 4 micro-tiles (2 FMAs a float read), and stores
+//    the 64 x 64 partial in its own shared memory (thread t's 16 scores at
+//    the float4s t + 256 x, so that a warp's stores and loads are
+//    contiguous). The partials are added by a reduce-scatter and an
+//    all-gather through distributed shared memory (mapa,
+//    ld.shared::cluster), each behind a cluster barrier: block r adds slice
+//    r of the tile (float4s SL r .. SL r + SL - 1, SL = 1024 / NC rounded
+//    up) over the NC blocks' partials in rank order 0 .. NC - 1 into its
+//    own sum buffer; then every thread loads its 16 scores from the blocks
+//    that own them. So every block holds the same full-width scores, bit
+//    for bit, and runs the same masked online softmax: Q.K^T is computed
+//    once across the cluster, not NC times, and a block loads about 2 (NC -
+//    1) / NC of a tile's partial from its peers, where each thread loading
+//    its own 16 scores of every partial loads NC - 1 (on the H100 at hd 640
+//    and the llama3-8b layer's heads and length: 64.1 ms that way, 62.8
+//    this way, 56.0 with no exchange at all).
 //  - Overlap. Both barriers are split: a block arrives once its partial
 //    (its slice's sums) is stored and waits after the first (second) half
 //    of the tile before's P.V, which covers the peers' skew and the
 //    barriers' latency (the first design, one barrier, took 71.7 ms
-//    unsplit against 64.1 split, same card and shapes). Each buffer is
-//    written again only after a barrier that every block reaches once it
-//    has read it: the partial after the second, the sums after the next
-//    tile's first.
-//  - O. P^T goes through shared memory and O += P.V runs over the block's
-//    own 128 columns of each V slab (f32_pv, 4 x 8 of O a thread, 2.7 FMAs
-//    a float). K and V slabs (64 keys x the block's 128 dims) arrive by
-//    cp.async through a ring of R = 4 slabs in the order K 0, then K t + 1
-//    and V t, then the last V, each R - 1 steps ahead of its use; keys past
-//    S are zero-filled. Scale, exponent and masking are flash_f32_kernel's
+//    unsplit against 64.1 split, same card and shapes). A half is the
+//    first (last) 32 keys of the one V slab at BW 128, the first (second)
+//    V slab at BW 256. Each buffer is written again only after a barrier
+//    that every block reaches once it has read it: the partial after the
+//    second, the sums after the next tile's first.
+//  - O. P^T goes through shared memory and O += P.V runs over each of the
+//    block's V slabs into its own 128 columns of O (f32_pv, 4 x 8 of O a
+//    thread a slab, 2.7 FMAs a float). K and V slabs (64 keys x 128 dims)
+//    arrive by cp.async through a ring of R slabs (4 at BW 128, 3 at 256)
+//    in the order K 0, then K t + 1 and V t, then the last V, each as M
+//    slabs in column order and R - 1 slabs ahead of its use; keys past S
+//    are zero-filled. Scale, exponent and masking are flash_f32_kernel's
 //    (hd^-0.5 . log2 e, ex2.approx, -1e30, masked p set to 0 again).
 //  - Every block of a cluster reaches every barrier: the tiles are the
 //    cluster's (its rows are shared). A last barrier keeps a block from
 //    leaving while a peer may still read its sums.
 // Clusters of more than 8 blocks are non-portable: the launch asks the
 // card how many clusters of NC blocks it holds at once
-// (cudaOccupancyMaxActiveClusters) and returns an error if none. The
-// widest cluster is kF32MaxCluster blocks, hd 2048; past it the f32
-// column-chunk kernel above takes the width, a choice made before the
-// launch. Shared memory: Q's slice, the ring, the partial and the slice's
-// sums, P^T and the rows' rescale and sums: 208.5 KB a block
-// (ClusterPlan::smem).
-constexpr int kF32MaxCluster = 16;   // blocks a cluster at most: hd 2048
+// (cudaOccupancyMaxActiveClusters) and returns an error if none. Past hd
+// 4096 the f32 column-chunk kernel above takes the width, a choice made
+// before the launch. Shared memory: Q's slice, the ring, the partial and
+// the slice's sums, P^T and the rows' rescale and sums: 208.5 KB a block
+// at either BW (ClusterPlan<BW>::smem).
+constexpr int kF32MaxCluster = 16;     // blocks a cluster at most
+constexpr int kF32MaxBlockCols = 256;  // a block's columns at most: hd 4096
 
-// flash_f32_cluster_kernel's tiles, by flash_f32_kernel's rules at 64 rows
-// and a kChunk-wide slab: SR rows x 4 keys of the scores, OR rows x NJ
-// 16-byte chunks of O a thread and TOC threads across a slab's CD chunks;
-// PART floats a score tile (the partial, the sums); R ring slots (as many
-// as 227 KB leave, at most 4). flash_f32_cluster_plan (an entry point at
-// the end) reports them, and the wrapper's f32_cluster_plan mirrors them.
+// flash_f32_cluster_kernel<BW>'s tiles, by flash_f32_kernel's rules at 64
+// rows and a kChunk-wide slab: M slabs of D = kChunk dims a block's BW
+// columns; SR rows x 4 keys of the scores, OR rows x NJ 16-byte chunks of
+// O a thread a slab and TOC threads across a slab's CD chunks; CQ 16-byte
+// chunks a row of the Q slice; PART floats a score tile (the partial, the
+// sums); R ring slots (as many as 227 KB leave, at most 4).
+// flash_f32_cluster_plan (an entry point at the end) reports them, and the
+// wrapper's f32_cluster_plan mirrors them.
+template <int BW>
 struct ClusterPlan {
     static constexpr int BM = 64;
     static constexpr int D = kChunk;
-    static constexpr int CD = D / 4, CP = BM / 4;
+    static constexpr int M = BW / D;
+    static constexpr int CQ = BW / 4, CD = D / 4, CP = BM / 4;
     static constexpr int SR = BM / 16;
-    static constexpr int OC = BM * D / kF32Threads;   // O floats a thread
+    static constexpr int OC = BM * D / kF32Threads;   // O floats a slab
     static constexpr int OR = OC >= 64 ? 8 : OC >= 16 ? 4 : OC / 4;
     static constexpr int TOC = kF32Threads * OR / BM;
     static constexpr int NJ = CD / TOC;
     static constexpr int PART = BM * kBK;
-    static constexpr int FIXED = (BM * D + 2 * PART + kBK * BM + 2 * BM) * 4;
+    static constexpr int FIXED = (BM * BW + 2 * PART + kBK * BM + 2 * BM) * 4;
     static constexpr int SLAB = kBK * D * 4;
     static constexpr int FIT = (kSmemBytes - FIXED) / SLAB;
     static constexpr int R = FIT < 4 ? FIT : 4;
     static constexpr size_t smem = FIXED + size_t(R) * SLAB;
     static_assert(4 * SR * kF32Threads == PART && SR % 4 == 0
-                  && TOC * NJ == CD && R >= 2,
+                  && TOC * NJ == CD && BW % D == 0 && R >= 2,
                   "a thread's scores tile the partial; O's chunks a slab");
 };
-static_assert(ClusterPlan::smem == 213504, "the cluster plan's shared bytes");
+static_assert(ClusterPlan<128>::smem == 213504
+              && ClusterPlan<256>::smem == 213504,
+              "the cluster plans' shared bytes");
+static_assert(ClusterPlan<128>::R == 4 && ClusterPlan<256>::R == 3,
+              "the cluster plans' ring slots");
 
 __device__ __forceinline__ unsigned cluster_rank() {
     unsigned r;
@@ -1606,29 +1625,31 @@ __device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
     return x;
 }
 
+template <int BW>
 __global__ void __launch_bounds__(kF32Threads, 1)
 flash_f32_cluster_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o,
                          int S, int H, int Hkv, int HD, int G, int GB,
                          int BQ, int n_qt, int n_bh, float scale_log2) {
-    using P = ClusterPlan;
-    constexpr int BM = P::BM, CD = P::CD, CP = P::CP, SR = P::SR;
-    constexpr int TOC = P::TOC, OR = P::OR, NJ = P::NJ, R = P::R;
+    using P = ClusterPlan<BW>;
+    constexpr int BM = P::BM, D = P::D, M = P::M, CQ = P::CQ, CD = P::CD;
+    constexpr int CP = P::CP, SR = P::SR, TOC = P::TOC, OR = P::OR;
+    constexpr int NJ = P::NJ, R = P::R;
     constexpr int SLAB = kBK * CD;               // float4s a slab
     constexpr int PART4 = P::PART / 4;           // float4s a partial
     extern __shared__ float4 smem4[];
-    float4* sQ = smem4;                          // (BM, CD), row-major
-    float4* sRing = sQ + BM * CD;                // R slabs (kBK, CD), swizzled
+    float4* sQ = smem4;                          // (BM, CQ), row-major
+    float4* sRing = sQ + BM * CQ;                // R slabs (kBK, CD), swizzled
     float4* sPart = sRing + R * SLAB;            // the partial, by thread
     float4* sSum = sPart + PART4;                // the sums, by thread
     float4* sP = sSum + PART4;                   // P^T (kBK, CP), swizzled
     float* sCorr = reinterpret_cast<float*>(sP + kBK * CP);  // BM
     float* sL = sCorr + BM;                                  // BM
 
-    const int NC = HD / kChunk;
+    const int NC = (HD + BW - 1) / BW;
     const int me = int(cluster_rank());
-    const int col0 = me * kChunk;                // this block's columns
+    const int col0 = me * BW;                    // this block's columns
     const int SL = (PART4 + NC - 1) / NC;        // float4s a sum slice
     const int bid = blockIdx.x / NC;             // the cluster's tile
     const int qt = n_qt - 1 - bid / n_bh;        // heaviest tiles first
@@ -1643,56 +1664,63 @@ flash_f32_cluster_kernel(const float* __restrict__ q,
     const int q0 = qt * BQ;
     const int kv_end = min(S, q0 + BQ);          // keys past it are masked
     const int n_tiles = (kv_end + kBK - 1) / kBK;
-    const int n_steps = 2 * n_tiles;             // a K and a V slab a tile
+    const int n_units = 2 * n_tiles;             // a K and a V unit a tile
+    const int n_steps = M * n_units;             // M slabs a unit
 
     const int64_t kv_stride = int64_t(Hkv) * HD;
     const float* kb = k + (int64_t(b) * S * Hkv + kvh) * HD + col0;
     const float* vb = v + (int64_t(b) * S * Hkv + kvh) * HD + col0;
     const uint32_t sQa =
         static_cast<uint32_t>(__cvta_generic_to_shared(smem4));
-    const uint32_t sRa = sQa + BM * CD * 16;
+    const uint32_t sRa = sQa + BM * CQ * 16;
     const uint32_t sPartA = sRa + R * SLAB * 16;
     const uint32_t sSumA = sPartA + PART4 * 16;
 
-    // the block's 128 dims of the q rows, zero-filled where no row is live,
-    // arrive with the first slab
-    for (int i = t; i < BM * CD; i += kF32Threads) {
-        const int rho = i / CD, c = i % CD;
+    // the block's BW dims of the q rows, zero-filled where no row is live
+    // or the dims lie past hd, arrive with the first slab
+    for (int i = t; i < BM * CQ; i += kF32Threads) {
+        const int rho = i / CQ, c = i % CQ;
         const int qi = rho / GB, g = gr * GB + rho % GB;
-        const bool in = qi < BQ && g < G && q0 + qi < S;
+        const bool in = qi < BQ && g < G && q0 + qi < S
+                        && col0 + 4 * c < HD;
         const int64_t off =
             in ? ((int64_t(b) * S + q0 + qi) * H + kvh * G + g) * HD + col0
                  + 4 * c : 0;
         cp_async16(sQa + i * 16, q + off, in ? 16 : 0);
     }
-    // step i takes slab i into slot i % R: K of tile 0; then K of tile
-    // (i + 1) / 2 for odd i and V of tile i / 2 - 1 for even i; the last
-    // step V of the last tile
+    // step i takes slab i into slot i % R: slab p = i % M (dims D p ..)
+    // of unit u = i / M, which is K of tile 0; then K of tile (u + 1) / 2
+    // for odd u and V of tile u / 2 - 1 for even u; the last unit V of the
+    // last tile
     auto load = [&](int i) {
-        const bool is_v = i > 0 && (i % 2 == 0 || i == n_steps - 1);
-        const int tile = !is_v ? (i + 1) / 2
-                         : i == n_steps - 1 ? n_tiles - 1 : i / 2 - 1;
+        const int u = i / M, p = i % M;
+        const bool is_v = u > 0 && (u % 2 == 0 || u == n_units - 1);
+        const int tile = !is_v ? (u + 1) / 2
+                         : u == n_units - 1 ? n_tiles - 1 : u / 2 - 1;
         const int k0 = tile * kBK;
-        const float* src = is_v ? vb : kb;
+        const bool cols = col0 + p * D < HD;
+        const float* src = (is_v ? vb : kb) + p * D;
         const uint32_t dst = sRa + (i % R) * SLAB * 16;
         for (int e = t; e < SLAB; e += kF32Threads) {
             const int key = e / CD, c = e % CD;
-            const bool in = k0 + key < S;
+            const bool in = cols && k0 + key < S;
             const int64_t off = in ? (k0 + key) * kv_stride + 4 * c : 0;
             cp_async16(dst + swz<CD>(key, c) * 16, src + off, in ? 16 : 0);
         }
     };
 
-    float s[SR][4], m[SR], l[SR], acc[OR][4 * NJ];
+    float s[SR][4], m[SR], l[SR], acc[M][OR][4 * NJ];
 #pragma unroll
     for (int r = 0; r < SR; ++r) {
         m[r] = kNegInf;
         l[r] = 0.f;
     }
 #pragma unroll
-    for (int r = 0; r < OR; ++r)
+    for (int x = 0; x < M; ++x)
 #pragma unroll
-        for (int e = 0; e < 4 * NJ; ++e) acc[r][e] = 0.f;
+        for (int r = 0; r < OR; ++r)
+#pragma unroll
+            for (int e = 0; e < 4 * NJ; ++e) acc[x][r][e] = 0.f;
 
 #pragma unroll
     for (int i = 0; i < R - 1; ++i) {
@@ -1713,20 +1741,47 @@ flash_f32_cluster_kernel(const float* __restrict__ q,
         for (int r = 0; r < OR; ++r) {
             const float cr = sCorr[OR * oy + r];
 #pragma unroll
-            for (int e = 0; e < 4 * NJ; ++e) acc[r][e] *= cr;
+            for (int x = 0; x < M; ++x)
+#pragma unroll
+                for (int e = 0; e < 4 * NJ; ++e) acc[x][r][e] *= cr;
         }
     };
     int i = 0;
+    // half h (0 or 1) of the tile before's O += P V: its keys h 32 .. h 32
+    // + 31 of the one V slab (BW 128), its V slabs h M / 2 .. (BW 256)
+    const float4* vslab = nullptr;
+    auto pv_half = [&](int h) {
+        if constexpr (M == 1) {
+            if (h == 0) {
+                vslab = next(i++);
+                rescale();
+                f32_pv<CD, CP, TOC, OR, NJ, 0, kBK / 2>(acc[0], vslab, sP,
+                                                        ox, oy);
+            } else {
+                f32_pv<CD, CP, TOC, OR, NJ, kBK / 2, kBK / 2>(acc[0], vslab,
+                                                              sP, ox, oy);
+            }
+        } else {
+#pragma unroll
+            for (int x = 0; x < M; ++x) {
+                if (x / (M / 2) != h) continue;
+                const float4* slab = next(i++);
+                if (x == 0) rescale();
+                f32_pv<CD, CP, TOC, OR, NJ>(acc[x], slab, sP, ox, oy);
+            }
+        }
+    };
     for (int tile = 0; tile < n_tiles; ++tile) {
         const int k0 = tile * kBK;
-        // this block's 128 dims of S = Q K^T, d in order
-        {
+        // this block's BW dims of S = Q K^T, d in order
+#pragma unroll
+        for (int r = 0; r < SR; ++r)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) s[r][j] = 0.f;
+#pragma unroll
+        for (int x = 0; x < M; ++x) {
             const float4* slab = next(i++);
-#pragma unroll
-            for (int r = 0; r < SR; ++r)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) s[r][j] = 0.f;
-            const float4* qrow = sQ + SR * ty * CD;
+            const float4* qrow = sQ + SR * ty * CQ + x * CD;
 #pragma unroll 8
             for (int c = 0; c < CD; ++c) {
                 float4 kf[4];
@@ -1735,7 +1790,7 @@ flash_f32_cluster_kernel(const float* __restrict__ q,
                     kf[j] = slab[swz<CD>(tx + 16 * j, c)];
 #pragma unroll
                 for (int r = 0; r < SR; ++r) {
-                    const float4 qf = qrow[r * CD + c];
+                    const float4 qf = qrow[r * CQ + c];
 #pragma unroll
                     for (int j = 0; j < 4; ++j) {
                         s[r][j] = fmaf(qf.x, kf[j].x, s[r][j]);
@@ -1745,18 +1800,13 @@ flash_f32_cluster_kernel(const float* __restrict__ q,
                     }
                 }
             }
+        }
 #pragma unroll
-            for (int x = 0; x < SR; ++x)
-                sPart[x * kF32Threads + t] =
-                    make_float4(s[x][0], s[x][1], s[x][2], s[x][3]);
-        }
+        for (int x = 0; x < SR; ++x)
+            sPart[x * kF32Threads + t] =
+                make_float4(s[x][0], s[x][1], s[x][2], s[x][3]);
         cluster_arrive();                        // this block's partial is in
-        // O += P V of the tile before over the first half of its keys
-        const float4* vslab = tile > 0 ? next(i++) : nullptr;
-        if (tile > 0) {
-            rescale();
-            f32_pv<CD, CP, TOC, OR, NJ, 0, kBK / 2>(acc, vslab, sP, ox, oy);
-        }
+        if (tile > 0) pv_half(0);                // the tile before's P V
         cluster_wait();                          // every block's partial is in
         // this block's slice of the full-width scores: the NC partials
         // added in rank order
@@ -1775,9 +1825,7 @@ flash_f32_cluster_kernel(const float* __restrict__ q,
             sSum[e] = sum;
         }
         cluster_arrive();                        // this block's sums are in
-        if (tile > 0)                            // the second half
-            f32_pv<CD, CP, TOC, OR, NJ, kBK / 2, kBK / 2>(acc, vslab, sP,
-                                                          ox, oy);
+        if (tile > 0) pv_half(1);                // the second half
         cluster_wait();                          // every block's sums are in
         // this thread's 16 scores, from the blocks that summed them
 #pragma unroll
@@ -1832,9 +1880,12 @@ flash_f32_cluster_kernel(const float* __restrict__ q,
                                 s[4 * rc + 2][j], s[4 * rc + 3][j]);
     }
     cluster_arrive();                            // the last sums are read
-    const float4* vslab = next(i);               // V of the last tile
-    rescale();
-    f32_pv<CD, CP, TOC, OR, NJ>(acc, vslab, sP, ox, oy);
+#pragma unroll
+    for (int x = 0; x < M; ++x) {                // V of the last tile
+        const float4* slab = next(i++);
+        if (x == 0) rescale();
+        f32_pv<CD, CP, TOC, OR, NJ>(acc[x], slab, sP, ox, oy);
+    }
 
 #pragma unroll
     for (int r = 0; r < SR; ++r) {
@@ -1850,13 +1901,18 @@ flash_f32_cluster_kernel(const float* __restrict__ q,
         const int qi = rho / GB, g = gr * GB + rho % GB;
         if (qi >= BQ || g >= G || q0 + qi >= S) continue;
         const float den = fmaxf(sL[rho], 1e-30f);
-        float4* orow = reinterpret_cast<float4*>(
-            o + ((int64_t(b) * S + q0 + qi) * H + kvh * G + g) * HD + col0);
+        float* orow =
+            o + ((int64_t(b) * S + q0 + qi) * H + kvh * G + g) * HD + col0;
 #pragma unroll
-        for (int j = 0; j < NJ; ++j)
-            orow[ox + TOC * j] = make_float4(
-                acc[r][4 * j] / den, acc[r][4 * j + 1] / den,
-                acc[r][4 * j + 2] / den, acc[r][4 * j + 3] / den);
+        for (int x = 0; x < M; ++x) {
+            if (col0 + x * D >= HD) continue;    // past hd: not stored
+            float4* ochunk = reinterpret_cast<float4*>(orow + x * D);
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+                ochunk[ox + TOC * j] = make_float4(
+                    acc[x][r][4 * j] / den, acc[x][r][4 * j + 1] / den,
+                    acc[x][r][4 * j + 2] / den, acc[x][r][4 * j + 3] / den);
+        }
     }
     cluster_wait();        // no block leaves while a peer may read its sums
 }
@@ -1959,24 +2015,25 @@ int launch16(const void* q, const void* k, const void* v, void* o, int B,
     }
 }
 
-// flash_f32_cluster_kernel's launch for clusters of NC blocks over
+// flash_f32_cluster_kernel<BW>'s launch for clusters of NC blocks over
 // ``tiles`` output tiles (cfg points at attr); *resident: the clusters of
 // NC blocks the card holds at once
+template <int BW>
 cudaError_t cluster_setup(int NC, unsigned tiles, cudaStream_t stream,
                           cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
                           int* resident) {
+    auto kernel = flash_f32_cluster_kernel<BW>;
     cudaError_t err = cudaFuncSetAttribute(
-        flash_f32_cluster_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, int(ClusterPlan::smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        int(ClusterPlan<BW>::smem));
     if (err == cudaSuccess && NC > 8)
         err = cudaFuncSetAttribute(
-            flash_f32_cluster_kernel,
-            cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+            kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
     *cfg = cudaLaunchConfig_t{};
     cfg->gridDim = dim3(tiles * unsigned(NC));
     cfg->blockDim = dim3(kF32Threads);
-    cfg->dynamicSmemBytes = ClusterPlan::smem;
+    cfg->dynamicSmemBytes = ClusterPlan<BW>::smem;
     cfg->stream = stream;
     attr[0].id = cudaLaunchAttributeClusterDimension;
     attr[0].val.clusterDim.x = NC;
@@ -1984,13 +2041,42 @@ cudaError_t cluster_setup(int NC, unsigned tiles, cudaStream_t stream,
     attr[0].val.clusterDim.z = 1;
     cfg->attrs = attr;
     cfg->numAttrs = 1;
-    return cudaOccupancyMaxActiveClusters(resident, flash_f32_cluster_kernel,
-                                          cfg);
+    return cudaOccupancyMaxActiveClusters(resident, kernel, cfg);
 }
 
-// f32 heads: flash_f32_kernel up to 512, the cluster kernel up to kChunk
-// kF32MaxCluster, the column-chunk kernel past it (by width, before any
-// launch)
+// the cluster kernel's block width at the f32 width hd (a multiple of
+// kChunk above 512): kChunk while hd / kChunk blocks fit a cluster, else
+// kF32MaxBlockCols; 0 past the widest cluster (the column-chunk kernel)
+int cluster_block_cols(int hd) {
+    if (hd / kChunk <= kF32MaxCluster) return kChunk;
+    if (hd <= kF32MaxCluster * kF32MaxBlockCols) return kF32MaxBlockCols;
+    return 0;
+}
+
+template <int BW>
+int launch_cluster(const void* q, const void* k, const void* v, void* o,
+                   int B, int S, int H, int Hkv, int hd, float scale,
+                   cudaStream_t s) {
+    const int NC = (hd + BW - 1) / BW;
+    const Tiling t(B, S, H, Hkv, ClusterPlan<BW>::BM);
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr[1];
+    int resident = 0;
+    cudaError_t err = cluster_setup<BW>(NC, t.blocks(), s, &cfg, attr,
+                                        &resident);
+    if (err != cudaSuccess) return int(err);
+    if (resident < 1) return int(cudaErrorInvalidConfiguration);
+    err = cudaLaunchKernelEx(
+        &cfg, flash_f32_cluster_kernel<BW>, static_cast<const float*>(q),
+        static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<float*>(o), S, H, Hkv, hd, t.G, t.GB, t.BQ, t.n_qt,
+        t.n_bh, scale * 1.4426950408889634f);
+    return err != cudaSuccess ? int(err) : int(cudaGetLastError());
+}
+
+// f32 heads: flash_f32_kernel up to 512, the cluster kernel up to
+// kF32MaxCluster kF32MaxBlockCols, the column-chunk kernel past it (by
+// width, before any launch)
 int launch32(const void* q, const void* k, const void* v, void* o, int B,
              int S, int H, int Hkv, int hd, float scale, cudaStream_t s) {
     switch (hd) {
@@ -2003,29 +2089,22 @@ int launch32(const void* q, const void* k, const void* v, void* o, int B,
         case 512: return launch_f32<512>(q, k, v, o, B, S, H, Hkv, scale, s);
         default: break;
     }
-    const int NC = hd / kChunk;
-    if (NC > kF32MaxCluster) {
-        const Tiling t(B, S, H, Hkv, kF32Threads / (kChunk / 32));
-        return launch_kernel(
-            flash_f32_wide_kernel, dim3(t.blocks(), NC), kF32Threads,
-            2 * size_t(kBK) * kChunk * sizeof(float), s,
-            static_cast<const float*>(q), static_cast<const float*>(k),
-            static_cast<const float*>(v), static_cast<float*>(o), S, H, Hkv,
-            hd, t.G, t.GB, t.BQ, t.n_qt, t.n_bh, scale);
+    switch (cluster_block_cols(hd)) {
+        case kChunk:
+            return launch_cluster<kChunk>(q, k, v, o, B, S, H, Hkv, hd,
+                                          scale, s);
+        case kF32MaxBlockCols:
+            return launch_cluster<kF32MaxBlockCols>(q, k, v, o, B, S, H, Hkv,
+                                                    hd, scale, s);
+        default: break;
     }
-    const Tiling t(B, S, H, Hkv, ClusterPlan::BM);
-    cudaLaunchConfig_t cfg;
-    cudaLaunchAttribute attr[1];
-    int resident = 0;
-    cudaError_t err = cluster_setup(NC, t.blocks(), s, &cfg, attr, &resident);
-    if (err != cudaSuccess) return int(err);
-    if (resident < 1) return int(cudaErrorInvalidConfiguration);
-    err = cudaLaunchKernelEx(
-        &cfg, flash_f32_cluster_kernel, static_cast<const float*>(q),
-        static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<float*>(o), S, H, Hkv, hd, t.G, t.GB, t.BQ, t.n_qt,
-        t.n_bh, scale * 1.4426950408889634f);
-    return err != cudaSuccess ? int(err) : int(cudaGetLastError());
+    const Tiling t(B, S, H, Hkv, kF32Threads / (kChunk / 32));
+    return launch_kernel(
+        flash_f32_wide_kernel, dim3(t.blocks(), hd / kChunk), kF32Threads,
+        2 * size_t(kBK) * kChunk * sizeof(float), s,
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), S, H, Hkv, hd,
+        t.G, t.GB, t.BQ, t.n_qt, t.n_bh, scale);
 }
 
 template <int HD>
@@ -2034,6 +2113,24 @@ int f32_plan(int* out) {
     const int v[] = {P::BM, P::D, P::R, P::SR, P::OR, P::TOC, P::NJ,
                      int(P::smem)};
     for (int i = 0; i < 8; ++i) out[i] = v[i];
+    return 0;
+}
+
+// the entry point flash_f32_cluster_plan's report at block width BW
+template <int BW>
+int cluster_plan(int hd, int* out) {
+    using P = ClusterPlan<BW>;
+    const int NC = (hd + BW - 1) / BW;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr[1];
+    int resident = 0;
+    const cudaError_t err = cluster_setup<BW>(NC, 1, nullptr, &cfg, attr,
+                                              &resident);
+    if (err != cudaSuccess) return int(err);
+    const int v[] = {NC, BW, P::BM, P::D, P::R, P::SR, P::OR, P::TOC, P::NJ,
+                     int(P::smem), kF32MaxCluster * kF32MaxBlockCols,
+                     resident};
+    for (int i = 0; i < 12; ++i) out[i] = v[i];
     return 0;
 }
 
@@ -2090,25 +2187,18 @@ int flash_f32_plan(int hd, int* out) {
 }
 
 // flash_f32_cluster_kernel's tiles at the f32 width hd (a multiple of 128
-// from 640 to 128 kF32MaxCluster): out[0..10] = NC, BM, D, R, SR, OR, TOC,
-// NJ, smem, the widest width the kernel takes, and the clusters of NC
-// blocks the card holds at once (repro_torch.kernels.flash_attention.
-// f32_cluster_plan mirrors all but the last). Launches nothing.
+// from 640 to kF32MaxCluster kF32MaxBlockCols): out[0..11] = NC, BW, BM,
+// D, R, SR, OR, TOC, NJ, smem, the widest width the kernel takes, and the
+// clusters of NC blocks the card holds at once
+// (repro_torch.kernels.flash_attention.f32_cluster_plan mirrors all but
+// the last). Launches nothing.
 int flash_f32_cluster_plan(int hd, int* out) {
-    using P = ClusterPlan;
-    const int NC = hd / kChunk;
-    if (hd <= 512 || hd % kChunk || NC > kF32MaxCluster)
-        return int(cudaErrorInvalidValue);
-    cudaLaunchConfig_t cfg;
-    cudaLaunchAttribute attr[1];
-    int resident = 0;
-    const cudaError_t err = cluster_setup(NC, 1, nullptr, &cfg, attr,
-                                          &resident);
-    if (err != cudaSuccess) return int(err);
-    const int v[] = {NC, P::BM, P::D, P::R, P::SR, P::OR, P::TOC, P::NJ,
-                     int(P::smem), kChunk * kF32MaxCluster, resident};
-    for (int i = 0; i < 11; ++i) out[i] = v[i];
-    return 0;
+    if (hd <= 512 || hd % kChunk) return int(cudaErrorInvalidValue);
+    switch (cluster_block_cols(hd)) {
+        case kChunk: return cluster_plan<kChunk>(hd, out);
+        case kF32MaxBlockCols: return cluster_plan<kF32MaxBlockCols>(hd, out);
+        default: return int(cudaErrorInvalidValue);
+    }
 }
 
 }  // extern "C"

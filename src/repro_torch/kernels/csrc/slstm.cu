@@ -35,9 +35,9 @@
 // The recurrences of different (b, head) pairs (chains) are independent
 // (r is block-diagonal per head).
 //
-// The cluster kernels (slstm_fwd_cluster, slstm_bwd_cluster; hd <= 480):
-// a thread-block cluster of C blocks owns one chain, and block s of it the
-// output columns j in [s W, (s + 1) W), W = ceil(hd / C).
+// The cluster kernels (slstm_fwd_cluster up to hd 960, slstm_bwd_cluster
+// up to 480): a thread-block cluster of C blocks owns one chain, and block
+// s of it the output columns j in [s W, (s + 1) W), W = ceil(hd / C).
 // - r widened once: before the time loop each thread loads its KT terms of
 //   one column of r[head] and widens them to double into registers, so a
 //   step's products are double FMAs on registers with no conversion. A
@@ -86,11 +86,35 @@
 //   path 4k's shape against C = 8's 3.07: a wider cluster's exchange costs
 //   more than its narrower blocks save; scripts/slstm_shapes.py). The
 //   reduced configs' hd 16 takes C = 1 (one compute warp a chain).
-// hd above kClusterMaxHd (r's slice would not fit the registers of a
-// 16-block cluster at KT <= 32 and kClusterThreads) keeps the one-block
-// kernels below (slstm_fwd_kernel, slstm_bwd_kernel): a block per chain, a
-// thread per unit, r[head] staged in shared memory or read from L2, h as
-// double in shared memory, one __syncthreads a step.
+// - r split between registers and shared memory (the forward past hd
+//   kClusterMaxHd, up to kSplitMaxHd). Past 480 r's slice no longer fits
+//   the registers of a 16-block cluster at KT <= 32 and kClusterThreads:
+//   at hd 640 a block owns 40 columns, 25,600 terms (200 KB as double).
+//   So a lane keeps kSplitKT = 32 of its terms in registers as double and
+//   its KX others (k-pairs ks + i KS for i >= KT / 2, KX a multiple of 4)
+//   in the block's shared memory, lane-major (term e of compute thread
+//   tid at e . compute + tid, so a warp's read is 32 consecutive words),
+//   as float widened to double at the FMA (float, chosen by measurement:
+//   double terms were 7.6 % slower with the same bits). KS is the most lanes a column that kClusterThreads less
+//   the helper warp allow (8 from hd 481 to 960 at C = 16), C the rule's
+//   below. The products stay double FMAs on the same four chains, the
+//   shuffle tree and the exchange are the ones above, and the double sum
+//   is rounded once to f32, so y and the final (c, h) stay the plain
+//   loop's bits. C follows the rule below. At hd 640 and C = 16 (2 and 6
+//   chains on the H100): W = 40, KS = 8, KT 32 + KX 48, 320 compute
+//   threads, 94,720 bytes of shared memory a block (the terms 60 KB);
+//   where B H 16 passes the SMs or the card holds fewer than B H
+//   clusters of 16 (10 chains) the rule halves C to 8: W = 80, KS = 4,
+//   KT 32 + KX 128, 320 compute threads, 220,160 bytes (the terms 160
+//   KB). C = 8 fits up
+//   to hd 640; past it C stays 16 for any number of chains (the clusters
+//   then run in waves). The widest head whose shape fits 227 KB at C = 16
+//   is kSplitMaxHd = 960 (W 60, KX 88, 214 KB).
+// Past those widths (the forward past kSplitMaxHd, the backward past
+// kClusterMaxHd) the one-block kernels below (slstm_fwd_kernel,
+// slstm_bwd_kernel) take the chain: a block per chain, a thread per unit,
+// r[head] staged in shared memory or read from L2, h as double in shared
+// memory, one __syncthreads a step.
 //
 // The backward walks t from S-1 to 0 with the same grids. It reads the
 // c and z the forward saved for every step (and recomputes the gates from
@@ -129,6 +153,8 @@ constexpr int kRaw = 8;      // steps of raw input words the helper copies ahead
 constexpr int kClusterThreads = 512; // most threads of a cluster block
 constexpr int kMaxCluster = 16;
 constexpr int kClusterMaxHd = 480;   // widest head of the cluster kernels
+constexpr int kSplitMaxHd = 960;     // widest head of the split forward
+constexpr int kSplitKT = 32;         // register terms a lane, split forward
 constexpr int kMinCols = 24;         // columns a cluster block, at least
 constexpr int kTerms = 24;           // KT a lane, at most where KS allows
 
@@ -235,7 +261,8 @@ __device__ __forceinline__ float matvec_col(const double* v,
 }
 
 // ---------------------------------------------------------------------------
-// The one-block kernels (hd > kClusterMaxHd)
+// The one-block kernels (the forward past kSplitMaxHd, the backward past
+// kClusterMaxHd)
 // ---------------------------------------------------------------------------
 
 // grid: one block per (b, head), blockIdx.x = b H + head. Shared memory:
@@ -385,7 +412,8 @@ __global__ void slstm_bwd_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// The cluster kernels (hd <= kClusterMaxHd)
+// The cluster kernels (hd <= kClusterMaxHd; the forward up to
+// kSplitMaxHd)
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ unsigned cluster_rank() {
@@ -539,11 +567,15 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
 
 // The k-slice ks of one column's product: sum over k-pairs ks + i KS of
 // v[k] rr[..], four chains, then the xor shuffle tree over the column's KS
-// lanes (a fixed order; every lane gets the same bits).
-template <int KT>
+// lanes (a fixed order; every lane gets the same bits). kSplit: the
+// k-pairs i = KT / 2 .. KT / 2 + KX / 2 - 1 go on after the registers'
+// with their terms from shared memory, term e at xs[e . stride], widened
+// to double.
+template <int KT, bool kSplit = false>
 __device__ __forceinline__ double column_dot(const double* v,
                                              const double (&rr)[KT], int ks,
-                                             int KS) {
+                                             int KS, const float* xs = nullptr,
+                                             int KX = 0, int stride = 0) {
     const double2* v2 = reinterpret_cast<const double2*>(v);
     double a0 = 0.0, a1 = 0.0, a2 = 0.0, a3 = 0.0;
 #pragma unroll
@@ -555,6 +587,19 @@ __device__ __forceinline__ double column_dot(const double* v,
             const double2 q = v2[ks + (i + 1) * KS];
             a2 = fma(q.x, rr[2 * i + 2], a2);
             a3 = fma(q.y, rr[2 * i + 3], a3);
+        }
+    }
+    if constexpr (kSplit) {
+        static_assert(KT % 4 == 0, "the shared pairs keep the chains' turn");
+        const double2* vx = v2 + ks + (KT / 2) * KS;
+#pragma unroll 2
+        for (int e = 0; e < KX; e += 4) {
+            const double2 p = vx[(e / 2) * KS];
+            const double2 q = vx[(e / 2 + 1) * KS];
+            a0 = fma(p.x, (double)xs[e * stride], a0);
+            a1 = fma(p.y, (double)xs[(e + 1) * stride], a1);
+            a2 = fma(q.x, (double)xs[(e + 2) * stride], a2);
+            a3 = fma(q.y, (double)xs[(e + 3) * stride], a3);
         }
     }
     double acc = (a0 + a1) + (a2 + a3);
@@ -580,6 +625,19 @@ __device__ __forceinline__ void load_slice(double (&rr)[KT], const float* m,
     }
 }
 
+// a compute thread's KX terms past its KT registers (k-pairs ks + i KS,
+// i >= KT / 2) of column j of m, into xs[e . stride]; zero past hd or for
+// a dead column
+template <int KT>
+__device__ __forceinline__ void load_split(float* xs, int stride, int KX,
+                                           const float* m, int hd, int j,
+                                           bool live, int ks, int KS) {
+    for (int e = 0; e < KX; ++e) {
+        const int k = 2 * (ks + (KT / 2 + e / 2) * KS) + e % 2;
+        xs[e * stride] = (live && k < hd) ? m[(size_t)k * hd + j] : 0.0f;
+    }
+}
+
 // Per step and column: the forward's prepared inputs (zx as float and the
 // gates i, f, o) and outputs (h, c, z); the backward's inputs (c_t,
 // c_{t-1}, z, ip, the gates, gy) and outputs (dzpre, dip, dfp, dop).
@@ -587,15 +645,18 @@ constexpr int kFwdIn = 4, kFwdOut = 3, kFwdRaw = 4;
 constexpr int kBwdIn = 8, kBwdOut = 4, kBwdRaw = 6;
 
 // Shared memory of a cluster block: the exchanged vector double-buffered
-// (2 HP doubles, HP = KT KS >= hd, zero past hd), then kRing slots of W
-// columns of prepared inputs and of outputs, then the helper's kRaw slots
-// of W columns of raw words.
+// (2 HP doubles, HP = (KT + KX) KS >= hd, zero past hd), then kRing slots
+// of W columns of prepared inputs and of outputs, then the helper's kRaw
+// slots of W columns of raw words, then (the split forward) the compute
+// threads' KX float terms each.
 __host__ __device__ inline size_t cluster_smem(int KT, int KS, int W,
-                                               bool backward) {
+                                               bool backward, int KX = 0) {
     const int io = backward ? kBwdIn + kBwdOut : kFwdIn + kFwdOut;
     const int raw = backward ? kBwdRaw : kFwdRaw;
-    return 2 * (size_t)KT * KS * sizeof(double)
-           + ((size_t)kRing * W * io + (size_t)kRaw * W * raw) * 4;
+    const int compute = (W * KS + 31) / 32 * 32;
+    return 2 * (size_t)(KT + KX) * KS * sizeof(double)
+           + ((size_t)kRing * W * io + (size_t)kRaw * W * raw) * 4
+           + (size_t)KX * compute * sizeof(float);
 }
 
 // Where a cluster block's thread stands. Compute threads: column col = tid
@@ -723,8 +784,9 @@ __device__ __forceinline__ void hand_over(Bars& bars, int t) {
 // the pointwise math and share the sends of h_t (to buffer (t + 1) & 1 of
 // the live blocks; h_u is sent for u <= S - 2); lanes 0-2 write h, c and z
 // into the slot, and the warp hands the slot to the helper, which stores
-// y and the states.
-template <typename T, int KT>
+// y and the states. kSplit: the split forward, each compute thread's KX
+// terms past its KT registers in shared memory as float.
+template <typename T, int KT, bool kSplit = false>
 __global__ void __launch_bounds__(kClusterThreads)
 slstm_fwd_cluster(const T* __restrict__ zx, const float* __restrict__ ip,
                   const float* __restrict__ fp, const float* __restrict__ op,
@@ -733,17 +795,21 @@ slstm_fwd_cluster(const T* __restrict__ zx, const float* __restrict__ ip,
                   float* __restrict__ c_out, float* __restrict__ h_out,
                   float* __restrict__ cs, float* __restrict__ hs,
                   T* __restrict__ zs, int S, int H, int hd, int W, int KS,
-                  int save) {
+                  int KX, int save) {
     extern __shared__ __align__(16) unsigned char cl_smem[];
     __shared__ Bars bars;
     const Lane l = lane_of(hd, W, KS);
     const int chain = blockIdx.x / l.C, b = chain / H, head = chain % H;
-    const int d = H * hd, tid = threadIdx.x, HP = KT * KS;
+    if constexpr (!kSplit) KX = 0;
+    const int d = H * hd, tid = threadIdx.x, HP = (KT + KX) * KS;
     double* hbuf = reinterpret_cast<double*>(cl_smem);
     float* ring_in = reinterpret_cast<float*>(hbuf + 2 * HP);
     float* ring_out = ring_in + kRing * W * kFwdIn;
     uint32_t* raw = reinterpret_cast<uint32_t*>(ring_out
                                                 + kRing * W * kFwdOut);
+    // the split terms, lane-major: term e of compute thread tid at e
+    // compute + tid (the helper warp has none)
+    float* xs = reinterpret_cast<float*>(raw + kRaw * W * kFwdRaw) + tid;
     const uint32_t hbuf_s = smem_u32(hbuf);
     const uint32_t x_s[2] = {smem_u32(&bars.x[0]), smem_u32(&bars.x[1])};
     const uint32_t bytes = 8u * (uint32_t)hd;
@@ -752,6 +818,10 @@ slstm_fwd_cluster(const T* __restrict__ zx, const float* __restrict__ ip,
     double rr[KT];
     load_slice<KT>(rr, r + (size_t)head * hd * hd, hd, l.j, l.live, l.ks,
                    KS);
+    if constexpr (kSplit)
+        if (!l.helper)
+            load_split<KT>(xs, l.compute, KX, r + (size_t)head * hd * hd,
+                           hd, l.j, l.live, l.ks, KS);
     const size_t state = (size_t)b * d + (size_t)head * hd;
     for (int k = tid; k < HP; k += blockDim.x) {
         hbuf[k] = k < hd ? (double)h0[state + k] : 0.0;
@@ -803,8 +873,12 @@ slstm_fwd_cluster(const T* __restrict__ zx, const float* __restrict__ ip,
                 mbar_wait(x_s[t & 1], ((t - 1) >> 1) & 1);
                 if (tid == 0 && t + 1 <= last) mbar_expect(x_s[t & 1], bytes);
             }
-            const double acc = column_dot<KT>(hbuf + (t & 1) * HP, rr,
-                                              l.ks, KS);
+            double acc;
+            if constexpr (kSplit)
+                acc = column_dot<KT, true>(hbuf + (t & 1) * HP, rr, l.ks, KS,
+                                           xs, KX, l.compute);
+            else
+                acc = column_dot<KT>(hbuf + (t & 1) * HP, rr, l.ks, KS);
             if (l.live) {
                 float z;
                 h = fwd_point<T>((float)acc, in.x, Gates{in.y, in.z, in.w},
@@ -1053,9 +1127,10 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
 
 // A cluster launch's shape: C blocks a chain of ``threads`` threads (the
 // compute threads and the helper warp), W columns a block, KS k-slices of
-// KT terms a column.
+// KT terms a column in registers and, the split forward, KX more a lane
+// in shared memory as float (0 otherwise).
 struct Plan {
-    int C, KS, KT, W, threads;
+    int C, KS, KT, W, threads, KX;
 };
 
 int kt_instance(int terms) {
@@ -1068,13 +1143,32 @@ int kt_instance(int terms) {
 // the shape for C blocks and KS k-slices (KS 0: the rule's, the smallest
 // power of two with ceil(hd / KS) <= kTerms, halved while the compute
 // threads exceed kClusterThreads less the helper warp and KT stays <= 32);
-// false if it does not fit
-bool shape_for(int hd, int C, int KS, Plan* p) {
-    if (hd < 1 || hd > kClusterMaxHd || C < 1 || C > kMaxCluster
-        || (C & (C - 1)))
-        return false;
+// false if it does not fit. Past kClusterMaxHd, the forward only, up to
+// kSplitMaxHd: the split shape, KS (0: the rule's) the most lanes a column
+// that the compute threads allow, kSplitKT terms a lane in registers and
+// the rest, rounded up to a multiple of 4, in shared memory as float,
+// within the card's opt-in shared memory beside the block's static
+// barriers.
+bool shape_for(int hd, int C, int KS, Plan* p, bool backward = false) {
+    if (hd < 1 || C < 1 || C > kMaxCluster || (C & (C - 1))) return false;
     const int W = (hd + C - 1) / C;
     const int most = kClusterThreads - 32;      // the helper warp's room
+    if (hd > kClusterMaxHd) {
+        if (backward || hd > kSplitMaxHd) return false;
+        if (KS == 0) {
+            KS = 32;
+            while (KS > 1 && round32(W * KS) > most) KS /= 2;
+        }
+        if (KS < 1 || KS > 32 || (KS & (KS - 1))) return false;
+        const int compute = round32(W * KS);
+        const int KX = ((hd + KS - 1) / KS + 3) / 4 * 4 - kSplitKT;
+        if (compute > most || KX < 4
+            || cluster_smem(kSplitKT, KS, W, false, KX) + sizeof(Bars)
+                   > (size_t)opt_in_limit())
+            return false;
+        *p = {C, KS, kSplitKT, W, compute + 32, KX};
+        return true;
+    }
     if (KS == 0) {
         KS = 1;
         while ((hd + KS - 1) / KS > kTerms && KS < 32) KS *= 2;
@@ -1086,7 +1180,7 @@ bool shape_for(int hd, int C, int KS, Plan* p) {
     const int KT = kt_instance((hd + KS - 1) / KS);
     const int compute = round32(W * KS);
     if (KT == 0 || compute > most) return false;
-    *p = {C, KS, KT, W, compute + 32};
+    *p = {C, KS, KT, W, compute + 32, 0};
     return true;
 }
 
@@ -1142,7 +1236,12 @@ struct Kernels {
     static void* fwd() { return (void*)slstm_fwd_cluster<T, KT>; }
     template <int KT>
     static void* bwd() { return (void*)slstm_bwd_cluster<T, KT>; }
-    static void* pick(bool backward, int KT) {
+    // split: the split forward (KX > 0)
+    static void* pick(bool backward, int KT, bool split) {
+        if (split) {
+            if (backward || KT != kSplitKT) return nullptr;
+            return (void*)slstm_fwd_cluster<T, kSplitKT, true>;
+        }
         switch (KT) {
             case 8: return backward ? bwd<8>() : fwd<8>();
             case 16: return backward ? bwd<16>() : fwd<16>();
@@ -1153,11 +1252,11 @@ struct Kernels {
     }
 };
 
-void* cluster_kernel(int dtype, bool backward, int KT) {
+void* cluster_kernel(int dtype, bool backward, int KT, bool split) {
     switch (dtype) {
-        case 0: return Kernels<float>::pick(backward, KT);
-        case 1: return Kernels<__nv_bfloat16>::pick(backward, KT);
-        case 2: return Kernels<__half>::pick(backward, KT);
+        case 0: return Kernels<float>::pick(backward, KT, split);
+        case 1: return Kernels<__nv_bfloat16>::pick(backward, KT, split);
+        case 2: return Kernels<__half>::pick(backward, KT, split);
         default: return nullptr;
     }
 }
@@ -1167,19 +1266,19 @@ int plan(int chains, int hd, int dtype, bool backward, Plan* out) {
     int C = 1;
     while (C < kMaxCluster && hd / (2 * C) >= kMinCols) C *= 2;
     Plan p;
-    while (!shape_for(hd, C, 0, &p)) {      // too many threads a block
+    while (!shape_for(hd, C, 0, &p, backward)) {  // too many threads a block
         if (C >= kMaxCluster) return int(cudaErrorInvalidValue);
         C *= 2;
     }
     const int sms = sm_count();
     while (C > 1) {
-        const void* k = cluster_kernel(dtype, backward, p.KT);
+        const void* k = cluster_kernel(dtype, backward, p.KT, p.KX > 0);
         if (k == nullptr) return int(cudaErrorInvalidValue);
-        const size_t smem = cluster_smem(p.KT, p.KS, p.W, backward);
+        const size_t smem = cluster_smem(p.KT, p.KS, p.W, backward, p.KX);
         const bool fits = chains * C <= sms
             && resident_clusters(k, p, chains, smem) >= chains;
         Plan q;
-        if (fits || !shape_for(hd, C / 2, 0, &q)) break;
+        if (fits || !shape_for(hd, C / 2, 0, &q, backward)) break;
         C /= 2;
         p = q;
     }
@@ -1188,12 +1287,12 @@ int plan(int chains, int hd, int dtype, bool backward, Plan* out) {
 }
 
 // The shape the entry points launch for ``chains`` chains of width hd: the
-// rule's cluster shape up to kClusterMaxHd, else C = 0 (the one-block
-// kernels, threads_for(hd) threads). Cached per device and shape: the
-// rule asks the occupancy API.
+// rule's cluster shape up to kClusterMaxHd (the forward up to kSplitMaxHd),
+// else C = 0 (the one-block kernels, threads_for(hd) threads). Cached per
+// device and shape: the rule asks the occupancy API.
 int route(int chains, int hd, int dtype, bool backward, Plan* out) {
-    if (hd > kClusterMaxHd) {
-        *out = {0, 0, 0, 0, threads_for(hd)};
+    if (hd > (backward ? kClusterMaxHd : kSplitMaxHd)) {
+        *out = {0, 0, 0, 0, threads_for(hd), 0};
         return 0;
     }
     int dev = 0;
@@ -1216,9 +1315,9 @@ int route(int chains, int hd, int dtype, bool backward, Plan* out) {
 
 int cluster_launch(const Plan& p, int dtype, bool backward, int chains,
                    void** args, cudaStream_t s) {
-    const void* kernel = cluster_kernel(dtype, backward, p.KT);
+    const void* kernel = cluster_kernel(dtype, backward, p.KT, p.KX > 0);
     if (kernel == nullptr) return int(cudaErrorInvalidValue);
-    const size_t smem = cluster_smem(p.KT, p.KS, p.W, backward);
+    const size_t smem = cluster_smem(p.KT, p.KS, p.W, backward, p.KX);
     int err = int(cluster_attrs(kernel, p.C, smem));
     if (err) return err;
     cudaLaunchAttribute attr[1];
@@ -1236,7 +1335,7 @@ int fwd(const void* zx, const void* ip, const void* fp, const void* op,
     if (p.C > 0) {
         void* args[] = {&zx, &ip, &fp, &op, &r, &c0, &h0, &y, &c_out,
                         &h_out, &cs, &hs, &zs, &S, &H, &hd, &p.W, &p.KS,
-                        &save};
+                        &p.KX, &save};
         return cluster_launch(p, dtype_code<T>(), false, B * H, args, s);
     }
     const bool in_smem = smem_bytes(hd, hd, true) <= (size_t)opt_in_limit();
@@ -1294,11 +1393,13 @@ extern "C" {
 
 // The shape slstm_fwd (backward 0) or slstm_bwd (1) launches for B H =
 // ``chains`` chains of width hd in ``dtype``: *C blocks a chain (0: the
-// one-block kernels, hd > kClusterMaxHd), *KS k-slices a column and *KT
-// terms a lane (the header's rule; 0 for the one-block kernels) and
-// *threads a block. A query: the entry points choose it themselves.
+// one-block kernels, the forward past kSplitMaxHd, the backward past
+// kClusterMaxHd), *KS k-slices a column and *KT terms a lane in registers
+// (the header's rule; 0 for the one-block kernels), *threads a block, and
+// *KX float terms a lane in shared memory (the split forward, else 0). A
+// query: the entry points choose it themselves.
 int slstm_plan(int chains, int hd, int dtype, int backward, int* C, int* KS,
-               int* KT, int* threads) {
+               int* KT, int* threads, int* KX) {
     Plan p;
     const int err = route(chains, hd, dtype, backward != 0, &p);
     if (err) return err;
@@ -1306,6 +1407,7 @@ int slstm_plan(int chains, int hd, int dtype, int backward, int* C, int* KS,
     *KS = p.KS;
     *KT = p.KT;
     *threads = p.threads;
+    *KX = p.KX;
     return 0;
 }
 
@@ -1371,7 +1473,7 @@ int slstm_bwd(const void* gy, const void* gc, const void* gh, const void* ip,
 // ``mode`` (slstm_cluster_probe_kernel); ``sink`` holds grid doubles.
 int slstm_cluster_probe(int C, int W, int KS, int clusters, int iters,
                         int mode, void* sink, void* stream) {
-    Plan p = {C, KS, 0, W, round32(W * KS)};
+    Plan p = {C, KS, 0, W, round32(W * KS), 0};
     if (C < 1 || C > kMaxCluster || p.threads > kClusterThreads)
         return int(cudaErrorInvalidValue);
     const size_t smem = 2 * (size_t)W * C * sizeof(double);

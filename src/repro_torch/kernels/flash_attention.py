@@ -4,7 +4,7 @@ One Hopper source (``csrc/flash_attention.cu``: tensor-core kernels for
 bf16 and f16, whose warps split the output's columns at the padded hd 256,
 384 and 512, with a column-chunk kernel past 512; CUDA-core kernels for
 f32, one block a tile up to hd 512 and a thread-block cluster whose blocks
-split the output's columns up to 2048, with a column-chunk kernel past it;
+split the output's columns up to 4096, with a column-chunk kernel past it;
 all but the column-chunk kernels compute the scores once at the full
 width) with its plain PyTorch version beside it.
 :func:`flash_attention` replaces the TPU kernel
@@ -33,7 +33,8 @@ _SIGNATURES = {
     "flash_attention_fwd": (_P,) * 4 + (_I,) * 7 + (ctypes.c_float, _P),
     # hd -> BM, D, R, SR, OR, TOC, NJ, smem (F32Plan<hd>)
     "flash_f32_plan": (_I, ctypes.POINTER(ctypes.c_int)),
-    # hd -> NC, BM, D, R, SR, OR, TOC, NJ, smem, widest, resident clusters
+    # hd -> NC, BW, BM, D, R, SR, OR, TOC, NJ, smem, widest, resident
+    # clusters
     "flash_f32_cluster_plan": (_I, ctypes.POINTER(ctypes.c_int)),
 }
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the widths a head up to 256 is padded to
@@ -51,11 +52,13 @@ ROUTES: Dict[Tuple[str, int], int] = {}
 F32_WIDTHS = (16, 32, 64, 128, 256, 384, 512)
 F32_THREADS, F32_BK, F32_SMEM = 256, 64, 232448
 _PLAN_KEYS = ("BM", "D", "R", "SR", "OR", "TOC", "NJ", "smem")
-# flash_f32_cluster_kernel: blocks a cluster at most (kF32MaxCluster), so
-# it takes f32 from 640 to 2048; past that the f32 column-chunk kernel
+# flash_f32_cluster_kernel: blocks a cluster at most (kF32MaxCluster) and
+# a block's columns at most (kF32MaxBlockCols), so it takes f32 from 640 to
+# 4096; past that the f32 column-chunk kernel
 F32_CLUSTER_MAX = 16
-_CLUSTER_KEYS = ("NC", "BM", "D", "R", "SR", "OR", "TOC", "NJ", "smem",
-                 "widest", "resident")
+F32_CLUSTER_COLS = 256
+_CLUSTER_KEYS = ("NC", "BW", "BM", "D", "R", "SR", "OR", "TOC", "NJ",
+                 "smem", "widest", "resident")
 
 
 def reset_routes() -> None:
@@ -99,29 +102,35 @@ def f32_plan_card(hd: int) -> dict:
 
 
 def f32_cluster_plan(hd: int) -> dict:
-    """flash_f32_cluster_kernel's tiles at the f32 width ``hd`` (a
-    multiple of 128 from 640 to 128·F32_CLUSTER_MAX), as ClusterPlan
-    chooses them: NC = hd / 128 blocks a cluster, each owning 128 of the
-    output's columns; BM = 64 stacked rows; K and V slabs of 64 keys x D =
-    128 dims through a ring of R slabs; SR, OR, TOC, NJ, CD, CP as in
-    :func:`f32_plan`; PART floats a score tile (a block holds its partial
-    and its slice's sums in two); ``smem`` the bytes a block takes;
-    ``widest`` the widest width the kernel takes.
-    :func:`f32_cluster_plan_card` is held equal to it on the card."""
-    if hd <= 512 or hd % CHUNK or hd // CHUNK > F32_CLUSTER_MAX:
+    """flash_f32_cluster_kernel<BW>'s tiles at the f32 width ``hd`` (a
+    multiple of 128 from 640 to F32_CLUSTER_MAX·F32_CLUSTER_COLS), as
+    ClusterPlan chooses them: each block owns BW of the output's columns
+    and the same dims of Q (CQ 16-byte chunks a row), BW = 128 while hd /
+    128 blocks fit a cluster of F32_CLUSTER_MAX, else 256; NC = ceil(hd /
+    BW) blocks a cluster (the last one's second 128 columns past hd where
+    hd / 128 is odd); BM = 64 stacked rows; K and V in M = BW / 128 slabs
+    of 64 keys x D = 128 dims a tile through a ring of R slabs; SR, OR,
+    TOC, NJ, CD, CP as in :func:`f32_plan` (O's OR x NJ chunks a slab);
+    PART floats a score tile (a block holds its partial and its slice's
+    sums in two); ``smem`` the bytes a block takes; ``widest`` the widest
+    width the kernel takes. :func:`f32_cluster_plan_card` is held equal to
+    it on the card."""
+    widest = F32_CLUSTER_MAX * F32_CLUSTER_COLS
+    if hd <= 512 or hd % CHUNK or hd > widest:
         raise ValueError(f"flash_f32_cluster_kernel takes no hd {hd}")
+    BW = CHUNK if hd // CHUNK <= F32_CLUSTER_MAX else F32_CLUSTER_COLS
     BM, D = 64, CHUNK
     OC = BM * D // F32_THREADS
     OR = 8 if OC >= 64 else 4 if OC >= 16 else OC // 4
     TOC = F32_THREADS * OR // BM
     part = BM * F32_BK
-    fixed = (BM * D + 2 * part + F32_BK * BM + 2 * BM) * 4
+    fixed = (BM * BW + 2 * part + F32_BK * BM + 2 * BM) * 4
     slab = F32_BK * D * 4
     R = min(4, (F32_SMEM - fixed) // slab)
-    return dict(NC=hd // CHUNK, BM=BM, D=D, CD=D // 4, CP=BM // 4,
-                SR=BM // 16, OR=OR, TOC=TOC, NJ=D // 4 // TOC, R=R,
-                PART=part, smem=fixed + R * slab,
-                widest=CHUNK * F32_CLUSTER_MAX)
+    return dict(NC=-(-hd // BW), BW=BW, M=BW // D, BM=BM, D=D, CQ=BW // 4,
+                CD=D // 4, CP=BM // 4, SR=BM // 16, OR=OR, TOC=TOC,
+                NJ=D // 4 // TOC, R=R, PART=part, smem=fixed + R * slab,
+                widest=widest)
 
 
 def f32_cluster_plan_card(hd: int) -> dict:
@@ -186,12 +195,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     rows, splitting the keys of 128-key tiles of the full-width scores and
     then the output's columns. f32 runs on the CUDA cores, rows a block by
     width (:func:`f32_plan`), the scores once at the full width up to 512;
-    from 640 to 2048 a cluster of hd / 128 blocks, each owning 128 of the
-    output's columns, adds its blocks' partial scores in rank order, so
-    the scores are still computed once (:func:`f32_cluster_plan`). Past
-    512 (16-bit) and 2048 (f32) column-chunk kernels take the width, whose
-    blocks own 128 of the output's columns and recompute the full-width
-    scores. The
+    from 640 to 4096 a cluster of at most 16 blocks, each owning 128 of
+    the output's columns (up to 2048) or 256 (above), adds its blocks'
+    partial scores in rank order, so the scores are still computed once
+    (:func:`f32_cluster_plan`). Past 512 (16-bit) and 4096 (f32)
+    column-chunk kernels take the width, whose blocks own 128 of the
+    output's columns and recompute the full-width scores. The
     card's kernels load and store 16 bytes at a time: q, k and v must
     start on a 16-byte boundary there (a fresh tensor does).
 

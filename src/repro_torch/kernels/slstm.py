@@ -15,10 +15,13 @@ On the card each (batch row, head) recurrence runs on a thread-block
 cluster of C blocks (:func:`plan`): r's column slices in registers as
 double, h (or the backward's dzpre) exchanged through distributed shared
 memory (stores counted on each block's mbarrier), a helper warp a block
-for the inputs, gates and outputs (``csrc/slstm.cu``). Heads wider than
-480 (``kClusterMaxHd``) launch the one-block kernels instead (a block per
-recurrence). The entry points choose the shape themselves; :func:`plan`
-asks which. :data:`ROUTES` counts the launches of each design and dtype.
+for the inputs, gates and outputs (``csrc/slstm.cu``). The forward past
+hd 480 (``kClusterMaxHd``), up to 960 (``kSplitMaxHd``), keeps 32 of a
+lane's terms in registers and the rest in the block's shared memory
+(:func:`split_shape`). Wider heads (the backward's past 480) launch the
+one-block kernels instead (a block per recurrence). The entry points
+choose the shape themselves; :func:`plan` asks which. :data:`ROUTES`
+counts the launches of each design and dtype.
 
 :func:`slstm_scan` is ``torch.ops.repro_torch.slstm_scan``, a
 ``torch.library.custom_op`` with three behaviours:
@@ -57,13 +60,24 @@ _SIGNATURES = {
     # gy, gc, gh, ip, fp, op, rT, c0, cs, zs, dzx, dip, dfp, dop, dc0, dh0,
     # B, S, H, hd, dtype, need_dh0 -> cluster, stream
     "slstm_bwd": (_P,) * 16 + (_I,) * 6 + (_IP, _P),
-    # chains, hd, dtype, backward -> C, KS, KT, threads
-    "slstm_plan": (_I,) * 4 + (_IP,) * 4,
+    # chains, hd, dtype, backward -> C, KS, KT, threads, KX
+    "slstm_plan": (_I,) * 4 + (_IP,) * 5,
     # C, W, KS, clusters, iters, mode, sink, stream
     "slstm_cluster_probe": (_I,) * 6 + (_P, _P),
 }
 DTYPES = (torch.float32, torch.bfloat16, torch.float16)  # the activations'
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the split forward (csrc/slstm.cu): widest head of the cluster kernels
+# without it (kClusterMaxHd) and with it (kSplitMaxHd), a lane's terms in
+# registers (kSplitKT; the rest in shared memory as float), the most
+# threads of a cluster block (kClusterThreads) and of the shared memory a
+# block may take with the opt-in (227 KB on the H100)
+CLUSTER_MAX_HD, SPLIT_MAX_HD, SPLIT_KT = 480, 960, 32
+CLUSTER_THREADS, SMEM_OPTIN = 512, 232448
+# steps of prepared inputs and outputs, and of raw words, a block keeps
+# (kRing, kRaw); the block's static mbarriers' bytes (Bars)
+RING, RAW = 16, 8
+BARS_BYTES = 8 * (2 + 2 * RING)
 # launches by (kernel, design, activations' dtype), counted where the
 # wrappers launch, beside _build.LAUNCHES' one count per kernel: "cluster"
 # the cluster kernels, "block" the one-block kernels
@@ -220,22 +234,59 @@ def _check_shapes(zx, ip, fp, op, r, c0, h0) -> None:
                              f"{tuple(t.shape)}")
 
 
+def split_shape(hd: int, C: int) -> Optional[dict]:
+    """The split forward's shape at width hd (CLUSTER_MAX_HD < hd <=
+    SPLIT_MAX_HD) on C blocks a chain, as csrc/slstm.cu's ``shape_for``
+    chooses it, or None where it does not fit: W = ceil(hd / C) columns a
+    block, KS the most lanes a column (a power of two up to 32) whose
+    compute threads, rounded to warps, leave room for the helper warp in
+    CLUSTER_THREADS; KT = SPLIT_KT terms a lane in registers and KX (the
+    rest of ceil(hd / KS), rounded up to a multiple of 4) in shared memory
+    as float; ``compute`` and ``threads`` a block and ``smem``
+    its dynamic shared bytes, which beside the static barriers must fit
+    SMEM_OPTIN. Lane (col, ks) holds the k-pairs ks + i·KS: i < KT / 2 in
+    registers, the others at shared term e = 2 (i - KT / 2) + (k % 2),
+    word e·compute + col·KS + ks."""
+    if not CLUSTER_MAX_HD < hd <= SPLIT_MAX_HD or C < 1 or C & (C - 1):
+        return None
+    W = -(-hd // C)
+    most = CLUSTER_THREADS - 32
+
+    def warps(n):
+        return -(-n // 32) * 32
+    KS = 32
+    while KS > 1 and warps(W * KS) > most:
+        KS //= 2
+    compute = warps(W * KS)
+    KX = -(-(-(-hd // KS)) // 4) * 4 - SPLIT_KT
+    HP = (SPLIT_KT + KX) * KS
+    smem = (2 * HP * 8 + (RING * W * 7 + RAW * W * 4) * 4
+            + KX * compute * 4)
+    if compute > most or KX < 4 or smem + BARS_BYTES > SMEM_OPTIN:
+        return None
+    return dict(C=C, W=W, KS=KS, KT=SPLIT_KT, KX=KX, HP=HP,
+                compute=compute, threads=compute + 32, smem=smem)
+
+
 def plan(chains: int, hd: int, dtype: torch.dtype,
          backward: bool = False) -> dict:
     """The launch shape ``slstm_fwd`` (or ``slstm_bwd``) takes on the
     current card for ``chains`` = B·H recurrences of width hd, as
     ``slstm_plan`` reports it: {"C": blocks a chain (0: the one-block
-    kernel, hd > 480), "KS": k-slices a column, "KT": terms a lane,
-    "threads": a block}. The rule (csrc/slstm.cu's header) reads the
-    card's SM count and how many clusters it holds at once."""
-    out = [ctypes.c_int() for _ in range(4)]
+    kernel, the forward past 960, the backward past 480), "KS": k-slices a
+    column, "KT": terms a lane in registers, "threads": a block, "KX":
+    float terms a lane in shared memory (the split forward past 480, else
+    0)}. The rule (csrc/slstm.cu's header) reads the card's
+    SM count and how many clusters it holds at once."""
+    out = [ctypes.c_int() for _ in range(5)]
     err = library("slstm", _SIGNATURES).slstm_plan(
         chains, hd, _CODES[dtype], int(backward),
         *(ctypes.byref(o) for o in out))
     if err:
         raise RuntimeError(f"slstm_plan failed with CUDA error {err} for "
                            f"{chains} chains of hd {hd}")
-    return dict(zip(("C", "KS", "KT", "threads"), (o.value for o in out)))
+    return dict(zip(("C", "KS", "KT", "threads", "KX"),
+                    (o.value for o in out)))
 
 
 def _count(kernel: str, cluster: ctypes.c_int, dtype: torch.dtype) -> None:

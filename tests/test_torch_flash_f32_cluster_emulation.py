@@ -1,39 +1,45 @@
 """A numpy emulation of the index logic of flash_attention's f32 cluster
-kernel (``flash_f32_cluster_kernel`` in
+kernel (``flash_f32_cluster_kernel<BW>`` in
 src/repro_torch/kernels/csrc/flash_attention.cu: f32 at the widths the
-wrapper pads hd 513-2048 to), held against the kernel's plain version and
+wrapper pads hd 513-4096 to), held against the kernel's plain version and
 the Pallas kernel in interpret mode at 1e-5.
 
 The emulation walks the kernel's clusters, blocks, steps and threads as the
-kernel does. A cluster of NC = W / 128 blocks holds 64 stacked rows (row
-rho is query head gr·GB + rho % GB at position q0 + rho // GB), heaviest
-tiles first, over tiles of 64 keys; block r owns O's columns 128 r .. and
-the same 128 dims of Q. Each block's shared memory is modelled as flat
-arrays of 16-byte chunks, filled with NaN, at the kernel's addresses: its
-slice of Q row-major, a ring of R slabs of 64 keys x 128 dims XOR-swizzled
-by ``swz``, the partial score tile and the sums (thread t's 16 scores at
-the float4s t + 256 x), P^T (keys x rows) swizzled the same way, and the
-rows' rescale and sums. The slabs come in the kernel's order (K of tile 0, then K of
-tile t + 1 and V of tile t, then the last V); step i loads slab i + R - 1
-into slot (i - 1) % R before it reads slot i % R, the earliest the
+kernel does. A cluster of NC = ceil(W / BW) blocks holds 64 stacked rows
+(row rho is query head gr·GB + rho % GB at position q0 + rho // GB),
+heaviest tiles first, over tiles of 64 keys; block r owns O's columns BW r
+.. and the same BW dims of Q, M = BW / 128 slabs of them (BW 128 up to
+2048, 256 above, where the last block's second 128 columns lie past W when
+W / 128 is odd: zero-filled and never stored). Each block's shared memory
+is modelled as flat arrays of 16-byte chunks, filled with NaN, at the
+kernel's addresses: its slice of Q row-major, a ring of R slabs of 64 keys
+x 128 dims XOR-swizzled by ``swz``, the partial score tile and the sums
+(thread t's 16 scores at the float4s t + 256 x), P^T (keys x rows)
+swizzled the same way, and the rows' rescale and sums. The slabs come in
+the kernel's order (K of tile 0, then K of tile t + 1 and V of tile t,
+then the last V, each as its M slabs in column order); step i loads slab i
++ R - 1 into slot (i - 1) % R before it reads slot i % R, the earliest the
 kernel's cp.async may land, so a slot reused too soon or an unloaded chunk
 shows as a wrong value or a NaN. Keys past S are zero-filled.
 
-Per tile every block stores its partial over its 128 dims; then block r
+Per tile every block stores its partial over its BW dims; then block r
 adds slice r of the tile (float4s SL·r .., SL = 1024 / NC rounded up) over
 the NC blocks' partials in rank order into its sums (the reduce-scatter);
 then every partial is filled with NaN, as a peer past the second barrier
 may already store its next partial; then every thread loads its 16 scores
 from the blocks that own them (the all-gather), and every sum is filled
 with NaN, as a peer past the next tile's first barrier may store its next
-sums. Each float4 of a tile must be summed by exactly one block, and all
-blocks must hold the same bits. The softmax is flash_f32_kernel's (the scale hd^-0.5·log2(e), exp2,
-the finite -1e30, masked p set to 0 again, masking only in tiles that reach
-past the block's first position, each row's max over its 16 lanes, the
-lanes' partial sums reduced at the end by the xor tree), run by every block
-on its own copy of the scores. Its products are numpy's, not the kernel's
-FMA chains: the point is which rows, keys, dims, buffers and slots meet.
-Every output must be written exactly once.
+sums. The tile before's P·V runs in two halves around the reduce-scatter:
+at BW 256 the first V slab before it and the second after it, each read
+from the ring when its step comes. Each float4 of a tile must be summed by
+exactly one block, and all blocks must hold the same bits. The softmax is
+flash_f32_kernel's (the scale hd^-0.5·log2(e), exp2, the finite -1e30,
+masked p set to 0 again, masking only in tiles that reach past the block's
+first position, each row's max over its 16 lanes, the lanes' partial sums
+reduced at the end by the xor tree), run by every block on its own copy
+of the scores. Its products are numpy's, not the kernel's FMA chains: the
+point is which rows, keys, dims, buffers and slots meet. Every output
+must be written exactly once.
 
 Inputs are standard normal from a numpy seed. Causal attention over the
 first S positions depends on nothing later, so the Pallas reference for
@@ -50,6 +56,7 @@ import torch
 from repro.kernels.flash_attention import flash_attention as ref_flash
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import (CHUNK, F32_BK,
+                                                 F32_CLUSTER_COLS,
                                                  F32_CLUSTER_MAX, F32_SMEM,
                                                  F32_THREADS,
                                                  f32_cluster_plan,
@@ -67,9 +74,10 @@ TOL = 1e-5
 
 
 def slab_order(n_tiles: int) -> list:
-    """The kernel's slab of each step, as ("K" or "V", tile): K of tile 0;
-    then K of tile (i + 1) // 2 for odd i and V of tile i // 2 - 1 for
-    even i; the last step V of the last tile (the kernel's ``load``)."""
+    """The kernel's unit of each group of M steps (M slabs, one a 128
+    columns of a block), as ("K" or "V", tile): K of tile 0; then K of
+    tile (u + 1) // 2 for odd u and V of tile u // 2 - 1 for even u; the
+    last unit V of the last tile (the kernel's ``load``, u = i // M)."""
     n_steps = 2 * n_tiles
     out = []
     for i in range(n_steps):
@@ -86,11 +94,14 @@ def emulate(q, k, v):
     kernel's width (the scale stays the true width's)."""
     B, S, H, hd = q.shape
     W = padded_width(hd)
-    q, k, v = (np.pad(x, ((0, 0),) * 3 + ((0, W - hd),)) for x in (q, k, v))
     P = f32_cluster_plan(W)
-    NC, BM, D, CD, CP = (P[n] for n in ("NC", "BM", "D", "CD", "CP"))
+    NC, BW, M, BM, D = (P[n] for n in ("NC", "BW", "M", "BM", "D"))
+    CQ, CD, CP = P["CQ"], P["CD"], P["CP"]
     SR, TOC, OR, NJ, R = (P[n] for n in ("SR", "TOC", "OR", "NJ", "R"))
     PART4 = P["PART"] // 4
+    # the cluster's columns: W, then zeros up to NC·BW (never stored)
+    q, k, v = (np.pad(x, ((0, 0),) * 3 + ((0, NC * BW - hd),))
+               for x in (q, k, v))
     Hkv = k.shape[2]
     G = H // Hkv
     GB = min(G, BM)
@@ -119,7 +130,8 @@ def emulate(q, k, v):
         q0 = qt * BQ
         kv_end = min(S, q0 + BQ)
         n_tiles = -(-kv_end // BK)
-        order = slab_order(n_tiles)
+        order = [(kind, tile, x) for kind, tile in slab_order(n_tiles)
+                 for x in range(M)]
         rho = np.arange(BM)
         qi, g = rho // GB, gr * GB + rho % GB
         live = (qi < BQ) & (g < G) & (q0 + qi < S)
@@ -127,10 +139,10 @@ def emulate(q, k, v):
         assert (kv_end - 1) // BK * BK <= (q0 + qi[live]).max()
 
         # each block's shared memory, block r at its rank
-        rows = np.zeros((BM, W), np.float32)
+        rows = np.zeros((BM, NC * BW), np.float32)
         rows[live] = q[b, q0 + qi[live], h[live]]
-        sQ = rows.reshape(BM, NC, CD, 4).transpose(1, 0, 2, 3).reshape(
-            NC, BM * CD, 4)
+        sQ = rows.reshape(BM, NC, CQ, 4).transpose(1, 0, 2, 3).reshape(
+            NC, BM * CQ, 4)
         ring = np.full((NC, R, BK * CD, 4), np.nan, np.float32)
         part = np.full((NC, PART4, 4), np.nan, np.float32)
         sums = np.full((NC, PART4, 4), np.nan, np.float32)
@@ -140,18 +152,19 @@ def emulate(q, k, v):
         sL = np.full((NC, BM), np.nan, np.float32)
 
         def load(i):                   # slab i of every block into slot i % R
-            kind, tile = order[i]
+            kind, tile, x = order[i]
             src = k if kind == "K" else v
             k0 = tile * BK
             inside = k0 + keys < S
-            slab = np.zeros((BK, NC, D), np.float32)
-            slab[inside] = src[b, k0 + keys[inside], kvh].reshape(-1, NC, D)
+            slab = np.zeros((BK, NC, M, D), np.float32)
+            slab[inside] = src[b, k0 + keys[inside], kvh].reshape(
+                -1, NC, M, D)
             ring[:, i % R][:, swz(CD, keys[:, None], np.arange(CD))] = \
-                slab.transpose(1, 0, 2).reshape(NC, BK, CD, 4)
+                slab[:, :, x].transpose(1, 0, 2).reshape(NC, BK, CD, 4)
 
         m = np.full((NC, THREADS, SR), NEG, np.float32)
         l = np.zeros((NC, THREADS, SR), np.float32)
-        acc = np.zeros((NC, THREADS, OR, 4 * NJ), np.float32)
+        acc = np.zeros((NC, THREADS, M, OR, 4 * NJ), np.float32)
         n_steps = len(order)
         for i in range(min(R - 1, n_steps)):
             load(i)
@@ -163,30 +176,49 @@ def emulate(q, k, v):
                 load(i + R - 1)        # into slot (i - 1) % R
             return ring[:, i % R]
 
-        def pv(slab):                  # O = O . corr + P V, every block
-            nonlocal acc
-            acc = acc * sCorr[:, o_rows][..., None]
+        def pv(slab, x):               # O_x (+ P V), every block
             sPf = sP.reshape(NC, -1)
             Pg = sPf[:, swz(CP, keys[None, None], (o_rows // 4)[:, :, None])
                      * 4 + (o_rows % 4)[:, :, None]]
             Vg = slab[:, swz(CD, keys[None, None], o_chunks[:, :, None])]
-            acc = acc + np.einsum("ntrk,ntjkx->ntrjx", Pg, Vg,
-                                  dtype=np.float32).reshape(acc.shape)
+            acc[:, :, x] += np.einsum("ntrk,ntjkx->ntrjx", Pg, Vg,
+                                      dtype=np.float32).reshape(
+                acc[:, :, x].shape)
+
+        def rescale():                 # O = O . corr
+            acc[:] = acc * sCorr[:, o_rows][:, :, None, :, None]
+
+        def pv_half(i, tile, half):
+            """the tile before's P V, half ``half``: both halves of the keys
+            of its one V slab at M = 1 (the slab read once), slab x = half
+            at M = 2"""
+            if M == 1 and half == 1:
+                return i
+            for x in range(M):
+                if M > 1 and x != half:
+                    continue
+                slab = step(i, ("V", tile - 1, x))
+                i += 1
+                if x == 0:
+                    rescale()
+                pv(slab, x)
+            return i
 
         i = 0
         for tile in range(n_tiles):
             k0 = tile * BK
-            slab = step(i, ("K", tile))
-            i += 1
-            Qg = sQ[:, s_rows[:, :, None] * CD + np.arange(CD)]
-            Kg = slab[:, swz(CD, s_keys[:, :, None], np.arange(CD))]
-            partial = np.einsum("ntrcx,ntjcx->ntrj", Qg, Kg,
-                                dtype=np.float32)      # (NC, 256, SR, 4)
+            partial = np.zeros((NC, THREADS, SR, 4), np.float32)
+            for x in range(M):
+                slab = step(i, ("K", tile, x))
+                i += 1
+                Qg = sQ[:, s_rows[:, :, None] * CQ + x * CD + np.arange(CD)]
+                Kg = slab[:, swz(CD, s_keys[:, :, None], np.arange(CD))]
+                partial = partial + np.einsum(
+                    "ntrcx,ntjcx->ntrj", Qg, Kg, dtype=np.float32)
             for x in range(SR):
                 part[:, x * THREADS + t] = partial[:, :, x]
-            if tile > 0:                  # both halves of the keys, in order
-                pv(step(i, ("V", tile - 1)))
-                i += 1
+            if tile > 0:
+                i = pv_half(i, tile, 0)
             # block r adds slice r over the NC partials in rank order
             summed = np.zeros(PART4, np.int64)
             for r in ranks:
@@ -197,6 +229,8 @@ def emulate(q, k, v):
                 sums[r, e] = acc4
                 summed[e] += 1
             assert (summed == 1).all(), "a float4 not summed exactly once"
+            if tile > 0:
+                i = pv_half(i, tile, 1)
             part[:] = np.nan              # peers may store the next partial
             # every thread's 16 scores, from the blocks that summed them
             s = np.zeros((NC, THREADS, SR, 4), np.float32)
@@ -226,21 +260,28 @@ def emulate(q, k, v):
                 for rc in range(SR // 4):
                     sP[:, swz(CP, s_keys[:, j], SR * ty // 4 + rc)] = \
                         pj[:, :, 4 * rc:4 * rc + 4, j]
-        pv(step(i, ("V", n_tiles - 1)))
-        assert i + 1 == n_steps
+        for x in range(M):             # V of the last tile
+            slab = step(i, ("V", n_tiles - 1, x))
+            i += 1
+            if x == 0:
+                rescale()
+            pv(slab, x)
+        assert i == n_steps
         for off in (1, 2, 4, 8):
             l = l + l[:, t ^ off]
         lead = tx == 0
         sL[:, s_rows[lead]] = l[:, lead]
         den = np.maximum(sL, np.float32(1e-30))
-        # block r, thread tt's row OR oy + r, chunk 32 r + ox + TOC j
-        rr, tt, ri, j = np.meshgrid(ranks, t, np.arange(OR), np.arange(NJ),
-                                    indexing="ij")
+        # block r, thread tt's row OR oy + r, slab x's chunk ox + TOC j: the
+        # output's chunk (BW r + D x) / 4 + ox + TOC j, stored below W
+        rr, tt, xx, ri, j = np.meshgrid(ranks, t, np.arange(M),
+                                        np.arange(OR), np.arange(NJ),
+                                        indexing="ij")
         row = o_rows[tt, ri]
-        ok = live[row]
-        at = (b, q0 + qi[row][ok], h[row][ok],
-              (rr * CD + o_chunks[tt, j])[ok])
-        vals = acc.reshape(NC, THREADS, OR, NJ, 4)[rr, tt, ri, j]
+        chunk = (rr * BW + xx * D) // 4 + o_chunks[tt, j]
+        ok = live[row] & (chunk < W // 4)
+        at = (b, q0 + qi[row][ok], h[row][ok], chunk[ok])
+        vals = acc.reshape(NC, THREADS, M, OR, NJ, 4)[rr, tt, xx, ri, j]
         o.reshape(B, S, H, W // 4, 4)[at] = \
             (vals / den[rr, row][..., None])[ok]
         np.add.at(writes, at, 1)
@@ -254,12 +295,17 @@ def _qkv(G, hd, S, seed=0):
             .astype(np.float32) for i in range(3)]
 
 
+# the widest cluster of 128-column blocks (16 blocks) and of the kernel
+# (16 blocks of 256 columns)
 WIDEST = CHUNK * F32_CLUSTER_MAX
+F32_WIDEST = F32_CLUSTER_COLS * F32_CLUSTER_MAX
 WIDTHS = (520, 640, 768, 1024)
 GROUPS = (1, 3, 8)
 SEQS = (1, 17, 65, 130)
 CASES = [(G, hd, S) for hd in WIDTHS for G in GROUPS for S in SEQS] + [
-    (G, WIDEST, 17) for G in (1, 3)]
+    (G, WIDEST, 17) for G in (1, 3)] + [
+    (G, hd, S) for hd in (WIDEST + CHUNK, F32_WIDEST)
+    for G, S in ((1, 130), (3, 17))]
 
 
 @functools.lru_cache(maxsize=None)
@@ -273,7 +319,9 @@ def _pallas(G, hd, S):
 def test_cluster_walk_matches_plain_and_pallas(G, hd, S):
     """The walk against the plain version and the Pallas kernel at 1e-5;
     position 0 is v[0]. hd 520 comes padded to 640; 2048 is the widest
-    cluster, 16 blocks."""
+    cluster of 128-column blocks, 16 of them; 2176 takes 9 blocks of 256
+    columns (the last one's second 128 past hd), 4096 16 of them, the
+    kernel's widest; S 130 runs the tile before's P·V in its two halves."""
     s_max = max(SEQS) if hd in WIDTHS else S
     q, k, v = (x[:, :S] for x in _qkv(G, hd, s_max))
     got = emulate(q, k, v)
@@ -285,6 +333,16 @@ def test_cluster_walk_matches_plain_and_pallas(G, hd, S):
     np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
     np.testing.assert_allclose(got[:, 0], np.repeat(v[:, 0], G, axis=1),
                                atol=1e-6, rtol=1e-6)
+
+
+def test_plain_version_matches_pallas_at_hd_2176():
+    """The port's plain flash_attention (what the wrapper runs on the CPU)
+    against the Pallas kernel in interpret mode at f32 hd 2176, past the
+    widest cluster of 128-column blocks, at 1e-5."""
+    q, k, v = _qkv(2, WIDEST + CHUNK, 33, seed=4)
+    plain = flash_attention(*(torch.from_numpy(x) for x in (q, k, v)))
+    np.testing.assert_allclose(plain.numpy(), np.asarray(
+        ref_flash(q, k, v), np.float32), atol=TOL, rtol=TOL)
 
 
 @pytest.mark.parametrize("G", [1, 130])
@@ -314,26 +372,32 @@ def test_slab_order_loads_each_slab_once_before_its_use(n_tiles):
 
 @pytest.mark.parametrize("name,value", [
     ("kF32Threads", F32_THREADS), ("kBK", F32_BK), ("kSmemBytes", F32_SMEM),
-    ("kChunk", CHUNK), ("kF32MaxCluster", F32_CLUSTER_MAX)])
+    ("kChunk", CHUNK), ("kF32MaxCluster", F32_CLUSTER_MAX),
+    ("kF32MaxBlockCols", F32_CLUSTER_COLS)])
 def test_cluster_constants_match_the_source(name, value):
-    """f32_cluster_plan's threads, keys a tile, shared-memory limit, block
-    width and widest cluster are the kernel's own constants."""
+    """f32_cluster_plan's threads, keys a tile, shared-memory limit, slab
+    width, widest cluster and widest block are the kernel's own
+    constants."""
     found = re.search(rf"constexpr int {name} = (\d+);", SOURCE)
     assert found and int(found.group(1)) == value
 
 
-@pytest.mark.parametrize("hd", [640, 1024, WIDEST])
+@pytest.mark.parametrize("hd", [640, 1024, WIDEST, WIDEST + CHUNK,
+                                F32_WIDEST])
 def test_cluster_plan_fits_a_block(hd):
-    """ClusterPlan: its shared bytes are the source's static_assert and
-    within the 227 KB a block may take, with at least two ring slots; a
-    thread's 16 scores tile the partial and its micro-tiles cover the
-    block's rows, keys and 128 columns once; O 32 floats a thread; one
-    block for every 128 columns, up to the widest cluster, and no plan
-    past it."""
+    """ClusterPlan<BW>: its shared bytes are the source's static_assert
+    and within the 227 KB a block may take, with at least two ring slots;
+    a thread's 16 scores tile the partial and its micro-tiles cover the
+    block's rows, keys and each 128-column slab once; O 32 floats a thread
+    a slab; one block for every 128 columns up to 16 blocks (hd 2048), one
+    for every 256 above, up to the widest cluster, and no plan past it."""
     P = f32_cluster_plan(hd)
-    found = re.search(r"ClusterPlan::smem == (\d+)", SOURCE)
+    found = re.search(rf"ClusterPlan<{P['BW']}>::smem == (\d+)", SOURCE)
     assert found and int(found.group(1)) == P["smem"] <= F32_SMEM
-    assert P["R"] >= 2 and P["NC"] * P["D"] == hd <= P["widest"]
+    assert P["BW"] == (CHUNK if hd <= WIDEST else F32_CLUSTER_COLS)
+    assert P["BW"] == P["M"] * P["D"] and P["CQ"] * 4 == P["BW"]
+    assert P["R"] >= 2 and P["NC"] <= F32_CLUSTER_MAX
+    assert (P["NC"] - 1) * P["BW"] < hd <= P["NC"] * P["BW"] <= P["widest"]
     assert 4 * P["SR"] * THREADS == P["PART"] == P["BM"] * BK
     assert (THREADS // P["TOC"]) * P["OR"] == P["BM"]
     assert P["TOC"] * P["NJ"] == P["CD"] and P["OR"] * 4 * P["NJ"] == 32

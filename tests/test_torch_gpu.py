@@ -438,9 +438,12 @@ def test_flash_attention_other_head_widths(card):
     ending inside the second 256-dim slab) and 512 (flash_mma_wide_kernel
     in bf16 and f16 at 256, 384 and 512,
     the f32 kernel's own instances in f32) in f32, bf16 and f16, then hd
-    640, 768 and 1024 in f32 (flash_f32_cluster_kernel, clusters of 5, 6
-    and 8 blocks) at G 1 and 3, 2048 (its widest, 16 blocks) and 2176
-    (past it: the f32 column-chunk kernel), then the wide
+    640, 768 and 1024 in f32 (flash_f32_cluster_kernel<128>, clusters of
+    5, 6 and 8 blocks) at G 1 and 3, 2048 (16 blocks of 128 columns), 2176
+    at G 1 and 3 and 2432 (flash_f32_cluster_kernel<256>: 9 and 10 blocks
+    of 256 columns, the last one's second half past hd), 4096 (its
+    widest, 16 blocks) and 4224 (past it: the f32 column-chunk kernel),
+    then the wide
     16-bit kernel's tile edges and hd 640 in bf16 and f16
     (chip_smoke.WIDE16_EDGE_CASES: S one below, at and one past 16 rows,
     a 32-row group, 64 keys and a 128-key tile, G in {1, 3, 8}, hd 200,
@@ -464,7 +467,11 @@ def test_flash_attention_other_head_widths(card):
         (torch.float32, (1, 130, 2 * G, 2, hd)) for hd in (640, 768, 1024)
         for G in (1, 3)] + [
         (torch.float32, (1, 130, 2, 1, 2048)),
-        (torch.float32, (1, 70, 2, 1, 2176))] + [
+        (torch.float32, (1, 70, 2, 1, 2176)),
+        (torch.float32, (1, 130, 6, 2, 2176)),
+        (torch.float32, (1, 70, 6, 2, 2432)),
+        (torch.float32, (1, 70, 2, 1, 4096)),
+        (torch.float32, (1, 70, 2, 1, 4224))] + [
         (getattr(torch, dt), shape)
         for *shape, dt in chip_smoke.WIDE16_EDGE_CASES
         + chip_smoke.f32_edge_cases()]
@@ -1044,14 +1051,16 @@ def test_flash_f32_plan_is_the_kernels(card):
 @pytest.mark.gpu
 def test_flash_f32_cluster_plan_is_the_kernels(card):
     """The wrapper's f32_cluster_plan is the library's ClusterPlan at hd
-    640, 1024 and 2048, and the card holds a cluster of each width's
-    blocks; the library refuses a width past the widest cluster."""
-    from repro_torch.kernels.flash_attention import (F32_CLUSTER_MAX,
+    640, 1024, 2048, 2176 and 4096, and the card holds a cluster of each
+    width's blocks; the library refuses a width past the widest cluster
+    (16 blocks of 256 columns)."""
+    from repro_torch.kernels.flash_attention import (F32_CLUSTER_COLS,
+                                                     F32_CLUSTER_MAX,
                                                      f32_cluster_plan_card)
     resident = chip_smoke.check_f32_cluster_plan()
     assert sorted(resident) == list(chip_smoke.F32_CLUSTER_WIDTHS)
     with pytest.raises(ValueError):
-        f32_cluster_plan_card(128 * (F32_CLUSTER_MAX + 1))
+        f32_cluster_plan_card(F32_CLUSTER_MAX * F32_CLUSTER_COLS + 128)
 
 
 @pytest.mark.gpu
@@ -1165,22 +1174,37 @@ def test_slstm_forward_repeats_bit_for_bit(card):
 def test_slstm_designs_by_width(card):
     """xlstm-125m's shapes take the cluster kernels (4 heads of 192 at B 2:
     clusters of at least 2 blocks a recurrence); a head past the cluster
-    kernels' 480 (hd 640) launches the one-block kernels, held to the
-    plain loop's bits and its gradients, and the launches are counted by
-    design and dtype."""
+    kernels' 480 (hd 640) takes the split cluster forward (the plan the
+    wrapper's ``split_shape`` mirrors: 32 terms a lane in registers, the
+    rest in shared memory; 16 blocks a chain at 2 chains, 8 at 10: 160
+    blocks pass the H100's 132 SMs) and the one-block backward; past the
+    split forward's 960 (hd 1024) both take the one-block kernels. Each is
+    held to the plain loop's bits (y and the final c and h) and its
+    gradients, and the launches are counted by design and dtype."""
     from repro_torch.kernels import slstm as K
     for backward in (False, True):
         assert K.plan(8, 192, torch.bfloat16, backward)["C"] >= 2
         assert K.plan(2, 16, torch.float16, backward)["C"] >= 1
-        assert K.plan(2, 640, torch.float32, backward)["C"] == 0
-    before = dict(K.ROUTES)
-    worst = chip_smoke.slstm_checks(np.random.default_rng(8), card,
-                                    [(1, 64, 640, "float16")])
-    assert worst["float16"]["y"] == 0.0
-    ran = {key: n - before[key] for key, n in K.ROUTES.items()
-           if n != before[key]}
-    assert ran == {("slstm_fwd", "block", "float16"): 1,
-                   ("slstm_bwd", "block", "float16"): 1}
+        assert K.plan(2, 1024, torch.float32, backward)["C"] == 0
+    assert K.plan(2, 640, torch.float32, True)["C"] == 0
+    keys = ("C", "KS", "KT", "KX", "threads")
+    for chains, C in ((2, 16), (10, 8)):
+        fwd = K.plan(chains, 640, torch.float32)
+        assert fwd["C"] == C and fwd["KX"] > 0, chains
+        assert {k: fwd[k] for k in keys} \
+            == {k: K.split_shape(640, C)[k] for k in keys}, chains
+    for B, hd, fwd_design in ((1, 640, "cluster"), (5, 640, "cluster"),
+                              (1, 1024, "block")):
+        before = dict(K.ROUTES)
+        worst = chip_smoke.slstm_checks(np.random.default_rng(8), card,
+                                        [(B, 64, hd, "float16")])
+        assert worst["float16"]["y"] == 0.0, hd
+        assert worst["float16"]["c"] == 0.0, hd
+        assert worst["float16"]["h"] == 0.0, hd
+        ran = {key: n - before[key] for key, n in K.ROUTES.items()
+               if n != before[key]}
+        assert ran == {("slstm_fwd", fwd_design, "float16"): 1,
+                       ("slstm_bwd", "block", "float16"): 1}, hd
 
 
 @pytest.mark.gpu

@@ -75,6 +75,22 @@ def test_apply_matches_reference(width, dtype):
     np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_apply_matches_reference_at_hd_640(dtype):
+    """Two heads of 640 (d 1280: past the cluster kernels' 480, the card's
+    split forward), one row of 4 steps: the port's plain scan against the
+    reference's ``slstm_apply``."""
+    d, nh = 1280, 2
+    rp = RXL.slstm_init(jax.random.PRNGKey(3), d, nh, getattr(jnp, dtype))
+    x = np.random.default_rng(3).standard_normal((1, 4, d)).astype(
+        np.float32)
+    want = RXL.slstm_apply(rp, jnp.asarray(x).astype(dtype), n_heads=nh)
+    got = XL.slstm_apply(_params(rp), torch.from_numpy(x).to(
+        getattr(torch, dtype)), n_heads=nh)
+    assert str(got.dtype).split(".")[-1] == str(want.dtype)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("width", sorted(WIDTHS))
 def test_gradients_match_reference_jax_grad(width, dtype):

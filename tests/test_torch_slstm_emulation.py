@@ -21,6 +21,14 @@ iteration it holds, and each read checks it, so a wrong slot, parity,
 column or rank would fail here before the kernel's first card call (the
 emulation does not check addresses on the card).
 
+The split forward (past hd 480, up to 960) keeps a lane's k-pairs i <
+KT / 2 in registers and the others in the block's shared memory, modelled
+as a flat NaN-filled array of words at the kernel's addresses (term e of
+compute thread tid at e·compute + tid) whose every word carries the (column,
+k) it holds: each product reads each term of its column exactly once from
+the slot ``slstm.split_shape`` gives it, and the chains take the shared
+pairs on in turn after the registers'.
+
 The forward's pointwise math runs on the whole (B, d) of a step, as the
 plain loop runs it, on the products and inputs the blocks assembled: y and
 the final state must be the plain loop's bits (both sum h·r in double).
@@ -82,10 +90,11 @@ class _Memory:
             self.dtype)[0]
 
 
-def _column_dot(v, rr, KS, KT):
+def _column_dot(v, rr, KS, KT, split=None):
     """column_dot for every thread of a block: v (HP,) float64, rr
-    (ncol, KS, KT) float64; returns (ncol,), after checking that every lane
-    of a column holds the same bits."""
+    (ncol, KS, KT) float64, ``split`` the block's shared terms (a _Split)
+    or None; returns (ncol,), after checking that every lane of a column
+    holds the same bits."""
     ks = np.arange(KS)
     a = np.zeros((4,) + rr.shape[:2])
     for i in range(0, KT // 2, 2):
@@ -96,6 +105,14 @@ def _column_dot(v, rr, KS, KT):
             q = 2 * (ks + (i + 1) * KS)
             a[2] = a[2] + v[q] * rr[:, :, 2 * i + 2]
             a[3] = a[3] + v[q + 1] * rr[:, :, 2 * i + 3]
+    if split is not None:
+        for e in range(0, split.KX, 4):
+            p = 2 * (ks + (KT // 2 + e // 2) * KS)
+            q = p + 2 * KS
+            a[0] = a[0] + v[p] * split.read(e, p)
+            a[1] = a[1] + v[p + 1] * split.read(e + 1, p + 1)
+            a[2] = a[2] + v[q] * split.read(e + 2, q)
+            a[3] = a[3] + v[q + 1] * split.read(e + 3, q + 1)
     acc = (a[0] + a[1]) + (a[2] + a[3])
     o = KS >> 1
     while o:
@@ -105,25 +122,58 @@ def _column_dot(v, rr, KS, KT):
     return acc[:, 0]
 
 
-def _slice(m, hd, W, KS, KT, rank):
-    """load_slice for every thread of block ``rank``: (W, KS, KT) float64,
-    each k < hd of a live column held exactly once."""
-    rr = np.zeros((W, KS, KT))
+def _slice(m, hd, W, KS, KT, rank, KX=0):
+    """load_slice for every thread of block ``rank``: (W, KS, KT) float64
+    (and, with KX, load_split's KX terms a lane past them); each k < hd of
+    a live column held exactly once over both."""
+    col, ks, i, e = np.meshgrid(np.arange(W), np.arange(KS),
+                                np.arange((KT + KX) // 2), np.arange(2),
+                                indexing="ij")
+    k = 2 * (ks + i * KS) + e
+    j = rank * W + col
+    live = (j < hd) & (k < hd)
+    vals = np.zeros(k.shape)
+    vals[live] = m[k[live], j[live]]
     seen = np.zeros((W, hd), int)
-    for col in range(W):
+    np.add.at(seen, (col[live], k[live]), 1)
+    alive = (rank * W + np.arange(W)) < hd
+    assert (seen[alive] == 1).all() and (seen[~alive] == 0).all()
+    return vals.reshape(W, KS, KT + KX)[:, :, :KT]
+
+
+class _Split:
+    """A block's shared terms of the split forward: words e·compute + tid
+    (tid = col·KS + ks), NaN-filled, each holding r's term (k, column) as
+    float32 (widened at the read), tagged with the k it holds; ``read``
+    checks the k and counts the reads."""
+
+    def __init__(self, m, hd, W, KS, KT, KX, compute, rank):
+        self.KX, self.compute, self.KS, self.W = KX, compute, KS, W
+        self.words = np.full(KX * compute, np.nan, np.float32)
+        self.k = np.full(KX * compute, -1)
+        self.reads = np.zeros(KX * compute, int)
+        col, ks, e = np.meshgrid(np.arange(W), np.arange(KS), np.arange(KX),
+                                 indexing="ij")
+        k = 2 * (ks + (KT // 2 + e // 2) * KS) + e % 2
         j = rank * W + col
-        if j >= hd:
-            continue
-        for ks in range(KS):
-            for i in range(KT // 2):
-                for e in range(2):
-                    k = 2 * (ks + i * KS) + e
-                    if k < hd:
-                        rr[col, ks, 2 * i + e] = m[k, j]
-                        seen[col, k] += 1
-    live = (rank * W + np.arange(W)) < hd
-    assert (seen[live] == 1).all() and (seen[~live] == 0).all()
-    return rr
+        live = (j < hd) & (k < hd)
+        at = e * compute + col * KS + ks
+        self.at = at
+        self.words[at] = 0.0
+        self.words[at[live]] = m[k[live], j[live]]
+        self.k[at] = k
+        self.tid = (np.arange(W)[:, None] * KS + np.arange(KS)).reshape(
+            W, KS)
+
+    def read(self, e, k):
+        """term e of every lane (ncol, KS), whose k-pair value is ``k``
+        (KS,), widened to double"""
+        at = e * self.compute + self.tid
+        assert (self.k[at] == k[None, :]).all()
+        self.reads[at] += 1
+        got = self.words[at].astype(np.float64)
+        assert not np.isnan(got).any()
+        return got
 
 
 class _Chain:
@@ -136,11 +186,12 @@ class _Chain:
     iteration u's outputs, it stores them and prepares u + RING."""
 
     def __init__(self, m, hd, C, KS, KT, streams, rowj0, S, d, step_of,
-                 prep, store):
+                 prep, store, split=None):
         self.hd, self.C, self.KS, self.KT = hd, C, KS, KT
         self.W = -(-hd // C)
-        self.HP = KT * KS
-        assert self.HP >= hd and KT % 2 == 0
+        KX = split["KX"] if split else 0
+        self.HP = (KT + KX) * KS
+        assert self.HP >= hd and KT % 2 == 0 and KX % 4 == 0
         self.live_ranks = min(C, -(-hd // self.W))
         self.streams, self.rowj0, self.S, self.d = streams, rowj0, S, d
         self.step_of = step_of                 # iteration -> step
@@ -153,7 +204,9 @@ class _Chain:
             ncols = max(0, min(self.W, hd - col0))
             self.blocks.append(dict(
                 rank=rank, col0=col0, ncols=ncols,
-                rr=_slice(m, hd, self.W, KS, KT, rank),
+                rr=_slice(m, hd, self.W, KS, KT, rank, KX),
+                split=None if split is None else _Split(
+                    m, hd, self.W, KS, KT, KX, split["compute"], rank),
                 raw=np.zeros((RAW, self.W, len(streams), 4), np.uint8),
                 raw_tag=np.full(RAW, -1), fetched=0,
                 ring_in=[None] * RING, in_tag=np.full(RING, -1),
@@ -225,24 +278,26 @@ class _Chain:
         own = self.tag[blk["rank"], u & 1]
         assert (own[:self.hd] == u - 1).all() and (own[self.hd:] == -9).all()
         return _column_dot(self.buf[blk["rank"], u & 1], blk["rr"], self.KS,
-                           self.KT)
+                           self.KT, blk["split"])
 
     def send(self, u, values):
         """Every live block's columns of iteration u's vector (``values``
         by unit) into buffer (u + 1) & 1 of every live block, whose last
         entry there is of iteration u - 2 (read at u - 1)."""
-        for blk in self.blocks:
-            for col in range(blk["ncols"]):
-                j = blk["col0"] + col
-                for q in range(self.live_ranks):
-                    assert self.tag[q, (u + 1) & 1, j] in (u - 2, -9)
-                    self.buf[q, (u + 1) & 1, j] = values[j]
-                    self.tag[q, (u + 1) & 1, j] = u
+        # every live block's live columns cover the units 0 .. hd - 1 once
+        units = np.concatenate([blk["col0"] + np.arange(blk["ncols"])
+                                for blk in self.blocks])
+        assert np.array_equal(np.sort(units), np.arange(self.hd))
+        to = slice(0, self.live_ranks)
+        nb = (u + 1) & 1
+        assert np.isin(self.tag[to, nb][:, units], (u - 2, -9)).all()
+        self.buf[to, nb, units] = values[units]
+        self.tag[to, nb, units] = u
         for q in range(self.live_ranks, self.C):
             assert (self.tag[q] == -9).all()
 
 
-def _emulate_fwd(ins, C, KS, KT, base_off):
+def _emulate_fwd(ins, C, KS, KT, base_off, split=None):
     zx, ip, fp, op, r, c0, h0 = ins
     B, S, d = zx.shape
     H, hd = r.shape[0], r.shape[1]
@@ -269,7 +324,8 @@ def _emulate_fwd(ins, C, KS, KT, base_off):
                 cs[b, t, state + j] = v[1]
                 zs[b, t, state + j] = v[2].to(dt)
             ch = _Chain(r64[head], hd, C, KS, KT, streams,
-                        b * S * d + state, S, d, lambda u: u, prep, store)
+                        b * S * d + state, S, d, lambda u: u, prep, store,
+                        split)
             # h0 in buffer 0 of every live block, as iteration -1's vector
             ch.buf[:ch.live_ranks, 0, :hd] = h0[
                 b, state:state + hd].double().numpy()
@@ -305,6 +361,12 @@ def _emulate_fwd(ins, C, KS, KT, base_off):
                               state + blk["col0"] + blk["ncols"])
                 ch.outputs(blk, t, [(h[b, u], c[b, u], z[b, u].float())
                                     for u in units])
+    for _, _, ch in chains:             # every shared term read once a step
+        for blk in ch.blocks[:ch.live_ranks]:
+            if blk["split"] is not None:
+                sp = blk["split"]
+                assert (sp.reads[sp.at] == S).all()
+                assert sp.reads.sum() == sp.at.size * S
     return y, c, h, cs, zs
 
 
@@ -473,3 +535,54 @@ def test_cluster_backward_emulation_without_gy_at_short_lengths(S):
     for a, b in zip(got, want):
         assert a.shape == b.shape
         assert _rel(a, b) <= 1e-6
+
+
+def test_split_constants_match_the_source():
+    """slstm.py's mirror of the split forward (its widths, register terms,
+    threads, rings and shared terms as float) is the source's;
+    ``split_shape``'s widest width at 16 blocks is kSplitMaxHd, with no
+    shape past it, and at 8 blocks (the rule's C for more chains than
+    clusters of 16 the card holds) 640."""
+    for name, value in (("kClusterMaxHd", K.CLUSTER_MAX_HD),
+                        ("kSplitMaxHd", K.SPLIT_MAX_HD),
+                        ("kSplitKT", K.SPLIT_KT),
+                        ("kClusterThreads", K.CLUSTER_THREADS),
+                        ("kRing", K.RING), ("kRaw", K.RAW)):
+        assert _constant(name) == value, name
+    text = (_build.CSRC / _build.SOURCES["slstm"]).read_text()
+    assert "(size_t)KX * compute * sizeof(float)" in text
+    assert "slstm_fwd_cluster<T, kSplitKT, true>" in text
+    fits = [hd for hd in range(K.CLUSTER_MAX_HD + 1, 2 * K.SPLIT_MAX_HD)
+            if K.split_shape(hd, 16) is not None]
+    assert fits == list(range(K.CLUSTER_MAX_HD + 1, K.SPLIT_MAX_HD + 1))
+    assert K.split_shape(K.CLUSTER_MAX_HD, 16) is None
+    assert [hd for hd in range(K.CLUSTER_MAX_HD + 1, K.SPLIT_MAX_HD + 1)
+            if K.split_shape(hd, 8) is not None] == list(
+        range(K.CLUSTER_MAX_HD + 1, 641))
+
+
+# (hd, C, heads, dtype, the 16-bit streams' offset): phase 3's hd 640 in
+# bf16 on 16 blocks (2 heads) and on 8 (the rule's C at 10 chains; 1
+# head), and the split forward's widest width in f32 (1 head)
+SPLIT_CASES = [(640, 16, 2, "bfloat16", 2), (640, 8, 1, "bfloat16", 2),
+               (K.SPLIT_MAX_HD, 16, 1, "float32", 0)]
+
+
+@pytest.mark.parametrize(
+    "hd,C,H,dtype,base_off", SPLIT_CASES,
+    ids=[f"hd{h}-{d}-{o}" + ("" if C == 16 else f"-C{C}")
+         for h, C, _, d, o in SPLIT_CASES])
+def test_split_forward_emulation_gives_the_plain_loops_bits(hd, C, H, dtype,
+                                                            base_off):
+    """The split forward on C blocks, as ``split_shape`` gives it (hd 640
+    at C 16: W 40, KS 8, KT 32 + KX 48; at C 8: W 80, KS 4, KX 128; hd 960
+    at C 16: W 60, KX 88), over RING + 3 steps of one batch row and H
+    heads: every shared term read once a step from its slot, y and the
+    final state the plain loop's bits."""
+    sh = K.split_shape(hd, C)
+    dt = getattr(torch, dtype)
+    ins = _inputs(1, RING + 3, H, hd, dt, seed=hd)
+    got = _emulate_fwd(ins, C, sh["KS"], sh["KT"], base_off, split=sh)
+    y, c, h, cs, _, zs = K.slstm_scan_plain(*ins, save=True)
+    for a, b in zip(got, (y, c, h, cs, zs)):
+        assert torch.equal(a, b)
